@@ -14,6 +14,9 @@ Two kernels live here, each beside its plain PyTorch version:
   D^T`` and the tour costs; its plain version is
   :func:`fused_tsp_update_plain` (``tour_cost`` plus the scatter deposit).
 
+With ``ls="2opt"`` or ``"nls"`` every ant's tour goes through local search
+between construction and update: K4 or K5 of :mod:`deepaco_tpu_torch.ops.two_opt`.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The runner's private ``_ops=PLAIN_OPS`` calls the plain versions on
 any device, the oracle that ``chip_smoke.py`` holds the kernel path against.
@@ -33,6 +36,11 @@ from deepaco_tpu_torch.aco.runner import (ACOConfig, SearchState, init_search,
 from deepaco_tpu_torch.ops import _build
 from deepaco_tpu_torch.ops.fused_gnn import (tsp_dense_heuristic,
                                              tsp_dense_heuristic_plain)
+from deepaco_tpu_torch.ops.two_opt import (batched_nls_euclid,
+                                           batched_nls_euclid_plain,
+                                           batched_two_opt_euclid,
+                                           batched_two_opt_euclid_plain,
+                                           heuristic_dist)
 
 NEG_INF = -1e30
 _TINY = 1.1754944e-38      # smallest normal f32 = finfo(bfloat16).tiny
@@ -233,16 +241,39 @@ def _no_timer(_name: str):
 class PathOps(NamedTuple):
     """What the main path calls in each phase, and ``timer(name)``, a context
     manager around each phase (``"heuristic"``, ``"construction"``,
-    ``"update"``). The default is the kernels and no timer."""
+    ``"local_search"``, ``"update"``). The default is the kernels and no
+    timer."""
 
     heuristic: Callable = tsp_dense_heuristic
     sweep: Callable = dense_sweep_fused
     update: Callable = fused_tsp_update
+    two_opt: Callable = batched_two_opt_euclid
+    nls: Callable = batched_nls_euclid
     timer: Callable = _no_timer
 
 
 KERNEL_OPS = PathOps()
-PLAIN_OPS = PathOps(tsp_dense_heuristic_plain, dense_sweep, fused_tsp_update_plain)
+PLAIN_OPS = PathOps(tsp_dense_heuristic_plain, dense_sweep, fused_tsp_update_plain,
+                    batched_two_opt_euclid_plain, batched_nls_euclid_plain)
+
+
+def _batched_ls_fn(ls: str | None, coords: torch.Tensor | None,
+                   heu: torch.Tensor, ls_budget: int, ops: PathOps):
+    """Whole-batch local search, ``paths [B, N, A]`` → improved paths
+    (reference semantics, tsp_nls/aco.py:226-258): 2-opt on the Euclidean
+    distances, or NLS with the perturbation metric ``heuristic_dist(heu)``."""
+    if ls is None:
+        return None
+    if ls not in ("2opt", "nls"):
+        raise ValueError(f"ls must be None, '2opt' or 'nls', got {ls!r}")
+    if coords is None:
+        raise ValueError("local search takes the instances' coords [B, N, 2]")
+    if ls == "nls":
+        hd = heuristic_dist(heu)
+        run = lambda tours: ops.nls(coords, hd, tours, ls_budget)
+    else:
+        run = lambda tours: ops.two_opt(coords, tours, ls_budget)
+    return lambda paths: run(paths.transpose(1, 2)).transpose(1, 2)
 
 
 @torch.no_grad()
@@ -250,17 +281,20 @@ def run_anytime_batched(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
                         generator: torch.Generator, n_iterations: int,
                         fixed_start: int | None = None,
                         sample_dtype: torch.dtype = torch.bfloat16,
-                        ls: str | None = None, *,
+                        coords: torch.Tensor | None = None,
+                        ls: str | None = None, ls_budget: int = 10000, *,
                         _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
     """Batched dense anytime sweep: ``heu, dist [B, N, N]`` → the curve
-    ``[B, n_iterations]`` of best-so-far costs."""
-    if ls is not None:
-        raise NotImplementedError(
-            "local search (TSP-NLS) is not ported to deepaco_tpu_torch yet; "
-            "see ROADMAP.md")
+    ``[B, n_iterations]`` of best-so-far costs. ``ls`` (``"2opt"`` or
+    ``"nls"``, which need ``coords [B, N, 2]``) improves every ant's tour
+    with at most ``ls_budget`` moves per descent before the update, and
+    starts every ant at city 0 unless ``fixed_start`` says otherwise."""
     b, n, _ = heu.shape
     a = cfg.n_ants
     log_heu = cfg.beta * torch.log(torch.clamp(heu.float(), min=1e-30))
+    if ls is not None and fixed_start is None:
+        fixed_start = 0     # the NLS protocol constructs from node 0
+    ls_fn = _batched_ls_fn(ls, coords, heu, ls_budget, _ops)
     state = _batched_init(b, n, cfg, heu.device)
     curve = []
     for _ in range(n_iterations):
@@ -269,6 +303,9 @@ def run_anytime_batched(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
                      + log_heu).to(sample_dtype)
             start = _start_cities(generator, b, a, n, fixed_start, heu.device)
             paths = _ops.sweep(score, start, generator)
+        if ls_fn is not None:
+            with _ops.timer("local_search"):
+                paths = ls_fn(paths)
         with _ops.timer("update"):
             state = _batched_update(cfg, state, paths, dist, update=_ops.update)
         curve.append(state.best_cost)

@@ -3,7 +3,9 @@
 
 Per instance: build the heuristic (neural, or the classic sparsified
 ``1/d``), then run ACO with a persistent pheromone state and report the mean
-best-so-far cost at cumulative T.
+best-so-far cost at cumulative T. With ``ls="2opt"`` or ``"nls"`` it is the
+TSP-NLS protocol (reference tsp_nls/test.py:17-56): every ant's tour goes
+through local search, and the neural heuristic reads the one-hot start node.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 from deepaco_tpu_torch.aco.batched_tsp import (KERNEL_OPS, PathOps,
                                                run_anytime_batched)
 from deepaco_tpu_torch.aco.runner import ACOConfig
+from deepaco_tpu_torch.core.builders import start_node_features
 from deepaco_tpu_torch.core.graph import sparse_distance_matrix
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.models.gnn import Net
@@ -45,6 +48,26 @@ def _eval_classic(cfg: ACOConfig, k_sparse: int, t_max: int,
     return run_anytime_batched(heu, dist, cfg, generator, t_max, _ops=_ops)
 
 
+def _eval_ls(net: Net | None, cfg: ACOConfig, k_sparse: int, t_max: int,
+             ls: str, coords: torch.Tensor, generator: torch.Generator, *,
+             _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
+    """The TSP-NLS anytime protocol, batched. The neural heuristic is K1 in
+    f32 on the one-hot start-node feature (tsp_nls/utils.py:37-45); the
+    classic one is ``1/sparse_distance_matrix``. The JAX package runs this
+    in host chunks of instances and single iterations to stay under a TPU
+    watchdog; here the batch runs whole, which changes nothing in law, since
+    instances are independent and each keeps its own search state."""
+    with _ops.timer("heuristic"):
+        dist = distance_matrix(coords)
+        if net is None:
+            heu = 1.0 / sparse_distance_matrix(dist, k_sparse)
+        else:
+            heu = _ops.heuristic(net, start_node_features(coords), dist,
+                                 k_sparse)
+    return run_anytime_batched(heu, dist, cfg, generator, t_max,
+                               coords=coords, ls=ls, _ops=_ops)
+
+
 @torch.no_grad()
 def evaluate_tsp(coords, *, net: Net | None = None, k_sparse: int,
                  cfg: ACOConfig | None = None,
@@ -55,25 +78,27 @@ def evaluate_tsp(coords, *, net: Net | None = None, k_sparse: int,
 
     Returns ``(mean best-so-far cost at each of t_values, curves [B, t_max])``.
     ``net=None`` runs the classic-ACO baseline (sparsified ``1/d``
-    heuristic). The sweep runs on ``device`` (``cuda`` by default; ``cpu``
-    only when asked), and ``net`` is moved there. The private ``_ops``
+    heuristic). ``ls`` in {``"2opt"``, ``"nls"``} runs the TSP-NLS protocol
+    (local search on every ant, start-node feature when neural). The sweep
+    runs on ``device`` (``cuda`` by default; ``cpu`` only when asked), and
+    ``net`` is moved there. The private ``_ops``
     (:class:`~deepaco_tpu_torch.aco.batched_tsp.PathOps`) swaps in the plain
     versions of the kernels or a timer around each phase.
     """
-    if ls is not None:
-        raise NotImplementedError(
-            "local search (TSP-NLS) is not ported to deepaco_tpu_torch yet; "
-            "see ROADMAP.md")
     dev = resolve_device(device)
     cfg = cfg or ACOConfig()
     coords = torch.as_tensor(coords, dtype=torch.float32, device=dev)
     t_max = int(max(t_values))
     generator = torch.Generator(device=dev).manual_seed(seed)
-    if net is None:
+    if net is not None:
+        net = net.to(dev).eval()
+    if ls is not None:
+        curves = _eval_ls(net, cfg, k_sparse, t_max, ls, coords, generator,
+                          _ops=_ops)
+    elif net is None:
         curves = _eval_classic(cfg, k_sparse, t_max, coords, generator,
                                _ops=_ops)
     else:
-        net = net.to(dev).eval()
         curves = _eval_neural(net, cfg, k_sparse, t_max, coords, generator,
                               _ops=_ops)
     idx = torch.tensor([t - 1 for t in t_values], device=dev)

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's main path spends device time, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_main_path.py [--out DIR]
+    python3 scripts/profile_torch_main_path.py [--ls nls|2opt] [--out DIR]
 
-Runs the main path of ``chip_smoke.py`` (neural ``evaluate_tsp`` with its
-weights, instances and configuration: tsp500_selftrained, B=100, N=500, K=50,
-A=20, T=10) once to warm up, then once under ``torch.profiler``, and prints one
-JSON line: device time per CUDA kernel name, the profiled wall time, the
-device's busy and idle share of that window, and the card's name and power
-limit. ``--out`` also writes the Chrome trace there.
+Runs a path of ``chip_smoke.py`` with its weights, instances and
+configuration once to warm up, then once under ``torch.profiler``: by default
+the main path (neural ``evaluate_tsp``, tsp500_selftrained, B=100, N=500,
+K=50, A=20, T=10); with ``--ls nls`` the NLS path (tsp_nls500_selftrained on
+the first B=16 instances, local search on every ant); with ``--ls 2opt`` the
+classic arm with 2-opt on the same 16. Prints one JSON line: device time per
+CUDA kernel name, the profiled wall time, the device's busy and idle share of
+that window, and the card's name and power limit. ``--out`` also writes the
+Chrome trace there.
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     parser = argparse.ArgumentParser()
+    parser.add_argument("--ls", choices=("nls", "2opt"), default=None)
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -34,8 +38,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import chip_smoke
 
-    net, coords = chip_smoke.main_path_inputs(ROOT, torch.device("cuda"))
-    run = lambda: chip_smoke.drive(net, coords)
+    net, coords = chip_smoke.main_path_inputs(ROOT, torch.device("cuda"), args.ls)
+    if args.ls == "2opt":
+        net = None                                   # the classic arm
+    run = lambda: chip_smoke.drive(net, coords, ls=args.ls)
     run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -54,9 +60,10 @@ def main() -> int:
     card = chip_smoke.card_line()
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(args.out) / "main_path_trace.json"))
+        prof.export_chrome_trace(
+            str(Path(args.out) / f"{args.ls or 'main'}_path_trace.json"))
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"]))
-    print(json.dumps({"card": card, "wall_ms": wall_ms,
+    print(json.dumps({"path": args.ls or "main", "card": card, "wall_ms": wall_ms,
                       "device_busy_ms": busy if kernels else "not measured",
                       "device_idle_share": 1 - busy / wall_ms if kernels else "not measured",
                       "kernels": top}))

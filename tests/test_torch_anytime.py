@@ -1,5 +1,6 @@
 """Port parity in law: the anytime protocol (eval/anytime.py) on the CPU
-against the JAX evaluate_tsp, neural and classic."""
+against the JAX evaluate_tsp, neural and classic, without and with local
+search."""
 from pathlib import Path
 
 import numpy as np
@@ -37,7 +38,38 @@ def test_anytime_matches_jax_in_law(arm):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0.02)
 
 
-def test_local_search_is_not_ported_yet():
+@pytest.mark.parametrize("ls,arm", [("nls", "neural"), ("2opt", "classic")])
+def test_local_search_matches_jax_in_law(ls, arm):
+    """The TSP-NLS protocol, evaluate_tsp(ls=...), against JAX at N=50. On the
+    CPU the JAX package takes its XLA NLS with the f32 perturbation metric,
+    the port the K5 semantics with that metric rounded to bf16; the sampling
+    streams differ too, hence agreement in law within 2%."""
+    b, n, ants, t_values = 8, 50, 8, (1, 3)
+    coords = np.random.default_rng(12).random((b, n, 2)).astype(np.float32)
+    net = jnet = variables = None
+    if arm == "neural":
+        v = load_checkpoint(str(CKPT / "tsp_nls100_selftrained.msgpack"))
+        variables = {"params": v["params"], "batch_stats": v["batch_stats"]}
+        jnet = JNet(dual_heads=False, use_pallas=False)
+        net = Net.from_jax_variables(variables)
+    ref, _ = jevaluate(coords, model=jnet, variables=variables, k_sparse=n // 10,
+                       cfg=JConfig(n_ants=ants), t_values=t_values, seed=0, ls=ls)
+    got, curves = evaluate_tsp(coords, net=net, k_sparse=n // 10,
+                               cfg=ACOConfig(n_ants=ants), t_values=t_values,
+                               seed=0, ls=ls, device="cpu")
+    assert curves.shape == (b, max(t_values))
+    assert bool(torch.isfinite(curves).all())
+    assert bool((curves[:, 1:] <= curves[:, :-1]).all())
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0.02)
+
+
+def test_local_search_takes_2opt_or_nls_with_coords():
+    from deepaco_tpu_torch.aco.batched_tsp import run_anytime_batched
+
     coords = np.random.default_rng(0).random((2, 20, 2)).astype(np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        evaluate_tsp(coords, k_sparse=5, ls="2opt", device="cpu")
+    with pytest.raises(ValueError, match="nls"):
+        evaluate_tsp(coords, k_sparse=5, ls="3opt", device="cpu")
+    heu = torch.ones(2, 20, 20)
+    with pytest.raises(ValueError, match="coords"):
+        run_anytime_batched(heu, heu, ACOConfig(n_ants=4),
+                            torch.Generator().manual_seed(0), 1, ls="2opt")

@@ -53,10 +53,16 @@ def test_entry_point_without_device_raises_when_cuda_is_absent(monkeypatch):
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():
-    from deepaco_tpu_torch.ops import _build
+    from deepaco_tpu_torch.ops import _build, two_opt
 
     with pytest.raises(ValueError):
         _build.require_cuda("k", torch.zeros(2, device="meta"))
+    coords = torch.zeros(1, 20, 2, device="meta")
+    tours = torch.zeros(1, 3, 20, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        two_opt.batched_two_opt_euclid(coords, tours, 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        two_opt.batched_nls_euclid(coords, torch.zeros(1, 20, 20, device="meta"), tours, 5)
 
 
 @pytest.mark.parametrize("alone", [False, True])

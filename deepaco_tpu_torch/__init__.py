@@ -2,15 +2,19 @@
 
 The package mirrors ``deepaco_tpu``'s module names, so each function's JAX
 counterpart sits at the same path there. It imports ``torch`` and ``numpy``
-only. Its first slice is neural anytime inference for TSP:
+only. It covers neural anytime inference for TSP, with and without
+neural-guided local search, and REINFORCE training of the TSP heuristic:
 
 - ``utils``  — instance generators, distance matrices, the checkpoint reader
-- ``core``   — the regular ``[N, K]`` k-NN graph
+               and writer
+- ``core``   — the regular ``[N, K]`` k-NN graph and the TSP-NLS graph
 - ``models`` — EmbNet + ParNet heuristic network (``nn.Module``)
 - ``ops``    — hand-written CUDA kernels (``csrc/``), their builder and their
                plain PyTorch versions
-- ``aco``    — pheromone state, Ant System update, the batched anytime runner
+- ``aco``    — pheromone state, Ant System update, the batched anytime
+               runner, the construction engine and the TSP plug-in
 - ``eval``   — the anytime evaluation protocol (``evaluate_tsp``)
+- ``train``  — configuration and REINFORCE training (``train_tsp``)
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``; with no card they raise (see :mod:`.device`).

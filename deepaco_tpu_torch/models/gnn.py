@@ -8,25 +8,28 @@ This module is the plain oracle for the heuristic kernel in
 """
 from __future__ import annotations
 
+import math
+from typing import Callable
+
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from deepaco_tpu_torch.core.graph import SparseGraph
-
-
-def gather_nodes(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-    """``x [B, N, U]`` at ``nbr [B, N, K]`` → ``[B, N, K, U]``."""
-    b, n, k = nbr.shape
-    idx = nbr.reshape(b, n * k, 1).expand(-1, -1, x.shape[-1])
-    return torch.gather(x, 1, idx).reshape(b, n, k, x.shape[-1])
+from deepaco_tpu_torch.ops.gnn_layer import fused_gnn_layer, reverse_adjacency
 
 
 class TorchBatchNorm(nn.Module):
-    """BatchNorm with torch / PyG numerics: statistics over every leading
-    axis, the biased variance to normalise, the unbiased variance for the
-    running update, momentum 0.1 and eps 1e-5."""
+    """BatchNorm with torch / PyG numerics: the biased variance to normalise,
+    the unbiased variance for the running update, momentum 0.1 and eps 1e-5.
+
+    In train mode the statistics are taken per instance, over every axis but
+    the leading batch axis and the feature axis, as the JAX trainer takes
+    them inside its ``vmap`` over instances (reinforce.py:166-169); each
+    instance moves the running statistics by its own batch statistics and
+    the results are averaged over instances. Eval mode uses the running
+    statistics."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -39,16 +42,21 @@ class TorchBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            flat = x.reshape(-1, x.shape[-1])
-            count = flat.shape[0]
-            mean = flat.mean(dim=0)
-            var = ((flat - mean) ** 2).mean(dim=0)
+            if x.dim() < 3:
+                raise ValueError("train-mode BatchNorm takes [B, ..., F] with "
+                                 f"a leading instance axis, got {tuple(x.shape)}")
+            axes = tuple(range(1, x.dim() - 1))
+            count = math.prod(x.shape[1:-1])
+            mean = x.mean(dim=axes, keepdim=True)
+            var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
             with torch.no_grad():
-                unbiased = var * count / max(count - 1, 1)
-                self.running_mean.mul_(1 - self.momentum).add_(
-                    self.momentum * mean)
-                self.running_var.mul_(1 - self.momentum).add_(
-                    self.momentum * unbiased)
+                stat = lambda t: t.reshape(x.shape[0], x.shape[-1])
+                unbiased = stat(var) * count / max(count - 1, 1)
+                keep = 1 - self.momentum
+                self.running_mean.copy_(torch.mean(
+                    keep * self.running_mean + self.momentum * stat(mean), dim=0))
+                self.running_var.copy_(torch.mean(
+                    keep * self.running_var + self.momentum * unbiased, dim=0))
         else:
             mean, var = self.running_mean, self.running_var
         return (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
@@ -76,20 +84,24 @@ class EmbNet(nn.Module):
         self.v_bns = nn.ModuleList(TorchBatchNorm(units) for _ in range(depth))
         self.e_bns = nn.ModuleList(TorchBatchNorm(units) for _ in range(depth))
 
-    def forward(self, g: SparseGraph) -> torch.Tensor:
+    def forward(self, g: SparseGraph, layer: Callable = fused_gnn_layer) -> torch.Tensor:
+        """``layer`` computes each layer's ``(agg, pre)``: by default the
+        wrapper of kernel K6 (the plain version on CPU tensors); the plain
+        version on any device when ``fused_gnn_layer_plain`` is passed."""
         x = F.silu(self.v_lin0(g.x.float()))
         w = F.silu(self.e_lin0(g.edge.float()))
+        index = reverse_adjacency(g.nbr)          # once per graph, all layers
         for i in range(self.depth):
             x0, w0 = x, w
             x1 = self.v_lins1[i](x0)
             x2 = self.v_lins2[i](x0)
             x3 = self.v_lins3[i](x0)
             x4 = self.v_lins4[i](x0)
+            e_lin = self.e_lins0[i]
+            agg, pre = layer(x2, x3, x4, g.nbr, w0, e_lin.weight.T, e_lin.bias,
+                             index)
             if self.node_update:
-                agg = torch.mean(torch.sigmoid(w0) * gather_nodes(x2, g.nbr),
-                                 dim=-2)
                 x = x0 + F.silu(self.v_bns[i](x1 + agg))
-            pre = self.e_lins0[i](w0) + x3[..., None, :] + gather_nodes(x4, g.nbr)
             w = w0 + F.silu(self.e_bns[i](pre))
         return w
 
@@ -123,8 +135,8 @@ class Net(nn.Module):
         if dual_heads:
             self.par_net_phe = ParNet(units=units)
 
-    def forward(self, g: SparseGraph):
-        emb = self.emb_net(g)
+    def forward(self, g: SparseGraph, layer: Callable = fused_gnn_layer):
+        emb = self.emb_net(g, layer)
         heu = self.par_net_heu(emb)
         if self.dual_heads:
             return self.par_net_phe(emb), heu
@@ -174,3 +186,75 @@ def from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
             sd[f"{head}.lins.{i}.weight"] = tensor(leaf["kernel"]).T.contiguous()
             sd[f"{head}.lins.{i}.bias"] = tensor(leaf["bias"])
     return sd
+
+
+# Flax lecun_normal: a normal truncated at two standard deviations, scaled
+# so that the truncated law keeps the variance 1 / fan_in (the constant is
+# the standard deviation of a unit normal truncated to [-2, 2])
+_TRUNCATED_STD = 0.87962566103423978
+_LAYER_LISTS = ("v_lins1", "v_lins2", "v_lins3", "v_lins4", "e_lins0",
+                "v_bns", "e_bns")
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"),
+              "running_var": ("batch_stats", "var")}
+
+
+@torch.no_grad()
+def init_like_flax(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise ``net`` in place by the law of the JAX package's ``init``:
+    every Linear weight from Flax's ``lecun_normal`` (normal, std
+    ``sqrt(1/fan_in) / 0.8796``, truncated at 2 std), biases 0, BatchNorm
+    scale 1, bias 0, running mean 0 and variance 1. Draws come from
+    ``generator``, on the parameters' device."""
+    for mod in net.modules():
+        if isinstance(mod, nn.Linear):
+            std = math.sqrt(1.0 / mod.in_features) / _TRUNCATED_STD
+            nn.init.trunc_normal_(mod.weight, 0.0, std, -2.0 * std, 2.0 * std,
+                                  generator=generator)
+            mod.bias.zero_()
+        elif isinstance(mod, TorchBatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+            mod.running_mean.zero_()
+            mod.running_var.fill_(1.0)
+    return net
+
+
+def jax_path(name: str) -> tuple[str, tuple[str, ...], bool]:
+    """Where a ``state_dict`` entry of the port lives in the Flax variables:
+    ``(collection, keys, transposed)``; the inverse of
+    :func:`from_jax_variables`' naming."""
+    parts = name.split(".")
+    top = parts[0]
+    if top == "emb_net" and parts[1] in _LAYER_LISTS:
+        module, leaf = f"{parts[1]}_{parts[2]}", parts[3]
+    elif top == "emb_net":
+        module, leaf = parts[1], parts[2]
+    else:                                          # par_net_*.lins.i.*
+        module, leaf = f"lin_{parts[2]}", parts[3]
+    if module.startswith(("v_bns", "e_bns")):
+        coll, flax_leaf = _BN_LEAVES[leaf]
+        return coll, (top, module, flax_leaf), False
+    return "params", (top, module, "kernel" if leaf == "weight" else "bias"), \
+        leaf == "weight"
+
+
+def to_jax_tree(tensors: dict[str, torch.Tensor]) -> dict:
+    """Tensors named as in the port's ``state_dict`` (weights, gradients or
+    optimizer moments) → a Flax-shaped ``{"params", "batch_stats"}`` tree of
+    f32 numpy arrays, each Linear weight transposed to a ``kernel``."""
+    tree: dict = {}
+    for name, t in tensors.items():
+        coll, keys, transposed = jax_path(name)
+        a = t.detach().float().cpu()
+        node = tree.setdefault(coll, {})
+        for key in keys[:-1]:
+            node = node.setdefault(key, {})
+        node[keys[-1]] = np.ascontiguousarray((a.T if transposed else a).numpy())
+    return tree
+
+
+def to_jax_variables(net: nn.Module) -> dict:
+    """The inverse of :func:`from_jax_variables`: ``net``'s weights and
+    running statistics as Flax ``{"params", "batch_stats"}``."""
+    return to_jax_tree(net.state_dict())

@@ -17,8 +17,9 @@ import torch
 from torch.nn import functional as F
 
 from deepaco_tpu_torch.core.graph import topk_smallest
-from deepaco_tpu_torch.models.gnn import EmbNet, Net, ParNet, gather_nodes
+from deepaco_tpu_torch.models.gnn import EmbNet, Net, ParNet
 from deepaco_tpu_torch.ops import _build
+from deepaco_tpu_torch.ops.gnn_layer import gather_nodes
 
 
 class FoldedEmbNet(NamedTuple):

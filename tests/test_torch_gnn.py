@@ -83,16 +83,20 @@ def test_dense_heuristic_matches_jax_kernel_and_pipeline(tsp100):
 
 
 def test_batchnorm_train_mode_matches_jax():
-    """Biased variance to normalise, unbiased for the running update,
-    momentum 0.1, eps 1e-5."""
+    """Train mode: statistics per instance, as the JAX trainer takes them
+    inside its vmap over instances (reinforce.py:166-169), the biased
+    variance to normalise, the unbiased one for the running update,
+    momentum 0.1, eps 1e-5; running statistics averaged over instances."""
     x = np.random.default_rng(2).normal(size=(3, 7, 32)).astype(np.float32)
     mod = JBatchNorm(use_running_average=False)
-    variables = mod.init(jax.random.PRNGKey(0), jnp.asarray(x))
-    ref, upd = mod.apply(variables, jnp.asarray(x), mutable=["batch_stats"])
+    variables = mod.init(jax.random.PRNGKey(0), jnp.asarray(x[0]))
+    ref, upd = jax.vmap(lambda xb: mod.apply(variables, xb, mutable=["batch_stats"]))(
+        jnp.asarray(x))
+    stats = jax.tree_util.tree_map(lambda s: s.mean(0), upd["batch_stats"])
     bn = TorchBatchNorm(32).train()
     got = bn(torch.from_numpy(x))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(bn.running_mean.numpy(),
-                               np.asarray(upd["batch_stats"]["mean"]), rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(bn.running_var.numpy(),
-                               np.asarray(upd["batch_stats"]["var"]), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(bn.running_mean.numpy(), np.asarray(stats["mean"]),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(bn.running_var.numpy(), np.asarray(stats["var"]),
+                               rtol=1e-5, atol=1e-6)

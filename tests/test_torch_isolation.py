@@ -52,6 +52,16 @@ def test_entry_point_without_device_raises_when_cuda_is_absent(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
+def test_train_tsp_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from deepaco_tpu_torch.models.gnn import Net
+    from deepaco_tpu_torch.train.config import ProblemConfig
+    from deepaco_tpu_torch.train.reinforce import train_tsp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_tsp(Net(depth=1), ProblemConfig(n_nodes=12, k_sparse=4))
+
+
 def test_kernel_wrappers_refuse_non_cuda_devices():
     from deepaco_tpu_torch.ops import _build, two_opt
 
@@ -63,6 +73,26 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
         two_opt.batched_two_opt_euclid(coords, tours, 5)
     with pytest.raises(ValueError, match="CUDA"):
         two_opt.batched_nls_euclid(coords, torch.zeros(1, 20, 20, device="meta"), tours, 5)
+
+
+def test_training_kernel_wrappers_refuse_meta_tensors():
+    """K6 (forward, backward, aggregate) and K7 take CPU tensors (the plain
+    versions) or CUDA tensors (the kernels), nothing else."""
+    from deepaco_tpu_torch.ops import gnn_layer, pick
+
+    meta = lambda *shape: torch.zeros(shape, device="meta")
+    x, w, ew, eb = meta(1, 20, 32), meta(1, 20, 4, 32), meta(32, 32), meta(32)
+    nbr = torch.zeros(1, 20, 4, dtype=torch.int64, device="meta")
+    index = gnn_layer.GraphIndex(nbr.int(), torch.zeros(1, 21, dtype=torch.int32, device="meta"),
+                                 torch.zeros(1, 80, dtype=torch.int32, device="meta"))
+    with pytest.raises(ValueError, match="CUDA"):
+        gnn_layer.fused_gnn_layer(x, x, x, nbr, w, ew, eb, index)
+    with pytest.raises(ValueError, match="CUDA"):
+        gnn_layer.fused_gnn_layer_backward(x, index, w, ew, x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        gnn_layer.gated_mean_aggregate(x, nbr, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        pick.fused_pick(meta(3, 20), meta(3, 20), meta(3, 20))
 
 
 @pytest.mark.parametrize("alone", [False, True])

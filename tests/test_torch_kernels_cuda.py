@@ -218,3 +218,142 @@ def test_ls_wrappers_refuse_tensors_off_the_card(dev):
         two_opt.batched_two_opt_euclid(coords, tours, 5)
     with pytest.raises(ValueError, match="CUDA"):
         two_opt.batched_nls_euclid(coords, torch.ones(1, 30, 30), tours, 5)
+
+
+# ------------------------------------------------------ training kernels ---
+@pytest.fixture(scope="module")
+def layer_case(dev):
+    """K6's inputs at B=2, N=200, K=20 on k-NN neighbours, and cotangents."""
+    from deepaco_tpu_torch.ops import gnn_layer
+
+    b, n, k, u = 2, 200, 20, 32
+    coords = uniform_coords(n, torch.Generator().manual_seed(5), batch=b, device=dev)
+    nbr = topk_smallest(distance_matrix(coords), k)[1]
+    g = torch.Generator(device=dev).manual_seed(6)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    tensors = {"x2": rnd(b, n, u), "x3": rnd(b, n, u), "x4": rnd(b, n, u),
+               "w": rnd(b, n, k, u), "ew": rnd(u, u) * 0.1, "eb": rnd(u) * 0.1}
+    return tensors, nbr, gnn_layer.reverse_adjacency(nbr), rnd(b, n, u), rnd(b, n, k, u)
+
+
+def _layer_args(t, nbr, index):
+    return (t["x2"], t["x3"], t["x4"], nbr, t["w"], t["ew"], t["eb"], index)
+
+
+def test_gnn_layer_kernel_forward_matches_plain(layer_case):
+    from deepaco_tpu_torch.ops import gnn_layer
+
+    t, nbr, index, _, _ = layer_case
+    before = gnn_layer.fused_gnn_layer.launches
+    with torch.no_grad():
+        got = gnn_layer.fused_gnn_layer(*_layer_args(t, nbr, index))
+        want = gnn_layer.fused_gnn_layer_plain(*_layer_args(t, nbr, index))
+    assert gnn_layer.fused_gnn_layer.launches == before + 1
+    for a, r in zip(got, want):                    # sum order
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+
+
+def test_gnn_layer_kernel_backward_matches_plain(layer_case):
+    """The backward entry on the same cotangents, and every input gradient
+    through autograd; rtol 1e-4 and atol 1e-5 of the largest entry (sums of
+    up to 4,000 terms, the plain scatter with atomics)."""
+    from deepaco_tpu_torch.ops import gnn_layer
+
+    t, nbr, index, ca, cp = layer_case
+    before = gnn_layer.fused_gnn_layer_backward.launches
+    got = gnn_layer.fused_gnn_layer_backward(t["x2"], index, t["w"], t["ew"], ca, cp)
+    assert gnn_layer.fused_gnn_layer_backward.launches == before + 1
+    want = gnn_layer.fused_gnn_layer_backward_plain(t["x2"], nbr, t["w"], t["ew"], ca, cp)
+    for a, r in zip(got, want):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5 * r.abs().max().item())
+    assert torch.equal(got[0], gnn_layer.fused_gnn_layer_backward(
+        t["x2"], index, t["w"], t["ew"], ca, cp)[0])          # no atomics
+
+    def grads(layer):
+        leaves = {name: v.clone().requires_grad_(True) for name, v in t.items()}
+        agg, pre = layer(*_layer_args(leaves, nbr, index))
+        ((agg * ca).sum() + (torch.tanh(pre) * cp).sum()).backward()
+        return [v.grad for v in leaves.values()]
+
+    for a, r in zip(grads(gnn_layer.fused_gnn_layer), grads(gnn_layer.fused_gnn_layer_plain)):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5 * r.abs().max().item())
+
+
+def test_gated_mean_aggregate_kernel_matches_plain(layer_case):
+    """Row 8 through K6's forward without pre, R=150 rows over N=200 nodes."""
+    from deepaco_tpu_torch.ops import gnn_layer
+
+    t, nbr, _, _, _ = layer_case
+    x, rows_nbr, w = t["x2"], nbr[:, :150].contiguous(), t["w"][:, :150].contiguous()
+    before = gnn_layer.gated_mean_aggregate.launches
+    got = gnn_layer.gated_mean_aggregate(x, rows_nbr, w)
+    assert gnn_layer.gated_mean_aggregate.launches == before + 1
+    torch.testing.assert_close(got, gnn_layer.gated_mean_aggregate_plain(x, rows_nbr, w),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("bad", [-1, 200])
+def test_gated_mean_aggregate_refuses_an_id_out_of_range(layer_case, bad):
+    """An id outside [0, N) raises before K6 reads x out of bounds."""
+    from deepaco_tpu_torch.ops import gnn_layer
+
+    t, nbr, _, _, _ = layer_case
+    bad_nbr = nbr.clone()
+    bad_nbr[1, 7, 3] = bad
+    before = gnn_layer.gated_mean_aggregate.launches
+    with pytest.raises(IndexError, match="outside"):
+        gnn_layer.gated_mean_aggregate(t["x2"], bad_nbr, t["w"])
+    assert gnn_layer.gated_mean_aggregate.launches == before
+
+
+def test_pick_kernel_matches_plain(dev):
+    """K7 on 96 rows of 300 with a third visited: actions exact, logp and
+    the backward within 1e-5; ties go to the lowest index, NaN first."""
+    from deepaco_tpu_torch.aco.engine import gumbel
+    from deepaco_tpu_torch.ops import pick
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    score = torch.randn((96, 300), generator=g, device=dev)
+    mask = (torch.rand((96, 300), generator=g, device=dev) > 0.33).float()
+    mask[:, 0] = 1.0
+    noise = gumbel((96, 300), g, dev)
+    before = pick.fused_pick.launches
+    act, logp = pick.fused_pick(score, mask, noise)
+    assert pick.fused_pick.launches == before + 1
+    act_p, logp_p = pick.fused_pick_plain(score, mask, noise)
+    assert torch.equal(act, act_p)
+    torch.testing.assert_close(logp, logp_p, rtol=1e-5, atol=1e-5)
+    c = torch.randn(96, generator=g, device=dev)
+
+    def grad(fn):
+        s = score.clone().requires_grad_(True)
+        (fn(s, mask, noise)[1] * c).sum().backward()
+        return s.grad
+
+    torch.testing.assert_close(grad(pick.fused_pick), grad(pick.fused_pick_plain),
+                               rtol=1e-5, atol=1e-6)
+    ties = torch.zeros((2, 64), device=dev)
+    ties[1, 40] = float("nan")
+    tie_mask = torch.ones_like(ties)
+    tie_mask[0, :3] = 0.0
+    assert pick.fused_pick(ties, tie_mask, torch.zeros_like(ties))[0].tolist() == [3, 40]
+
+
+def test_train_tsp_runs_on_the_card_through_the_kernels(dev):
+    """One NLS-shaped step of train_tsp at N=60 on the default device:
+    finite, and K6 (12 launches a direction at depth 12), K7 (N-1) and K5
+    launched."""
+    from deepaco_tpu_torch.ops import gnn_layer, pick
+    from deepaco_tpu_torch.train import config, reinforce as tr
+
+    cfg = config.ProblemConfig(n_nodes=60, k_sparse=6, aco=config.ACOSettings(n_ants=8),
+                               train=config.TrainConfig(batch_size=2, cosine_schedule=True))
+    counters = (gnn_layer.fused_gnn_layer, gnn_layer.fused_gnn_layer_backward,
+                pick.fused_pick, two_opt.batched_nls_euclid)
+    before = [fn.launches for fn in counters]
+    infos = []
+    state = tr.train_tsp(Net(feats=1), cfg, local_search=tr.nls_local_search(),
+                         max_steps=1, progress=lambda i, info: infos.append(info))
+    assert state.step == 1 and next(state.net.parameters()).is_cuda
+    assert all(torch.isfinite(v).all() for v in infos[0])
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 12, 59, 1]

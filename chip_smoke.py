@@ -49,9 +49,27 @@ Phases, one JSON line each:
    ``save_checkpoint``, read back with ``load_checkpoint`` and
    ``Net.from_jax_variables`` and evaluated with ``evaluate_tsp`` (4
    instances, T=1);
-9. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
+9. K8 (``tour_deposit``) against its plain version (``scatter_add_``) at the
+   CVRP path's shape (B=100, L=1001, A=20, n=501, routes that K7 samples on
+   ``1/d`` and that park on the depot) and at the main path's (K2's tours,
+   B=100, N=500, A=20, cyclic): equal bits to ``scatter_add_`` on the CPU,
+   equal bits on a second launch, and within the rounding of two sums in
+   other orders (2k 2^-24 of an entry of k terms) of ``scatter_add_`` on
+   the card; K7 on that rollout's own [2000, 501] score, depot and
+   capacity mask and noise at four of its steps, actions exactly equal;
+   K6's forward at the CVRP shape (K = N = 501) against its plain version;
+10. the CVRP path: ``evaluate_family("cvrp")`` with ``cvrp500_selftrained``
+   on the golden CVRP500 set (100 instances, 500 customers, A=20, T=1 and
+   10) in three arms: kernels (K6, K7, K8), plain versions on the card, and
+   classic (``1/d``); per arm the costs, wall, phase times, the kernels'
+   launches and the peak device memory. Every best route must be valid and
+   cost what the run says; the kernel arm's cost@T1 must lie within 1e-4
+   of the plain arm's (the same noise), its cost@T10 within 1% of the
+   plain arm's and below the classic arm's;
+11. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7 from the
-   TSP500-NLS training run), error, times and bound.
+   TSP500-NLS training run, K8 from the CVRP path's kernel arm), error,
+   times and bound.
 
 Then the ``nvidia-smi`` line again and, last, ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero. Without a CUDA device it exits 1 at once.
@@ -72,6 +90,8 @@ NLS_CKPT = "checkpoints/tsp_nls500_selftrained.msgpack"
 B_NLS, N_LARGE, LS_BUDGET = 16, 1100, 10000
 B_TRAIN, A_TRAIN_NLS, A_TRAIN = 20, 30, 50     # the two training envelopes
 TRAIN_STEPS = {"tsp500": 4, "tsp500_nls": 2}
+CVRP_N, CVRP_CKPT = 500, "checkpoints/cvrp500_selftrained.msgpack"
+CVRP_PICK_AT = (0.0, 0.15, 0.4, 0.7)   # K7's CVRP checks, as shares of the horizon
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 
@@ -125,6 +145,181 @@ def drive(net, coords, ops=None, ls: str | None = None):
     return evaluate_tsp(coords, net=net, k_sparse=K, cfg=ACOConfig(n_ants=A),
                         t_values=T_VALUES, seed=SEED, ls=ls,
                         _ops=ops or KERNEL_OPS)
+
+
+def cvrp_inputs(root: Path, dev):
+    """The CVRP path's weights (``cvrp500_selftrained``: 12 layers, 32 units,
+    demand as the node feature) and the golden CVRP500 set (numpy)."""
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.train.drivers import family_model
+    from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
+    from deepaco_tpu_torch.utils.golden import cvrp_test
+
+    net = family_model(get_family("cvrp"), load_checkpoint(str(root / CVRP_CKPT)))
+    return net.to(dev), cvrp_test(CVRP_N)
+
+
+def drive_cvrp(net, ds, ops=None):
+    """One call of the CVRP path's entry point, ``evaluate_family`` (``net=None``
+    is the classic arm); returns ``(means, curves, final state)``."""
+    from deepaco_tpu_torch.train.drivers import KERNEL_OPS, evaluate_family
+
+    return evaluate_family("cvrp", ds, n_nodes=CVRP_N, net=net, n_ants=A,
+                           t_values=T_VALUES, seed=SEED, return_state=True,
+                           _ops=ops or KERNEL_OPS)
+
+
+def cvrp_rollout(dev, ds):
+    """One CVRP rollout on ``1/d`` at the path's shape (B=100, A=20, n=501),
+    each step through K7; returns its paths, their ``1/cost`` amounts and the
+    pick's inputs ``(step, score, mask, noise)``, [B*A, n] each, at the
+    shares CVRP_PICK_AT of the horizon."""
+    import torch
+
+    from deepaco_tpu_torch.aco.engine import rollout
+    from deepaco_tpu_torch.aco.problems.cvrp import cvrp_spec, route_cost
+    from deepaco_tpu_torch.families import CVRP_CAPACITY
+    from deepaco_tpu_torch.ops import pick
+
+    dist = torch.as_tensor(ds["dist"], device=dev)
+    demand = torch.as_tensor(ds["demand"], device=dev)
+    spec = cvrp_spec(torch.ones_like(dist), 1.0 / dist, demand, CVRP_CAPACITY, A)
+    at = {int(f * spec.horizon) for f in CVRP_PICK_AT}
+    steps = iter(range(spec.horizon))
+    captured = []
+
+    def capture(score, mask, noise):
+        step = next(steps)
+        if step in at:
+            captured.append((step, score.clone(), mask.clone(), noise.clone()))
+        return pick.fused_pick(score, mask, noise)
+
+    paths = rollout(spec, torch.Generator(device=dev).manual_seed(SEED + 5),
+                    pick=capture).paths
+    return paths, 1.0 / route_cost(dist, paths), captured
+
+
+def check_pick_at_cvrp_shape(cuda_ms, captured) -> dict:
+    """K7 against its plain version on the CVRP rollout's own score, mask
+    (depot and capacity) and noise at several steps: actions exactly equal
+    and allowed, logp rtol 1e-5 / atol 1e-5."""
+    import torch
+
+    from deepaco_tpu_torch.ops import pick
+
+    steps, ok, err = [], True, 0.0
+    with torch.no_grad():
+        for s, score, mask, noise in captured:
+            act_k, logp_k = pick.fused_pick(score, mask, noise)
+            act_p, logp_p = pick.fused_pick_plain(score, mask, noise)
+            equal = bool(torch.equal(act_k, act_p))
+            close = bool(torch.allclose(logp_k, logp_p, rtol=1e-5, atol=1e-5))
+            allowed = bool((mask.gather(1, act_k[:, None]) > 0).all())
+            open_cols = mask.sum(1)
+            steps.append({"step": s, "actions_equal": equal, "logp_close": close,
+                          "actions_allowed": allowed,
+                          "open_per_row": [int(open_cols.min()), int(open_cols.max())],
+                          "logp_max_abs_err": (logp_k - logp_p).abs().max().item()})
+            ok &= equal and close and allowed
+            err = max(err, steps[-1]["logp_max_abs_err"])
+        _, score, mask, noise = captured[len(captured) // 2]
+        ms = cuda_ms(lambda: pick.fused_pick(score, mask, noise), 50)
+        plain_ms = cuda_ms(lambda: pick.fused_pick_plain(score, mask, noise), 20)
+    rows, n = score.shape
+    return {"rows": rows, "N": n, "passed": len(captured) == len(CVRP_PICK_AT) and ok,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "steps": steps,
+            **dict(zip(("bound_ms", "bound_by"), bound(3 * 4 * rows * n + 12 * rows,
+                                                        6 * rows * n)))}
+
+
+def check_deposit(dev, cuda_ms, tsp_paths, tsp_amounts, cvrp_paths, cvrp_amounts) -> dict:
+    """K8 against ``scatter_add_`` at the CVRP path's shape (routes sampled by
+    K7 on ``1/d``) and at the main path's (K2's tours); returns K8's entry of
+    the kernels' line and emits one line."""
+    import torch
+
+    from deepaco_tpu_torch.ops import deposit
+
+    cases = {"cvrp": (cvrp_paths, cvrp_amounts, CVRP_N + 1, False),
+             "tsp": (tsp_paths, tsp_amounts, N, True)}
+    out = {}
+    for name, (p, w, n, cyclic) in cases.items():
+        b, l, a = p.shape
+        got = deposit.tour_deposit(p, w, n, cyclic=cyclic)
+        again = deposit.tour_deposit(p, w, n, cyclic=cyclic)
+        plain = deposit.tour_deposit_plain(p, w, n, cyclic=cyclic)
+        cpu = deposit.tour_deposit_plain(p.cpu(), w.cpu(), n, cyclic=cyclic)
+        u, v = deposit.tour_edges(p, cyclic)
+        index, values = (u * n + v).flatten(-2), w[..., None].expand(u.shape).flatten(-2)
+        zeros = torch.zeros((b, n * n), device=dev)
+        edges = index.shape[-1]
+        # k, the terms of each entry: two sums of k positive terms in other
+        # orders differ by at most 2 k 2^-24 of their value
+        k = deposit.tour_deposit_plain(p, torch.ones_like(w), n, cyclic=cyclic)
+        out[name] = {
+            "B": b, "L": l, "A": a, "n": n, "cyclic": cyclic,
+            "self_loops_per_instance": ((u == v).sum() / b).item(),
+            "max_terms_an_entry": k.max().item(),
+            "equal_to_cpu_scatter": torch.equal(got.cpu(), cpu),
+            "deterministic": torch.equal(got, again),
+            "close_to_card_scatter": bool(((got - plain).abs()
+                                           <= 2 * k * 2.0 ** -24 * got).all()),
+            "max_rel_err_card_scatter": ((got - plain).abs() / got.clamp_min(1e-30)).max().item(),
+            "max_abs_err": (got - plain).abs().max().item(),
+            "ms": cuda_ms(lambda: deposit.tour_deposit(p, w, n, cyclic=cyclic), 20),
+            "plain_ms": cuda_ms(lambda: deposit.tour_deposit_plain(p, w, n, cyclic=cyclic), 5),
+            "library_ms": cuda_ms(lambda: torch.scatter_add(zeros, -1, index, values), 20),
+            # paths (int64) and amounts read once, D written once; one add an edge
+            **dict(zip(("bound_ms", "bound_by"), bound(
+                8 * b * l * a + 4 * b * a + 4 * b * n * n, b * edges)))}
+        out[name]["passed"] = all(out[name][k] for k in (
+            "equal_to_cpu_scatter", "deterministic", "close_to_card_scatter"))
+    emit({"phase": "kernel", "name": "tour_deposit", **out,
+          "tolerance": "equal bits to scatter_add_ on the CPU (ant-major, one add at a "
+                       "time) and on a second launch; to scatter_add_ on the card (atomics "
+                       "in any order) within 2 k 2^-24 of each entry, k its terms"})
+    c = out["cvrp"]
+    return {"name": "tour_deposit", "route": "cuda",
+            "source": "deepaco_tpu_torch/csrc/tour_deposit.cu",
+            "replaces": "deepaco_tpu/ops/pallas_kernels.py:340",
+            "max_abs_err": max(r["max_abs_err"] for r in out.values()),
+            "passed": all(r["passed"] for r in out.values()),
+            **{k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
+
+
+def check_layer_at_cvrp_width(dev, cuda_ms, net, ds) -> dict:
+    """K6's forward at the CVRP path's shape (B=100, N = K = 501, U=32) on
+    the first layer's real inputs, against its plain version."""
+    import torch
+    from torch.nn import functional as F
+
+    from deepaco_tpu_torch.core.builders import cvrp_graph
+    from deepaco_tpu_torch.ops import gnn_layer
+
+    emb = net.emb_net
+    g = cvrp_graph(torch.as_tensor(ds["demand"], device=dev),
+                   torch.as_tensor(ds["dist"], device=dev))
+    b, n, k = g.nbr.shape
+    u = emb.units
+    with torch.no_grad():
+        x = F.silu(emb.v_lin0(g.x))
+        w = F.silu(emb.e_lin0(g.edge))
+        index = gnn_layer.reverse_adjacency(g.nbr)
+        lin = emb.e_lins0[0]
+        args = (emb.v_lins2[0](x), emb.v_lins3[0](x), emb.v_lins4[0](x), g.nbr, w,
+                lin.weight.T, lin.bias, index)
+        got = gnn_layer.fused_gnn_layer(*args)
+        want = gnn_layer.fused_gnn_layer_plain(*args)
+        ok = all(bool(torch.allclose(a, r, rtol=1e-5, atol=1e-5)) for a, r in zip(got, want))
+        err = max((a - r).abs().max().item() for a, r in zip(got, want))
+        del got, want
+        ms = cuda_ms(lambda: gnn_layer.fused_gnn_layer(*args), 5)
+        plain_ms = cuda_ms(lambda: gnn_layer.fused_gnn_layer_plain(*args), 2)
+    edges = b * n * k
+    return {"B": b, "N": n, "K": k, "passed": ok, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, **dict(zip(("bound_ms", "bound_by"), bound(
+                4 * (2 * edges * u + 4 * b * n * u + edges + u * u + u),
+                2 * edges * u * u + 5 * edges * u)))}
 
 
 def ls_bound(n: int, b: int, a: int, scans: dict, metric_bytes: int):
@@ -413,7 +608,10 @@ def main() -> int:
     from deepaco_tpu_torch.core.graph import topk_smallest
     from deepaco_tpu_torch.eval.anytime import evaluate_tsp
     from deepaco_tpu_torch.models.gnn import Net, init_like_flax
-    from deepaco_tpu_torch.ops import _build, fused_gnn, gnn_layer, pick, two_opt
+    from deepaco_tpu_torch.aco.problems.cvrp import route_cost, validate_routes
+    from deepaco_tpu_torch.families import CVRP_CAPACITY
+    from deepaco_tpu_torch.ops import _build, deposit, fused_gnn, gnn_layer, pick, two_opt
+    from deepaco_tpu_torch.train import drivers
     from deepaco_tpu_torch.train import reinforce as tr
     from deepaco_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from deepaco_tpu_torch.utils.datasets import distance_matrix, uniform_coords
@@ -628,7 +826,8 @@ def main() -> int:
     counted = (fused_gnn.tsp_dense_heuristic, bt.dense_sweep_fused,
                bt.fused_tsp_update, two_opt.batched_two_opt_euclid,
                two_opt.batched_nls_euclid, gnn_layer.fused_gnn_layer,
-               gnn_layer.fused_gnn_layer_backward, pick.fused_pick)
+               gnn_layer.fused_gnn_layer_backward, pick.fused_pick,
+               deposit.tour_deposit)
 
     class PhaseTimer:
         """CUDA events around each phase; read after the run has synchronised."""
@@ -763,7 +962,61 @@ def main() -> int:
           "bytes": ckpt.stat().st_size, "weights_equal": same, "step": int(tree["step"]),
           "evaluate_tsp_nls_cost": reload_cost.tolist(), "passed": reload_ok})
 
+    # ---- 9. K8 and K6 at the CVRP path's shapes
+    cvrp_net, cvrp_ds = cvrp_inputs(root, dev)
+    cvrp_paths, cvrp_amounts, cvrp_picks = cvrp_rollout(dev, cvrp_ds)
+    kernels.append(check_deposit(dev, cuda_ms, paths_k, 1.0 / costs_p, cvrp_paths,
+                                 cvrp_amounts))
+    pick_501 = check_pick_at_cvrp_shape(cuda_ms, cvrp_picks)
+    emit({"phase": "kernel", "name": "fused_pick", "config": "cvrp500 rollout, N = 501",
+          **pick_501, "tolerance": "actions exact and allowed; logp rtol 1e-5, atol 1e-5 "
+                                   "(logsumexp order, expf/logf against torch's)"})
+    layer_501 = check_layer_at_cvrp_width(dev, cuda_ms, cvrp_net, cvrp_ds)
+    emit({"phase": "kernel", "name": "fused_gnn_layer", "config": "cvrp500, K = N = 501",
+          **layer_501, "tolerance": "rtol 1e-5, atol 1e-5 (sum order)"})
+
+    # ---- 10. the CVRP path: kernel, plain and classic arms
+    cvrp_dist = torch.as_tensor(cvrp_ds["dist"], device=dev)
+    cvrp_demand = torch.as_tensor(cvrp_ds["demand"], device=dev)
+    cvrp_b = cvrp_dist.shape[0]
+
+    def cvrp_run(net_arg, ops):
+        """One call of the CVRP path; the kernels' counts are set to 0 just
+        before it and read just after."""
+        timer = PhaseTimer()
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cost, curves, state = drive_cvrp(net_arg, cvrp_ds, ops._replace(timer=timer))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if (not bool(torch.isfinite(curves).all())
+                or curves.shape != (cvrp_b, max(T_VALUES))):
+            fail(f"bad CVRP curves {tuple(curves.shape)}")
+        if not bool((curves[:, 1:] <= curves[:, :-1]).all()):
+            fail("a CVRP anytime curve rose")
+        best = state.best_path[..., None]
+        valid = validate_routes(best, cvrp_demand, CVRP_CAPACITY)[:, 0]
+        recost = route_cost(cvrp_dist, best)[:, 0]
+        return {"cost": cost.tolist(), "wall_s": wall, "phase_ms": timer.ms(),
+                "launches": {fn.__name__: fn.launches for fn in (
+                    gnn_layer.fused_gnn_layer, pick.fused_pick, deposit.tour_deposit)},
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                "valid_best_routes": int(valid.sum()),
+                "best_cost_is_route_cost": bool(torch.allclose(recost, state.best_cost,
+                                                               rtol=1e-5))}
+
+    cvrp_arms = {"kernel": cvrp_run(cvrp_net, drivers.KERNEL_OPS),
+                 "plain": cvrp_run(cvrp_net, drivers.PLAIN_OPS),
+                 "classic": cvrp_run(None, drivers.KERNEL_OPS)}
+    emit({"phase": "cvrp_path", "B": cvrp_b, "N": CVRP_N + 1, "A": A,
+          "T": list(T_VALUES), "capacity": CVRP_CAPACITY, **cvrp_arms})
+
     path_launches = {**launches,
+                     "tour_deposit": cvrp_arms["kernel"]["launches"]["tour_deposit"],
                      "batched_two_opt_euclid": arms["classic_2opt"]["launches"]["batched_two_opt_euclid"],
                      "batched_nls_euclid": arms["nls"]["launches"]["batched_nls_euclid"],
                      **{fn.__name__: train_launches[fn.__name__] for fn in (
@@ -772,7 +1025,7 @@ def main() -> int:
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
 
-    # ---- 9. the kernels' line
+    # ---- 11. the kernels' line
     emit({"kernels": kernels})
     failed = [k["name"] for k in kernels if not k["passed"]]
     if failed:
@@ -795,6 +1048,32 @@ def main() -> int:
         fail(f"kernel and plain train steps disagree: {failed_steps}")
     if not reload_ok:
         fail("the saved training state did not reload and evaluate")
+    if not layer_501["passed"]:
+        fail("K6 disagrees with its plain version at K = N = 501")
+    if not pick_501["passed"]:
+        fail("K7 disagrees with its plain version on the CVRP rollout's rows")
+    ck, cp, cc = (cvrp_arms[arm]["cost"] for arm in ("kernel", "plain", "classic"))
+    # the two arms draw the same noise, so at T1 only K6's rounding (1e-6)
+    # can part them; a wrong pick moves cost@T1 by far more than 1e-4
+    if abs(ck[0] - cp[0]) > 1e-4 * cp[0]:
+        fail(f"CVRP kernel path cost@T1 {ck[0]} vs plain {cp[0]}")
+    if abs(ck[-1] - cp[-1]) > 0.01 * cp[-1]:
+        fail(f"CVRP kernel path cost@T10 {ck[-1]} vs plain {cp[-1]}")
+    if not ck[-1] < cc[-1]:
+        fail(f"CVRP neural cost@T10 {ck[-1]} not below classic {cc[-1]}")
+    for arm, r in cvrp_arms.items():
+        if r["valid_best_routes"] != cvrp_b or not r["best_cost_is_route_cost"]:
+            fail(f"CVRP {arm} arm: {r['valid_best_routes']} of {cvrp_b} best routes valid, "
+                 f"costs match {r['best_cost_is_route_cost']}")
+    t_max = max(T_VALUES)
+    want = {"kernel": {"fused_gnn_layer": cvrp_net.emb_net.depth, "fused_pick": t_max * 2 * CVRP_N,
+                       "tour_deposit": t_max},
+            "plain": {"fused_gnn_layer": 0, "fused_pick": 0, "tour_deposit": 0},
+            "classic": {"fused_gnn_layer": 0, "fused_pick": t_max * 2 * CVRP_N,
+                        "tour_deposit": t_max}}
+    for arm, counts in want.items():
+        if cvrp_arms[arm]["launches"] != counts:
+            fail(f"CVRP {arm} arm launched {cvrp_arms[arm]['launches']}, expected {counts}")
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -3,18 +3,21 @@
 The package mirrors ``deepaco_tpu``'s module names, so each function's JAX
 counterpart sits at the same path there. It imports ``torch`` and ``numpy``
 only. It covers neural anytime inference for TSP, with and without
-neural-guided local search, and REINFORCE training of the TSP heuristic:
+neural-guided local search, REINFORCE training of the TSP heuristic, and
+CVRP inference through the family registry:
 
-- ``utils``  — instance generators, distance matrices, the checkpoint reader
-               and writer
-- ``core``   — the regular ``[N, K]`` k-NN graph and the TSP-NLS graph
+- ``utils``  — instance generators, the golden CVRP sets, distance matrices,
+               the checkpoint reader and writer
+- ``core``   — the regular ``[N, K]`` k-NN graph, the TSP-NLS and CVRP graphs
 - ``models`` — EmbNet + ParNet heuristic network (``nn.Module``)
 - ``ops``    — hand-written CUDA kernels (``csrc/``), their builder and their
                plain PyTorch versions
-- ``aco``    — pheromone state, Ant System update, the batched anytime
-               runner, the construction engine and the TSP plug-in
-- ``eval``   — the anytime evaluation protocol (``evaluate_tsp``)
-- ``train``  — configuration and REINFORCE training (``train_tsp``)
+- ``aco``    — pheromone state, Ant System update, the anytime runners,
+               the construction engine and the TSP and CVRP plug-ins
+- ``families`` — the problem-family registry (``tsp``, ``cvrp``)
+- ``eval``   — the TSP anytime evaluation protocol (``evaluate_tsp``)
+- ``train``  — configuration, REINFORCE training (``train_tsp``) and the
+               evaluation of any ported family (``drivers.evaluate_family``)
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``; with no card they raise (see :mod:`.device`).

@@ -23,7 +23,6 @@ any device, the oracle that ``chip_smoke.py`` holds the kernel path against.
 """
 from __future__ import annotations
 
-import contextlib
 import functools
 from typing import Callable, NamedTuple
 
@@ -31,8 +30,8 @@ import torch
 
 from deepaco_tpu_torch.aco import pheromone as ph
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost
-from deepaco_tpu_torch.aco.runner import (ACOConfig, SearchState, init_search,
-                                          search_update, track_best)
+from deepaco_tpu_torch.aco.runner import (ACOConfig, SearchState, _no_timer,
+                                          init_search, search_update, track_best)
 from deepaco_tpu_torch.ops import _build
 from deepaco_tpu_torch.ops.fused_gnn import (tsp_dense_heuristic,
                                              tsp_dense_heuristic_plain)
@@ -167,8 +166,8 @@ def fused_tsp_update_plain(tau: torch.Tensor, paths: torch.Tensor,
                            symmetric: bool = True):
     """Plain version of K3: ``tour_cost`` and the scatter deposit."""
     costs = tour_cost(dist, paths)
-    tau = ph.deposit(tau * decay, paths, q / costs, cyclic=True,
-                     symmetric=symmetric)
+    tau = ph.deposit_plain(tau * decay, paths, q / costs, cyclic=True,
+                           symmetric=symmetric)
     return tau, costs
 
 
@@ -232,10 +231,6 @@ def _batched_update(cfg: ACOConfig, state: SearchState, paths: torch.Tensor,
         state = track_best(state, paths, costs)
         return state._replace(phe=state.phe._replace(tau=tau))
     return search_update(cfg, state, paths, tour_cost(dist, paths))
-
-
-def _no_timer(_name: str):
-    return contextlib.nullcontext()
 
 
 class PathOps(NamedTuple):

@@ -93,9 +93,11 @@ def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
 
 
 def rollout(spec: RolloutSpec, generator: torch.Generator, *, alpha: float = 1.0,
-            beta: float = 1.0, require_prob: bool = False) -> Rollout:
+            beta: float = 1.0, require_prob: bool = False,
+            pick: Callable = fused_pick) -> Rollout:
     """Construct every ant's solution (``ACO.gen_path``, tsp/aco.py:134-163),
-    one :func:`fused_pick` a step (K7 on the card)."""
+    one ``pick`` a step: :func:`fused_pick` (K7 on the card) or
+    ``fused_pick_plain``."""
     start = spec.start(generator)
     state = spec.init(start)
     b, a = start.shape
@@ -105,7 +107,7 @@ def rollout(spec: RolloutSpec, generator: torch.Generator, *, alpha: float = 1.0
         m = scores.shape[-1]
         noise = gumbel(scores.shape, generator, scores.device)
         with torch.set_grad_enabled(require_prob and torch.is_grad_enabled()):
-            act, logp = fused_pick(scores.reshape(b * a, m),
+            act, logp = pick(scores.reshape(b * a, m),
                              spec.mask(state).reshape(b * a, m),
                              noise.reshape(b * a, m))
         act = act.reshape(b, a)

@@ -4,9 +4,11 @@ dimensions: ``tau [..., N, N]``, ``paths [..., L, A]``, ``amounts [..., A]``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
+
+from deepaco_tpu_torch.ops.deposit import tour_deposit, tour_deposit_plain
 
 
 class PheromoneState(NamedTuple):
@@ -27,38 +29,38 @@ def init_pheromone(n: int, min_max: bool = False, tau_min: float = 0.1, *,
                                                       device=device))
 
 
-def tour_edges(paths: torch.Tensor, cyclic: bool = True):
-    """Edge endpoints ``(u, v)``, each ``[..., A, L']``: the ``L`` cyclic
-    edges ``(path[i], path[i-1])`` or the ``L-1`` directed consecutive ones."""
-    u = paths.transpose(-1, -2).long()
-    if cyclic:
-        return u, torch.roll(u, shifts=1, dims=-1)
-    return u[..., :-1], u[..., 1:]
+def _add_deposit(tau: torch.Tensor, d: torch.Tensor, symmetric: bool) -> torch.Tensor:
+    if symmetric:
+        d = d + d.transpose(-1, -2)
+    return tau + d
 
 
 def deposit(tau: torch.Tensor, paths: torch.Tensor, amounts: torch.Tensor, *,
             cyclic: bool = True, symmetric: bool = True) -> torch.Tensor:
     """``tau + D`` (``+ D^T`` when symmetric), where ``D[u, v]`` sums
     ``amounts[a]`` over every edge ``(u, v)`` of ant ``a``; repeated edges
-    accumulate once per occurrence."""
-    u, v = tour_edges(paths, cyclic)
-    n = tau.shape[-1]
-    w = amounts[..., None].expand(u.shape).to(tau.dtype)
-    d = torch.zeros_like(tau).flatten(-2)
-    d.scatter_add_(-1, (u * n + v).flatten(-2), w.flatten(-2))
-    d = d.reshape(tau.shape)
-    if symmetric:
-        d = d + d.transpose(-1, -2)
-    return tau + d
+    accumulate once per occurrence. ``D`` is :func:`tour_deposit`, kernel K8
+    on the card."""
+    return _add_deposit(tau, tour_deposit(paths, amounts, tau.shape[-1], cyclic=cyclic),
+                        symmetric)
+
+
+def deposit_plain(tau: torch.Tensor, paths: torch.Tensor, amounts: torch.Tensor, *,
+                  cyclic: bool = True, symmetric: bool = True) -> torch.Tensor:
+    """:func:`deposit` with ``D`` from ``scatter_add_`` on any device."""
+    return _add_deposit(tau, tour_deposit_plain(paths, amounts, tau.shape[-1],
+                                                cyclic=cyclic), symmetric)
 
 
 def as_update(state: PheromoneState, paths: torch.Tensor, costs: torch.Tensor,
               *, decay: float, cyclic: bool = True, symmetric: bool = True,
               q: float = 1.0, maximize: bool = False, div_ants: bool = False,
-              cost_offset: float = 0.0) -> PheromoneState:
+              cost_offset: float = 0.0,
+              deposit: Callable = deposit) -> PheromoneState:
     """Ant System: evaporate, then every ant deposits ``q/(cost + offset)``
     (``q*objective`` when maximizing; divided by the ant count when
-    ``div_ants``)."""
+    ``div_ants``) through ``deposit`` (:func:`deposit` or
+    :func:`deposit_plain`)."""
     amounts = q * costs if maximize else q / (costs + cost_offset)
     if div_ants:
         amounts = amounts / costs.shape[-1]

@@ -26,6 +26,19 @@ def score_matrix(phe: torch.Tensor, heu: torch.Tensor, alpha: float,
             + beta * torch.log(torch.clamp(heu, min=1e-30)))
 
 
+def row_gatherer(b: int, n: int, device):
+    """``rows(m [B, N, M], cur [B, A]) -> [B, A, M]``: the row ``cur`` of
+    each instance's matrix for every ant, by ``index_select``, which keeps
+    only ``[B*A]`` ids for the backward, not a ``[B, A, M]`` gather index."""
+    inst = torch.arange(b, device=device)[:, None] * n
+
+    def rows(m: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
+        flat = (inst + cur).reshape(-1)
+        return m.reshape(b * n, -1).index_select(0, flat).reshape(b, -1, m.shape[-1])
+
+    return rows
+
+
 def tsp_spec(phe: torch.Tensor, heu: torch.Tensor, n_ants: int,
              fixed_start: int | None = None, alpha: float = 1.0,
              beta: float = 1.0):
@@ -35,13 +48,7 @@ def tsp_spec(phe: torch.Tensor, heu: torch.Tensor, n_ants: int,
 
     b, n, _ = phe.shape
     score = score_matrix(phe, heu, alpha, beta)
-    inst = torch.arange(b, device=phe.device)[:, None] * n
-
-    def rows(m: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
-        # one row per ant by index_select, which keeps only [B*A] ids for
-        # the backward, not a [B, A, N] gather index
-        flat = (inst + cur).reshape(-1)
-        return m.reshape(b * n, n).index_select(0, flat).reshape(b, -1, n)
+    rows = row_gatherer(b, n, phe.device)
 
     def start(generator: torch.Generator) -> torch.Tensor:
         if fixed_start is None:

@@ -1,16 +1,20 @@
-"""ACO configuration, search state and the per-iteration update
-(counterpart of ``deepaco_tpu/aco/runner.py``).
+"""ACO configuration, search state, the per-iteration update and the anytime
+loop (counterpart of ``deepaco_tpu/aco/runner.py``), batched over instances.
 
-This slice ports the plain Ant System branch. The other strategy flags
-raise ``NotImplementedError`` until their slice lands (ROADMAP.md).
+This slice ports the plain Ant System branch (with CVRP's pheromone
+``floor``). The other strategy flags raise ``NotImplementedError`` until
+their slice lands (ROADMAP.md).
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import contextlib
+from typing import Callable, NamedTuple
 
 import torch
 
 from deepaco_tpu_torch.aco import pheromone as ph
+from deepaco_tpu_torch.aco.engine import RolloutSpec, rollout
+from deepaco_tpu_torch.ops.pick import fused_pick
 
 
 class ACOConfig(NamedTuple):
@@ -87,14 +91,57 @@ def track_best(state: SearchState, paths: torch.Tensor,
 
 
 def search_update(cfg: ACOConfig, state: SearchState, paths: torch.Tensor,
-                  costs: torch.Tensor, q: float | None = None) -> SearchState:
+                  costs: torch.Tensor, q: float | None = None, *,
+                  deposit: Callable = ph.deposit) -> SearchState:
     """Best-so-far tracking and the Ant System update for scored solutions
-    (``paths [..., L, A]``, ``costs [..., A]``)."""
+    (``paths [..., L, A]``, ``costs [..., A]``); ``deposit`` is
+    :func:`~deepaco_tpu_torch.aco.pheromone.deposit` (K8 on the card) or
+    its plain version."""
     check_ported(cfg)
     q = cfg.q if q is None else q
     state = track_best(state, paths, costs)
     phe = ph.as_update(state.phe, paths, costs, decay=cfg.decay,
-                       cyclic=cfg.cyclic, symmetric=cfg.symmetric, q=q)
+                       cyclic=cfg.cyclic, symmetric=cfg.symmetric, q=q,
+                       deposit=deposit)
     if cfg.floor > 0.0:
         phe = phe._replace(tau=torch.clamp(phe.tau, min=cfg.floor))
     return state._replace(phe=phe)
+
+
+def _no_timer(_name: str):
+    return contextlib.nullcontext()
+
+
+def aco_iteration(spec_factory: Callable[[torch.Tensor], RolloutSpec],
+                  cost_fn: Callable[[torch.Tensor], torch.Tensor], cfg: ACOConfig,
+                  state: SearchState, generator: torch.Generator, *,
+                  pick: Callable = fused_pick, deposit: Callable = ph.deposit,
+                  timer: Callable = _no_timer) -> SearchState:
+    """One no-grad iteration over ``B`` instances (reference
+    tsp/aco.py:75-91): construct every ant's solution from the current
+    pheromone, score it, track the best and update. ``pick`` takes each
+    construction step (K7 or its plain version), ``deposit`` the update's
+    deposit (K8 or its plain version); ``timer(name)`` wraps the phases
+    ``"construction"`` and ``"update"``."""
+    with timer("construction"):
+        spec = spec_factory(state.phe.tau)
+        paths = rollout(spec, generator, alpha=cfg.alpha, beta=cfg.beta,
+                        pick=pick).paths
+    with timer("update"):
+        return search_update(cfg, state, paths, cost_fn(paths), deposit=deposit)
+
+
+@torch.no_grad()
+def run_anytime(spec_factory: Callable[[torch.Tensor], RolloutSpec],
+                cost_fn: Callable[[torch.Tensor], torch.Tensor], cfg: ACOConfig,
+                state: SearchState, generator: torch.Generator, n_iterations: int,
+                *, pick: Callable = fused_pick, deposit: Callable = ph.deposit,
+                timer: Callable = _no_timer) -> tuple[SearchState, torch.Tensor]:
+    """``n_iterations`` of :func:`aco_iteration`: the final state and the
+    anytime curve ``[B, n_iterations]`` of best-so-far costs."""
+    curve = []
+    for _ in range(n_iterations):
+        state = aco_iteration(spec_factory, cost_fn, cfg, state, generator,
+                              pick=pick, deposit=deposit, timer=timer)
+        curve.append(state.best_cost)
+    return state, torch.stack(curve, dim=1)

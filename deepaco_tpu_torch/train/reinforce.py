@@ -29,9 +29,9 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from deepaco_tpu_torch.aco.batched_tsp import _no_timer
 from deepaco_tpu_torch.aco.engine import path_log_probs, rollout
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost, tsp_spec
+from deepaco_tpu_torch.aco.runner import _no_timer
 from deepaco_tpu_torch.core.builders import tsp_nls_graph
 from deepaco_tpu_torch.core.graph import knn_graph, scatter_to_dense
 from deepaco_tpu_torch.device import resolve_device

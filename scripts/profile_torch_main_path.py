@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's main path spends device time, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train] [--out DIR]
+    python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train | --family cvrp] [--out DIR]
 
 Runs a path of ``chip_smoke.py`` with its weights, instances and
 configuration once to warm up, then once under ``torch.profiler``: by default
@@ -10,7 +10,9 @@ K=50, A=20, T=10); with ``--ls nls`` the NLS path (tsp_nls500_selftrained on
 the first B=16 instances, local search on every ant); with ``--ls 2opt`` the
 classic arm with 2-opt on the same 16; with ``--train`` one TSP500-NLS
 training step (``chip_smoke.train_configs``: the one-hot start Net, B=20,
-N=500, K=50, 30 ants, NLS advantage) after one step of warm-up. Prints one
+N=500, K=50, 30 ants, NLS advantage) after one step of warm-up; with
+``--family cvrp`` the CVRP path (``evaluate_family("cvrp")``,
+cvrp500_selftrained on the golden CVRP500 set, A=20, T=10). Prints one
 JSON line: device time per CUDA kernel name, the profiled wall time, the
 device's busy and idle share of that window, and the card's name and power
 limit. ``--out`` also writes the Chrome trace there.
@@ -52,10 +54,11 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--ls", choices=("nls", "2opt"), default=None)
     parser.add_argument("--train", action="store_true")
+    parser.add_argument("--family", choices=("cvrp",), default=None)
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
-    if args.train and args.ls:
-        parser.error("--train profiles the training step; it takes no --ls")
+    if sum((args.train, args.ls is not None, args.family is not None)) > 1:
+        parser.error("--ls, --train and --family each name one path")
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
         return 1
@@ -64,6 +67,9 @@ def main() -> int:
 
     if args.train:
         run = train_step_runner(chip_smoke)
+    elif args.family:
+        net, ds = chip_smoke.cvrp_inputs(ROOT, torch.device("cuda"))
+        run = lambda: chip_smoke.drive_cvrp(net, ds)
     else:
         net, coords = chip_smoke.main_path_inputs(ROOT, torch.device("cuda"), args.ls)
         if args.ls == "2opt":
@@ -88,7 +94,7 @@ def main() -> int:
             entry["count"] += 1
     busy = sum(k["ms"] for k in kernels.values())
     card = chip_smoke.card_line()
-    path = "train_nls" if args.train else args.ls or "main"
+    path = "train_nls" if args.train else args.family or args.ls or "main"
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(args.out) / f"{path}_path_trace.json"))

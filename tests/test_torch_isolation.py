@@ -42,11 +42,16 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_entry_point_without_device_raises_when_cuda_is_absent(monkeypatch):
     from deepaco_tpu_torch.device import resolve_device
     from deepaco_tpu_torch.eval.anytime import evaluate_tsp
+    from deepaco_tpu_torch.families import gen_cvrp
+    from deepaco_tpu_torch.train.drivers import evaluate_family
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     coords = np.random.default_rng(0).random((2, 12, 2)).astype(np.float32)
     with pytest.raises(RuntimeError, match="CUDA"):
         evaluate_tsp(coords, k_sparse=4)
+    batch = {k: v[None] for k, v in gen_cvrp(np.random.default_rng(0), 10).items()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_family("cvrp", batch, n_nodes=10)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
@@ -76,9 +81,9 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
 
 
 def test_training_kernel_wrappers_refuse_meta_tensors():
-    """K6 (forward, backward, aggregate) and K7 take CPU tensors (the plain
-    versions) or CUDA tensors (the kernels), nothing else."""
-    from deepaco_tpu_torch.ops import gnn_layer, pick
+    """K6 (forward, backward, aggregate), K7 and K8 take CPU tensors (the
+    plain versions) or CUDA tensors (the kernels), nothing else."""
+    from deepaco_tpu_torch.ops import deposit, gnn_layer, pick
 
     meta = lambda *shape: torch.zeros(shape, device="meta")
     x, w, ew, eb = meta(1, 20, 32), meta(1, 20, 4, 32), meta(32, 32), meta(32)
@@ -93,6 +98,9 @@ def test_training_kernel_wrappers_refuse_meta_tensors():
         gnn_layer.gated_mean_aggregate(x, nbr, w)
     with pytest.raises(ValueError, match="CUDA"):
         pick.fused_pick(meta(3, 20), meta(3, 20), meta(3, 20))
+    paths = torch.zeros(2, 21, 4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        deposit.tour_deposit(paths, meta(2, 4), 20, cyclic=False)
 
 
 @pytest.mark.parametrize("alone", [False, True])

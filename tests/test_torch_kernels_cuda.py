@@ -357,3 +357,79 @@ def test_train_tsp_runs_on_the_card_through_the_kernels(dev):
     assert state.step == 1 and next(state.net.parameters()).is_cuda
     assert all(torch.isfinite(v).all() for v in infos[0])
     assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 12, 59, 1]
+
+
+def _deposit_case(dev, cyclic):
+    """Paths [B=3, L, A=6] over n=120: permutation tours (cyclic), or CVRP
+    routes that park on the depot for their last 100 steps (open)."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    b, n, a = 3, 120, 6
+    if cyclic:
+        paths = torch.stack([torch.stack([torch.randperm(n, generator=g, device=dev)
+                                          for _ in range(a)], dim=1) for _ in range(b)])
+    else:
+        paths = torch.randint(0, n, (b, 2 * n + 1, a), generator=g, device=dev)
+        paths[:, 0] = 0
+        paths[:, -100:] = 0
+    return paths, 0.01 + torch.rand((b, a), generator=g, device=dev), n
+
+
+@pytest.mark.parametrize("cyclic", [True, False])
+def test_tour_deposit_kernel_matches_plain(dev, cyclic):
+    """K8 adds the ants in order: it equals scatter_add_ on the CPU (ant
+    after ant, one add at a time) bit for bit and gives the same bits
+    twice. scatter_add_ on the card adds with atomics in any order, so an
+    entry that sums k positive terms may differ by the rounding of two such
+    sums, 2 k 2^-24 of its value (k reaches 600 on the parked depot)."""
+    from deepaco_tpu_torch.ops import deposit
+
+    paths, amounts, n = _deposit_case(dev, cyclic)
+    before = deposit.tour_deposit.launches
+    got = deposit.tour_deposit(paths, amounts, n, cyclic=cyclic)
+    assert deposit.tour_deposit.launches == before + 1
+    assert torch.equal(got, deposit.tour_deposit(paths, amounts, n, cyclic=cyclic))
+    cpu = deposit.tour_deposit_plain(paths.cpu(), amounts.cpu(), n, cyclic=cyclic)
+    assert torch.equal(got.cpu(), cpu)
+    plain = deposit.tour_deposit_plain(paths, amounts, n, cyclic=cyclic)
+    k = deposit.tour_deposit_plain(paths, torch.ones_like(amounts), n, cyclic=cyclic)
+    assert bool(((got - plain).abs() <= 2 * k * 2.0 ** -24 * got).all())
+
+
+def test_tour_deposit_kernel_stops_on_an_id_out_of_range(dev):
+    # a device-side assert ends the CUDA context, so it runs in a child
+    code = """
+import torch
+from deepaco_tpu_torch.ops import deposit
+dev = torch.device("cuda")
+paths = torch.zeros((2, 41, 4), dtype=torch.int64, device=dev)
+paths[1, 5, 2] = 20           # n = 20: one id past the last node
+deposit.tour_deposit(paths, torch.ones((2, 4), device=dev), 20, cyclic=False)
+torch.cuda.synchronize()
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "device-side assert" in proc.stdout + proc.stderr
+
+
+def test_evaluate_family_cvrp_runs_on_the_card_through_the_kernels(dev):
+    """evaluate_family("cvrp") at n=20 on the card: finite, valid best
+    routes, and K6 (12 layers), K7 (2n steps an iteration) and K8 (one an
+    iteration) launched."""
+    from deepaco_tpu_torch.aco.problems.cvrp import validate_routes
+    from deepaco_tpu_torch.families import CVRP_CAPACITY, get_family
+    from deepaco_tpu_torch.ops import deposit, gnn_layer, pick
+    from deepaco_tpu_torch.train.drivers import evaluate_family, family_model
+    from deepaco_tpu_torch.utils.golden import cvrp_test
+
+    ds = {k: v[:4] for k, v in cvrp_test(20).items()}
+    net = family_model(get_family("cvrp"),
+                       load_checkpoint(str(CKPT / "cvrp20_selftrained.msgpack")))
+    counters = (gnn_layer.fused_gnn_layer, pick.fused_pick, deposit.tour_deposit)
+    before = [fn.launches for fn in counters]
+    means, curves, state = evaluate_family("cvrp", ds, n_nodes=20, net=net, n_ants=8,
+                                           t_values=(1, 3), return_state=True)
+    assert curves.is_cuda and bool(torch.isfinite(curves).all())
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 3 * 40, 3]
+    demand = torch.from_numpy(ds["demand"]).to(dev)
+    assert bool(validate_routes(state.best_path[..., None], demand, CVRP_CAPACITY).all())

@@ -66,10 +66,27 @@ Phases, one JSON line each:
    cost what the run says; the kernel arm's cost@T1 must lie within 1e-4
    of the plain arm's (the same noise), its cost@T10 within 1% of the
    plain arm's and below the classic arm's;
-11. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
+11. K9 (``embnet_layers``) against its plain version on the sparse path's
+   own inputs (``tsp500_selftrained``, the CLI's 30 fixed-seed TSP2000
+   instances, their k=200 support and neighbour distances, E=1), held on
+   both heads' outputs at rtol 1e-4 / atol 1e-5 (sums in another order);
+   row 9 (``tsp_sweep_construct``, K2 at B=1 with f32 scores) against
+   ``dense_sweep`` on the main path's first instance (N=500, A=20): greedy
+   tours exactly equal, stochastic ones permutations;
+12. the sparse path: ``cli._cmd_test_tsp_sparse`` (``test tsp --sparse -n
+   2000``, k=200, 20 ants, T=1 and 10) in a kernel arm (K9), a plain arm
+   (``large_tsp.PLAIN_OPS``, same instances and seed), a classic arm
+   (``1/d``) and a classic arm with ``--local-search 2opt`` (K4) on the
+   first 4 instances at T=1 and 2; per arm the costs, the CLI's lines, wall,
+   phase times, peak device memory, launches and the fallback and
+   dropped-deposit rates. Every best tour must be a permutation costing
+   what the run reports, and the kernel arm's cost@T1 must lie within 1e-4
+   of the plain arm's (the same noise; only K9's rounding parts them);
+13. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7 from the
-   TSP500-NLS training run, K8 from the CVRP path's kernel arm), error,
-   times and bound.
+   TSP500-NLS training run, K8 from the CVRP path's kernel arm, K9 from the
+   sparse path's kernel arm; row 9 is on no path of either package, so its
+   count is 0), error, times and bound.
 
 Then the ``nvidia-smi`` line again and, last, ``{"ok": true, "device": ...}``.
 Any failed check exits non-zero. Without a CUDA device it exits 1 at once.
@@ -92,6 +109,8 @@ B_TRAIN, A_TRAIN_NLS, A_TRAIN = 20, 30, 50     # the two training envelopes
 TRAIN_STEPS = {"tsp500": 4, "tsp500_nls": 2}
 CVRP_N, CVRP_CKPT = 500, "checkpoints/cvrp500_selftrained.msgpack"
 CVRP_PICK_AT = (0.0, 0.15, 0.4, 0.7)   # K7's CVRP checks, as shares of the horizon
+SPARSE_N, SPARSE_B, SPARSE_LS_B = 2000, 30, 4    # the CLI's TSP2000 set; 2-opt arm's cut
+SPARSE_T, SPARSE_LS_T = (1, 10), (1, 2)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 F32_OPS_PER_S = 67e12          # H100 SXM f32 outside the tensor cores
 
@@ -167,6 +186,131 @@ def drive_cvrp(net, ds, ops=None):
     return evaluate_family("cvrp", ds, n_nodes=CVRP_N, net=net, n_ants=A,
                            t_values=T_VALUES, seed=SEED, return_state=True,
                            _ops=ops or KERNEL_OPS)
+
+
+def sparse_args(root: Path, *extra: str, t_values=None, limit: int | None = None):
+    """The CLI's arguments for the sparse path at TSP2000 (k = n/10 = 200) on
+    its first ``limit`` instances (all 30 by default): the neural arm with
+    ``tsp500_selftrained`` unless ``extra`` says ``--classic``."""
+    from deepaco_tpu_torch import cli
+
+    argv = ["test", "tsp", "--sparse", "-n", str(SPARSE_N), "-a", str(A),
+            "--seed", str(SEED), "-t", *map(str, t_values or SPARSE_T), *extra]
+    if "--classic" not in extra:
+        argv += ["--ckpt", str(root / CKPT)]
+    argv += ["--limit", str(limit or SPARSE_B)]
+    return cli.build_parser().parse_args(argv)
+
+
+def sparse_inputs(root: Path, dev):
+    """K9's inputs on the sparse path: the weights and the graph over the
+    CLI's 30 fixed-seed instances (coordinates, k-NN support, neighbour
+    distances)."""
+    import numpy as np
+    import torch
+
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.aco.large_tsp import knn_support, sparse_tsp_graph
+    from deepaco_tpu_torch.models.gnn import Net
+    from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
+
+    net = Net.from_jax_variables(load_checkpoint(str(root / CKPT))).to(dev).eval()
+    coords = torch.as_tensor(np.random.default_rng(cli.SPARSE_SEED).random(
+        (SPARSE_B, SPARSE_N, 2)).astype(np.float32), device=dev)
+    return net, sparse_tsp_graph(coords, knn_support(coords, SPARSE_N // 10))
+
+
+def drive_sparse(args, ops=None, stats: dict | None = None):
+    """One call of the sparse path's entry point, ``cli._cmd_test_tsp_sparse``;
+    returns ``(means, curves, the CLI's printed lines)``."""
+    import io
+
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.aco.large_tsp import KERNEL_OPS
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        means, curves = cli._cmd_test_tsp_sparse(args, stats=stats, _ops=ops or KERNEL_OPS)
+    return means, curves, out.getvalue().splitlines()
+
+
+def check_embnet_layers(cuda_ms, net, g) -> dict:
+    """K9 against its plain version on the sparse path's inputs, on the edge
+    state and both heads; returns K9's entry of the kernels' line."""
+    import torch
+
+    from deepaco_tpu_torch.ops import fused_gnn
+
+    f = fused_gnn.fold_embnet_params(net.emb_net)
+    x = fused_gnn._node_embedding(f, g.x)
+    b, n, k = g.nbr.shape
+    e, layers, u = g.edge.shape[-1], f.bv.shape[0], net.emb_net.units
+    heads = ("phe", "heu")
+    with torch.no_grad():
+        got = fused_gnn.net_forward_fast(net, g.x, g.nbr, g.edge, heads=heads)
+        want = fused_gnn.net_forward_fast(net, g.x, g.nbr, g.edge, heads=heads,
+                                          layers=fused_gnn.embnet_layers_plain)
+        ok = all(bool(torch.allclose(a, r, rtol=1e-4, atol=1e-5)) for a, r in zip(got, want))
+        err = max((a - r).abs().max().item() for a, r in zip(got, want))
+        # the score reads log(heu + 1e-10)
+        log_err = ((got[1] + 1e-10).log() - (want[1] + 1e-10).log()).abs().max().item()
+        score_flips = ((got[1] + 1e-10).log().to(torch.bfloat16)
+                       != (want[1] + 1e-10).log().to(torch.bfloat16)).float().mean().item()
+        del got, want
+        ms = cuda_ms(lambda: fused_gnn.embnet_layers(f, x, g.nbr, g.edge, k=k), 3)
+        plain_ms = cuda_ms(lambda: fused_gnn.embnet_layers_plain(f, x, g.nbr, g.edge, k=k), 1)
+    edges = b * n * k
+    # e_lin0 (E multiply-adds and a SiLU, about 5 operations, a feature),
+    # each layer's node pass (2 U 4U a node) and per edge the 32x32 product
+    # (2 U^2) and about 10 U for the gate, the sums, the affine, SiLU and
+    # residual; bytes: edge features, int32 ids and x in, the edge state out
+    ops = edges * u * (2 * e + 5) + layers * (2 * b * n * u * 4 * u
+                                              + edges * (2 * u * u + 10 * u))
+    nbytes = 4 * (edges * e + edges + b * n * u + edges * u)
+    emit({"phase": "kernel", "name": "embnet_layers", "B": b, "N": n, "K": k, "E": e,
+          "layers": layers, "passed": ok, "max_abs_err": err,
+          "max_log_heu_err": log_err, "bf16_score_entries_differing": score_flips,
+          "ms": ms, "plain_ms": plain_ms,
+          "tolerance": "both heads rtol 1e-4, atol 1e-5 (sums in another order over 12 layers)"})
+    return {"name": "embnet_layers", "route": "cuda",
+            "source": "deepaco_tpu_torch/csrc/embnet_layers.cu",
+            "replaces": "deepaco_tpu/ops/fused_gnn.py:242",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+            "passed": ok, **dict(zip(("bound_ms", "bound_by"), bound(nbytes, ops)))}
+
+
+def check_row9(dev, cuda_ms, score) -> dict:
+    """Row 9, ``tsp_sweep_construct`` (K2 at B=1, f32 scores), against
+    ``dense_sweep`` on one instance's ``score [N, N]``: greedy tours exactly
+    equal, stochastic tours permutations from their starts."""
+    import torch
+
+    from deepaco_tpu_torch.aco import batched_tsp as bt
+
+    n = score.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    start = torch.randint(0, n, (A,), generator=gen, device=dev)
+    greedy = bt.tsp_sweep_construct(score, start, gen, stochastic=False)
+    want = bt.dense_sweep(score[None], start[None], gen, stochastic=False)[0]
+    paths = bt.tsp_sweep_construct(score, start, gen)
+    perms = bool(torch.equal(torch.sort(paths, dim=0).values,
+                             torch.arange(n, device=dev)[:, None].expand(n, A)))
+    ok = bool(torch.equal(greedy, want)) and perms and bool(torch.equal(paths[0], start))
+    ms = cuda_ms(lambda: bt.tsp_sweep_construct(score, start, gen), 10)
+    plain_ms = cuda_ms(lambda: bt.dense_sweep(score[None], start[None], gen)[0], 1)
+    emit({"phase": "kernel", "name": "tsp_sweep_construct", "N": n, "A": A, "passed": ok,
+          "greedy_equal": bool(torch.equal(greedy, want)), "permutations": perms,
+          "ms": ms, "plain_ms": plain_ms,
+          "tolerance": "greedy tours exact; stochastic tours permutations"})
+    return {"name": "tsp_sweep_construct", "route": "cuda",
+            "source": "deepaco_tpu_torch/csrc/sweep.cu (K2 at B=1, f32 scores)",
+            "replaces": "deepaco_tpu/ops/pallas_kernels.py:606",
+            "max_abs_err": (greedy - want).abs().max().item(), "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "passed": ok,
+            # f32 scores, starts and int32 tours; a select, an add and a
+            # compare per candidate column of each step
+            **dict(zip(("bound_ms", "bound_by"), bound(4 * n * n + 4 * A + 4 * n * A,
+                                                        2 * A * (n - 1) * n)))}
 
 
 def cvrp_rollout(dev, ds):
@@ -1015,7 +1159,65 @@ def main() -> int:
     emit({"phase": "cvrp_path", "B": cvrp_b, "N": CVRP_N + 1, "A": A,
           "T": list(T_VALUES), "capacity": CVRP_CAPACITY, **cvrp_arms})
 
+    # ---- 11. K9 and row 9 against their plain versions
+    sparse_net, sparse_g = sparse_inputs(root, dev)
+    kernels.append(check_embnet_layers(cuda_ms, sparse_net, sparse_g))
+    del sparse_net, sparse_g
+    kernels.append(check_row9(dev, cuda_ms, torch.log(heu[0])))
+
+    # ---- 12. the sparse path: kernel, plain, classic and classic + 2-opt arms
+    from deepaco_tpu_torch.aco import large_tsp
+
+    sparse_counted = (fused_gnn.embnet_layers, two_opt.batched_two_opt_euclid,
+                      bt.tsp_sweep_construct)
+
+    def sparse_run(args, ops):
+        """One call of the sparse path; the kernels' counts are set to 0 just
+        before it and read just after."""
+        timer, stats = PhaseTimer(), {}
+        for fn in counted + sparse_counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        means, curves, lines = drive_sparse(args, ops._replace(timer=timer), stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        b, t_max = curves.shape
+        if not bool(torch.isfinite(curves).all()) or t_max != max(args.t_aco):
+            fail(f"bad sparse curves {tuple(curves.shape)}")
+        if not bool((curves[:, 1:] <= curves[:, :-1]).all()):
+            fail("a sparse anytime curve rose")
+        best = stats["best"]
+        ident = torch.arange(SPARSE_N, device=dev).expand_as(best)
+        recost = large_tsp.tour_cost_coords(stats["coords"], best[..., None])[:, 0]
+        return {"B": b, "T": list(args.t_aco), "cost": means.tolist(), "cli": lines,
+                "wall_s": wall, "tours_per_s": b * t_max * A / wall,
+                "phase_ms": timer.ms(),
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                "launches": {fn.__name__: fn.launches for fn in sparse_counted},
+                "fallback_rate": stats["fallback_steps"] / stats["ant_steps"],
+                "dropped_deposit_rate": stats["off_support_edges"] / stats["tour_edges"],
+                "valid_best_tours": int((torch.sort(best, dim=1).values == ident).all(1).sum()),
+                "best_cost_is_tour_cost": bool(torch.allclose(recost, curves[:, -1], rtol=1e-5))}
+
+    sparse_arms = {
+        "kernel": sparse_run(sparse_args(root), large_tsp.KERNEL_OPS),
+        "plain": sparse_run(sparse_args(root), large_tsp.PLAIN_OPS),
+        "classic": sparse_run(sparse_args(root, "--classic"), large_tsp.KERNEL_OPS),
+        "classic_2opt": sparse_run(sparse_args(root, "--classic", "--local-search", "2opt",
+                                               t_values=SPARSE_LS_T, limit=SPARSE_LS_B),
+                                   large_tsp.KERNEL_OPS)}
+    emit({"phase": "sparse_path", "N": SPARSE_N, "K": SPARSE_N // 10, "A": A,
+          "ckpt": CKPT, "jax_recorded": {"fallback_rate": 0.00387,
+                                         "dropped_deposit_rate": 0.00432,
+                                         "classic_cost_t5_one_instance": 164.003},
+          **sparse_arms})
+
     path_launches = {**launches,
+                     "embnet_layers": sparse_arms["kernel"]["launches"]["embnet_layers"],
+                     "tsp_sweep_construct": sparse_arms["kernel"]["launches"]["tsp_sweep_construct"],
                      "tour_deposit": cvrp_arms["kernel"]["launches"]["tour_deposit"],
                      "batched_two_opt_euclid": arms["classic_2opt"]["launches"]["batched_two_opt_euclid"],
                      "batched_nls_euclid": arms["nls"]["launches"]["batched_nls_euclid"],
@@ -1025,14 +1227,15 @@ def main() -> int:
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
 
-    # ---- 11. the kernels' line
+    # ---- 13. the kernels' line
     emit({"kernels": kernels})
     failed = [k["name"] for k in kernels if not k["passed"]]
     if failed:
         fail(f"kernels disagree with their plain versions: {failed}")
     if not row8_ok:
         fail("gated_mean_aggregate (row 8, K6 without pre) disagrees with its plain version")
-    if min(path_launches.values()) <= 0:
+    on_paths = {k: v for k, v in path_launches.items() if k != "tsp_sweep_construct"}
+    if min(on_paths.values()) <= 0:
         fail(f"a kernel never launched on its path: {path_launches}")
     if abs(means[-1] - plain[-1]) > 0.01 * plain[-1]:
         fail(f"kernel path cost@T10 {means[-1]} vs plain {plain[-1]}")
@@ -1074,6 +1277,26 @@ def main() -> int:
     for arm, counts in want.items():
         if cvrp_arms[arm]["launches"] != counts:
             fail(f"CVRP {arm} arm launched {cvrp_arms[arm]['launches']}, expected {counts}")
+    sk, sp = sparse_arms["kernel"]["cost"], sparse_arms["plain"]["cost"]
+    # the two arms draw the same noise; only K9's rounding parts them
+    if abs(sk[0] - sp[0]) > 1e-4 * sp[0]:
+        fail(f"sparse kernel path cost@T1 {sk[0]} vs plain {sp[0]}")
+    if abs(sk[-1] - sp[-1]) > 0.01 * sp[-1]:
+        fail(f"sparse kernel path cost@T10 {sk[-1]} vs plain {sp[-1]}")
+    sparse_want = {"kernel": {"embnet_layers": 1, "batched_two_opt_euclid": 0},
+                   "plain": {"embnet_layers": 0, "batched_two_opt_euclid": 0},
+                   "classic": {"embnet_layers": 0, "batched_two_opt_euclid": 0},
+                   "classic_2opt": {"embnet_layers": 0,
+                                    "batched_two_opt_euclid": max(SPARSE_LS_T)}}
+    for arm, r in sparse_arms.items():
+        if r["valid_best_tours"] != r["B"] or not r["best_cost_is_tour_cost"]:
+            fail(f"sparse {arm} arm: {r['valid_best_tours']} of {r['B']} best tours valid, "
+                 f"costs match {r['best_cost_is_tour_cost']}")
+        got = {k: r["launches"][k] for k in sparse_want[arm]}
+        if got != sparse_want[arm]:
+            fail(f"sparse {arm} arm launched {r['launches']}, expected {sparse_want[arm]}")
+    if not sparse_arms["classic_2opt"]["cost"][0] < sparse_arms["classic"]["cost"][0]:
+        fail("2-opt did not shorten the classic arm's tours at T1")
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

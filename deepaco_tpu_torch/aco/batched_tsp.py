@@ -9,7 +9,8 @@ default), constructs every ant's tour, then applies the Ant System update.
 Two kernels live here, each beside its plain PyTorch version:
 
 - K2, :func:`dense_sweep_fused` (``csrc/sweep.cu``): the whole construction
-  sweep; its plain version is :func:`dense_sweep`;
+  sweep; its plain version is :func:`dense_sweep`. :func:`tsp_sweep_construct`
+  (one instance, f32 scores) is K2 at B=1;
 - K3, :func:`fused_tsp_update` (``csrc/as_update.cu``): ``decay*tau + D +
   D^T`` and the tour costs; its plain version is
   :func:`fused_tsp_update_plain` (``tour_cost`` plus the scatter deposit).
@@ -158,6 +159,28 @@ def _launch_sweep(score, start, generator, stochastic):
 
 
 dense_sweep_fused.launches = 0
+
+
+def tsp_sweep_construct(score: torch.Tensor, start: torch.Tensor,
+                        generator: torch.Generator, *,
+                        stochastic: bool = True) -> torch.Tensor:
+    """Whole construction of one instance: ``score [N, N]`` f32 and ``start
+    [A]`` → paths ``[N, A]``, row 0 the start (the function of the JAX
+    package's ``tsp_sweep_construct_pallas``). On CUDA one launch of K2 at
+    B=1, on the CPU :func:`dense_sweep`. Both the TPU kernel's 23-bit
+    uniform ``(bits & 0x7FFFFF) 2^-23 + 2^-24`` and
+    :func:`gumbel_f32_from_bits`' are uniform on the 2^23 midpoints of
+    (0, 1), and greedy ties go to the first column in both."""
+    if score.dtype != torch.float32 or score.dim() != 2 or start.dim() != 1:
+        raise ValueError("tsp_sweep_construct takes f32 score [N, N] and start [A]")
+    if score.device.type == "cpu":
+        return dense_sweep(score[None], start[None], generator, stochastic=stochastic)[0]
+    paths = dense_sweep_fused(score[None], start[None], generator, stochastic=stochastic)[0]
+    tsp_sweep_construct.launches += 1
+    return paths
+
+
+tsp_sweep_construct.launches = 0
 
 
 # --------------------------------------------------------------- update ---

@@ -18,38 +18,27 @@
 //       nbr and w = silu(d * we_in + be_in);
 //   (b) node_pass, each layer: x1234 = x @ wv_i + bv_i, [rows, 4U];
 //   (c) edge_pass, each layer, one block per node: the edge update in place
-//       and the node update from the layer's input state;
+//       and the node update from the layer's input state (both passes in
+//       embnet_passes.cuh, shared with K9);
 //   (d) head: the 32->32->32->1 MLP and sigmoid per edge, then the dense
 //       row written in full: fill off the support, o + fill on it.
-#include "common.cuh"
+#include "embnet_passes.cuh"
 
 namespace deepaco {
 namespace {
 
-constexpr int U = 32;             // hidden width (one feature per lane)
 constexpr int kKnnWarps = 4;      // rows per knn block
-constexpr int kNodeRows = 32;     // rows per node_pass block
-constexpr int kEdgeWarps = 8;     // warps per edge_pass / head block
 
-// Offsets of the folded weights in the packed parameter buffer; the order
-// matches ops/fused_gnn.py:_pack_params.
+// The head's weights follow the layers' in the packed parameter buffer; the
+// order matches ops/fused_gnn.py:_pack_params.
 struct Params {
-  const float *we_in, *be_in, *wv, *bv, *wel, *bel, *vs, *vb, *es, *eb;
+  LayerParams layers;
   const float *h0, *hb0, *h1, *hb1, *h2, *hb2;
 };
 
 Params unpack(const float* p, int L) {
   Params q;
-  q.we_in = p; p += U;
-  q.be_in = p; p += U;
-  q.wv = p; p += (size_t)L * U * 4 * U;
-  q.bv = p; p += (size_t)L * 4 * U;
-  q.wel = p; p += (size_t)L * U * U;
-  q.bel = p; p += (size_t)L * U;
-  q.vs = p; p += (size_t)L * U;
-  q.vb = p; p += (size_t)L * U;
-  q.es = p; p += (size_t)L * U;
-  q.eb = p; p += (size_t)L * U;
+  p = unpack_layers(p, L, 1, q.layers);
   q.h0 = p; p += U * U;
   q.hb0 = p; p += U;
   q.h1 = p; p += U * U;
@@ -89,74 +78,6 @@ __global__ void knn_elin0_kernel(const float* __restrict__ dist, int* __restrict
     }
     __syncwarp();
     w[(row * k + j) * U + lane] = siluf_(best * wi + bi);
-  }
-}
-
-__global__ void node_pass_kernel(const float* __restrict__ x, float* __restrict__ x1234,
-                                 const float* __restrict__ wv, const float* __restrict__ bv,
-                                 long rows) {
-  __shared__ float ws[U * 4 * U];
-  __shared__ float xs[kNodeRows][U];
-  const int j = threadIdx.x;  // output column, blockDim.x == 4U
-  for (int t = j; t < U * 4 * U; t += 4 * U) ws[t] = wv[t];
-  const long r0 = (long)blockIdx.x * kNodeRows;
-  for (int t = j; t < kNodeRows * U; t += 4 * U) {
-    const long r = r0 + t / U;
-    xs[t / U][t % U] = r < rows ? x[r * U + t % U] : 0.0f;
-  }
-  __syncthreads();
-  const float bj = bv[j];
-  for (int q = 0; q < kNodeRows; ++q) {
-    const long r = r0 + q;
-    if (r >= rows) break;
-    float acc = 0.0f;
-#pragma unroll
-    for (int u = 0; u < U; ++u) acc = fmaf(xs[q][u], ws[u * 4 * U + j], acc);
-    x1234[r * 4 * U + j] = acc + bj;
-  }
-}
-
-// One block per node r. w[r, :, :] is read and written only here, and x[r]
-// too; x1234 holds the layer's input node state for the gathers, so both
-// updates see the old state without a second x buffer.
-__global__ void edge_pass_kernel(float* __restrict__ x, const float* __restrict__ x1234,
-                                 const int* __restrict__ nbr, float* __restrict__ w,
-                                 const float* __restrict__ wel, const float* __restrict__ bel,
-                                 const float* __restrict__ vs, const float* __restrict__ vb,
-                                 const float* __restrict__ es, const float* __restrict__ eb,
-                                 int n, int k, int node_update) {
-  __shared__ float wel_s[U * U];
-  __shared__ float agg_s[kEdgeWarps][U];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long r = blockIdx.x;
-  const long inst0 = (r / n) * n;  // first row of this instance
-  for (int t = threadIdx.x; t < U * U; t += blockDim.x) wel_s[t] = wel[t];
-  __syncthreads();
-  const float* xr = x1234 + r * 4 * U;
-  const float base = xr[2 * U + lane] + bel[lane];  // x3 + bel
-  const float esu = es[lane], ebu = eb[lane];
-  float agg = 0.0f;
-  for (int j = warp; j < k; j += kEdgeWarps) {
-    const long e = r * k + j;
-    const float* xc = x1234 + (inst0 + nbr[e]) * 4 * U;
-    const float w0 = w[e * U + lane];
-    float acc = 0.0f;
-#pragma unroll
-    for (int v = 0; v < U; ++v) acc = fmaf(__shfl_sync(kFullMask, w0, v), wel_s[v * U + lane], acc);
-    const float pre = acc + base + xc[3 * U + lane];  // + x4[nbr]
-    agg += sigmoidf_(w0) * xc[U + lane];              // sigma(w0) * x2[nbr]
-    w[e * U + lane] = w0 + siluf_(pre * esu + ebu);
-  }
-  if (node_update) {
-    agg_s[warp][lane] = agg;
-    __syncthreads();
-    if (warp == 0) {
-      float a = 0.0f;
-#pragma unroll
-      for (int q = 0; q < kEdgeWarps; ++q) a += agg_s[q][lane];
-      const float pre_v = (xr[lane] + a * (1.0f / k)) * vs[lane] + vb[lane];
-      x[r * U + lane] += siluf_(pre_v);
-    }
   }
 }
 
@@ -212,20 +133,12 @@ extern "C" int deepaco_dense_heuristic(const float* dist, float* x, float* x1234
   const Params p = unpack(params, L);
   const long rows = (long)B * N;
   knn_elin0_kernel<<<(unsigned)((rows + kKnnWarps - 1) / kKnnWarps), kKnnWarps * 32,
-                     kKnnWarps * N * sizeof(float), s>>>(dist, nbr, w, p.we_in, p.be_in, rows, N, K);
+                     kKnnWarps * N * sizeof(float), s>>>(dist, nbr, w, p.layers.we_in,
+                                                         p.layers.be_in, rows, N, K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  for (int i = 0; i < L; ++i) {
-    node_pass_kernel<<<(unsigned)((rows + kNodeRows - 1) / kNodeRows), 4 * U, 0, s>>>(
-        x, x1234, p.wv + (size_t)i * U * 4 * U, p.bv + (size_t)i * 4 * U, rows);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    edge_pass_kernel<<<(unsigned)rows, kEdgeWarps * 32, 0, s>>>(
-        x, x1234, nbr, w, p.wel + (size_t)i * U * U, p.bel + (size_t)i * U, p.vs + (size_t)i * U,
-        p.vb + (size_t)i * U, p.es + (size_t)i * U, p.eb + (size_t)i * U, N, K, node_update);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
+  err = run_layers(x, x1234, nbr, w, p.layers, rows, N, K, L, node_update, s);
+  if (err != cudaSuccess) return err;
   head_kernel<<<(unsigned)rows, kEdgeWarps * 32, (2 * U * U + N + K) * sizeof(float), s>>>(
       w, nbr, p.h0, p.hb0, p.h1, p.hb1, p.h2, p.hb2, heu, N, K, fill);
   return cudaGetLastError();

@@ -1,12 +1,20 @@
-"""Dense neural heuristic in one call: k-NN, EmbNet, ParNet head, scatter
-(counterpart of ``deepaco_tpu/ops/fused_gnn.py``).
+"""Inference-folded EmbNet in one call (counterpart of
+``deepaco_tpu/ops/fused_gnn.py``). Two kernels live here, each beside its
+plain PyTorch version:
 
-:func:`tsp_dense_heuristic` is the wrapper of kernel K1
-(``csrc/dense_heuristic.cu``). A CPU tensor takes
-:func:`tsp_dense_heuristic_plain`, the same arithmetic in PyTorch; a CUDA
-tensor launches the kernel or raises. Both work in f32 with BatchNorm
-folded into per-layer affines (:func:`fold_embnet_params`), and both equal
-``knn_graph + Net + scatter_to_dense + fill`` up to that re-association.
+- K1, :func:`tsp_dense_heuristic` (``csrc/dense_heuristic.cu``): distance
+  matrix → k-NN, EmbNet, ParNet head, dense scatter; plain version
+  :func:`tsp_dense_heuristic_plain`;
+- K9, :func:`embnet_layers` (``csrc/embnet_layers.cu``): ``e_lin0`` and the
+  folded layer stack over a given ``[B, N, K]`` neighbour table and its edge
+  features; plain version :func:`embnet_layers_plain`.
+  :func:`net_forward_fast` wraps it into ``Net.forward(train=False)``.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. Both work in f32 with BatchNorm folded into per-layer affines
+(:func:`fold_embnet_params`) and share the layer passes
+(``csrc/embnet_passes.cuh``; :func:`_layer_stack_plain`), and both equal
+``Net`` up to that re-association.
 """
 from __future__ import annotations
 
@@ -82,6 +90,24 @@ def _node_embedding(f: FoldedEmbNet, x: torch.Tensor) -> torch.Tensor:
     return F.silu(x.float() @ f.w_in + f.b_in)
 
 
+def _layer_stack_plain(f: FoldedEmbNet, xs: torch.Tensor, w: torch.Tensor,
+                       nbr: torch.Tensor, k: int, node_update: bool) -> torch.Tensor:
+    """The folded layers on node state ``xs [B, N, U]`` and edge state
+    ``w [B, N, K, U]``; returns the final edge state."""
+    u = xs.shape[-1]
+    for i in range(f.bv.shape[0]):
+        x1234 = xs @ f.wv[i * u:(i + 1) * u] + f.bv[i]
+        x1, x2, x3, x4 = x1234.split(u, dim=-1)
+        agg = torch.sum(torch.sigmoid(w) * gather_nodes(x2, nbr), dim=-2)
+        pre = (w @ f.wel[i * u:(i + 1) * u] + (x3 + f.bel[i])[..., None, :]
+               + gather_nodes(x4, nbr))
+        w_new = w + F.silu(pre * f.es[i] + f.eb[i])
+        if node_update:
+            xs = xs + F.silu((x1 + agg * (1.0 / k)) * f.vs[i] + f.vb[i])
+        w = w_new
+    return w
+
+
 @torch.no_grad()
 def tsp_dense_heuristic_plain(net: Net, x: torch.Tensor, dist: torch.Tensor,
                               k: int, *, head: str = "heu",
@@ -89,32 +115,30 @@ def tsp_dense_heuristic_plain(net: Net, x: torch.Tensor, dist: torch.Tensor,
     """The plain PyTorch version of K1, step for step."""
     emb = net.emb_net
     f = fold_embnet_params(emb)
-    u = emb.units
     vals, nbr = topk_smallest(dist.float(), k)
     w = F.silu(vals[..., None] @ f.we_in + f.be_in)              # [B,N,K,U]
-    xs = _node_embedding(f, x)                                   # [B,N,U]
-    for i in range(emb.depth):
-        x1234 = xs @ f.wv[i * u:(i + 1) * u] + f.bv[i]
-        x1, x2, x3, x4 = x1234.split(u, dim=-1)
-        agg = torch.sum(torch.sigmoid(w) * gather_nodes(x2, nbr), dim=-2)
-        pre = (w @ f.wel[i * u:(i + 1) * u] + (x3 + f.bel[i])[..., None, :]
-               + gather_nodes(x4, nbr))
-        w_new = w + F.silu(pre * f.es[i] + f.eb[i])
-        if emb.node_update:
-            xs = xs + F.silu((x1 + agg * (1.0 / k)) * f.vs[i] + f.vb[i])
-        w = w_new
+    w = _layer_stack_plain(f, _node_embedding(f, x), w, nbr, k, emb.node_update)
     o = _head(net, head)(w)                                      # [B,N,K]
     out = torch.full_like(dist, fill, dtype=torch.float32)
     return out.scatter(-1, nbr, o + fill)
 
 
+def _pack_layers(f: FoldedEmbNet) -> list[torch.Tensor]:
+    """The folded layer weights in the order ``csrc/embnet_passes.cuh``'s
+    ``unpack_layers`` reads them."""
+    return [f.we_in, f.be_in, f.wv, f.bv, f.wel, f.bel, f.vs, f.vb, f.es, f.eb]
+
+
+def _flat(parts: list[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([p.detach().float().reshape(-1) for p in parts])
+
+
 def _pack_params(f: FoldedEmbNet, head: ParNet) -> torch.Tensor:
     """The folded weights in the order ``csrc/dense_heuristic.cu`` reads them."""
     lins = head.lins
-    parts = [f.we_in, f.be_in, f.wv, f.bv, f.wel, f.bel, f.vs, f.vb, f.es, f.eb,
-             lins[0].weight.T, lins[0].bias, lins[1].weight.T, lins[1].bias,
-             lins[2].weight, lins[2].bias]
-    return torch.cat([p.detach().float().reshape(-1) for p in parts])
+    return _flat(_pack_layers(f) + [lins[0].weight.T, lins[0].bias,
+                                    lins[1].weight.T, lins[1].bias,
+                                    lins[2].weight, lins[2].bias])
 
 
 @torch.no_grad()
@@ -164,3 +188,89 @@ def _launch(net: Net, head: str, x: torch.Tensor, dist: torch.Tensor, k: int,
 
 
 tsp_dense_heuristic.launches = 0
+
+
+# ------------------------------------------------ K9: the graph-given stack ---
+@torch.no_grad()
+def embnet_layers_plain(folded: FoldedEmbNet, x_emb: torch.Tensor,
+                        nbr: torch.Tensor, edge: torch.Tensor, *, k: int,
+                        node_update: bool = True) -> torch.Tensor:
+    """The plain PyTorch version of K9: ``e_lin0`` over the ``E`` edge
+    features, then the folded layers, step for step as
+    :func:`tsp_dense_heuristic_plain` takes them."""
+    w = F.silu(edge.float() @ folded.we_in + folded.be_in)       # [B,N,K,U]
+    return _layer_stack_plain(folded, x_emb.float(), w, nbr, k, node_update)
+
+
+@torch.no_grad()
+def embnet_layers(folded: FoldedEmbNet, x_emb: torch.Tensor, nbr: torch.Tensor,
+                  edge: torch.Tensor, *, k: int, node_update: bool = True) -> torch.Tensor:
+    """The folded EmbNet layer stack over a given graph: ``x_emb [B, N, U]``
+    (``silu(v_lin0(x))``), neighbour ids ``nbr [B, N, K]`` within each
+    instance and edge features ``edge [B, N, K, E]`` → the final edge state
+    ``[B, N, K, U]`` f32, in JAX's public layout. ``k`` is the mean's
+    divisor, the table's ``K``. One call of kernel K9 on CUDA: 32 units,
+    ``E <= 4`` and ``K <= N`` only."""
+    b, n, kk = nbr.shape
+    if k != kk:
+        raise ValueError(f"embnet_layers: k={k} but nbr holds K={kk} neighbours")
+    if x_emb.device.type == "cpu":
+        return embnet_layers_plain(folded, x_emb, nbr, edge, k=k,
+                                   node_update=node_update)
+    _build.require_cuda("embnet_layers", x_emb, nbr, edge)
+    u, e = x_emb.shape[-1], edge.shape[-1]
+    if u != 32:
+        raise ValueError(f"the K9 kernel takes 32 units, got {u}")
+    if not 1 <= e <= 4 or edge.shape != (b, n, k, e):
+        raise ValueError(f"the K9 kernel takes edge [B, N, K, E <= 4], got {tuple(edge.shape)}")
+    if x_emb.shape != (b, n, u) or not 0 < k <= n:
+        raise ValueError(f"the K9 kernel takes x [B, N, 32] and 0 < K <= N, got "
+                         f"x {tuple(x_emb.shape)} and nbr {tuple(nbr.shape)}")
+    lo, hi = torch.aminmax(nbr)
+    if lo.item() < 0 or hi.item() >= n:
+        raise ValueError(f"embnet_layers: neighbour ids must lie in [0, {n})")
+    w = _launch_layers(folded, x_emb, nbr, edge, node_update)
+    embnet_layers.launches += 1
+    return w
+
+
+def _launch_layers(f: FoldedEmbNet, x_emb, nbr, edge, node_update) -> torch.Tensor:
+    """Allocate the edge state and scratch and call the K9 entry point."""
+    b, n, k = nbr.shape
+    e = edge.shape[-1]
+    dev = x_emb.device
+    params = _flat(_pack_layers(f)).to(dev)
+    x = x_emb.float().clone(memory_format=torch.contiguous_format)
+    x1234 = torch.empty((b, n, 4 * 32), dtype=torch.float32, device=dev)
+    ids = nbr.to(torch.int32).contiguous()
+    feats = edge.float().contiguous()
+    w = torch.empty((b, n, k, 32), dtype=torch.float32, device=dev)
+    P, I = _build.P, _build.I
+    fn = _build.function("deepaco_embnet_layers", [P] * 6 + [I] * 6 + [P])
+    rc = fn(feats.data_ptr(), x.data_ptr(), x1234.data_ptr(), ids.data_ptr(),
+            w.data_ptr(), params.data_ptr(), b, n, k, e, f.bv.shape[0],
+            int(node_update), _build.stream_ptr(dev))
+    _build.check(rc, "deepaco_embnet_layers")
+    return w
+
+
+embnet_layers.launches = 0
+
+
+@torch.no_grad()
+def net_forward_fast(net: Net, x: torch.Tensor, nbr: torch.Tensor,
+                     edge: torch.Tensor, *, heads: tuple = ("heu",),
+                     layers=embnet_layers):
+    """``Net.forward(train=False)`` through the folded layer stack: ``x [B,
+    N, F]``, ``nbr [B, N, K]``, ``edge [B, N, K, E]`` → per-edge head outputs
+    ``[B, N, K]``, one tensor for one head, else a tuple in the order of
+    ``heads`` (``("phe", "heu")`` is ``Net(dual_heads=True)``'s). ``v_lin0``
+    and the ParNet heads are PyTorch products around ``layers`` (K9 by
+    default; :func:`embnet_layers_plain` on any device), as the JAX package
+    leaves them to XLA around its kernel."""
+    emb = net.emb_net
+    f = fold_embnet_params(emb)
+    w = layers(f, _node_embedding(f, x), nbr, edge, k=nbr.shape[-1],
+               node_update=emb.node_update)
+    outs = tuple(_head(net, h)(w) for h in heads)
+    return outs[0] if len(outs) == 1 else outs

@@ -209,8 +209,8 @@ def ls_supported(n: int, ls: str = "nls") -> bool:
 def _check_cap(name: str, n: int, ls: str) -> None:
     if not ls_supported(n, ls):
         raise ValueError(f"{name} takes n <= {LS_CAPS[ls]} cities, got n={n}; "
-                         "larger instances wait for the sparse TSP path "
-                         "(ROADMAP.md)")
+                         "larger instances wait for a local search over the "
+                         "k-NN support (ROADMAP.md §1 item 9)")
 
 
 @torch.no_grad()

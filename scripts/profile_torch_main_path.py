@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's main path spends device time, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train | --family cvrp] [--out DIR]
+    python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train | --family cvrp | --sparse] [--out DIR]
 
 Runs a path of ``chip_smoke.py`` with its weights, instances and
 configuration once to warm up, then once under ``torch.profiler``: by default
@@ -12,7 +12,10 @@ classic arm with 2-opt on the same 16; with ``--train`` one TSP500-NLS
 training step (``chip_smoke.train_configs``: the one-hot start Net, B=20,
 N=500, K=50, 30 ants, NLS advantage) after one step of warm-up; with
 ``--family cvrp`` the CVRP path (``evaluate_family("cvrp")``,
-cvrp500_selftrained on the golden CVRP500 set, A=20, T=10). Prints one
+cvrp500_selftrained on the golden CVRP500 set, A=20, T=10); with
+``--sparse`` the kernel arm of the sparse path (``test tsp --sparse -n
+2000``: tsp500_selftrained, the CLI's 30 fixed-seed instances, k=200,
+A=20, T=10). Prints one
 JSON line: device time per CUDA kernel name, the profiled wall time, the
 device's busy and idle share of that window, and the card's name and power
 limit. ``--out`` also writes the Chrome trace there.
@@ -55,10 +58,11 @@ def main() -> int:
     parser.add_argument("--ls", choices=("nls", "2opt"), default=None)
     parser.add_argument("--train", action="store_true")
     parser.add_argument("--family", choices=("cvrp",), default=None)
+    parser.add_argument("--sparse", action="store_true")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
-    if sum((args.train, args.ls is not None, args.family is not None)) > 1:
-        parser.error("--ls, --train and --family each name one path")
+    if sum((args.train, args.sparse, args.ls is not None, args.family is not None)) > 1:
+        parser.error("--ls, --train, --family and --sparse each name one path")
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
         return 1
@@ -67,6 +71,9 @@ def main() -> int:
 
     if args.train:
         run = train_step_runner(chip_smoke)
+    elif args.sparse:
+        sparse_args = chip_smoke.sparse_args(ROOT)
+        run = lambda: chip_smoke.drive_sparse(sparse_args)
     elif args.family:
         net, ds = chip_smoke.cvrp_inputs(ROOT, torch.device("cuda"))
         run = lambda: chip_smoke.drive_cvrp(net, ds)
@@ -94,7 +101,8 @@ def main() -> int:
             entry["count"] += 1
     busy = sum(k["ms"] for k in kernels.values())
     card = chip_smoke.card_line()
-    path = "train_nls" if args.train else args.family or args.ls or "main"
+    path = ("train_nls" if args.train else "sparse" if args.sparse
+            else args.family or args.ls or "main")
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(args.out) / f"{path}_path_trace.json"))

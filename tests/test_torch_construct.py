@@ -87,3 +87,23 @@ def test_stochastic_sweep_builds_permutations_from_the_start():
         greedy = bt.dense_sweep(score, start, None, stochastic=False)
         dist = torch.from_numpy(d)
         assert tour_cost(dist, greedy).mean() < tour_cost(dist, paths).mean()
+
+
+def test_tsp_sweep_construct_greedy_equals_jax_pallas_kernel():
+    """Row 9: the single-instance f32 sweep, greedy, against the JAX
+    package's tsp_sweep_construct_pallas in interpret mode (its test case:
+    n=30, a=4, normal scores); tours exactly equal."""
+    from deepaco_tpu.ops.pallas_kernels import tsp_sweep_construct_pallas
+
+    n, a = 30, 4
+    score = np.random.default_rng(40).standard_normal((n, n)).astype(np.float32)
+    start = np.array([0, 3, 3, 29], dtype=np.int32)
+    ref = np.asarray(tsp_sweep_construct_pallas(jnp.asarray(score), jnp.asarray(start),
+                                                jnp.int32(0), stochastic=False))
+    gen = torch.Generator().manual_seed(0)
+    got = bt.tsp_sweep_construct(torch.from_numpy(score), torch.from_numpy(start).long(),
+                                 gen, stochastic=False)
+    np.testing.assert_array_equal(got.numpy(), ref)
+    paths = bt.tsp_sweep_construct(torch.from_numpy(score), torch.from_numpy(start).long(), gen)
+    assert paths.shape == (n, a) and torch.equal(paths[0], torch.from_numpy(start).long())
+    assert torch.equal(torch.sort(paths, dim=0).values, torch.arange(n)[:, None].expand(n, a))

@@ -117,3 +117,30 @@ def test_chip_smoke_fails_without_a_card(tmp_path, alone):
                          capture_output=True, text=True, timeout=300)
     assert out.returncode != 0
     assert '"ok": true' not in out.stdout
+
+
+def test_sparse_path_without_device_raises_when_cuda_is_absent(monkeypatch):
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.aco.large_tsp import classic_knn_heuristic, knn_support, run_anytime_knn
+    from deepaco_tpu_torch.aco.runner import ACOConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    coords = torch.from_numpy(np.random.default_rng(0).random((1, 20, 2)).astype(np.float32))
+    nbr = knn_support(coords, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_anytime_knn(coords, nbr, classic_knn_heuristic(coords, nbr), ACOConfig(n_ants=2),
+                        1, None, torch.Generator())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["test", "tsp", "--sparse", "-n", "1001", "--classic"])
+
+
+def test_embnet_layers_refuses_meta_tensors():
+    """K9 takes CPU tensors (the plain version) or CUDA tensors (the kernel)."""
+    from deepaco_tpu_torch.models.gnn import Net
+    from deepaco_tpu_torch.ops import fused_gnn
+
+    folded = fused_gnn.fold_embnet_params(Net(depth=1).emb_net)
+    nbr = torch.zeros(1, 20, 4, dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_gnn.embnet_layers(folded, torch.zeros(1, 20, 32, device="meta"), nbr,
+                                torch.zeros(1, 20, 4, 1, device="meta"), k=4)

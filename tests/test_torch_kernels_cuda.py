@@ -433,3 +433,69 @@ def test_evaluate_family_cvrp_runs_on_the_card_through_the_kernels(dev):
     assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 3 * 40, 3]
     demand = torch.from_numpy(ds["demand"]).to(dev)
     assert bool(validate_routes(state.best_path[..., None], demand, CVRP_CAPACITY).all())
+
+
+@pytest.mark.parametrize("n,k,edge_feats,node_update", [
+    (97, 20, 2, False),       # N not a multiple of 32, two edge features, no node update
+    (70, 70, 1, True),        # a dense graph: every node its own neighbour too, K = N
+    (130, 13, 4, True),       # the most edge features K9 takes
+])
+def test_embnet_layers_kernel_matches_plain(dev, n, k, edge_feats, node_update):
+    """K9 against embnet_layers_plain: rtol 1e-4, atol 1e-5 on the edge
+    state and on both heads (sums in another order over 12 layers)."""
+    from deepaco_tpu_torch.models.gnn import init_like_flax
+
+    net = init_like_flax(Net(edge_feats=edge_feats, node_update=node_update,
+                             dual_heads=True).to(dev),
+                         torch.Generator(device=dev).manual_seed(0)).eval()
+    g = torch.Generator(device=dev).manual_seed(n)
+    coords = torch.rand((3, n, 2), generator=g, device=dev)
+    if k == n:
+        nbr = torch.arange(n, device=dev).expand(3, n, n).contiguous()
+    else:
+        nbr = topk_smallest(distance_matrix(coords), k)[1]
+    edge = torch.rand((3, n, k, edge_feats), generator=g, device=dev)
+    f = fused_gnn.fold_embnet_params(net.emb_net)
+    x = fused_gnn._node_embedding(f, coords)
+    before = fused_gnn.embnet_layers.launches
+    got = fused_gnn.embnet_layers(f, x, nbr, edge, k=k, node_update=node_update)
+    assert fused_gnn.embnet_layers.launches == before + 1
+    want = fused_gnn.embnet_layers_plain(f, x, nbr, edge, k=k, node_update=node_update)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    heads = fused_gnn.net_forward_fast(net, coords, nbr, edge, heads=("phe", "heu"))
+    plain = fused_gnn.net_forward_fast(net, coords, nbr, edge, heads=("phe", "heu"),
+                                       layers=fused_gnn.embnet_layers_plain)
+    for a, b in zip(heads, plain):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_embnet_layers_kernel_refuses_what_it_does_not_take(dev):
+    f = fused_gnn.fold_embnet_params(Net(edge_feats=5, depth=1).to(dev).emb_net)
+    x = torch.zeros((1, 10, 32), device=dev)
+    nbr = torch.zeros((1, 10, 3), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="E <= 4"):
+        fused_gnn.embnet_layers(f, x, nbr, torch.zeros((1, 10, 3, 5), device=dev), k=3)
+    f = fused_gnn.fold_embnet_params(Net(depth=1).to(dev).emb_net)
+    with pytest.raises(ValueError, match=r"\[0, 10\)"):
+        fused_gnn.embnet_layers(f, x, nbr + 10, torch.zeros((1, 10, 3, 1), device=dev), k=3)
+    with pytest.raises(ValueError, match="K <= N"):
+        fused_gnn.embnet_layers(f, x[:, :2], nbr[:, :2], torch.zeros((1, 2, 3, 1), device=dev),
+                                k=3)
+
+
+def test_tsp_sweep_construct_greedy_equals_dense_sweep(dev, instance):
+    """Row 9 through K2 at B=1 with f32 scores: greedy tours exactly equal to
+    dense_sweep's, stochastic ones permutations from the start cities."""
+    _, dist = instance
+    score = torch.log(1.0 / dist[0])
+    gen = torch.Generator(device=dev).manual_seed(4)
+    start = torch.randint(0, 100, (8,), generator=gen, device=dev)
+    before = bt.tsp_sweep_construct.launches
+    greedy = bt.tsp_sweep_construct(score, start, gen, stochastic=False)
+    assert bt.tsp_sweep_construct.launches == before + 1
+    assert torch.equal(greedy, bt.dense_sweep(score[None], start[None], gen,
+                                              stochastic=False)[0])
+    paths = bt.tsp_sweep_construct(score, start, gen)
+    assert torch.equal(paths[0], start)
+    assert torch.equal(torch.sort(paths, dim=0).values,
+                       torch.arange(100, device=dev)[:, None].expand(100, 8))

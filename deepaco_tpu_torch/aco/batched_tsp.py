@@ -16,7 +16,8 @@ Two kernels live here, each beside its plain PyTorch version:
   :func:`fused_tsp_update_plain` (``tour_cost`` plus the scatter deposit).
 
 With ``ls="2opt"`` or ``"nls"`` every ant's tour goes through local search
-between construction and update: K4 or K5 of :mod:`deepaco_tpu_torch.ops.two_opt`.
+between construction and update: K4 or K5 of :mod:`deepaco_tpu_torch.ops.two_opt`
+from coordinates, or its dense descents on ``dist`` when none are given.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The runner's private ``_ops=PLAIN_OPS`` calls the plain versions on
@@ -34,10 +35,12 @@ from deepaco_tpu_torch.aco.problems.tsp import tour_cost
 from deepaco_tpu_torch.aco.runner import (ACOConfig, SearchState, _no_timer,
                                           init_search, search_update, track_best)
 from deepaco_tpu_torch.ops import _build
-from deepaco_tpu_torch.ops.fused_gnn import (tsp_dense_heuristic,
+from deepaco_tpu_torch.ops.fused_gnn import (embnet_layers, embnet_layers_plain,
+                                             tsp_dense_heuristic,
                                              tsp_dense_heuristic_plain)
-from deepaco_tpu_torch.ops.two_opt import (batched_nls_euclid,
+from deepaco_tpu_torch.ops.two_opt import (batched_nls, batched_nls_euclid,
                                            batched_nls_euclid_plain,
+                                           batched_two_opt,
                                            batched_two_opt_euclid,
                                            batched_two_opt_euclid_plain,
                                            heuristic_dist)
@@ -259,35 +262,43 @@ def _batched_update(cfg: ACOConfig, state: SearchState, paths: torch.Tensor,
 class PathOps(NamedTuple):
     """What the main path calls in each phase, and ``timer(name)``, a context
     manager around each phase (``"heuristic"``, ``"construction"``,
-    ``"local_search"``, ``"update"``). The default is the kernels and no
-    timer."""
+    ``"local_search"``, ``"update"``). ``heuristic`` is K1, ``layers`` the
+    layer stack of the heuristic's route past K1's limits (K9). The default
+    is the kernels and no timer."""
 
     heuristic: Callable = tsp_dense_heuristic
     sweep: Callable = dense_sweep_fused
     update: Callable = fused_tsp_update
     two_opt: Callable = batched_two_opt_euclid
     nls: Callable = batched_nls_euclid
+    layers: Callable = embnet_layers
     timer: Callable = _no_timer
 
 
 KERNEL_OPS = PathOps()
 PLAIN_OPS = PathOps(tsp_dense_heuristic_plain, dense_sweep, fused_tsp_update_plain,
-                    batched_two_opt_euclid_plain, batched_nls_euclid_plain)
+                    batched_two_opt_euclid_plain, batched_nls_euclid_plain,
+                    embnet_layers_plain)
 
 
-def _batched_ls_fn(ls: str | None, coords: torch.Tensor | None,
+def _batched_ls_fn(ls: str | None, coords: torch.Tensor | None, dist: torch.Tensor,
                    heu: torch.Tensor, ls_budget: int, ops: PathOps):
     """Whole-batch local search, ``paths [B, N, A]`` → improved paths
-    (reference semantics, tsp_nls/aco.py:226-258): 2-opt on the Euclidean
-    distances, or NLS with the perturbation metric ``heuristic_dist(heu)``."""
+    (reference semantics, tsp_nls/aco.py:226-258): 2-opt, or NLS with the
+    perturbation metric ``heuristic_dist(heu)``. With ``coords`` it runs K4
+    or K5 (the metric rounded to bf16); without, the dense descents on
+    ``dist`` (the metric as it is), as the JAX package does."""
     if ls is None:
         return None
     if ls not in ("2opt", "nls"):
         raise ValueError(f"ls must be None, '2opt' or 'nls', got {ls!r}")
+    hd = heuristic_dist(heu) if ls == "nls" else None
     if coords is None:
-        raise ValueError("local search takes the instances' coords [B, N, 2]")
-    if ls == "nls":
-        hd = heuristic_dist(heu)
+        if ls == "nls":
+            run = lambda tours: batched_nls(dist, hd, tours, ls_budget)
+        else:
+            run = lambda tours: batched_two_opt(dist, tours, ls_budget)
+    elif ls == "nls":
         run = lambda tours: ops.nls(coords, hd, tours, ls_budget)
     else:
         run = lambda tours: ops.two_opt(coords, tours, ls_budget)
@@ -304,15 +315,16 @@ def run_anytime_batched(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
                         _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
     """Batched dense anytime sweep: ``heu, dist [B, N, N]`` → the curve
     ``[B, n_iterations]`` of best-so-far costs. ``ls`` (``"2opt"`` or
-    ``"nls"``, which need ``coords [B, N, 2]``) improves every ant's tour
-    with at most ``ls_budget`` moves per descent before the update, and
-    starts every ant at city 0 unless ``fixed_start`` says otherwise."""
+    ``"nls"``; K4 or K5 with ``coords [B, N, 2]``, the dense descents on
+    ``dist`` without) improves every ant's tour with at most ``ls_budget``
+    moves per descent before the update, and starts every ant at city 0
+    unless ``fixed_start`` says otherwise."""
     b, n, _ = heu.shape
     a = cfg.n_ants
     log_heu = cfg.beta * torch.log(torch.clamp(heu.float(), min=1e-30))
     if ls is not None and fixed_start is None:
         fixed_start = 0     # the NLS protocol constructs from node 0
-    ls_fn = _batched_ls_fn(ls, coords, heu, ls_budget, _ops)
+    ls_fn = _batched_ls_fn(ls, coords, dist, heu, ls_budget, _ops)
     state = _batched_init(b, n, cfg, heu.device)
     curve = []
     for _ in range(n_iterations):

@@ -15,27 +15,51 @@ from deepaco_tpu_torch.aco.batched_tsp import (KERNEL_OPS, PathOps,
                                                run_anytime_batched)
 from deepaco_tpu_torch.aco.runner import ACOConfig
 from deepaco_tpu_torch.core.builders import start_node_features
-from deepaco_tpu_torch.core.graph import sparse_distance_matrix
+from deepaco_tpu_torch.core.graph import (knn_graph, scatter_to_dense,
+                                          sparse_distance_matrix)
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.models.gnn import Net
-from deepaco_tpu_torch.ops.fused_gnn import tsp_dense_heuristic
+from deepaco_tpu_torch.ops.fused_gnn import (dense_heuristic_supported,
+                                             embnet_supported, net_forward_fast)
+from deepaco_tpu_torch.ops.gnn_layer import fused_gnn_layer_plain
 from deepaco_tpu_torch.utils.datasets import distance_matrix
 
 
+@torch.no_grad()
+def dense_heuristic(net: Net, x: torch.Tensor, coords: torch.Tensor,
+                    dist: torch.Tensor, k_sparse: int, *,
+                    _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
+    """The neural heuristic ``[B, N, N]`` over node features ``x [B, N, F]``,
+    routed by configuration as ``deepaco_tpu/eval/anytime.py:47-75`` routes
+    it: K1 where :func:`dense_heuristic_supported` holds; else the k-NN
+    graph through ``net_forward_fast`` (layer stack K9) where
+    :func:`embnet_supported` holds, else through ``Net`` with the plain
+    layer; each then ``scatter_to_dense`` plus 1e-10."""
+    n = dist.shape[-1]
+    if dense_heuristic_supported(net, n, k_sparse):
+        return _ops.heuristic(net, x, dist, k_sparse)
+    g = knn_graph(coords, dist, k_sparse, node_feats=x)
+    if embnet_supported(net, n, k_sparse):
+        vec = net_forward_fast(net, g.x, g.nbr, g.edge, layers=_ops.layers)
+    else:
+        out = net(g, layer=fused_gnn_layer_plain)
+        vec = out[1] if isinstance(out, tuple) else out
+    return scatter_to_dense(g, vec) + 1e-10
+
+
 def batched_tsp_heuristic(net: Net, coords: torch.Tensor, k_sparse: int, *,
-                          _heuristic=tsp_dense_heuristic):
-    """``coords [B, N, 2]`` → ``(heu [B, N, N], dist [B, N, N])``; on CUDA
-    the heuristic is one call of kernel K1."""
+                          _ops: PathOps = KERNEL_OPS):
+    """``coords [B, N, 2]`` → ``(heu [B, N, N], dist [B, N, N])``, the
+    heuristic by :func:`dense_heuristic` on the coordinates."""
     dist = distance_matrix(coords)
-    return _heuristic(net, coords, dist, k_sparse), dist
+    return dense_heuristic(net, coords, coords, dist, k_sparse, _ops=_ops), dist
 
 
 def _eval_neural(net: Net, cfg: ACOConfig, k_sparse: int, t_max: int,
                  coords: torch.Tensor, generator: torch.Generator, *,
                  _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
     with _ops.timer("heuristic"):
-        heu, dist = batched_tsp_heuristic(net, coords, k_sparse,
-                                          _heuristic=_ops.heuristic)
+        heu, dist = batched_tsp_heuristic(net, coords, k_sparse, _ops=_ops)
     return run_anytime_batched(heu, dist, cfg, generator, t_max, _ops=_ops)
 
 
@@ -51,9 +75,10 @@ def _eval_classic(cfg: ACOConfig, k_sparse: int, t_max: int,
 def _eval_ls(net: Net | None, cfg: ACOConfig, k_sparse: int, t_max: int,
              ls: str, coords: torch.Tensor, generator: torch.Generator, *,
              _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
-    """The TSP-NLS anytime protocol, batched. The neural heuristic is K1 in
-    f32 on the one-hot start-node feature (tsp_nls/utils.py:37-45); the
-    classic one is ``1/sparse_distance_matrix``. The JAX package runs this
+    """The TSP-NLS anytime protocol, batched. The neural heuristic is
+    :func:`dense_heuristic` on the one-hot start-node feature
+    (tsp_nls/utils.py:37-45); the classic one is
+    ``1/sparse_distance_matrix``. The JAX package runs this
     in host chunks of instances and single iterations to stay under a TPU
     watchdog; here the batch runs whole, which changes nothing in law, since
     instances are independent and each keeps its own search state."""
@@ -62,8 +87,8 @@ def _eval_ls(net: Net | None, cfg: ACOConfig, k_sparse: int, t_max: int,
         if net is None:
             heu = 1.0 / sparse_distance_matrix(dist, k_sparse)
         else:
-            heu = _ops.heuristic(net, start_node_features(coords), dist,
-                                 k_sparse)
+            heu = dense_heuristic(net, start_node_features(coords), coords,
+                                  dist, k_sparse, _ops=_ops)
     return run_anytime_batched(heu, dist, cfg, generator, t_max,
                                coords=coords, ls=ls, _ops=_ops)
 

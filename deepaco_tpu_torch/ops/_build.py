@@ -94,8 +94,14 @@ def library() -> ctypes.CDLL:
 
 
 def function(name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry ``name`` with its argument types, set up once."""
+    return _function(name, tuple(argtypes))
+
+
+@functools.cache
+def _function(name: str, argtypes: tuple) -> ctypes._CFuncPtr:
     fn = getattr(library(), name)
-    fn.argtypes = argtypes
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 

@@ -11,7 +11,8 @@ repeated edge (a CVRP ant parked on the depot) deposits once per occurrence.
 
 - :func:`tour_deposit_plain`: ``scatter_add_`` in PyTorch;
 - :func:`tour_deposit`: the wrapper. A CPU tensor takes the plain version; a
-  CUDA tensor launches kernel K8 (``csrc/tour_deposit.cu``) or raises. K8
+  CUDA tensor launches kernel K8 (``csrc/tour_deposit.cu``: a bucketing pass
+  that groups the edges by (row, ant), then one warp a row) or raises. K8
   adds the ants in order and is deterministic; it equals ``scatter_add_`` on
   the CPU (ant-major, one add at a time) bit for bit.
 """
@@ -57,15 +58,16 @@ def tour_deposit(paths: torch.Tensor, amounts: torch.Tensor, n: int, *,
     paths = paths.long().reshape(-1, l, a).contiguous()
     amounts = amounts.float().reshape(-1, a).contiguous()
     b = paths.shape[0]
-    if b > 65535:
-        raise ValueError(f"tour_deposit: K8 takes at most 65535 instances, got {b}")
     if b * a == 0 or l < (1 if cyclic else 2):         # no edges
         return torch.zeros((*lead, n, n), dtype=torch.float32, device=paths.device)
-    out = torch.empty((b, n, n), dtype=torch.float32, device=paths.device)
+    dev = paths.device
+    out = torch.empty((b, n, n), dtype=torch.float32, device=dev)
+    records = torch.empty((b, l * a, 2), dtype=torch.int32, device=dev)
+    ends = torch.empty((b, n * a + a), dtype=torch.int32, device=dev)
     P, I = _build.P, _build.I
-    fn = _build.function("deepaco_tour_deposit", [P] * 3 + [I] * 5 + [P])
-    rc = fn(paths.data_ptr(), amounts.data_ptr(), out.data_ptr(), b, l, a, n,
-            int(cyclic), _build.stream_ptr(paths.device))
+    fn = _build.function("deepaco_tour_deposit", [P] * 5 + [I] * 5 + [P])
+    rc = fn(paths.data_ptr(), amounts.data_ptr(), out.data_ptr(), records.data_ptr(),
+            ends.data_ptr(), b, l, a, n, int(cyclic), _build.stream_ptr(dev))
     _build.check(rc, "deepaco_tour_deposit")
     tour_deposit.launches += 1
     return out.reshape(*lead, n, n)

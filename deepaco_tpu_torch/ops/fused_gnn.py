@@ -11,7 +11,8 @@ plain PyTorch version:
   :func:`net_forward_fast` wraps it into ``Net.forward(train=False)``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises. Both work in f32 with BatchNorm folded into per-layer affines
+raises. :func:`dense_heuristic_supported` and :func:`embnet_supported` state
+each kernel's limits, so that callers route by configuration. Both work in f32 with BatchNorm folded into per-layer affines
 (:func:`fold_embnet_params`) and share the layer passes
 (``csrc/embnet_passes.cuh``; :func:`_layer_stack_plain`), and both equal
 ``Net`` up to that re-association.
@@ -141,6 +142,25 @@ def _pack_params(f: FoldedEmbNet, head: ParNet) -> torch.Tensor:
                                     lins[2].weight, lins[2].bias])
 
 
+K1_MAX_N = 48 * 1024 // 16    # K1 keeps 16 bytes a city of a row in 48 KB
+
+
+def dense_heuristic_supported(net: Net, n: int, k: int, head: str = "heu") -> bool:
+    """Whether K1 takes ``net`` at ``n`` cities and ``k`` neighbours: 32
+    units, one edge feature, a 3-layer ParNet head and ``0 < k <= n <=
+    3072``. Elsewhere :func:`tsp_dense_heuristic` raises on CUDA tensors."""
+    emb = net.emb_net
+    return (emb.units == 32 and emb.e_lin0.in_features == 1
+            and 0 < k <= n <= K1_MAX_N and len(_head(net, head).lins) == 3)
+
+
+def embnet_supported(net: Net, n: int, k: int) -> bool:
+    """Whether K9 takes ``net``'s layer stack over ``k`` of ``n`` nodes: 32
+    units, at most 4 edge features and ``0 < k <= n``."""
+    emb = net.emb_net
+    return emb.units == 32 and 1 <= emb.e_lin0.in_features <= 4 and 0 < k <= n
+
+
 @torch.no_grad()
 def tsp_dense_heuristic(net: Net, x: torch.Tensor, dist: torch.Tensor, k: int,
                         *, head: str = "heu", fill: float = 1e-10) -> torch.Tensor:
@@ -150,14 +170,10 @@ def tsp_dense_heuristic(net: Net, x: torch.Tensor, dist: torch.Tensor, k: int,
     if dist.device.type == "cpu":
         return tsp_dense_heuristic_plain(net, x, dist, k, head=head, fill=fill)
     _build.require_cuda("tsp_dense_heuristic", x, dist)
-    emb = net.emb_net
-    b, n, _ = dist.shape
-    if emb.units != 32 or emb.e_lin0.in_features != 1:
-        raise ValueError("the K1 kernel takes units=32 and one edge feature")
-    if not 0 < k <= n or n * 4 * 4 > 48 * 1024:
-        raise ValueError(f"the K1 kernel takes 0 < k <= n <= 3072, got k={k}, n={n}")
-    if len(_head(net, head).lins) != 3:
-        raise ValueError("the K1 kernel takes a 3-layer ParNet head")
+    n = dist.shape[-1]
+    if not dense_heuristic_supported(net, n, k, head):
+        raise ValueError("the K1 kernel takes units=32, one edge feature, a 3-layer "
+                         f"ParNet head and 0 < k <= n <= {K1_MAX_N}, got k={k}, n={n}")
     heu = _launch(net, head, x, dist.float().contiguous(), k, fill)
     tsp_dense_heuristic.launches += 1
     return heu

@@ -25,13 +25,16 @@ Kernels, each beside its plain version, over coordinates ``[..., n, 2]``:
   version :func:`batched_nls_euclid_plain`.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
-raises; above its cap a wrapper raises on either. Tour costs inside NLS are
-summed in one fixed order (:func:`_tour_lengths`) that K5 repeats, so the
-kernel keeps the same best tour as its plain version bit for bit.
+raises; above its cap (:func:`ls_supported`) a wrapper runs the dense
+descent on either device, as the JAX package does, and launches nothing.
+Tour costs inside NLS are summed in one fixed order (:func:`_tour_lengths`)
+that K5 repeats, so the kernel keeps the same best tour as its plain version
+bit for bit.
 """
 from __future__ import annotations
 
 import math
+import warnings
 
 import torch
 
@@ -202,23 +205,24 @@ def batched_nls_euclid_plain(coords: torch.Tensor, heu_dist: torch.Tensor,
 def ls_supported(n: int, ls: str = "nls") -> bool:
     """Whether the kernel of ``ls`` (``"2opt"`` or ``"nls"``) takes ``n``
     cities: 2-opt to 4096, NLS to 2048, the caps of the JAX package's
-    kernels. Above them the wrappers raise."""
+    kernels. Above them the wrappers take the dense descent on either
+    device, as the JAX package does (pallas_two_opt.py:598-611, 641-646)."""
     return n <= LS_CAPS[ls]
-
-
-def _check_cap(name: str, n: int, ls: str) -> None:
-    if not ls_supported(n, ls):
-        raise ValueError(f"{name} takes n <= {LS_CAPS[ls]} cities, got n={n}; "
-                         "larger instances wait for a local search over the "
-                         "k-NN support (ROADMAP.md §1 item 9)")
 
 
 @torch.no_grad()
 def batched_two_opt_euclid(coords: torch.Tensor, tours: torch.Tensor,
                            max_iterations: int) -> torch.Tensor:
     """2-opt of tours ``[..., A, n]`` on Euclidean instances ``coords
-    [..., n, 2]``; one launch of kernel K4 on CUDA."""
-    _check_cap("batched_two_opt_euclid", coords.shape[-2], "2opt")
+    [..., n, 2]``; one launch of kernel K4 on CUDA. Above K4's cap it warns
+    and runs :func:`batched_two_opt` on ``distance_matrix(coords)``, which
+    builds an ``[N, N]`` matrix."""
+    n = coords.shape[-2]
+    if not ls_supported(n, "2opt"):
+        warnings.warn(f"batched_two_opt_euclid: n={n} exceeds K4's cap "
+                      f"({LS_CAPS['2opt']}); taking the dense descent, which "
+                      "builds an [N, N] distance matrix", stacklevel=2)
+        return batched_two_opt(distance_matrix(coords), tours, max_iterations)
     if coords.device.type == "cpu":
         return batched_two_opt_euclid_plain(coords, tours, max_iterations)
     out = _launch("deepaco_two_opt", coords, None, tours, max_iterations, 0, 0)
@@ -232,8 +236,12 @@ def batched_nls_euclid(coords: torch.Tensor, heu_dist: torch.Tensor,
                        t_nls: int = 10, t_p: int = 20) -> torch.Tensor:
     """NLS of tours ``[..., A, n]`` on Euclidean instances ``coords
     [..., n, 2]`` with the perturbation metric ``heu_dist [..., n, n]``
-    rounded to bf16; one launch of kernel K5 on CUDA."""
-    _check_cap("batched_nls_euclid", coords.shape[-2], "nls")
+    rounded to bf16; one launch of kernel K5 on CUDA. Above K5's cap it
+    runs :func:`batched_nls` on ``distance_matrix(coords)`` with
+    ``heu_dist`` as it is, not rounded."""
+    if not ls_supported(coords.shape[-2], "nls"):
+        return batched_nls(distance_matrix(coords), heu_dist, tours,
+                           max_iterations, t_nls, t_p)
     if coords.device.type == "cpu":
         return batched_nls_euclid_plain(coords, heu_dist, tours,
                                         max_iterations, t_nls, t_p)
@@ -272,9 +280,14 @@ def _launch(entry: str, coords: torch.Tensor, metric: torch.Tensor | None,
                 max_iterations, _build.stream_ptr(xy.device))
     else:
         m = metric.to(torch.bfloat16).reshape(b, n, n).contiguous()
-        fn = _build.function(entry, [P] * 4 + [I] * 6 + [P])
-        rc = fn(xy.data_ptr(), m.data_ptr(), t.data_ptr(), out.data_ptr(), b,
-                a, n, max_iterations, t_nls, t_p, _build.stream_ptr(xy.device))
+        # K5's scratch: the 16 least entries of each row and column of the
+        # metric, and a flag an instance
+        keys = torch.empty((b, 2, n, 16), dtype=torch.int32, device=xy.device)
+        negative = torch.empty(b, dtype=torch.int32, device=xy.device)
+        fn = _build.function(entry, [P] * 6 + [I] * 6 + [P])
+        rc = fn(xy.data_ptr(), m.data_ptr(), keys.data_ptr(), negative.data_ptr(),
+                t.data_ptr(), out.data_ptr(), b, a, n, max_iterations, t_nls, t_p,
+                _build.stream_ptr(xy.device))
     _build.check(rc, entry)
     return out.reshape(tours.shape)
 

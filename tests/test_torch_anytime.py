@@ -64,12 +64,17 @@ def test_local_search_matches_jax_in_law(ls, arm):
 
 
 def test_local_search_takes_2opt_or_nls_with_coords():
+    """``ls`` is 2-opt or NLS; without coordinates the runner takes the
+    dense descent on ``dist`` instead of raising, as the JAX package does."""
     from deepaco_tpu_torch.aco.batched_tsp import run_anytime_batched
+    from deepaco_tpu_torch.utils.datasets import distance_matrix
 
     coords = np.random.default_rng(0).random((2, 20, 2)).astype(np.float32)
     with pytest.raises(ValueError, match="nls"):
         evaluate_tsp(coords, k_sparse=5, ls="3opt", device="cpu")
     heu = torch.ones(2, 20, 20)
-    with pytest.raises(ValueError, match="coords"):
-        run_anytime_batched(heu, heu, ACOConfig(n_ants=4),
-                            torch.Generator().manual_seed(0), 1, ls="2opt")
+    dist = distance_matrix(torch.from_numpy(coords))
+    run = lambda c: run_anytime_batched(heu, dist, ACOConfig(n_ants=4),
+                                        torch.Generator().manual_seed(0), 1,
+                                        coords=c, ls="2opt")
+    np.testing.assert_array_equal(run(None).numpy(), run(torch.from_numpy(coords)).numpy())

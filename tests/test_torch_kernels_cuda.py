@@ -190,6 +190,65 @@ extern "C" int euclid_pairs(const float* coords, float* out, int B, int n, void*
 """
 
 
+@pytest.fixture(scope="module")
+def grid_case(dev):
+    """A tie-heavy instance: 500 cities on a 20 x 25 grid, where many moves
+    change the length by the same amount, random tours, and the metric of
+    heuristic_dist(1/d), whose bf16 rounding ties more entries still."""
+    ii, jj = torch.meshgrid(torch.arange(20), torch.arange(25), indexing="ij")
+    coords = (torch.stack([ii, jj], -1).reshape(1, 500, 2).float() / 25).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tours = torch.stack([torch.randperm(500, generator=gen, device=dev)
+                         for _ in range(4)])[None].contiguous()
+    return coords, two_opt.heuristic_dist(1.0 / distance_matrix(coords)), tours
+
+
+def test_ls_kernels_on_a_grid_keep_the_first_of_tied_moves(grid_case):
+    """K4 and K5 on the grid: tours exactly equal to the plain versions',
+    which take the first flat argmin among equal deltas."""
+    coords, hd, tours = grid_case
+    got = two_opt.batched_two_opt_euclid(coords, tours, 10000)
+    assert torch.equal(got, two_opt.batched_two_opt_euclid_plain(coords, tours, 10000))
+    got = two_opt.batched_nls_euclid(coords, hd, tours, 10000, 2, 5)
+    assert torch.equal(got, two_opt.batched_nls_euclid_plain(coords, hd, tours, 10000, 2, 5))
+    _assert_permutations(got)
+
+
+def test_nls_kernel_on_a_metric_with_negative_entries_equals_plain(dev):
+    """K5 prices only the pairs that can improve when every entry of the
+    metric is non-negative; an instance with a negative entry walks every
+    pair. A batch of one instance of each kind: tours exactly equal to the
+    plain version's."""
+    coords = uniform_coords(200, torch.Generator().manual_seed(5), batch=2, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    hd = torch.rand((2, 200, 200), generator=g, device=dev)
+    hd[1] -= 0.25                                          # negative entries in instance 1
+    tours = torch.stack([torch.stack([torch.randperm(200, generator=g, device=dev)
+                                      for _ in range(3)]) for _ in range(2)]).contiguous()
+    got = two_opt.batched_nls_euclid(coords, hd, tours, 1000, 3, 10)
+    assert torch.equal(got, two_opt.batched_nls_euclid_plain(coords, hd, tours, 1000, 3, 10))
+    _assert_permutations(got)
+
+
+def test_heuristic_past_k1_cap_takes_the_k9_route_on_the_card(dev):
+    """batched_tsp_heuristic at n = 3073 (one past K1's cap) with the
+    tsp500 weights: K1 does not launch, K9 does once, and the heuristic
+    matches the plain route's at rtol 1e-4 / atol 1e-5 (sums in another
+    order over 12 layers)."""
+    from deepaco_tpu_torch.eval.anytime import batched_tsp_heuristic
+
+    net = Net.from_jax_variables(
+        load_checkpoint(str(CKPT / "tsp500_selftrained.msgpack"))).to(dev)
+    coords = uniform_coords(3073, torch.Generator().manual_seed(3), batch=1, device=dev)
+    before = (fused_gnn.tsp_dense_heuristic.launches, fused_gnn.embnet_layers.launches)
+    heu, dist = batched_tsp_heuristic(net, coords, 50)
+    assert (fused_gnn.tsp_dense_heuristic.launches,
+            fused_gnn.embnet_layers.launches) == (before[0], before[1] + 1)
+    want, _ = batched_tsp_heuristic(net, coords, 50, _ops=bt.PLAIN_OPS)
+    torch.testing.assert_close(heu, want, rtol=1e-4, atol=1e-5)
+    assert torch.equal(dist, distance_matrix(coords))
+
+
 def test_kernel_distance_is_distance_matrix_bit_for_bit(dev, tmp_path):
     """K4 and K5's pair distance, built here into a library of the test's own
     over all pairs, equals ``distance_matrix`` off the diagonal bit for bit."""
@@ -393,6 +452,45 @@ def test_tour_deposit_kernel_matches_plain(dev, cyclic):
     plain = deposit.tour_deposit_plain(paths, amounts, n, cyclic=cyclic)
     k = deposit.tour_deposit_plain(paths, torch.ones_like(amounts), n, cyclic=cyclic)
     assert bool(((got - plain).abs() <= 2 * k * 2.0 ** -24 * got).all())
+
+
+def _deposit_layout(dev, n, a, l, cyclic, seed):
+    """Paths [2, L, A] over n nodes with amounts: permutation tours when
+    cyclic; else routes from node 0 whose ants park on their last node for
+    tails of every length from 0 to the whole path (ant 0 never leaves the
+    depot, ant 1 does not park)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cyclic:
+        paths = torch.stack([torch.stack([torch.randperm(n, generator=g, device=dev)[:l]
+                                          for _ in range(a)], dim=1) for _ in range(2)])
+    else:
+        paths = torch.randint(0, n, (2, l, a), generator=g, device=dev)
+        paths[:, 0] = 0
+        for ant in range(a):
+            tail = 0 if ant == 1 else l - 1 if ant == 0 else (ant * 37) % l
+            paths[:, l - 1 - tail:, ant] = paths[:, l - 1 - tail, ant][:, None].clone()
+    return paths, 0.01 + torch.rand((2, a), generator=g, device=dev)
+
+
+@pytest.mark.parametrize("n,a,l,cyclic", [
+    (121, 6, 121, True),      # rows of 121 floats: every row starts off a 16-byte boundary
+    (7, 3, 15, False),        # tails parked on nodes other than the depot
+    (501, 20, 1001, False),   # the CVRP path's layout: 501 columns, 1001 steps
+    (300, 100, 601, False),   # paths too long to stage in shared memory
+    (3000, 20, 3000, True),   # 60,000 (row, ant) counts: past shared memory, kept in the scratch
+    (1000, 60, 1001, False),  # the same at the CVRP layout with 60 ants, unstaged
+    (40, 2500, 81, False),    # 2,500 ants: 12 bits of ant in a record
+])
+def test_tour_deposit_kernel_layouts(dev, n, a, l, cyclic):
+    """K8 at several row and path layouts: bit-equal to scatter_add_ on the
+    CPU (ant-major, one add at a time) and to itself on a second launch."""
+    from deepaco_tpu_torch.ops import deposit
+
+    paths, amounts = _deposit_layout(dev, n, a, l, cyclic, n + a)
+    got = deposit.tour_deposit(paths, amounts, n, cyclic=cyclic)
+    assert torch.equal(got, deposit.tour_deposit(paths, amounts, n, cyclic=cyclic))
+    cpu = deposit.tour_deposit_plain(paths.cpu(), amounts.cpu(), n, cyclic=cyclic)
+    assert torch.equal(got.cpu(), cpu)
 
 
 def test_tour_deposit_kernel_stops_on_an_id_out_of_range(dev):

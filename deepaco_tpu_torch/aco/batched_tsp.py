@@ -125,8 +125,9 @@ def dense_sweep(score: torch.Tensor, start: torch.Tensor,
 def dense_sweep_fused(score: torch.Tensor, start: torch.Tensor,
                       generator: torch.Generator, *,
                       stochastic: bool = True) -> torch.Tensor:
-    """:func:`dense_sweep` as one launch of kernel K2 (one warp per ant for
-    all N-1 steps; Philox noise keyed by a seed drawn from ``generator``)."""
+    """:func:`dense_sweep` as one launch of kernel K2 (one to four warps walk
+    each ant through all N-1 steps, more when fewer ants would leave the card
+    idle; Philox noise keyed by a seed drawn from ``generator``)."""
     if score.device.type == "cpu":
         return dense_sweep(score, start, generator, stochastic=stochastic)
     _build.require_cuda("dense_sweep_fused", score, start)

@@ -2,19 +2,51 @@
 //
 // Replaces deepaco_tpu/ops/pallas_kernels.py:522 fused_step_pallas (Pallas
 // kernel _fused_step_kernel, 442-505), which the JAX sweep launched once per
-// step behind an XLA row gather (aco/batched_tsp.py:195-232). Here one warp
-// walks one ant through every step: the ants of an iteration are
-// independent, so warps never wait on each other and the sweep is a single
-// launch. Each step reads the score row score[b, cur, :] straight from
-// device memory or L2 (the row gather is fused in), applies the visited
-// mask, adds Gumbel noise and takes the first maximum by a warp reduction on
-// (value, index), NaN above every number as in torch.argmax. The visited set
-// is a bitset in shared memory in plain packing: column c is bit c & 31 of
-// word c >> 5.
+// step behind an XLA row gather (aco/batched_tsp.py:195-232), and, at B=1
+// through tsp_sweep_construct, :606 tsp_sweep_construct_pallas. The ants of
+// an iteration are independent, so the sweep is a single launch in which W
+// warps (1 to 4 at N = 500) walk one ant through every step. Each step
+// reads the score row score[b, cur, :] straight from device memory or L2
+// (the row gather is fused in), masks the visited columns, adds Gumbel noise
+// and takes the first maximum, NaN above every number as in torch.argmax.
 //
-// What bounds it: a chain of N-1 dependent steps per ant, each a row load
-// whose latency the other resident warps have to hide; the score matrix
-// itself (50 MB in bf16 at B=100, N=500) sits in the 50 MB L2.
+// What bounds it: not the bytes (the score matrix, 50 MB in bf16 at B=100,
+// N=500, is read about once and sits in the 50 MB L2) but each ant's chain
+// of N-1 dependent steps, and, once enough ants keep every SM busy, the
+// instructions a step issues: one Philox4x32-10 per (4 columns, step, ant),
+// about 58 SASS instructions, and about 13 more per column for the table
+// lookup, the bf16 rounding, the mask and the running maximum. What the
+// design does about it:
+// - A thread owns whole groups of 4 columns, g = t + j * 32W, and W is
+//   chosen from the launch: with few ants (row 9's B=1, the NLS path's 320)
+//   most of the card would idle, and only a step's latency counts, so W = 4
+//   (one group a thread at N = 500); with many ants (the main path's 2,000)
+//   every warp an ant adds its own reduction and barrier to the issue, so
+//   W = 1. W halves from 4 while the ants' warps exceed kWarpsPerSm per SM.
+// - The hot loop has no branch, so the compiler interleaves its chains: a
+//   visited column's value is the mask whatever its noise (|noise| < 17 is
+//   far below half an ulp of 1e30 in f32 and in bf16), so the loop adds the
+//   noise and then selects the mask, and the columns past N and the groups
+//   a thread owns past the row count as visited, holding the mask at a
+//   column above N - 1 so that they lose every tie to the start column.
+// - The step's row loads are issued first, one 8-byte (bf16) or 16-byte
+//   (f32) load a group when N % 4 == 0, and at G <= 4 the Philox words of
+//   step s + 1 are drawn during step s, off the path from a pick to the next
+//   row's load.
+// - With noise, each group folds its own first maximum and the groups are
+//   merged in column order, so that their chains overlap.
+// - The visited set lives in registers, one bit per owned column; the owner
+//   of the picked column sets its bit.
+// - Across a warp the first maximum is a 32-bit key that orders the values
+//   as argmax does (order_key) and two redux instructions (largest key, then
+//   the lowest column holding it); W > 1 warps exchange one 64-bit slot each
+//   through shared memory, double buffered so that one named barrier a step
+//   is enough.
+// - Blocks are instance-major, so an instance's ants run on neighbouring
+//   blocks while its rows are in L2.
+// W grows past 4 (up to 32) when a thread would own more than 8 groups; a
+// thread owns at most 32 groups, so N <= 131072. The paths depend on the
+// scores, the starts, the seed and the mode alone, never on W or G.
 //
 // Noise: Philox4x32-10 keyed by the per-iteration seed, with the counter
 // (column / 4, step, ant row, 0), so every (step, ant, column) has its own
@@ -31,8 +63,16 @@
 namespace deepaco {
 namespace {
 
-constexpr int kSweepWarps = 4;
+constexpr int kWarpsPerSm = 12;     // the ants' warps a streaming multiprocessor, at most
+constexpr int kBlockThreads = 128;  // a block holds 128 / 32W ants while W <= 4
+constexpr int kGroupsBeforeGrowing = 8;  // groups a thread before W grows past 4
+constexpr int kMaxGroups = 32;           // groups a thread at W = 32
+constexpr int kLoadChunk = 8;            // the most groups whose loads are in flight together
 constexpr float kNegInf = -1e30f;
+#ifdef DEEPACO_SWEEP_WARPS
+static_assert(DEEPACO_SWEEP_WARPS == 1 || DEEPACO_SWEEP_WARPS == 2 || DEEPACO_SWEEP_WARPS == 4,
+              "a block of 128 threads holds whole ants");
+#endif
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   constexpr uint32_t M0 = 0xD2511F53u, M1 = 0xCD9E8D57u;
@@ -48,98 +88,262 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
   return c;
 }
 
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-template <typename T, bool kStochastic>
-__global__ void sweep_kernel(const T* __restrict__ score, const int64_t* __restrict__ start,
-                             int64_t* __restrict__ paths, const int64_t* __restrict__ seed,
-                             const float* __restrict__ gumbel_table, int B, int N, int A) {
+// Columns c..c+3 of a row as f32: one vector load when kVec (N % 4 == 0
+// and the scores aligned), else one load a column, clamped to the row.
+template <bool kVec>
+__device__ __forceinline__ void load_group(const __nv_bfloat16* row, int c, int N, float (&v)[4]) {
+  if (kVec) {
+    const uint2 r = __ldg(reinterpret_cast<const uint2*>(row + c));
+    v[0] = __uint_as_float(r.x << 16);
+    v[1] = __uint_as_float(r.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(r.y << 16);
+    v[3] = __uint_as_float(r.y & 0xFFFF0000u);
+  } else {
+    const unsigned short* p = reinterpret_cast<const unsigned short*>(row);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = __uint_as_float((uint32_t)__ldg(p + min(c + q, N - 1)) << 16);
+  }
+}
+template <bool kVec>
+__device__ __forceinline__ void load_group(const float* row, int c, int N, float (&v)[4]) {
+  if (kVec) {
+    const float4 r = __ldg(reinterpret_cast<const float4*>(row + c));
+    v[0] = r.x;
+    v[1] = r.y;
+    v[2] = r.z;
+    v[3] = r.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = __ldg(row + min(c + q, N - 1));
+  }
+}
+
+__device__ __forceinline__ uint32_t word(const uint4& r, int q) {
+  return q == 0 ? r.x : q == 1 ? r.y : q == 2 ? r.z : r.w;
+}
+
+// A key whose unsigned order is torch.argmax's order of the values: every
+// NaN above every number (and equal to each other), -0 equal to +0. With
+// ties going to the lower column, the first maximum is the largest key.
+__device__ __forceinline__ uint32_t order_key(float v) {
+  if (isnan(v)) return 0xFFFFFFFFu;
+  const uint32_t bits = __float_as_uint(v == 0.0f ? 0.0f : v);
+  return (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+}
+
+// Folds candidate (x, c) into a first maximum (best, bidx) whose columns all
+// come before c: NaN above every number (x NaN passes the first test; once
+// best is NaN, nothing does), ties to the earlier column.
+__device__ __forceinline__ void fold_first_max(float x, int c, float& best, int& bidx) {
+  if (!(x <= best) && best == best) {
+    best = x;
+    bidx = c;
+  }
+}
+
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// One ant per 32 * warps threads, blockDim.x / (32 * warps) ants a block;
+// G: groups a thread, the power of two at or above ceil(N / 4 / threads).
+template <typename T, bool kStochastic, bool kVec, int G>
+__global__ void __launch_bounds__(G <= 4 ? kBlockThreads : 1024)
+    sweep_kernel(const T* __restrict__ score, const int64_t* __restrict__ start,
+                 int64_t* __restrict__ paths, const int64_t* __restrict__ seed,
+                 const float* __restrict__ gumbel_table, int B, int N, int A, int warps) {
   constexpr bool kBf16 = sizeof(T) == 2;
-  extern __shared__ uint32_t visited_all[];
+  constexpr int kVisWords = (4 * G + 31) / 32;
+  constexpr bool kAhead = G <= 4;  // draw a step ahead, in 4G registers
+  constexpr int kChunk = G < kLoadChunk ? G : kLoadChunk;
   __shared__ float table[128];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int words = (N + 31) >> 5;
+  __shared__ unsigned long long slot[2][32];  // [step & 1][ant in block * warps + warp]
+  const int threads = 32 * warps;
+  const int shift = __ffs(threads) - 1;  // threads is a power of two
+  const int local = threadIdx.x >> shift;
+  const int t = threadIdx.x & (threads - 1);
+  const int warp = t >> 5, lane = t & 31;
   if (kStochastic && kBf16) {
-    for (int t = threadIdx.x; t < 128; t += blockDim.x) table[t] = gumbel_table[t];
+    for (int i = threadIdx.x; i < 128; i += blockDim.x) table[i] = gumbel_table[i];
   }
   __syncthreads();
-  const long ant = (long)blockIdx.x * kSweepWarps + warp;  // b * A + a
-  if (ant >= (long)B * A) return;  // only warp-level synchronisation below
+  const long ant = (long)blockIdx.x * (blockDim.x >> shift) + local;  // b * A + a
+  if (ant >= (long)B * A) return;  // only the ant's own threads synchronise below
   const int b = (int)(ant / A), a = (int)(ant % A);
-  uint32_t* vis = visited_all + (size_t)warp * words;
-  for (int i = lane; i < words; i += 32) vis[i] = 0u;
-  __syncwarp();
-  int cur = (int)start[ant];
-  if (lane == 0) {
-    vis[cur >> 5] |= 1u << (cur & 31);
-    paths[(long)b * N * A + a] = cur;
+  const int groups = (N + 3) >> 2;
+  uint32_t vis[kVisWords];  // bit 4j + q: column 4 (t + j * threads) + q
+#pragma unroll
+  for (int w = 0; w < kVisWords; ++w) vis[w] = 0u;
+#pragma unroll
+  for (int bit = 0; bit < 4 * G; ++bit) {
+    if (4 * (t + (bit >> 2) * threads) + (bit & 3) >= N) vis[bit >> 5] |= 1u << (bit & 31);
   }
-  __syncwarp();
+  const auto mark = [&](int c) {
+    const int g = c >> 2;
+    if ((g & (threads - 1)) == t) {
+      const int bit = 4 * (g >> shift) + (c & 3);
+#pragma unroll
+      for (int w = 0; w < kVisWords; ++w) {
+        if (w == bit >> 5) vis[w] |= 1u << (bit & 31);
+      }
+    }
+  };
+  int cur = (int)start[ant];
+  mark(cur);
+  if (t == 0) paths[(long)b * N * A + a] = cur;
   uint2 key = make_uint2(0u, 0u);
   if (kStochastic) {
     const uint64_t s = (uint64_t)seed[0];
     key = make_uint2((uint32_t)s, (uint32_t)(s >> 32));
   }
+  const auto draw = [&](int j, int step) {
+    return philox4x32_10(make_uint4((uint32_t)(t + j * threads), (uint32_t)step, (uint32_t)ant, 0u),
+                         key);
+  };
+  uint4 ahead[kAhead ? G : 1];
+  if (kStochastic && kAhead) {
+#pragma unroll
+    for (int j = 0; j < G; ++j) ahead[j] = draw(j, 0);
+  }
   const float masked = kBf16 ? round_bf16(kNegInf) : kNegInf;
   const T* inst = score + (size_t)b * N * N;
+  unsigned long long* my_slots = &slot[0][0] + local * warps;
   for (int step = 0; step < N - 1; ++step) {
     const T* row = inst + (size_t)cur * N;
     float best = -INFINITY;
     int bidx = N;
-    for (int c0 = 4 * lane; c0 < N; c0 += 128) {  // 4 adjacent columns per lane
-      uint4 r4 = make_uint4(0u, 0u, 0u, 0u);
-      if (kStochastic) r4 = philox4x32_10(make_uint4((uint32_t)(c0 >> 2), (uint32_t)step, (uint32_t)ant, 0u), key);
-      const uint32_t bits[4] = {r4.x, r4.y, r4.z, r4.w};
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int c = c0 + q;
-        if (c < N) {
-          const bool open = ((vis[c >> 5] >> (c & 31)) & 1u) == 0u;
-          float v = open ? load_f32(row + c) : masked;
-          if (kStochastic) {
-            if (kBf16) {
-              v = round_bf16(v + table[(bits[q] >> 13) & 0x7Fu]);
-            } else {
-              const float u = ((float)(bits[q] >> 9) + 0.5f) * 1.1920928955078125e-07f;  // 2^-23
-              v = v - logf(-logf(u));
-            }
-          }
-          // ascending c: the lane's first maximum, NaN above every number
-          // (v NaN passes the first test; once best is NaN, nothing does)
-          if (!(v <= best) && best == best) {
-            best = v;
-            bidx = c;
+    for (int j0 = 0; j0 < G; j0 += kChunk) {
+      float v[kChunk][4];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {  // the loads first, all in flight together
+        load_group<kVec>(row, 4 * min(t + (j0 + j) * threads, groups - 1), N, v[j]);
+      }
+      uint4 r4[kChunk];
+      if (kStochastic) {
+#pragma unroll
+        for (int j = 0; j < kChunk; ++j) {
+          if (kAhead) {
+            r4[j] = ahead[j];
+            ahead[j] = draw(j, step + 1);
+          } else {
+            r4[j] = draw(j0 + j, step);
           }
         }
       }
+      // With noise, each group folds its own columns and the groups are
+      // merged in column order after, so that their long chains from load to
+      // value overlap; greedy values are ready at once and fold in one chain.
+      float gbest[kChunk];
+      int gidx[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        gbest[j] = kStochastic ? -INFINITY : best;
+        gidx[j] = kStochastic ? N : bidx;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int bit = 4 * (j0 + j) + q;
+          float x = v[j][q];
+          if (kStochastic) {
+            const uint32_t bits = word(r4[j], q);
+            if (kBf16) {
+              x = round_bf16(x + table[(bits >> 13) & 0x7Fu]);
+            } else {
+              const float u = ((float)(bits >> 9) + 0.5f) * 1.1920928955078125e-07f;  // 2^-23
+              x = x - logf(-logf(u));
+            }
+          }
+          x = (vis[bit >> 5] >> (bit & 31)) & 1u ? masked : x;
+          fold_first_max(x, 4 * (t + (j0 + j) * threads) + q, gbest[j], gidx[j]);
+        }
+        if (!kStochastic) {
+          best = gbest[j];
+          bidx = gidx[j];
+        }
+      }
+      if (kStochastic) {
+#pragma unroll
+        for (int span = 1; span < kChunk; span *= 2) {
+#pragma unroll
+          for (int j = 0; j + span < kChunk; j += 2 * span) {
+            fold_first_max(gbest[j + span], gidx[j + span], gbest[j], gidx[j]);
+          }
+        }
+        fold_first_max(gbest[0], gidx[0], best, bidx);
+      }
     }
-    warp_pick<false>(best, bidx);  // bidx < N: visited columns hold the finite mask
-    cur = bidx;
-    if (lane == 0) {
-      vis[cur >> 5] |= 1u << (cur & 31);
-      paths[((long)b * N + step + 1) * A + a] = cur;
+    // the warp's largest key, then the lowest column holding it
+    const uint32_t k = order_key(best);
+    const uint32_t wbest = __reduce_max_sync(kFullMask, k);
+    const uint32_t widx = __reduce_min_sync(kFullMask, k == wbest ? (uint32_t)bidx : 0xFFFFFFFFu);
+    if (warps == 1) {
+      cur = (int)widx;
+    } else {
+      unsigned long long* s = my_slots + (step & 1) * 32;
+      if (lane == 0) s[warp] = ((unsigned long long)wbest << 32) | (0xFFFFFFFFu - widx);
+      named_barrier(1 + local, threads);
+      unsigned long long m = s[0];
+      for (int w = 1; w < warps; ++w) m = max(m, s[w]);
+      cur = (int)(0xFFFFFFFFu - (uint32_t)m);
     }
-    __syncwarp();
+    mark(cur);
+    if (t == 0) paths[((long)b * N + step + 1) * A + a] = cur;
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* score, const int64_t* start, int64_t* paths, const int64_t* seed,
-                   const float* table, int B, int N, int A, int stochastic, cudaStream_t s) {
+template <typename T, bool kStochastic, bool kVec, int G>
+cudaError_t launch_g(const T* score, const int64_t* start, int64_t* paths, const int64_t* seed,
+                     const float* table, int B, int N, int A, int warps, cudaStream_t s) {
+  const int per_block = warps < 4 ? kBlockThreads / (32 * warps) : 1;
   const long ants = (long)B * A;
-  const unsigned blocks = (unsigned)((ants + kSweepWarps - 1) / kSweepWarps);
-  const size_t smem = (size_t)kSweepWarps * ((N + 31) / 32) * sizeof(uint32_t);
-  const T* sc = static_cast<const T*>(score);
-  if (stochastic) {
-    sweep_kernel<T, true><<<blocks, kSweepWarps * 32, smem, s>>>(sc, start, paths, seed, table, B, N, A);
-  } else {
-    sweep_kernel<T, false><<<blocks, kSweepWarps * 32, smem, s>>>(sc, start, paths, seed, table, B, N, A);
-  }
+  const unsigned blocks = (unsigned)((ants + per_block - 1) / per_block);
+  sweep_kernel<T, kStochastic, kVec, G><<<blocks, 32 * warps * per_block, 0, s>>>(
+      score, start, paths, seed, table, B, N, A, warps);
   return cudaGetLastError();
+}
+
+template <typename T, bool kStochastic, bool kVec>
+cudaError_t launch_sized(const T* score, const int64_t* start, int64_t* paths,
+                         const int64_t* seed, const float* table, int B, int N, int A,
+                         cudaStream_t s) {
+  const int groups = (N + 3) / 4;
+#ifdef DEEPACO_SWEEP_WARPS
+  int warps = DEEPACO_SWEEP_WARPS;  // a build that fixes W, to measure it
+#else
+  int device = 0, sms = 0;  // W from the ants per SM (the note at the top)
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int warps = 4;
+  while (warps > 1 && (long)B * A * warps > (long)kWarpsPerSm * sms) warps /= 2;
+#endif
+  while (warps > 1 && 32 * (warps / 2) >= groups) warps /= 2;  // every warp owns columns
+  while (warps < 32 && groups > 32 * warps * kGroupsBeforeGrowing) warps *= 2;
+  const int per = (groups + 32 * warps - 1) / (32 * warps);
+#define DEEPACO_SWEEP_G(g)                                                                        \
+  if (per <= g)                                                                                   \
+  return launch_g<T, kStochastic, kVec, g>(score, start, paths, seed, table, B, N, A, warps, s)
+  DEEPACO_SWEEP_G(1);
+  DEEPACO_SWEEP_G(2);
+  DEEPACO_SWEEP_G(4);
+  DEEPACO_SWEEP_G(8);
+  DEEPACO_SWEEP_G(16);
+  DEEPACO_SWEEP_G(kMaxGroups);
+#undef DEEPACO_SWEEP_G
+  return cudaErrorInvalidValue;  // N > 4 * kMaxGroups * 1024
+}
+
+template <typename T, bool kStochastic>
+cudaError_t launch(const void* score, const int64_t* start, int64_t* paths, const int64_t* seed,
+                   const float* table, int B, int N, int A, cudaStream_t s) {
+  const T* sc = static_cast<const T*>(score);
+  if (N % 4 == 0 && reinterpret_cast<uintptr_t>(score) % (4 * sizeof(T)) == 0) {
+    return launch_sized<T, kStochastic, true>(sc, start, paths, seed, table, B, N, A, s);
+  }
+  return launch_sized<T, kStochastic, false>(sc, start, paths, seed, table, B, N, A, s);
 }
 
 }  // namespace
@@ -153,6 +357,10 @@ extern "C" int deepaco_sweep(const void* score, const int64_t* start, int64_t* p
                              int is_bf16, int stochastic, void* stream) {
   using namespace deepaco;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch<__nv_bfloat16>(score, start, paths, seed, gumbel_table, B, N, A, stochastic, s);
-  return launch<float>(score, start, paths, seed, gumbel_table, B, N, A, stochastic, s);
+  if (is_bf16) {
+    return stochastic ? launch<__nv_bfloat16, true>(score, start, paths, seed, gumbel_table, B, N, A, s)
+                      : launch<__nv_bfloat16, false>(score, start, paths, seed, gumbel_table, B, N, A, s);
+  }
+  return stochastic ? launch<float, true>(score, start, paths, seed, gumbel_table, B, N, A, s)
+                    : launch<float, false>(score, start, paths, seed, gumbel_table, B, N, A, s);
 }

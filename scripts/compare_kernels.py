@@ -1,15 +1,35 @@
 #!/usr/bin/env python3
-"""Times K4, K5 and K8 of this tree against the same kernels built from
+"""Times K2, K4, K5 and K8 of this tree against the same kernels built from
 another tree's sources, on one card, in turns (other, this, this, other).
 
     python3 scripts/compare_kernels.py --other path/to/deepaco_tpu_torch/csrc \
-        [--k8-variant DIR ...] [--out FILE]
+        [--kernels K2,K4,K5,K8] [--k8-variant DIR ...] [--out FILE]
 
 ``--other`` is the ``csrc`` directory of another checkout (for example the
 parent commit unpacked with ``git archive``); its ``two_opt.cu`` and
 ``tour_deposit.cu`` are built into a library of their own under
-``build/compare/`` and called through their C entries, which must have the
-parent's signatures (``deepaco_tour_deposit`` without scratch). Inputs:
+``build/compare/``, its ``sweep.cu`` into a second one, and each is called
+through its C entries, which must have the parent's signatures
+(``deepaco_tour_deposit`` without scratch). ``--kernels`` picks the checks
+(K4 and K5 run together). Inputs:
+
+- K2 (``deepaco_sweep``): its paths from both builds must be equal, with
+  the same seed and Gumbel table, in bf16 and f32, stochastic and greedy, at
+  the main path's shape (B=100, N=500, A=20, log of K1's heuristic), the NLS
+  path's (its first 16 instances and their NLS heuristic, every ant from city
+  0), row 9's (B=1, N=500, A=20), at N in {2, 33, 129, 1001, 3000} with A in
+  {1, 3} (B=2, scores on a grid of halves, so that ties are common; a NaN
+  row and column at N=129) and at N=4096, B=1. This tree's ``sweep.cu`` is
+  also built with ``-DDEEPACO_SWEEP_WARPS=`` 1, 2 and 4 (W fixed, not chosen
+  from the ants per SM), each held to the other build the same way, and all
+  of them are timed in alternating turns (bf16, stochastic) at the main
+  shape, at its first 50 instances, at the NLS shape, greedy at the main
+  shape, and at row 9's (f32), each turn a mean of 5 launches, reported as
+  medians of the turns. The noise
+  floor counts the SASS instructions (``cuobjdump -sass``) of a probe kernel
+  around ``sweep.cu``'s ``philox4x32_10``, less those of the same kernel
+  without it, times the main shape's B*A*(N-1)*ceil(N/4) calls, over
+  132 SMs x 64 INT32 lanes at the card's maximum SM clock;
 
 - K4 and K5 on the NLS path's shape: the first 16 of ``chip_smoke.py``'s
   seeded TSP500 instances, the ``tsp_nls500_selftrained`` heuristic (K1),
@@ -24,16 +44,20 @@ parent's signatures (``deepaco_tour_deposit`` without scratch). Inputs:
   ``common.cuh`` it includes) with this tree's C entry, timed against this
   tree's K8 in turns the same way.
 
-Both builds must give equal outputs. Prints one JSON object and writes it to
-``--out`` when given. Needs a CUDA device and ``nvcc``.
+Both builds must give equal outputs: the script exits 1 on any inequality.
+Prints one JSON object and writes it to ``--out`` when given. Needs a CUDA
+device and ``nvcc``.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import re
+import statistics
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -43,89 +67,84 @@ import chip_smoke as cs  # noqa: E402
 
 
 def build_other(csrc: Path, sources=("two_opt.cu", "tour_deposit.cu"),
-                name: str = "other") -> ctypes.CDLL:
+                name: str = "other", flags=()) -> ctypes.CDLL:
     from deepaco_tpu_torch.ops import _build
 
     out = ROOT / "build" / "compare"
     out.mkdir(parents=True, exist_ok=True)
     lib = out / f"lib{name}_kernels.so"
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-I", str(csrc),
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, *flags, "-shared", "-I", str(csrc),
            *[str(csrc / src) for src in sources], "-o", str(lib)]
     subprocess.run(cmd, check=True)
     return ctypes.CDLL(str(lib))
 
 
-def main() -> int:
+def cuda_ms(fn, reps):
     import torch
 
-    if not torch.cuda.is_available():
-        print("compare_kernels: no CUDA device", file=sys.stderr)
-        return 1
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--other", type=Path, required=True)
-    ap.add_argument("--k8-variant", type=Path, action="append", default=[])
-    ap.add_argument("--out", type=Path)
-    args = ap.parse_args()
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, reps):
+    """Device ms a call of each kernel that ``fn`` launches, under the
+    profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if us:
+            out[evt.key[:60]] = us / 1e3 / reps
+    return out
+
+
+def turns(other_fn, this_fn, reps):
+    """other, this, this, other: each a mean over ``reps`` launches."""
+    o1, t1, t2, o2 = (cuda_ms(f, reps) for f in (other_fn, this_fn, this_fn, other_fn))
+    return {"other_ms": [o1, o2], "this_ms": [t1, t2],
+            "speedup": (o1 + o2) / (t1 + t2)}
+
+
+def medians_of_turns(fns: dict, reps: int, rounds: int) -> dict:
+    """Each function timed ``rounds`` times, in the order of ``fns`` and then
+    in reverse, alternately; each time a mean over ``reps`` launches. Returns
+    every name's times and their median."""
+    times = {name: [] for name in fns}
+    for r in range(rounds):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(cuda_ms(fns[name], reps))
+    return {name: {"median_ms": statistics.median(ts), "ms": ts} for name, ts in times.items()}
+
+
+def compare_ls(result, same, other, dev, stream):
+    """K4 and K5 on the NLS path's inputs."""
+    import torch
 
     from deepaco_tpu_torch.aco import batched_tsp as bt
-    from deepaco_tpu_torch.aco.problems.tsp import tour_cost
     from deepaco_tpu_torch.core.builders import start_node_features
-    from deepaco_tpu_torch.ops import _build, deposit, fused_gnn, two_opt
+    from deepaco_tpu_torch.ops import _build, fused_gnn, two_opt
     from deepaco_tpu_torch.utils.datasets import distance_matrix
 
-    dev = torch.device("cuda")
-    _build.library()
-    other = build_other(args.other.resolve())
     P, I = _build.P, _build.I
     o_two_opt = other.deepaco_two_opt
     o_two_opt.argtypes, o_two_opt.restype = [P] * 3 + [I] * 4 + [P], ctypes.c_int
     o_nls = other.deepaco_nls
     o_nls.argtypes, o_nls.restype = [P] * 4 + [I] * 6 + [P], ctypes.c_int
-    o_dep = other.deepaco_tour_deposit
-    o_dep.argtypes, o_dep.restype = [P] * 3 + [I] * 5 + [P], ctypes.c_int
-    variants = {}
-    for k, path in enumerate(args.k8_variant):
-        fn = build_other(path.resolve(), ("tour_deposit.cu",), f"variant{k}").deepaco_tour_deposit
-        fn.argtypes, fn.restype = [P] * 5 + [I] * 5 + [P], ctypes.c_int
-        variants[path.name] = fn
-    stream = lambda: _build.stream_ptr(dev)
-
-    def cuda_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def kernel_ms(fn, reps):
-        """Device ms a call of each kernel that ``fn`` launches, under the
-        profiler."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        out = {}
-        for evt in prof.key_averages():
-            us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
-            if us:
-                out[evt.key[:60]] = us / 1e3 / reps
-        return out
-
-    def turns(other_fn, this_fn, reps):
-        """other, this, this, other: each a mean over ``reps`` launches."""
-        o1, t1, t2, o2 = (cuda_ms(f, reps) for f in (other_fn, this_fn, this_fn, other_fn))
-        return {"other_ms": [o1, o2], "this_ms": [t1, t2],
-                "speedup": (o1 + o2) / (t1 + t2)}
-
-    # ---- K4 and K5 on the NLS path's inputs
     nls_net, coords = cs.main_path_inputs(ROOT, dev, ls="nls")
     dist = distance_matrix(coords)
     heu = fused_gnn.tsp_dense_heuristic(nls_net, start_node_features(coords), dist, cs.K)
@@ -150,14 +169,13 @@ def main() -> int:
                            c.shape[0], t.shape[1], n, max_it, t_nls, 20, stream()), "other nls")
         return out
 
-    result = {"card": cs.card_line(), "device": torch.cuda.get_device_name(0),
-              "ls_shape": {"B": b, "N": n, "A": a, "budget": budget, "t_p": 20}}
-    same = {
+    result["ls_shape"] = {"B": b, "N": n, "A": a, "budget": budget, "t_p": 20}
+    same.update({
         "two_opt": torch.equal(other_k4(), two_opt.batched_two_opt_euclid(coords, tours, budget)),
         "nls": torch.equal(other_k5(10), two_opt.batched_nls_euclid(coords, hd, tours, budget)),
         "nls_t0": torch.equal(other_k5(0), two_opt.batched_nls_euclid(coords, hd, tours,
                                                                       budget, 0)),
-    }
+    })
     result["K4"] = turns(other_k4, lambda: two_opt.batched_two_opt_euclid(coords, tours, budget), 3)
     result["K5"] = turns(lambda: other_k5(10),
                          lambda: two_opt.batched_nls_euclid(coords, hd, tours, budget), 3)
@@ -185,7 +203,22 @@ def main() -> int:
                                      "min_ms": min(times),
                                      "slowest": divmod(times.index(max(times)), a)}
 
-    # ---- K8 at the CVRP and TSP shapes
+
+def compare_k8(result, same, other, variants, dev, stream):
+    """K8 at the CVRP and TSP shapes, beside ``scatter_add`` and each
+    ``--k8-variant``."""
+    import torch
+
+    from deepaco_tpu_torch.aco import batched_tsp as bt
+    from deepaco_tpu_torch.aco.problems.tsp import tour_cost
+    from deepaco_tpu_torch.ops import _build, deposit, fused_gnn
+    from deepaco_tpu_torch.utils.datasets import distance_matrix
+
+    P, I = _build.P, _build.I
+    o_dep = other.deepaco_tour_deposit
+    o_dep.argtypes, o_dep.restype = [P] * 3 + [I] * 5 + [P], ctypes.c_int
+    n, a = cs.N, cs.A
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED)
     _, cvrp_ds = cs.cvrp_inputs(ROOT, dev)
     cvrp_paths, cvrp_amounts, _ = cs.cvrp_rollout(dev, cvrp_ds)
     main_net, main_coords = cs.main_path_inputs(ROOT, dev)
@@ -232,6 +265,209 @@ def main() -> int:
             result[name][f"variant_{vname}"] = {"equal": equal,
                                                 **turns(variant_k8, this_k8, 50)}
             same[f"{name}_{vname}"] = equal
+
+
+PHILOX_PROBE = """
+#include "sweep.cu"
+__global__ void philox_probe(const uint4* c, const uint2* k, uint4* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  out[i] = deepaco::philox4x32_10(c[i], k[i]);
+}
+__global__ void philox_probe_base(const uint4* c, const uint2* k, uint4* out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint4 x = c[i];
+  const uint2 y = k[i];
+  out[i] = make_uint4(x.x ^ y.x, x.y, x.z ^ y.y, x.w);
+}
+"""
+
+
+def philox_sass_count(csrc: Path) -> dict:
+    """SASS instructions (NOPs left out) of one ``philox4x32_10`` call: a
+    probe kernel around it, less the same kernel without it, both built from
+    ``csrc/sweep.cu`` with the port's flags and read with ``cuobjdump -sass``."""
+    from deepaco_tpu_torch.ops import _build
+
+    out = ROOT / "build" / "compare"
+    out.mkdir(parents=True, exist_ok=True)
+    src, obj = out / "philox_probe.cu", out / "philox_probe.o"
+    src.write_text(PHILOX_PROBE)
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-c", str(src),
+                    "-o", str(obj)], check=True)
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(obj)], capture_output=True, text=True,
+                          check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        ops = [m.group(1) for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                                                part)]
+        counts[name] = {"instructions": sum(op != "NOP" for op in ops),
+                        "uniform": sum(op.startswith("U") for op in ops)}
+    probe, base = counts["_Z12philox_probePK5uint4PK5uint2PS_"], counts[
+        "_Z17philox_probe_basePK5uint4PK5uint2PS_"]
+    return {"per_call": probe["instructions"] - base["instructions"],
+            "uniform_per_call": probe["uniform"] - base["uniform"], "kernels": counts}
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def compare_k2(result, same, other_csrc: Path, variants: list, dev, stream):
+    """K2: paths equal to the other build's at every shape, dtype and mode;
+    W in {1, 2, 4} and each ``--k2-variant`` timed against the other build
+    in turns; the noise floor. A variant's equality is reported, not
+    required: a variant may change the noise to show what it costs."""
+    import torch
+
+    from deepaco_tpu_torch.aco import batched_tsp as bt
+    from deepaco_tpu_torch.core.builders import start_node_features
+    from deepaco_tpu_torch.ops import _build, fused_gnn
+    from deepaco_tpu_torch.utils.datasets import distance_matrix
+
+    P, I = _build.P, _build.I
+
+    def entry(lib):
+        fn = lib.deepaco_sweep
+        fn.argtypes, fn.restype = [P] * 5 + [I] * 5 + [P], ctypes.c_int
+        return fn
+
+    this_csrc = _build.CSRC
+    jobs = {"other": (other_csrc, "other_sweep", ())}
+    jobs.update({f"W{w}": (this_csrc, f"this_sweep_w{w}", (f"-DDEEPACO_SWEEP_WARPS={w}",))
+                 for w in (1, 2, 4)})
+    jobs.update({f"variant_{path.name}": (path, f"k2_variant{k}", ())
+                 for k, path in enumerate(variants)})
+    with ThreadPoolExecutor(len(jobs) + 1) as pool:  # one nvcc each, all together
+        sass = pool.submit(philox_sass_count, this_csrc)
+        libs = {k: pool.submit(build_other, csrc, ("sweep.cu",), name, flags)
+                for k, (csrc, name, flags) in jobs.items()}
+        builds = {k: entry(f.result()) for k, f in libs.items()}
+        sass = sass.result()
+    builds["this"] = _build.function("deepaco_sweep", [P] * 5 + [I] * 5 + [P])
+    seed = torch.tensor([0x5EED0123456789], dtype=torch.int64, device=dev)
+    table = bt._gumbel_table(dev)
+
+    def sweep(fn, score, start, stochastic):
+        b, n, _ = score.shape
+        a = start.shape[1]
+        paths = torch.empty((b, n, a), dtype=torch.int64, device=dev)
+        _build.check(fn(score.data_ptr(), start.data_ptr(), paths.data_ptr(), seed.data_ptr(),
+                        table.data_ptr(), b, n, a, int(score.dtype == torch.bfloat16),
+                        int(stochastic), stream()), "deepaco_sweep")
+        return paths
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 8)
+    main_net, main_coords = cs.main_path_inputs(ROOT, dev)
+    main_heu = fused_gnn.tsp_dense_heuristic(main_net, main_coords, distance_matrix(main_coords),
+                                             cs.K)
+    main_score = torch.log(torch.clamp(main_heu, min=1e-30))
+    nls_net, nls_coords = cs.main_path_inputs(ROOT, dev, ls="nls")
+    nls_heu = fused_gnn.tsp_dense_heuristic(nls_net, start_node_features(nls_coords),
+                                            distance_matrix(nls_coords), cs.K)
+    n = cs.N
+    cases = {
+        "main": (main_score, torch.randint(0, n, (main_score.shape[0], cs.A), generator=gen,
+                                           device=dev)),
+        "nls": (torch.log(torch.clamp(nls_heu, min=1e-30)),
+                torch.zeros((nls_heu.shape[0], cs.A), dtype=torch.int64, device=dev)),
+        "row9": (main_score[:1].contiguous(), torch.randint(0, n, (1, cs.A), generator=gen,
+                                                            device=dev)),
+    }
+    for rn in (2, 33, 129, 1001, 3000):
+        for ra in (1, 3):
+            grid = torch.randint(-8, 8, (2, rn, rn), generator=gen, device=dev).float() / 2
+            if rn == 129:
+                grid[0, 7] = float("nan")        # a whole row
+                grid[1, :, 5] = float("nan")     # a whole column
+            cases[f"N{rn}_A{ra}"] = (grid, torch.randint(0, rn, (2, ra), generator=gen,
+                                                         device=dev))
+    cases["N4096_B1"] = (torch.randn((1, 4096, 4096), generator=gen, device=dev),
+                         torch.randint(0, 4096, (1, 2), generator=gen, device=dev))
+    equal = {}
+    for name, (score, start) in cases.items():
+        dtypes = (torch.float32,) if name == "row9" else (torch.bfloat16, torch.float32)
+        for dtype in dtypes:
+            s = score.to(dtype).contiguous()
+            for stochastic in (True, False):
+                want = sweep(builds["other"], s, start, stochastic)
+                for bname in builds:
+                    if bname == "other":
+                        continue
+                    key = f"{name}_{str(dtype)[6:]}_{'stoch' if stochastic else 'greedy'}_{bname}"
+                    equal[key] = bool(torch.equal(sweep(builds[bname], s, start, stochastic),
+                                                  want))
+    result["K2_equal"] = {k: v for k, v in equal.items() if "variant_" not in k}
+    result["K2_variants_equal"] = {k: v for k, v in equal.items() if "variant_" in k}
+    same["K2"] = all(result["K2_equal"].values())
+
+    timed = {}
+    main_b = main_score.shape[0]
+    for name, case, dtype, stochastic, b in (
+            ("main", "main", torch.bfloat16, True, main_b),
+            ("main_greedy", "main", torch.bfloat16, False, main_b),
+            ("main_B50", "main", torch.bfloat16, True, main_b // 2),
+            ("nls", "nls", torch.bfloat16, True, cs.B_NLS),
+            ("row9", "row9", torch.float32, True, 1)):
+        score, start = cases[case]
+        s, st = score[:b].to(dtype).contiguous(), start[:b].contiguous()
+        fns = {bname: (lambda fn=fn: sweep(fn, s, st, stochastic)) for bname, fn in builds.items()}
+        timed[name] = {"B": b, "N": n, "A": cs.A, "dtype": str(dtype)[6:],
+                       "stochastic": stochastic, **medians_of_turns(fns, reps=5, rounds=6)}
+        timed[name]["speedup"] = timed[name]["other"]["median_ms"] / timed[name]["this"]["median_ms"]
+    result["K2_times"] = timed
+    calls = main_b * cs.A * (n - 1) * -(-n // 4)
+    clock = max_sm_clock_hz()
+    result["K2_noise_floor"] = {
+        "philox_sass": sass, "calls": calls, "max_sm_clock_hz": clock,
+        "int32_lanes": 132 * 64,
+        "noise_floor_ms": sass["per_call"] * calls / (132 * 64 * clock) * 1e3}
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--other", type=Path, required=True)
+    ap.add_argument("--kernels", default="K2,K4,K5,K8",
+                    help="comma-separated checks to run (K4 and K5 run together)")
+    ap.add_argument("--k8-variant", type=Path, action="append", default=[])
+    ap.add_argument("--k2-variant", type=Path, action="append", default=[],
+                    help="a directory with a sweep.cu (and the common.cuh it includes)")
+    ap.add_argument("--out", type=Path)
+    args = ap.parse_args()
+    picked = set(args.kernels.split(","))
+
+    from deepaco_tpu_torch.ops import _build
+
+    dev = torch.device("cuda")
+    _build.library()
+    P, I = _build.P, _build.I
+    stream = lambda: _build.stream_ptr(dev)
+    result = {"card": cs.card_line(), "device": torch.cuda.get_device_name(0)}
+    same = {}
+    if picked & {"K4", "K5", "K8"}:
+        other = build_other(args.other.resolve())
+        if picked & {"K4", "K5"}:
+            compare_ls(result, same, other, dev, stream)
+        if "K8" in picked:
+            variants = {}
+            for k, path in enumerate(args.k8_variant):
+                fn = build_other(path.resolve(), ("tour_deposit.cu",),
+                                 f"variant{k}").deepaco_tour_deposit
+                fn.argtypes, fn.restype = [P] * 5 + [I] * 5 + [P], ctypes.c_int
+                variants[path.name] = fn
+            compare_k8(result, same, other, variants, dev, stream)
+    if "K2" in picked:
+        compare_k2(result, same, args.other.resolve(),
+                   [p.resolve() for p in args.k2_variant], dev, stream)
     result["outputs_equal"] = same
     line = json.dumps(result)
     print(line, flush=True)

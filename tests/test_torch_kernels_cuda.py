@@ -85,6 +85,42 @@ def test_sweep_kernel_takes_nan_as_the_maximum(dev, instance, dtype):
         assert torch.equal(torch.sort(paths, dim=1).values, ident.expand_as(paths))
 
 
+def _sweep_case(dev, n, a, b, seed):
+    """Scores on a grid of halves (ties are common, so the first maximum is
+    tested) and random start cities."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    score = torch.randint(-8, 8, (b, n, n), generator=gen, device=dev).float() / 2
+    start = torch.randint(0, n, (b, a), generator=gen, device=dev)
+    return score, start, gen
+
+
+def _assert_sweep_matches_plain(score, start, gen):
+    b, n, _ = score.shape
+    greedy = bt.dense_sweep_fused(score, start, gen, stochastic=False)
+    assert torch.equal(greedy, bt.dense_sweep(score, start, gen, stochastic=False))
+    paths = bt.dense_sweep_fused(score, start, gen)
+    assert torch.equal(paths[:, 0], start)
+    ident = torch.arange(n, device=score.device)[None, :, None]
+    assert torch.equal(torch.sort(paths, dim=1).values, ident.expand_as(paths))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("a", [1, 3])
+@pytest.mark.parametrize("n", [2, 33, 129, 1001, 3000])
+def test_sweep_kernel_at_ragged_shapes(dev, n, a, dtype):
+    """K2 takes every N: a thread owns several groups of 4 columns past
+    128 columns a warp, odd N loads column by column, and few columns run on
+    fewer warps."""
+    score, start, gen = _sweep_case(dev, n, a, 2, n + a)
+    _assert_sweep_matches_plain(score.to(dtype), start, gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sweep_kernel_at_n_4096(dev, dtype):
+    score, start, gen = _sweep_case(dev, 4096, 2, 1, 5)
+    _assert_sweep_matches_plain(score.to(dtype), start, gen)
+
+
 @pytest.mark.parametrize("symmetric", [True, False])
 def test_update_kernel_matches_plain(dev, instance, symmetric):
     _, dist = instance

@@ -6,28 +6,33 @@
 // one-hot MXU contractions. On the H100 the edge state ([B, N, K, 32] f32,
 // 320 MB at B=100, N=500, K=50) does not fit on chip, so each layer streams
 // it once through device memory and the neighbour gathers are direct loads
-// from L2. What bounds it: the f32 FMAs of the per-edge 32x32 products
-// (e_lins0 each layer, two head layers) and the edge-state traffic of 12
-// layers. The design keeps each edge's 32 features in one warp, one feature
-// per lane: a product is 32 shuffles and FMAs against weights in shared
-// memory, with no atomics and every write owned by one block.
+// from L2. What bounds it: the edge-state traffic of 12 layers (each reads
+// and writes the 320 MB once), then the head's read of it and the dense
+// write; the per-edge 32x32 products (e_lins0 each layer, two head layers)
+// run on the tensor cores in 3xTF32, the f32 function, far below the bytes.
+// The layer passes and the head share one tile routine (embnet_passes.cuh):
+// a warp owns whole nodes, so there are no atomics and every write is owned
+// by one warp.
 //
 // Phases, all on the caller's stream:
 //   (a) knn_elin0: one warp per row takes the K smallest distances by
 //       (value, index), the lowest index winning, and writes
 //       nbr and w = silu(d * we_in + be_in);
 //   (b) node_pass, each layer: x1234 = x @ wv_i + bv_i, [rows, 4U];
-//   (c) edge_pass, each layer, one block per node: the edge update in place
-//       and the node update from the layer's input state (both passes in
-//       embnet_passes.cuh, shared with K9);
-//   (d) head: the 32->32->32->1 MLP and sigmoid per edge, then the dense
-//       row written in full: fill off the support, o + fill on it.
+//   (c) edge_pass, each layer, persistent warps over whole nodes in tiles
+//       of 16 edges: the edge update in place and the node update from the
+//       layer's input state (both passes in embnet_passes.cuh, shared with
+//       K9);
+//   (d) head, persistent warps over whole rows: the 32->32->32->1 MLP and
+//       sigmoid per edge on the same tiles, then the dense row written in
+//       full: fill off the support, o + fill on it.
 #include "embnet_passes.cuh"
 
 namespace deepaco {
 namespace {
 
 constexpr int kKnnWarps = 4;      // rows per knn block
+constexpr int kHeadWarps = 4;     // warps per head block
 
 // The head's weights follow the layers' in the packed parameter buffer; the
 // order matches ops/fused_gnn.py:_pack_params.
@@ -81,42 +86,61 @@ __global__ void knn_elin0_kernel(const float* __restrict__ dist, int* __restrict
   }
 }
 
-__global__ void head_kernel(const float* __restrict__ w, const int* __restrict__ nbr,
-                            const float* __restrict__ h0, const float* __restrict__ hb0,
-                            const float* __restrict__ h1, const float* __restrict__ hb1,
-                            const float* __restrict__ h2, const float* __restrict__ hb2,
-                            float* __restrict__ heu, int n, int k, float fill) {
-  extern __shared__ float smem[];
-  float* h0s = smem;
-  float* h1s = smem + U * U;
-  float* row = smem + 2 * U * U;
-  float* os = row + n;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long r = blockIdx.x;
-  for (int t = threadIdx.x; t < U * U; t += blockDim.x) {
-    h0s[t] = h0[t];
-    h1s[t] = h1[t];
-  }
-  for (int c = threadIdx.x; c < n; c += blockDim.x) row[c] = fill;
+// Persistent warps, each taking whole rows r: the two 32x32 products of
+// each tile of r's edges on the tensor cores (tile_product, the layers'
+// 3xTF32 routine; the first product's output is the second one's input in
+// place), the last layer's dot product summed over the 4 lanes of a row, and
+// the dense row assembled in the warp's slice of shared memory, then written
+// in full.
+__global__ void __launch_bounds__(kHeadWarps * 32)
+head_kernel(const float* __restrict__ w, const int* __restrict__ nbr,
+            const float* __restrict__ h0, const float* __restrict__ hb0,
+            const float* __restrict__ h1, const float* __restrict__ hb1,
+            const float* __restrict__ h2, const float* __restrict__ hb2,
+            float* __restrict__ heu, long rows, int n, int k, float fill) {
+  extern __shared__ float4 smem4[];
+  float4* f0 = smem4;
+  float4* f1 = smem4 + kFrags * 32;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float* row = reinterpret_cast<float*>(smem4 + 2 * kFrags * 32) + (size_t)warp * n;
+  load_weight_frags(h0, f0);
+  load_weight_frags(h1, f1);
   __syncthreads();
-  const float b0 = hb0[lane], b1 = hb1[lane], w2 = h2[lane], b2 = hb2[0];
-  for (int j = warp; j < k; j += kEdgeWarps) {
-    const float w0 = w[(r * k + j) * U + lane];
-    float a = 0.0f;
+  float b0[8], b1[8], w2[8];
+  load8(hb0, t, b0);
+  load8(hb1, t, b1);
+  load8(h2, t, w2);
+  const float b2 = hb2[0];
+  const int tiles = (k + kTileRows - 1) / kTileRows;
+  const long warps = (long)gridDim.x * kHeadWarps;
+  for (long r = (long)blockIdx.x * kHeadWarps + warp; r < rows; r += warps) {
+    for (int c = lane; c < n; c += 32) row[c] = fill;
+    __syncwarp();
+    for (int i = 0; i < tiles; ++i) {
+      float a[2][8], h[2][8];
+      int id[2];
+      load_tile(w + r * k * U, nbr + r * k, i, k, g, t, a, id);
+      tile_product(a, f0, lane, h);
 #pragma unroll
-    for (int v = 0; v < U; ++v) a = fmaf(__shfl_sync(kFullMask, w0, v), h0s[v * U + lane], a);
-    const float h = siluf_(a + b0);
-    a = 0.0f;
+      for (int q = 0; q < 2; ++q)
 #pragma unroll
-    for (int v = 0; v < U; ++v) a = fmaf(__shfl_sync(kFullMask, h, v), h1s[v * U + lane], a);
-    const float o = warp_sum(siluf_(a + b1) * w2);
-    if (lane == 0) os[j] = sigmoidf_(o + b2);
+        for (int c = 0; c < 8; ++c) h[q][c] = fast_silu(h[q][c] + b0[c]);
+      tile_product(h, f1, lane, a);
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        float o = 0.0f;
+#pragma unroll
+        for (int c = 0; c < 8; ++c) o += fast_silu(a[q][c] + b1[c]) * w2[c];
+        o += __shfl_xor_sync(kFullMask, o, 1);
+        o += __shfl_xor_sync(kFullMask, o, 2);
+        // k-NN columns of a row are distinct, so these writes never collide
+        if (t == 0 && i * kTileRows + g + 8 * q < k) row[id[q]] = sigmoidf_(o + b2) + fill;
+      }
+    }
+    __syncwarp();
+    for (int c = lane; c < n; c += 32) heu[r * n + c] = row[c];
+    __syncwarp();
   }
-  __syncthreads();
-  // k-NN columns of a row are distinct, so these writes never collide
-  for (int j = threadIdx.x; j < k; j += blockDim.x) row[nbr[r * k + j]] = os[j] + fill;
-  __syncthreads();
-  for (int c = threadIdx.x; c < n; c += blockDim.x) heu[r * n + c] = row[c];
 }
 
 }  // namespace
@@ -139,7 +163,13 @@ extern "C" int deepaco_dense_heuristic(const float* dist, float* x, float* x1234
   if (err != cudaSuccess) return err;
   err = run_layers(x, x1234, nbr, w, p.layers, rows, N, K, L, node_update, s);
   if (err != cudaSuccess) return err;
-  head_kernel<<<(unsigned)rows, kEdgeWarps * 32, (2 * U * U + N + K) * sizeof(float), s>>>(
-      w, nbr, p.h0, p.hb0, p.h1, p.hb1, p.h2, p.hb2, heu, N, K, fill);
+  const size_t head_smem = 2 * kFrags * 32 * sizeof(float4) + (size_t)kHeadWarps * N * sizeof(float);
+  static LaunchCache head_launch;
+  err = allow_smem(head_launch, head_kernel, head_smem);
+  if (err != cudaSuccess) return err;
+  const unsigned head_blocks = persistent_grid(head_launch, head_kernel, kHeadWarps * 32,
+                                               head_smem, (rows + kHeadWarps - 1) / kHeadWarps);
+  head_kernel<<<head_blocks, kHeadWarps * 32, head_smem, s>>>(
+      w, nbr, p.h0, p.hb0, p.h1, p.hb1, p.h2, p.hb2, heu, rows, N, K, fill);
   return cudaGetLastError();
 }

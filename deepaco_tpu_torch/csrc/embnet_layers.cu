@@ -10,11 +10,11 @@
 // f32 (1.54 GB at the path's shape) cannot stay on chip, so each layer
 // streams it once through device memory, and the neighbour gathers of x2/x4
 // are direct loads from x1234 [B, N, 128] (31 MB, held in the 50 MB L2).
-// What bounds it: the f32 FMAs of the per-edge 32x32 products (about
-// 3.4e11 operations, 5.1 ms at 67 TFLOP/s, against 0.47 ms for the edge
-// features in and the state out). The design keeps each edge's 32 features
-// in one warp, one feature per lane, with no atomics; the layer passes are
-// K1's (embnet_passes.cuh), whose K loop keeps no edge row on chip.
+// What bounds it: the edge state's bytes, read and written once a layer
+// (12 x 2 x 1.54 GB, about 11 ms at 3.35 TB/s); its per-edge 32x32 products
+// (about 3.4e11 operations) run on the tensor cores in 3xTF32, the f32
+// function, in K1's layer passes (embnet_passes.cuh: a warp owns whole
+// nodes, no atomics, and the K loop keeps no edge row on chip).
 //
 // Phases, all on the caller's stream:
 //   (a) elin0: w = silu(edge @ we_in + be_in), one thread per (edge,

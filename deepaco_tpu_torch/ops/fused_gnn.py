@@ -143,6 +143,10 @@ def _pack_params(f: FoldedEmbNet, head: ParNet) -> torch.Tensor:
 
 
 K1_MAX_N = 48 * 1024 // 16    # K1 keeps 16 bytes a city of a row in 48 KB
+# the C entries' argument types: deepaco_dense_heuristic (K1) and
+# deepaco_embnet_layers (K9)
+K1_ARGTYPES = [_build.P] * 7 + [_build.I] * 5 + [_build.F, _build.P]
+K9_ARGTYPES = [_build.P] * 6 + [_build.I] * 6 + [_build.P]
 
 
 def dense_heuristic_supported(net: Net, n: int, k: int, head: str = "heu") -> bool:
@@ -180,8 +184,10 @@ def tsp_dense_heuristic(net: Net, x: torch.Tensor, dist: torch.Tensor, k: int,
 
 
 def _launch(net: Net, head: str, x: torch.Tensor, dist: torch.Tensor, k: int,
-            fill: float) -> torch.Tensor:
-    """Allocate the outputs and scratch and call the K1 entry point."""
+            fill: float, entry=None) -> torch.Tensor:
+    """Allocate the outputs and scratch and call the K1 entry point:
+    ``entry``, a ctypes function with the signature of
+    ``deepaco_dense_heuristic``, or by default the package's own."""
     emb = net.emb_net
     b, n, _ = dist.shape
     dev = dist.device
@@ -192,9 +198,7 @@ def _launch(net: Net, head: str, x: torch.Tensor, dist: torch.Tensor, k: int,
     nbr = torch.empty((b, n, k), dtype=torch.int32, device=dev)
     w = torch.empty((b, n, k, 32), dtype=torch.float32, device=dev)
     heu = torch.empty((b, n, n), dtype=torch.float32, device=dev)
-    P, I, Fl = _build.P, _build.I, _build.F
-    fn = _build.function("deepaco_dense_heuristic",
-                         [P] * 7 + [I] * 5 + [Fl, P])
+    fn = entry or _build.function("deepaco_dense_heuristic", K1_ARGTYPES)
     rc = fn(dist.data_ptr(), xs.data_ptr(), x1234.data_ptr(), nbr.data_ptr(),
             w.data_ptr(), params.data_ptr(), heu.data_ptr(), b, n, k,
             emb.depth, int(emb.node_update), ctypes.c_float(fill),
@@ -250,8 +254,11 @@ def embnet_layers(folded: FoldedEmbNet, x_emb: torch.Tensor, nbr: torch.Tensor,
     return w
 
 
-def _launch_layers(f: FoldedEmbNet, x_emb, nbr, edge, node_update) -> torch.Tensor:
-    """Allocate the edge state and scratch and call the K9 entry point."""
+def _launch_layers(f: FoldedEmbNet, x_emb, nbr, edge, node_update,
+                   entry=None) -> torch.Tensor:
+    """Allocate the edge state and scratch and call the K9 entry point:
+    ``entry``, a ctypes function with the signature of
+    ``deepaco_embnet_layers``, or by default the package's own."""
     b, n, k = nbr.shape
     e = edge.shape[-1]
     dev = x_emb.device
@@ -261,8 +268,7 @@ def _launch_layers(f: FoldedEmbNet, x_emb, nbr, edge, node_update) -> torch.Tens
     ids = nbr.to(torch.int32).contiguous()
     feats = edge.float().contiguous()
     w = torch.empty((b, n, k, 32), dtype=torch.float32, device=dev)
-    P, I = _build.P, _build.I
-    fn = _build.function("deepaco_embnet_layers", [P] * 6 + [I] * 6 + [P])
+    fn = entry or _build.function("deepaco_embnet_layers", K9_ARGTYPES)
     rc = fn(feats.data_ptr(), x.data_ptr(), x1234.data_ptr(), ids.data_ptr(),
             w.data_ptr(), params.data_ptr(), b, n, k, e, f.bv.shape[0],
             int(node_update), _build.stream_ptr(dev))

@@ -1,17 +1,38 @@
 #!/usr/bin/env python3
-"""Times K2, K4, K5 and K8 of this tree against the same kernels built from
-another tree's sources, on one card, in turns (other, this, this, other).
+"""Times K1, K2, K4, K5, K8 and K9 of this tree against the same kernels
+built from another tree's sources, on one card, in turns (other, this, this,
+other).
 
     python3 scripts/compare_kernels.py --other path/to/deepaco_tpu_torch/csrc \
-        [--kernels K2,K4,K5,K8] [--k8-variant DIR ...] [--out FILE]
+        [--kernels K1 K2 K4 K5 K8 K9] [--k8-variant DIR ...] [--out FILE]
 
 ``--other`` is the ``csrc`` directory of another checkout (for example the
 parent commit unpacked with ``git archive``); its ``two_opt.cu`` and
 ``tour_deposit.cu`` are built into a library of their own under
-``build/compare/``, its ``sweep.cu`` into a second one, and each is called
-through its C entries, which must have the parent's signatures
+``build/compare/``, its ``sweep.cu`` into a second one, its
+``dense_heuristic.cu`` and ``embnet_layers.cu`` (with the
+``embnet_passes.cuh`` and ``common.cuh`` beside them) into a third, and each
+is called through its C entries, which must have the parent's signatures
 (``deepaco_tour_deposit`` without scratch). ``--kernels`` picks the checks
 (K4 and K5 run together). Inputs:
+
+- K1 (``deepaco_dense_heuristic``) at the main path's shape (tsp500
+  weights, B=100, N=500, K=50) and the NLS path's (tsp_nls500 weights with
+  the start-node feature, its first 16 instances), and K9
+  (``deepaco_embnet_layers``) at the sparse path's (tsp500 weights, the
+  CLI's 30 TSP2000 instances, k=200, both heads): each build's max abs
+  error and ``log(heu)`` error on the support (for K9 on the heu head)
+  against the plain version and against the other build, their times as
+  medians of 6 alternating turns of a few launches each, and each build's
+  device time by kernel name under the profiler; for K9 also each build's
+  and the plain f32 version's error against a float64 run with random
+  weights at the same N and K (``float64_errors``). This tree's
+  builds must hold their plain versions at rtol 1e-4 / atol 1e-5 and
+  ``log(heu)`` within 1e-4, or the script exits 1 (the two builds sum in
+  other orders, so they are not held to each other bit for bit). The
+  tensor-core and shuffle instructions (``HMMA``, ``HGMMA``, ``SHFL``) of
+  each K1 and K9 kernel are counted in ``cuobjdump -sass`` of both
+  libraries;
 
 - K2 (``deepaco_sweep``): its paths from both builds must be equal, with
   the same seed and Gumbel table, in bf16 and f32, stochastic and greedy, at
@@ -44,7 +65,8 @@ through its C entries, which must have the parent's signatures
   ``common.cuh`` it includes) with this tree's C entry, timed against this
   tree's K8 in turns the same way.
 
-Both builds must give equal outputs: the script exits 1 on any inequality.
+Both builds of K2, K4, K5 and K8 must give equal outputs: the script exits 1
+on any inequality.
 Prints one JSON object and writes it to ``--out`` when given. Needs a CUDA
 device and ``nvcc``.
 """
@@ -64,6 +86,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
+from profile_torch_main_path import HEURISTIC_KERNELS  # noqa: E402
 
 
 def build_other(csrc: Path, sources=("two_opt.cu", "tour_deposit.cu"),
@@ -282,6 +305,19 @@ __global__ void philox_probe_base(const uint4* c, const uint2* k, uint4* out) {
 """
 
 
+def sass_ops(binary: Path) -> dict:
+    """Each function's SASS opcodes in an object or library, from
+    ``cuobjdump -sass``, predicates left out."""
+    from deepaco_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(binary)], capture_output=True, text=True,
+                          check=True).stdout
+    return {part.split()[0]: [m.group(1) for m in re.finditer(
+        r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)", part)]
+        for part in sass.split("Function : ")[1:]}
+
+
 def philox_sass_count(csrc: Path) -> dict:
     """SASS instructions (NOPs left out) of one ``philox4x32_10`` call: a
     probe kernel around it, less the same kernel without it, both built from
@@ -294,16 +330,9 @@ def philox_sass_count(csrc: Path) -> dict:
     src.write_text(PHILOX_PROBE)
     subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-I", str(csrc), "-c", str(src),
                     "-o", str(obj)], check=True)
-    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(obj)], capture_output=True, text=True,
-                          check=True).stdout
-    counts = {}
-    for part in sass.split("Function : ")[1:]:
-        name = part.split()[0]
-        ops = [m.group(1) for m in re.finditer(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
-                                                part)]
-        counts[name] = {"instructions": sum(op != "NOP" for op in ops),
-                        "uniform": sum(op.startswith("U") for op in ops)}
+    counts = {name: {"instructions": sum(op != "NOP" for op in ops),
+                     "uniform": sum(op.startswith("U") for op in ops)}
+              for name, ops in sass_ops(obj).items()}
     probe, base = counts["_Z12philox_probePK5uint4PK5uint2PS_"], counts[
         "_Z17philox_probe_basePK5uint4PK5uint2PS_"]
     return {"per_call": probe["instructions"] - base["instructions"],
@@ -428,6 +457,144 @@ def compare_k2(result, same, other_csrc: Path, variants: list, dev, stream):
         "noise_floor_ms": sass["per_call"] * calls / (132 * 64 * clock) * 1e3}
 
 
+def sass_counts(lib: Path, names=HEURISTIC_KERNELS, ops=("HMMA", "HGMMA", "SHFL")) -> dict:
+    """Per kernel of ``lib`` whose name holds one of ``names``: how many of
+    its SASS instructions start with each of ``ops``. Each translation unit
+    keeps its own copy of a shared kernel, so the mangled names stay apart."""
+    return {fname: {op: sum(f.startswith(op) for f in found) for op in ops}
+            for fname, found in sass_ops(lib).items() if any(n in fname for n in names)}
+
+
+def other_entry(lib, name: str, argtypes: list):
+    """The C entry ``name`` of another build, with the package's argument
+    types for it."""
+    fn = getattr(lib, name)
+    fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    return fn
+
+
+def embnet_layers_with(fn):
+    """A ``layers=`` argument of ``fused_gnn.net_forward_fast`` that runs K9
+    through the C entry ``fn`` with the package's own scratch and packing."""
+    from deepaco_tpu_torch.ops import fused_gnn
+
+    def layers(f, x_emb, nbr, edge, *, k, node_update=True):
+        return fused_gnn._launch_layers(f, x_emb, nbr, edge, node_update, entry=fn)
+
+    return layers
+
+
+def float64_errors(other_layers, dev) -> dict:
+    """K9 at the sparse path's N and K on one instance with Flax-law random
+    weights, the case of the card test
+    ``test_embnet_layers_kernel_with_random_weights_against_float64``: each
+    build's and the plain f32 version's max abs error against the plain
+    version's steps run in float64, and how many entries of each build miss
+    rtol 1e-4 / atol 1e-5 against the plain f32 version."""
+    import torch
+
+    from deepaco_tpu_torch.aco.large_tsp import knn_support, sparse_tsp_graph
+    from deepaco_tpu_torch.models.gnn import Net, init_like_flax
+    from deepaco_tpu_torch.ops import fused_gnn
+
+    n, k = cs.SPARSE_N, cs.SPARSE_N // 10
+    coords = torch.rand((1, n, 2), generator=torch.Generator(device=dev).manual_seed(n + k),
+                        device=dev)
+    net = init_like_flax(Net().to(dev), torch.Generator(device=dev).manual_seed(k)).eval()
+    g = sparse_tsp_graph(coords, knn_support(coords, k))
+    f = fused_gnn.fold_embnet_params(net.emb_net)
+    x = fused_gnn._node_embedding(f, coords)
+    f64 = fused_gnn.FoldedEmbNet._make(t.double() for t in f)
+    ref = fused_gnn._layer_stack_plain(
+        f64, x.double(), torch.nn.functional.silu(g.edge.double() @ f64.we_in + f64.be_in),
+        g.nbr, k, True)
+    plain = fused_gnn.embnet_layers_plain(f, x, g.nbr, g.edge, k=k)
+    out = {"N": n, "K": k, "max_abs_edge_state": ref.abs().max().item(),
+           "plain_f32": {"max_abs_err": (plain.double() - ref).abs().max().item()}}
+    for name, fn in (("this", fused_gnn.embnet_layers), ("other", other_layers)):
+        got = fn(f, x, g.nbr, g.edge, k=k)
+        miss = (got - plain).abs() > 1e-5 + 1e-4 * plain.abs()
+        out[name] = {"max_abs_err": (got.double() - ref).abs().max().item(),
+                     "entries_missing_plain_f32": int(miss.sum().item()),
+                     "entries": miss.numel()}
+    return out
+
+
+def compare_k1_k9(result, same, other_csrc: Path, picked: set, dev):
+    """K1 at the main and NLS shapes and K9 at the sparse shape: errors
+    against the plain versions and the other build, times in turns, and
+    the kernels' SASS counts."""
+    import torch
+
+    from deepaco_tpu_torch.core.builders import start_node_features
+    from deepaco_tpu_torch.core.graph import topk_smallest
+    from deepaco_tpu_torch.ops import _build, fused_gnn
+    from deepaco_tpu_torch.utils.datasets import distance_matrix
+
+    other = build_other(other_csrc, ("dense_heuristic.cu", "embnet_layers.cu"), "other_gnn")
+    result["K1_K9_sass"] = {"this": sass_counts(_build.LIB_PATH),
+                            "other": sass_counts(ROOT / "build" / "compare" /
+                                                 "libother_gnn_kernels.so")}
+    log_err = lambda a, b: (a.log() - b.log()).abs().max().item()
+    holds = lambda got, want, lerr: bool(torch.allclose(got, want, rtol=1e-4, atol=1e-5)
+                                         and lerr <= 1e-4)
+    if "K1" in picked:
+        o_k1 = other_entry(other, "deepaco_dense_heuristic", fused_gnn.K1_ARGTYPES)
+        main_net, main_coords = cs.main_path_inputs(ROOT, dev)
+        nls_net, nls_coords = cs.main_path_inputs(ROOT, dev, ls="nls")
+        nls_coords = nls_coords[:cs.B_NLS]
+        for name, net, x, coords in (
+                ("K1_main", main_net, main_coords, main_coords),
+                ("K1_nls", nls_net, start_node_features(nls_coords), nls_coords)):
+            dist = distance_matrix(coords)
+            support = topk_smallest(dist, cs.K)[1]
+            this_fn = lambda: fused_gnn.tsp_dense_heuristic(net, x, dist, cs.K)
+            other_fn = lambda: fused_gnn._launch(net, "heu", x, dist, cs.K, 1e-10, entry=o_k1)
+            outs = {"this": this_fn(), "other": other_fn(),
+                    "plain": fused_gnn.tsp_dense_heuristic_plain(net, x, dist, cs.K)}
+            on = {key: v.gather(2, support) for key, v in outs.items()}
+            entry = {"B": dist.shape[0], "N": cs.N, "K": cs.K}
+            for a, b in (("this", "plain"), ("other", "plain"), ("this", "other")):
+                entry[f"{a}_vs_{b}"] = {"max_abs_err": (outs[a] - outs[b]).abs().max().item(),
+                                        "max_log_err_on_support": log_err(on[a], on[b])}
+            same[f"{name}_holds_plain"] = holds(outs["this"], outs["plain"],
+                                                entry["this_vs_plain"]["max_log_err_on_support"])
+            del outs, on
+            entry.update(medians_of_turns({"other": other_fn, "this": this_fn}, reps=5,
+                                          rounds=6))
+            entry["speedup"] = entry["other"]["median_ms"] / entry["this"]["median_ms"]
+            entry["kernels_ms"] = {"other": kernel_ms(other_fn, 3), "this": kernel_ms(this_fn, 3)}
+            result[name] = entry
+    if "K9" in picked:
+        o_layers = embnet_layers_with(other_entry(other, "deepaco_embnet_layers",
+                                                  fused_gnn.K9_ARGTYPES))
+        net, g = cs.sparse_inputs(ROOT, dev)
+        f = fused_gnn.fold_embnet_params(net.emb_net)
+        x = fused_gnn._node_embedding(f, g.x)
+        k = g.nbr.shape[-1]
+        heads = ("phe", "heu")
+        builds = {"this": fused_gnn.embnet_layers, "other": o_layers,
+                  "plain": fused_gnn.embnet_layers_plain}
+        outs = {key: fused_gnn.net_forward_fast(net, g.x, g.nbr, g.edge, heads=heads,
+                                                layers=fn) for key, fn in builds.items()}
+        entry = {"B": g.nbr.shape[0], "N": g.nbr.shape[1], "K": k, "heads": heads}
+        for a, b in (("this", "plain"), ("other", "plain"), ("this", "other")):
+            entry[f"{a}_vs_{b}"] = {
+                "max_abs_err": max((p - q).abs().max().item() for p, q in zip(outs[a], outs[b])),
+                "max_log_heu_err": log_err(outs[a][1] + 1e-10, outs[b][1] + 1e-10)}
+        same["K9_sparse_holds_plain"] = all(
+            holds(p, q, entry["this_vs_plain"]["max_log_heu_err"])
+            for p, q in zip(outs["this"], outs["plain"]))
+        del outs
+        fns = {"other": lambda: o_layers(f, x, g.nbr, g.edge, k=k),
+               "this": lambda: fused_gnn.embnet_layers(f, x, g.nbr, g.edge, k=k)}
+        entry.update(medians_of_turns(fns, reps=3, rounds=6))
+        entry["speedup"] = entry["other"]["median_ms"] / entry["this"]["median_ms"]
+        entry["kernels_ms"] = {key: kernel_ms(fn, 2) for key, fn in fns.items()}
+        entry["random_weights_vs_float64"] = float64_errors(o_layers, dev)
+        result["K9_sparse"] = entry
+
+
 def main() -> int:
     import torch
 
@@ -436,14 +603,14 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, required=True)
-    ap.add_argument("--kernels", default="K2,K4,K5,K8",
-                    help="comma-separated checks to run (K4 and K5 run together)")
+    ap.add_argument("--kernels", nargs="+", default=["K1", "K2", "K4", "K5", "K8", "K9"],
+                    help="the checks to run (K4 and K5 run together)")
     ap.add_argument("--k8-variant", type=Path, action="append", default=[])
     ap.add_argument("--k2-variant", type=Path, action="append", default=[],
                     help="a directory with a sweep.cu (and the common.cuh it includes)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
-    picked = set(args.kernels.split(","))
+    picked = set(args.kernels)
 
     from deepaco_tpu_torch.ops import _build
 
@@ -465,6 +632,8 @@ def main() -> int:
                 fn.argtypes, fn.restype = [P] * 5 + [I] * 5 + [P], ctypes.c_int
                 variants[path.name] = fn
             compare_k8(result, same, other, variants, dev, stream)
+    if picked & {"K1", "K9"}:
+        compare_k1_k9(result, same, args.other.resolve(), picked, dev)
     if "K2" in picked:
         compare_k2(result, same, args.other.resolve(),
                    [p.resolve() for p in args.k2_variant], dev, stream)

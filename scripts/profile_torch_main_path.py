@@ -17,8 +17,12 @@ cvrp500_selftrained on the golden CVRP500 set, A=20, T=10); with
 2000``: tsp500_selftrained, the CLI's 30 fixed-seed instances, k=200,
 A=20, T=10). Prints one
 JSON line: device time per CUDA kernel name, the profiled wall time, the
-device's busy and idle share of that window, and the card's name and power
-limit. ``--out`` also writes the Chrome trace there.
+wall of three runs without the profiler (which adds host time to every
+launch), the device's busy and idle share of the profiled window, the
+card's name and power limit, and the heuristic kernels' split (K1:
+``knn_elin0_kernel``, ``node_pass_kernel``, ``edge_pass_kernel``,
+``head_kernel``; K9: ``elin0_kernel`` and the same layer passes) with its
+sum. ``--out`` also writes the Chrome trace there.
 """
 from __future__ import annotations
 
@@ -29,6 +33,9 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+# the kernels of K1 (csrc/dense_heuristic.cu) and K9 (csrc/embnet_layers.cu)
+HEURISTIC_KERNELS = ("knn_elin0_kernel", "elin0_kernel", "node_pass_kernel",
+                     "edge_pass_kernel", "head_kernel")
 
 
 def train_step_runner(chip_smoke):
@@ -84,6 +91,14 @@ def main() -> int:
         run = lambda: chip_smoke.drive(net, coords, ls=args.ls)
     run()
     torch.cuda.synchronize()
+    # the profiler adds host time to every launch, so the wall is also
+    # taken without it
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
@@ -107,9 +122,20 @@ def main() -> int:
         Path(args.out).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(str(Path(args.out) / f"{path}_path_trace.json"))
     top = dict(sorted(kernels.items(), key=lambda kv: -kv[1]["ms"]))
+    split = {}
+    for name, entry in kernels.items():
+        short = next((k for k in HEURISTIC_KERNELS
+                      if f"::{k}(" in name or name.startswith(f"{k}(")), None)
+        if short:
+            part = split.setdefault(short, {"ms": 0.0, "count": 0})
+            part["ms"] += entry["ms"]
+            part["count"] += entry["count"]
     print(json.dumps({"path": path, "card": card, "wall_ms": wall_ms,
+                      "unprofiled_wall_ms": walls,
                       "device_busy_ms": busy if kernels else "not measured",
                       "device_idle_share": 1 - busy / wall_ms if kernels else "not measured",
+                      "heuristic_kernels": split,
+                      "heuristic_kernels_ms": sum(v["ms"] for v in split.values()),
                       "kernels": top}))
     return 0
 

@@ -54,6 +54,34 @@ def test_dense_heuristic_kernel_matches_plain(dev, instance):
                                ref.gather(2, support).log(), rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("n,k,b,node_update", [
+    (100, 1, 3, True),        # one edge a node: one row of a 16-row tile
+    (100, 13, 3, True),       # one ragged tile a node
+    (100, 50, 3, True),       # the main path's K: three whole tiles and two rows
+    (64, 64, 3, True),        # K = N: four whole tiles
+    (3072, 50, 1, True),      # K1's largest N, one instance
+    (100, 13, 3, False),      # no node update
+])
+def test_dense_heuristic_kernel_at_tile_ragged_shapes(dev, n, k, b, node_update):
+    """K1 against its plain version where K is not a multiple of the
+    edge pass's and the head's 16-row tiles, with the tsp500 weights:
+    rtol 1e-4, atol 1e-5, and log(heu) on the support within 1e-4 (sums in
+    another order; the products in 3xTF32)."""
+    net = Net.from_jax_variables(
+        load_checkpoint(str(CKPT / "tsp500_selftrained.msgpack"))).to(dev)
+    net.emb_net.node_update = node_update
+    coords = uniform_coords(n, torch.Generator().manual_seed(n + k), batch=b, device=dev)
+    dist = distance_matrix(coords)
+    before = fused_gnn.tsp_dense_heuristic.launches
+    got = fused_gnn.tsp_dense_heuristic(net, coords, dist, k)
+    assert fused_gnn.tsp_dense_heuristic.launches == before + 1
+    ref = fused_gnn.tsp_dense_heuristic_plain(net, coords, dist, k)
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+    support = topk_smallest(dist, k)[1]
+    torch.testing.assert_close(got.gather(2, support).log(),
+                               ref.gather(2, support).log(), rtol=0, atol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_sweep_kernel_greedy_equal_and_stochastic_permutations(dev, instance, dtype):
     _, dist = instance
@@ -601,6 +629,79 @@ def test_embnet_layers_kernel_matches_plain(dev, n, k, edge_feats, node_update):
                                        layers=fused_gnn.embnet_layers_plain)
     for a, b in zip(heads, plain):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,k,b,edge_feats", [
+    (2000, 200, 1, 1),        # the sparse path's N and K: 12 whole tiles and 8 rows
+    (130, 17, 3, 3),          # a tile and one row, three edge features
+])
+def test_embnet_layers_kernel_at_tile_ragged_shapes(dev, n, k, b, edge_feats):
+    """K9 against embnet_layers_plain where K is not a multiple of the edge
+    pass's 16-row tiles: rtol 1e-4, atol 1e-5 on the edge state and both
+    heads (sums in another order over 12 layers; the products in 3xTF32).
+    With one edge feature the weights are the sparse path's (tsp500) and the
+    edge feature the neighbour distance; else Flax-law random weights. At
+    K = 200 random weights let the edge state grow to about 250, where the
+    plain f32 version itself is 8e-5 from float64, and a kernel summing in
+    another order misses atol 1e-5 near zero (an edge pass on f32 FMAs on 4
+    of 12.8 million entries): the next test holds that case against
+    float64."""
+    from deepaco_tpu_torch.aco.large_tsp import knn_support, sparse_tsp_graph
+    from deepaco_tpu_torch.models.gnn import init_like_flax
+
+    g = torch.Generator(device=dev).manual_seed(n + k)
+    coords = torch.rand((b, n, 2), generator=g, device=dev)
+    if edge_feats == 1:
+        net = Net.from_jax_variables(
+            load_checkpoint(str(CKPT / "tsp500_selftrained.msgpack"))).to(dev)
+        graph = sparse_tsp_graph(coords, knn_support(coords, k))
+        nbr, edge = graph.nbr, graph.edge
+    else:
+        net = init_like_flax(Net(edge_feats=edge_feats, dual_heads=True).to(dev),
+                             torch.Generator(device=dev).manual_seed(k)).eval()
+        nbr = topk_smallest(distance_matrix(coords), k)[1]
+        edge = torch.rand((b, n, k, edge_feats), generator=g, device=dev)
+    heads = ("phe", "heu") if net.dual_heads else ("heu",)
+    f = fused_gnn.fold_embnet_params(net.emb_net)
+    x = fused_gnn._node_embedding(f, coords)
+    before = fused_gnn.embnet_layers.launches
+    got = fused_gnn.embnet_layers(f, x, nbr, edge, k=k)
+    assert fused_gnn.embnet_layers.launches == before + 1
+    torch.testing.assert_close(got, fused_gnn.embnet_layers_plain(f, x, nbr, edge, k=k),
+                               rtol=1e-4, atol=1e-5)
+    out = fused_gnn.net_forward_fast(net, coords, nbr, edge, heads=heads)
+    plain = fused_gnn.net_forward_fast(net, coords, nbr, edge, heads=heads,
+                                       layers=fused_gnn.embnet_layers_plain)
+    for a, r in zip(*((out, plain) if len(heads) > 1 else ((out,), (plain,)))):
+        torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5)
+
+
+def test_embnet_layers_kernel_with_random_weights_against_float64(dev):
+    """K9 at the sparse path's N and K on one instance with Flax-law random
+    weights, where the edge state grows to about 250 and the f32 function's
+    own rounding exceeds atol 1e-5: the kernel (3xTF32 products, sums in
+    another order) and the plain f32 version are both held against the
+    plain version's steps run in float64, at atol 1e-4, the plain f32
+    version's own error there (8.3e-5) rounded up."""
+    from deepaco_tpu_torch.aco.large_tsp import knn_support, sparse_tsp_graph
+    from deepaco_tpu_torch.models.gnn import init_like_flax
+
+    n, k = 2000, 200
+    coords = torch.rand((1, n, 2), generator=torch.Generator(device=dev).manual_seed(n + k),
+                        device=dev)
+    net = init_like_flax(Net().to(dev), torch.Generator(device=dev).manual_seed(k)).eval()
+    g = sparse_tsp_graph(coords, knn_support(coords, k))
+    f = fused_gnn.fold_embnet_params(net.emb_net)
+    x = fused_gnn._node_embedding(f, coords)
+    f64 = fused_gnn.FoldedEmbNet._make(t.double() for t in f)
+    ref = fused_gnn._layer_stack_plain(
+        f64, x.double(), torch.nn.functional.silu(g.edge.double() @ f64.we_in + f64.be_in),
+        g.nbr, k, True)
+    got = fused_gnn.embnet_layers(f, x, g.nbr, g.edge, k=k)
+    plain = fused_gnn.embnet_layers_plain(f, x, g.nbr, g.edge, k=k)
+    errors = {name: (out.double() - ref).abs().max().item()
+              for name, out in (("kernel", got), ("plain f32", plain))}
+    assert max(errors.values()) <= 1e-4, errors
 
 
 def test_embnet_layers_kernel_refuses_what_it_does_not_take(dev):

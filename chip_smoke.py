@@ -12,7 +12,10 @@ Phases, one JSON line each:
    rtol 1e-4 / atol 1e-5 (the kernel sums in another order) and ``log(heu)``
    on each row's K nearest columns within 1e-4, K2 greedy paths
    exactly equal and stochastic tours that are permutations with a mean cost
-   within 2% of the plain sweep's, K3 tau' and costs at rtol 1e-6;
+   within 2% of the plain sweep's, K3 (the update with the next bf16 score
+   on an iteration of the main path) tau' and costs at rtol 1e-6, its best
+   state and score bit-equal to what ``track_best`` and ``next_score`` make
+   of its own costs and tau';
 3. K1 on the NLS configuration, then K4 (2-opt) and K5 (NLS) against their
    plain versions, tours exactly equal and permutations: on the NLS path's
    own inputs (its B=16 instances, N=500, tours that K2 samples from city 0
@@ -160,6 +163,18 @@ def bound(bytes_moved: float, ops: float, product_ops: float = 0.0) -> tuple[flo
     t_ops = ops / F32_OPS_PER_S + product_ops / TF32X3_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def k3_work(b: int, n: int, a: int, score_bytes: int) -> tuple[float, float]:
+    """K3's bytes and f32 operations for ``bound``: tau and log_heu read once,
+    tau' and the score (``score_bytes`` an entry) written once, the B*A*N
+    distances of the tours' edges, the tours at 4 bytes a city id, the costs,
+    the best cost and tour read and written; the update's multiply and add,
+    the score's clamp, log, multiply and add, and each edge's cost and two
+    deposit adds."""
+    nbytes = (4 * 3 + score_bytes) * b * n * n + 4 * b * a * n + 4 * b * n * a + 4 * b * a \
+        + 2 * 4 * (b + b * n)
+    return nbytes, 6 * b * n * n + 3 * b * a * n
 
 
 def main_path_inputs(root: Path, dev, ls: str | None = None):
@@ -789,7 +804,7 @@ def main() -> int:
     sys.path.insert(0, str(root))
     from deepaco_tpu_torch.aco import batched_tsp as bt
     from deepaco_tpu_torch.aco.problems.tsp import tour_cost
-    from deepaco_tpu_torch.aco.runner import ACOConfig
+    from deepaco_tpu_torch.aco.runner import ACOConfig, track_best
     from deepaco_tpu_torch.core.builders import start_node_features
     from deepaco_tpu_torch.core.graph import topk_smallest
     from deepaco_tpu_torch.eval.anytime import evaluate_tsp
@@ -909,13 +924,28 @@ def main() -> int:
           "mean_cost_kernel": cost_k, "mean_cost_plain": cost_p,
           "tolerance": "greedy exact; stochastic mean cost within 2%"})
 
+    # K3 on an iteration of the main path: K2's tours, tau in [0.5, 1.5),
+    # the heuristic's log, a fresh best state (every instance improves)
     tau = 0.5 + torch.rand((B, N, N), generator=gen, device=dev)
-    tau_k, costs_k = bt.fused_tsp_update(tau, paths_k, dist, decay=0.9, q=1.0)
-    tau_p, costs_p = bt.fused_tsp_update_plain(tau, paths_k, dist, decay=0.9, q=1.0)
-    k3_ok = bool(torch.allclose(tau_k, tau_p, rtol=1e-6, atol=0)
-                 and torch.allclose(costs_k, costs_p, rtol=1e-6, atol=0))
-    k3_err = max((tau_k - tau_p).abs().max().item(),
+    log_heu = torch.log(torch.clamp(heu, min=1e-30))
+    state = bt._batched_init(B, N, ACOConfig(n_ants=A), dev)
+    state = state._replace(phe=state.phe._replace(tau=tau))
+    k3_args = (state, paths_k, dist)
+    k3_kw = {"decay": 0.9, "q": 1.0, "log_heu": log_heu}
+    got, costs_k, score_k = bt.fused_tsp_update(*k3_args, **k3_kw)
+    ref, costs_p, score_p = bt.fused_tsp_update_plain(*k3_args, **k3_kw)
+    own = track_best(state, paths_k, costs_k)
+    k3_best_ok = bool(torch.equal(got.best_cost, own.best_cost)
+                      and torch.equal(got.best_path, own.best_path))
+    k3_score_ok = bool(torch.equal(score_k, bt.next_score(got.phe.tau, log_heu, 1.0,
+                                                          torch.bfloat16)))
+    k3_ok = bool(torch.allclose(got.phe.tau, ref.phe.tau, rtol=1e-6, atol=0)
+                 and torch.allclose(costs_k, costs_p, rtol=1e-6, atol=0)
+                 and k3_best_ok and k3_score_ok)
+    k3_err = max((got.phe.tau - ref.phe.tau).abs().max().item(),
                  (costs_k - costs_p).abs().max().item())
+    k3_score_vs_plain = int((score_k != score_p).sum().item())
+    del got, ref, score_k, score_p, own
     # library yardstick: one index_put_ of the 2*B*A*N deposits onto decay*tau
     bi = torch.arange(B, device=dev)[:, None, None].expand(B, A, N).reshape(-1)
     uu = paths_k.transpose(1, 2)
@@ -925,22 +955,22 @@ def main() -> int:
              torch.cat([vv.reshape(-1), uu.reshape(-1)]))
     values = torch.cat([amounts, amounts])
     decayed = tau * 0.9
-    k3_bytes = 4 * (2 * B * N * N + B * A * N + B * A) + 4 * B * N * A
-    k3_ops = 2 * B * N * N + 3 * B * A * N
     kernels.append({
         "name": "fused_tsp_update", "route": "cuda",
         "source": "deepaco_tpu_torch/csrc/as_update.cu",
         "replaces": "deepaco_tpu/ops/pallas_kernels.py:401",
         "max_abs_err": k3_err,
-        "ms": cuda_ms(lambda: bt.fused_tsp_update(tau, paths_k, dist, decay=0.9, q=1.0), 20),
-        "plain_ms": cuda_ms(lambda: bt.fused_tsp_update_plain(
-            tau, paths_k, dist, decay=0.9, q=1.0), 5),
+        "ms": cuda_ms(lambda: bt.fused_tsp_update(*k3_args, **k3_kw), 20),
+        "plain_ms": cuda_ms(lambda: bt.fused_tsp_update_plain(*k3_args, **k3_kw), 5),
         "library_ms": cuda_ms(lambda: decayed.clone().index_put_(
             index, values, accumulate=True), 20),
         "passed": k3_ok,
-        **dict(zip(("bound_ms", "bound_by"), bound(k3_bytes, k3_ops)))})
+        **dict(zip(("bound_ms", "bound_by"), bound(*k3_work(B, N, A, 2))))})
     emit({"phase": "kernel", "name": "fused_tsp_update", "passed": k3_ok,
-          "max_abs_err": k3_err, "tolerance": "tau' and costs at rtol 1e-6"})
+          "max_abs_err": k3_err, "best_state_equal": k3_best_ok,
+          "score_equal": k3_score_ok, "score_entries_differing_from_plain": k3_score_vs_plain,
+          "tolerance": "tau' and costs at rtol 1e-6; best state and bf16 score bit-equal to "
+                       "track_best and next_score of the kernel's own costs and tau'"})
 
     # ---- 3. K4 and K5 against their plain versions
     nls_net, _ = main_path_inputs(root, dev, ls="nls")

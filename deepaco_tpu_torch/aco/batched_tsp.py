@@ -1,19 +1,23 @@
 """Batched dense anytime TSP runner (counterpart of
 ``deepaco_tpu/aco/batched_tsp.py``), the inference path of the slice.
 
-State is batched ``[B, ...]`` over instances. Each iteration builds the
-score ``alpha*log(tau) + beta*log(heu)`` in f32 (the heuristic log is
-hoisted out of the loop) and casts it to ``sample_dtype`` (bf16 by
-default), constructs every ant's tour, then applies the Ant System update.
+State is batched ``[B, ...]`` over instances. Each iteration constructs
+every ant's tour from the score ``alpha*log(tau) + beta*log(heu)`` in
+``sample_dtype`` (bf16 by default; the heuristic log is hoisted out of the
+loop), then applies the Ant System update, which also tracks the best tour
+and writes the next iteration's score (the first one is computed before
+the loop).
 
 Two kernels live here, each beside its plain PyTorch version:
 
 - K2, :func:`dense_sweep_fused` (``csrc/sweep.cu``): the whole construction
   sweep; its plain version is :func:`dense_sweep`. :func:`tsp_sweep_construct`
   (one instance, f32 scores) is K2 at B=1;
-- K3, :func:`fused_tsp_update` (``csrc/as_update.cu``): ``decay*tau + D +
-  D^T`` and the tour costs; its plain version is
-  :func:`fused_tsp_update_plain` (``tour_cost`` plus the scatter deposit).
+- K3, :func:`fused_tsp_update` (``csrc/as_update.cu``): the tour costs,
+  ``decay*tau + D + D^T`` with the floor, the best-so-far state and the
+  next score in one pass; its plain version is :func:`fused_tsp_update_plain`
+  (``tour_cost``, the scatter deposit, ``clamp``, ``track_best`` and
+  :func:`next_score`).
 
 With ``ls="2opt"`` or ``"nls"`` every ant's tour goes through local search
 between construction and update: K4 or K5 of :mod:`deepaco_tpu_torch.ops.two_opt`
@@ -188,52 +192,109 @@ tsp_sweep_construct.launches = 0
 
 
 # --------------------------------------------------------------- update ---
-def fused_tsp_update_plain(tau: torch.Tensor, paths: torch.Tensor,
+def next_score(tau: torch.Tensor, log_heu: torch.Tensor, alpha: float,
+               dtype: torch.dtype) -> torch.Tensor:
+    """The construction score ``alpha*log(max(tau, 1e-30)) + log_heu`` in
+    ``dtype``; ``log_heu`` is ``beta*log(heu)``, hoisted out of the loop."""
+    return (alpha * torch.log(torch.clamp(tau, min=1e-30)) + log_heu).to(dtype)
+
+
+def fused_tsp_update_plain(state: SearchState, paths: torch.Tensor,
                            dist: torch.Tensor, *, decay: float, q: float,
-                           symmetric: bool = True):
-    """Plain version of K3: ``tour_cost`` and the scatter deposit."""
+                           symmetric: bool = True, floor: float = 0.0,
+                           log_heu: torch.Tensor | None = None, alpha: float = 1.0,
+                           score_dtype: torch.dtype = torch.bfloat16):
+    """Plain version of K3, the steps it fuses one after the other:
+    ``tour_cost``, the scatter deposit onto ``decay*tau``, the ``floor``
+    clamp (when > 0), :func:`track_best` and, when ``log_heu`` is given,
+    :func:`next_score` of the new tau. Returns ``(state, costs, score)``,
+    ``score`` None without ``log_heu``."""
     costs = tour_cost(dist, paths)
-    tau = ph.deposit_plain(tau * decay, paths, q / costs, cyclic=True,
+    tau = ph.deposit_plain(state.phe.tau * decay, paths, q / costs, cyclic=True,
                            symmetric=symmetric)
-    return tau, costs
+    if floor > 0.0:
+        tau = torch.clamp(tau, min=floor)
+    state = track_best(state, paths, costs)
+    state = state._replace(phe=state.phe._replace(tau=tau))
+    score = None if log_heu is None else next_score(tau, log_heu, alpha, score_dtype)
+    return state, costs, score
 
 
-def fused_tsp_update(tau: torch.Tensor, paths: torch.Tensor,
+K3_MAX_N = 19000   # the cost pass holds 3 N words of an ant in shared memory
+
+
+def fused_tsp_update(state: SearchState, paths: torch.Tensor,
                      dist: torch.Tensor, *, decay: float, q: float,
-                     symmetric: bool = True):
-    """``(decay*tau + D [+ D^T], costs)`` for permutation tours
-    ``paths [B, N, A]`` over ``dist [B, N, N]``; one launch of kernel K3.
-    On CUDA a tour that is not a permutation stops the kernel with a
-    device-side assert; the plain version takes any tours."""
+                     symmetric: bool = True, floor: float = 0.0,
+                     log_heu: torch.Tensor | None = None, alpha: float = 1.0,
+                     score_dtype: torch.dtype = torch.bfloat16):
+    """:func:`fused_tsp_update_plain` for permutation tours ``paths [B, N,
+    A]`` over ``dist [B, N, N]`` and the state's ``tau [B, N, N]``, best
+    cost ``[B]`` and best path ``[B, N]``; on CUDA one launch of kernel K3
+    (two kernels on the stream). Its tau' and costs agree with the plain
+    version's to rtol 1e-6 (``tour_cost`` sums in f32, ``scatter_add_`` in
+    any order), and its best state and score are what the plain steps make
+    of its own costs and tau', bit for bit. A tour that is not a permutation
+    stops the kernel with a device-side assert; the plain version takes any
+    tours."""
+    tau = state.phe.tau
     if tau.device.type == "cpu":
-        return fused_tsp_update_plain(tau, paths, dist, decay=decay, q=q,
-                                      symmetric=symmetric)
-    _build.require_cuda("fused_tsp_update", tau, paths, dist)
+        return fused_tsp_update_plain(state, paths, dist, decay=decay, q=q,
+                                      symmetric=symmetric, floor=floor,
+                                      log_heu=log_heu, alpha=alpha,
+                                      score_dtype=score_dtype)
+    _build.require_cuda("fused_tsp_update", tau, paths, dist, state.best_cost,
+                        state.best_path, *(() if log_heu is None else (log_heu,)))
     b, n, a = paths.shape
-    if tau.shape != (b, n, n) or dist.shape != (b, n, n):
-        raise ValueError("expected tau, dist [B, N, N] and paths [B, N, A]")
-    if tau.dtype != torch.float32 or dist.dtype != torch.float32:
-        raise ValueError("fused_tsp_update takes f32 tau and dist")
-    out = _launch_update(tau.contiguous(), paths.long().contiguous(),
-                         dist.contiguous(), decay, q, symmetric)
+    if (tau.shape != (b, n, n) or dist.shape != (b, n, n)
+            or state.best_cost.shape != (b,) or state.best_path.shape != (b, n)
+            or (log_heu is not None and log_heu.shape != (b, n, n))):
+        raise ValueError("expected tau, dist, log_heu [B, N, N], paths [B, N, A], "
+                         "best_cost [B] and best_path [B, N]")
+    if any(t.dtype != torch.float32 for t in (tau, dist, state.best_cost,
+                                              *(() if log_heu is None else (log_heu,)))):
+        raise ValueError("fused_tsp_update takes f32 tau, dist, log_heu and best_cost")
+    if score_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"fused_tsp_update writes a bf16 or f32 score, not {score_dtype}")
+    if n > K3_MAX_N:
+        raise ValueError(f"fused_tsp_update takes N <= {K3_MAX_N} (shared memory), got {n}")
+    out = _launch_update(state, paths.long().contiguous(), dist.contiguous(), decay, q,
+                         symmetric, floor, log_heu, alpha, score_dtype)
     fused_tsp_update.launches += 1
     return out
 
 
-def _launch_update(tau, paths, dist, decay, q, symmetric):
-    """Allocate tau', the costs and the scratch and call the K3 entry point."""
+def _launch_update(state, paths, dist, decay, q, symmetric, floor, log_heu, alpha,
+                   score_dtype):
+    """Allocate the outputs and the scratch and call the K3 entry point."""
     b, n, a = paths.shape
+    tau = state.phe.tau.contiguous()
     dev = tau.device
     tau_out = torch.empty_like(tau)
     costs = torch.empty((b, a), dtype=torch.float32, device=dev)
-    pos = torch.empty((b, a, n), dtype=torch.int32, device=dev)
+    best_cost = torch.empty_like(state.best_cost)
+    best_path = torch.empty((b, n), dtype=torch.int64, device=dev)
+    nbr = torch.empty((b, n, a, 2), dtype=torch.int32, device=dev)
+    best_cost_in = state.best_cost.contiguous()
+    best_path_in = state.best_path.contiguous()
+    score, score_kind, heu_ptr = None, 0, None
+    if log_heu is not None:
+        log_heu = log_heu.contiguous()
+        score = torch.empty((b, n, n), dtype=score_dtype, device=dev)
+        score_kind, heu_ptr = (1 if score_dtype == torch.bfloat16 else 2), log_heu.data_ptr()
     P, I, F = _build.P, _build.I, _build.F
-    fn = _build.function("deepaco_as_update", [P] * 6 + [I] * 3 + [F, F, I, P])
-    rc = fn(tau.data_ptr(), paths.data_ptr(), dist.data_ptr(),
-            tau_out.data_ptr(), costs.data_ptr(), pos.data_ptr(), b, n, a,
-            decay, q, int(symmetric), _build.stream_ptr(dev))
+    fn = _build.function("deepaco_as_update", [P] * 12 + [I] * 3 + [F, F, I, I, F, F, I, P])
+    rc = fn(tau.data_ptr(), paths.data_ptr(), dist.data_ptr(), heu_ptr,
+            best_cost_in.data_ptr(), best_path_in.data_ptr(),
+            tau_out.data_ptr(), costs.data_ptr(),
+            None if score is None else score.data_ptr(), best_cost.data_ptr(),
+            best_path.data_ptr(), nbr.data_ptr(), b, n, a, decay, q,
+            int(symmetric), int(floor > 0.0), floor, alpha, score_kind,
+            _build.stream_ptr(dev))
     _build.check(rc, "deepaco_as_update")
-    return tau_out, costs
+    state = state._replace(phe=state.phe._replace(tau=tau_out), best_cost=best_cost,
+                           best_path=best_path)
+    return state, costs, score
 
 
 fused_tsp_update.launches = 0
@@ -248,16 +309,22 @@ def _fused_update_ok(cfg: ACOConfig) -> bool:
 
 
 def _batched_update(cfg: ACOConfig, state: SearchState, paths: torch.Tensor,
-                    dist: torch.Tensor, *,
-                    update: Callable = fused_tsp_update) -> SearchState:
+                    dist: torch.Tensor, *, update: Callable = fused_tsp_update,
+                    log_heu: torch.Tensor | None = None,
+                    sample_dtype: torch.dtype = torch.bfloat16):
+    """One iteration's update, ``(state, next score)``: ``update`` (K3 or its
+    plain version) where it covers ``cfg``, else :func:`search_update`; the
+    score in ``sample_dtype`` only when ``log_heu`` is given."""
     if _fused_update_ok(cfg):
-        tau, costs = update(state.phe.tau, paths, dist, decay=cfg.decay,
-                            q=cfg.q, symmetric=cfg.symmetric)
-        if cfg.floor > 0.0:
-            tau = torch.clamp(tau, min=cfg.floor)
-        state = track_best(state, paths, costs)
-        return state._replace(phe=state.phe._replace(tau=tau))
-    return search_update(cfg, state, paths, tour_cost(dist, paths))
+        state, _, score = update(state, paths, dist, decay=cfg.decay, q=cfg.q,
+                                 symmetric=cfg.symmetric, floor=cfg.floor,
+                                 log_heu=log_heu, alpha=cfg.alpha,
+                                 score_dtype=sample_dtype)
+        return state, score
+    state = search_update(cfg, state, paths, tour_cost(dist, paths))
+    if log_heu is None:
+        return state, None
+    return state, next_score(state.phe.tau, log_heu, cfg.alpha, sample_dtype)
 
 
 class PathOps(NamedTuple):
@@ -328,16 +395,18 @@ def run_anytime_batched(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
     ls_fn = _batched_ls_fn(ls, coords, dist, heu, ls_budget, _ops)
     state = _batched_init(b, n, cfg, heu.device)
     curve = []
-    for _ in range(n_iterations):
+    with _ops.timer("construction"):
+        score = next_score(state.phe.tau, log_heu, cfg.alpha, sample_dtype)
+    for t in range(n_iterations):
         with _ops.timer("construction"):
-            score = (cfg.alpha * torch.log(torch.clamp(state.phe.tau, min=1e-30))
-                     + log_heu).to(sample_dtype)
             start = _start_cities(generator, b, a, n, fixed_start, heu.device)
             paths = _ops.sweep(score, start, generator)
         if ls_fn is not None:
             with _ops.timer("local_search"):
                 paths = ls_fn(paths)
-        with _ops.timer("update"):
-            state = _batched_update(cfg, state, paths, dist, update=_ops.update)
+        with _ops.timer("update"):   # the last iteration writes no score
+            state, score = _batched_update(
+                cfg, state, paths, dist, update=_ops.update, sample_dtype=sample_dtype,
+                log_heu=log_heu if t + 1 < n_iterations else None)
         curve.append(state.best_cost)
     return torch.stack(curve, dim=1)

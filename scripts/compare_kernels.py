@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Times K1, K2, K4, K5, K8 and K9 of this tree against the same kernels
+"""Times K1, K2, K3, K4, K5, K8 and K9 of this tree against the same kernels
 built from another tree's sources, on one card, in turns (other, this, this,
 other).
 
     python3 scripts/compare_kernels.py --other path/to/deepaco_tpu_torch/csrc \
-        [--kernels K1 K2 K4 K5 K8 K9] [--k8-variant DIR ...] [--out FILE]
+        [--kernels K1 K2 K3 K4 K5 K8 K9] [--k8-variant DIR ...] [--out FILE]
 
 ``--other`` is the ``csrc`` directory of another checkout (for example the
 parent commit unpacked with ``git archive``); its ``two_opt.cu`` and
@@ -65,8 +65,23 @@ is called through its C entries, which must have the parent's signatures
   ``common.cuh`` it includes) with this tree's C entry, timed against this
   tree's K8 in turns the same way.
 
-Both builds of K2, K4, K5 and K8 must give equal outputs: the script exits 1
-on any inequality.
+- K3: the other tree's ``as_update.cu`` (an entry ``deepaco_as_update``
+  that computes tau' and the costs alone, built into
+  ``build/compare/libother_update_kernels.so``) followed by the PyTorch
+  steps that the runner ran after such a K3 (the floor clamp,
+  ``track_best``, the next score), against this tree's ``fused_tsp_update``,
+  which does all of it: tau', costs, best cost and tour and score must be
+  bit-equal at the main shape (K2's tours on K1's heuristic, B=100, N=500,
+  A=20) and the NLS shape (its first 16 instances and heuristic, ants from
+  city 0) in the main path's configuration (bf16 score, no floor), and at
+  the main shape and N in {2, 33, 129, 1001} (B=3, A up to 40, ``1/d``)
+  also with an f32 score and with a floor, alpha 1.5 and asymmetric
+  deposits; the two arms are timed at the main and NLS shapes, medians of
+  6 alternating turns of 20 launches, with their device time by kernel
+  name and K3's bound (``chip_smoke.k3_work``).
+
+Both builds of K2, K3, K4, K5 and K8 must give equal outputs: the script
+exits 1 on any inequality.
 Prints one JSON object and writes it to ``--out`` when given. Needs a CUDA
 device and ``nvcc``.
 """
@@ -595,6 +610,130 @@ def compare_k1_k9(result, same, other_csrc: Path, picked: set, dev):
         result["K9_sparse"] = entry
 
 
+def other_update(entry, stream, state, paths, dist, *, decay, q, symmetric, floor, log_heu,
+                 alpha, score_dtype):
+    """The other tree's K3 (``deepaco_as_update(tau, paths, dist, tau_out,
+    costs, pos, B, N, A, decay, q, symmetric, stream)``: tau' and the costs)
+    and the PyTorch steps that the runner ran around such a K3: the floor
+    clamp, ``track_best`` and the next score, as ``_batched_update`` and
+    ``run_anytime_batched`` wrote them."""
+    import torch
+
+    from deepaco_tpu_torch.aco.runner import track_best
+    from deepaco_tpu_torch.ops import _build
+
+    b, n, a = paths.shape
+    tau = state.phe.tau
+    tau_out = torch.empty_like(tau)
+    costs = torch.empty((b, a), dtype=torch.float32, device=tau.device)
+    pos = torch.empty((b, a, n), dtype=torch.int32, device=tau.device)
+    _build.check(entry(tau.data_ptr(), paths.data_ptr(), dist.data_ptr(), tau_out.data_ptr(),
+                       costs.data_ptr(), pos.data_ptr(), b, n, a, decay, q, int(symmetric),
+                       stream()), "other deepaco_as_update")
+    if floor > 0.0:
+        tau_out = torch.clamp(tau_out, min=floor)
+    state = track_best(state, paths, costs)
+    state = state._replace(phe=state.phe._replace(tau=tau_out))
+    score = (alpha * torch.log(torch.clamp(state.phe.tau, min=1e-30))
+             + log_heu).to(score_dtype)
+    return state, costs, score
+
+
+def compare_k3(result, same, other_csrc: Path, dev, stream):
+    """K3: the other tree's kernel plus its PyTorch steps against this tree's
+    one pass, bit for bit (tau', costs, best cost and tour, score), at the main
+    and NLS shapes in the main path's configuration and with the score in
+    f32, a floor, asymmetric deposits and ragged N; timed in alternating
+    turns at the main and NLS shapes (bf16 score, no floor), with each
+    arm's device time by kernel name."""
+    import torch
+
+    from deepaco_tpu_torch.aco import batched_tsp as bt
+    from deepaco_tpu_torch.aco.problems.tsp import tour_cost
+    from deepaco_tpu_torch.aco.runner import ACOConfig
+    from deepaco_tpu_torch.core.builders import start_node_features
+    from deepaco_tpu_torch.ops import _build, fused_gnn
+    from deepaco_tpu_torch.utils.datasets import distance_matrix, uniform_coords
+
+    P, I, F = _build.P, _build.I, _build.F
+    lib = build_other(other_csrc, ("as_update.cu",), "other_update")
+    entry = other_entry(lib, "deepaco_as_update", [P] * 6 + [I] * 3 + [F, F, I, P])
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 10)
+
+    def case(b, n, coords, x, net, start):
+        """K2's tours on K1's heuristic, tau in [0.5, 1.5), the heuristic's
+        log and a best state that instance 0 beats, the others not, and the
+        last ties its cheapest tour."""
+        dist = distance_matrix(coords)
+        if net is None:
+            heu = 1.0 / dist
+        else:
+            heu = fused_gnn.tsp_dense_heuristic(net, x, dist, min(cs.K, n - 1))
+        log_heu = torch.log(torch.clamp(heu, min=1e-30))
+        paths = bt.dense_sweep_fused(log_heu.to(torch.bfloat16), start, gen)
+        cheapest = tour_cost(dist, paths).min(-1).values
+        best = cheapest - 1.0
+        best[0] = cheapest[0] + 1.0
+        best[-1] = cheapest[-1]
+        state = bt._batched_init(b, n, ACOConfig(n_ants=start.shape[1]), dev)
+        state = state._replace(
+            phe=state.phe._replace(tau=0.5 + torch.rand((b, n, n), generator=gen, device=dev)),
+            best_cost=best, best_path=torch.randint(0, n, (b, n), generator=gen, device=dev))
+        return state, paths, dist, log_heu
+
+    main_net, main_coords = cs.main_path_inputs(ROOT, dev)
+    nls_net, nls_coords = cs.main_path_inputs(ROOT, dev, ls="nls")
+    a = cs.A
+    cases = {
+        "main": case(cs.B, cs.N, main_coords, main_coords, main_net,
+                     torch.randint(0, cs.N, (cs.B, a), generator=gen, device=dev)),
+        "nls": case(cs.B_NLS, cs.N, nls_coords, start_node_features(nls_coords), nls_net,
+                    torch.zeros((cs.B_NLS, a), dtype=torch.int64, device=dev)),
+    }
+    for rn, ra in ((2, 3), (33, 5), (129, 40), (1001, 20)):
+        c = uniform_coords(rn, torch.Generator().manual_seed(rn), batch=3, device=dev)
+        cases[f"N{rn}_A{ra}"] = case(3, rn, c, c, None,
+                                     torch.randint(0, rn, (3, ra), generator=gen, device=dev))
+    configs = {"main_path": dict(symmetric=True, floor=0.0, alpha=1.0,
+                                 score_dtype=torch.bfloat16),
+               "f32_score": dict(symmetric=True, floor=0.0, alpha=1.0,
+                                 score_dtype=torch.float32),
+               "floor_asymmetric": dict(symmetric=False, floor=0.7, alpha=1.5,
+                                        score_dtype=torch.bfloat16)}
+    equal = {}
+    for name, (state, paths, dist, log_heu) in cases.items():
+        for cname, cfg in configs.items():
+            if cname != "main_path" and name == "nls":
+                continue
+            kw = dict(decay=0.9, q=1.0, log_heu=log_heu, **cfg)
+            want = other_update(entry, stream, state, paths, dist, **kw)
+            got = bt.fused_tsp_update(state, paths, dist, **kw)
+            parts = {"tau": (got[0].phe.tau, want[0].phe.tau), "costs": (got[1], want[1]),
+                     "best_cost": (got[0].best_cost, want[0].best_cost),
+                     "best_path": (got[0].best_path, want[0].best_path),
+                     "score": (got[2], want[2])}
+            equal[f"{name}_{cname}"] = {k: bool(torch.equal(x, y)) for k, (x, y) in parts.items()}
+            if not equal[f"{name}_{cname}"]["score"]:
+                equal[f"{name}_{cname}"]["score_entries_differing"] = int(
+                    (got[2] != want[2]).sum().item())
+            del got, want
+    result["K3_equal"] = equal
+    same["K3"] = all(all(v for k, v in e.items() if k != "score_entries_differing")
+                     for e in equal.values())
+    timed = {}
+    for name in ("main", "nls"):
+        state, paths, dist, log_heu = cases[name]
+        kw = dict(decay=0.9, q=1.0, log_heu=log_heu, **configs["main_path"])
+        fns = {"other": lambda: other_update(entry, stream, state, paths, dist, **kw),
+               "this": lambda: bt.fused_tsp_update(state, paths, dist, **kw)}
+        b = paths.shape[0]
+        timed[name] = {"B": b, "N": cs.N, "A": a, **medians_of_turns(fns, reps=20, rounds=6),
+                       "kernels_ms": {k: kernel_ms(fn, 10) for k, fn in fns.items()},
+                       "bound_ms": cs.bound(*cs.k3_work(b, cs.N, a, 2))[0]}
+        timed[name]["speedup"] = timed[name]["other"]["median_ms"] / timed[name]["this"]["median_ms"]
+    result["K3_times"] = timed
+
+
 def main() -> int:
     import torch
 
@@ -603,7 +742,7 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, required=True)
-    ap.add_argument("--kernels", nargs="+", default=["K1", "K2", "K4", "K5", "K8", "K9"],
+    ap.add_argument("--kernels", nargs="+", default=["K1", "K2", "K3", "K4", "K5", "K8", "K9"],
                     help="the checks to run (K4 and K5 run together)")
     ap.add_argument("--k8-variant", type=Path, action="append", default=[])
     ap.add_argument("--k2-variant", type=Path, action="append", default=[],
@@ -637,6 +776,8 @@ def main() -> int:
     if "K2" in picked:
         compare_k2(result, same, args.other.resolve(),
                    [p.resolve() for p in args.k2_variant], dev, stream)
+    if "K3" in picked:
+        compare_k3(result, same, args.other.resolve(), dev, stream)
     result["outputs_equal"] = same
     line = json.dumps(result)
     print(line, flush=True)

@@ -15,6 +15,7 @@ import torch
 
 from deepaco_tpu_torch.aco import batched_tsp as bt
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost
+from deepaco_tpu_torch.aco.runner import ACOConfig, track_best
 from deepaco_tpu_torch.core.builders import start_node_features
 from deepaco_tpu_torch.core.graph import topk_smallest
 from deepaco_tpu_torch.models.gnn import Net
@@ -149,6 +150,51 @@ def test_sweep_kernel_at_n_4096(dev, dtype):
     _assert_sweep_matches_plain(score.to(dtype), start, gen)
 
 
+def _update_case(dev, b, n, a, seed):
+    """Random permutation tours over a seeded instance, tau in [0.5, 1.5),
+    a log heuristic and a best-so-far state that instance 0 beats and the
+    others do not (from B=3 the last ties its cheapest tour, which keeps it)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dist = distance_matrix(uniform_coords(n, torch.Generator().manual_seed(seed), batch=b,
+                                          device=dev))
+    paths = torch.argsort(torch.rand((b, a, n), generator=gen, device=dev), dim=-1)
+    paths = paths.transpose(1, 2).contiguous()
+    tau = 0.5 + torch.rand((b, n, n), generator=gen, device=dev)
+    log_heu = torch.log(torch.rand((b, n, n), generator=gen, device=dev) + 1e-3)
+    state = bt._batched_init(b, n, ACOConfig(n_ants=a), dev)
+    cheapest = tour_cost(dist, paths).min(-1).values
+    best = cheapest - 1.0
+    best[0] = cheapest[0] + 1.0
+    if b > 2:
+        best[-1] = cheapest[-1]
+    best_path = torch.randint(0, n, (b, n), generator=gen, device=dev)
+    state = state._replace(phe=state.phe._replace(tau=tau), best_cost=best,
+                           best_path=best_path)
+    return state, paths, dist, log_heu
+
+
+def _assert_update_matches_plain(state, paths, dist, log_heu, **kw):
+    """K3 against its plain version: tau' and costs at rtol 1e-6 (the plain
+    version sums in other orders), the best state what ``track_best`` makes
+    of the kernel's costs and the score what ``next_score`` makes of the
+    kernel's tau', both bit for bit."""
+    before = bt.fused_tsp_update.launches
+    got, costs, score = bt.fused_tsp_update(state, paths, dist, log_heu=log_heu, **kw)
+    assert bt.fused_tsp_update.launches == before + 1
+    ref, ref_costs, _ = bt.fused_tsp_update_plain(state, paths, dist, log_heu=log_heu, **kw)
+    torch.testing.assert_close(got.phe.tau, ref.phe.tau, rtol=1e-6, atol=0)
+    torch.testing.assert_close(costs, ref_costs, rtol=1e-6, atol=0)
+    want = track_best(state, paths, costs)
+    assert torch.equal(got.best_cost, want.best_cost)
+    assert torch.equal(got.best_path, want.best_path)
+    if log_heu is None:
+        assert score is None
+    else:
+        dtype = kw.get("score_dtype", torch.bfloat16)
+        assert torch.equal(score, bt.next_score(got.phe.tau, log_heu, kw.get("alpha", 1.0),
+                                                dtype))
+
+
 @pytest.mark.parametrize("symmetric", [True, False])
 def test_update_kernel_matches_plain(dev, instance, symmetric):
     _, dist = instance
@@ -156,10 +202,26 @@ def test_update_kernel_matches_plain(dev, instance, symmetric):
     paths = torch.stack([torch.stack([torch.randperm(100, generator=gen, device=dev)
                                       for _ in range(8)], dim=1) for _ in range(3)])
     tau = 0.5 + torch.rand((3, 100, 100), generator=gen, device=dev)
-    got = bt.fused_tsp_update(tau, paths, dist, decay=0.9, q=1.0, symmetric=symmetric)
-    ref = bt.fused_tsp_update_plain(tau, paths, dist, decay=0.9, q=1.0, symmetric=symmetric)
-    torch.testing.assert_close(got[0], ref[0], rtol=1e-6, atol=0)
-    torch.testing.assert_close(got[1], ref[1], rtol=1e-6, atol=0)
+    state = bt._batched_init(3, 100, ACOConfig(n_ants=8), dev)
+    state = state._replace(phe=state.phe._replace(tau=tau))
+    _assert_update_matches_plain(state, paths, dist, None, decay=0.9, q=1.0,
+                                 symmetric=symmetric)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,a,symmetric,floor", [
+    (100, 500, 20, True, 0.0),     # the main path's shape
+    (16, 500, 20, True, 0.0),      # the NLS path's
+    (2, 2, 3, True, 0.0), (3, 33, 5, False, 0.0), (2, 129, 40, True, 0.7),
+    (2, 1001, 20, False, 0.7), (1, 1000, 33, True, 0.0)])
+def test_update_kernel_at_ragged_shapes(dev, b, n, a, symmetric, floor, dtype):
+    """K3 with the score at the main and NLS shapes, at N that is not a
+    multiple of 4 (the row pass reads column by column there), more than 32
+    ants and a floor."""
+    state, paths, dist, log_heu = _update_case(dev, b, n, a, n + a)
+    _assert_update_matches_plain(state, paths, dist, log_heu, decay=0.9, q=1.0,
+                                 symmetric=symmetric, floor=floor, alpha=1.5,
+                                 score_dtype=dtype)
 
 
 def test_update_kernel_stops_on_a_tour_that_is_not_a_permutation(dev):
@@ -167,11 +229,13 @@ def test_update_kernel_stops_on_a_tour_that_is_not_a_permutation(dev):
     code = """
 import torch
 from deepaco_tpu_torch.aco import batched_tsp as bt
+from deepaco_tpu_torch.aco.runner import ACOConfig
 dev = torch.device("cuda")
 paths = torch.arange(50, device=dev).repeat(2, 1).T[None].contiguous()
 paths[0, 7, 1] = 3            # ant 1 visits city 3 twice and never city 7
 tau = torch.ones((1, 50, 50), device=dev)
-bt.fused_tsp_update(tau, paths, tau, decay=0.9, q=1.0)
+state = bt._batched_init(1, 50, ACOConfig(n_ants=2), dev)
+bt.fused_tsp_update(state, paths, tau, decay=0.9, q=1.0, log_heu=tau)
 torch.cuda.synchronize()
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

@@ -39,6 +39,8 @@ from deepaco_tpu_torch.aco.problems.tsp import tour_cost
 from deepaco_tpu_torch.aco.runner import (ACOConfig, SearchState, _no_timer,
                                           init_search, search_update, track_best)
 from deepaco_tpu_torch.ops import _build
+from deepaco_tpu_torch.ops.philox import (draw_seed, gumbel_bf16_from_bits,
+                                          gumbel_f32_from_bits)
 from deepaco_tpu_torch.ops.fused_gnn import (embnet_layers, embnet_layers_plain,
                                              tsp_dense_heuristic,
                                              tsp_dense_heuristic_plain)
@@ -50,26 +52,6 @@ from deepaco_tpu_torch.ops.two_opt import (batched_nls, batched_nls_euclid,
                                            heuristic_dist)
 
 NEG_INF = -1e30
-_TINY = 1.1754944e-38      # smallest normal f32 = finfo(bfloat16).tiny
-
-
-def gumbel_bf16_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """The bf16 Gumbel law of the JAX sweep (``jax.random.gumbel(dtype=bf16)``
-    and pallas_kernels.py:489-495), from 32 random bits per draw: a 7-bit
-    uniform ``u = max(((bits >> 13) & 0x7F) * 2^-7, tiny)``, then
-    ``g = bf16(-log(f32(bf16(-log u))))``. It takes 128 values and truncates
-    the right tail near +4.85."""
-    k = (bits >> 13) & 0x7F
-    u = torch.clamp(k.float() * (2.0 ** -7), min=_TINY)
-    inner = (-torch.log(u)).to(torch.bfloat16)
-    return (-torch.log(inner.float())).to(torch.bfloat16)
-
-
-def gumbel_f32_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Full-width f32 Gumbel noise: ``u = ((bits >> 9) + 0.5) * 2^-23`` in
-    (0, 1), ``g = -log(-log u)``."""
-    u = ((bits >> 9) & 0x7FFFFF).float().add(0.5).mul(2.0 ** -23)
-    return -torch.log(-torch.log(u))
 
 
 @functools.cache
@@ -153,8 +135,7 @@ def _launch_sweep(score, start, generator, stochastic):
     a = start.shape[1]
     dev = score.device
     paths = torch.empty((b, n, a), dtype=torch.int64, device=dev)
-    seed = torch.randint(0, 2 ** 62, (1,), generator=generator,
-                         device=generator.device).to(dev)
+    seed = draw_seed(generator, dev)
     table = _gumbel_table(dev)
     P, I = _build.P, _build.I
     fn = _build.function("deepaco_sweep", [P] * 5 + [I] * 5 + [P])
@@ -220,18 +201,29 @@ def fused_tsp_update_plain(state: SearchState, paths: torch.Tensor,
     return state, costs, score
 
 
-K3_MAX_N = 19000   # the cost pass holds 3 N words of an ant in shared memory
+K3_STAGED_MAX_N = 19000   # the staged cost pass holds 3 N words of an ant in shared memory
+
+
+def k3_staged(n: int) -> bool:
+    """Whether K3 takes its staged variant at ``n`` cities (an ant's tour
+    and a warp's row of deposits in shared memory); past it K3 takes the
+    unstaged variant, which computes the same bits from device memory."""
+    return n <= K3_STAGED_MAX_N
 
 
 def fused_tsp_update(state: SearchState, paths: torch.Tensor,
                      dist: torch.Tensor, *, decay: float, q: float,
                      symmetric: bool = True, floor: float = 0.0,
                      log_heu: torch.Tensor | None = None, alpha: float = 1.0,
-                     score_dtype: torch.dtype = torch.bfloat16):
+                     score_dtype: torch.dtype = torch.bfloat16,
+                     staged: bool | None = None):
     """:func:`fused_tsp_update_plain` for permutation tours ``paths [B, N,
     A]`` over ``dist [B, N, N]`` and the state's ``tau [B, N, N]``, best
     cost ``[B]`` and best path ``[B, N]``; on CUDA one launch of kernel K3
-    (two kernels on the stream). Its tau' and costs agree with the plain
+    (two kernels on the stream) at any N: the staged variant where
+    :func:`k3_staged` holds, else the unstaged one (``staged=False`` asks
+    for it at any N; ``staged=True`` past the staged limit raises). Both
+    variants give the same bits. Its tau' and costs agree with the plain
     version's to rtol 1e-6 (``tour_cost`` sums in f32, ``scatter_add_`` in
     any order), and its best state and score are what the plain steps make
     of its own costs and tau', bit for bit. A tour that is not a permutation
@@ -256,16 +248,19 @@ def fused_tsp_update(state: SearchState, paths: torch.Tensor,
         raise ValueError("fused_tsp_update takes f32 tau, dist, log_heu and best_cost")
     if score_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"fused_tsp_update writes a bf16 or f32 score, not {score_dtype}")
-    if n > K3_MAX_N:
-        raise ValueError(f"fused_tsp_update takes N <= {K3_MAX_N} (shared memory), got {n}")
+    if staged is None:
+        staged = k3_staged(n)
+    elif staged and not k3_staged(n):
+        raise ValueError(f"fused_tsp_update: the staged variant takes N <= "
+                         f"{K3_STAGED_MAX_N} (shared memory), got {n}")
     out = _launch_update(state, paths.long().contiguous(), dist.contiguous(), decay, q,
-                         symmetric, floor, log_heu, alpha, score_dtype)
+                         symmetric, floor, log_heu, alpha, score_dtype, staged)
     fused_tsp_update.launches += 1
     return out
 
 
 def _launch_update(state, paths, dist, decay, q, symmetric, floor, log_heu, alpha,
-                   score_dtype):
+                   score_dtype, staged):
     """Allocate the outputs and the scratch and call the K3 entry point."""
     b, n, a = paths.shape
     tau = state.phe.tau.contiguous()
@@ -283,13 +278,13 @@ def _launch_update(state, paths, dist, decay, q, symmetric, floor, log_heu, alph
         score = torch.empty((b, n, n), dtype=score_dtype, device=dev)
         score_kind, heu_ptr = (1 if score_dtype == torch.bfloat16 else 2), log_heu.data_ptr()
     P, I, F = _build.P, _build.I, _build.F
-    fn = _build.function("deepaco_as_update", [P] * 12 + [I] * 3 + [F, F, I, I, F, F, I, P])
+    fn = _build.function("deepaco_as_update", [P] * 12 + [I] * 3 + [F, F, I, I, F, F, I, I, P])
     rc = fn(tau.data_ptr(), paths.data_ptr(), dist.data_ptr(), heu_ptr,
             best_cost_in.data_ptr(), best_path_in.data_ptr(),
             tau_out.data_ptr(), costs.data_ptr(),
             None if score is None else score.data_ptr(), best_cost.data_ptr(),
             best_path.data_ptr(), nbr.data_ptr(), b, n, a, decay, q,
-            int(symmetric), int(floor > 0.0), floor, alpha, score_kind,
+            int(symmetric), int(floor > 0.0), floor, alpha, score_kind, int(staged),
             _build.stream_ptr(dev))
     _build.check(rc, "deepaco_as_update")
     state = state._replace(phe=state.phe._replace(tau=tau_out), best_cost=best_cost,

@@ -105,7 +105,7 @@ def neural_knn_heuristic(net: Net, coords: torch.Tensor, nbr: torch.Tensor, *,
 
 def _bf16_gumbel(generator: torch.Generator, shape, device) -> torch.Tensor:
     """bf16 Gumbel noise by the law of ``jax.random.gumbel(dtype=bf16)``
-    (``batched_tsp.gumbel_bf16_from_bits``): one of its 128 values, each
+    (``ops/philox.gumbel_bf16_from_bits``): one of its 128 values, each
     with probability 1/128, as f32."""
     idx = torch.randint(0, 128, shape, generator=generator, device=generator.device)
     return _gumbel_table(torch.device(device))[idx.to(device)]

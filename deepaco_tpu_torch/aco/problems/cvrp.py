@@ -16,7 +16,9 @@ from __future__ import annotations
 
 import torch
 
+from deepaco_tpu_torch.aco.engine import rollout
 from deepaco_tpu_torch.aco.problems.tsp import clear_onehot, row_gatherer, score_matrix
+from deepaco_tpu_torch.ops.cvrp_construct import cvrp_construct_supported
 
 
 def cvrp_spec(phe: torch.Tensor, heu: torch.Tensor, demand: torch.Tensor,
@@ -62,6 +64,21 @@ def cvrp_spec(phe: torch.Tensor, heu: torch.Tensor, demand: torch.Tensor,
                                                 rows(heu, state[0])),
                        mask=lambda state: state[1] * state[3], step=step,
                        score_rows=lambda state: rows(score, state[0]))
+
+
+def cvrp_paths(phe: torch.Tensor, heu: torch.Tensor, demand: torch.Tensor,
+               capacity: float, n_ants: int, generator: torch.Generator, *,
+               construct, pick) -> torch.Tensor:
+    """One iteration's routes ``[B, 2(N-1)+1, A]``, the ``paths`` of
+    ``rollout(cvrp_spec(...))`` in law (alpha = beta = 1, as the family
+    runs it): ``construct`` (K7c or its plain version,
+    ``ops/cvrp_construct.py``) on the score matrix where K7c takes N, else
+    the rollout with ``pick`` (K7 or its plain version) a step."""
+    if cvrp_construct_supported(phe.shape[-1]):
+        return construct(score_matrix(phe, heu, 1.0, 1.0), demand, capacity, n_ants,
+                         generator)
+    spec = cvrp_spec(phe, heu, demand, capacity, n_ants)
+    return rollout(spec, generator, pick=pick).paths
 
 
 def route_cost(dist: torch.Tensor, paths: torch.Tensor) -> torch.Tensor:

@@ -13,8 +13,6 @@ from typing import Callable, NamedTuple
 import torch
 
 from deepaco_tpu_torch.aco import pheromone as ph
-from deepaco_tpu_torch.aco.engine import RolloutSpec, rollout
-from deepaco_tpu_torch.ops.pick import fused_pick
 
 
 class ACOConfig(NamedTuple):
@@ -112,36 +110,35 @@ def _no_timer(_name: str):
     return contextlib.nullcontext()
 
 
-def aco_iteration(spec_factory: Callable[[torch.Tensor], RolloutSpec],
+def aco_iteration(construct: Callable[[torch.Tensor, torch.Generator], torch.Tensor],
                   cost_fn: Callable[[torch.Tensor], torch.Tensor], cfg: ACOConfig,
                   state: SearchState, generator: torch.Generator, *,
-                  pick: Callable = fused_pick, deposit: Callable = ph.deposit,
+                  deposit: Callable = ph.deposit,
                   timer: Callable = _no_timer) -> SearchState:
     """One no-grad iteration over ``B`` instances (reference
     tsp/aco.py:75-91): construct every ant's solution from the current
-    pheromone, score it, track the best and update. ``pick`` takes each
-    construction step (K7 or its plain version), ``deposit`` the update's
-    deposit (K8 or its plain version); ``timer(name)`` wraps the phases
-    ``"construction"`` and ``"update"``."""
+    pheromone (``construct(tau, generator) -> paths``: the family's
+    construction, ``families.Family.construct``), score it, track the best
+    and update. ``deposit`` takes the update's deposit (K8 or its plain
+    version); ``timer(name)`` wraps the phases ``"construction"`` and
+    ``"update"``."""
     with timer("construction"):
-        spec = spec_factory(state.phe.tau)
-        paths = rollout(spec, generator, alpha=cfg.alpha, beta=cfg.beta,
-                        pick=pick).paths
+        paths = construct(state.phe.tau, generator)
     with timer("update"):
         return search_update(cfg, state, paths, cost_fn(paths), deposit=deposit)
 
 
 @torch.no_grad()
-def run_anytime(spec_factory: Callable[[torch.Tensor], RolloutSpec],
+def run_anytime(construct: Callable[[torch.Tensor, torch.Generator], torch.Tensor],
                 cost_fn: Callable[[torch.Tensor], torch.Tensor], cfg: ACOConfig,
                 state: SearchState, generator: torch.Generator, n_iterations: int,
-                *, pick: Callable = fused_pick, deposit: Callable = ph.deposit,
-                timer: Callable = _no_timer) -> tuple[SearchState, torch.Tensor]:
+                *, deposit: Callable = ph.deposit, timer: Callable = _no_timer
+                ) -> tuple[SearchState, torch.Tensor]:
     """``n_iterations`` of :func:`aco_iteration`: the final state and the
     anytime curve ``[B, n_iterations]`` of best-so-far costs."""
     curve = []
     for _ in range(n_iterations):
-        state = aco_iteration(spec_factory, cost_fn, cfg, state, generator,
-                              pick=pick, deposit=deposit, timer=timer)
+        state = aco_iteration(construct, cost_fn, cfg, state, generator,
+                              deposit=deposit, timer=timer)
         curve.append(state.best_cost)
     return state, torch.stack(curve, dim=1)

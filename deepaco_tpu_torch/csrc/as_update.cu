@@ -27,6 +27,18 @@
 //     best tour: that ant's city u when it is strictly cheaper than the best
 //     so far, else the old one (row 0 writes the best cost).
 //
+// That is the staged variant, for N <= 19,000: its cost pass holds an
+// ant's 3 N words in shared memory, its row pass a warp's row of D + D^T.
+// Past that (or when asked), the unstaged variant computes the same bits
+// from device memory alone: cost_kernel_unstaged, a block per ant, adds
+// each edge's distance straight from dist in the same fixed order and
+// writes the neighbours into nbr over a fill of -1; row_kernel_unstaged
+// streams the row with nothing deposited (decay * tau + 0, the clamp, the
+// score), then, after a __syncwarp, rewrites the few columns that receive
+// deposits with decay * tau + their total, which is what the staged row
+// pass computes for every column. The row pass asserts there that no
+// neighbour is -1, the staged cost pass's check.
+//
 // What bounds it: device-memory bytes, tau and log_heu read once, tau' and
 // the score written once (350 MB at B=100, N=500 with a bf16 score). A
 // block a row would spend a 2 KB row's time in a chain of latencies (the
@@ -63,6 +75,7 @@ constexpr int kCostBlocksPerSm = 4;  // cost blocks wanted on each SM
 constexpr int kRowWarps = 8;         // warps of a row-pass block
 constexpr int kRowBlocksPerSm = 4;   // the row pass's persistent grid
 constexpr int kPrefetch = 4;         // float4 groups a lane loads ahead
+constexpr int kStreamAhead = 8;      // columns a lane loads ahead (unstaged row pass)
 constexpr int kNone = 0x7fffffff;    // no ant yet
 constexpr size_t kSmemDefault = 48 * 1024;
 
@@ -139,6 +152,44 @@ __global__ void __launch_bounds__(kCostThreads)
   }
 }
 
+// The unstaged cost pass: a block of 8 warps per ant (b, a); warp w owns
+// cost_kernel's partials 32 w + lane (positions 32 w + lane + 256 j, in
+// order of j) and adds each edge's distance straight from dist; the group
+// sums are added in order of w, as cost_kernel adds them. Each city's
+// neighbours go to nbr[b, u, a], which the caller filled with -1
+// (row_kernel_unstaged checks that every city was reached).
+__global__ void __launch_bounds__(kCostThreads)
+    cost_kernel_unstaged(const int64_t* __restrict__ paths, const float* __restrict__ dist,
+                         float* __restrict__ costs, int2* __restrict__ nbr, int N, int A) {
+  __shared__ double group_s[kCostThreads / 32];
+  const long ant = blockIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long b = ant / A;
+  const int a = (int)(ant - b * A);
+  const int64_t* pb = paths + b * N * A;
+  const float* d = dist + b * N * N;
+  double acc = 0.0;
+#pragma unroll 4
+  for (int i = 32 * warp + lane; i < N; i += kCostThreads) {
+    const long u = pb[(long)i * A + a];
+    const long v = pb[(long)((i + N - 1) % N) * A + a];
+    const long nx = pb[(long)((i + 1) % N) * A + a];
+    assert(0 <= u && u < N && 0 <= v && v < N);
+    acc += (double)d[u * N + v];
+    nbr[(b * N + u) * A + a] = make_int2((int)v, (int)nx);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(kFullMask, acc, off);
+  if (lane == 0) group_s[warp] = acc;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    double total = 0.0;
+#pragma unroll
+    for (int w = 0; w < kCostThreads / 32; ++w) total += group_s[w];
+    costs[ant] = (float)total;
+  }
+}
+
 template <typename S>
 __device__ __forceinline__ void store_score4(S* dst, float s0, float s1, float s2, float s3);
 
@@ -194,6 +245,68 @@ __device__ __forceinline__ float scored(float t, float lh, float alpha) {
   return __fadd_rn(__fmul_rn(logf(fmaxf(t, 1e-30f)), alpha), lh);
 }
 
+// One row (b, u) of D + D^T: each lane's ants' two columns get the sums
+// over all ants, in ant order, of the amounts landing there through D (prev)
+// and through D^T (next), handed to put(column, total) (lanes that share a
+// column hand over the same total); on the way, each lane's first cheapest
+// ant. nb is the row's (prev, next) of every ant, cost the instance's costs.
+template <typename Put>
+__device__ __forceinline__ void row_deposits(const int2* nb, const float* cost, int A, float q,
+                                             bool symmetric, int lane, float& best_v,
+                                             int& best_i, Put put) {
+  for (int m = 0; m < A; m += 32) {
+    const bool mine = m + lane < A;
+    const int2 pn = mine ? nb[m + lane] : make_int2(-1, -1);
+    assert(!mine || pn.x >= 0);  // city u missing from ant m + lane's tour
+    float p_dd = 0.0f, p_dt = 0.0f, n_dd = 0.0f, n_dt = 0.0f;
+    for (int k = 0; k < A; k += 32) {
+      const bool in = k + lane < A;
+      const int2 qn = in ? nb[k + lane] : make_int2(-1, -1);
+      const float ck = in ? cost[k + lane] : 0.0f;
+      const float w = in ? q / ck : 0.0f;
+      if (m == 0 && in && argmin_before(ck, k + lane, best_v, best_i)) {
+        best_v = ck;
+        best_i = k + lane;
+      }
+      const int count = min(32, A - k);
+      for (int j = 0; j < count; ++j) {
+        const int qp = __shfl_sync(kFullMask, qn.x, j);
+        const int qx = __shfl_sync(kFullMask, qn.y, j);
+        const float wj = __shfl_sync(kFullMask, w, j);
+        if (qp == pn.x) p_dd = __fadd_rn(p_dd, wj);
+        if (qx == pn.x) p_dt = __fadd_rn(p_dt, wj);
+        if (qp == pn.y) n_dd = __fadd_rn(n_dd, wj);
+        if (qx == pn.y) n_dt = __fadd_rn(n_dt, wj);
+      }
+    }
+    if (mine) {
+      put(pn.x, symmetric ? __fadd_rn(p_dd, p_dt) : p_dd);
+      if (symmetric) put(pn.y, __fadd_rn(n_dd, n_dt));
+    }
+  }
+}
+
+// The warp's first cheapest ant, then entry u of the best tour: that ant's
+// city u when it is strictly cheaper than the best so far (a tie keeps the
+// old tour), else the old one; row 0 of the instance writes the best cost.
+__device__ __forceinline__ void write_best(const RowArgs& r, long row, long b, int lane,
+                                           float best_v, int best_i) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(kFullMask, best_v, off);
+    const int oi = __shfl_xor_sync(kFullMask, best_i, off);
+    if (argmin_before(ov, oi, best_v, best_i)) {
+      best_v = ov;
+      best_i = oi;
+    }
+  }
+  if (lane == 0) {
+    const bool better = best_v < r.best_cost[b];
+    r.best_path_out[row] = better ? r.paths[row * r.A + best_i] : r.best_path[row];
+    if (row == b * r.N) r.best_cost_out[b] = better ? best_v : r.best_cost[b];
+  }
+}
+
 // S: the score's type (float or __nv_bfloat16); kScore false writes none.
 // kVec: N % 4 == 0, so every row starts on 16 bytes (8 for a bf16 score).
 template <typename S, bool kScore, bool kVec>
@@ -225,57 +338,11 @@ __global__ void __launch_bounds__(kRowWarps * 32, kRowBlocksPerSm) row_kernel(co
         }
       }
     }
-    // each lane's ants' two columns: the sums over all ants, in ant order,
-    // of the amounts landing there through D (prev) and through D^T (next);
-    // on the way, the first cheapest ant
-    const int2* nb = r.nbr + row * A;
-    const float* cost = r.costs + b * A;
     float best_v = 0.0f;
     int best_i = kNone;
-    for (int m = 0; m < A; m += 32) {
-      const bool mine = m + lane < A;
-      const int2 pn = mine ? nb[m + lane] : make_int2(-1, -1);
-      float p_dd = 0.0f, p_dt = 0.0f, n_dd = 0.0f, n_dt = 0.0f;
-      for (int k = 0; k < A; k += 32) {
-        const bool in = k + lane < A;
-        const int2 qn = in ? nb[k + lane] : make_int2(-1, -1);
-        const float ck = in ? cost[k + lane] : 0.0f;
-        const float w = in ? q / ck : 0.0f;
-        if (m == 0 && in && argmin_before(ck, k + lane, best_v, best_i)) {
-          best_v = ck;
-          best_i = k + lane;
-        }
-        const int count = min(32, A - k);
-        for (int j = 0; j < count; ++j) {
-          const int qp = __shfl_sync(kFullMask, qn.x, j);
-          const int qx = __shfl_sync(kFullMask, qn.y, j);
-          const float wj = __shfl_sync(kFullMask, w, j);
-          if (qp == pn.x) p_dd = __fadd_rn(p_dd, wj);
-          if (qx == pn.x) p_dt = __fadd_rn(p_dt, wj);
-          if (qp == pn.y) n_dd = __fadd_rn(n_dd, wj);
-          if (qx == pn.y) n_dt = __fadd_rn(n_dt, wj);
-        }
-      }
-      // lanes that share a column write the same total
-      if (mine) {
-        add[pn.x] = symmetric ? __fadd_rn(p_dd, p_dt) : p_dd;
-        if (symmetric) add[pn.y] = __fadd_rn(n_dd, n_dt);
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(kFullMask, best_v, off);
-      const int oi = __shfl_xor_sync(kFullMask, best_i, off);
-      if (argmin_before(ov, oi, best_v, best_i)) {
-        best_v = ov;
-        best_i = oi;
-      }
-    }
-    if (lane == 0) {  // strict: a tie keeps the old tour
-      const bool better = best_v < r.best_cost[b];
-      r.best_path_out[row] = better ? r.paths[row * A + best_i] : r.best_path[row];
-      if (row == b * N) r.best_cost_out[b] = better ? best_v : r.best_cost[b];
-    }
+    row_deposits(r.nbr + row * A, r.costs + b * A, A, q, symmetric, lane, best_v, best_i,
+                 [&](int c, float total) { add[c] = total; });
+    write_best(r, row, b, lane, best_v, best_i);
     __syncwarp();
     float* dst = r.tau_out + row * N;
     S* sc = kScore ? score + row * N : nullptr;
@@ -318,12 +385,65 @@ __global__ void __launch_bounds__(kRowWarps * 32, kRowBlocksPerSm) row_kernel(co
       }
     }
     __syncwarp();
+    const int2* nb = r.nbr + row * A;
     for (int m = lane; m < A; m += 32) {  // reset the touched columns
       const int2 pn = nb[m];
       add[pn.x] = 0.0f;
       add[pn.y] = 0.0f;
     }
     __syncwarp();
+  }
+}
+
+// The unstaged row pass, persistent warps, a warp a row: the row streamed
+// with nothing deposited, then the columns that receive deposits rewritten
+// with their totals (the __syncwarp orders the two writes of a column).
+template <typename S, bool kScore>
+__global__ void __launch_bounds__(kRowWarps * 32, kRowBlocksPerSm)
+    row_kernel_unstaged(const RowArgs r) {
+  const int N = r.N, A = r.A;
+  const float decay = r.decay, q = r.q, floor = r.floor, alpha = r.alpha;
+  const bool symmetric = r.symmetric != 0, use_floor = r.use_floor != 0;
+  const int lane = threadIdx.x % 32;
+  const long warps = (long)gridDim.x * (blockDim.x / 32);
+  S* score = static_cast<S*>(r.score);
+  for (long row = blockIdx.x * (long)(blockDim.x / 32) + threadIdx.x / 32; row < r.rows;
+       row += warps) {
+    const long b = row / N;
+    const float* src = r.tau + row * N;
+    const float* lh = r.log_heu + row * N;
+    float* dst = r.tau_out + row * N;
+    S* sc = kScore ? score + row * N : nullptr;
+    for (int c0 = lane; c0 < N; c0 += 32 * kStreamAhead) {  // the loads first
+      float t[kStreamAhead], h[kStreamAhead];
+#pragma unroll
+      for (int j = 0; j < kStreamAhead; ++j) {
+        const int c = c0 + 32 * j;
+        if (c < N) {
+          t[j] = __ldcs(src + c);
+          if (kScore) h[j] = __ldcs(lh + c);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kStreamAhead; ++j) {
+        const int c = c0 + 32 * j;
+        if (c < N) {
+          const float o = updated(t[j], 0.0f, decay, use_floor, floor);
+          __stcs(dst + c, o);
+          if (kScore) store_score1(sc + c, scored(o, h[j], alpha));
+        }
+      }
+    }
+    __syncwarp();
+    float best_v = 0.0f;
+    int best_i = kNone;
+    row_deposits(r.nbr + row * A, r.costs + b * A, A, q, symmetric, lane, best_v, best_i,
+                 [&](int c, float total) {
+                   const float o = updated(src[c], total, decay, use_floor, floor);
+                   dst[c] = o;
+                   if (kScore) store_score1(sc + c, scored(o, lh[c], alpha));
+                 });
+    write_best(r, row, b, lane, best_v, best_i);
   }
 }
 
@@ -350,6 +470,14 @@ cudaError_t launch_rows(const RowArgs& r, int sms, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <typename S, bool kScore>
+cudaError_t launch_rows_unstaged(const RowArgs& r, int sms, cudaStream_t s) {
+  const long cap = (long)sms * kRowBlocksPerSm;
+  const long want = (r.rows + kRowWarps - 1) / kRowWarps;
+  row_kernel_unstaged<S, kScore><<<(unsigned)(want < cap ? want : cap), kRowWarps * 32, 0, s>>>(r);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace deepaco
 
@@ -357,38 +485,52 @@ cudaError_t launch_rows(const RowArgs& r, int sms, cudaStream_t s) {
 // best_cost [B] f32 and best_path [B,N] int64, the best so far ->
 // tau_out [B,N,N] f32, costs [B,A] f32, best_cost_out, best_path_out and,
 // unless score_kind is 0, score [B,N,N] (1: bf16, 2: f32; log_heu is read
-// only then). nbr [B,N,A] int2 is scratch. 3 N words must fit in shared
-// memory: N <= 19,000.
+// only then). nbr [B,N,A] int2 is scratch. staged != 0 takes the staged
+// variant, whose 3 N words must fit in shared memory (N <= 19,000); 0 the
+// unstaged one, at any N.
 extern "C" int deepaco_as_update(const float* tau, const int64_t* paths, const float* dist,
                                  const float* log_heu, const float* best_cost,
                                  const int64_t* best_path, float* tau_out, float* costs,
                                  void* score, float* best_cost_out, int64_t* best_path_out,
                                  void* nbr, int B, int N, int A, float decay, float q,
                                  int symmetric, int use_floor, float floor, float alpha,
-                                 int score_kind, void* stream) {
+                                 int score_kind, int staged, void* stream) {
   using namespace deepaco;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   int device = 0, sms = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  // C ants a cost block: enough blocks for kCostBlocksPerSm an SM, and as
-  // many ants as fit in the default 48 KB of shared memory, at least one
-  auto cost_smem = [&](int c) { return (size_t)N * (2 * c + (c | 1)) * 4; };
-  const long want = ((long)kCostBlocksPerSm * sms + B - 1) / B;  // blocks an instance
-  int C = (int)((A + (want < A ? want : A) - 1) / (want < A ? want : A));
-  while (C > 1 && cost_smem(C) > kSmemDefault) --C;
-  const size_t smem = cost_smem(C);
-  if (smem > kSmemDefault)
-    cudaFuncSetAttribute(cost_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   int2* nb = static_cast<int2*>(nbr);
-  const long blocks = (long)B * ((A + C - 1) / C);
-  cost_kernel<<<(unsigned)blocks, kCostThreads, smem, s>>>(paths, dist, costs, nb, N, A, C);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err;
+  if (staged) {
+    // C ants a cost block: enough blocks for kCostBlocksPerSm an SM, and as
+    // many ants as fit in the default 48 KB of shared memory, at least one
+    auto cost_smem = [&](int c) { return (size_t)N * (2 * c + (c | 1)) * 4; };
+    const long want = ((long)kCostBlocksPerSm * sms + B - 1) / B;  // blocks an instance
+    int C = (int)((A + (want < A ? want : A) - 1) / (want < A ? want : A));
+    while (C > 1 && cost_smem(C) > kSmemDefault) --C;
+    const size_t smem = cost_smem(C);
+    if (smem > kSmemDefault)
+      cudaFuncSetAttribute(cost_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    const long blocks = (long)B * ((A + C - 1) / C);
+    cost_kernel<<<(unsigned)blocks, kCostThreads, smem, s>>>(paths, dist, costs, nb, N, A, C);
+  } else {
+    const long ants = (long)B * A;
+    err = cudaMemsetAsync(nb, 0xff, (size_t)ants * N * sizeof(int2), s);
+    if (err != cudaSuccess) return err;
+    cost_kernel_unstaged<<<(unsigned)ants, kCostThreads, 0, s>>>(paths, dist, costs, nb, N, A);
+  }
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const RowArgs r{tau,     log_heu,       paths,         nb,     costs, best_cost,
                   best_path, tau_out,     score,         best_cost_out, best_path_out,
                   (long)B * N, N,         A,             decay,  q,     floor,
                   alpha,   symmetric,     use_floor};
+  if (!staged) {
+    if (score_kind == 1) return launch_rows_unstaged<__nv_bfloat16, true>(r, sms, s);
+    if (score_kind == 2) return launch_rows_unstaged<float, true>(r, sms, s);
+    return launch_rows_unstaged<float, false>(r, sms, s);
+  }
   if (score_kind == 1) return launch_rows<__nv_bfloat16, true>(r, sms, s);
   if (score_kind == 2) return launch_rows<float, true>(r, sms, s);
   return launch_rows<float, false>(r, sms, s);

@@ -17,7 +17,8 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 
-from deepaco_tpu_torch.aco.problems.cvrp import cvrp_spec, route_cost
+from deepaco_tpu_torch.aco.engine import rollout
+from deepaco_tpu_torch.aco.problems.cvrp import cvrp_paths, route_cost
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost, tsp_spec
 from deepaco_tpu_torch.aco.runner import ACOConfig
 from deepaco_tpu_torch.core.builders import cvrp_graph
@@ -31,18 +32,21 @@ CVRP_CAPACITY = 50.0                                # cvrp/aco.py:7
 class Family(NamedTuple):
     """``gen(rng, n)`` → one instance of numpy arrays; ``graph(inst, k)``
     → :class:`~deepaco_tpu_torch.core.graph.SparseGraph`; ``heu_matrix(g,
-    out, inst)`` → the dense heuristic ``[B, N, N]``; ``spec(tau, heu,
-    inst, n_ants)`` → a rollout plug-in; ``cost(paths, inst)`` → ``[B, A]``;
-    ``horizon_states(n_nodes)`` → ``(pheromone size, rollout horizon)``;
-    ``classic_heu(inst, k)`` → the classic arm's heuristic; ``model_kwargs``
-    the ``Net`` arguments as sorted pairs."""
+    out, inst)`` → the dense heuristic ``[B, N, N]``; ``construct(tau, heu,
+    inst, n_ants, generator, ops)`` → one inference iteration's paths
+    through ``ops`` (``train.drivers.FamilyOps``): TSP the rollout of
+    ``tsp_spec``, a pick a step; CVRP one pass (``ops.construct``) where K7c
+    takes N; ``cost(paths, inst)`` → ``[B, A]``; ``horizon_states(n_nodes)``
+    → ``(pheromone size, rollout horizon)``; ``classic_heu(inst, k)`` → the
+    classic arm's heuristic; ``model_kwargs`` the ``Net`` arguments as
+    sorted pairs."""
 
     name: str
     model_kwargs: tuple
     gen: Callable[[np.random.Generator, int], dict]
     graph: Callable
     heu_matrix: Callable
-    spec: Callable
+    construct: Callable
     cost: Callable
     aco: ACOConfig
     horizon_states: Callable[[int], tuple]
@@ -89,7 +93,8 @@ FAMILIES = {
         gen=gen_tsp,
         graph=lambda inst, k: knn_graph(inst["coords"], inst["dist"], k),
         heu_matrix=_std_heu,
-        spec=lambda tau, heu, inst, a: tsp_spec(tau, heu, a),
+        construct=lambda tau, heu, inst, a, generator, ops: rollout(
+            tsp_spec(tau, heu, a), generator, pick=ops.pick).paths,
         cost=lambda paths, inst: tour_cost(inst["dist"], paths),
         aco=ACOConfig(),
         horizon_states=lambda n: (n, n - 1),
@@ -100,8 +105,9 @@ FAMILIES = {
         gen=gen_cvrp,
         graph=lambda inst, k: cvrp_graph(inst["demand"], inst["dist"]),
         heu_matrix=_dense_transposed_heu,
-        spec=lambda tau, heu, inst, a: cvrp_spec(tau, heu, inst["demand"],
-                                                 CVRP_CAPACITY, a),
+        construct=lambda tau, heu, inst, a, generator, ops: cvrp_paths(
+            tau, heu, inst["demand"], CVRP_CAPACITY, a, generator,
+            construct=ops.construct, pick=ops.pick),
         cost=lambda paths, inst: route_cost(inst["dist"], paths),
         aco=ACOConfig(cyclic=False, symmetric=False, floor=1e-10),
         horizon_states=lambda n: (n + 1, 2 * n),

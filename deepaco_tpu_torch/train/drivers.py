@@ -5,7 +5,8 @@ family. Training through the registry waits for its slice (ROADMAP.md).
 :func:`evaluate_family` runs the whole batch at once, every instance with
 its own search state: graph → GNN → dense heuristic (or the classic one),
 then ``aco.runner.run_anytime``. On the card the GNN layers run kernel K6,
-every construction step K7 and every deposit K8. The JAX version's host
+every deposit K8, and each iteration's construction one launch of K7c
+(CVRP) or one K7 a step (TSP, and CVRP past K7c's N). The JAX version's host
 chunking of instances (``b_chunk``, a TPU watchdog workaround) and its
 ``mesh`` (multi-device) are not ported.
 """
@@ -21,24 +22,29 @@ from deepaco_tpu_torch.aco.runner import _no_timer, init_search, run_anytime
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.families import Family, get_family
 from deepaco_tpu_torch.models.gnn import Net
+from deepaco_tpu_torch.ops.cvrp_construct import cvrp_construct, cvrp_construct_plain
 from deepaco_tpu_torch.ops.gnn_layer import fused_gnn_layer, fused_gnn_layer_plain
 from deepaco_tpu_torch.ops.pick import fused_pick, fused_pick_plain
 
 
 class FamilyOps(NamedTuple):
     """What the evaluation calls for the GNN layer, each construction step
-    and each deposit, and ``timer(name)``, a context manager around each
-    phase (``"heuristic"``, ``"construction"``, ``"update"``). The default
-    is kernels K6, K7, K8 and no timer."""
+    (``pick``: the TSP family, and CVRP past K7c's N), each deposit, the
+    CVRP family's whole construction (``construct``), and
+    ``timer(name)``, a context manager around each phase (``"heuristic"``,
+    ``"construction"``, ``"update"``). The default is kernels K6, K7, K8,
+    K7c and no timer."""
 
     layer: Callable = fused_gnn_layer
     pick: Callable = fused_pick
     deposit: Callable = ph.deposit
     timer: Callable = _no_timer
+    construct: Callable = cvrp_construct
 
 
 KERNEL_OPS = FamilyOps()
-PLAIN_OPS = FamilyOps(fused_gnn_layer_plain, fused_pick_plain, ph.deposit_plain)
+PLAIN_OPS = FamilyOps(fused_gnn_layer_plain, fused_pick_plain, ph.deposit_plain,
+                      construct=cvrp_construct_plain)
 
 
 def family_model(family: Family, variables: dict | None = None) -> Net:
@@ -101,9 +107,9 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     n_states, horizon = family.horizon_states(n_nodes)
     state = init_search(n_states, horizon, cfg, batch=(b,), device=dev)
     state, curves = run_anytime(
-        lambda tau: family.spec(tau, heu, inst, n_ants),
+        lambda tau, gen: family.construct(tau, heu, inst, n_ants, gen, _ops),
         lambda paths: family.cost(paths, inst), cfg, state, generator, t_max,
-        pick=_ops.pick, deposit=_ops.deposit, timer=_ops.timer)
+        deposit=_ops.deposit, timer=_ops.timer)
     idx = torch.tensor([t - 1 for t in t_values], device=dev)
     means = curves[:, idx].mean(dim=0)
     return (means, curves, state) if return_state else (means, curves)

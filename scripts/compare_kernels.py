@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Times K1, K2, K3, K4, K5, K8 and K9 of this tree against the same kernels
-built from another tree's sources, on one card, in turns (other, this, this,
-other).
+"""Times K1, K2, K3, K4, K5, K7, K8 and K9 of this tree against the same
+kernels built from another tree's sources, on one card, in turns (other,
+this, this, other).
 
     python3 scripts/compare_kernels.py --other path/to/deepaco_tpu_torch/csrc \
-        [--kernels K1 K2 K3 K4 K5 K8 K9] [--k8-variant DIR ...] [--out FILE]
+        [--kernels K1 K2 K3 K4 K5 K7 K8 K9] [--k8-variant DIR ...] [--k7-variant DIR ...]
+        [--out FILE]
 
 ``--other`` is the ``csrc`` directory of another checkout (for example the
 parent commit unpacked with ``git archive``); its ``two_opt.cu`` and
@@ -78,10 +79,29 @@ is called through its C entries, which must have the parent's signatures
   also with an f32 score and with a floor, alpha 1.5 and asymmetric
   deposits; the two arms are timed at the main and NLS shapes, medians of
   6 alternating turns of 20 launches, with their device time by kernel
-  name and K3's bound (``chip_smoke.k3_work``).
+  name and K3's bound (``chip_smoke.k3_work``). This tree's unstaged
+  variant (``staged=False``, the one past 19,000 cities) must give the
+  staged variant's bits at every one of those cases; the two are timed in
+  turns at the main shape, and the unstaged one at B=1, N = 19,001, A=20
+  beside its plain version and bound, where it must match the plain
+  version's tau' and costs at rtol 1e-6.
 
-Both builds of K2, K3, K4, K5 and K8 must give equal outputs: the script
-exits 1 on any inequality.
+- K7: one iteration's construction on the CVRP path (the golden CVRP500
+  set, the ``cvrp500_selftrained`` heuristic, tau of ones, A=20, capacity
+  50): the other tree's per-step route (``rollout`` over ``cvrp_spec``,
+  each of its 1,000 steps one launch of the other build's ``pick.cu``, K7)
+  against this tree's ``cvrp_construct`` (the score matrix and one launch
+  of K7c), medians of 6 alternating turns, with each arm's mean route
+  cost, its device time by kernel name and K7c's time alone (one launch
+  through its C entry, medians of 6 alternating turns of 10); K7c's paths
+  must equal its plain version's, stochastic and greedy. Each
+  ``--k7-variant`` directory holds a ``cvrp_sweep.cu`` (and the
+  ``common.cuh`` it includes) with this tree's C entry, timed beside K7c
+  in the same turns, its equality to K7c's paths reported, not required.
+
+Both builds of K2, K3, K4, K5 and K8 must give equal outputs, K3's two
+variants too, and K7c its plain version's: the script exits 1 on any
+inequality.
 Prints one JSON object and writes it to ``--out`` when given. Needs a CUDA
 device and ``nvcc``.
 """
@@ -732,6 +752,151 @@ def compare_k3(result, same, other_csrc: Path, dev, stream):
                        "bound_ms": cs.bound(*cs.k3_work(b, cs.N, a, 2))[0]}
         timed[name]["speedup"] = timed[name]["other"]["median_ms"] / timed[name]["this"]["median_ms"]
     result["K3_times"] = timed
+    compare_k3_unstaged(result, same, cases, configs, dev, gen)
+
+
+def compare_k3_unstaged(result, same, cases, configs, dev, gen):
+    """K3's unstaged variant (every N past the staged limit) against the
+    staged one, bit for bit at every case and configuration of
+    :func:`compare_k3`; the two timed in alternating turns at the main
+    shape, and the unstaged variant alone at B=1, N = 19,001 (one past the
+    staged limit), A as the main path, beside its plain version and bound."""
+    import torch
+
+    from deepaco_tpu_torch.aco import batched_tsp as bt
+    from deepaco_tpu_torch.aco.runner import ACOConfig
+    from deepaco_tpu_torch.utils.datasets import distance_matrix, uniform_coords
+
+    equal = {}
+    for name, (state, paths, dist, log_heu) in cases.items():
+        for cname, cfg in configs.items():
+            kw = dict(decay=0.9, q=1.0, log_heu=log_heu, **cfg)
+            got = bt.fused_tsp_update(state, paths, dist, staged=False, **kw)
+            want = bt.fused_tsp_update(state, paths, dist, staged=True, **kw)
+            equal[f"{name}_{cname}"] = bool(
+                torch.equal(got[0].phe.tau, want[0].phe.tau) and torch.equal(got[1], want[1])
+                and torch.equal(got[0].best_cost, want[0].best_cost)
+                and torch.equal(got[0].best_path, want[0].best_path)
+                and torch.equal(got[2], want[2]))
+            del got, want
+    result["K3_unstaged_equal"] = equal
+    same["K3_unstaged"] = all(equal.values())
+    state, paths, dist, log_heu = cases["main"]
+    kw = dict(decay=0.9, q=1.0, log_heu=log_heu, **configs["main_path"])
+    fns = {"staged": lambda: bt.fused_tsp_update(state, paths, dist, staged=True, **kw),
+           "unstaged": lambda: bt.fused_tsp_update(state, paths, dist, staged=False, **kw)}
+    timed = {"main": {**medians_of_turns(fns, reps=20, rounds=6),
+                      "kernels_ms": {k: kernel_ms(fn, 10) for k, fn in fns.items()}}}
+    del state, paths, dist, log_heu
+    n, a = bt.K3_STAGED_MAX_N + 1, cs.A
+    dist = distance_matrix(uniform_coords(n, torch.Generator().manual_seed(n), batch=1,
+                                          device=dev))
+    log_heu = -torch.log(dist)
+    paths = bt.dense_sweep_fused(log_heu.to(torch.bfloat16),
+                                 torch.randint(0, n, (1, a), generator=gen, device=dev), gen)
+    state = bt._batched_init(1, n, ACOConfig(n_ants=a), dev)
+    state = state._replace(phe=state.phe._replace(
+        tau=0.5 + torch.rand((1, n, n), generator=gen, device=dev)))
+    kw = dict(decay=0.9, q=1.0, log_heu=log_heu, **configs["main_path"])
+    got = bt.fused_tsp_update(state, paths, dist, **kw)
+    want = bt.fused_tsp_update_plain(state, paths, dist, **kw)
+    big_ok = bool(torch.allclose(got[0].phe.tau, want[0].phe.tau, rtol=1e-6, atol=0)
+                  and torch.allclose(got[1], want[1], rtol=1e-6, atol=0))
+    del got, want
+    fns = {"unstaged": lambda: bt.fused_tsp_update(state, paths, dist, **kw)}
+    timed[f"N{n}"] = {"B": 1, "N": n, "A": a, "matches_plain_rtol_1e-6": big_ok,
+                      **medians_of_turns(fns, reps=5, rounds=6),
+                      "kernels_ms": {"unstaged": kernel_ms(fns["unstaged"], 5)},
+                      "plain_ms": cuda_ms(lambda: bt.fused_tsp_update_plain(
+                          state, paths, dist, **kw), 3),
+                      "bound_ms": cs.bound(*cs.k3_work(1, n, a, 2))[0]}
+    same["K3_unstaged"] = same["K3_unstaged"] and big_ok
+    result["K3_unstaged_times"] = timed
+
+
+def compare_k7(result, same, other_csrc: Path, variants: list, dev, stream):
+    """K7: one CVRP500 iteration's construction, the other tree's per-step
+    route (``rollout`` over ``cvrp_spec``, each step one launch of the other
+    build's ``deepaco_pick``, K7) against this tree's ``cvrp_construct``
+    (the score matrix, then one launch of K7c), in turns; K7c's paths must
+    equal its plain version's, stochastic and greedy."""
+    import torch
+
+    from deepaco_tpu_torch.aco.engine import rollout
+    from deepaco_tpu_torch.aco.problems.cvrp import cvrp_spec, route_cost
+    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
+    from deepaco_tpu_torch.families import CVRP_CAPACITY, get_family
+    from deepaco_tpu_torch.ops import _build
+    from deepaco_tpu_torch.ops import cvrp_construct as cc
+    from deepaco_tpu_torch.train.drivers import _forward_heu
+
+    P, I = _build.P, _build.I
+    entry = build_other(other_csrc, ("pick.cu",), "other_pick").deepaco_pick
+    entry.argtypes, entry.restype = [P] * 5 + [I] * 2 + [P], ctypes.c_int
+
+    def other_pick(score_rows, mask, gumbel):
+        r, n = score_rows.shape
+        action = torch.empty((r,), dtype=torch.int64, device=dev)
+        logp = torch.empty((r,), dtype=torch.float32, device=dev)
+        _build.check(entry(score_rows.contiguous().data_ptr(), mask.contiguous().data_ptr(),
+                           gumbel.contiguous().data_ptr(), action.data_ptr(), logp.data_ptr(),
+                           r, n, stream()), "deepaco_pick")
+        return action, logp
+
+    entry_args = [P] * 4 + [_build.F] + [I] * 4 + [P]
+    builds = {"this": _build.function("deepaco_cvrp_sweep", entry_args)}
+    for k, path in enumerate(variants):
+        fn = build_other(path, ("cvrp_sweep.cu",), f"k7_variant{k}").deepaco_cvrp_sweep
+        fn.argtypes, fn.restype = entry_args, ctypes.c_int
+        builds[f"variant_{path.name}"] = fn
+    seed = torch.tensor([0x5EED0123456789], dtype=torch.int64, device=dev)
+
+    def k7c(fn, score, demand):
+        b, n, _ = score.shape
+        paths = torch.empty((b, 2 * (n - 1) + 1, cs.A), dtype=torch.int64, device=dev)
+        _build.check(fn(score.data_ptr(), demand.data_ptr(), paths.data_ptr(), seed.data_ptr(),
+                        CVRP_CAPACITY, b, n, cs.A, 1, stream()), "deepaco_cvrp_sweep")
+        return paths
+
+    # the first iteration of the CVRP path's kernel arm: tau of ones and the
+    # cvrp500_selftrained heuristic over the golden CVRP500 set
+    net, ds = cs.cvrp_inputs(ROOT, dev)
+    inst = {k: torch.as_tensor(v, device=dev) for k, v in ds.items()}
+    with torch.no_grad():
+        heu = _forward_heu(get_family("cvrp"), net.eval(), inst, 0)
+    tau = torch.ones_like(heu)
+    demand, dist = inst["demand"], inst["dist"]
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 10)
+    per_step = lambda: rollout(cvrp_spec(tau, heu, demand, CVRP_CAPACITY, cs.A), gen,
+                               pick=other_pick).paths
+    one_pass = lambda: cc.cvrp_construct(score_matrix(tau, heu, 1.0, 1.0), demand,
+                                         CVRP_CAPACITY, cs.A, gen)
+    score = score_matrix(tau, heu, 1.0, 1.0)
+    equal = {}
+    for stochastic in (True, False):
+        gens = [torch.Generator(device=dev).manual_seed(cs.SEED + 11) for _ in range(2)]
+        got = cc.cvrp_construct(score, demand, CVRP_CAPACITY, cs.A, gens[0],
+                                stochastic=stochastic)
+        want = cc.cvrp_construct_plain(score, demand, CVRP_CAPACITY, cs.A, gens[1],
+                                       stochastic=stochastic)
+        equal["stochastic" if stochastic else "greedy"] = bool(torch.equal(got, want))
+    same["K7c"] = all(equal.values())
+    with torch.no_grad():
+        costs = {"per_step_other": route_cost(dist, per_step()).mean().item(),
+                 "one_pass_this": route_cost(dist, one_pass()).mean().item()}
+        times = medians_of_turns({"other": per_step, "this": one_pass}, reps=1, rounds=6)
+        k7c_alone = medians_of_turns(
+            {name: (lambda fn=fn: k7c(fn, score, demand)) for name, fn in builds.items()},
+            reps=10, rounds=6)
+        want = k7c(builds["this"], score, demand)
+        for name, fn in builds.items():
+            k7c_alone[name]["paths_equal_this"] = bool(torch.equal(k7c(fn, score, demand), want))
+        device = {"other": kernel_ms(per_step, 1), "this": kernel_ms(one_pass, 5)}
+    result["K7"] = {
+        "B": heu.shape[0], "N": heu.shape[-1], "A": cs.A, "capacity": CVRP_CAPACITY,
+        "paths_equal_plain": equal, "mean_route_cost": costs, **times,
+        "speedup": times["other"]["median_ms"] / times["this"]["median_ms"],
+        "k7c_alone": k7c_alone, "device_ms_by_kernel": device}
 
 
 def main() -> int:
@@ -742,11 +907,14 @@ def main() -> int:
         return 1
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, required=True)
-    ap.add_argument("--kernels", nargs="+", default=["K1", "K2", "K3", "K4", "K5", "K8", "K9"],
+    ap.add_argument("--kernels", nargs="+",
+                    default=["K1", "K2", "K3", "K4", "K5", "K7", "K8", "K9"],
                     help="the checks to run (K4 and K5 run together)")
     ap.add_argument("--k8-variant", type=Path, action="append", default=[])
     ap.add_argument("--k2-variant", type=Path, action="append", default=[],
                     help="a directory with a sweep.cu (and the common.cuh it includes)")
+    ap.add_argument("--k7-variant", type=Path, action="append", default=[],
+                    help="a directory with a cvrp_sweep.cu (and the common.cuh it includes)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     picked = set(args.kernels)
@@ -778,6 +946,9 @@ def main() -> int:
                    [p.resolve() for p in args.k2_variant], dev, stream)
     if "K3" in picked:
         compare_k3(result, same, args.other.resolve(), dev, stream)
+    if "K7" in picked:
+        compare_k7(result, same, args.other.resolve(), [p.resolve() for p in args.k7_variant],
+                   dev, stream)
     result["outputs_equal"] = same
     line = json.dumps(result)
     print(line, flush=True)

@@ -97,23 +97,37 @@ def test_search_update_on_cvrp_routes_matches_jax():
 @pytest.mark.parametrize("name,arm", [("cvrp", "neural"), ("cvrp", "classic"),
                                       ("tsp", "neural")])
 def test_evaluate_family_matches_jax_in_law(name, arm):
-    """evaluate_family at n=20 on 32 instances (the golden CVRP20 set; seeded
-    uniform TSP20), 16 ants, T=1 and 5, one seed (0) on each side: the means
-    agree within 2%. The sampling streams differ; over seeds 0-2 the gaps
-    were at most 1.3% (classic CVRP) and 0.8% (neural CVRP)."""
-    n, b, ants, t_values = 20, 32, 16, (1, 5)
+    """evaluate_family at n=20 (the whole golden CVRP20 set of 100 instances;
+    32 seeded uniform TSP20), 16 ants, T=1 and 5, one seed (0) on each side:
+    the means agree within 2%. The sampling streams differ. CVRP constructs
+    through the one-pass route (Philox noise): on 32 of the golden instances
+    its gaps over seeds 0-2 spread from -2.2% to +1.3% at T1, on all 100
+    they stay within 1.2%."""
+    _assert_evaluate_family_in_law(name, arm, seed=0)
+
+
+@pytest.mark.parametrize("arm", ["neural", "classic"])
+def test_evaluate_family_cvrp_matches_jax_in_law_at_a_second_seed(arm):
+    """The CVRP cases above at seed 1 on each side, so that a shift of the
+    law shows apart from one seed's noise."""
+    _assert_evaluate_family_in_law("cvrp", arm, seed=1)
+
+
+def _assert_evaluate_family_in_law(name, arm, seed):
+    n, ants, t_values = 20, 16, (1, 5)
+    b = 100 if name == "cvrp" else 32
     if name == "cvrp":
         ds = {k: v[:b] for k, v in golden.cvrp_test(n).items()}
     else:
         ds = jdrivers.gen_batch(jfamilies.get_family("tsp"), np.random.default_rng(5), n, b)
     variables = None if arm == "classic" else _variables(f"{name}20")
     ref, _ = jdrivers.evaluate_family(name, ds, n_nodes=n, variables=variables,
-                                      k_sparse=10, n_ants=ants, t_values=t_values, seed=0)
+                                      k_sparse=10, n_ants=ants, t_values=t_values, seed=seed)
     net = None if variables is None else drivers.family_model(
         families.get_family(name), variables)
     got, curves, state = drivers.evaluate_family(
         name, ds, n_nodes=n, net=net, k_sparse=10, n_ants=ants, t_values=t_values,
-        seed=0, device="cpu", return_state=True)
+        seed=seed, device="cpu", return_state=True)
     assert curves.shape == (b, max(t_values)) and bool(torch.isfinite(curves).all())
     assert bool((curves[:, 1:] <= curves[:, :-1]).all())
     assert torch.equal(state.best_cost, curves[:, -1])

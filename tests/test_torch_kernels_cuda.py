@@ -20,6 +20,8 @@ from deepaco_tpu_torch.core.builders import start_node_features
 from deepaco_tpu_torch.core.graph import topk_smallest
 from deepaco_tpu_torch.models.gnn import Net
 from deepaco_tpu_torch.ops import _build, fused_gnn, two_opt
+from deepaco_tpu_torch.ops import cvrp_construct as cc
+from deepaco_tpu_torch.ops import philox
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 from deepaco_tpu_torch.utils.datasets import distance_matrix, uniform_coords
 
@@ -236,6 +238,50 @@ paths[0, 7, 1] = 3            # ant 1 visits city 3 twice and never city 7
 tau = torch.ones((1, 50, 50), device=dev)
 state = bt._batched_init(1, 50, ACOConfig(n_ants=2), dev)
 bt.fused_tsp_update(state, paths, tau, decay=0.9, q=1.0, log_heu=tau)
+torch.cuda.synchronize()
+"""
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0
+    assert "device-side assert" in proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("b,n,a,symmetric,floor", [
+    (100, 500, 20, True, 0.0), (2, 2, 3, True, 0.0), (3, 33, 5, False, 0.0),
+    (2, 129, 40, True, 0.7), (2, 1001, 20, False, 0.7), (1, 1000, 33, True, 0.0),
+    (1, 70, 2, True, 0.0)])
+def test_update_kernel_unstaged_variant_equals_staged(dev, b, n, a, symmetric, floor, dtype):
+    """K3's unstaged variant (every N past the staged limit; ``staged=False``
+    here) gives the staged variant's bits: tau', costs, best state and
+    score, at the main shape, ragged N, more than 32 ants and a floor."""
+    state, paths, dist, log_heu = _update_case(dev, b, n, a, n + a)
+    kw = dict(decay=0.9, q=1.0, symmetric=symmetric, floor=floor, log_heu=log_heu,
+              alpha=1.5, score_dtype=dtype)
+    before = bt.fused_tsp_update.launches
+    got, costs, score = bt.fused_tsp_update(state, paths, dist, staged=False, **kw)
+    assert bt.fused_tsp_update.launches == before + 1
+    ref, ref_costs, ref_score = bt.fused_tsp_update(state, paths, dist, staged=True, **kw)
+    assert torch.equal(got.phe.tau, ref.phe.tau) and torch.equal(costs, ref_costs)
+    assert torch.equal(got.best_cost, ref.best_cost)
+    assert torch.equal(got.best_path, ref.best_path) and torch.equal(score, ref_score)
+    got, costs, score = bt.fused_tsp_update(state, paths, dist, staged=False,
+                                            **{**kw, "log_heu": None})
+    assert score is None and torch.equal(got.phe.tau, ref.phe.tau)
+
+
+def test_update_kernel_unstaged_variant_stops_on_a_tour_that_is_not_a_permutation(dev):
+    # the unstaged row pass finds the city that no tour reached
+    code = """
+import torch
+from deepaco_tpu_torch.aco import batched_tsp as bt
+from deepaco_tpu_torch.aco.runner import ACOConfig
+dev = torch.device("cuda")
+paths = torch.arange(50, device=dev).repeat(2, 1).T[None].contiguous()
+paths[0, 7, 1] = 3            # ant 1 visits city 3 twice and never city 7
+tau = torch.ones((1, 50, 50), device=dev)
+state = bt._batched_init(1, 50, ACOConfig(n_ants=2), dev)
+bt.fused_tsp_update(state, paths, tau, decay=0.9, q=1.0, log_heu=tau, staged=False)
 torch.cuda.synchronize()
 """
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -640,8 +686,8 @@ torch.cuda.synchronize()
 
 def test_evaluate_family_cvrp_runs_on_the_card_through_the_kernels(dev):
     """evaluate_family("cvrp") at n=20 on the card: finite, valid best
-    routes, and K6 (12 layers), K7 (2n steps an iteration) and K8 (one an
-    iteration) launched."""
+    routes, and K6 (12 layers), K7c (one an iteration, in place of K7's 2n
+    steps) and K8 (one an iteration) launched, K7 not at all."""
     from deepaco_tpu_torch.aco.problems.cvrp import validate_routes
     from deepaco_tpu_torch.families import CVRP_CAPACITY, get_family
     from deepaco_tpu_torch.ops import deposit, gnn_layer, pick
@@ -651,12 +697,13 @@ def test_evaluate_family_cvrp_runs_on_the_card_through_the_kernels(dev):
     ds = {k: v[:4] for k, v in cvrp_test(20).items()}
     net = family_model(get_family("cvrp"),
                        load_checkpoint(str(CKPT / "cvrp20_selftrained.msgpack")))
-    counters = (gnn_layer.fused_gnn_layer, pick.fused_pick, deposit.tour_deposit)
+    counters = (gnn_layer.fused_gnn_layer, pick.fused_pick, deposit.tour_deposit,
+                cc.cvrp_construct)
     before = [fn.launches for fn in counters]
     means, curves, state = evaluate_family("cvrp", ds, n_nodes=20, net=net, n_ants=8,
                                            t_values=(1, 3), return_state=True)
     assert curves.is_cuda and bool(torch.isfinite(curves).all())
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 3 * 40, 3]
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 0, 3, 3]
     demand = torch.from_numpy(ds["demand"]).to(dev)
     assert bool(validate_routes(state.best_path[..., None], demand, CVRP_CAPACITY).all())
 
@@ -798,3 +845,130 @@ def test_tsp_sweep_construct_greedy_equals_dense_sweep(dev, instance):
     assert torch.equal(paths[0], start)
     assert torch.equal(torch.sort(paths, dim=0).values,
                        torch.arange(100, device=dev)[:, None].expand(100, 8))
+
+
+def _cvrp_case(dev, b, n, seed, capacity):
+    """Scores on a grid of halves (ties are common, so the first maximum is
+    tested) and integer demands 1-9 with the depot at 0."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    score = torch.randint(-8, 8, (b, n, n), generator=gen, device=dev).float() / 2
+    demand = torch.randint(1, 10, (b, n), generator=gen, device=dev).float()
+    demand[:, 0] = 0.0
+    return score, demand
+
+
+def _assert_cvrp_construct_matches_plain(score, demand, capacity, a, seed):
+    """K7c's paths bit-equal to its plain version's from equal generator
+    states, stochastic and greedy; the routes valid."""
+    from deepaco_tpu_torch.aco.problems.cvrp import validate_routes
+
+    dev = score.device
+    for stochastic in (True, False):
+        gens = [torch.Generator(device=dev).manual_seed(seed) for _ in range(2)]
+        before = cc.cvrp_construct.launches
+        got = cc.cvrp_construct(score, demand, capacity, a, gens[0], stochastic=stochastic)
+        assert cc.cvrp_construct.launches == before + 1
+        want = cc.cvrp_construct_plain(score, demand, capacity, a, gens[1],
+                                       stochastic=stochastic)
+        assert torch.equal(got, want)
+        if bool((score[:, 0, 0] >= -1e30).all()):
+            assert bool(validate_routes(got, demand, capacity).all())
+
+
+@pytest.mark.parametrize("capacity", [50.0, 12.0])
+@pytest.mark.parametrize("n,b,a", [(2, 3, 4), (21, 3, 1), (21, 4, 40), (101, 3, 7),
+                                   (101, 50, 20), (501, 2, 40), (501, 40, 20),
+                                   (1000, 2, 3), (4096, 1, 2)])
+def test_cvrp_construct_kernel_equals_plain_bit_for_bit(dev, n, b, a, capacity):
+    """K7c at N from 2 to 4096 (one to 8 groups of 4 columns a thread, 1 to
+    4 warps an ant, row loads by column and, at N = 1000, by 4), A from 1 to
+    40, capacity 50 and a tight one: paths equal to the plain version's."""
+    score, demand = _cvrp_case(dev, b, n, n + a, capacity)
+    _assert_cvrp_construct_matches_plain(score, demand, capacity, a, n * a)
+
+
+def test_cvrp_construct_kernel_on_nan_and_a_depot_loop_below_minus_1e30(dev):
+    """NaN rows and columns win as in torch.argmax; with -inf on an
+    instance's depot self-loop a finished ant does not park: paths equal to
+    the plain version's."""
+    score, demand = _cvrp_case(dev, 3, 101, 9, 15.0)
+    score[0, 7] = float("nan")
+    score[1, :, 5] = float("nan")
+    score[2, 0, 0] = float("-inf")
+    _assert_cvrp_construct_matches_plain(score, demand, 15.0, 9, 11)
+
+
+def test_cvrp_construct_kernel_refuses_what_it_does_not_take(dev):
+    score, demand = _cvrp_case(dev, 1, 4097, 1, 50.0)
+    gen = torch.Generator(device=dev)
+    with pytest.raises(ValueError, match="4096"):
+        cc.cvrp_construct(score, demand, 50.0, 2, gen)
+    with pytest.raises(ValueError, match="f32"):
+        cc.cvrp_construct(score[:, :8, :8].double(), demand[:, :8].double(), 50.0, 2, gen)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        cc.cvrp_construct(score[:, :8, :8], demand[:, :8].cpu(), 50.0, 2, gen)
+
+
+def _philox_sweep(score, start, key):
+    """K2's sweep in PyTorch with K2's own noise: the Philox words of each
+    step (``ops/philox.philox_bits``) through the bf16 table law or the
+    f32 law, the plain sweep's mask and first maximum."""
+    b, n, _ = score.shape
+    a = start.shape[1]
+    cur = start.reshape(-1)
+    base = torch.arange(b, device=score.device).repeat_interleave(a) * n
+    visited = torch.zeros((b * a, n), dtype=torch.bool, device=score.device)
+    visited.scatter_(1, cur[:, None], True)
+    steps = [cur]
+    for s in range(n - 1):
+        bits = philox.philox_bits(key, s, 1, b * a, n, score.device)[0]
+        logits = torch.where(visited, torch.tensor(bt.NEG_INF, dtype=score.dtype,
+                                                   device=score.device),
+                             score.reshape(b * n, n).index_select(0, base + cur))
+        if score.dtype == torch.bfloat16:
+            logits = (logits.float() + philox.gumbel_bf16_from_bits(bits).float()).to(torch.bfloat16)
+        else:
+            logits = logits + philox.gumbel_f32_from_bits(bits)
+        cur = torch.argmax(logits, dim=-1)
+        visited.scatter_(1, cur[:, None], True)
+        steps.append(cur)
+    return torch.stack(steps, dim=1).reshape(b, a, n).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n,a", [(33, 3), (500, 20)])
+def test_sweep_kernel_draws_the_shared_philox_noise(dev, n, a, dtype):
+    """K2's sampled paths equal a PyTorch sweep fed the words of the Philox
+    that K2 and K7c share (``csrc/common.cuh``) under the seed its wrapper
+    draws, in bf16 (the table law) and in f32: K2's noise stream is that
+    Philox, word c % 4 of the counter (c // 4, step, ant, 0)."""
+    score, start, gen = _sweep_case(dev, n, a, 2, n + 17)
+    score = score.to(dtype)
+    key = int(philox.draw_seed(torch.Generator(device=dev).manual_seed(n), dev).item())
+    got = bt.dense_sweep_fused(score, start, torch.Generator(device=dev).manual_seed(n))
+    assert torch.equal(got, _philox_sweep(score, start, key))
+
+
+def test_main_path_past_k3_limit_takes_the_plain_update_on_the_card(dev):
+    """run_anytime_batched at B=1, N = 19,001 (one past K3's staged limit),
+    A=2, T=1: the update is one K3 launch (its unstaged variant), and the
+    curve equals that of the same run with the plain update at K3's rtol
+    1e-6; K3 at that N then holds against its plain version with the next
+    score, and its staged variant refuses the N."""
+    n = bt.K3_STAGED_MAX_N + 1
+    coords = uniform_coords(n, torch.Generator().manual_seed(0), batch=1, device=dev)
+    dist = distance_matrix(coords)
+    heu = 1.0 / dist
+    cfg = ACOConfig(n_ants=2)
+    before = bt.fused_tsp_update.launches
+    got = bt.run_anytime_batched(heu, dist, cfg, torch.Generator(device=dev).manual_seed(1), 1)
+    assert bt.fused_tsp_update.launches == before + 1
+    want = bt.run_anytime_batched(heu, dist, cfg, torch.Generator(device=dev).manual_seed(1), 1,
+                                  _ops=bt.KERNEL_OPS._replace(update=bt.fused_tsp_update_plain))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+    del heu, dist, coords
+    state, paths, dist, log_heu = _update_case(dev, 1, n, 2, 3)
+    _assert_update_matches_plain(state, paths, dist, log_heu, decay=0.9, q=1.0)
+    with pytest.raises(ValueError, match="19000"):
+        bt.fused_tsp_update(state, paths, dist, decay=0.9, q=1.0, staged=True)

@@ -184,3 +184,58 @@ def test_heuristic_past_k1_cap_takes_the_k9_route_as_jax_does(start_node):
     else:
         want = jbatched_tsp_heuristic(_jax_net(net), variables, jnp.asarray(coords), k)[0][0]
     np.testing.assert_allclose(got[0], np.asarray(want), rtol=1e-4, atol=1e-6)
+
+
+def test_k3_route_predicate_states_k3_limit():
+    """K3 takes its staged variant up to 19,000 cities and its unstaged one
+    past that; on the CPU ``staged`` changes nothing (the plain version)."""
+    assert bt.k3_staged(bt.K3_STAGED_MAX_N) and not bt.k3_staged(bt.K3_STAGED_MAX_N + 1)
+    assert bt.K3_STAGED_MAX_N == 19000
+
+
+@pytest.mark.parametrize("n", [8, 9])
+def test_batched_update_past_k3_limit_takes_the_plain_update_as_jax_does(monkeypatch, n):
+    """``_batched_update`` hands the update to its ``update`` (K3) on both
+    sides of K3's staged limit (here lowered to 8): K3 takes every N, its
+    unstaged variant past the limit. On the CPU the K3 wrapper takes the
+    plain version, with or without ``staged``: at N = 9 the state and next
+    score equal the plain update's, and JAX's ``_batched_update`` (off the
+    TPU: tour costs and ``search_update``) at rtol 1e-6 for tau (sum order),
+    the best cost and tour exactly."""
+    from deepaco_tpu.aco import batched_tsp as jbt
+    from deepaco_tpu.aco import runner as jrunner
+    from deepaco_tpu_torch.aco import runner
+
+    b, a = 2, 3
+    coords, dist = instances(b, n, 50 + n)
+    tours = random_tours(b, a, n, 51).transpose(0, 2, 1).copy()         # [B, N, A]
+    tau = (0.5 + np.random.default_rng(52).random((b, n, n))).astype(np.float32)
+    log_heu = -t(dist).clamp(max=10.0)
+    cfg = runner.ACOConfig(n_ants=a)
+    state = bt._batched_init(b, n, cfg, "cpu")
+    state = state._replace(phe=state.phe._replace(tau=t(tau)))
+    monkeypatch.setattr(bt, "K3_STAGED_MAX_N", 8)
+    assert bt.k3_staged(n) == (n == 8)
+    calls = []
+
+    def k3(*args, **kw):
+        calls.append(n)
+        return bt.fused_tsp_update(*args, **kw)
+
+    got, score = bt._batched_update(cfg, state, t(tours), t(dist), update=k3,
+                                    log_heu=log_heu, sample_dtype=torch.float32)
+    assert calls == [n]
+    want, _, want_score = bt.fused_tsp_update_plain(
+        state, t(tours), t(dist), decay=cfg.decay, q=cfg.q, log_heu=log_heu,
+        score_dtype=torch.float32)
+    assert torch.equal(got.phe.tau, want.phe.tau) and torch.equal(score, want_score)
+    unstaged, _, _ = bt.fused_tsp_update(state, t(tours), t(dist), decay=cfg.decay, q=cfg.q,
+                                         staged=False)
+    assert torch.equal(unstaged.phe.tau, want.phe.tau)
+    jcfg = jrunner.ACOConfig(n_ants=a)
+    jstate = jbt._batched_init(b, n, jcfg)
+    jstate = jstate._replace(phe=jstate.phe._replace(tau=jnp.asarray(tau)))
+    ref = jbt._batched_update(jcfg, jstate, jnp.asarray(tours, jnp.int32), jnp.asarray(dist))
+    np.testing.assert_allclose(got.phe.tau.numpy(), np.asarray(ref.phe.tau), rtol=1e-6)
+    np.testing.assert_array_equal(got.best_cost.numpy(), np.asarray(ref.best_cost))
+    np.testing.assert_array_equal(got.best_path.numpy(), np.asarray(ref.best_path))

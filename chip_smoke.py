@@ -66,18 +66,22 @@ Phases, one JSON line each:
    K7c (``cvrp_construct``, the whole construction of an iteration) on
    ``1/d`` at the same shape, stochastic and greedy, paths bit-equal to its
    plain version's and valid, with its time and the bound of the steps the
-   ants take; K6's forward at the CVRP shape (K = N = 501) against its
-   plain version;
+   ants take; K6's forward at the CVRP shape (K = N = 501, the coming CVRP
+   training's) against its plain version; K9 (``embnet_layers``, the CVRP
+   heuristic's layer stack) on the golden set's dense graph (B=100, K = N
+   = 501) against its plain version, the heuristic head's output at rtol
+   1e-4 / atol 1e-5, as on the sparse path;
 10. the CVRP path: ``evaluate_family("cvrp")`` with ``cvrp500_selftrained``
    on the golden CVRP500 set (100 instances, 500 customers, A=20, T=1 and
-   10) in three arms: kernels (K6, K7c, K8), plain versions on the card, and
-   classic (``1/d``: K7c, K8); per arm the costs, wall, phase times, the
-   kernels' launches (K7c once an iteration, K7 never) and the peak device
-   memory. Every best route must be valid and cost what the run says; the
-   kernel arm's cost@T1 must lie within 1e-4 of the plain arm's (the same
-   Philox noise), its cost@T10 within 1% of the plain arm's, within 1% of
-   the per-step construction's recorded 60.5116 (``PER_STEP_CVRP_T10``)
-   and below the classic arm's;
+   10) in three arms: kernels (K9, K7c, K8), plain versions on the card
+   (``embnet_layers_plain``, ``cvrp_construct_plain``, ``deposit_plain``),
+   and classic (``1/d``: K7c, K8); per arm the costs, wall, phase times,
+   the kernels' launches (K9 once, K6 and K7 never, K7c once an iteration)
+   and the peak device memory. Every best route must be valid and cost what
+   the run says; the kernel arm's cost@T1 must lie within 1e-4 of the plain
+   arm's (the same Philox noise), its cost@T10 within 1% of the plain
+   arm's, within 1% of the per-step construction's recorded 60.5116
+   (``PER_STEP_CVRP_T10``) and below the classic arm's;
 11. K9 (``embnet_layers``) against its plain version on the sparse path's
    own inputs (``tsp500_selftrained``, the CLI's 30 fixed-seed TSP2000
    instances, their k=200 support and neighbour distances, E=1), held on
@@ -96,9 +100,9 @@ Phases, one JSON line each:
    of the plain arm's (the same noise; only K9's rounding parts them);
 13. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7 from the
-   TSP500-NLS training run, K7c and K8 from the CVRP path's kernel arm, K9 from the
-   sparse path's kernel arm; row 9 is on no path of either package, so its
-   count is 0), error, times and bound.
+   TSP500-NLS training run, K7c and K8 from the CVRP path's kernel arm, K9
+   from the sparse and the CVRP paths' kernel arms together; row 9 is on no
+   path of either package, so its count is 0), error, times and bound.
 
 Every path's cost (main cost@T10, NLS, CVRP and sparse cost@T1 and
 cost@T10, and both for the plain arms of the main, NLS and sparse paths)
@@ -138,7 +142,7 @@ SPARSE_T, SPARSE_LS_T = (1, 10), (1, 2)
 # they reproduce to the digit
 RECORDED_COSTS = {"main": (None, 19.6391), "main_plain": (20.6735, 19.6335),
                   "nls": (17.1227, 16.9536), "nls_plain": (17.1133, 16.9749),
-                  "cvrp": (61.7578, 60.5332),
+                  "cvrp": (61.7577, 60.5177),
                   "sparse": (48.2913, 45.1827), "sparse_plain": (48.2913, 45.1980)}
 # the CVRP kernel arm's cost@T10 as recorded through the per-step
 # construction (K7 a step, torch.rand noise); the one-pass construction
@@ -185,6 +189,46 @@ def k3_work(b: int, n: int, a: int, score_bytes: int) -> tuple[float, float]:
     nbytes = (4 * 3 + score_bytes) * b * n * n + 4 * b * a * n + 4 * b * n * a + 4 * b * a \
         + 2 * 4 * (b + b * n)
     return nbytes, 6 * b * n * n + 3 * b * a * n
+
+
+def k6_forward_work(b: int, r: int, n: int, k: int, u: int, write_pre: bool = True):
+    """K6's forward bytes, f32 operations and tensor-core product operations
+    for ``bound`` over ``b`` instances of ``r`` rows (``n`` nodes): w and
+    pre, x2/x3/x4 and agg, nbr (int32), ew, eb; the edge product (2 U^2 an
+    edge, 3xTF32) and the gate, mean and sums (5 U an edge). Without pre
+    (row 8): w, x2, agg and nbr; the gate, product and sum (4 U an edge)."""
+    edges = b * r * k
+    if not write_pre:
+        return 4 * (edges * u + 2 * b * n * u) + 4 * edges, 4 * edges * u, 0
+    return (4 * (2 * edges * u + 4 * b * n * u + edges + u * u + u), 5 * edges * u,
+            2 * edges * u * u)
+
+
+def k6_backward_work(b: int, n: int, k: int, u: int):
+    """K6's backward bytes, f32 operations and tensor-core product
+    operations for ``bound``: w, d_pre, x2, d_agg, nbr and the reverse
+    adjacency in; d_w, d_x2, d_x3, d_x4, d_ew, d_eb out; d_pre @ ew^T (2 U^2
+    an edge, 3xTF32), w^T d_pre (2 U^2 an edge, f32, a PyTorch product) and
+    about 10 U an edge for the gate, sums and scatters."""
+    edges = b * n * k
+    return (4 * (3 * edges * u + 5 * b * n * u + 2 * edges + b * (n + 1) + 2 * u * u + 2 * u),
+            2 * edges * u * u + 10 * edges * u, 2 * edges * u * u)
+
+
+def k9_work(b: int, n: int, k: int, e: int, layers: int, u: int):
+    """K9's bytes, f32 operations and tensor-core product operations for
+    ``bound``, and the bytes its design streams: e_lin0 (E multiply-adds and
+    a SiLU, about 5 operations, a feature), each layer's node pass (2 U 4U a
+    node) and about 10 U an edge for the gate, the sums, the affine, SiLU
+    and residual; the per-edge 32x32 products (2 U^2) at the tensor cores'
+    3xTF32 rate; bytes: edge features, int32 ids and x in, the edge state
+    out. The design writes the edge state in e_lin0, then each layer reads
+    and writes it once."""
+    edges = b * n * k
+    ops = edges * u * (2 * e + 5) + layers * (2 * b * n * u * 4 * u + edges * 10 * u)
+    nbytes = 4 * (edges * e + edges + b * n * u + edges * u)
+    floor_bytes = 4 * (edges * e + edges * u * (1 + 2 * layers))
+    return nbytes, ops, layers * edges * 2 * u * u, floor_bytes
 
 
 def main_path_inputs(root: Path, dev, ls: str | None = None):
@@ -285,9 +329,10 @@ def drive_sparse(args, ops=None, stats: dict | None = None):
     return means, curves, out.getvalue().splitlines()
 
 
-def check_embnet_layers(cuda_ms, net, g) -> dict:
-    """K9 against its plain version on the sparse path's inputs, on the edge
-    state and both heads; returns K9's entry of the kernels' line."""
+def check_embnet_layers(cuda_ms, net, g, config: str) -> dict:
+    """K9 against its plain version on a path's own inputs (``config``: the
+    sparse path's graph, or the CVRP path's dense one), on every head of
+    ``net``; emits its line and returns K9's entry of the kernels' line."""
     import torch
 
     from deepaco_tpu_torch.ops import fused_gnn
@@ -296,38 +341,31 @@ def check_embnet_layers(cuda_ms, net, g) -> dict:
     x = fused_gnn._node_embedding(f, g.x)
     b, n, k = g.nbr.shape
     e, layers, u = g.edge.shape[-1], f.bv.shape[0], net.emb_net.units
-    heads = ("phe", "heu")
+    heads = ("phe", "heu") if net.dual_heads else ("heu",)
+
+    def outputs(stack):
+        out = fused_gnn.net_forward_fast(net, g.x, g.nbr, g.edge, heads=heads, layers=stack)
+        return out if isinstance(out, tuple) else (out,)
+
     with torch.no_grad():
-        got = fused_gnn.net_forward_fast(net, g.x, g.nbr, g.edge, heads=heads)
-        want = fused_gnn.net_forward_fast(net, g.x, g.nbr, g.edge, heads=heads,
-                                          layers=fused_gnn.embnet_layers_plain)
+        got, want = outputs(fused_gnn.embnet_layers), outputs(fused_gnn.embnet_layers_plain)
         ok = all(bool(torch.allclose(a, r, rtol=1e-4, atol=1e-5)) for a, r in zip(got, want))
         err = max((a - r).abs().max().item() for a, r in zip(got, want))
         # the score reads log(heu + 1e-10)
-        log_err = ((got[1] + 1e-10).log() - (want[1] + 1e-10).log()).abs().max().item()
-        score_flips = ((got[1] + 1e-10).log().to(torch.bfloat16)
-                       != (want[1] + 1e-10).log().to(torch.bfloat16)).float().mean().item()
+        log_err = ((got[-1] + 1e-10).log() - (want[-1] + 1e-10).log()).abs().max().item()
+        score_flips = ((got[-1] + 1e-10).log().to(torch.bfloat16)
+                       != (want[-1] + 1e-10).log().to(torch.bfloat16)).float().mean().item()
         del got, want
         ms = cuda_ms(lambda: fused_gnn.embnet_layers(f, x, g.nbr, g.edge, k=k), 3)
         plain_ms = cuda_ms(lambda: fused_gnn.embnet_layers_plain(f, x, g.nbr, g.edge, k=k), 1)
-    edges = b * n * k
-    # e_lin0 (E multiply-adds and a SiLU, about 5 operations, a feature),
-    # each layer's node pass (2 U 4U a node) and about 10 U an edge for the
-    # gate, the sums, the affine, SiLU and residual; the per-edge 32x32
-    # products (2 U^2) at the tensor cores' 3xTF32 rate; bytes: edge
-    # features, int32 ids and x in, the edge state out
-    ops = edges * u * (2 * e + 5) + layers * (2 * b * n * u * 4 * u + edges * 10 * u)
-    product_ops = layers * edges * 2 * u * u
-    nbytes = 4 * (edges * e + edges + b * n * u + edges * u)
-    # the design streams the edge state: e_lin0 writes it, each layer reads
-    # and writes it once
-    floor_bytes = 4 * (edges * e + edges * u * (1 + 2 * layers))
-    emit({"phase": "kernel", "name": "embnet_layers", "B": b, "N": n, "K": k, "E": e,
-          "layers": layers, "passed": ok, "max_abs_err": err,
+    nbytes, ops, product_ops, floor_bytes = k9_work(b, n, k, e, layers, u)
+    emit({"phase": "kernel", "name": "embnet_layers", "config": config, "B": b, "N": n,
+          "K": k, "E": e, "layers": layers, "passed": ok, "max_abs_err": err,
           "max_log_heu_err": log_err, "bf16_score_entries_differing": score_flips,
           "ms": ms, "plain_ms": plain_ms,
           "design_floor_ms": floor_bytes / HBM_BYTES_PER_S * 1e3,
-          "tolerance": "both heads rtol 1e-4, atol 1e-5 (sums in another order over 12 layers)"})
+          "tolerance": f"heads {heads} rtol 1e-4, atol 1e-5 (sums in another order over "
+                       "12 layers)"})
     return {"name": "embnet_layers", "route": "cuda",
             "source": "deepaco_tpu_torch/csrc/embnet_layers.cu",
             "replaces": "deepaco_tpu/ops/fused_gnn.py:242",
@@ -581,11 +619,9 @@ def check_layer_at_cvrp_width(dev, cuda_ms, net, ds) -> dict:
         del got, want
         ms = cuda_ms(lambda: gnn_layer.fused_gnn_layer(*args), 5)
         plain_ms = cuda_ms(lambda: gnn_layer.fused_gnn_layer_plain(*args), 2)
-    edges = b * n * k
     return {"B": b, "N": n, "K": k, "passed": ok, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, **dict(zip(("bound_ms", "bound_by"), bound(
-                4 * (2 * edges * u + 4 * b * n * u + edges + u * u + u),
-                2 * edges * u * u + 5 * edges * u)))}
+                *k6_forward_work(b, n, n, k, u))))}
 
 
 def ls_bound(n: int, b: int, a: int, scans: dict, metric_bytes: int):
@@ -650,7 +686,6 @@ def check_training_kernels(dev, cuda_ms, kernels: list) -> bool:
     x2, x3, x4, w = rnd(b, N, u), rnd(b, N, u), rnd(b, N, u), rnd(b, N, K, u)
     ew, eb = rnd(u, u) * 0.1, rnd(u) * 0.1
     args = (x2, x3, x4, nbr, w, ew, eb, index)
-    edges = b * N * K
 
     with torch.no_grad():
         agg_k, pre_k = gnn_layer.fused_gnn_layer(*args)
@@ -692,8 +727,7 @@ def check_training_kernels(dev, cuda_ms, kernels: list) -> bool:
             "ms": cuda_ms(lambda: gnn_layer.gated_mean_aggregate(x2, nbr, w), 20),
             "plain_ms": cuda_ms(lambda: gnn_layer.gated_mean_aggregate_plain(x2, nbr, w), 5),
             "tolerance": "rtol 1e-5, atol 1e-5 (sum order of the mean)"}
-    row8.update(zip(("bound_ms", "bound_by"), bound(
-        4 * (edges * u + 2 * b * N * u) + 4 * edges, 4 * edges * u)))
+    row8.update(zip(("bound_ms", "bound_by"), bound(*k6_forward_work(b, N, N, K, u, False))))
     emit(row8)
 
     with torch.no_grad():
@@ -702,30 +736,20 @@ def check_training_kernels(dev, cuda_ms, kernels: list) -> bool:
     bwd_ms = cuda_ms(lambda: gnn_layer.fused_gnn_layer_backward(x2, index, w, ew, ca, cp), 20)
     bwd_plain_ms = cuda_ms(
         lambda: gnn_layer.fused_gnn_layer_backward_plain(x2, nbr, w, ew, ca, cp), 5)
-    # forward: w and pre, x2/x3/x4/agg, nbr (int32), ew, eb; the edge
-    # product (2 U^2 an edge) and the gate, mean and sums (5 U an edge)
-    fwd_bytes = 4 * (2 * edges * u + 4 * b * N * u + edges + u * u + u)
-    fwd_ops = 2 * edges * u * u + 5 * edges * u
-    # backward: w, d_pre, x2, d_agg, nbr and the reverse adjacency in; d_w,
-    # d_x2, d_x3, d_x4, d_ew, d_eb out; d_pre @ ew^T and w^T d_pre (2 U^2 an
-    # edge each) and about 10 U an edge for the gate, sums and scatters
-    bwd_bytes = 4 * (3 * edges * u + 5 * b * N * u + 2 * edges + b * (N + 1)
-                     + 2 * u * u + 2 * u)
-    bwd_ops = 4 * edges * u * u + 10 * edges * u
     kernels.append({
         "name": "fused_gnn_layer", "route": "cuda",
         "source": "deepaco_tpu_torch/csrc/gnn_layer.cu",
         "replaces": "deepaco_tpu/ops/pallas_kernels.py:203",
         "max_abs_err": fwd_err, "ms": fwd_ms, "plain_ms": fwd_plain_ms,
         "library_ms": None, "passed": fwd_ok,
-        **dict(zip(("bound_ms", "bound_by"), bound(fwd_bytes, fwd_ops)))})
+        **dict(zip(("bound_ms", "bound_by"), bound(*k6_forward_work(b, N, N, K, u))))})
     kernels.append({
         "name": "fused_gnn_layer_backward", "route": "cuda",
         "source": "deepaco_tpu_torch/csrc/gnn_layer.cu",
         "replaces": "deepaco_tpu/ops/pallas_kernels.py:275 (fused_gnn_layer_ad, _fused_ad_bwd 290)",
         "max_abs_err": bwd_err, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
         "library_ms": None, "passed": bwd_ok,
-        **dict(zip(("bound_ms", "bound_by"), bound(bwd_bytes, bwd_ops)))})
+        **dict(zip(("bound_ms", "bound_by"), bound(*k6_backward_work(b, N, K, u))))})
     emit({"phase": "kernel", "name": "fused_gnn_layer", "B": b, "N": N, "K": K, "U": u,
           "forward_passed": fwd_ok, "backward_passed": bwd_ok,
           "forward_max_abs_err": fwd_err, "autograd_grad_err": grad_errs,
@@ -870,7 +894,7 @@ def main() -> int:
     from deepaco_tpu_torch.aco import batched_tsp as bt
     from deepaco_tpu_torch.aco.problems.tsp import tour_cost
     from deepaco_tpu_torch.aco.runner import ACOConfig, track_best
-    from deepaco_tpu_torch.core.builders import start_node_features
+    from deepaco_tpu_torch.core.builders import cvrp_graph, start_node_features
     from deepaco_tpu_torch.core.graph import topk_smallest
     from deepaco_tpu_torch.eval.anytime import evaluate_tsp
     from deepaco_tpu_torch.models.gnn import Net, init_like_flax
@@ -1129,7 +1153,7 @@ def main() -> int:
                bt.fused_tsp_update, two_opt.batched_two_opt_euclid,
                two_opt.batched_nls_euclid, gnn_layer.fused_gnn_layer,
                gnn_layer.fused_gnn_layer_backward, pick.fused_pick,
-               deposit.tour_deposit, cc.cvrp_construct)
+               deposit.tour_deposit, cc.cvrp_construct, fused_gnn.embnet_layers)
 
     class PhaseTimer:
         """CUDA events around each phase; read after the run has synchronised."""
@@ -1264,7 +1288,7 @@ def main() -> int:
           "bytes": ckpt.stat().st_size, "weights_equal": same, "step": int(tree["step"]),
           "evaluate_tsp_nls_cost": reload_cost.tolist(), "passed": reload_ok})
 
-    # ---- 9. K8 and K6 at the CVRP path's shapes
+    # ---- 9. K8, K7, K7c, K6 and K9 at the CVRP path's shapes
     cvrp_net, cvrp_ds = cvrp_inputs(root, dev)
     cvrp_paths, cvrp_amounts, cvrp_picks = cvrp_rollout(dev, cvrp_ds)
     kernels.append(check_deposit(dev, cuda_ms, paths_k, 1.0 / costs_p, cvrp_paths,
@@ -1277,6 +1301,9 @@ def main() -> int:
     layer_501 = check_layer_at_cvrp_width(dev, cuda_ms, cvrp_net, cvrp_ds)
     emit({"phase": "kernel", "name": "fused_gnn_layer", "config": "cvrp500, K = N = 501",
           **layer_501, "tolerance": "rtol 1e-5, atol 1e-5 (sum order)"})
+    k9_501 = check_embnet_layers(cuda_ms, cvrp_net, cvrp_graph(
+        torch.as_tensor(cvrp_ds["demand"], device=dev),
+        torch.as_tensor(cvrp_ds["dist"], device=dev)), "cvrp500, K = N = 501")
 
     # ---- 10. the CVRP path: kernel, plain and classic arms
     cvrp_dist = torch.as_tensor(cvrp_ds["dist"], device=dev)
@@ -1306,8 +1333,8 @@ def main() -> int:
         recost = route_cost(cvrp_dist, best)[:, 0]
         return {"cost": cost.tolist(), "wall_s": wall, "phase_ms": timer.ms(),
                 "launches": {fn.__name__: fn.launches for fn in (
-                    gnn_layer.fused_gnn_layer, pick.fused_pick, deposit.tour_deposit,
-                    cc.cvrp_construct)},
+                    fused_gnn.embnet_layers, gnn_layer.fused_gnn_layer, pick.fused_pick,
+                    deposit.tour_deposit, cc.cvrp_construct)},
                 "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
                 "valid_best_routes": int(valid.sum()),
                 "best_cost_is_route_cost": bool(torch.allclose(recost, state.best_cost,
@@ -1321,7 +1348,7 @@ def main() -> int:
 
     # ---- 11. K9 and row 9 against their plain versions
     sparse_net, sparse_g = sparse_inputs(root, dev)
-    kernels.append(check_embnet_layers(cuda_ms, sparse_net, sparse_g))
+    kernels.append(check_embnet_layers(cuda_ms, sparse_net, sparse_g, "sparse tsp2000, K = 200"))
     del sparse_net, sparse_g
     kernels.append(check_row9(dev, cuda_ms, torch.log(heu[0])))
 
@@ -1376,7 +1403,8 @@ def main() -> int:
           **sparse_arms})
 
     path_launches = {**launches,
-                     "embnet_layers": sparse_arms["kernel"]["launches"]["embnet_layers"],
+                     "embnet_layers": (sparse_arms["kernel"]["launches"]["embnet_layers"]
+                                       + cvrp_arms["kernel"]["launches"]["embnet_layers"]),
                      "tsp_sweep_construct": sparse_arms["kernel"]["launches"]["tsp_sweep_construct"],
                      "tour_deposit": cvrp_arms["kernel"]["launches"]["tour_deposit"],
                      "cvrp_construct": cvrp_arms["kernel"]["launches"]["cvrp_construct"],
@@ -1418,10 +1446,12 @@ def main() -> int:
              f"{k8['tsp_ms']} / {k8['tsp_library_ms']} ms (TSP)")
     if not layer_501["passed"]:
         fail("K6 disagrees with its plain version at K = N = 501")
+    if not k9_501["passed"]:
+        fail("K9 disagrees with its plain version on the CVRP path's graph")
     if not pick_501["passed"]:
         fail("K7 disagrees with its plain version on the CVRP rollout's rows")
     ck, cp, cc = (cvrp_arms[arm]["cost"] for arm in ("kernel", "plain", "classic"))
-    # the two arms draw the same noise, so at T1 only K6's rounding (1e-6)
+    # the two arms draw the same noise, so at T1 only K9's rounding (1e-6)
     # can part them; a wrong pick moves cost@T1 by far more than 1e-4
     if abs(ck[0] - cp[0]) > 1e-4 * cp[0]:
         fail(f"CVRP kernel path cost@T1 {ck[0]} vs plain {cp[0]}")
@@ -1436,12 +1466,12 @@ def main() -> int:
             fail(f"CVRP {arm} arm: {r['valid_best_routes']} of {cvrp_b} best routes valid, "
                  f"costs match {r['best_cost_is_route_cost']}")
     t_max = max(T_VALUES)
-    want = {"kernel": {"fused_gnn_layer": cvrp_net.emb_net.depth, "fused_pick": 0,
+    want = {"kernel": {"embnet_layers": 1, "fused_gnn_layer": 0, "fused_pick": 0,
                        "tour_deposit": t_max, "cvrp_construct": t_max},
-            "plain": {"fused_gnn_layer": 0, "fused_pick": 0, "tour_deposit": 0,
-                      "cvrp_construct": 0},
-            "classic": {"fused_gnn_layer": 0, "fused_pick": 0, "tour_deposit": t_max,
-                        "cvrp_construct": t_max}}
+            "plain": {"embnet_layers": 0, "fused_gnn_layer": 0, "fused_pick": 0,
+                      "tour_deposit": 0, "cvrp_construct": 0},
+            "classic": {"embnet_layers": 0, "fused_gnn_layer": 0, "fused_pick": 0,
+                        "tour_deposit": t_max, "cvrp_construct": t_max}}
     for arm, counts in want.items():
         if cvrp_arms[arm]["launches"] != counts:
             fail(f"CVRP {arm} arm launched {cvrp_arms[arm]['launches']}, expected {counts}")

@@ -1,14 +1,15 @@
 // The folded EmbNet layer passes, shared by K1 (dense_heuristic.cu) and K9
-// (embnet_layers.cu), and the tensor-core tile routine that K1's head uses
-// too. Each layer streams the edge state [rows, K, 32] f32 once through
-// device memory:
+// (embnet_layers.cu), the tensor-core tile routine that K1's head uses too,
+// and the edge loop that K6 (gnn_layer.cu) runs with tails of its own.
+// Each layer streams the edge state [rows, K, 32] f32 once through device
+// memory:
 //   node_pass: x1234 = x @ wv_i + bv_i, [rows, 4U], one row per thread row;
-//   edge_pass: persistent warps, each walking whole nodes. A node's K edge
-//     rows go in tiles of 16 (the last one masked), the 16x32 @ 32x32
-//     product runs on the tensor cores in 3xTF32, the edge update is written
-//     in place and the node's aggregate stays in registers until the node
-//     update, summed in a fixed order. No atomics; every write is owned by
-//     one warp, and any K works.
+//   edge_pass: edge_loop with LayerTail. Persistent warps, each walking
+//     whole nodes. A node's K edge rows go in tiles of 16 (the last one
+//     masked), the 16x32 @ 32x32 product runs on the tensor cores in
+//     3xTF32, the edge update is written in place and the node's aggregate
+//     stays in registers until the node update, summed in a fixed order. No
+//     atomics; every write is owned by one warp, and any K works.
 //
 // What bounds the edge pass on the H100: the edge state's bytes, read and
 // written once a layer (320 MB each way at B=100, N=500, K=50). The product
@@ -94,16 +95,21 @@ __device__ __forceinline__ void store8(float* __restrict__ row, int t, const flo
   *reinterpret_cast<float4*>(row + 16 + 4 * t) = make_float4(v[4], v[5], v[6], v[7]);
 }
 
-// The weight fragments of m [32 in, 32 out] (row-major) for tile_product:
+// The weight fragments of m [32 in, 32 out] (row-major; with kTransposed,
+// of m^T, m given as [32 out, 32 in]) for tile_product:
 // frag[(kk * 4 + nt) * 32 + lane] = {b0 hi, b1 hi, b0 lo, b1 lo} of k step
 // kk and n tile nt. The block's threads fill it; the caller synchronises.
+template <bool kTransposed = false>
 __device__ void load_weight_frags(const float* __restrict__ m, float4* frag) {
+  const auto at = [m](int in, int out) {
+    return kTransposed ? m[out * U + in] : m[in * U + out];
+  };
   for (int i = threadIdx.x; i < kFrags * 32; i += blockDim.x) {
     const int f = i >> 5, lane = i & 31, kk = f >> 2, nt = f & 3;
     const int g = lane >> 2, t = lane & 3;
     const int col = tile_col(g >> 1, 2 * nt + (g & 1));
-    const float b0 = m[tile_col(t, 2 * kk) * U + col];
-    const float b1 = m[tile_col(t, 2 * kk + 1) * U + col];
+    const float b0 = at(tile_col(t, 2 * kk), col);
+    const float b1 = at(tile_col(t, 2 * kk + 1), col);
     const float h0 = to_tf32(b0), h1 = to_tf32(b1);
     frag[i] = make_float4(h0, h1, to_tf32(b0 - h0), to_tf32(b1 - h1));
   }
@@ -254,11 +260,147 @@ __global__ void node_pass_kernel(const float* __restrict__ x, float* __restrict_
   }
 }
 
-// Warp after warp of the grid takes node r, r + warps, ...; the next tile's
-// edge rows and ids are loaded while this one is computed. w[r, :, :] and
-// x[r] are read and written only by r's warp; x1234 holds the layer's input
-// node state for the gathers, so both updates see the old state without a
-// second x buffer.
+// ------------------------------------------------------- the edge loop ---
+// The loop of every edge pass (K1's and K9's layer pass; K6's forward, row
+// 8 and K6's backward edge pass): persistent warps, warp after warp of the
+// grid taking row r, r + warps, ...; a row's K edge rows go in tiles of 16
+// (the last one masked), whose operand rows `a` and neighbour ids are
+// loaded one tile ahead of the compute (a tail may write the operand in
+// place: each row is read once, before its tile is written). Per tile, the
+// tail first fetches what each edge row needs beside its operand (neighbour
+// rows, from L2; a second stream's row), then the tile's 32x32 product
+// a @ m runs on the tensor cores (tile_product on frag, when the tail has
+// one) while those loads are in flight, and the tail takes each edge row in
+// turn. Every write is the row's warp's own: no atomics, and any K works.
+//
+// A Tail holds the row's registers and provides
+//   static constexpr bool kProduct;  // whether the tile product runs
+//   void begin(long r, int t);       // row r's registers, before its tiles
+//   void fetch(long r, int j, int id, int t, float (&v)[2][8]);
+//                                    // edge j of r (neighbour id): its rows
+//   void edge(long r, int j, int t, const float (&a)[8],
+//             const float (&acc)[8], const float (&v)[2][8]);
+//                                    // edge j's epilogue (acc = a @ m)
+//   void end(long r, int g, int t);  // after r's last tile
+// All of it is inlined: a tail's fields live in registers.
+template <class Tail>
+__device__ __forceinline__ void edge_loop(Tail& tail, const float* a_rows,
+                                          const int* __restrict__ nbr, const float4* frag,
+                                          long rows, int k) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const long warps = (long)gridDim.x * kEdgeWarps;
+  const int tiles = (k + kTileRows - 1) / kTileRows;
+  const long first = (long)blockIdx.x * kEdgeWarps + (threadIdx.x >> 5);
+  // the load cursor runs one tile ahead of the compute loop
+  long lr = first;
+  int li = 0;
+  float nw[2][8];
+  int nid[2];
+  if (lr < rows) load_tile(a_rows + lr * k * U, nbr + lr * k, 0, k, g, t, nw, nid);
+  for (long cr = first; cr < rows; cr += warps) {
+    tail.begin(cr, t);
+    for (int ci = 0; ci < tiles; ++ci) {
+      float a[2][8];
+      int id[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        id[h] = nid[h];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) a[h][c] = nw[h][c];
+      }
+      if (++li == tiles) {
+        li = 0;
+        lr += warps;
+      }
+      if (lr < rows) load_tile(a_rows + lr * k * U, nbr + lr * k, li, k, g, t, nw, nid);
+      // the tail's rows, loaded before the product runs
+      float v[2][2][8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = ci * kTileRows + g + 8 * h;
+        if (j < k) tail.fetch(cr, j, id[h], t, v[h]);
+      }
+      float acc[2][8];
+      if constexpr (Tail::kProduct) tile_product(a, frag, lane, acc);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = ci * kTileRows + g + 8 * h;
+        if (j < k) tail.edge(cr, j, t, a[h], acc[h], v[h]);
+      }
+    }
+    tail.end(cr, g, t);
+  }
+}
+
+// The sum over lanes g = 0..7 (the 8 row pairs of a tile) of each of the
+// thread's 8 columns, in a fixed butterfly: every lane ends with the total.
+__device__ __forceinline__ void sum_over_rows(float (&v)[8]) {
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) v[c] += __shfl_xor_sync(kFullMask, v[c], off);
+}
+
+// The folded layer's edge and node update: w[r, :, :] and x[r] are read and
+// written only by r's warp; x1234 holds the layer's input node state for
+// the gathers, so both updates see the old state without a second x buffer.
+struct LayerTail {
+  static constexpr bool kProduct = true;  // acc = w @ wel
+  float* x;
+  const float* x1234;
+  float* w;
+  const float *bel, *vs, *vb;
+  const float (*affine)[U];  // es, eb, in shared memory
+  int n, k, node_update;
+  const float* inst;  // x1234's rows of r's instance
+  float base[8], agg[8];
+
+  __device__ __forceinline__ void begin(long r, int t) {
+    inst = x1234 + (r / n) * n * 4 * U;
+    float bel8[8];
+    load8(x1234 + r * 4 * U + 2 * U, t, base);  // x3 + bel
+    load8(bel, t, bel8);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      base[c] += bel8[c];
+      agg[c] = 0.0f;
+    }
+  }
+  __device__ __forceinline__ void fetch(long, int, int id, int t, float (&v)[2][8]) {
+    const float* xc = inst + id * 4 * U;  // the neighbour's x2 and x4
+    load8(xc + U, t, v[0]);
+    load8(xc + 3 * U, t, v[1]);
+  }
+  __device__ __forceinline__ void edge(long r, int j, int t, const float (&a)[8],
+                                       const float (&acc)[8], const float (&v)[2][8]) {
+    float es8[8], eb8[8], out[8];
+    load8(affine[0], t, es8);
+    load8(affine[1], t, eb8);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float pre = acc[c] + base[c] + v[1][c];  // + x4[nbr]
+      agg[c] += fast_sigmoid(a[c]) * v[0][c];        // sigma(w0) * x2[nbr]
+      out[c] = a[c] + fast_silu(pre * es8[c] + eb8[c]);
+    }
+    store8(w + (r * k + j) * U, t, out);
+  }
+  __device__ __forceinline__ void end(long r, int g, int t) {
+    if (!node_update) return;
+    sum_over_rows(agg);
+    if (g == 0) {
+      float x1[8], xv[8], vs8[8], vb8[8];
+      load8(x1234 + r * 4 * U, t, x1);
+      load8(x + r * U, t, xv);
+      load8(vs, t, vs8);
+      load8(vb, t, vb8);
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        xv[c] += siluf_((x1[c] + agg[c] * (1.0f / k)) * vs8[c] + vb8[c]);
+      store8(x + r * U, t, xv);
+    }
+  }
+};
+
 __global__ void __launch_bounds__(kEdgeWarps * 32, kEdgeBlocks)
 edge_pass_kernel(float* __restrict__ x, const float* __restrict__ x1234,
                  const int* __restrict__ nbr, float* __restrict__ w,
@@ -274,89 +416,8 @@ edge_pass_kernel(float* __restrict__ x, const float* __restrict__ x1234,
     affine[1][threadIdx.x] = eb[threadIdx.x];
   }
   __syncthreads();
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const long warps = (long)gridDim.x * kEdgeWarps;
-  const int tiles = (k + kTileRows - 1) / kTileRows;
-  const long first = (long)blockIdx.x * kEdgeWarps + (threadIdx.x >> 5);
-  // the load cursor runs one tile ahead of the compute loop
-  long lr = first;
-  int li = 0;
-  float nw[2][8];
-  int nid[2];
-  if (lr < rows) load_tile(w + lr * k * U, nbr + lr * k, 0, k, g, t, nw, nid);
-  for (long cr = first; cr < rows; cr += warps) {
-    const float* inst = x1234 + (cr / n) * n * 4 * U;  // x1234's rows of cr's instance
-    float base[8], bel8[8], agg[8];
-    load8(x1234 + cr * 4 * U + 2 * U, t, base);  // x3 + bel
-    load8(bel, t, bel8);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      base[c] += bel8[c];
-      agg[c] = 0.0f;
-    }
-    float* wr = w + cr * k * U;
-    for (int ci = 0; ci < tiles; ++ci) {
-      float a[2][8];
-      int id[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        id[h] = nid[h];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) a[h][c] = nw[h][c];
-      }
-      if (++li == tiles) {
-        li = 0;
-        lr += warps;
-      }
-      if (lr < rows) load_tile(w + lr * k * U, nbr + lr * k, li, k, g, t, nw, nid);
-      // the neighbours' x2 and x4 rows, loaded before the product runs
-      float x2[2][8], x4[2][8];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (ci * kTileRows + g + 8 * h < k) {
-          const float* xc = inst + id[h] * 4 * U;
-          load8(xc + U, t, x2[h]);
-          load8(xc + 3 * U, t, x4[h]);
-        }
-      }
-      float acc[2][8];
-      tile_product(a, frag, lane, acc);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int j = ci * kTileRows + g + 8 * h;
-        if (j < k) {
-          float es8[8], eb8[8], out[8];
-          load8(affine[0], t, es8);
-          load8(affine[1], t, eb8);
-#pragma unroll
-          for (int c = 0; c < 8; ++c) {
-            const float pre = acc[h][c] + base[c] + x4[h][c];  // + x4[nbr]
-            agg[c] += fast_sigmoid(a[h][c]) * x2[h][c];       // sigma(w0) * x2[nbr]
-            out[c] = a[h][c] + fast_silu(pre * es8[c] + eb8[c]);
-          }
-          store8(wr + j * U, t, out);
-        }
-      }
-    }
-    if (node_update) {
-      // the 8 rows' partial sums, lanes g = 0..7 in a fixed butterfly
-#pragma unroll
-      for (int c = 0; c < 8; ++c)
-#pragma unroll
-        for (int off = 4; off < 32; off <<= 1) agg[c] += __shfl_xor_sync(kFullMask, agg[c], off);
-      if (g == 0) {
-        float x1[8], xv[8], vs8[8], vb8[8];
-        load8(x1234 + cr * 4 * U, t, x1);
-        load8(x + cr * U, t, xv);
-        load8(vs, t, vs8);
-        load8(vb, t, vb8);
-#pragma unroll
-        for (int c = 0; c < 8; ++c)
-          xv[c] += siluf_((x1[c] + agg[c] * (1.0f / k)) * vs8[c] + vb8[c]);
-        store8(x + cr * U, t, xv);
-      }
-    }
-  }
+  LayerTail tail{x, x1234, w, bel, vs, vb, affine, n, k, node_update};
+  edge_loop(tail, w, nbr, frag, rows, k);
 }
 
 // The L layers on the caller's stream: x [rows, U] holds the node state

@@ -33,7 +33,7 @@ import torch
 
 from deepaco_tpu_torch.ops import _build
 
-UNITS = 32          # K6 keeps one feature per lane of a warp
+UNITS = 32          # K6 works on 32-feature rows (tiles of 16 edge rows by 32)
 
 
 class GraphIndex(NamedTuple):

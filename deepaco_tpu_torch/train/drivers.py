@@ -4,9 +4,11 @@ family. Training through the registry waits for its slice (ROADMAP.md).
 
 :func:`evaluate_family` runs the whole batch at once, every instance with
 its own search state: graph → GNN → dense heuristic (or the classic one),
-then ``aco.runner.run_anytime``. On the card the GNN layers run kernel K6,
-every deposit K8, and each iteration's construction one launch of K7c
-(CVRP) or one K7 a step (TSP, and CVRP past K7c's N). The JAX version's host
+then ``aco.runner.run_anytime``. On the card the eval-mode GNN runs the
+folded layer stack K9 in one launch where ``embnet_supported`` takes the net
+(else one K6 launch a layer), every deposit K8, and each iteration's
+construction one launch of K7c (CVRP) or one K7 a step (TSP, and CVRP past
+K7c's N). The JAX version's host
 chunking of instances (``b_chunk``, a TPU watchdog workaround) and its
 ``mesh`` (multi-device) are not ported.
 """
@@ -23,28 +25,32 @@ from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.families import Family, get_family
 from deepaco_tpu_torch.models.gnn import Net
 from deepaco_tpu_torch.ops.cvrp_construct import cvrp_construct, cvrp_construct_plain
+from deepaco_tpu_torch.ops.fused_gnn import (embnet_layers, embnet_layers_plain,
+                                             embnet_supported, net_forward_fast)
 from deepaco_tpu_torch.ops.gnn_layer import fused_gnn_layer, fused_gnn_layer_plain
 from deepaco_tpu_torch.ops.pick import fused_pick, fused_pick_plain
 
 
 class FamilyOps(NamedTuple):
-    """What the evaluation calls for the GNN layer, each construction step
-    (``pick``: the TSP family, and CVRP past K7c's N), each deposit, the
-    CVRP family's whole construction (``construct``), and
-    ``timer(name)``, a context manager around each phase (``"heuristic"``,
-    ``"construction"``, ``"update"``). The default is kernels K6, K7, K8,
-    K7c and no timer."""
+    """What the evaluation calls for the GNN layer (``layer``, the per-layer
+    route) or the folded layer stack (``layers``, the eval-mode route of
+    :func:`_forward_heu`), each construction step (``pick``: the TSP
+    family, and CVRP past K7c's N), each deposit, the CVRP family's whole
+    construction (``construct``), and ``timer(name)``, a context manager
+    around each phase (``"heuristic"``, ``"construction"``, ``"update"``).
+    The default is kernels K6, K7, K8, K9, K7c and no timer."""
 
     layer: Callable = fused_gnn_layer
     pick: Callable = fused_pick
     deposit: Callable = ph.deposit
     timer: Callable = _no_timer
+    layers: Callable = embnet_layers
     construct: Callable = cvrp_construct
 
 
 KERNEL_OPS = FamilyOps()
 PLAIN_OPS = FamilyOps(fused_gnn_layer_plain, fused_pick_plain, ph.deposit_plain,
-                      construct=cvrp_construct_plain)
+                      layers=embnet_layers_plain, construct=cvrp_construct_plain)
 
 
 def family_model(family: Family, variables: dict | None = None) -> Net:
@@ -64,11 +70,20 @@ def gen_batch(family: Family, rng: np.random.Generator, n: int,
 
 
 def _forward_heu(family: Family, net: Net, inst: dict, k_sparse: int,
-                 layer: Callable = fused_gnn_layer) -> torch.Tensor:
-    """graph → GNN (eval mode) → the dense heuristic ``[B, N, N]``."""
+                 ops: FamilyOps = KERNEL_OPS) -> torch.Tensor:
+    """graph → GNN → the dense heuristic ``[B, N, N]``, routed by
+    configuration as ``eval.anytime.dense_heuristic`` routes TSP: an
+    eval-mode net that :func:`embnet_supported` takes runs the folded layer
+    stack (``ops.layers``, K9) under ``net_forward_fast``; a net in train
+    mode, or one K9 does not take, runs ``net(g, ops.layer)``, a layer at a
+    time (K6)."""
     g = family.graph(inst, k_sparse)
-    out = net(g, layer)
-    out = out[1] if isinstance(out, tuple) else out
+    n, k = g.nbr.shape[-2:]
+    if not net.training and embnet_supported(net, n, k):
+        out = net_forward_fast(net, g.x, g.nbr, g.edge, layers=ops.layers)
+    else:
+        out = net(g, ops.layer)
+        out = out[1] if isinstance(out, tuple) else out
     return family.heu_matrix(g, out, inst)
 
 
@@ -103,7 +118,7 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
         if net is None:
             heu = family.classic_heu(inst, k_sparse)
         else:
-            heu = _forward_heu(family, net.to(dev).eval(), inst, k_sparse, _ops.layer)
+            heu = _forward_heu(family, net.to(dev).eval(), inst, k_sparse, _ops)
     n_states, horizon = family.horizon_states(n_nodes)
     state = init_search(n_states, horizon, cfg, batch=(b,), device=dev)
     state, curves = run_anytime(

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Times K1, K2, K3, K4, K5, K7, K8 and K9 of this tree against the same
+"""Times K1, K2, K3, K4, K5, K6, K7, K8 and K9 of this tree against the same
 kernels built from another tree's sources, on one card, in turns (other,
 this, this, other).
 
     python3 scripts/compare_kernels.py --other path/to/deepaco_tpu_torch/csrc \
-        [--kernels K1 K2 K3 K4 K5 K7 K8 K9] [--k8-variant DIR ...] [--k7-variant DIR ...]
+        [--kernels K1 K2 K3 K4 K5 K6 K7 K8 K9] [--k8-variant DIR ...] [--k7-variant DIR ...]
         [--out FILE]
 
 ``--other`` is the ``csrc`` directory of another checkout (for example the
@@ -86,6 +86,24 @@ is called through its C entries, which must have the parent's signatures
   beside its plain version and bound, where it must match the plain
   version's tau' and costs at rtol 1e-6.
 
+- K6: the other tree's ``gnn_layer.cu`` (built into
+  ``build/compare/libother_layer_kernels.so``) against this tree's, both
+  through their C entries (``deepaco_gnn_layer_fwd``,
+  ``deepaco_gnn_layer_bwd``, the same signatures) on the same inputs
+  (random node tables, edge state and cotangents, ``ew`` scaled by 0.1):
+  forward, backward and row 8 (the forward without ``pre``) at the TSP-NLS
+  training shape (B=20, N=500, K=50 on k-NN neighbours), the forward at the
+  CVRP inference shape (B=100, K = N = 501, the dense graph with
+  self-loops) and forward and backward at the CVRP training shape (B=20,
+  K = N = 501); medians of 6 alternating turns, each build's device time
+  by kernel name, the plain version's time and the bound
+  (``chip_smoke.k6_forward_work``, ``k6_backward_work``; the backward's
+  design floor, the bytes its two passes stream, beside it). This tree's
+  outputs must hold the plain versions (forward and row 8 rtol 1e-5 / atol
+  1e-5, backward rtol 1e-4 / atol 1e-5 of the largest entry) and a second
+  call must give the same bits, or the script exits 1; the other build's
+  errors are reported.
+
 - K7: one iteration's construction on the CVRP path (the golden CVRP500
   set, the ``cvrp500_selftrained`` heuristic, tau of ones, A=20, capacity
   50): the other tree's per-step route (``rollout`` over ``cvrp_spec``,
@@ -100,7 +118,8 @@ is called through its C entries, which must have the parent's signatures
   in the same turns, its equality to K7c's paths reported, not required.
 
 Both builds of K2, K3, K4, K5 and K8 must give equal outputs, K3's two
-variants too, and K7c its plain version's: the script exits 1 on any
+variants too, K7c its plain version's, and this tree's K6 its plain
+version's within the tolerances above: the script exits 1 on any
 inequality.
 Prints one JSON object and writes it to ``--out`` when given. Needs a CUDA
 device and ``nvcc``.
@@ -814,6 +833,141 @@ def compare_k3_unstaged(result, same, cases, configs, dev, gen):
     result["K3_unstaged_times"] = timed
 
 
+def k6_inputs(dev, b: int, n: int, k: int, seed: int, backward: bool) -> dict:
+    """K6's inputs: ``b`` instances of ``n`` uniform cities with their ``k``
+    nearest neighbours (``k = n``: the dense graph with self-loops, the CVRP
+    graph's), random node tables, edge state and, with ``backward``, the
+    cotangents."""
+    import torch
+
+    from deepaco_tpu_torch.core.graph import topk_smallest
+    from deepaco_tpu_torch.ops import gnn_layer
+    from deepaco_tpu_torch.utils.datasets import distance_matrix, uniform_coords
+
+    u = gnn_layer.UNITS
+    if k == n:
+        nbr = torch.arange(n, device=dev).expand(b, n, n)
+    else:
+        coords = uniform_coords(n, torch.Generator().manual_seed(seed), batch=b, device=dev)
+        nbr = topk_smallest(distance_matrix(coords), k)[1]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    t = {"nbr": nbr, "index": gnn_layer.reverse_adjacency(nbr),
+         "x2": rnd(b, n, u), "x3": rnd(b, n, u), "x4": rnd(b, n, u), "w": rnd(b, n, k, u),
+         "ew": rnd(u, u) * 0.1, "eb": rnd(u) * 0.1}
+    if backward:
+        t.update(d_agg=rnd(b, n, u), d_pre=rnd(b, n, k, u))
+    return t
+
+
+def k6_calls(fwd, bwd, t: dict, stream):
+    """Launches of one build's K6 entries on ``t`` into outputs of their own:
+    ``(forward, row 8, backward)``, each returning its outputs (the
+    backward's allocated only when ``t`` holds cotangents)."""
+    import torch
+
+    from deepaco_tpu_torch.ops import _build
+
+    idx = t["index"]
+    b, n, k = idx.nbr32.shape
+    e = lambda *shape: torch.empty(shape, dtype=torch.float32, device=t["w"].device)
+    agg, pre, agg8 = e(b, n, 32), e(b, n, k, 32), e(b, n, 32)
+    if "d_pre" in t:
+        d_w, d_x3, d_x2, d_x4 = e(b, n, k, 32), e(b, n, 32), e(b, n, 32), e(b, n, 32)
+    ptr = {key: v.data_ptr() for key, v in t.items() if torch.is_tensor(v)}
+
+    def forward():
+        _build.check(fwd(ptr["x2"], ptr["x3"], ptr["x4"], idx.nbr32.data_ptr(), ptr["w"],
+                         ptr["ew"], ptr["eb"], agg.data_ptr(), pre.data_ptr(), b, n, n, k, 1,
+                         stream()), "deepaco_gnn_layer_fwd")
+        return agg, pre
+
+    def row8():
+        _build.check(fwd(ptr["x2"], None, None, idx.nbr32.data_ptr(), ptr["w"], None, None,
+                         agg8.data_ptr(), None, b, n, n, k, 0, stream()),
+                     "deepaco_gnn_layer_fwd")
+        return (agg8,)
+
+    def backward():
+        _build.check(bwd(ptr["x2"], idx.nbr32.data_ptr(), idx.offsets.data_ptr(),
+                         idx.edges.data_ptr(), ptr["w"], ptr["ew"], ptr["d_agg"], ptr["d_pre"],
+                         d_w.data_ptr(), d_x3.data_ptr(), d_x2.data_ptr(), d_x4.data_ptr(),
+                         b, n, k, stream()), "deepaco_gnn_layer_bwd")
+        return d_x2, d_x3, d_x4, d_w
+
+    return forward, row8, backward
+
+
+def compare_k6(result, same, other_csrc: Path, dev, stream):
+    """K6: the other tree's ``gnn_layer.cu`` against this tree's, through
+    their C entries on the same inputs; this tree's outputs held to the
+    plain versions and to themselves on a second call."""
+    import torch
+
+    from deepaco_tpu_torch.ops import _build, gnn_layer
+
+    P, I = _build.P, _build.I
+    fwd_args, bwd_args = [P] * 9 + [I] * 5 + [P], [P] * 12 + [I] * 3 + [P]
+    lib = build_other(other_csrc, ("gnn_layer.cu",), "other_layer")
+    builds = {"other": (other_entry(lib, "deepaco_gnn_layer_fwd", fwd_args),
+                        other_entry(lib, "deepaco_gnn_layer_bwd", bwd_args)),
+              "this": (_build.function("deepaco_gnn_layer_fwd", fwd_args),
+                       _build.function("deepaco_gnn_layer_bwd", bwd_args))}
+    u = gnn_layer.UNITS
+    # (name, B, N, K, parts, launches a turn)
+    cases = (("train", cs.B_TRAIN, cs.N, cs.K, ("forward", "row8", "backward"), 20),
+             ("cvrp_infer", 100, cs.CVRP_N + 1, cs.CVRP_N + 1, ("forward",), 5),
+             ("cvrp_train", cs.B_TRAIN, cs.CVRP_N + 1, cs.CVRP_N + 1,
+              ("forward", "backward"), 5))
+    err = lambda a, r: (a - r).abs().max().item()
+    for name, b, n, k, parts, reps in cases:
+        t = k6_inputs(dev, b, n, k, cs.SEED + n + k, "backward" in parts)
+        calls = {key: dict(zip(("forward", "row8", "backward"), k6_calls(*fns, t, stream)))
+                 for key, fns in builds.items()}
+        with torch.no_grad():
+            layer_args = (t["x2"], t["x3"], t["x4"], t["nbr"], t["w"], t["ew"], t["eb"])
+            plain = {"forward": lambda: gnn_layer.fused_gnn_layer_plain(*layer_args),
+                     "row8": lambda: (gnn_layer.gated_mean_aggregate_plain(
+                         t["x2"], t["nbr"], t["w"]),),
+                     "backward": lambda: gnn_layer.fused_gnn_layer_backward_plain(
+                         t["x2"], t["nbr"], t["w"], t["ew"], t["d_agg"], t["d_pre"])[:4]}
+            for part in parts:
+                want = plain[part]()
+                if part == "backward":    # d_x2, d_x3, d_x4, d_w
+                    holds = lambda a, r: bool(torch.allclose(
+                        a, r, rtol=1e-4, atol=1e-5 * r.abs().max().item()))
+                else:
+                    holds = lambda a, r: bool(torch.allclose(a, r, rtol=1e-5, atol=1e-5))
+                entry = {"B": b, "N": n, "K": k}
+                for key, fns in calls.items():
+                    got = [v.clone() for v in fns[part]()]
+                    again = fns[part]()
+                    entry[f"{key}_vs_plain"] = {
+                        "max_abs_err": max(err(a, r) for a, r in zip(got, want)),
+                        "holds": all(holds(a, r) for a, r in zip(got, want)),
+                        "repeat_bit_equal": all(torch.equal(a, a2) for a, a2 in zip(got, again))}
+                    del got, again
+                same[f"K6_{name}_{part}"] = (entry["this_vs_plain"]["holds"]
+                                             and entry["this_vs_plain"]["repeat_bit_equal"])
+                del want
+                entry["plain_ms"] = cuda_ms(plain[part], 1)
+                entry.update(medians_of_turns({key: c[part] for key, c in calls.items()},
+                                              reps=reps, rounds=6))
+                entry["speedup"] = entry["other"]["median_ms"] / entry["this"]["median_ms"]
+                entry["kernels_ms"] = {key: kernel_ms(c[part], 3) for key, c in calls.items()}
+                if part == "backward":
+                    work = cs.k6_backward_work(b, n, k, u)
+                    # the design streams w and d_pre twice (edge and node
+                    # passes) and writes d_w once
+                    entry["design_floor_ms"] = 5 * 4 * b * n * k * u / cs.HBM_BYTES_PER_S * 1e3
+                else:
+                    work = cs.k6_forward_work(b, n, n, k, u, part == "forward")
+                entry.update(zip(("bound_ms", "bound_by"), cs.bound(*work)))
+                result[f"K6_{name}_{part}"] = entry
+        del t, calls
+        torch.cuda.empty_cache()
+
+
 def compare_k7(result, same, other_csrc: Path, variants: list, dev, stream):
     """K7: one CVRP500 iteration's construction, the other tree's per-step
     route (``rollout`` over ``cvrp_spec``, each step one launch of the other
@@ -908,7 +1062,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", type=Path, required=True)
     ap.add_argument("--kernels", nargs="+",
-                    default=["K1", "K2", "K3", "K4", "K5", "K7", "K8", "K9"],
+                    default=["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9"],
                     help="the checks to run (K4 and K5 run together)")
     ap.add_argument("--k8-variant", type=Path, action="append", default=[])
     ap.add_argument("--k2-variant", type=Path, action="append", default=[],
@@ -946,6 +1100,8 @@ def main() -> int:
                    [p.resolve() for p in args.k2_variant], dev, stream)
     if "K3" in picked:
         compare_k3(result, same, args.other.resolve(), dev, stream)
+    if "K6" in picked:
+        compare_k6(result, same, args.other.resolve(), dev, stream)
     if "K7" in picked:
         compare_k7(result, same, args.other.resolve(), [p.resolve() for p in args.k7_variant],
                    dev, stream)

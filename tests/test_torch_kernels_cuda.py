@@ -512,6 +512,62 @@ def test_gnn_layer_kernel_backward_matches_plain(layer_case):
         torch.testing.assert_close(a, r, rtol=1e-4, atol=1e-5 * r.abs().max().item())
 
 
+@pytest.mark.parametrize("n,k,b,graph", [
+    (100, 1, 3, "knn"),       # one edge a row: one row of a 16-row tile
+    (100, 13, 3, "knn"),      # one ragged tile a row
+    (90, 37, 2, "knn"),       # two whole tiles and a ragged one
+    (70, 70, 2, "dense"),     # K = N with self-loops (the CVRP graph's shape)
+])
+def test_gnn_layer_kernel_at_ragged_shapes(dev, n, k, b, graph):
+    """K6 forward (and row 8), the backward entry and autograd's gradients
+    where K is not a multiple of the edge loop's 16-row tiles, and on a dense
+    graph with self-loops: forward rtol 1e-5 / atol 1e-5, gradients rtol
+    1e-4 / atol 1e-5 of the largest entry (sums in other orders, the
+    products in 3xTF32); a second call of each gives the same bits (no
+    atomics)."""
+    from deepaco_tpu_torch.ops import gnn_layer
+
+    u = gnn_layer.UNITS
+    coords = uniform_coords(n, torch.Generator().manual_seed(n + k), batch=b, device=dev)
+    if graph == "dense":
+        nbr = torch.arange(n, device=dev).expand(b, n, n)
+    else:
+        nbr = topk_smallest(distance_matrix(coords), k)[1]
+    index = gnn_layer.reverse_adjacency(nbr)
+    g = torch.Generator(device=dev).manual_seed(n * k)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    t = {"x2": rnd(b, n, u), "x3": rnd(b, n, u), "x4": rnd(b, n, u),
+         "w": rnd(b, n, k, u), "ew": rnd(u, u) * 0.1, "eb": rnd(u) * 0.1}
+    ca, cp = rnd(b, n, u), rnd(b, n, k, u)
+    args = _layer_args(t, nbr, index)
+    with torch.no_grad():
+        got = gnn_layer.fused_gnn_layer(*args)
+        again = gnn_layer.fused_gnn_layer(*args)
+        want = gnn_layer.fused_gnn_layer_plain(*args)
+        row8 = gnn_layer.gated_mean_aggregate(t["x2"], nbr, t["w"])
+    for a, a2, r in zip(got, again, want):
+        torch.testing.assert_close(a, r, rtol=1e-5, atol=1e-5)
+        assert torch.equal(a, a2)
+    torch.testing.assert_close(row8, want[0], rtol=1e-5, atol=1e-5)
+    close = lambda a, r: torch.testing.assert_close(a, r, rtol=1e-4,
+                                                    atol=1e-5 * r.abs().max().item())
+    got = gnn_layer.fused_gnn_layer_backward(t["x2"], index, t["w"], t["ew"], ca, cp)
+    again = gnn_layer.fused_gnn_layer_backward(t["x2"], index, t["w"], t["ew"], ca, cp)
+    want = gnn_layer.fused_gnn_layer_backward_plain(t["x2"], nbr, t["w"], t["ew"], ca, cp)
+    for a, a2, r in zip(got, again, want):
+        close(a, r)
+        assert torch.equal(a, a2)
+
+    def grads(layer):
+        leaves = {name: v.clone().requires_grad_(True) for name, v in t.items()}
+        agg, pre = layer(*_layer_args(leaves, nbr, index))
+        ((agg * ca).sum() + (torch.tanh(pre) * cp).sum()).backward()
+        return [v.grad for v in leaves.values()]
+
+    for a, r in zip(grads(gnn_layer.fused_gnn_layer), grads(gnn_layer.fused_gnn_layer_plain)):
+        close(a, r)
+
+
 def test_gated_mean_aggregate_kernel_matches_plain(layer_case):
     """Row 8 through K6's forward without pre, R=150 rows over N=200 nodes."""
     from deepaco_tpu_torch.ops import gnn_layer
@@ -686,8 +742,9 @@ torch.cuda.synchronize()
 
 def test_evaluate_family_cvrp_runs_on_the_card_through_the_kernels(dev):
     """evaluate_family("cvrp") at n=20 on the card: finite, valid best
-    routes, and K6 (12 layers), K7c (one an iteration, in place of K7's 2n
-    steps) and K8 (one an iteration) launched, K7 not at all."""
+    routes, and K9 (the eval-mode net's folded layer stack, once), K7c (one
+    an iteration, in place of K7's 2n steps) and K8 (one an iteration)
+    launched, K6 and K7 not at all."""
     from deepaco_tpu_torch.aco.problems.cvrp import validate_routes
     from deepaco_tpu_torch.families import CVRP_CAPACITY, get_family
     from deepaco_tpu_torch.ops import deposit, gnn_layer, pick
@@ -697,13 +754,13 @@ def test_evaluate_family_cvrp_runs_on_the_card_through_the_kernels(dev):
     ds = {k: v[:4] for k, v in cvrp_test(20).items()}
     net = family_model(get_family("cvrp"),
                        load_checkpoint(str(CKPT / "cvrp20_selftrained.msgpack")))
-    counters = (gnn_layer.fused_gnn_layer, pick.fused_pick, deposit.tour_deposit,
-                cc.cvrp_construct)
+    counters = (fused_gnn.embnet_layers, gnn_layer.fused_gnn_layer, pick.fused_pick,
+                deposit.tour_deposit, cc.cvrp_construct)
     before = [fn.launches for fn in counters]
     means, curves, state = evaluate_family("cvrp", ds, n_nodes=20, net=net, n_ants=8,
                                            t_values=(1, 3), return_state=True)
     assert curves.is_cuda and bool(torch.isfinite(curves).all())
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 0, 3, 3]
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 0, 0, 3, 3]
     demand = torch.from_numpy(ds["demand"]).to(dev)
     assert bool(validate_routes(state.best_path[..., None], demand, CVRP_CAPACITY).all())
 

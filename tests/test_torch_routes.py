@@ -7,10 +7,15 @@ CPU against the JAX package.
 - The dense TSP heuristic outside K1's limits goes through the k-NN graph
   and ``net_forward_fast`` (K9's limits) or ``Net`` with the plain layer,
   then ``scatter_to_dense`` + 1e-10 (eval/anytime.py:47-75).
+- The family driver's heuristic (``train/drivers._forward_heu``) takes the
+  folded layer stack (K9) for an eval-mode net that ``embnet_supported``
+  takes, and ``Net`` a layer at a time (K6) otherwise.
 
 Tours are compared exactly; heuristics at the tolerance each test states.
 The same numpy inputs go to both packages.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -239,3 +244,83 @@ def test_batched_update_past_k3_limit_takes_the_plain_update_as_jax_does(monkeyp
     np.testing.assert_allclose(got.phe.tau.numpy(), np.asarray(ref.phe.tau), rtol=1e-6)
     np.testing.assert_array_equal(got.best_cost.numpy(), np.asarray(ref.best_cost))
     np.testing.assert_array_equal(got.best_path.numpy(), np.asarray(ref.best_path))
+
+
+def _cvrp_heu_case(**net_kwargs):
+    """The golden CVRP20 set's first 3 instances and a CVRP ``Net``: the
+    cvrp20 weights, or Flax-law random ones with ``net_kwargs``."""
+    from deepaco_tpu_torch import families
+    from deepaco_tpu_torch.train import drivers
+    from deepaco_tpu_torch.utils import golden
+    from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
+
+    fam = families.get_family("cvrp")
+    if net_kwargs:
+        net = _random_net(3, feats=1, **net_kwargs)[0]
+    else:
+        net = drivers.family_model(fam, load_checkpoint(
+            str(Path(__file__).resolve().parent.parent / "checkpoints"
+                / "cvrp20_selftrained.msgpack")))
+    inst = {k: torch.from_numpy(v[:3]) for k, v in golden.cvrp_test(20).items()}
+    return fam, net, inst
+
+
+def _spy_ops(calls):
+    """The plain layer and layer stack, each call recorded in ``calls``."""
+    from deepaco_tpu_torch.ops import gnn_layer
+    from deepaco_tpu_torch.train import drivers
+
+    def layer(*a):
+        calls.append("layer")
+        return gnn_layer.fused_gnn_layer_plain(*a)
+
+    def layers(*a, **kw):
+        calls.append("layers")
+        return fused_gnn.embnet_layers_plain(*a, **kw)
+
+    return drivers.KERNEL_OPS._replace(layer=layer, layers=layers)
+
+
+def test_cvrp_heuristic_takes_the_k9_route_in_eval_mode():
+    """The eval-mode CVRP net (one edge feature, 32 units, K = N = 21)
+    runs the folded layer stack once and no layer; its heuristic equals the
+    per-layer route's (``Net`` with the plain layer, then ``out.T + 1e-10``)
+    at rtol 2e-4 (BatchNorm folded into the layers re-associates each
+    affine; measured 2.3e-5)."""
+    from deepaco_tpu_torch.ops import gnn_layer
+    from deepaco_tpu_torch.train import drivers
+
+    fam, net, inst = _cvrp_heu_case()
+    calls = []
+    with torch.no_grad():
+        got = drivers._forward_heu(fam, net, inst, 2, _spy_ops(calls))
+        g = fam.graph(inst, 2)
+        want = fam.heu_matrix(g, net(g, gnn_layer.fused_gnn_layer_plain), inst)
+    assert calls == ["layers"]
+    assert got.shape == (3, 21, 21)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4, atol=0)
+
+
+@pytest.mark.parametrize("case", ["train_mode", "units_16"])
+def test_cvrp_heuristic_takes_the_layer_route_where_k9_does_not(case):
+    """A net in train mode (BatchNorm on batch statistics, which no fold
+    can take), or one of 16 units (outside ``embnet_supported``), runs
+    ``net(g, ops.layer)`` a layer at a time and never the layer stack; its
+    heuristic is that call's output, transposed, plus 1e-10."""
+    import copy
+
+    from deepaco_tpu_torch.train import drivers
+
+    fam, net, inst = _cvrp_heu_case(**({"units": 16, "depth": 3} if case == "units_16" else {}))
+    if case == "train_mode":
+        net.train()
+    else:
+        assert not fused_gnn.embnet_supported(net, 21, 21)
+    twin = copy.deepcopy(net)            # train-mode BatchNorm moves its statistics
+    calls = []
+    with torch.no_grad():
+        got = drivers._forward_heu(fam, net, inst, 2, _spy_ops(calls))
+        g = fam.graph(inst, 2)
+        want = fam.heu_matrix(g, twin(g, _spy_ops([]).layer), inst)
+    assert calls == ["layer"] * net.depth
+    np.testing.assert_array_equal(got.numpy(), want.numpy())

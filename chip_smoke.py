@@ -66,8 +66,8 @@ Phases, one JSON line each:
    K7c (``cvrp_construct``, the whole construction of an iteration) on
    ``1/d`` at the same shape, stochastic and greedy, paths bit-equal to its
    plain version's and valid, with its time and the bound of the steps the
-   ants take; K6's forward at the CVRP shape (K = N = 501, the coming CVRP
-   training's) against its plain version; K9 (``embnet_layers``, the CVRP
+   ants take; K6's forward at the CVRP inference shape (B=100, K = N = 501)
+   against its plain version; K9 (``embnet_layers``, the CVRP
    heuristic's layer stack) on the golden set's dense graph (B=100, K = N
    = 501) against its plain version, the heuristic head's output at rtol
    1e-4 / atol 1e-5, as on the sparse path;
@@ -82,14 +82,33 @@ Phases, one JSON line each:
    arm's (the same Philox noise), its cost@T10 within 1% of the plain
    arm's, within 1% of the per-step construction's recorded 60.5116
    (``PER_STEP_CVRP_T10``) and below the classic arm's;
-11. K9 (``embnet_layers``) against its plain version on the sparse path's
+11. CVRP training at the CVRP500 envelope (``cvrp_train_config``: 500
+   customers, capacity 50, 50 ants, batch 1, lr 3e-4, the 12-layer Net on
+   the dense graph, K = N = 501; nothing cut but the number of steps):
+   (a) one step from the seed's weights on the first batch ``train_family``
+   draws, the kernel arm (K6 a layer forward and backward, K7 a step)
+   against the plain arm replaying its paths with the plain layer, held as
+   in phase 7, every route valid and costing what the step reports; K6's
+   forward and backward at B=1, K = N = 501 and K7 on the rollout's own
+   [50, 501] rows against their plain versions; (b) three steps of
+   ``make_family_train_step``, each with its loss, mean cost, gradient
+   norm, wall, phase times and launches (counts set to 0 just before each
+   step and read just after): exactly 12 K6 forward and 12 backward
+   launches and 1,000 K7 launches a step, no K7c or K9 launch, everything
+   finite, the weights moved; (c) ``train_family`` cut to 2 steps with 4
+   validation instances at T=2, its ``-best`` and ``-last`` checkpoints
+   under ``build/chip_smoke/``, ``-last`` read back (``load_checkpoint``,
+   ``family_model``) and evaluated; (d) ``cli.main(["test", "cvrp", "-n",
+   "500", "-c", CVRP_CKPT, ...])`` on the card, whose costs must round to
+   ``RECORDED_COSTS["cvrp"]`` (phase 10's kernel arm, through the CLI);
+12. K9 (``embnet_layers``) against its plain version on the sparse path's
    own inputs (``tsp500_selftrained``, the CLI's 30 fixed-seed TSP2000
    instances, their k=200 support and neighbour distances, E=1), held on
    both heads' outputs at rtol 1e-4 / atol 1e-5 (sums in another order);
    row 9 (``tsp_sweep_construct``, K2 at B=1 with f32 scores) against
    ``dense_sweep`` on the main path's first instance (N=500, A=20): greedy
    tours exactly equal, stochastic ones permutations;
-12. the sparse path: ``cli._cmd_test_tsp_sparse`` (``test tsp --sparse -n
+13. the sparse path: ``cli._cmd_test_tsp_sparse`` (``test tsp --sparse -n
    2000``, k=200, 20 ants, T=1 and 10) in a kernel arm (K9), a plain arm
    (``large_tsp.PLAIN_OPS``, same instances and seed), a classic arm
    (``1/d``) and a classic arm with ``--local-search 2opt`` (K4) on the
@@ -98,11 +117,13 @@ Phases, one JSON line each:
    dropped-deposit rates. Every best tour must be a permutation costing
    what the run reports, and the kernel arm's cost@T1 must lie within 1e-4
    of the plain arm's (the same noise; only K9's rounding parts them);
-13. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
+14. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7 from the
    TSP500-NLS training run, K7c and K8 from the CVRP path's kernel arm, K9
    from the sparse and the CVRP paths' kernel arms together; row 9 is on no
-   path of either package, so its count is 0), error, times and bound.
+   path of either package, so its count is 0), error, times and bound; K6's
+   and K7's entries also carry ``cvrp_train``: their launches in phase
+   11's three steps and their times, error and bound at its shapes.
 
 Every path's cost (main cost@T10, NLS, CVRP and sparse cost@T1 and
 cost@T10, and both for the plain arms of the main, NLS and sparse paths)
@@ -129,8 +150,9 @@ N, K, A, B, T_VALUES, SEED = 500, 50, 20, 100, (1, 10), 0
 CKPT = "checkpoints/tsp500_selftrained.msgpack"
 NLS_CKPT = "checkpoints/tsp_nls500_selftrained.msgpack"
 B_NLS, N_LARGE, LS_BUDGET = 16, 1100, 10000
-B_TRAIN, A_TRAIN_NLS, A_TRAIN = 20, 30, 50     # the two training envelopes
+B_TRAIN, A_TRAIN_NLS, A_TRAIN = 20, 30, 50     # the training envelopes (A_TRAIN: TSP500, CVRP500)
 TRAIN_STEPS = {"tsp500": 4, "tsp500_nls": 2}
+CVRP_TRAIN_STEPS, CVRP_VAL_B = 3, 4             # make_family_train_step's run; validation cut
 CVRP_N, CVRP_CKPT = 500, "checkpoints/cvrp500_selftrained.msgpack"
 CVRP_PICK_AT = (0.0, 0.15, 0.4, 0.7)   # K7's CVRP checks, as shares of the horizon
 SPARSE_N, SPARSE_B, SPARSE_LS_B = 2000, 30, 4    # the CLI's TSP2000 set; 2-opt arm's cut
@@ -591,9 +613,10 @@ def check_deposit(dev, cuda_ms, tsp_paths, tsp_amounts, cvrp_paths, cvrp_amounts
             **{k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
 
-def check_layer_at_cvrp_width(dev, cuda_ms, net, ds) -> dict:
-    """K6's forward at the CVRP path's shape (B=100, N = K = 501, U=32) on
-    the first layer's real inputs, against its plain version."""
+def check_layer_at_cvrp_width(dev, cuda_ms, net, ds, backward: bool = False) -> dict:
+    """K6's forward at a CVRP shape (B instances of ``ds``, N = K = 501,
+    U=32) on the first layer's real inputs, against its plain version; with
+    ``backward`` also K6's backward on random cotangents (``"backward"``)."""
     import torch
     from torch.nn import functional as F
 
@@ -619,9 +642,27 @@ def check_layer_at_cvrp_width(dev, cuda_ms, net, ds) -> dict:
         del got, want
         ms = cuda_ms(lambda: gnn_layer.fused_gnn_layer(*args), 5)
         plain_ms = cuda_ms(lambda: gnn_layer.fused_gnn_layer_plain(*args), 2)
-    return {"B": b, "N": n, "K": k, "passed": ok, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, **dict(zip(("bound_ms", "bound_by"), bound(
-                *k6_forward_work(b, n, n, k, u))))}
+    out = {"B": b, "N": n, "K": k, "passed": ok, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, **dict(zip(("bound_ms", "bound_by"), bound(
+               *k6_forward_work(b, n, n, k, u))))}
+    if backward:
+        x2, ew = args[0], args[5]
+        gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+        ca = torch.randn((b, n, u), generator=gen, device=dev)
+        cp = torch.randn((b, n, k, u), generator=gen, device=dev)
+        b_k = gnn_layer.fused_gnn_layer_backward(x2, index, w, ew, ca, cp)
+        b_p = gnn_layer.fused_gnn_layer_backward_plain(x2, g.nbr, w, ew, ca, cp)
+        names = ("x2", "x3", "x4", "w", "ew", "eb")
+        out["backward"] = {
+            "passed": all(bool(torch.allclose(a, r, rtol=1e-4, atol=1e-5 * r.abs().max().item()))
+                          for a, r in zip(b_k, b_p)),
+            "max_abs_err": max((a - r).abs().max().item() for a, r in zip(b_k, b_p)),
+            "norm_err": {nm: norm_err(a, r) for nm, a, r in zip(names, b_k, b_p)},
+            "ms": cuda_ms(lambda: gnn_layer.fused_gnn_layer_backward(x2, index, w, ew, ca, cp), 5),
+            "plain_ms": cuda_ms(lambda: gnn_layer.fused_gnn_layer_backward_plain(
+                x2, g.nbr, w, ew, ca, cp), 2),
+            **dict(zip(("bound_ms", "bound_by"), bound(*k6_backward_work(b, n, k, u))))}
+    return out
 
 
 def ls_bound(n: int, b: int, a: int, scans: dict, metric_bytes: int):
@@ -804,6 +845,63 @@ def check_training_kernels(dev, cuda_ms, kernels: list) -> bool:
     return row8_ok
 
 
+def step_agreement(cfg, net_k, net_p, before: dict, out_k, out_p, advantage) -> dict:
+    """One training step's kernel arm (``net_k``, ``out_k``: sampled through
+    the kernels, backward taken) against its plain arm (``net_p``,
+    ``out_p``: the same paths replayed with the plain layer, backward
+    taken), both from the weights ``before``: loss, gradients, the AdamW
+    update (applied here to both nets) and the running statistics.
+    ``advantage [B, A]`` scales the loss's tolerance."""
+    import torch
+
+    from deepaco_tpu_torch.train import reinforce as tr
+
+    arms = {}
+    for arm, net in (("kernel", net_k), ("plain", net_p)):
+        arms[arm] = {n: (p.grad.detach().clone() if p.grad is not None
+                         else torch.zeros_like(p)) for n, p in net.named_parameters()}
+    biggest = max(g.abs().max().item() for g in arms["plain"].values())
+    # a leaf whose gradient is rounding noise (a bias that a BatchNorm
+    # cancels: exact gradient 0) is held against 1e-2 of the largest gradient
+    grad_errs = {n: ((arms["kernel"][n] - g).abs().max()
+                     / max(g.abs().max().item(), 1e-2 * biggest)).item()
+                 for n, g in arms["plain"].items()}
+    scale = (advantage.abs() * out_k.log_probs.sum(dim=-2).abs()).sum(-1).mean().item() \
+        / cfg.aco.n_ants
+    loss_err = abs(out_k.loss.item() - out_p.loss.item())
+    for net in (net_k, net_p):
+        tr.optimizer_update(tr.TrainState(net, tr.make_optimizer(net, cfg), 0,
+                                          cfg.train.cosine_schedule), cfg)
+    lr, wd = cfg.train.lr, cfg.train.weight_decay
+    param_ok, param_err = True, 0.0
+    for n, p in net_p.named_parameters():
+        g = arms["plain"][n]
+        got = dict(net_k.named_parameters())[n].detach()
+        signal = g.abs() > 1e-4 * biggest
+        if bool(signal.any()):
+            param_err = max(param_err, (got - p)[signal].abs().max().item())
+            param_ok &= bool(torch.allclose(got[signal], p.detach()[signal], rtol=1e-5, atol=1e-6))
+        moved = (got - before[n]).abs()
+        param_ok &= bool((moved <= lr * (1 + 1e-3) + lr * wd * before[n].abs()).all())
+    stats = lambda net: {k: v for k, v in net.state_dict().items() if "running" in k}
+    bn_err = max(norm_err(a, b) for a, b in zip(stats(net_k).values(), stats(net_p).values()))
+    ok = (loss_err <= 1e-5 * scale and max(grad_errs.values()) <= 1e-3 and param_ok
+          and bn_err <= 1e-4 and bool(torch.isfinite(out_k.loss)))
+    worst = max(grad_errs, key=grad_errs.get)
+    return {"passed": ok, "loss_kernel": out_k.loss.item(), "loss_plain": out_p.loss.item(),
+            "loss_abs_err": loss_err, "loss_term_scale": scale,
+            "mean_cost": out_k.mean_cost.item(), "grad_max_norm_err": grad_errs[worst],
+            "grad_worst_leaf": worst, "param_max_abs_err": param_err,
+            "running_stats_norm_err": bn_err, "gradient_leaves": len(grad_errs),
+            "tolerance": "loss within 1e-5 of sum |advantage * sum log p| / A; each "
+                         "gradient within 1e-3 of its largest entry, or of 1e-2 of the "
+                         "largest gradient where that is larger (the biases a BatchNorm "
+                         "cancels have gradient 0 plus rounding noise); weights after "
+                         "AdamW rtol 1e-5 / atol 1e-6 where |g| > 1e-4 of the largest "
+                         "gradient (a first Adam step moves by lr * sign(g)), else moved "
+                         "at most lr; running statistics within 1e-4"}
+
+
 def train_step_arms(dev, name: str) -> dict:
     """One training step of configuration ``name`` from the same weights and
     instances: the kernel arm samples through K6, K7 (and K5), the plain arm
@@ -824,63 +922,101 @@ def train_step_arms(dev, name: str) -> dict:
     coords = uniform_coords(N, torch.Generator().manual_seed(SEED + 2),
                             batch=cfg.train.batch_size, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    arms = {}
     out_k = tr.tsp_loss(net_k, coords, cfg, gen, local_search=ls)
     out_k.loss.backward()
     replay_ls = (lambda *a: out_k.ls_costs) if ls is not None else None
     out_p = tr.tsp_loss(net_p, coords, cfg, gen, local_search=replay_ls,
                         paths=out_k.paths, _ops=tr.PLAIN_OPS)
     out_p.loss.backward()
-    for arm, net in (("kernel", net_k), ("plain", net_p)):
-        arms[arm] = {n: (p.grad.detach().clone() if p.grad is not None
-                         else torch.zeros_like(p)) for n, p in net.named_parameters()}
-    biggest = max(g.abs().max().item() for g in arms["plain"].values())
-    # a leaf whose gradient is rounding noise (a bias that a BatchNorm
-    # cancels: exact gradient 0) is held against 1e-2 of the largest gradient
-    grad_errs = {n: ((arms["kernel"][n] - g).abs().max()
-                     / max(g.abs().max().item(), 1e-2 * biggest)).item()
-                 for n, g in arms["plain"].items()}
-    cost_dev = out_k.costs - out_k.costs.mean(dim=-1, keepdim=True)
+    advantage = out_k.costs - out_k.costs.mean(dim=-1, keepdim=True)
     if out_k.ls_costs is not None:
         ls_dev = out_k.ls_costs - out_k.ls_costs.mean(dim=-1, keepdim=True)
-        cost_dev = 0.95 * ls_dev + 0.05 * cost_dev
-    scale = (cost_dev.abs() * out_k.log_probs.sum(dim=-2).abs()).sum(-1).mean().item() \
-        / cfg.aco.n_ants
-    loss_err = abs(out_k.loss.item() - out_p.loss.item())
-    state_k = tr.TrainState(net_k, tr.make_optimizer(net_k, cfg), 0, cfg.train.cosine_schedule)
-    state_p = tr.TrainState(net_p, tr.make_optimizer(net_p, cfg), 0, cfg.train.cosine_schedule)
-    tr.optimizer_update(state_k, cfg)
-    tr.optimizer_update(state_p, cfg)
-    lr, wd = cfg.train.lr, cfg.train.weight_decay
-    param_ok, param_err = True, 0.0
-    for n, p in net_p.named_parameters():
-        g = arms["plain"][n]
-        got = dict(net_k.named_parameters())[n].detach()
-        signal = g.abs() > 1e-4 * biggest
-        if bool(signal.any()):
-            param_err = max(param_err, (got - p)[signal].abs().max().item())
-            param_ok &= bool(torch.allclose(got[signal], p.detach()[signal], rtol=1e-5, atol=1e-6))
-        moved = (got - before[n]).abs()
-        param_ok &= bool((moved <= lr * (1 + 1e-3) + lr * wd * before[n].abs()).all())
-    stats = lambda net: {k: v for k, v in net.state_dict().items() if "running" in k}
-    bn_err = max(norm_err(a, b) for a, b in zip(stats(net_k).values(), stats(net_p).values()))
-    ok = (loss_err <= 1e-5 * scale and max(grad_errs.values()) <= 1e-3 and param_ok
-          and bn_err <= 1e-4 and bool(torch.isfinite(out_k.loss)))
-    worst = max(grad_errs, key=grad_errs.get)
-    return {"phase": "train_step", "config": name, "passed": ok,
+        advantage = 0.95 * ls_dev + 0.05 * advantage
+    return {"phase": "train_step", "config": name,
             "B": cfg.train.batch_size, "N": N, "K": K, "A": cfg.aco.n_ants,
-            "loss_kernel": out_k.loss.item(), "loss_plain": out_p.loss.item(),
-            "loss_abs_err": loss_err, "loss_term_scale": scale,
-            "mean_cost": out_k.mean_cost.item(), "grad_max_norm_err": grad_errs[worst],
-            "grad_worst_leaf": worst, "param_max_abs_err": param_err,
-            "running_stats_norm_err": bn_err, "gradient_leaves": len(grad_errs),
-            "tolerance": "loss within 1e-5 of sum |advantage * sum log p| / A; each "
-                         "gradient within 1e-3 of its largest entry, or of 1e-2 of the "
-                         "largest gradient where that is larger (the biases a BatchNorm "
-                         "cancels have gradient 0 plus rounding noise); weights after "
-                         "AdamW rtol 1e-5 / atol 1e-6 where |g| > 1e-4 of the largest "
-                         "gradient (a first Adam step moves by lr * sign(g)), else moved "
-                         "at most lr; running statistics within 1e-4"}
+            **step_agreement(cfg, net_k, net_p, before, out_k, out_p, advantage)}
+
+
+def cvrp_train_config():
+    """CVRP500 training at the envelope that trained ``cvrp500_selftrained``
+    (cvrp/train.ipynb; RESULTS.md:181): 500 customers (demands 1-9,
+    capacity 50), 50 ants, batch 1, lr 3e-4, AdamW with weight decay 1e-2,
+    clip 3.0, 5 x 128 steps; the family's Net (demand as the node feature,
+    12 layers, 32 units) on the dense graph with self-loops, K = N = 501."""
+    from deepaco_tpu_torch.train.config import ACOSettings, ProblemConfig, TrainConfig
+
+    return ProblemConfig(
+        name="cvrp", n_nodes=CVRP_N, k_sparse=max(CVRP_N // 10, 3),
+        aco=ACOSettings(n_ants=A_TRAIN),
+        train=TrainConfig(lr=3e-4, weight_decay=1e-2, grad_clip=3.0, epochs=5,
+                          steps_per_epoch=128, batch_size=1, cosine_schedule=False,
+                          seed=SEED))
+
+
+def cvrp_train_inputs(dev):
+    """Where ``train_family("cvrp", cvrp_train_config())`` starts: the
+    family, the configuration, the state initialised from the seed (one
+    instance drawn and dropped, as ``init_family_state`` does), and the
+    numpy stream and generator that the steps go on drawing from."""
+    import numpy as np
+    import torch
+
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.train import drivers
+
+    family, cfg = get_family("cvrp"), cvrp_train_config()
+    rng = np.random.default_rng(cfg.train.seed)
+    gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    return family, cfg, drivers.init_family_state(family, cfg, rng, gen), rng, gen
+
+
+def cvrp_train_step_arms(dev):
+    """One CVRP training step from the seed's weights on the first batch
+    that ``train_family`` draws: the kernel arm samples through K6 and K7 a
+    step, the plain arm replays its paths with the plain layer. Returns the
+    comparison (with the routes' validity and costs), K7's inputs at the
+    shares CVRP_PICK_AT of the rollout, the batch and the stepped net."""
+    import copy
+
+    import torch
+
+    from deepaco_tpu_torch.aco.problems.cvrp import route_cost, validate_routes
+    from deepaco_tpu_torch.families import CVRP_CAPACITY
+    from deepaco_tpu_torch.ops import pick
+    from deepaco_tpu_torch.train import drivers
+
+    family, cfg, state, rng, gen = cvrp_train_inputs(dev)
+    net_k = state.net
+    net_p = copy.deepcopy(net_k)
+    before = copy.deepcopy(net_k.state_dict())
+    batch = drivers.gen_batch(family, rng, cfg.n_nodes, cfg.train.batch_size)
+    inst = drivers.instance_tensors(batch, dev)
+    horizon = family.horizon_states(cfg.n_nodes)[1]
+    at = {int(f * horizon) for f in CVRP_PICK_AT}
+    steps = iter(range(horizon))
+    captured = []
+
+    def capture(score, mask, noise):
+        step = next(steps)
+        if step in at:
+            captured.append((step, score.detach().clone(), mask.clone(), noise.clone()))
+        return pick.fused_pick(score, mask, noise)
+
+    out_k = drivers.family_loss(family, net_k, inst, cfg, gen,
+                                _ops=drivers.KERNEL_OPS._replace(pick=capture))
+    out_k.loss.backward()
+    out_p = drivers.family_loss(family, net_p, inst, cfg, gen, paths=out_k.paths,
+                                _ops=drivers.PLAIN_OPS)
+    out_p.loss.backward()
+    valid = validate_routes(out_k.paths, inst["demand"], CVRP_CAPACITY)
+    costs_match = bool(torch.equal(route_cost(inst["dist"], out_k.paths), out_k.costs))
+    check = step_agreement(cfg, net_k, net_p, before, out_k, out_p,
+                           out_k.costs - out_k.costs.mean(dim=-1, keepdim=True))
+    check.update(valid_routes=int(valid.sum()), routes=valid.numel(),
+                 route_costs_match=costs_match,
+                 passed=check["passed"] and bool(valid.all()) and costs_match)
+    return ({"B": cfg.train.batch_size, "N": cfg.n_nodes + 1, "A": cfg.aco.n_ants, **check},
+            captured, batch, net_k)
 
 
 def main() -> int:
@@ -1346,13 +1482,121 @@ def main() -> int:
     emit({"phase": "cvrp_path", "B": cvrp_b, "N": CVRP_N + 1, "A": A,
           "T": list(T_VALUES), "capacity": CVRP_CAPACITY, **cvrp_arms})
 
-    # ---- 11. K9 and row 9 against their plain versions
+    # ---- 11. CVRP training at the CVRP500 envelope
+    import io
+
+    from deepaco_tpu_torch import cli
+
+    # (a) one step, kernel arm against plain arm; K6 and K7 at its shapes
+    step_check, train_picks, train_batch, train_net = cvrp_train_step_arms(dev)
+    layer_train = check_layer_at_cvrp_width(dev, cuda_ms, train_net, train_batch, backward=True)
+    emit({"phase": "kernel", "name": "fused_gnn_layer", "config": "cvrp500 training, B=1, "
+          "K = N = 501", **layer_train, "tolerance": "forward rtol 1e-5, atol 1e-5 (sum order); "
+          "backward rtol 1e-4, atol 1e-5 of the largest entry"})
+    pick_train = check_pick_at_cvrp_shape(cuda_ms, train_picks)
+    emit({"phase": "kernel", "name": "fused_pick", "config": "cvrp500 training rollout, "
+          "50 ants, N = 501", **pick_train, "tolerance": "actions exact and allowed; logp "
+          "rtol 1e-5, atol 1e-5 (logsumexp order, expf/logf against torch's)"})
+    del train_net, train_picks
+
+    # (b) make_family_train_step: the kernels' counts set to 0 just before
+    # each step and read just after
+    family, train_cfg, train_state, train_rng, train_gen = cvrp_train_inputs(dev)
+    timer = PhaseTimer()
+    step_fn = drivers.make_family_train_step(family, train_cfg,
+                                             _ops=drivers.KERNEL_OPS._replace(timer=timer))
+    start = {k: v.clone() for k, v in train_state.net.state_dict().items()}
+    train_rows = []
+    for i in range(CVRP_TRAIN_STEPS):
+        batch = drivers.gen_batch(family, train_rng, train_cfg.n_nodes, 1)
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_state, info = step_fn(train_state, batch, train_gen)
+        torch.cuda.synchronize()
+        train_rows.append({"step": i, "loss": info.loss.item(), "mean_cost": info.mean_cost.item(),
+                           "grad_norm": info.grad_norm.item(),
+                           "wall_ms": (time.perf_counter() - t0) * 1e3, "phase_ms": timer.take(),
+                           "launches": {fn.__name__: fn.launches for fn in counted}})
+    depth = train_state.net.depth
+    want_step = {"fused_gnn_layer": depth, "fused_gnn_layer_backward": depth,
+                 "fused_pick": family.horizon_states(train_cfg.n_nodes)[1],
+                 "cvrp_construct": 0, "embnet_layers": 0}
+    step_launches_ok = all({k: r["launches"][k] for k in want_step} == want_step
+                           for r in train_rows)
+    train_finite = all(math.isfinite(r[key]) for r in train_rows
+                       for key in ("loss", "mean_cost", "grad_norm"))
+    train_moved = all(not torch.equal(start[k], v)
+                      for k, v in train_state.net.state_dict().items()
+                      if v.dim() == 2 or "running" in k)
+    cvrp_train_launches = {fn.__name__: sum(r["launches"][fn.__name__] for r in train_rows)
+                           for fn in counted}
+    del train_state, start
+
+    # (c) a short train_family run: one epoch cut to 2 steps, validation,
+    # checkpoints; -last read back and evaluated
+    ckpt_stem = root / "build" / "chip_smoke" / "cvrp500_trained"
+    written = [ckpt_stem.with_name(ckpt_stem.name + s + ".msgpack") for s in ("-best", "-last")]
+    for f in written:
+        f.unlink(missing_ok=True)
+    epochs = []
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fam_state = drivers.train_family("cvrp", train_cfg, progress=lambda *a: epochs.append(a),
+                                     val_instances=CVRP_VAL_B, val_t=2,
+                                     ckpt_path=str(ckpt_stem) + ".msgpack", max_steps=2)
+    torch.cuda.synchronize()
+    family_wall = time.perf_counter() - t0
+    family_launches = {fn.__name__: fn.launches for fn in counted}
+    tree = load_checkpoint(str(written[1]))
+    reloaded = drivers.family_model(family, tree).to(dev)
+    same = all(torch.equal(a, b) for a, b in zip(fam_state.net.state_dict().values(),
+                                                   reloaded.state_dict().values()))
+    reload_means, reload_curves = drivers.evaluate_family(
+        "cvrp", {k: v[:CVRP_VAL_B] for k, v in cvrp_ds.items()}, n_nodes=CVRP_N,
+        net=reloaded, n_ants=A, t_values=(1,), seed=SEED)
+    family_ok = (all(f.exists() for f in written) and same and int(tree["step"]) == 2
+                 and fam_state.step == 2 and len(epochs) == 1 and len(epochs[0]) == 3
+                 and all(math.isfinite(v) for v in epochs[0][1:])
+                 and bool(torch.isfinite(reload_curves).all()))
+    del fam_state, reloaded
+
+    # (d) the CLI's test cvrp on the card: phase 10's kernel arm
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli_means, _ = cli.main(["test", "cvrp", "-n", str(CVRP_N), "-c", str(root / CVRP_CKPT),
+                                 "-a", str(A), "--seed", str(SEED), "-t", *map(str, T_VALUES)])
+    cli_lines = out.getvalue().splitlines()
+    cli_ok = ([round(float(v), 4) for v in cli_means] == list(RECORDED_COSTS["cvrp"])
+              and cli_lines[1:-1] == [f"T={t}, average cost is {v:.6f}."
+                                      for t, v in zip(T_VALUES, cli_means)])
+    cvrp_train_ok = {"step_agreement": step_check["passed"],
+                     "k6_forward": layer_train["passed"],
+                     "k6_backward": layer_train["backward"]["passed"],
+                     "k7": pick_train["passed"], "step_launches": step_launches_ok,
+                     "finite": train_finite, "weights_moved": train_moved,
+                     "train_family": family_ok, "cli": cli_ok}
+    emit({"phase": "cvrp_train", "B": 1, "N": CVRP_N + 1, "A": A_TRAIN,
+          "lr": train_cfg.train.lr, "checks": cvrp_train_ok, "step_agreement": step_check,
+          "steps": train_rows, "launches_per_step_expected": want_step,
+          "train_family": {"steps": 2, "val_instances": CVRP_VAL_B, "val_t": 2,
+                           "wall_s": family_wall, "epochs": epochs, "launches": family_launches,
+                           "files": [str(f.relative_to(root)) for f in written],
+                           "reloaded_weights_equal": same,
+                           "reloaded_cost_t1": reload_means.tolist()},
+          "cli": {"argv": ["test", "cvrp", "-n", str(CVRP_N), "-c", CVRP_CKPT],
+                  "lines": cli_lines, "recorded": RECORDED_COSTS["cvrp"]}})
+
+    # ---- 12. K9 and row 9 against their plain versions
     sparse_net, sparse_g = sparse_inputs(root, dev)
     kernels.append(check_embnet_layers(cuda_ms, sparse_net, sparse_g, "sparse tsp2000, K = 200"))
     del sparse_net, sparse_g
     kernels.append(check_row9(dev, cuda_ms, torch.log(heu[0])))
 
-    # ---- 12. the sparse path: kernel, plain, classic and classic + 2-opt arms
+    # ---- 13. the sparse path: kernel, plain, classic and classic + 2-opt arms
     from deepaco_tpu_torch.aco import large_tsp
 
     sparse_counted = (fused_gnn.embnet_layers, two_opt.batched_two_opt_euclid,
@@ -1413,10 +1657,19 @@ def main() -> int:
                      **{fn.__name__: train_launches[fn.__name__] for fn in (
                          gnn_layer.fused_gnn_layer, gnn_layer.fused_gnn_layer_backward,
                          pick.fused_pick)}}
+    train_shapes = {"fused_gnn_layer": layer_train, "fused_gnn_layer_backward":
+                    {**layer_train["backward"], **{k: layer_train[k] for k in ("B", "N", "K")}},
+                    "fused_pick": {**pick_train, "B": 1}}
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
+        shape = train_shapes.get(entry["name"])
+        if shape is not None:
+            entry["cvrp_train"] = {
+                "launches": cvrp_train_launches[entry["name"]], "steps": CVRP_TRAIN_STEPS,
+                **{k: shape[k] for k in ("B", "N", "K", "rows", "max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by") if k in shape}}
 
-    # ---- 13. the kernels' line
+    # ---- 14. the kernels' line
     emit({"kernels": kernels})
     failed = [k["name"] for k in kernels if not k["passed"]]
     if failed:
@@ -1450,6 +1703,8 @@ def main() -> int:
         fail("K9 disagrees with its plain version on the CVRP path's graph")
     if not pick_501["passed"]:
         fail("K7 disagrees with its plain version on the CVRP rollout's rows")
+    if not all(cvrp_train_ok.values()):
+        fail(f"CVRP training: {cvrp_train_ok}")
     ck, cp, cc = (cvrp_arms[arm]["cost"] for arm in ("kernel", "plain", "classic"))
     # the two arms draw the same noise, so at T1 only K9's rounding (1e-6)
     # can part them; a wrong pick moves cost@T1 by far more than 1e-4

@@ -11,6 +11,8 @@ depot visit (cvrp/aco.py:182-202). The horizon is the static worst case
 self-loop, whose cost is the distance matrix's 1e-10 diagonal.
 
 State: ``(cur [B, A], visit_mask [B, A, N], used [B, A], cap_mask [B, A, N])``.
+
+:class:`CVRPACO` is the reference-style facade over one instance.
 """
 from __future__ import annotations
 
@@ -18,7 +20,10 @@ import torch
 
 from deepaco_tpu_torch.aco.engine import rollout
 from deepaco_tpu_torch.aco.problems.tsp import clear_onehot, row_gatherer, score_matrix
-from deepaco_tpu_torch.ops.cvrp_construct import cvrp_construct_supported
+from deepaco_tpu_torch.aco.runner import ACOConfig, init_search, run_anytime
+from deepaco_tpu_torch.device import resolve_device
+from deepaco_tpu_torch.ops.cvrp_construct import cvrp_construct, cvrp_construct_supported
+from deepaco_tpu_torch.ops.pick import fused_pick
 
 
 def cvrp_spec(phe: torch.Tensor, heu: torch.Tensor, demand: torch.Tensor,
@@ -68,16 +73,16 @@ def cvrp_spec(phe: torch.Tensor, heu: torch.Tensor, demand: torch.Tensor,
 
 def cvrp_paths(phe: torch.Tensor, heu: torch.Tensor, demand: torch.Tensor,
                capacity: float, n_ants: int, generator: torch.Generator, *,
-               construct, pick) -> torch.Tensor:
+               construct, pick, alpha: float = 1.0, beta: float = 1.0) -> torch.Tensor:
     """One iteration's routes ``[B, 2(N-1)+1, A]``, the ``paths`` of
-    ``rollout(cvrp_spec(...))`` in law (alpha = beta = 1, as the family
-    runs it): ``construct`` (K7c or its plain version,
-    ``ops/cvrp_construct.py``) on the score matrix where K7c takes N, else
-    the rollout with ``pick`` (K7 or its plain version) a step."""
+    ``rollout(cvrp_spec(..., alpha, beta))`` in law: ``construct`` (K7c or
+    its plain version, ``ops/cvrp_construct.py``) on the score matrix where
+    K7c takes N, else the rollout with ``pick`` (K7 or its plain version) a
+    step."""
     if cvrp_construct_supported(phe.shape[-1]):
-        return construct(score_matrix(phe, heu, 1.0, 1.0), demand, capacity, n_ants,
+        return construct(score_matrix(phe, heu, alpha, beta), demand, capacity, n_ants,
                          generator)
-    spec = cvrp_spec(phe, heu, demand, capacity, n_ants)
+    spec = cvrp_spec(phe, heu, demand, capacity, n_ants, alpha, beta)
     return rollout(spec, generator, pick=pick).paths
 
 
@@ -107,3 +112,71 @@ def validate_routes(paths: torch.Tensor, demand: torch.Tensor,
     at_depot = torch.where(p == 0, total, torch.zeros_like(total))
     load = total - torch.cummax(at_depot, dim=-1).values
     return covered & (load <= capacity + 1e-6).all(dim=-1)
+
+
+class CVRPACO:
+    """Reference-style facade (cvrp/aco.py:9-205; ``deepaco_tpu/aco/problems/
+    cvrp.py:85-162``) over one instance: ``distances [N, N]``, ``demand
+    [N]``, an optional ``heuristic`` (default ``1 / distances``) and
+    ``pheromone`` (default ones). It runs on ``device`` (``cuda`` by
+    default; ``cpu`` only when asked) and draws from ``generator``, by
+    default a ``torch.Generator`` seeded with ``seed``, which advances with
+    every call (the JAX facade folds a call count into its key).
+    ``elitist`` and ``min_max`` are not ported and raise."""
+
+    def __init__(self, distances, demand, capacity: float = 50.0, n_ants: int = 20,
+                 decay: float = 0.9, alpha: float = 1.0, beta: float = 1.0,
+                 elitist: bool = False, min_max: bool = False, heuristic=None,
+                 pheromone=None, seed: int = 0, *, device=None,
+                 generator: torch.Generator | None = None):
+        dev = resolve_device(device)
+        as_f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=dev)[None]
+        self.distances = as_f32(distances)
+        self.demand = as_f32(demand)
+        self.capacity = float(capacity)
+        self.n = self.distances.shape[-1]
+        self.cfg = ACOConfig(n_ants=n_ants, decay=decay, alpha=alpha, beta=beta,
+                             elitist=elitist, min_max=min_max, cyclic=False,
+                             symmetric=False, floor=1e-10)
+        self.heuristic = 1.0 / self.distances if heuristic is None else as_f32(heuristic)
+        self.state = init_search(self.n, 2 * (self.n - 1), self.cfg,
+                                 tau=None if pheromone is None else as_f32(pheromone),
+                                 batch=(1,), device=dev)
+        self.generator = (torch.Generator(device=dev).manual_seed(seed)
+                          if generator is None else generator)
+
+    def sample(self, require_prob: bool = True):
+        """One construction on the current pheromone, a pick a step (K7 on
+        the card): ``(costs [A], log_probs [2(N-1), A], paths [2(N-1)+1,
+        A])``, the log-probabilities differentiable in the heuristic."""
+        cfg = self.cfg
+        spec = cvrp_spec(self.state.phe.tau, self.heuristic, self.demand, self.capacity,
+                         cfg.n_ants, alpha=cfg.alpha, beta=cfg.beta)
+        ro = rollout(spec, self.generator, alpha=cfg.alpha, beta=cfg.beta,
+                     require_prob=require_prob)
+        return route_cost(self.distances, ro.paths)[0], ro.log_probs[0], ro.paths[0]
+
+    @torch.no_grad()
+    def run(self, n_iterations: int) -> torch.Tensor:
+        """``n_iterations`` of construction (K7c on the card) and Ant System
+        update (K8); returns the best cost so far."""
+        cfg = self.cfg
+        heu = self.heuristic.detach()
+
+        def construct(tau, generator):
+            return cvrp_paths(tau, heu, self.demand, self.capacity, cfg.n_ants, generator,
+                              construct=cvrp_construct, pick=fused_pick,
+                              alpha=cfg.alpha, beta=cfg.beta)
+
+        self.state, _ = run_anytime(construct, lambda p: route_cost(self.distances, p),
+                                    cfg, self.state, self.generator, n_iterations)
+        return self.lowest_cost
+
+    @property
+    def lowest_cost(self) -> torch.Tensor:
+        return self.state.best_cost[0]
+
+    @property
+    def shortest_path(self) -> torch.Tensor:
+        """The best route ``[2(N-1)+1]`` so far, depot first."""
+        return self.state.best_path[0]

@@ -1,9 +1,13 @@
-"""Command line of the port: ``python -m deepaco_tpu_torch test tsp --sparse ...``
+"""Command line of the port: ``python -m deepaco_tpu_torch {train,test} <problem> ...``
 (counterpart of ``deepaco_tpu/cli.py``).
 
-The parser keeps the JAX package's ``test`` subcommand with the flags the
-large-N sparse TSP protocol reads. Only that protocol is ported so far;
-every other command, problem or flag exits naming ROADMAP.md §1 item 10.
+The parser keeps the JAX package's ``train`` and ``test`` subcommands and
+their flags. Ported so far: ``train tsp|cvrp`` through the family trainer
+(``train.drivers.train_family``), ``train tsp --local-search 2opt|nls``
+through ``train.reinforce.train_tsp``, ``test cvrp`` on the golden CVRP
+sets through ``train.drivers.evaluate_family``, and ``test tsp --sparse``
+(the large-N sparse TSP protocol). Every other command, problem or flag
+exits naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -20,21 +24,50 @@ from deepaco_tpu_torch.aco.large_tsp import (KERNEL_OPS, LargeOps,
                                              run_anytime_knn)
 from deepaco_tpu_torch.aco.runner import ACOConfig
 from deepaco_tpu_torch.device import resolve_device
+from deepaco_tpu_torch.families import FAMILIES
 from deepaco_tpu_torch.models.gnn import Net
-from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
+from deepaco_tpu_torch.train.config import ACOSettings, ProblemConfig, TrainConfig
+from deepaco_tpu_torch.train.drivers import evaluate_family, train_family
+from deepaco_tpu_torch.train.reinforce import nls_local_search, train_tsp
+from deepaco_tpu_torch.utils import golden
+from deepaco_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
 PROBLEMS = ["tsp", "cvrp", "op", "pctsp", "smtwtp", "mkp", "mkp_items", "bpp",
             "sop", "rcpsp"]
 NOT_PORTED = "is not ported to deepaco_tpu_torch yet (ROADMAP.md §1 item 10)"
+CVRP_NLS = ("is the cvrp_nls protocol (the native SWAP* engine), not ported to "
+            "deepaco_tpu_torch yet (ROADMAP.md §1 item 8.8)")
 SPARSE_SEED, SPARSE_INSTANCES = 123456, 30      # cli.py:289-291
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="deepaco_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
-    for name in ("train", "solve-cvrp"):
-        sub.add_parser(name, help=f"{name} {NOT_PORTED}").add_argument(
-            "rest", nargs=argparse.REMAINDER)
+    sub.add_parser("solve-cvrp", help=f"solve-cvrp {NOT_PORTED}").add_argument(
+        "rest", nargs=argparse.REMAINDER)
+
+    tr = sub.add_parser("train", help="REINFORCE-train a neural heuristic")
+    tr.add_argument("problem", choices=PROBLEMS)
+    tr.add_argument("-n", "--nodes", type=int, default=100)
+    tr.add_argument("-k", "--k-sparse", type=int, default=None)
+    tr.add_argument("-a", "--ants", type=int, default=20)
+    tr.add_argument("-e", "--epochs", type=int, default=5)
+    tr.add_argument("-s", "--steps", type=int, default=128)
+    tr.add_argument("-b", "--batch-size", type=int, default=1)
+    tr.add_argument("--lr", type=float, default=3e-4)
+    tr.add_argument("--weight-decay", type=float, default=None,
+                    help="AdamW weight decay; default: the family's reference value "
+                         "(0 for mkp, mkp/train.py:78; torch's 1e-2 elsewhere)")
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("-o", "--output", default=None, help="checkpoint path (.msgpack)")
+    tr.add_argument("--val-instances", type=int, default=0,
+                    help="per-epoch validation on a held-out batch of this size, "
+                         "with best/last checkpoints (tsp_nls/train.py:99-122)")
+    tr.add_argument("--val-t", type=int, default=10,
+                    help="ACO iterations of the validation sweep")
+    tr.add_argument("--local-search", choices=["2opt", "nls", "swapstar"], default=None,
+                    help="tsp: NLS-shaped advantage with 2-opt or NLS on every ant "
+                         f"(tsp_nls/train.py); cvrp: swapstar {CVRP_NLS}")
 
     te = sub.add_parser("test", help="anytime evaluation")
     te.add_argument("problem", choices=PROBLEMS)
@@ -44,7 +77,7 @@ def build_parser() -> argparse.ArgumentParser:
     te.add_argument("-t", "--t-aco", type=int, nargs="+",
                     default=[1, 10, 20, 30, 40, 50, 100])
     te.add_argument("-c", "--ckpt", default=None,
-                    help=".msgpack checkpoint (default checkpoints/tsp<n>.msgpack)")
+                    help=".msgpack checkpoint (default checkpoints/<problem><n>.msgpack)")
     te.add_argument("--classic", action="store_true",
                     help="classic-ACO baseline (no model)")
     te.add_argument("--limit", type=int, default=None,
@@ -62,8 +95,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _load_net(args) -> Net:
-    """The ``--ckpt`` weights, or ``checkpoints/tsp<n>.msgpack`` without it.
-    A decode error surfaces in the exit message, with its cause chained."""
+    """The ``--ckpt`` weights, or ``checkpoints/<problem><n>.msgpack`` without
+    it. A decode error surfaces in the exit message, with its cause chained."""
     path = args.ckpt
     if path is None:
         path = f"checkpoints/{args.problem}{args.nodes}.msgpack"
@@ -78,6 +111,16 @@ def _load_net(args) -> Net:
     except ValueError as err:
         raise SystemExit(f"cannot decode checkpoint {path}: {err}") from err
     return Net.from_jax_variables(variables)
+
+
+def _report(t_values, means: np.ndarray, duration: float, record: dict) -> None:
+    """The JAX CLI's three output lines: the duration, the mean cost at each
+    T, and one JSON record ending in ``duration_s``."""
+    print(f"total duration: {duration:.2f}s")
+    for t, v in zip(t_values, means):
+        print(f"T={t}, average cost is {v:.6f}.")
+    print(json.dumps({**record, "t_aco": t_values, "means": means.tolist(),
+                      "duration_s": duration}))
 
 
 def _cmd_test_tsp_sparse(args, *, device=None, stats: dict | None = None,
@@ -116,13 +159,32 @@ def _cmd_test_tsp_sparse(args, *, device=None, stats: dict | None = None,
     duration = time.time() - t0
     if stats is not None:
         stats.update(best=best, coords=coords)
-    print(f"total duration: {duration:.2f}s")
-    for t, v in zip(t_values, means):
-        print(f"T={t}, average cost is {v:.6f}.")
-    print(json.dumps({"problem": "tsp_sparse", "n": n,
-                      "instances": int(coords_all.shape[0]),
-                      "t_aco": t_values, "means": means.tolist(),
-                      "duration_s": duration}))
+    _report(t_values, means, duration, {"problem": "tsp_sparse", "n": n,
+                                        "instances": int(coords_all.shape[0])})
+    return means, curves
+
+
+def _cmd_test_cvrp(args, *, device=None):
+    """The CVRP anytime protocol (cli.py:522-549): the golden set of scale
+    ``n`` (``utils.golden.cvrp_test``, the first ``--limit`` instances), the
+    ``--ckpt`` net or the classic heuristic, then ``evaluate_family``.
+    Prints the JAX CLI's three output lines and returns ``(means,
+    curves)``."""
+    n = args.nodes
+    if n not in golden.CVRP_SCALES:
+        raise SystemExit(f"test cvrp -n {n}: the golden CVRP writer makes the scales "
+                         f"{golden.CVRP_SCALES} only")
+    dev = resolve_device(device)
+    ds = golden.cvrp_test(n)
+    if args.limit:
+        ds = {k: v[:args.limit] for k, v in ds.items()}
+    net = None if args.classic else _load_net(args)
+    t0 = time.time()
+    means, curves = evaluate_family("cvrp", ds, n_nodes=n, net=net, k_sparse=args.k_sparse,
+                                    n_ants=args.ants, t_values=tuple(args.t_aco),
+                                    seed=args.seed, device=dev)
+    means = means.cpu().numpy()
+    _report(args.t_aco, means, time.time() - t0, {"problem": "cvrp", "n": n})
     return means, curves
 
 
@@ -130,16 +192,96 @@ def cmd_test(args, *, device=None):
     unported = [f for f in ("b_chunk", "per_instance", "backfill") if getattr(args, f)]
     if unported:
         raise SystemExit(f"--{unported[0].replace('_', '-')} {NOT_PORTED}")
-    if args.problem != "tsp" or not args.sparse:
-        raise SystemExit(f"test {args.problem}{' --sparse' if args.sparse else ''} "
-                         f"{NOT_PORTED}; only test tsp --sparse is")
-    return _cmd_test_tsp_sparse(args, device=device)
+    if args.problem == "tsp" and args.sparse:
+        return _cmd_test_tsp_sparse(args, device=device)
+    if args.problem == "cvrp" and not args.sparse:
+        if args.local_search:
+            raise SystemExit(f"test cvrp --local-search {args.local_search} {CVRP_NLS}")
+        return _cmd_test_cvrp(args, device=device)
+    raise SystemExit(f"test {args.problem}{' --sparse' if args.sparse else ''} "
+                     f"{NOT_PORTED}; only test cvrp and test tsp --sparse are")
+
+
+def _epoch_printer(val_t: int | None = None):
+    """``progress(epoch, mean cost[, val])`` printing the JAX CLI's line an
+    epoch, ``epoch {ep}: mean cost {c}[, val best@T={val_t} {val}] ({s}s)``."""
+    t0 = time.time()
+
+    def prog(ep, cost, val=None):
+        extra = "" if val is None else f", val best@T={val_t} {val:.4f}"
+        print(f"epoch {ep}: mean cost {cost:.4f}{extra} ({time.time() - t0:.1f}s)",
+              flush=True)
+    return prog
+
+
+def _cmd_train_tsp_ls(args, *, device=None):
+    """TSP training with the NLS-shaped advantage (cli.py:144-168,
+    tsp_nls/train.py): the one-hot start ``Net``, ``train_tsp`` with NLS
+    (``--local-search nls``) or 2-opt (NLS without perturbation) on every
+    ant; writes ``-o`` or ``checkpoints/tsp_nls<n>.msgpack``."""
+    cfg = ProblemConfig(
+        name="tsp_nls", n_nodes=args.nodes,
+        k_sparse=args.k_sparse or max(args.nodes // 10, 3),
+        aco=ACOSettings(n_ants=args.ants),
+        train=TrainConfig(lr=args.lr, epochs=args.epochs, steps_per_epoch=args.steps,
+                          batch_size=args.batch_size, seed=args.seed))
+    ls = nls_local_search() if args.local_search == "nls" else nls_local_search(t_nls=0)
+    prog, per_epoch = _epoch_printer(), args.steps
+
+    def each_step(i, info):
+        if (i + 1) % per_epoch == 0:
+            prog(i // per_epoch, info.mean_cost.item())
+
+    state = train_tsp(Net(feats=1), cfg, local_search=ls, progress=each_step,
+                      device=device)
+    out = args.output or f"checkpoints/tsp_nls{args.nodes}.msgpack"
+    save_checkpoint(out, state)
+    print(f"saved {out}")
+    return state
+
+
+def cmd_train(args, *, device=None):
+    """``train <problem>`` (cli.py:106-141): the family trainer with the
+    JAX CLI's configuration, a checkpoint at ``-o`` or
+    ``checkpoints/<problem><n>.msgpack`` (and ``-best`` / ``-last`` beside
+    it with ``--val-instances``)."""
+    if args.local_search == "swapstar":
+        raise SystemExit(f"train {args.problem} --local-search swapstar {CVRP_NLS}")
+    if args.local_search:
+        if args.problem != "tsp":
+            raise SystemExit(f"train {args.problem} --local-search {args.local_search}: "
+                             "2-opt and NLS training apply to tsp")
+        return _cmd_train_tsp_ls(args, device=device)
+    if args.problem not in FAMILIES:
+        raise SystemExit(f"train {args.problem} {NOT_PORTED}")
+    wd = args.weight_decay
+    if wd is None:
+        # the reference's one per-family optimizer setting: the GNN MKP
+        # trainer sets weight_decay=0 (mkp/train.py:78), every other one
+        # keeps torch's AdamW default
+        wd = 0.0 if args.problem == "mkp" else 1e-2
+    cfg = ProblemConfig(
+        name=args.problem, n_nodes=args.nodes,
+        k_sparse=args.k_sparse or max(args.nodes // 10, 3),
+        aco=ACOSettings(n_ants=args.ants),
+        train=TrainConfig(lr=args.lr, weight_decay=wd, epochs=args.epochs,
+                          steps_per_epoch=args.steps, batch_size=args.batch_size,
+                          seed=args.seed))
+    out = args.output or f"checkpoints/{args.problem}{args.nodes}.msgpack"
+    state = train_family(args.problem, cfg, progress=_epoch_printer(args.val_t),
+                         val_instances=args.val_instances, val_t=args.val_t,
+                         ckpt_path=out if args.val_instances else None, device=device)
+    save_checkpoint(out, state)
+    print(f"saved {out}")
+    return state
 
 
 def main(argv=None, *, device=None):
     """Parse ``argv`` and run the command on ``device`` (the card unless the
     caller passes ``"cpu"``). Returns what the command returns."""
     args = build_parser().parse_args(argv)
-    if args.command != "test":
-        raise SystemExit(f"{args.command} {NOT_PORTED}")
-    return cmd_test(args, device=device)
+    if args.command == "train":
+        return cmd_train(args, device=device)
+    if args.command == "test":
+        return cmd_test(args, device=device)
+    raise SystemExit(f"{args.command} {NOT_PORTED}")

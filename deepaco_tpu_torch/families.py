@@ -18,7 +18,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 
 from deepaco_tpu_torch.aco.engine import rollout
-from deepaco_tpu_torch.aco.problems.cvrp import cvrp_paths, route_cost
+from deepaco_tpu_torch.aco.problems.cvrp import cvrp_paths, cvrp_spec, route_cost
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost, tsp_spec
 from deepaco_tpu_torch.aco.runner import ACOConfig
 from deepaco_tpu_torch.core.builders import cvrp_graph
@@ -32,7 +32,9 @@ CVRP_CAPACITY = 50.0                                # cvrp/aco.py:7
 class Family(NamedTuple):
     """``gen(rng, n)`` → one instance of numpy arrays; ``graph(inst, k)``
     → :class:`~deepaco_tpu_torch.core.graph.SparseGraph`; ``heu_matrix(g,
-    out, inst)`` → the dense heuristic ``[B, N, N]``; ``construct(tau, heu,
+    out, inst)`` → the dense heuristic ``[B, N, N]``; ``spec(tau, heu, inst,
+    n_ants)`` → the rollout plug-in (``aco.engine.RolloutSpec``) that
+    training samples and replays, a pick a step; ``construct(tau, heu,
     inst, n_ants, generator, ops)`` → one inference iteration's paths
     through ``ops`` (``train.drivers.FamilyOps``): TSP the rollout of
     ``tsp_spec``, a pick a step; CVRP one pass (``ops.construct``) where K7c
@@ -46,6 +48,7 @@ class Family(NamedTuple):
     gen: Callable[[np.random.Generator, int], dict]
     graph: Callable
     heu_matrix: Callable
+    spec: Callable
     construct: Callable
     cost: Callable
     aco: ACOConfig
@@ -93,6 +96,7 @@ FAMILIES = {
         gen=gen_tsp,
         graph=lambda inst, k: knn_graph(inst["coords"], inst["dist"], k),
         heu_matrix=_std_heu,
+        spec=lambda tau, heu, inst, a: tsp_spec(tau, heu, a),
         construct=lambda tau, heu, inst, a, generator, ops: rollout(
             tsp_spec(tau, heu, a), generator, pick=ops.pick).paths,
         cost=lambda paths, inst: tour_cost(inst["dist"], paths),
@@ -105,6 +109,8 @@ FAMILIES = {
         gen=gen_cvrp,
         graph=lambda inst, k: cvrp_graph(inst["demand"], inst["dist"]),
         heu_matrix=_dense_transposed_heu,
+        spec=lambda tau, heu, inst, a: cvrp_spec(tau, heu, inst["demand"],
+                                                 CVRP_CAPACITY, a),
         construct=lambda tau, heu, inst, a, generator, ops: cvrp_paths(
             tau, heu, inst["demand"], CVRP_CAPACITY, a, generator,
             construct=ops.construct, pick=ops.pick),

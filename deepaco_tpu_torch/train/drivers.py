@@ -1,6 +1,16 @@
-"""Evaluation over the family registry (counterpart of
-``deepaco_tpu/train/drivers.py``): the anytime evaluation of any ported
-family. Training through the registry waits for its slice (ROADMAP.md).
+"""Training and evaluation over the family registry (counterpart of
+``deepaco_tpu/train/drivers.py``): one REINFORCE trainer and one anytime
+evaluator for every ported family.
+
+:func:`train_family` trains a family's ``Net`` from a seed (drivers.py:134-199):
+each step (:func:`make_family_train_step`) runs the train-mode GNN with
+BatchNorm statistics per instance, averaged over the instance batch as the
+JAX step's ``vmap`` takes them, samples with ``rollout(require_prob=True)``
+through the family's ``spec``, and updates with the loss ``sum(sign *
+(cost - mean) * sum_t log p) / A``. On the card every GNN layer is one
+launch of kernel K6 forward and one backward, and every construction step
+one launch of K7. Products stay in full f32 (TF32 is never switched on), as
+the JAX step runs under ``default_matmul_precision("highest")``.
 
 :func:`evaluate_family` runs the whole batch at once, every instance with
 its own search state: graph → GNN → dense heuristic (or the classic one),
@@ -14,12 +24,14 @@ chunking of instances (``b_chunk``, a TPU watchdog workaround) and its
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from deepaco_tpu_torch.aco import pheromone as ph
+from deepaco_tpu_torch.aco.engine import path_log_probs, rollout
 from deepaco_tpu_torch.aco.runner import _no_timer, init_search, run_anytime
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.families import Family, get_family
@@ -29,16 +41,24 @@ from deepaco_tpu_torch.ops.fused_gnn import (embnet_layers, embnet_layers_plain,
                                              embnet_supported, net_forward_fast)
 from deepaco_tpu_torch.ops.gnn_layer import fused_gnn_layer, fused_gnn_layer_plain
 from deepaco_tpu_torch.ops.pick import fused_pick, fused_pick_plain
+from deepaco_tpu_torch.train.config import ProblemConfig
+from deepaco_tpu_torch.train.reinforce import (LossOut, StepInfo, TrainState,
+                                               init_train_state, optimizer_update,
+                                               reinforce_loss, total_steps)
+from deepaco_tpu_torch.utils.checkpoint import save_checkpoint
 
 
 class FamilyOps(NamedTuple):
-    """What the evaluation calls for the GNN layer (``layer``, the per-layer
-    route) or the folded layer stack (``layers``, the eval-mode route of
-    :func:`_forward_heu`), each construction step (``pick``: the TSP
-    family, and CVRP past K7c's N), each deposit, the CVRP family's whole
-    construction (``construct``), and ``timer(name)``, a context manager
-    around each phase (``"heuristic"``, ``"construction"``, ``"update"``).
-    The default is kernels K6, K7, K8, K9, K7c and no timer."""
+    """What training and evaluation call for the GNN layer (``layer``, the
+    per-layer route: training) or the folded layer stack (``layers``, the
+    eval-mode route of :func:`_forward_heu`), each construction step
+    (``pick``: training, the TSP family's evaluation, and CVRP's past K7c's
+    N), each deposit, the CVRP family's whole construction in evaluation
+    (``construct``), and ``timer(name)``, a context manager around each
+    phase (evaluation: ``"heuristic"``, ``"construction"``, ``"update"``;
+    a training step: ``"heuristic"``, ``"rollout"``, ``"backward"``,
+    ``"optimizer"``). The default is kernels K6, K7, K8, K9, K7c and no
+    timer."""
 
     layer: Callable = fused_gnn_layer
     pick: Callable = fused_pick
@@ -67,6 +87,13 @@ def gen_batch(family: Family, rng: np.random.Generator, n: int,
     """Host-side instance batch: a dict of stacked numpy arrays ``[B, ...]``."""
     insts = [family.gen(rng, n) for _ in range(batch_size)]
     return {k: np.stack([np.asarray(i[k]) for i in insts]) for k in insts[0]}
+
+
+def instance_tensors(batch: dict, device) -> dict:
+    """A batch of instances (numpy arrays or tensors ``[B, ...]``) as f32
+    tensors on ``device``."""
+    return {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+            for k, v in batch.items()}
 
 
 def _forward_heu(family: Family, net: Net, inst: dict, k_sparse: int,
@@ -101,7 +128,9 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     :class:`~deepaco_tpu_torch.aco.runner.SearchState` (its ``best_path
     [B, horizon+1]`` holds each instance's best solution). ``net=None`` runs
     the classic arm. It runs on ``device`` (``cuda`` by default; ``cpu``
-    only when asked), and ``net`` is moved there. The private ``_ops``
+    only when asked); ``net`` is moved there, runs in eval mode (its
+    running statistics untouched) and is left in the mode it came in, so
+    that a trainer can validate its net between steps. The private ``_ops``
     (:class:`FamilyOps`) swaps in the plain versions of the kernels or a
     timer around each phase.
     """
@@ -109,8 +138,7 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     family = get_family(name)
     cfg = family.aco._replace(n_ants=n_ants)
     k_sparse = family.k_sparse(n_nodes) if k_sparse is None else k_sparse
-    inst = {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=dev)
-            for k, v in batch.items()}
+    inst = instance_tensors(batch, dev)
     b = next(iter(inst.values())).shape[0]
     t_max = int(max(t_values))
     generator = torch.Generator(device=dev).manual_seed(seed)
@@ -118,7 +146,9 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
         if net is None:
             heu = family.classic_heu(inst, k_sparse)
         else:
+            training = net.training
             heu = _forward_heu(family, net.to(dev).eval(), inst, k_sparse, _ops)
+            net.train(training)
     n_states, horizon = family.horizon_states(n_nodes)
     state = init_search(n_states, horizon, cfg, batch=(b,), device=dev)
     state, curves = run_anytime(
@@ -128,3 +158,131 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     idx = torch.tensor([t - 1 for t in t_values], device=dev)
     means = curves[:, idx].mean(dim=0)
     return (means, curves, state) if return_state else (means, curves)
+
+
+# --------------------------------------------------------------- training --
+def family_loss(family: Family, net: Net, inst: dict, cfg: ProblemConfig,
+                generator: torch.Generator, *, paths: torch.Tensor | None = None,
+                _ops: FamilyOps = KERNEL_OPS) -> LossOut:
+    """The loss of one training step (drivers.py:62-100) on ``inst``, a dict
+    of tensors ``[B, ...]``, differentiable in ``net``, which it puts in
+    train mode: the heuristic through ``_forward_heu``'s per-layer route
+    (BatchNorm on batch statistics does not fold into K9), then the
+    family's ``spec`` on a pheromone of ones. Without ``paths`` the
+    ``cfg.aco.n_ants`` ants sample (``rollout(require_prob=True)``, a pick
+    a step); with ``paths [B, horizon+1, A]`` their log-probabilities are
+    replayed (``path_log_probs``). The loss is the batch mean of
+    ``sum(sign * (cost - mean cost) * sum_t log p) / A``, the advantage
+    detached, ``sign = -1`` for a family that maximizes."""
+    a = cfg.aco.n_ants
+    alpha, beta = family.aco.alpha, family.aco.beta
+    net.train(True)
+    with _ops.timer("heuristic"):
+        heu = _forward_heu(family, net, inst, cfg.k_sparse, _ops)
+    with _ops.timer("rollout"):
+        spec = family.spec(torch.ones_like(heu), heu, inst, a)
+        if paths is None:
+            ro = rollout(spec, generator, alpha=alpha, beta=beta, require_prob=True,
+                         pick=_ops.pick)
+            paths, log_probs = ro.paths, ro.log_probs
+        else:
+            log_probs = path_log_probs(spec, paths, alpha=alpha, beta=beta)
+        costs = family.cost(paths, inst)
+    sign = -1.0 if family.aco.maximize else 1.0
+    loss = reinforce_loss(sign * costs, log_probs, a).mean()
+    return LossOut(loss, costs.mean(), paths, log_probs, costs, None)
+
+
+def make_family_train_step(family: Family, cfg: ProblemConfig, *,
+                           _ops: FamilyOps = KERNEL_OPS):
+    """The family's train step: ``(state, batch, generator) -> (state,
+    StepInfo)``, ``batch`` a host batch of ``gen_batch`` (or tensors),
+    moved to the net's device. The ants draw from ``generator``; the
+    optimizer is ``train.reinforce``'s (clip, AdamW as optax runs them).
+    Nothing waits for the card: ``StepInfo`` holds 0-d tensors."""
+
+    def step(state: TrainState, batch: dict, generator: torch.Generator):
+        inst = instance_tensors(batch, next(state.net.parameters()).device)
+        out = family_loss(family, state.net, inst, cfg, generator, _ops=_ops)
+        with _ops.timer("backward"):
+            out.loss.backward()
+        with _ops.timer("optimizer"):
+            state, norm = optimizer_update(state, cfg)
+        return state, StepInfo(out.loss.detach(), out.mean_cost.detach(), norm)
+
+    return step
+
+
+def init_family_state(family: Family, cfg: ProblemConfig, rng_np: np.random.Generator,
+                      generator: torch.Generator) -> TrainState:
+    """A fresh ``Net`` of the family on ``generator``'s device, initialised by
+    the JAX package's law (``init_like_flax``; the draws differ from JAX's),
+    and its optimizer at step 0. Like JAX's ``init_family_state``
+    (drivers.py:116-131), which builds its template graph from one instance,
+    it draws one instance from ``rng_np`` and drops it, so that the batches
+    that follow are the JAX trainer's."""
+    family.gen(rng_np, cfg.n_nodes)
+    return init_train_state(family_model(family).to(generator.device), cfg, generator)
+
+
+def train_family(name: str, cfg: ProblemConfig, progress: Callable | None = None,
+                 val_instances: int = 0, val_t: int = 10, ckpt_path: str | None = None,
+                 logger=None, max_steps: int | None = None, device=None,
+                 _ops: FamilyOps = KERNEL_OPS) -> TrainState:
+    """The whole training run of family ``name`` (drivers.py:134-199) on
+    ``device`` (``cuda`` by default; ``cpu`` only when asked): instances
+    from ``numpy.random.default_rng(cfg.train.seed)``, ``batch_size`` a
+    step, ``epochs * steps_per_epoch`` steps, or the first ``max_steps`` of
+    them (the epoch they end in is the last; the learning rate keeps the
+    whole run's schedule). The weights and the ants draw from one
+    ``torch.Generator`` seeded with ``cfg.train.seed``.
+
+    After each epoch: ``logger`` (a ``utils.metrics.MetricsLogger``) gets a
+    ``train_epoch`` event; with ``val_instances > 0`` the net is evaluated
+    (:func:`evaluate_family`, T = ``val_t``, seed ``cfg.train.seed``) on a
+    held-out batch drawn from ``default_rng(seed + 777_777)``, ``logger``
+    gets a ``val`` event, and with ``ckpt_path`` the state is written to
+    ``<stem>-last.msgpack`` and, when the validation cost is the best so
+    far, ``<stem>-best.msgpack``. ``progress(epoch, mean cost[, val])`` is
+    called once an epoch, the mean cost that of the epoch's last step."""
+    dev = resolve_device(device)
+    family = get_family(name)
+    rng_np = np.random.default_rng(cfg.train.seed)
+    generator = torch.Generator(device=dev).manual_seed(cfg.train.seed)
+    state = init_family_state(family, cfg, rng_np, generator)
+    step_fn = make_family_train_step(family, cfg, _ops=_ops)
+    val_batch = None
+    if val_instances > 0:
+        val_batch = gen_batch(family, np.random.default_rng(cfg.train.seed + 777_777),
+                              cfg.n_nodes, val_instances)
+    stem = None if ckpt_path is None else ckpt_path.removesuffix(".msgpack")
+    sign = -1.0 if family.aco.maximize else 1.0
+    best_val = math.inf
+    n_steps = total_steps(cfg) if max_steps is None else min(max_steps, total_steps(cfg))
+    per_epoch = cfg.train.steps_per_epoch
+    for epoch in range(-(-n_steps // per_epoch)):
+        for _ in range(min(per_epoch, n_steps - epoch * per_epoch)):
+            batch = gen_batch(family, rng_np, cfg.n_nodes, cfg.train.batch_size)
+            state, info = step_fn(state, batch, generator)
+        cost = info.mean_cost.item()
+        if logger is not None:
+            logger.log("train_epoch", epoch=epoch, mean_cost=cost)
+        if val_batch is None:
+            if progress is not None:
+                progress(epoch, cost)
+            continue
+        means, _ = evaluate_family(name, val_batch, n_nodes=cfg.n_nodes, net=state.net,
+                                   k_sparse=cfg.k_sparse, n_ants=cfg.aco.n_ants,
+                                   t_values=(val_t,), seed=cfg.train.seed, device=dev,
+                                   _ops=_ops._replace(timer=_no_timer))
+        val = means[0].item()
+        if logger is not None:
+            logger.log("val", epoch=epoch, t=val_t, mean_best=val)
+        if stem is not None:
+            save_checkpoint(f"{stem}-last.msgpack", state)
+            if sign * val < best_val:
+                best_val = sign * val
+                save_checkpoint(f"{stem}-best.msgpack", state)
+        if progress is not None:
+            progress(epoch, cost, val)
+    return state

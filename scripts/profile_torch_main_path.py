@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's main path spends device time, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train | --family cvrp | --sparse] [--out DIR]
+    python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train [--family cvrp] | --family cvrp | --sparse] [--out DIR]
 
 Runs a path of ``chip_smoke.py`` with its weights, instances and
 configuration once to warm up, then once under ``torch.profiler``: by default
@@ -11,12 +11,17 @@ the first B=16 instances, local search on every ant); with ``--ls 2opt`` the
 classic arm with 2-opt on the same 16; with ``--train`` one TSP500-NLS
 training step (``chip_smoke.train_configs``: the one-hot start Net, B=20,
 N=500, K=50, 30 ants, NLS advantage) after one step of warm-up; with
-``--family cvrp`` the CVRP path (``evaluate_family("cvrp")``,
+``--train --family cvrp`` one CVRP500 training step
+(``chip_smoke.cvrp_train_config``: 50 ants, batch 1, the 12-layer Net on
+the dense graph, K = N = 501, through ``make_family_train_step``, the
+batch drawn as ``train_family`` draws it) after one step of warm-up; with
+``--family cvrp`` alone the CVRP path (``evaluate_family("cvrp")``,
 cvrp500_selftrained on the golden CVRP500 set, A=20, T=10); with
 ``--sparse`` the kernel arm of the sparse path (``test tsp --sparse -n
 2000``: tsp500_selftrained, the CLI's 30 fixed-seed instances, k=200,
 A=20, T=10). Prints one
-JSON line: device time per CUDA kernel name, the profiled wall time, the
+JSON line: device time and launches per CUDA kernel name, their sums, the
+profiled wall time, the
 wall of three runs without the profiler (which adds host time to every
 launch), the device's busy and idle share of the profiled window, the
 card's name and power limit, and the heuristic kernels' split (K1:
@@ -38,13 +43,25 @@ HEURISTIC_KERNELS = ("knn_elin0_kernel", "elin0_kernel", "node_pass_kernel",
                      "edge_pass_kernel", "head_kernel")
 
 
-def train_step_runner(chip_smoke):
-    """One TSP500-NLS train step per call, on a state that carries over."""
+def train_step_runner(chip_smoke, family: str | None = None):
+    """One train step per call, on a state that carries over: TSP500-NLS, or
+    with ``family="cvrp"`` CVRP500 on a new batch each call."""
     import torch
 
     from deepaco_tpu_torch.models.gnn import Net
+    from deepaco_tpu_torch.train import drivers
     from deepaco_tpu_torch.train import reinforce as tr
 
+    if family == "cvrp":
+        fam, cfg, cvrp_state, rng, cvrp_gen = chip_smoke.cvrp_train_inputs(torch.device("cuda"))
+        cvrp_step = drivers.make_family_train_step(fam, cfg)
+        cvrp_states = [cvrp_state]
+
+        def run_cvrp():
+            batch = drivers.gen_batch(fam, rng, cfg.n_nodes, cfg.train.batch_size)
+            cvrp_states[0], _ = cvrp_step(cvrp_states[0], batch, cvrp_gen)
+
+        return run_cvrp
     cfg, net_kwargs, ls = chip_smoke.train_configs()["tsp500_nls"]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
@@ -68,8 +85,8 @@ def main() -> int:
     parser.add_argument("--sparse", action="store_true")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
-    if sum((args.train, args.sparse, args.ls is not None, args.family is not None)) > 1:
-        parser.error("--ls, --train, --family and --sparse each name one path")
+    if sum((args.train or args.family is not None, args.sparse, args.ls is not None)) > 1:
+        parser.error("--ls, --train [--family], --family and --sparse each name one path")
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
         return 1
@@ -77,7 +94,7 @@ def main() -> int:
     import chip_smoke
 
     if args.train:
-        run = train_step_runner(chip_smoke)
+        run = train_step_runner(chip_smoke, args.family)
     elif args.sparse:
         sparse_args = chip_smoke.sparse_args(ROOT)
         run = lambda: chip_smoke.drive_sparse(sparse_args)
@@ -116,7 +133,7 @@ def main() -> int:
             entry["count"] += 1
     busy = sum(k["ms"] for k in kernels.values())
     card = chip_smoke.card_line()
-    path = ("train_nls" if args.train else "sparse" if args.sparse
+    path = (f"train_{args.family or 'nls'}" if args.train else "sparse" if args.sparse
             else args.family or args.ls or "main")
     if args.out:
         Path(args.out).mkdir(parents=True, exist_ok=True)
@@ -133,6 +150,7 @@ def main() -> int:
     print(json.dumps({"path": path, "card": card, "wall_ms": wall_ms,
                       "unprofiled_wall_ms": walls,
                       "device_busy_ms": busy if kernels else "not measured",
+                      "launches": sum(k["count"] for k in kernels.values()),
                       "device_idle_share": 1 - busy / wall_ms if kernels else "not measured",
                       "heuristic_kernels": split,
                       "heuristic_kernels_ms": sum(v["ms"] for v in split.values()),

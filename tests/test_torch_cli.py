@@ -1,5 +1,6 @@
 """The port's command line (deepaco_tpu_torch/cli.py): ``test tsp --sparse``
-prints the JAX CLI's three output lines; everything not ported exits."""
+and ``test cvrp`` print the JAX CLI's three output lines, ``train`` writes
+checkpoints that the port reads back; everything not ported exits."""
 import json
 import re
 import subprocess
@@ -8,6 +9,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from deepaco_tpu_torch import cli
 
@@ -35,17 +37,92 @@ def test_sparse_protocol_prints_the_jax_cli_lines(arm, capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,match", [
     (["test", "tsp", "--sparse", "-n", "1000", "--classic"], "golden TSP sets"),
-    (["test", "cvrp", "-n", "1001"], "ROADMAP.md §1 item 10"),
+    (["test", "cvrp", "-n", "1001"], r"scales \(20, 100, 500\)"),
     (["test", "tsp", "-n", "1001"], "ROADMAP.md §1 item 10"),
     (["test", "tsp", "--sparse", "-n", "1001", "--b-chunk", "4"], "--b-chunk .*item 10"),
-    (["train", "tsp"], "train .*item 10"),
+    (["train", "op"], "train .*item 10"),
     (["test", "tsp", "--sparse", "-n", "1001", "--ckpt", "x.pt"], r"\.pt loader"),
     (["test", "tsp", "--sparse", "-n", "1003"], r"checkpoints/tsp1003\.msgpack"),
+    (["train", "cvrp", "--local-search", "swapstar"], "swapstar .*item 8.8"),
+    (["test", "cvrp", "-n", "20", "--b-chunk", "4"], "--b-chunk .*item 10"),
+    (["train", "rcpsp"], "train rcpsp .*item 10"),
+    (["solve-cvrp", "x.vrp"], "solve-cvrp .*item 10"),
 ])
 def test_what_is_not_ported_exits_with_a_reason(argv, match, monkeypatch):
     monkeypatch.chdir(ROOT)
     with pytest.raises(SystemExit, match=match):
         cli.main(argv, device="cpu")
+
+
+def _three_lines(capsys, problem, n, t_values, means):
+    """The lines of cli.py:546-549 for ``means``: the duration, one line a
+    T, the JSON record."""
+    lines = capsys.readouterr().out.strip().splitlines()[-2 - len(t_values):]
+    assert re.fullmatch(r"total duration: \d+\.\d\ds", lines[0])
+    assert lines[1:-1] == [f"T={t}, average cost is {v:.6f}." for t, v in zip(t_values, means)]
+    out = json.loads(lines[-1])
+    assert set(out) == {"problem", "n", "t_aco", "means", "duration_s"}
+    assert out["problem"] == problem and out["n"] == n and out["t_aco"] == t_values
+    assert out["means"] == [float(v) for v in means]
+
+
+@pytest.mark.parametrize("arm", [["--classic"],
+                                 ["-c", "checkpoints/cvrp20_selftrained.msgpack"]])
+def test_cvrp_protocol_prints_the_jax_cli_lines(arm, capsys, monkeypatch):
+    """``test cvrp`` on the golden CVRP20 set, 3 instances, 4 ants, T=1 and 2,
+    on the CPU: the JAX CLI's lines, and a curve that does not rise."""
+    monkeypatch.chdir(ROOT)
+    means, curves = cli.main(["test", "cvrp", "-n", "20", "--limit", "3", "-a", "4",
+                              "-t", "1", "2"] + arm, device="cpu")
+    _three_lines(capsys, "cvrp", 20, [1, 2], means)
+    assert curves.shape == (3, 2) and bool((curves[:, 1] <= curves[:, 0]).all())
+
+
+def test_train_cvrp_writes_a_checkpoint_that_test_cvrp_reads(tmp_path, capsys):
+    """``train cvrp`` at n=12 (1 epoch of 2 steps, batch 2, 4 ants, 2
+    validation instances): the JAX CLI's epoch and ``saved`` lines, the
+    checkpoint and its ``-best`` / ``-last`` files; ``test cvrp -c`` reads it
+    (the net is size-free, so at the golden scale 20)."""
+    out = tmp_path / "cvrp12.msgpack"
+    state = cli.main(["train", "cvrp", "-n", "12", "-a", "4", "-e", "1", "-s", "2", "-b", "2",
+                      "--val-instances", "2", "-o", str(out)], device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert re.fullmatch(r"epoch 0: mean cost \d+\.\d{4}, val best@T=10 \d+\.\d{4} "
+                        r"\(\d+\.\ds\)", lines[0])
+    assert lines[-1] == f"saved {out}" and state.step == 2
+    assert all((tmp_path / f"cvrp12{s}.msgpack").exists() for s in ("", "-best", "-last"))
+    means, _ = cli.main(["test", "cvrp", "-n", "20", "--limit", "2", "-a", "4", "-t", "1",
+                         "-c", str(out)], device="cpu")
+    _three_lines(capsys, "cvrp", 20, [1], means)
+
+
+@pytest.mark.parametrize("argv,feats", [(["tsp"], 2), (["tsp", "--local-search", "2opt"], 1)])
+def test_train_tsp_writes_a_checkpoint(argv, feats, tmp_path, capsys):
+    """``train tsp`` (the family trainer, the k-NN graph on coordinates) and
+    ``train tsp --local-search 2opt`` (``train_tsp`` with 2-opt on every ant,
+    the one-hot start graph) at n=20, 2 epochs of 1 step: a line an epoch,
+    and a checkpoint that restores in the port and runs ``evaluate_tsp``."""
+    from deepaco_tpu_torch.aco.runner import ACOConfig
+    from deepaco_tpu_torch.eval.anytime import evaluate_tsp
+    from deepaco_tpu_torch.models.gnn import Net
+    from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
+    from deepaco_tpu_torch.utils.datasets import uniform_coords
+
+    out = tmp_path / "tsp20.msgpack"
+    state = cli.main(["train", *argv, "-n", "20", "-a", "4", "-e", "2", "-s", "1", "-b", "2",
+                      "-o", str(out)], device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [line.split(":")[0] for line in lines[:2]] == ["epoch 0", "epoch 1"]
+    assert lines[-1] == f"saved {out}" and state.step == 2
+    tree = load_checkpoint(str(out))
+    assert int(tree["step"]) == 2
+    net = Net.from_jax_variables(tree)
+    assert net.emb_net.v_lin0.in_features == feats
+    ls = "2opt" if feats == 1 else None
+    means, _ = evaluate_tsp(uniform_coords(20, torch.Generator().manual_seed(0), batch=2),
+                            net=net, k_sparse=5, cfg=ACOConfig(n_ants=4), t_values=(1,),
+                            ls=ls, device="cpu")
+    assert bool(torch.isfinite(means).all())
 
 
 def test_a_corrupt_checkpoint_surfaces_its_decode_error(tmp_path):

@@ -67,6 +67,26 @@ def test_train_tsp_without_device_raises_when_cuda_is_absent(monkeypatch):
         train_tsp(Net(depth=1), ProblemConfig(n_nodes=12, k_sparse=4))
 
 
+def test_cvrp_training_and_cli_without_device_raise_when_cuda_is_absent(monkeypatch):
+    """train_family, the CLI's test cvrp and train cvrp, and CVRPACO."""
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.aco.problems.cvrp import CVRPACO
+    from deepaco_tpu_torch.families import gen_cvrp
+    from deepaco_tpu_torch.train.config import ProblemConfig
+    from deepaco_tpu_torch.train.drivers import train_family
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_family("cvrp", ProblemConfig(name="cvrp", n_nodes=12, k_sparse=4))
+    for argv in (["test", "cvrp", "-n", "20", "--classic", "--limit", "1"],
+                 ["train", "cvrp", "-n", "12", "-e", "1", "-s", "1"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    inst = gen_cvrp(np.random.default_rng(0), 10)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CVRPACO(inst["dist"], inst["demand"])
+
+
 def test_kernel_wrappers_refuse_non_cuda_devices():
     from deepaco_tpu_torch.ops import _build, two_opt
 

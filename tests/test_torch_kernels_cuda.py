@@ -1029,3 +1029,37 @@ def test_main_path_past_k3_limit_takes_the_plain_update_on_the_card(dev):
     _assert_update_matches_plain(state, paths, dist, log_heu, decay=0.9, q=1.0)
     with pytest.raises(ValueError, match="19000"):
         bt.fused_tsp_update(state, paths, dist, decay=0.9, q=1.0, staged=True)
+
+
+@pytest.mark.parametrize("name", ["tsp", "cvrp"])
+def test_family_train_step_launches_k6_and_k7_on_the_card(dev, name):
+    """One step of make_family_train_step on the card (TSP n=50, k=5; CVRP
+    20 customers, K = N = 21; 12-layer Net, 2 instances, 4 ants): 12 K6
+    forward and 12 backward launches, one K7 a rollout step, no K7c and no
+    K9; finite loss, cost and gradient norm; the weights move."""
+    import numpy as np
+
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.ops import gnn_layer, pick
+    from deepaco_tpu_torch.train import drivers
+    from deepaco_tpu_torch.train.config import ACOSettings, ProblemConfig, TrainConfig
+
+    family = get_family(name)
+    n = 50 if name == "tsp" else 20
+    cfg = ProblemConfig(name=name, n_nodes=n, k_sparse=5, aco=ACOSettings(n_ants=4),
+                        train=TrainConfig(batch_size=2))
+    rng = np.random.default_rng(0)
+    state = drivers.init_family_state(family, cfg, rng,
+                                      torch.Generator(device=dev).manual_seed(0))
+    start = {k: v.clone() for k, v in state.net.state_dict().items()}
+    counted = (gnn_layer.fused_gnn_layer, gnn_layer.fused_gnn_layer_backward, pick.fused_pick,
+               cc.cvrp_construct, fused_gnn.embnet_layers)
+    before = [fn.launches for fn in counted]
+    state, info = drivers.make_family_train_step(family, cfg)(
+        state, drivers.gen_batch(family, rng, n, 2), torch.Generator(device=dev).manual_seed(1))
+    torch.cuda.synchronize()
+    launched = [fn.launches - b for fn, b in zip(counted, before)]
+    assert launched == [12, 12, family.horizon_states(n)[1], 0, 0]
+    assert all(bool(torch.isfinite(v)) for v in info)
+    assert all(not torch.equal(start[k], v) for k, v in state.net.state_dict().items()
+               if v.dim() == 2)

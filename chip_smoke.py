@@ -82,7 +82,7 @@ Phases, one JSON line each:
    arm's (the same Philox noise), its cost@T10 within 1% of the plain
    arm's, within 1% of the per-step construction's recorded 60.5116
    (``PER_STEP_CVRP_T10``) and below the classic arm's;
-11. CVRP training at the CVRP500 envelope (``cvrp_train_config``: 500
+11. CVRP training at the CVRP500 envelope (``family_train_config("cvrp")``: 500
    customers, capacity 50, 50 ants, batch 1, lr 3e-4, the 12-layer Net on
    the dense graph, K = N = 501; nothing cut but the number of steps):
    (a) one step from the seed's weights on the first batch ``train_family``
@@ -117,17 +117,41 @@ Phases, one JSON line each:
    dropped-deposit rates. Every best tour must be a permutation costing
    what the run reports, and the kernel arm's cost@T1 must lie within 1e-4
    of the plain arm's (the same noise; only K9's rounding parts them);
-14. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
+14. the per-step families (``family_phase``), each at its largest golden
+   scale with its largest checkpoint (12 layers, 32 units): OP300
+   (``op300_selftrained``, 100 instances, max_len 6, k=30), PCTSP500 and
+   SMTWTP500 (100 instances each, K = N = 501; SMTWTP without the node
+   update). K9 against its plain version on the family's graph, K7 on the
+   rows of one construction at a third and two thirds of its horizon
+   (actions exact), K8 on its routes (PCTSP's parked on the depot) held as
+   in phase 9; the path (``evaluate_family``, A=20, T=1 and 10) in a kernel
+   arm (K9 once, K7 10 x horizon, K8 10), a plain arm on the card
+   (``drivers.PLAIN_OPS``, the same generator seed) and a classic arm, each
+   with its costs, wall, phase times, peak memory and launches; every best
+   solution valid and scoring what the run says, the kernel arm's cost@T1
+   within 1e-4 of the plain arm's, its cost@T10 within 1% of it and better
+   than the classic arm's (higher for OP, which maximizes); training at the
+   family's envelope (``family_train_config``: OP300 and PCTSP500 with 20
+   ants, SMTWTP500 with 50, batch 1, lr 3e-4): one step kernel arm against
+   plain arm held as in phase 11, K6 forward and backward on its graph and
+   K7 on its rows, two steps of ``make_family_train_step`` with exactly 12
+   + 12 K6 and ``horizon`` K7 launches a step and no K9, K7c or K8; and
+   ``cli.main(["test", name, ...])`` on the card, whose costs must be the
+   kernel arm's;
+15. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7 from the
    TSP500-NLS training run, K7c and K8 from the CVRP path's kernel arm, K9
    from the sparse and the CVRP paths' kernel arms together; row 9 is on no
    path of either package, so its count is 0), error, times and bound; K6's
    and K7's entries also carry ``cvrp_train``: their launches in phase
-   11's three steps and their times, error and bound at its shapes.
+   11's three steps and their times, error and bound at its shapes; K6,
+   K7, K8 and K9 carry ``op``, ``pctsp`` and ``smtwtp``: their launches on
+   that family's kernel arm (K7, K8, K9) and in its two training steps (K6,
+   K7), with their error, times and bound at its shapes.
 
-Every path's cost (main cost@T10, NLS, CVRP and sparse cost@T1 and
-cost@T10, and both for the plain arms of the main, NLS and sparse paths)
-must equal the one recorded in ``RECORDED_COSTS`` to the 4 decimals
+Every path's cost (main cost@T10, NLS, CVRP, sparse, OP, PCTSP and
+SMTWTP cost@T1 and cost@T10, and both for the plain arms of the main, NLS
+and sparse paths) must equal the one recorded in ``RECORDED_COSTS`` to the 4 decimals
 recorded: the kernels are exact or held to their plain versions, and the
 inputs and seeds are fixed. K1's and K9's ``{"phase": "kernel"}`` lines
 also carry ``design_floor_ms``, the time their streamed edge state takes
@@ -154,6 +178,18 @@ B_TRAIN, A_TRAIN_NLS, A_TRAIN = 20, 30, 50     # the training envelopes (A_TRAIN
 TRAIN_STEPS = {"tsp500": 4, "tsp500_nls": 2}
 CVRP_TRAIN_STEPS, CVRP_VAL_B = 3, 4             # make_family_train_step's run; validation cut
 CVRP_N, CVRP_CKPT = 500, "checkpoints/cvrp500_selftrained.msgpack"
+# each family path's scale, checkpoint (the largest committed), and its
+# training envelope from RESULTS.md:175-181: ants, epochs, steps an epoch
+FAMILY_PATHS = {"cvrp": (CVRP_N, CVRP_CKPT, A_TRAIN, 5, 128),
+                "op": (300, "checkpoints/op300_selftrained.msgpack", 20, 15, 64),
+                "pctsp": (500, "checkpoints/pctsp500_selftrained.msgpack", 20, 15, 128),
+                "smtwtp": (500, "checkpoints/smtwtp500_selftrained.msgpack", 50, 5, 128)}
+PER_STEP = ("op", "pctsp", "smtwtp")   # the families that construct through K7 a step
+FAMILY_TRAIN_STEPS = 2
+FAMILY_PICK_AT = (0.0, 1 / 3, 2 / 3)    # K7's checks on their rows, as shares of the horizon
+# the JAX package's costs at T1 and T10 (RESULTS.md:175, 178, 179): quality
+# anchors, not speed targets
+JAX_COSTS = {"op": (72.78, 80.08), "pctsp": (16.20, 15.70), "smtwtp": (0.662, 0.572)}
 CVRP_PICK_AT = (0.0, 0.15, 0.4, 0.7)   # K7's CVRP checks, as shares of the horizon
 SPARSE_N, SPARSE_B, SPARSE_LS_B = 2000, 30, 4    # the CLI's TSP2000 set; 2-opt arm's cut
 SPARSE_T, SPARSE_LS_T = (1, 10), (1, 2)
@@ -165,7 +201,9 @@ SPARSE_T, SPARSE_LS_T = (1, 10), (1, 2)
 RECORDED_COSTS = {"main": (None, 19.6391), "main_plain": (20.6735, 19.6335),
                   "nls": (17.1227, 16.9536), "nls_plain": (17.1133, 16.9749),
                   "cvrp": (61.7577, 60.5177),
-                  "sparse": (48.2913, 45.1827), "sparse_plain": (48.2913, 45.1980)}
+                  "sparse": (48.2913, 45.1827), "sparse_plain": (48.2913, 45.1980),
+                  "op": (72.9418, 80.2401), "pctsp": (16.1978, 15.7033),
+                  "smtwtp": (0.6446, 0.5644)}
 # the CVRP kernel arm's cost@T10 as recorded through the per-step
 # construction (K7 a step, torch.rand noise); the one-pass construction
 # samples the same law and is held within 1% of it
@@ -283,26 +321,46 @@ def drive(net, coords, ops=None, ls: str | None = None):
                         _ops=ops or KERNEL_OPS)
 
 
-def cvrp_inputs(root: Path, dev):
-    """The CVRP path's weights (``cvrp500_selftrained``: 12 layers, 32 units,
-    demand as the node feature) and the golden CVRP500 set (numpy)."""
+def family_inputs(root: Path, dev, name: str = "cvrp"):
+    """A family path's weights (its largest checkpoint: 12 layers, 32 units;
+    CVRP's ``cvrp500_selftrained`` with demand as the node feature) and its
+    golden set at that scale (numpy)."""
     from deepaco_tpu_torch.families import get_family
     from deepaco_tpu_torch.train.drivers import family_model
     from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
-    from deepaco_tpu_torch.utils.golden import cvrp_test
+    from deepaco_tpu_torch.utils.golden import GOLDEN
 
-    net = family_model(get_family("cvrp"), load_checkpoint(str(root / CVRP_CKPT)))
-    return net.to(dev), cvrp_test(CVRP_N)
+    n, ckpt = FAMILY_PATHS[name][:2]
+    net = family_model(get_family(name), load_checkpoint(str(root / ckpt)))
+    return net.to(dev), GOLDEN[name](n)
 
 
-def drive_cvrp(net, ds, ops=None):
-    """One call of the CVRP path's entry point, ``evaluate_family`` (``net=None``
+def drive_family(net, ds, ops=None, name: str = "cvrp"):
+    """One call of a family path's entry point, ``evaluate_family`` (``net=None``
     is the classic arm); returns ``(means, curves, final state)``."""
     from deepaco_tpu_torch.train.drivers import KERNEL_OPS, evaluate_family
 
-    return evaluate_family("cvrp", ds, n_nodes=CVRP_N, net=net, n_ants=A,
+    return evaluate_family(name, ds, n_nodes=FAMILY_PATHS[name][0], net=net, n_ants=A,
                            t_values=T_VALUES, seed=SEED, return_state=True,
                            _ops=ops or KERNEL_OPS)
+
+
+def valid_solutions(name: str, paths, inst):
+    """Each solution's feasibility ``[B, A]`` by the family's validator, on
+    the prepared instance."""
+    from deepaco_tpu_torch.aco.problems.cvrp import validate_routes
+    from deepaco_tpu_torch.aco.problems.op import validate_op
+    from deepaco_tpu_torch.aco.problems.pctsp import validate_pctsp
+    from deepaco_tpu_torch.aco.problems.smtwtp import validate_smtwtp
+    from deepaco_tpu_torch.families import CVRP_CAPACITY
+
+    if name == "cvrp":
+        return validate_routes(paths, inst["demand"], CVRP_CAPACITY)
+    if name == "op":
+        return validate_op(paths, inst["dist"], inst["max_len"])
+    if name == "pctsp":
+        return validate_pctsp(paths, inst["prizes"], (inst["prizes"].shape[-1] - 1) / 4.0)
+    return validate_smtwtp(paths)
 
 
 def sparse_args(root: Path, *extra: str, t_values=None, limit: int | None = None):
@@ -378,11 +436,13 @@ def check_embnet_layers(cuda_ms, net, g, config: str) -> dict:
         score_flips = ((got[-1] + 1e-10).log().to(torch.bfloat16)
                        != (want[-1] + 1e-10).log().to(torch.bfloat16)).float().mean().item()
         del got, want
-        ms = cuda_ms(lambda: fused_gnn.embnet_layers(f, x, g.nbr, g.edge, k=k), 3)
-        plain_ms = cuda_ms(lambda: fused_gnn.embnet_layers_plain(f, x, g.nbr, g.edge, k=k), 1)
+        nu = net.emb_net.node_update
+        ms = cuda_ms(lambda: fused_gnn.embnet_layers(f, x, g.nbr, g.edge, k=k, node_update=nu), 3)
+        plain_ms = cuda_ms(lambda: fused_gnn.embnet_layers_plain(f, x, g.nbr, g.edge, k=k,
+                                                                 node_update=nu), 1)
     nbytes, ops, product_ops, floor_bytes = k9_work(b, n, k, e, layers, u)
     emit({"phase": "kernel", "name": "embnet_layers", "config": config, "B": b, "N": n,
-          "K": k, "E": e, "layers": layers, "passed": ok, "max_abs_err": err,
+          "K": k, "E": e, "layers": layers, "node_update": nu, "passed": ok, "max_abs_err": err,
           "max_log_heu_err": log_err, "bf16_score_entries_differing": score_flips,
           "ms": ms, "plain_ms": plain_ms,
           "design_floor_ms": floor_bytes / HBM_BYTES_PER_S * 1e3,
@@ -459,10 +519,11 @@ def cvrp_rollout(dev, ds):
     return paths, 1.0 / route_cost(dist, paths), captured
 
 
-def check_pick_at_cvrp_shape(cuda_ms, captured) -> dict:
-    """K7 against its plain version on the CVRP rollout's own score, mask
-    (depot and capacity) and noise at several steps: actions exactly equal
-    and allowed, logp rtol 1e-5 / atol 1e-5."""
+def check_pick_rows(cuda_ms, captured, shares=CVRP_PICK_AT) -> dict:
+    """K7 against its plain version on a rollout's own score, mask (CVRP's
+    depot and capacity, OP's budget and dummy node, PCTSP's gate and
+    parking) and noise at the steps of ``shares`` of its horizon: actions
+    exactly equal and allowed, logp rtol 1e-5 / atol 1e-5."""
     import torch
 
     from deepaco_tpu_torch.ops import pick
@@ -486,7 +547,7 @@ def check_pick_at_cvrp_shape(cuda_ms, captured) -> dict:
         ms = cuda_ms(lambda: pick.fused_pick(score, mask, noise), 50)
         plain_ms = cuda_ms(lambda: pick.fused_pick_plain(score, mask, noise), 20)
     rows, n = score.shape
-    return {"rows": rows, "N": n, "passed": len(captured) == len(CVRP_PICK_AT) and ok,
+    return {"rows": rows, "N": n, "passed": len(captured) == len(shares) and ok,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "steps": steps,
             **dict(zip(("bound_ms", "bound_by"), bound(3 * 4 * rows * n + 12 * rows,
                                                         6 * rows * n)))}
@@ -547,57 +608,63 @@ def check_cvrp_construct(dev, cuda_ms, ds) -> dict:
             **dict(zip(("bound_ms", "bound_by"), bound(nbytes, 8 * steps * n)))}
 
 
-def check_deposit(dev, cuda_ms, tsp_paths, tsp_amounts, cvrp_paths, cvrp_amounts) -> dict:
-    """K8 against ``scatter_add_`` at the CVRP path's shape (routes sampled by
-    K7 on ``1/d``) and at the main path's (K2's tours); returns K8's entry of
-    the kernels' line and emits one line."""
+def deposit_case(dev, cuda_ms, p, w, n: int, cyclic: bool) -> dict:
+    """K8 on ``paths [B, L, A]`` and ``amounts [B, A]`` over ``n`` nodes:
+    equal bits to ``scatter_add_`` on the CPU and on a second launch, within
+    the rounding of two sums in other orders of ``scatter_add_`` on the card;
+    its time and ``torch.scatter_add``'s, timed in turns."""
     import torch
 
     from deepaco_tpu_torch.ops import deposit
 
+    b, l, a = p.shape
+    got = deposit.tour_deposit(p, w, n, cyclic=cyclic)
+    again = deposit.tour_deposit(p, w, n, cyclic=cyclic)
+    plain = deposit.tour_deposit_plain(p, w, n, cyclic=cyclic)
+    cpu = deposit.tour_deposit_plain(p.cpu(), w.cpu(), n, cyclic=cyclic)
+    u, v = deposit.tour_edges(p, cyclic)
+    index, values = (u * n + v).flatten(-2), w[..., None].expand(u.shape).flatten(-2)
+    zeros = torch.zeros((b, n * n), device=dev)
+    edges = index.shape[-1]
+    # k, the terms of each entry: two sums of k positive terms in other
+    # orders differ by at most 2 k 2^-24 of their value
+    k = deposit.tour_deposit_plain(p, torch.ones_like(w), n, cyclic=cyclic)
+    # K8 and scatter_add take a tenth of a millisecond, so a stall of the
+    # host between launches shows in a mean: both are timed the same way,
+    # in turns, and each reports the median of 5 means of 20 launches
+    means = {"ms": [], "library_ms": []}
+    for _ in range(5):
+        means["ms"].append(cuda_ms(lambda: deposit.tour_deposit(p, w, n, cyclic=cyclic), 20))
+        means["library_ms"].append(
+            cuda_ms(lambda: torch.scatter_add(zeros, -1, index, values), 20))
+    out = {
+        "B": b, "L": l, "A": a, "n": n, "cyclic": cyclic,
+        "self_loops_per_instance": ((u == v).sum() / b).item(),
+        "max_terms_an_entry": k.max().item(),
+        "equal_to_cpu_scatter": torch.equal(got.cpu(), cpu),
+        "deterministic": torch.equal(got, again),
+        "close_to_card_scatter": bool(((got - plain).abs() <= 2 * k * 2.0 ** -24 * got).all()),
+        "max_rel_err_card_scatter": ((got - plain).abs() / got.clamp_min(1e-30)).max().item(),
+        "max_abs_err": (got - plain).abs().max().item(),
+        "ms": statistics.median(means["ms"]),
+        "plain_ms": cuda_ms(lambda: deposit.tour_deposit_plain(p, w, n, cyclic=cyclic), 5),
+        "library_ms": statistics.median(means["library_ms"]),
+        "means_ms": means,
+        # paths (int64) and amounts read once, D written once; one add an edge
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            8 * b * l * a + 4 * b * a + 4 * b * n * n, b * edges)))}
+    out["passed"] = all(out[key] for key in (
+        "equal_to_cpu_scatter", "deterministic", "close_to_card_scatter"))
+    return out
+
+
+def check_deposit(dev, cuda_ms, tsp_paths, tsp_amounts, cvrp_paths, cvrp_amounts) -> dict:
+    """K8 against ``scatter_add_`` at the CVRP path's shape (routes sampled by
+    K7 on ``1/d``) and at the main path's (K2's tours); returns K8's entry of
+    the kernels' line and emits one line."""
     cases = {"cvrp": (cvrp_paths, cvrp_amounts, CVRP_N + 1, False),
              "tsp": (tsp_paths, tsp_amounts, N, True)}
-    out = {}
-    for name, (p, w, n, cyclic) in cases.items():
-        b, l, a = p.shape
-        got = deposit.tour_deposit(p, w, n, cyclic=cyclic)
-        again = deposit.tour_deposit(p, w, n, cyclic=cyclic)
-        plain = deposit.tour_deposit_plain(p, w, n, cyclic=cyclic)
-        cpu = deposit.tour_deposit_plain(p.cpu(), w.cpu(), n, cyclic=cyclic)
-        u, v = deposit.tour_edges(p, cyclic)
-        index, values = (u * n + v).flatten(-2), w[..., None].expand(u.shape).flatten(-2)
-        zeros = torch.zeros((b, n * n), device=dev)
-        edges = index.shape[-1]
-        # k, the terms of each entry: two sums of k positive terms in other
-        # orders differ by at most 2 k 2^-24 of their value
-        k = deposit.tour_deposit_plain(p, torch.ones_like(w), n, cyclic=cyclic)
-        # K8 and scatter_add take a tenth of a millisecond, so a stall of the
-        # host between launches shows in a mean: both are timed the same way,
-        # in turns, and each reports the median of 5 means of 20 launches
-        means = {"ms": [], "library_ms": []}
-        for _ in range(5):
-            means["ms"].append(cuda_ms(lambda: deposit.tour_deposit(p, w, n, cyclic=cyclic), 20))
-            means["library_ms"].append(
-                cuda_ms(lambda: torch.scatter_add(zeros, -1, index, values), 20))
-        out[name] = {
-            "B": b, "L": l, "A": a, "n": n, "cyclic": cyclic,
-            "self_loops_per_instance": ((u == v).sum() / b).item(),
-            "max_terms_an_entry": k.max().item(),
-            "equal_to_cpu_scatter": torch.equal(got.cpu(), cpu),
-            "deterministic": torch.equal(got, again),
-            "close_to_card_scatter": bool(((got - plain).abs()
-                                           <= 2 * k * 2.0 ** -24 * got).all()),
-            "max_rel_err_card_scatter": ((got - plain).abs() / got.clamp_min(1e-30)).max().item(),
-            "max_abs_err": (got - plain).abs().max().item(),
-            "ms": statistics.median(means["ms"]),
-            "plain_ms": cuda_ms(lambda: deposit.tour_deposit_plain(p, w, n, cyclic=cyclic), 5),
-            "library_ms": statistics.median(means["library_ms"]),
-            "means_ms": means,
-            # paths (int64) and amounts read once, D written once; one add an edge
-            **dict(zip(("bound_ms", "bound_by"), bound(
-                8 * b * l * a + 4 * b * a + 4 * b * n * n, b * edges)))}
-        out[name]["passed"] = all(out[name][k] for k in (
-            "equal_to_cpu_scatter", "deterministic", "close_to_card_scatter"))
+    out = {name: deposit_case(dev, cuda_ms, *case) for name, case in cases.items()}
     emit({"phase": "kernel", "name": "tour_deposit", **out,
           "tolerance": "equal bits to scatter_add_ on the CPU (ant-major, one add at a "
                        "time) and on a second launch; to scatter_add_ on the card (atomics "
@@ -613,19 +680,17 @@ def check_deposit(dev, cuda_ms, tsp_paths, tsp_amounts, cvrp_paths, cvrp_amounts
             **{k: c[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}}
 
 
-def check_layer_at_cvrp_width(dev, cuda_ms, net, ds, backward: bool = False) -> dict:
-    """K6's forward at a CVRP shape (B instances of ``ds``, N = K = 501,
-    U=32) on the first layer's real inputs, against its plain version; with
-    ``backward`` also K6's backward on random cotangents (``"backward"``)."""
+def check_layer(dev, cuda_ms, net, g, backward: bool = False) -> dict:
+    """K6's forward on a path's graph ``g`` (CVRP's dense one at N = K =
+    501, OP's k-NN one, ...; U=32) on the first layer's real inputs, against
+    its plain version; with ``backward`` also K6's backward on random
+    cotangents (``"backward"``)."""
     import torch
     from torch.nn import functional as F
 
-    from deepaco_tpu_torch.core.builders import cvrp_graph
     from deepaco_tpu_torch.ops import gnn_layer
 
     emb = net.emb_net
-    g = cvrp_graph(torch.as_tensor(ds["demand"], device=dev),
-                   torch.as_tensor(ds["dist"], device=dev))
     b, n, k = g.nbr.shape
     u = emb.units
     with torch.no_grad():
@@ -937,62 +1002,64 @@ def train_step_arms(dev, name: str) -> dict:
             **step_agreement(cfg, net_k, net_p, before, out_k, out_p, advantage)}
 
 
-def cvrp_train_config():
-    """CVRP500 training at the envelope that trained ``cvrp500_selftrained``
-    (cvrp/train.ipynb; RESULTS.md:181): 500 customers (demands 1-9,
-    capacity 50), 50 ants, batch 1, lr 3e-4, AdamW with weight decay 1e-2,
-    clip 3.0, 5 x 128 steps; the family's Net (demand as the node feature,
-    12 layers, 32 units) on the dense graph with self-loops, K = N = 501."""
+def family_train_config(name: str = "cvrp"):
+    """A family's training at the envelope that trained its largest
+    checkpoint (RESULTS.md:175-181): batch 1, lr 3e-4, AdamW with weight
+    decay 1e-2, clip 3.0, the family's 12-layer 32-unit Net. CVRP500
+    (cvrp/train.ipynb): 500 customers (demands 1-9, capacity 50), 50 ants,
+    5 x 128 steps, the dense graph with self-loops, K = N = 501. OP300: 20
+    ants, 15 x 64 steps, the k-NN graph, K = 30. PCTSP500: 20 ants, 15 x 128
+    steps, the dense graph, K = N = 501. SMTWTP500: 50 ants, 5 x 128 steps,
+    the dense job graph, K = N = 501, no node update."""
     from deepaco_tpu_torch.train.config import ACOSettings, ProblemConfig, TrainConfig
 
+    n, _, ants, epochs, steps = FAMILY_PATHS[name]
     return ProblemConfig(
-        name="cvrp", n_nodes=CVRP_N, k_sparse=max(CVRP_N // 10, 3),
-        aco=ACOSettings(n_ants=A_TRAIN),
-        train=TrainConfig(lr=3e-4, weight_decay=1e-2, grad_clip=3.0, epochs=5,
-                          steps_per_epoch=128, batch_size=1, cosine_schedule=False,
+        name=name, n_nodes=n, k_sparse=max(n // 10, 3),
+        aco=ACOSettings(n_ants=ants),
+        train=TrainConfig(lr=3e-4, weight_decay=1e-2, grad_clip=3.0, epochs=epochs,
+                          steps_per_epoch=steps, batch_size=1, cosine_schedule=False,
                           seed=SEED))
 
 
-def cvrp_train_inputs(dev):
-    """Where ``train_family("cvrp", cvrp_train_config())`` starts: the
+def family_train_inputs(dev, name: str = "cvrp"):
+    """Where ``train_family(name, family_train_config(name))`` starts: the
     family, the configuration, the state initialised from the seed (one
-    instance drawn and dropped, as ``init_family_state`` does), and the
-    numpy stream and generator that the steps go on drawing from."""
+    instance drawn for the template graph, as ``init_family_state`` does),
+    and the numpy stream and generator that the steps go on drawing from."""
     import numpy as np
     import torch
 
     from deepaco_tpu_torch.families import get_family
     from deepaco_tpu_torch.train import drivers
 
-    family, cfg = get_family("cvrp"), cvrp_train_config()
+    family, cfg = get_family(name), family_train_config(name)
     rng = np.random.default_rng(cfg.train.seed)
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
     return family, cfg, drivers.init_family_state(family, cfg, rng, gen), rng, gen
 
 
-def cvrp_train_step_arms(dev):
-    """One CVRP training step from the seed's weights on the first batch
-    that ``train_family`` draws: the kernel arm samples through K6 and K7 a
-    step, the plain arm replays its paths with the plain layer. Returns the
-    comparison (with the routes' validity and costs), K7's inputs at the
-    shares CVRP_PICK_AT of the rollout, the batch and the stepped net."""
+def family_train_step_arms(dev, name: str = "cvrp", shares=CVRP_PICK_AT):
+    """One training step of a family from the seed's weights on the first
+    batch that ``train_family`` draws: the kernel arm samples through K6 and
+    K7 a step, the plain arm replays its paths with the plain layer. Returns
+    the comparison (with the solutions' validity and costs), K7's inputs at
+    the ``shares`` of the rollout, the batch and the stepped net."""
     import copy
 
     import torch
 
-    from deepaco_tpu_torch.aco.problems.cvrp import route_cost, validate_routes
-    from deepaco_tpu_torch.families import CVRP_CAPACITY
     from deepaco_tpu_torch.ops import pick
     from deepaco_tpu_torch.train import drivers
 
-    family, cfg, state, rng, gen = cvrp_train_inputs(dev)
+    family, cfg, state, rng, gen = family_train_inputs(dev, name)
     net_k = state.net
     net_p = copy.deepcopy(net_k)
     before = copy.deepcopy(net_k.state_dict())
     batch = drivers.gen_batch(family, rng, cfg.n_nodes, cfg.train.batch_size)
-    inst = drivers.instance_tensors(batch, dev)
+    inst = family.prepare(drivers.instance_tensors(batch, dev))
     horizon = family.horizon_states(cfg.n_nodes)[1]
-    at = {int(f * horizon) for f in CVRP_PICK_AT}
+    at = {int(f * horizon) for f in shares}
     steps = iter(range(horizon))
     captured = []
 
@@ -1008,15 +1075,236 @@ def cvrp_train_step_arms(dev):
     out_p = drivers.family_loss(family, net_p, inst, cfg, gen, paths=out_k.paths,
                                 _ops=drivers.PLAIN_OPS)
     out_p.loss.backward()
-    valid = validate_routes(out_k.paths, inst["demand"], CVRP_CAPACITY)
-    costs_match = bool(torch.equal(route_cost(inst["dist"], out_k.paths), out_k.costs))
+    valid = valid_solutions(name, out_k.paths, inst)
+    costs_match = bool(torch.equal(family.cost(out_k.paths, inst), out_k.costs))
     check = step_agreement(cfg, net_k, net_p, before, out_k, out_p,
                            out_k.costs - out_k.costs.mean(dim=-1, keepdim=True))
     check.update(valid_routes=int(valid.sum()), routes=valid.numel(),
                  route_costs_match=costs_match,
                  passed=check["passed"] and bool(valid.all()) and costs_match)
-    return ({"B": cfg.train.batch_size, "N": cfg.n_nodes + 1, "A": cfg.aco.n_ants, **check},
+    n_states = family.horizon_states(cfg.n_nodes)[0]
+    return ({"B": cfg.train.batch_size, "N": n_states, "A": cfg.aco.n_ants, **check},
             captured, batch, net_k)
+
+
+def family_rollout(dev, name: str, net, ds):
+    """One construction of a per-step family's path at its full size (the
+    golden set, A=20) on its neural heuristic with tau = 1, a K7 a step.
+    Returns the paths, the update's amounts (``q * objective`` for OP,
+    ``1 / (cost + offset)`` else), the graph, and K7's inputs at the shares
+    FAMILY_PICK_AT of the horizon."""
+    import torch
+
+    from deepaco_tpu_torch.aco.engine import rollout
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.ops import pick
+    from deepaco_tpu_torch.train import drivers
+
+    fam = get_family(name)
+    inst = fam.prepare(drivers.instance_tensors(ds, dev))
+    n = FAMILY_PATHS[name][0]
+    with torch.no_grad():
+        heu = drivers._forward_heu(fam, net.eval(), inst, fam.k_sparse(n))
+    spec = fam.spec(torch.ones_like(heu), heu, inst, A)
+    at = {int(f * spec.horizon) for f in FAMILY_PICK_AT}
+    steps = iter(range(spec.horizon))
+    captured = []
+
+    def capture(score, mask, noise):
+        step = next(steps)
+        if step in at:
+            captured.append((step, score.clone(), mask.clone(), noise.clone()))
+        return pick.fused_pick(score, mask, noise)
+
+    with torch.no_grad():
+        paths = rollout(spec, torch.Generator(device=dev).manual_seed(SEED + 12),
+                        pick=capture).paths
+        costs = fam.cost(paths, inst)
+    q = fam.extras(inst).get("q")
+    amounts = q[:, None] * costs if fam.aco.maximize else 1.0 / (costs + fam.aco.cost_offset)
+    return paths, amounts, fam.graph(inst, fam.k_sparse(n)), captured
+
+
+def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dict:
+    """Phase 14 for one per-step family (OP300, PCTSP500, SMTWTP500): its
+    kernels against their plain versions at its shapes, its path in three
+    arms, its training at the envelope, and the CLI's ``test``. Emits one
+    line for the path and one for training, and returns what the kernels'
+    line and the checks read."""
+    import io
+
+    import torch
+
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.models.gnn import jax_layout
+    from deepaco_tpu_torch.ops import deposit, fused_gnn, gnn_layer, pick
+    from deepaco_tpu_torch.ops import cvrp_construct as cc
+    from deepaco_tpu_torch.train import drivers
+
+    fam = get_family(name)
+    n, ckpt = FAMILY_PATHS[name][:2]
+    n_states, horizon = fam.horizon_states(n)
+    sign = -1.0 if fam.aco.maximize else 1.0
+    net, ds = family_inputs(root, dev, name)
+    inst = fam.prepare(drivers.instance_tensors(ds, dev))
+    b = next(iter(inst.values())).shape[0]
+    out = {"checks": {}}
+
+    # kernels at the family's shapes: K9 on its graph, K7 on its rows, K8
+    # on its routes (PCTSP's park on the depot, its self-loop repeated)
+    paths, amounts, g, picks = family_rollout(dev, name, net, ds)
+    out["k9"] = check_embnet_layers(cuda_ms, net, g, f"{name}{n}, K = {g.nbr.shape[-1]}")
+    out["k7"] = check_pick_rows(cuda_ms, picks, FAMILY_PICK_AT)
+    emit({"phase": "kernel", "name": "fused_pick", "config": f"{name}{n} rollout, N = "
+          f"{n_states}", **out["k7"], "tolerance": "actions exact and allowed; logp rtol "
+          "1e-5, atol 1e-5 (logsumexp order, expf/logf against torch's)"})
+    out["k8"] = deposit_case(dev, cuda_ms, paths, amounts, n_states, False)
+    out["k8"]["below_library"] = out["k8"]["ms"] < out["k8"]["library_ms"]
+    emit({"phase": "kernel", "name": "tour_deposit", "config": f"{name}{n} routes",
+          **out["k8"], "tolerance": "as phase 9"})
+    del paths, amounts, g, picks
+    out["checks"].update(k9=out["k9"]["passed"], k7=out["k7"]["passed"],
+                         k8=out["k8"]["passed"])
+
+    # the path in three arms, each with the counts set to 0 just before it
+    # and read just after
+    def arm(net_arg, ops):
+        timer = timer_cls()
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        cost, curves, state = drive_family(net_arg, ds, ops._replace(timer=timer), name)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        best = state.best_path[..., None]
+        valid = valid_solutions(name, best, inst)[:, 0]
+        recost = fam.cost(best, inst)[:, 0]
+        return {"cost": cost.tolist(), "wall_s": wall, "phase_ms": timer.ms(),
+                "launches": {fn.__name__: fn.launches for fn in (
+                    fused_gnn.embnet_layers, gnn_layer.fused_gnn_layer, pick.fused_pick,
+                    deposit.tour_deposit, cc.cvrp_construct)},
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                "finite": bool(torch.isfinite(curves).all())
+                and curves.shape == (b, max(T_VALUES)),
+                "monotone": bool((sign * curves[:, 1:] <= sign * curves[:, :-1]).all()),
+                "valid_best": int(valid.sum()),
+                "best_cost_is_cost": bool(torch.allclose(recost, state.best_cost, rtol=1e-5))}
+
+    arms = {"kernel": arm(net, drivers.KERNEL_OPS), "plain": arm(net, drivers.PLAIN_OPS),
+            "classic": arm(None, drivers.KERNEL_OPS)}
+    t_max = max(T_VALUES)
+    want = {"kernel": {"embnet_layers": 1, "fused_gnn_layer": 0, "fused_pick": t_max * horizon,
+                       "tour_deposit": t_max, "cvrp_construct": 0},
+            "plain": {"embnet_layers": 0, "fused_gnn_layer": 0, "fused_pick": 0,
+                      "tour_deposit": 0, "cvrp_construct": 0},
+            "classic": {"embnet_layers": 0, "fused_gnn_layer": 0,
+                        "fused_pick": t_max * horizon, "tour_deposit": t_max,
+                        "cvrp_construct": 0}}
+    ck, cp, cc_ = (arms[a]["cost"] for a in ("kernel", "plain", "classic"))
+    out["checks"].update(
+        arms=all(r["finite"] and r["monotone"] and r["valid_best"] == b
+                 and r["best_cost_is_cost"] for r in arms.values()),
+        launches=all(arms[a]["launches"] == want[a] for a in arms),
+        # the arms draw the same noise: at T1 only K9's rounding parts them
+        t1_kernel_vs_plain=abs(ck[0] - cp[0]) <= 1e-4 * abs(cp[0]),
+        t10_kernel_vs_plain=abs(ck[-1] - cp[-1]) <= 0.01 * abs(cp[-1]),
+        neural_beats_classic=sign * ck[-1] < sign * cc_[-1])
+    emit({"phase": f"{name}_path", "B": b, "N": n_states, "A": A, "T": list(T_VALUES),
+          "ckpt": ckpt, "jax_costs": JAX_COSTS[name], "launches_expected": want, **arms})
+    out["arms"] = arms
+
+    # training at the envelope: (a) one step, kernel arm against plain arm
+    step_check, train_picks, train_batch, train_net = family_train_step_arms(
+        dev, name, FAMILY_PICK_AT)
+    tinst = fam.prepare(drivers.instance_tensors(train_batch, dev))
+    layer = check_layer(dev, cuda_ms, train_net, fam.graph(tinst, fam.k_sparse(n)),
+                        backward=True)
+    pick_train = check_pick_rows(cuda_ms, train_picks, FAMILY_PICK_AT)
+    del train_net, train_picks
+    # (b) two steps of make_family_train_step, the counts set to 0 just
+    # before each and read just after
+    _, cfg, state, rng, gen = family_train_inputs(dev, name)
+    timer = timer_cls()
+    step_fn = drivers.make_family_train_step(fam, cfg, _ops=drivers.KERNEL_OPS._replace(
+        timer=timer))
+    start = {k: v.clone() for k, v in jax_layout(state.net.state_dict(), state.net).items()}
+    rows = []
+    for i in range(FAMILY_TRAIN_STEPS):
+        batch = drivers.gen_batch(fam, rng, cfg.n_nodes, 1)
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, info = step_fn(state, batch, gen)
+        torch.cuda.synchronize()
+        rows.append({"step": i, "loss": info.loss.item(), "mean_cost": info.mean_cost.item(),
+                     "grad_norm": info.grad_norm.item(),
+                     "wall_ms": (time.perf_counter() - t0) * 1e3, "phase_ms": timer.take(),
+                     "launches": {fn.__name__: fn.launches for fn in counted}})
+    depth = state.net.depth
+    want_step = {"fused_gnn_layer": depth, "fused_gnn_layer_backward": depth,
+                 "fused_pick": horizon, "cvrp_construct": 0, "embnet_layers": 0,
+                 "tour_deposit": 0}
+    moved = all(not torch.equal(start[k], v)
+                for k, v in jax_layout(state.net.state_dict(), state.net).items()
+                if v.dim() == 2 or "running" in k)
+    del state, start
+    # (c) the CLI's test on the card: the kernel arm, through the CLI
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        cli_means, _ = cli.main(["test", name, "-n", str(n), "-c", str(root / ckpt),
+                                 "-a", str(A), "--seed", str(SEED), "-t", *map(str, T_VALUES)])
+    cli_lines = text.getvalue().splitlines()
+    out["cli_costs"] = [float(v) for v in cli_means]
+    out["train_launches"] = {fn.__name__: sum(r["launches"][fn.__name__] for r in rows)
+                             for fn in counted}
+    out["layer"], out["pick_train"] = layer, pick_train
+    out["checks"].update(
+        step_agreement=step_check["passed"], k6_forward=layer["passed"],
+        k6_backward=layer["backward"]["passed"], k7_train=pick_train["passed"],
+        step_launches=all({k: r["launches"][k] for k in want_step} == want_step
+                          for r in rows),
+        train_finite=all(math.isfinite(r[key]) for r in rows
+                         for key in ("loss", "mean_cost", "grad_norm")),
+        weights_moved=moved,
+        cli_lines=cli_lines[1:-1] == [f"T={t}, average cost is {v:.6f}."
+                                      for t, v in zip(T_VALUES, cli_means)],
+        cli_is_kernel_arm=[round(v, 4) for v in out["cli_costs"]]
+        == [round(v, 4) for v in ck])
+    emit({"phase": f"{name}_train", "B": 1, "N": n_states, "A": cfg.aco.n_ants,
+          "lr": cfg.train.lr, "epochs_x_steps": [cfg.train.epochs, cfg.train.steps_per_epoch],
+          "step_agreement": step_check, "k6": layer, "k7": pick_train, "steps": rows,
+          "launches_per_step_expected": want_step,
+          "cli": {"argv": ["test", name, "-n", str(n), "-c", ckpt], "lines": cli_lines},
+          "checks": out["checks"]})
+    return out
+
+
+def family_kernel_fields(r: dict) -> dict:
+    """A per-step family's fields of K6, K7, K8 and K9 in the kernels' line,
+    from ``family_phase``'s result: the launches on its kernel arm (K7, K8,
+    K9) and in its training steps (K6, K7), and the error, times and bound
+    at its shapes."""
+    take = lambda d, keys: {k: d[k] for k in keys if k in d}
+    timing = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    launches = r["arms"]["kernel"]["launches"]
+    train = {"train_steps": FAMILY_TRAIN_STEPS}
+    return {
+        "embnet_layers": {"launches": launches["embnet_layers"], **take(r["k9"], timing)},
+        "fused_pick": {"launches": launches["fused_pick"],
+                       "train_launches": r["train_launches"]["fused_pick"], **train,
+                       **take(r["k7"], ("rows", "N") + timing)},
+        "tour_deposit": {"launches": launches["tour_deposit"],
+                         **take(r["k8"], ("B", "L", "A", "n") + timing)},
+        "fused_gnn_layer": {"train_launches": r["train_launches"]["fused_gnn_layer"], **train,
+                            **take(r["layer"], ("B", "N", "K") + timing)},
+        "fused_gnn_layer_backward": {
+            "train_launches": r["train_launches"]["fused_gnn_layer_backward"], **train,
+            **take(r["layer"]["backward"], timing)}}
 
 
 def main() -> int:
@@ -1425,21 +1713,22 @@ def main() -> int:
           "evaluate_tsp_nls_cost": reload_cost.tolist(), "passed": reload_ok})
 
     # ---- 9. K8, K7, K7c, K6 and K9 at the CVRP path's shapes
-    cvrp_net, cvrp_ds = cvrp_inputs(root, dev)
+    cvrp_net, cvrp_ds = family_inputs(root, dev, "cvrp")
     cvrp_paths, cvrp_amounts, cvrp_picks = cvrp_rollout(dev, cvrp_ds)
     kernels.append(check_deposit(dev, cuda_ms, paths_k, 1.0 / costs_p, cvrp_paths,
                                  cvrp_amounts))
-    pick_501 = check_pick_at_cvrp_shape(cuda_ms, cvrp_picks)
+    pick_501 = check_pick_rows(cuda_ms, cvrp_picks)
     emit({"phase": "kernel", "name": "fused_pick", "config": "cvrp500 rollout, N = 501",
           **pick_501, "tolerance": "actions exact and allowed; logp rtol 1e-5, atol 1e-5 "
                                    "(logsumexp order, expf/logf against torch's)"})
     kernels.append(check_cvrp_construct(dev, cuda_ms, cvrp_ds))
-    layer_501 = check_layer_at_cvrp_width(dev, cuda_ms, cvrp_net, cvrp_ds)
+    cvrp_g = cvrp_graph(torch.as_tensor(cvrp_ds["demand"], device=dev),
+                        torch.as_tensor(cvrp_ds["dist"], device=dev))
+    layer_501 = check_layer(dev, cuda_ms, cvrp_net, cvrp_g)
     emit({"phase": "kernel", "name": "fused_gnn_layer", "config": "cvrp500, K = N = 501",
           **layer_501, "tolerance": "rtol 1e-5, atol 1e-5 (sum order)"})
-    k9_501 = check_embnet_layers(cuda_ms, cvrp_net, cvrp_graph(
-        torch.as_tensor(cvrp_ds["demand"], device=dev),
-        torch.as_tensor(cvrp_ds["dist"], device=dev)), "cvrp500, K = N = 501")
+    k9_501 = check_embnet_layers(cuda_ms, cvrp_net, cvrp_g, "cvrp500, K = N = 501")
+    del cvrp_g
 
     # ---- 10. the CVRP path: kernel, plain and classic arms
     cvrp_dist = torch.as_tensor(cvrp_ds["dist"], device=dev)
@@ -1456,7 +1745,7 @@ def main() -> int:
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        cost, curves, state = drive_cvrp(net_arg, cvrp_ds, ops._replace(timer=timer))
+        cost, curves, state = drive_family(net_arg, cvrp_ds, ops._replace(timer=timer), "cvrp")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         if (not bool(torch.isfinite(curves).all())
@@ -1488,12 +1777,14 @@ def main() -> int:
     from deepaco_tpu_torch import cli
 
     # (a) one step, kernel arm against plain arm; K6 and K7 at its shapes
-    step_check, train_picks, train_batch, train_net = cvrp_train_step_arms(dev)
-    layer_train = check_layer_at_cvrp_width(dev, cuda_ms, train_net, train_batch, backward=True)
+    step_check, train_picks, train_batch, train_net = family_train_step_arms(dev, "cvrp")
+    layer_train = check_layer(dev, cuda_ms, train_net, cvrp_graph(
+        torch.as_tensor(train_batch["demand"], device=dev),
+        torch.as_tensor(train_batch["dist"], device=dev)), backward=True)
     emit({"phase": "kernel", "name": "fused_gnn_layer", "config": "cvrp500 training, B=1, "
           "K = N = 501", **layer_train, "tolerance": "forward rtol 1e-5, atol 1e-5 (sum order); "
           "backward rtol 1e-4, atol 1e-5 of the largest entry"})
-    pick_train = check_pick_at_cvrp_shape(cuda_ms, train_picks)
+    pick_train = check_pick_rows(cuda_ms, train_picks)
     emit({"phase": "kernel", "name": "fused_pick", "config": "cvrp500 training rollout, "
           "50 ants, N = 501", **pick_train, "tolerance": "actions exact and allowed; logp "
           "rtol 1e-5, atol 1e-5 (logsumexp order, expf/logf against torch's)"})
@@ -1501,7 +1792,7 @@ def main() -> int:
 
     # (b) make_family_train_step: the kernels' counts set to 0 just before
     # each step and read just after
-    family, train_cfg, train_state, train_rng, train_gen = cvrp_train_inputs(dev)
+    family, train_cfg, train_state, train_rng, train_gen = family_train_inputs(dev, "cvrp")
     timer = PhaseTimer()
     step_fn = drivers.make_family_train_step(family, train_cfg,
                                              _ops=drivers.KERNEL_OPS._replace(timer=timer))
@@ -1669,7 +1960,16 @@ def main() -> int:
                 **{k: shape[k] for k in ("B", "N", "K", "rows", "max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by") if k in shape}}
 
-    # ---- 14. the kernels' line
+    # ---- 14. the per-step families: OP300, PCTSP500, SMTWTP500
+    family_runs = {name: family_phase(dev, root, cuda_ms, PhaseTimer, counted, name)
+                   for name in PER_STEP}
+    for name, r in family_runs.items():
+        fields = family_kernel_fields(r)
+        for entry in kernels:
+            if entry["name"] in fields:
+                entry[name] = fields[entry["name"]]
+
+    # ---- 15. the kernels' line
     emit({"kernels": kernels})
     failed = [k["name"] for k in kernels if not k["passed"]]
     if failed:
@@ -1750,8 +2050,12 @@ def main() -> int:
             fail(f"sparse {arm} arm launched {r['launches']}, expected {sparse_want[arm]}")
     if not sparse_arms["classic_2opt"]["cost"][0] < sparse_arms["classic"]["cost"][0]:
         fail("2-opt did not shorten the classic arm's tours at T1")
+    for name, r in family_runs.items():
+        if not all(r["checks"].values()):
+            fail(f"{name}: {r['checks']}")
     costs = {"main": means, "main_plain": plain, "nls": nls, "nls_plain": nls_plain,
-             "cvrp": ck, "sparse": sk, "sparse_plain": sp}
+             "cvrp": ck, "sparse": sk, "sparse_plain": sp,
+             **{name: r["arms"]["kernel"]["cost"] for name, r in family_runs.items()}}
     for path, recorded in RECORDED_COSTS.items():
         for got, want in zip(costs[path], recorded):
             if want is not None and round(got, 4) != want:

@@ -20,7 +20,7 @@ import torch
 
 from deepaco_tpu_torch.aco.engine import rollout
 from deepaco_tpu_torch.aco.problems.tsp import clear_onehot, row_gatherer, score_matrix
-from deepaco_tpu_torch.aco.runner import ACOConfig, init_search, run_anytime
+from deepaco_tpu_torch.aco.runner import ACOConfig, ProblemACO, as_instance
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.ops.cvrp_construct import cvrp_construct, cvrp_construct_supported
 from deepaco_tpu_torch.ops.pick import fused_pick
@@ -114,15 +114,13 @@ def validate_routes(paths: torch.Tensor, demand: torch.Tensor,
     return covered & (load <= capacity + 1e-6).all(dim=-1)
 
 
-class CVRPACO:
+class CVRPACO(ProblemACO):
     """Reference-style facade (cvrp/aco.py:9-205; ``deepaco_tpu/aco/problems/
     cvrp.py:85-162``) over one instance: ``distances [N, N]``, ``demand
     [N]``, an optional ``heuristic`` (default ``1 / distances``) and
-    ``pheromone`` (default ones). It runs on ``device`` (``cuda`` by
-    default; ``cpu`` only when asked) and draws from ``generator``, by
-    default a ``torch.Generator`` seeded with ``seed``, which advances with
-    every call (the JAX facade folds a call count into its key).
-    ``elitist`` and ``min_max`` are not ported and raise."""
+    ``pheromone`` (default ones). ``sample`` steps through K7, ``run``
+    constructs through K7c (``cvrp_paths``) and deposits through K8;
+    ``lowest_cost`` and ``shortest_path`` are the best so far."""
 
     def __init__(self, distances, demand, capacity: float = 50.0, n_ants: int = 20,
                  decay: float = 0.9, alpha: float = 1.0, beta: float = 1.0,
@@ -130,53 +128,29 @@ class CVRPACO:
                  pheromone=None, seed: int = 0, *, device=None,
                  generator: torch.Generator | None = None):
         dev = resolve_device(device)
-        as_f32 = lambda t: torch.as_tensor(t, dtype=torch.float32, device=dev)[None]
-        self.distances = as_f32(distances)
-        self.demand = as_f32(demand)
+        self.distances = as_instance(distances, dev)
+        self.demand = as_instance(demand, dev)
         self.capacity = float(capacity)
         self.n = self.distances.shape[-1]
-        self.cfg = ACOConfig(n_ants=n_ants, decay=decay, alpha=alpha, beta=beta,
-                             elitist=elitist, min_max=min_max, cyclic=False,
-                             symmetric=False, floor=1e-10)
-        self.heuristic = 1.0 / self.distances if heuristic is None else as_f32(heuristic)
-        self.state = init_search(self.n, 2 * (self.n - 1), self.cfg,
-                                 tau=None if pheromone is None else as_f32(pheromone),
-                                 batch=(1,), device=dev)
-        self.generator = (torch.Generator(device=dev).manual_seed(seed)
-                          if generator is None else generator)
+        self.heuristic = (1.0 / self.distances if heuristic is None
+                          else as_instance(heuristic, dev))
+        cfg = ACOConfig(n_ants=n_ants, decay=decay, alpha=alpha, beta=beta,
+                        elitist=elitist, min_max=min_max, cyclic=False,
+                        symmetric=False, floor=1e-10)
+        super().__init__(cfg, self.n, 2 * (self.n - 1), seed, device=dev, generator=generator,
+                         tau=None if pheromone is None else as_instance(pheromone, dev))
 
-    def sample(self, require_prob: bool = True):
-        """One construction on the current pheromone, a pick a step (K7 on
-        the card): ``(costs [A], log_probs [2(N-1), A], paths [2(N-1)+1,
-        A])``, the log-probabilities differentiable in the heuristic."""
+    def spec(self, tau, heu):
         cfg = self.cfg
-        spec = cvrp_spec(self.state.phe.tau, self.heuristic, self.demand, self.capacity,
-                         cfg.n_ants, alpha=cfg.alpha, beta=cfg.beta)
-        ro = rollout(spec, self.generator, alpha=cfg.alpha, beta=cfg.beta,
-                     require_prob=require_prob)
-        return route_cost(self.distances, ro.paths)[0], ro.log_probs[0], ro.paths[0]
+        return cvrp_spec(tau, heu, self.demand, self.capacity, cfg.n_ants, cfg.alpha, cfg.beta)
 
-    @torch.no_grad()
-    def run(self, n_iterations: int) -> torch.Tensor:
-        """``n_iterations`` of construction (K7c on the card) and Ant System
-        update (K8); returns the best cost so far."""
+    def construct(self, tau, heu, generator):
         cfg = self.cfg
-        heu = self.heuristic.detach()
+        return cvrp_paths(tau, heu, self.demand, self.capacity, cfg.n_ants, generator,
+                          construct=cvrp_construct, pick=fused_pick, alpha=cfg.alpha,
+                          beta=cfg.beta)
 
-        def construct(tau, generator):
-            return cvrp_paths(tau, heu, self.demand, self.capacity, cfg.n_ants, generator,
-                              construct=cvrp_construct, pick=fused_pick,
-                              alpha=cfg.alpha, beta=cfg.beta)
+    def cost(self, paths):
+        return route_cost(self.distances, paths)
 
-        self.state, _ = run_anytime(construct, lambda p: route_cost(self.distances, p),
-                                    cfg, self.state, self.generator, n_iterations)
-        return self.lowest_cost
-
-    @property
-    def lowest_cost(self) -> torch.Tensor:
-        return self.state.best_cost[0]
-
-    @property
-    def shortest_path(self) -> torch.Tensor:
-        """The best route ``[2(N-1)+1]`` so far, depot first."""
-        return self.state.best_path[0]
+    shortest_path = ProblemACO.best_path

@@ -2,12 +2,13 @@
 (counterpart of ``deepaco_tpu/cli.py``).
 
 The parser keeps the JAX package's ``train`` and ``test`` subcommands and
-their flags. Ported so far: ``train tsp|cvrp`` through the family trainer
-(``train.drivers.train_family``), ``train tsp --local-search 2opt|nls``
-through ``train.reinforce.train_tsp``, ``test cvrp`` on the golden CVRP
-sets through ``train.drivers.evaluate_family``, and ``test tsp --sparse``
-(the large-N sparse TSP protocol). Every other command, problem or flag
-exits naming its ROADMAP.md item.
+their flags. Ported so far: ``train tsp|cvrp|op|pctsp|smtwtp`` through the
+family trainer (``train.drivers.train_family``), ``train tsp --local-search
+2opt|nls`` through ``train.reinforce.train_tsp``, ``test
+cvrp|op|pctsp|smtwtp`` on the golden sets through
+``train.drivers.evaluate_family``, and ``test tsp --sparse`` (the large-N
+sparse TSP protocol). Every other command, problem or flag exits naming its
+ROADMAP.md item.
 """
 from __future__ import annotations
 
@@ -24,10 +25,10 @@ from deepaco_tpu_torch.aco.large_tsp import (KERNEL_OPS, LargeOps,
                                              run_anytime_knn)
 from deepaco_tpu_torch.aco.runner import ACOConfig
 from deepaco_tpu_torch.device import resolve_device
-from deepaco_tpu_torch.families import FAMILIES
+from deepaco_tpu_torch.families import FAMILIES, get_family
 from deepaco_tpu_torch.models.gnn import Net
 from deepaco_tpu_torch.train.config import ACOSettings, ProblemConfig, TrainConfig
-from deepaco_tpu_torch.train.drivers import evaluate_family, train_family
+from deepaco_tpu_torch.train.drivers import evaluate_family, family_model, train_family
 from deepaco_tpu_torch.train.reinforce import nls_local_search, train_tsp
 from deepaco_tpu_torch.utils import golden
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -96,7 +97,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _load_net(args) -> Net:
     """The ``--ckpt`` weights, or ``checkpoints/<problem><n>.msgpack`` without
-    it. A decode error surfaces in the exit message, with its cause chained."""
+    it, in the family's ``Net`` (SMTWTP's without the node update). A decode
+    error surfaces in the exit message, with its cause chained."""
     path = args.ckpt
     if path is None:
         path = f"checkpoints/{args.problem}{args.nodes}.msgpack"
@@ -110,7 +112,7 @@ def _load_net(args) -> Net:
         variables = load_checkpoint(path)
     except ValueError as err:
         raise SystemExit(f"cannot decode checkpoint {path}: {err}") from err
-    return Net.from_jax_variables(variables)
+    return family_model(get_family(args.problem), variables)
 
 
 def _report(t_values, means: np.ndarray, duration: float, record: dict) -> None:
@@ -164,27 +166,28 @@ def _cmd_test_tsp_sparse(args, *, device=None, stats: dict | None = None,
     return means, curves
 
 
-def _cmd_test_cvrp(args, *, device=None):
-    """The CVRP anytime protocol (cli.py:522-549): the golden set of scale
-    ``n`` (``utils.golden.cvrp_test``, the first ``--limit`` instances), the
-    ``--ckpt`` net or the classic heuristic, then ``evaluate_family``.
-    Prints the JAX CLI's three output lines and returns ``(means,
-    curves)``."""
-    n = args.nodes
-    if n not in golden.CVRP_SCALES:
-        raise SystemExit(f"test cvrp -n {n}: the golden CVRP writer makes the scales "
-                         f"{golden.CVRP_SCALES} only")
+def _cmd_test_family(args, *, device=None):
+    """A family's anytime protocol (cli.py:505-549): the golden set of scale
+    ``n`` (``utils.golden``, the first ``--limit`` instances), the ``--ckpt``
+    net or the classic heuristic, then ``evaluate_family``. Prints the JAX
+    CLI's three output lines (for OP the mean prize collected, which it
+    maximizes) and returns ``(means, curves)``."""
+    problem, n = args.problem, args.nodes
+    scales = golden.SCALES[problem]
+    if n not in scales:
+        raise SystemExit(f"test {problem} -n {n}: the golden {problem.upper()} writer makes "
+                         f"the scales {scales} only")
     dev = resolve_device(device)
-    ds = golden.cvrp_test(n)
+    ds = golden.GOLDEN[problem](n)
     if args.limit:
         ds = {k: v[:args.limit] for k, v in ds.items()}
     net = None if args.classic else _load_net(args)
     t0 = time.time()
-    means, curves = evaluate_family("cvrp", ds, n_nodes=n, net=net, k_sparse=args.k_sparse,
+    means, curves = evaluate_family(problem, ds, n_nodes=n, net=net, k_sparse=args.k_sparse,
                                     n_ants=args.ants, t_values=tuple(args.t_aco),
                                     seed=args.seed, device=dev)
     means = means.cpu().numpy()
-    _report(args.t_aco, means, time.time() - t0, {"problem": "cvrp", "n": n})
+    _report(args.t_aco, means, time.time() - t0, {"problem": problem, "n": n})
     return means, curves
 
 
@@ -194,12 +197,16 @@ def cmd_test(args, *, device=None):
         raise SystemExit(f"--{unported[0].replace('_', '-')} {NOT_PORTED}")
     if args.problem == "tsp" and args.sparse:
         return _cmd_test_tsp_sparse(args, device=device)
-    if args.problem == "cvrp" and not args.sparse:
+    if args.problem in golden.GOLDEN and not args.sparse:
         if args.local_search:
-            raise SystemExit(f"test cvrp --local-search {args.local_search} {CVRP_NLS}")
-        return _cmd_test_cvrp(args, device=device)
+            if args.problem == "cvrp":
+                raise SystemExit(f"test cvrp --local-search {args.local_search} {CVRP_NLS}")
+            raise SystemExit(f"test {args.problem} --local-search: local search applies "
+                             "to tsp and cvrp")
+        return _cmd_test_family(args, device=device)
     raise SystemExit(f"test {args.problem}{' --sparse' if args.sparse else ''} "
-                     f"{NOT_PORTED}; only test cvrp and test tsp --sparse are")
+                     f"{NOT_PORTED}; only test {'|'.join(golden.GOLDEN)} and test tsp "
+                     "--sparse are")
 
 
 def _epoch_printer(val_t: int | None = None):

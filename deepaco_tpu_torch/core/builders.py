@@ -1,10 +1,14 @@
 """GNN input graphs (counterpart of ``deepaco_tpu/core/builders.py``; the
-other families wait for their slices).
+other families wait for their slices). Every builder takes leading batch
+dimensions.
 
   TSP       top-k kNN, node feats = coords            (tsp/utils.py:16-36):
             ``core.graph.knn_graph`` itself
   TSP-NLS   top-k kNN, node feats = one-hot start     (tsp_nls/utils.py:17-45)
   CVRP      dense incl. self-loops, feats = demand    (cvrp/utils.py:24-33)
+  OP        top-k kNN, feats = (dist-to-depot, prize) (op/utils.py:26-48)
+  PCTSP     dense, feats = (prize, penalty)           (pctsp/utils.py:31-40)
+  SMTWTP    dense over n+1 jobs, attr = proc[dst]     (smtwtp/utils.py:5-22)
 """
 from __future__ import annotations
 
@@ -28,10 +32,45 @@ def tsp_nls_graph(coords: torch.Tensor, dist: torch.Tensor, k: int,
                      node_feats=start_node_features(coords, start_node))
 
 
+def _dense_nbr(lead: tuple, n: int, device) -> torch.Tensor:
+    """``nbr[..., i, :] = arange(n)``: the dense graph, self-loops included."""
+    return torch.arange(n, device=device).expand(*lead, n, n)
+
+
 def cvrp_graph(demand: torch.Tensor, dist: torch.Tensor) -> SparseGraph:
     """The dense CVRP graph with self-loops, k-regular with K = N:
     ``x = demand [..., N, 1]``, ``nbr[..., i, :] = arange(N)``, ``edge =
     dist [..., N, N, 1]``."""
-    n = dist.shape[-1]
-    nbr = torch.arange(n, device=dist.device).expand(*dist.shape[:-2], n, n)
-    return SparseGraph(x=demand[..., None], nbr=nbr, edge=dist[..., None])
+    return SparseGraph(x=demand[..., None], nbr=_dense_nbr(dist.shape[:-2], dist.shape[-1],
+                                                           dist.device),
+                       edge=dist[..., None])
+
+
+def op_graph(coords: torch.Tensor, dist: torch.Tensor, prizes: torch.Tensor,
+             k: int) -> SparseGraph:
+    """The k-NN graph over the real nodes with ``x = (distance to the depot,
+    prize) [..., n, 2]``."""
+    to_depot = torch.linalg.vector_norm(coords - coords[..., :1, :], dim=-1)
+    return knn_graph(coords, dist, k, node_feats=torch.stack([to_depot, prizes], dim=-1))
+
+
+def pctsp_graph(prizes: torch.Tensor, penalties: torch.Tensor,
+                dist: torch.Tensor) -> SparseGraph:
+    """The dense graph with self-loops, ``x = (prize, penalty) [..., N, 2]``,
+    ``edge = dist [..., N, N, 1]``."""
+    return SparseGraph(x=torch.stack([prizes, penalties], dim=-1),
+                       nbr=_dense_nbr(dist.shape[:-2], dist.shape[-1], dist.device),
+                       edge=dist[..., None])
+
+
+def smtwtp_graph(due_norm: torch.Tensor, weights: torch.Tensor,
+                 processing: torch.Tensor) -> SparseGraph:
+    """The dense graph over the dummy job 0 and the n jobs: ``x = [(0, 0),
+    (due_norm, weight)...] [..., n+1, 2]``; the attribute of edge ``(i, j)``
+    is the processing time of ``j`` (0 for the dummy)."""
+    lead, n = due_norm.shape[:-1], due_norm.shape[-1]
+    x = torch.cat([due_norm.new_zeros((*lead, 1, 2)),
+                   torch.stack([due_norm, weights], dim=-1)], dim=-2)
+    proc = torch.cat([processing.new_zeros((*lead, 1)), processing], dim=-1)
+    edge = proc[..., None, :, None].expand(*lead, n + 1, n + 1, 1)
+    return SparseGraph(x=x, nbr=_dense_nbr(lead, n + 1, due_norm.device), edge=edge)

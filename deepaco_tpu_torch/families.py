@@ -3,29 +3,42 @@ description per problem, read by :mod:`deepaco_tpu_torch.train.drivers`.
 
 A family bundles the instance generator, the GNN graph, the heuristic's
 post-processing, the rollout plug-in, the objective and the ACO flags. Its
-functions take instance dicts of tensors batched over ``B`` instances. This
-slice ports ``tsp`` and ``cvrp``; the others follow in ROADMAP.md's order.
+functions take instance dicts of tensors batched over ``B`` instances, and
+every reduction that JAX takes over one instance (its ``vmap``) reduces
+over the instance's own axes here, never over the batch. Ported: ``tsp``,
+``cvrp``, ``op``, ``pctsp`` and ``smtwtp``; the others follow in
+ROADMAP.md's order.
 
 The CVRP reference reshapes its per-edge heuristic with the source index
 varying fast (cvrp/train.ipynb cell 1, cvrp/utils.py:27-29), so its dense
-heuristic is the transpose of the ``(src, dst)`` layout; TSP scatters by
-``(src, dst)`` with no transpose.
+heuristic is the transpose of the ``(src, dst)`` layout; TSP, OP, PCTSP and
+SMTWTP scatter by ``(src, dst)`` with no transpose. PCTSP divides its
+heuristic by its smallest entry (pctsp/train.ipynb cell 1).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import numpy as np
+import torch
 
 from deepaco_tpu_torch.aco.engine import rollout
 from deepaco_tpu_torch.aco.problems.cvrp import cvrp_paths, cvrp_spec, route_cost
+from deepaco_tpu_torch.aco.problems.op import (extend_op_instance, op_default_heuristic,
+                                               op_objective, op_spec)
+from deepaco_tpu_torch.aco.problems.pctsp import (pctsp_default_heuristic,
+                                                  pctsp_objective, pctsp_spec)
+from deepaco_tpu_torch.aco.problems.smtwtp import (smtwtp_cost, smtwtp_default_heuristic,
+                                                   smtwtp_spec)
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost, tsp_spec
 from deepaco_tpu_torch.aco.runner import ACOConfig
-from deepaco_tpu_torch.core.builders import cvrp_graph
+from deepaco_tpu_torch.core.builders import cvrp_graph, op_graph, pctsp_graph, smtwtp_graph
 from deepaco_tpu_torch.core.graph import (knn_graph, scatter_to_dense,
                                           sparse_distance_matrix)
 
 EPS = 1e-10
+OP_MAX_LEN = {100: 4.0, 200: 5.0, 300: 6.0}        # op/test.py:13-17
+PCTSP_KN = {20: 2.0, 100: 4.0, 500: 9.0}           # pctsp/utils.py:4-8
 CVRP_CAPACITY = 50.0                                # cvrp/aco.py:7
 
 
@@ -36,12 +49,14 @@ class Family(NamedTuple):
     n_ants)`` → the rollout plug-in (``aco.engine.RolloutSpec``) that
     training samples and replays, a pick a step; ``construct(tau, heu,
     inst, n_ants, generator, ops)`` → one inference iteration's paths
-    through ``ops`` (``train.drivers.FamilyOps``): TSP the rollout of
-    ``tsp_spec``, a pick a step; CVRP one pass (``ops.construct``) where K7c
-    takes N; ``cost(paths, inst)`` → ``[B, A]``; ``horizon_states(n_nodes)``
+    through ``ops`` (``train.drivers.FamilyOps``): TSP, OP, PCTSP and
+    SMTWTP the rollout of their ``spec``, a pick a step; CVRP one pass
+    (``ops.construct``) where K7c takes N; ``cost(paths, inst)`` → ``[B, A]``; ``horizon_states(n_nodes)``
     → ``(pheromone size, rollout horizon)``; ``classic_heu(inst, k)`` → the
     classic arm's heuristic; ``model_kwargs`` the ``Net`` arguments as
-    sorted pairs."""
+    sorted pairs; ``prepare(inst)`` → the instance with the arrays its spec
+    and cost read (OP's extended ones), applied before everything else;
+    ``extras(inst)`` → the search's per-instance arguments (OP's ``q``)."""
 
     name: str
     model_kwargs: tuple
@@ -55,6 +70,8 @@ class Family(NamedTuple):
     horizon_states: Callable[[int], tuple]
     classic_heu: Callable
     k_sparse: Callable[[int], int] = staticmethod(lambda n: max(n // 10, 3))
+    prepare: Callable[[dict], dict] = staticmethod(lambda inst: inst)
+    extras: Callable[[dict], dict] = staticmethod(lambda inst: {})
 
 
 # ----------------------------------------------------------- generators ----
@@ -76,6 +93,36 @@ def gen_cvrp(rng: np.random.Generator, n: int) -> dict:
     return {"coords": coords, "dist": _dist(coords, 1e-10), "demand": demands}
 
 
+def gen_op(rng: np.random.Generator, n: int) -> dict:
+    """Prizes by distance to the depot, node 0 (op/utils.py:5-11)."""
+    coords = rng.random((n, 2), dtype=np.float32)
+    d0 = np.linalg.norm(coords - coords[0], axis=-1)
+    prizes = 1.0 + np.floor(99.0 * d0 / d0.max())
+    prizes = (prizes / prizes.max()).astype(np.float32)
+    return {"coords": coords, "dist": _dist(coords, 1e9), "prizes": prizes,
+            "max_len": np.float32(OP_MAX_LEN.get(n, 4.0))}
+
+
+def gen_pctsp(rng: np.random.Generator, n: int) -> dict:
+    """The depot and n nodes with uniform prizes and penalties of scale
+    ``3 k / n`` (pctsp/utils.py:10-28)."""
+    coords = rng.random((n + 1, 2), dtype=np.float32)
+    k = PCTSP_KN.get(n, 3.0 * max(n, 1) / 100.0 + 1.0)
+    prizes = np.concatenate([[0.0], rng.random(n)]).astype(np.float32)
+    penalties = np.concatenate([[0.0], rng.random(n) * 3.0 * k / n]).astype(np.float32)
+    return {"coords": coords, "dist": _dist(coords, 0.0), "prizes": prizes,
+            "penalties": penalties}
+
+
+def gen_smtwtp(rng: np.random.Generator, n: int) -> dict:
+    """Due times ``due_norm * n`` from the same draw as the model's
+    ``due_norm`` feature (smtwtp/utils.py:6-8), weights, processing times."""
+    due_norm = rng.random(n, dtype=np.float32)
+    return {"due_norm": due_norm, "due": due_norm * n,
+            "weights": rng.random(n, dtype=np.float32),
+            "processing": rng.random(n, dtype=np.float32)}
+
+
 # ------------------------------------------------- heuristic post-process --
 def _std_heu(g, out, inst):
     return scatter_to_dense(g, out) + EPS
@@ -84,6 +131,46 @@ def _std_heu(g, out, inst):
 def _dense_transposed_heu(g, out, inst):
     # the [.., N, N] output is row = src; the reference's reshape is dst-major
     return out.transpose(-1, -2) + EPS
+
+
+def _pctsp_heu(g, out, inst):
+    # each instance's dense [N, N] output (row = src) over its own smallest entry
+    return out / (out.amin(dim=(-2, -1), keepdim=True) + EPS) + EPS
+
+
+# ------------------------------------------------------- rollout plug-ins --
+def _per_step(spec: Callable) -> Callable:
+    """The ``construct`` of a family that samples its ``spec``'s rollout in
+    inference too, one ``ops.pick`` (K7) a step."""
+    return lambda tau, heu, inst, a, generator, ops: rollout(
+        spec(tau, heu, inst, a), generator, pick=ops.pick).paths
+
+
+def _tsp_spec(tau, heu, inst, a):
+    return tsp_spec(tau, heu, a)
+
+
+def _op_spec(tau, heu, inst, a):
+    return op_spec(tau, heu, inst["dist_ext"], inst["max_len"], a)
+
+
+def _pctsp_spec(tau, heu, inst, a):
+    # the prize gate n / 4 of n nodes (deepaco_tpu/families.py:275)
+    return pctsp_spec(tau, heu, inst["prizes"], (inst["prizes"].shape[-1] - 1) / 4.0, a)
+
+
+def _smtwtp_spec(tau, heu, inst, a):
+    return smtwtp_spec(tau, heu, a)
+
+
+def _op_prepare(inst: dict) -> dict:
+    dist_e, prizes_e, _ = extend_op_instance(inst["dist"], inst["prizes"],
+                                             torch.zeros_like(inst["dist"]))
+    return {**inst, "dist_ext": dist_e, "prizes_ext": prizes_e}
+
+
+def _op_extend_heu(inst: dict, heu: torch.Tensor) -> torch.Tensor:
+    return extend_op_instance(inst["dist"], inst["prizes"], heu)[2]
 
 
 # ------------------------------------------------------------- registry ----
@@ -96,9 +183,8 @@ FAMILIES = {
         gen=gen_tsp,
         graph=lambda inst, k: knn_graph(inst["coords"], inst["dist"], k),
         heu_matrix=_std_heu,
-        spec=lambda tau, heu, inst, a: tsp_spec(tau, heu, a),
-        construct=lambda tau, heu, inst, a, generator, ops: rollout(
-            tsp_spec(tau, heu, a), generator, pick=ops.pick).paths,
+        spec=_tsp_spec,
+        construct=_per_step(_tsp_spec),
         cost=lambda paths, inst: tour_cost(inst["dist"], paths),
         aco=ACOConfig(),
         horizon_states=lambda n: (n, n - 1),
@@ -118,6 +204,48 @@ FAMILIES = {
         aco=ACOConfig(cyclic=False, symmetric=False, floor=1e-10),
         horizon_states=lambda n: (n + 1, 2 * n),
         classic_heu=lambda inst, k: 1.0 / inst["dist"]),
+    "op": Family(
+        name="op",
+        model_kwargs=(),
+        gen=gen_op,
+        graph=lambda inst, k: op_graph(inst["coords"], inst["dist"], inst["prizes"], k),
+        heu_matrix=lambda g, out, inst: _op_extend_heu(inst, _std_heu(g, out, inst)),
+        spec=_op_spec,
+        construct=_per_step(_op_spec),
+        cost=lambda paths, inst: op_objective(inst["prizes_ext"], paths),
+        aco=ACOConfig(maximize=True, cyclic=False, symmetric=False),
+        horizon_states=lambda n: (n + 1, n + 1),
+        classic_heu=lambda inst, k: _op_extend_heu(
+            inst, op_default_heuristic(inst["dist"], inst["prizes"], k)),
+        prepare=_op_prepare,
+        extras=lambda inst: {"q": 1.0 / inst["prizes"].sum(dim=-1)}),
+    "pctsp": Family(
+        name="pctsp",
+        model_kwargs=(),
+        gen=gen_pctsp,
+        graph=lambda inst, k: pctsp_graph(inst["prizes"], inst["penalties"], inst["dist"]),
+        heu_matrix=_pctsp_heu,
+        spec=_pctsp_spec,
+        construct=_per_step(_pctsp_spec),
+        cost=lambda paths, inst: pctsp_objective(inst["dist"], inst["prizes"],
+                                                 inst["penalties"], paths),
+        aco=ACOConfig(cyclic=False, symmetric=False),
+        horizon_states=lambda n: (n + 1, n + 2),
+        classic_heu=lambda inst, k: pctsp_default_heuristic(inst["dist"], inst["prizes"])),
+    "smtwtp": Family(
+        name="smtwtp",
+        model_kwargs=(("node_update", False),),
+        gen=gen_smtwtp,
+        graph=lambda inst, k: smtwtp_graph(inst["due_norm"], inst["weights"],
+                                           inst["processing"]),
+        heu_matrix=_std_heu,
+        spec=_smtwtp_spec,
+        construct=_per_step(_smtwtp_spec),
+        cost=lambda paths, inst: smtwtp_cost(inst["processing"], inst["due"],
+                                             inst["weights"], paths),
+        aco=ACOConfig(cyclic=False, symmetric=False, cost_offset=1.0),
+        horizon_states=lambda n: (n + 1, n),
+        classic_heu=lambda inst, k: smtwtp_default_heuristic(inst["due"])),
 }
 
 

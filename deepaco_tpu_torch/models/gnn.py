@@ -143,18 +143,39 @@ class Net(nn.Module):
         return heu
 
     @classmethod
-    def from_jax_variables(cls, variables: dict) -> "Net":
+    def from_jax_variables(cls, variables: dict, node_update: bool | None = None) -> "Net":
         """A ``Net`` sized from a Flax ``{"params", "batch_stats"}`` tree,
-        loaded with its weights, in eval mode."""
+        loaded with its weights, in eval mode. ``node_update`` defaults to
+        whether the tree holds the node BatchNorms, which a Flax net without
+        the node update (SMTWTP's) never creates."""
         p = variables["params"]
         emb = p["emb_net"]
         depth = sum(1 for key in emb if key.startswith("v_lins1_"))
         net = cls(feats=emb["v_lin0"]["kernel"].shape[0],
                   edge_feats=emb["e_lin0"]["kernel"].shape[0],
                   depth=depth, units=emb["v_lin0"]["kernel"].shape[1],
+                  node_update="v_bns_0" in emb if node_update is None else node_update,
                   dual_heads="par_net_phe" in p)
-        net.load_state_dict(from_jax_variables(variables))
+        load_jax_variables(net, variables)
         return net.eval()
+
+
+def _unused(net: nn.Module) -> tuple[str, ...]:
+    """The ``state_dict`` entries that a net without the node update never
+    reads, the node BatchNorms (kept as modules so that every net has one
+    layout)."""
+    return () if net.emb_net.node_update else ("emb_net.v_bns.",)
+
+
+def load_jax_variables(net: nn.Module, variables: dict) -> None:
+    """Load a Flax ``{"params", "batch_stats"}`` tree into ``net``; a net
+    without the node update may lack the node BatchNorms, which then keep
+    their values."""
+    missing, unexpected = net.load_state_dict(from_jax_variables(variables), strict=False)
+    missing = [k for k in missing if not k.startswith(_unused(net))]
+    if missing or unexpected:
+        raise RuntimeError(f"the Flax tree does not fit the Net: missing {missing}, "
+                           f"unexpected {unexpected}")
 
 
 def from_jax_variables(variables: dict) -> dict[str, torch.Tensor]:
@@ -258,3 +279,10 @@ def to_jax_variables(net: nn.Module) -> dict:
     """The inverse of :func:`from_jax_variables`: ``net``'s weights and
     running statistics as Flax ``{"params", "batch_stats"}``."""
     return to_jax_tree(net.state_dict())
+
+
+def jax_layout(named: dict, net: nn.Module) -> dict:
+    """``named`` (``state_dict`` or parameter names) without the entries
+    that the Flax net of ``net``'s configuration does not hold: a net
+    without the node update has no node BatchNorms there."""
+    return {k: v for k, v in named.items() if not k.startswith(_unused(net))}

@@ -17,8 +17,10 @@ its own search state: graph → GNN → dense heuristic (or the classic one),
 then ``aco.runner.run_anytime``. On the card the eval-mode GNN runs the
 folded layer stack K9 in one launch where ``embnet_supported`` takes the net
 (else one K6 launch a layer), every deposit K8, and each iteration's
-construction one launch of K7c (CVRP) or one K7 a step (TSP, and CVRP past
-K7c's N). The JAX version's host
+construction one launch of K7c (CVRP) or one K7 a step (TSP, OP, PCTSP,
+SMTWTP, and CVRP past K7c's N). Each instance batch first goes through
+``Family.prepare`` (OP's extended arrays), and ``Family.extras`` (OP's
+per-instance ``q``) reaches the search. The JAX version's host
 chunking of instances (``b_chunk``, a TPU watchdog workaround) and its
 ``mesh`` (multi-device) are not ported.
 """
@@ -73,13 +75,15 @@ PLAIN_OPS = FamilyOps(fused_gnn_layer_plain, fused_pick_plain, ph.deposit_plain,
                       layers=embnet_layers_plain, construct=cvrp_construct_plain)
 
 
-def family_model(family: Family, variables: dict | None = None) -> Net:
+def family_model(family: Family, variables: dict | None = None, **sizes) -> Net:
     """The family's ``Net``: sized from and loaded with a Flax
-    ``{"params", "batch_stats"}`` tree when given (``Net.from_jax_variables``),
-    else fresh with the family's arguments."""
+    ``{"params", "batch_stats"}`` tree when given (``Net.from_jax_variables``,
+    with the family's ``node_update``), else fresh with the family's
+    arguments and ``sizes`` (``feats``, ``edge_feats``)."""
+    kwargs = dict(family.model_kwargs)
     if variables is not None:
-        return Net.from_jax_variables(variables)
-    return Net(**dict(family.model_kwargs))
+        return Net.from_jax_variables(variables, node_update=kwargs.get("node_update", True))
+    return Net(**{**kwargs, **sizes})
 
 
 def gen_batch(family: Family, rng: np.random.Generator, n: int,
@@ -123,7 +127,8 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     """The anytime protocol over an instance batch (``batch``: a dict of
     arrays ``[B, ...]`` in the family's layout, e.g. ``utils.golden.cvrp_test``).
 
-    Returns ``(mean best-so-far at each of t_values, curves [B, t_max])``, and
+    Returns ``(mean best-so-far at each of t_values, curves [B, t_max])`` (the
+    objective, larger is better, for a family that maximizes: OP), and
     with ``return_state`` also the final
     :class:`~deepaco_tpu_torch.aco.runner.SearchState` (its ``best_path
     [B, horizon+1]`` holds each instance's best solution). ``net=None`` runs
@@ -138,7 +143,7 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     family = get_family(name)
     cfg = family.aco._replace(n_ants=n_ants)
     k_sparse = family.k_sparse(n_nodes) if k_sparse is None else k_sparse
-    inst = instance_tensors(batch, dev)
+    inst = family.prepare(instance_tensors(batch, dev))
     b = next(iter(inst.values())).shape[0]
     t_max = int(max(t_values))
     generator = torch.Generator(device=dev).manual_seed(seed)
@@ -154,7 +159,7 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     state, curves = run_anytime(
         lambda tau, gen: family.construct(tau, heu, inst, n_ants, gen, _ops),
         lambda paths: family.cost(paths, inst), cfg, state, generator, t_max,
-        deposit=_ops.deposit, timer=_ops.timer)
+        deposit=_ops.deposit, timer=_ops.timer, **family.extras(inst))
     idx = torch.tensor([t - 1 for t in t_values], device=dev)
     means = curves[:, idx].mean(dim=0)
     return (means, curves, state) if return_state else (means, curves)
@@ -168,7 +173,8 @@ def family_loss(family: Family, net: Net, inst: dict, cfg: ProblemConfig,
     of tensors ``[B, ...]``, differentiable in ``net``, which it puts in
     train mode: the heuristic through ``_forward_heu``'s per-layer route
     (BatchNorm on batch statistics does not fold into K9), then the
-    family's ``spec`` on a pheromone of ones. Without ``paths`` the
+    family's ``spec`` on a pheromone of ones, after ``Family.prepare``.
+    Without ``paths`` the
     ``cfg.aco.n_ants`` ants sample (``rollout(require_prob=True)``, a pick
     a step); with ``paths [B, horizon+1, A]`` their log-probabilities are
     replayed (``path_log_probs``). The loss is the batch mean of
@@ -176,6 +182,7 @@ def family_loss(family: Family, net: Net, inst: dict, cfg: ProblemConfig,
     detached, ``sign = -1`` for a family that maximizes."""
     a = cfg.aco.n_ants
     alpha, beta = family.aco.alpha, family.aco.beta
+    inst = family.prepare(inst)
     net.train(True)
     with _ops.timer("heuristic"):
         heu = _forward_heu(family, net, inst, cfg.k_sparse, _ops)
@@ -218,11 +225,14 @@ def init_family_state(family: Family, cfg: ProblemConfig, rng_np: np.random.Gene
     """A fresh ``Net`` of the family on ``generator``'s device, initialised by
     the JAX package's law (``init_like_flax``; the draws differ from JAX's),
     and its optimizer at step 0. Like JAX's ``init_family_state``
-    (drivers.py:116-131), which builds its template graph from one instance,
-    it draws one instance from ``rng_np`` and drops it, so that the batches
-    that follow are the JAX trainer's."""
-    family.gen(rng_np, cfg.n_nodes)
-    return init_train_state(family_model(family).to(generator.device), cfg, generator)
+    (drivers.py:116-131) it draws one instance from ``rng_np``, prepares it
+    and builds its graph on the CPU, and sizes the net's node and edge
+    features from that template, as Flax's ``init`` does; the batches that
+    follow are the JAX trainer's."""
+    template = {k: np.asarray(v)[None] for k, v in family.gen(rng_np, cfg.n_nodes).items()}
+    g = family.graph(family.prepare(instance_tensors(template, "cpu")), cfg.k_sparse)
+    net = family_model(family, feats=g.x.shape[-1], edge_feats=g.edge.shape[-1])
+    return init_train_state(net.to(generator.device), cfg, generator)
 
 
 def train_family(name: str, cfg: ProblemConfig, progress: Callable | None = None,

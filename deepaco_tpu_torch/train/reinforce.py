@@ -35,9 +35,8 @@ from deepaco_tpu_torch.aco.runner import _no_timer
 from deepaco_tpu_torch.core.builders import tsp_nls_graph
 from deepaco_tpu_torch.core.graph import knn_graph, scatter_to_dense
 from deepaco_tpu_torch.device import resolve_device
-from deepaco_tpu_torch.models.gnn import (from_jax_variables, init_like_flax,
-                                          jax_path, to_jax_tree,
-                                          to_jax_variables)
+from deepaco_tpu_torch.models.gnn import (init_like_flax, jax_layout, jax_path,
+                                          load_jax_variables, to_jax_tree)
 from deepaco_tpu_torch.ops.gnn_layer import (fused_gnn_layer,
                                              fused_gnn_layer_plain)
 from deepaco_tpu_torch.ops.two_opt import batched_nls_euclid, heuristic_dist
@@ -76,9 +75,10 @@ class TrainState(NamedTuple):
         ``flax.serialization.to_state_dict``: ``params``, ``batch_stats``,
         ``opt_state`` (``(clip, (adam, decay, schedule))`` as ``{"0": {},
         "1": {"0": {count, mu, nu}, "1": {}, "2": {count} or {}}}``) and
-        ``step``, with numpy leaves."""
-        variables = to_jax_variables(self.net)
-        named = dict(self.net.named_parameters())
+        ``step``, with numpy leaves. A net without the node update leaves
+        out the node BatchNorms, as the Flax net has none."""
+        variables = to_jax_tree(jax_layout(self.net.state_dict(), self.net))
+        named = jax_layout(dict(self.net.named_parameters()), self.net)
 
         def moment(key):
             return to_jax_tree({
@@ -156,7 +156,7 @@ def restore_train_state(tree: dict, net: torch.nn.Module,
     with the tree's weights and statistics, and an optimizer holding its
     Adam moments and update count."""
     dev = next(net.parameters()).device
-    net.load_state_dict(from_jax_variables(tree))
+    load_jax_variables(net, tree)
     opt = make_optimizer(net, cfg)
     adam = tree["opt_state"]["1"]["0"]
     count = int(adam["count"])
@@ -168,7 +168,7 @@ def restore_train_state(tree: dict, net: torch.nn.Module,
             t = torch.from_numpy(np.array(root, dtype=np.float32))
             return (t.T if transposed else t).contiguous().to(dev)
 
-        for name, p in net.named_parameters():
+        for name, p in jax_layout(dict(net.named_parameters()), net).items():
             opt.state[p] = {"step": torch.tensor(float(count)),
                             "exp_avg": leaf(adam["mu"], name),
                             "exp_avg_sq": leaf(adam["nu"], name)}

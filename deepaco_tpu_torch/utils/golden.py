@@ -1,17 +1,32 @@
 """Golden fixed-seed evaluation sets (counterpart of
 ``deepaco_tpu/utils/golden.py``; the other families wait for their slices).
 
-The reference commits no CVRP test files: its writer (cvrp/utils.py:42-53)
-seeds torch's CPU generator once and draws 100 instances per scale in the
-order 20, 100, 500. This module repeats the same draws in the same order, so
-its instances are the reference's own, made with no file.
+The reference commits no CVRP, OP, PCTSP or SMTWTP test files: each writer
+(cvrp/utils.py:42-53, op/utils.py:73-83, pctsp/utils.py:50-59,
+smtwtp/utils.py:32-44) seeds torch's CPU generator once and draws its
+instances scale after scale. This module repeats the same draws in the same
+order from a ``torch.Generator`` of its own, so its instances are the
+reference's, made with no file and without touching torch's global
+generator.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from deepaco_tpu_torch.families import OP_MAX_LEN, PCTSP_KN
+
 CVRP_SCALES = (20, 100, 500)
+OP_SCALES = (100, 200, 300)
+PCTSP_SCALES = (20, 100, 500)
+SMTWTP_SCALES = (50, 100, 500)
+SCALES = {"cvrp": CVRP_SCALES, "op": OP_SCALES, "pctsp": PCTSP_SCALES,
+          "smtwtp": SMTWTP_SCALES}
+
+
+def _check(name: str, n: int) -> None:
+    if n not in SCALES[name]:
+        raise ValueError(f"unknown {name.upper()} scale {n}; the writer makes {SCALES[name]}")
 
 
 def cvrp_test(n: int, count: int = 100, seed: int = 123456) -> dict:
@@ -19,8 +34,7 @@ def cvrp_test(n: int, count: int = 100, seed: int = 123456) -> dict:
     [count, n+1, 2]`` (depot (0.5, 0.5) first), ``dist [count, n+1, n+1]``
     (diagonal 1e-10) and ``demand [count, n+1]`` (integers 1..9, depot 0),
     all f32. The draws of the smaller scales are consumed first."""
-    if n not in CVRP_SCALES:
-        raise ValueError(f"unknown CVRP scale {n}; the writer makes {CVRP_SCALES}")
+    _check("cvrp", n)
     gen = torch.Generator().manual_seed(seed)
     for scale in CVRP_SCALES:
         coords_l, dem_l = [], []
@@ -37,3 +51,71 @@ def cvrp_test(n: int, count: int = 100, seed: int = 123456) -> dict:
     dist[:, idx, idx] = 1e-10
     return {"coords": coords, "dist": dist.astype(np.float32),
             "demand": np.stack(dem_l).astype(np.float32)}
+
+
+def op_test(n: int, split: str = "test") -> dict:
+    """The OP set of scale ``n`` (``split`` "test": seed 123456, 100
+    instances; "val": seed 12345, 30): ``coords [count, n, 2]`` (node 0 the
+    depot), ``dist`` (diagonal 1e9), ``prizes`` (by distance to the depot)
+    and ``max_len [count]``, all f32."""
+    _check("op", n)
+    seed, count = (123456, 100) if split == "test" else (12345, 30)
+    gen = torch.Generator().manual_seed(seed)
+    for scale in OP_SCALES:
+        coords = torch.rand(size=(count, scale, 2), generator=gen).numpy()
+        if scale == n:
+            break
+    coords = coords.astype(np.float32)
+    dist = np.linalg.norm(coords[:, :, None] - coords[:, None], axis=-1)
+    idx = np.arange(n)
+    dist[:, idx, idx] = 1e9
+    d0 = np.linalg.norm(coords - coords[:, :1], axis=-1)
+    prizes = 1.0 + np.floor(99.0 * d0 / d0.max(axis=1, keepdims=True))
+    prizes = prizes / prizes.max(axis=1, keepdims=True)
+    return {"coords": coords, "dist": dist.astype(np.float32),
+            "prizes": prizes.astype(np.float32),
+            "max_len": np.full(count, OP_MAX_LEN[n], np.float32)}
+
+
+def pctsp_test(n: int, count: int = 100, seed: int = 123456) -> dict:
+    """The PCTSP set of ``n`` nodes and the depot: ``coords [count, n+1,
+    2]``, ``dist`` (diagonal 0), ``prizes`` and ``penalties [count, n+1]``
+    (0 at the depot), all f32."""
+    _check("pctsp", n)
+    gen = torch.Generator().manual_seed(seed)
+    for scale in PCTSP_SCALES:
+        coords_l, prize_l, pen_l = [], [], []
+        k = PCTSP_KN[scale]
+        for _ in range(count):
+            coords_l.append(torch.rand((scale + 1, 2), generator=gen).numpy())
+            prize_l.append(np.concatenate(
+                [[0.0], torch.rand(size=(scale,), generator=gen).numpy()]))
+            penalty = torch.rand(size=(scale,), generator=gen) * 3 * k / scale
+            pen_l.append(np.concatenate([[0.0], penalty.numpy()]))
+        if scale == n:
+            break
+    coords = np.stack(coords_l).astype(np.float32)
+    dist = np.linalg.norm(coords[:, :, None] - coords[:, None], axis=-1)
+    return {"coords": coords, "dist": dist.astype(np.float32),
+            "prizes": np.stack(prize_l).astype(np.float32),
+            "penalties": np.stack(pen_l).astype(np.float32)}
+
+
+def smtwtp_test(n: int, count: int = 100, seed: int = 123456) -> dict:
+    """The SMTWTP set of ``n`` jobs: ``due_norm``, ``due = due_norm * n``,
+    ``weights`` and ``processing [count, n]``, all f32; each instance draws
+    due, weights and processing in that order."""
+    _check("smtwtp", n)
+    gen = torch.Generator().manual_seed(seed)
+    for scale in SMTWTP_SCALES:
+        rows = [[torch.rand(size=(scale,), generator=gen).numpy() for _ in range(3)]
+                for _ in range(count)]
+        if scale == n:
+            break
+    due_norm, weights, processing = (np.stack([r[i] for r in rows]).astype(np.float32)
+                                     for i in range(3))
+    return {"due_norm": due_norm, "due": (due_norm * n).astype(np.float32),
+            "weights": weights, "processing": processing}
+
+
+GOLDEN = {"cvrp": cvrp_test, "op": op_test, "pctsp": pctsp_test, "smtwtp": smtwtp_test}

@@ -296,7 +296,7 @@ def compare_k8(result, same, other, variants, dev, stream):
     o_dep.argtypes, o_dep.restype = [P] * 3 + [I] * 5 + [P], ctypes.c_int
     n, a = cs.N, cs.A
     gen = torch.Generator(device=dev).manual_seed(cs.SEED)
-    _, cvrp_ds = cs.cvrp_inputs(ROOT, dev)
+    _, cvrp_ds = cs.family_inputs(ROOT, dev, "cvrp")
     cvrp_paths, cvrp_amounts, _ = cs.cvrp_rollout(dev, cvrp_ds)
     main_net, main_coords = cs.main_path_inputs(ROOT, dev)
     main_dist = distance_matrix(main_coords)
@@ -1014,7 +1014,7 @@ def compare_k7(result, same, other_csrc: Path, variants: list, dev, stream):
 
     # the first iteration of the CVRP path's kernel arm: tau of ones and the
     # cvrp500_selftrained heuristic over the golden CVRP500 set
-    net, ds = cs.cvrp_inputs(ROOT, dev)
+    net, ds = cs.family_inputs(ROOT, dev, "cvrp")
     inst = {k: torch.as_tensor(v, device=dev) for k, v in ds.items()}
     with torch.no_grad():
         heu = _forward_heu(get_family("cvrp"), net.eval(), inst, 0)

@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Where the port's main path spends device time, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train [--family cvrp] | --family cvrp | --sparse] [--out DIR]
+    python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train [--family F] | --family F | --sparse] [--out DIR]
+
+(F: cvrp, op, pctsp or smtwtp)
 
 Runs a path of ``chip_smoke.py`` with its weights, instances and
 configuration once to warm up, then once under ``torch.profiler``: by default
@@ -11,12 +13,14 @@ the first B=16 instances, local search on every ant); with ``--ls 2opt`` the
 classic arm with 2-opt on the same 16; with ``--train`` one TSP500-NLS
 training step (``chip_smoke.train_configs``: the one-hot start Net, B=20,
 N=500, K=50, 30 ants, NLS advantage) after one step of warm-up; with
-``--train --family cvrp`` one CVRP500 training step
-(``chip_smoke.cvrp_train_config``: 50 ants, batch 1, the 12-layer Net on
-the dense graph, K = N = 501, through ``make_family_train_step``, the
-batch drawn as ``train_family`` draws it) after one step of warm-up; with
-``--family cvrp`` alone the CVRP path (``evaluate_family("cvrp")``,
-cvrp500_selftrained on the golden CVRP500 set, A=20, T=10); with
+``--train --family F`` one training step of that family at its envelope
+(``chip_smoke.family_train_config``: CVRP500 with 50 ants, the 12-layer
+Net on the dense graph, K = N = 501; OP300 with 20 ants, K = 30; PCTSP500
+with 20 ants and SMTWTP500 with 50, K = N = 501; batch 1, through
+``make_family_train_step``, the batch drawn as ``train_family`` draws it)
+after one step of warm-up; with ``--family F`` alone that family's path
+(``evaluate_family``, its largest checkpoint on its golden set at that
+scale: CVRP500, OP300, PCTSP500, SMTWTP500; A=20, T=10); with
 ``--sparse`` the kernel arm of the sparse path (``test tsp --sparse -n
 2000``: tsp500_selftrained, the CLI's 30 fixed-seed instances, k=200,
 A=20, T=10). Prints one
@@ -45,23 +49,24 @@ HEURISTIC_KERNELS = ("knn_elin0_kernel", "elin0_kernel", "node_pass_kernel",
 
 def train_step_runner(chip_smoke, family: str | None = None):
     """One train step per call, on a state that carries over: TSP500-NLS, or
-    with ``family="cvrp"`` CVRP500 on a new batch each call."""
+    with ``family`` that family's envelope on a new batch each call."""
     import torch
 
     from deepaco_tpu_torch.models.gnn import Net
     from deepaco_tpu_torch.train import drivers
     from deepaco_tpu_torch.train import reinforce as tr
 
-    if family == "cvrp":
-        fam, cfg, cvrp_state, rng, cvrp_gen = chip_smoke.cvrp_train_inputs(torch.device("cuda"))
-        cvrp_step = drivers.make_family_train_step(fam, cfg)
-        cvrp_states = [cvrp_state]
+    if family is not None:
+        fam, cfg, fam_state, rng, fam_gen = chip_smoke.family_train_inputs(
+            torch.device("cuda"), family)
+        fam_step = drivers.make_family_train_step(fam, cfg)
+        fam_states = [fam_state]
 
-        def run_cvrp():
+        def run_family():
             batch = drivers.gen_batch(fam, rng, cfg.n_nodes, cfg.train.batch_size)
-            cvrp_states[0], _ = cvrp_step(cvrp_states[0], batch, cvrp_gen)
+            fam_states[0], _ = fam_step(fam_states[0], batch, fam_gen)
 
-        return run_cvrp
+        return run_family
     cfg, net_kwargs, ls = chip_smoke.train_configs()["tsp500_nls"]
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(cfg.train.seed)
@@ -81,7 +86,7 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--ls", choices=("nls", "2opt"), default=None)
     parser.add_argument("--train", action="store_true")
-    parser.add_argument("--family", choices=("cvrp",), default=None)
+    parser.add_argument("--family", choices=("cvrp", "op", "pctsp", "smtwtp"), default=None)
     parser.add_argument("--sparse", action="store_true")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
@@ -99,8 +104,8 @@ def main() -> int:
         sparse_args = chip_smoke.sparse_args(ROOT)
         run = lambda: chip_smoke.drive_sparse(sparse_args)
     elif args.family:
-        net, ds = chip_smoke.cvrp_inputs(ROOT, torch.device("cuda"))
-        run = lambda: chip_smoke.drive_cvrp(net, ds)
+        net, ds = chip_smoke.family_inputs(ROOT, torch.device("cuda"), args.family)
+        run = lambda: chip_smoke.drive_family(net, ds, name=args.family)
     else:
         net, coords = chip_smoke.main_path_inputs(ROOT, torch.device("cuda"), args.ls)
         if args.ls == "2opt":

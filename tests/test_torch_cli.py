@@ -38,9 +38,10 @@ def test_sparse_protocol_prints_the_jax_cli_lines(arm, capsys, monkeypatch):
 @pytest.mark.parametrize("argv,match", [
     (["test", "tsp", "--sparse", "-n", "1000", "--classic"], "golden TSP sets"),
     (["test", "cvrp", "-n", "1001"], r"scales \(20, 100, 500\)"),
+    (["test", "op", "-n", "50"], r"scales \(100, 200, 300\)"),
     (["test", "tsp", "-n", "1001"], "ROADMAP.md §1 item 10"),
     (["test", "tsp", "--sparse", "-n", "1001", "--b-chunk", "4"], "--b-chunk .*item 10"),
-    (["train", "op"], "train .*item 10"),
+    (["train", "sop"], "train .*item 10"),
     (["test", "tsp", "--sparse", "-n", "1001", "--ckpt", "x.pt"], r"\.pt loader"),
     (["test", "tsp", "--sparse", "-n", "1003"], r"checkpoints/tsp1003\.msgpack"),
     (["train", "cvrp", "--local-search", "swapstar"], "swapstar .*item 8.8"),
@@ -96,6 +97,36 @@ def test_train_cvrp_writes_a_checkpoint_that_test_cvrp_reads(tmp_path, capsys):
     _three_lines(capsys, "cvrp", 20, [1], means)
 
 
+@pytest.mark.parametrize("problem,n", [("op", 100), ("pctsp", 20), ("smtwtp", 50)])
+def test_family_protocol_prints_the_jax_cli_lines(problem, n, capsys, monkeypatch):
+    """``test op|pctsp|smtwtp`` on the smallest golden scale with its
+    committed checkpoint, 2 instances, 4 ants, T=1 and 2, on the CPU: the
+    JAX CLI's lines, and a curve that moves one way (OP maximizes the prize
+    it collects)."""
+    monkeypatch.chdir(ROOT)
+    means, curves = cli.main(["test", problem, "-n", str(n), "--limit", "2", "-a", "4",
+                              "-t", "1", "2", "-c",
+                              f"checkpoints/{problem}{n}_selftrained.msgpack"], device="cpu")
+    _three_lines(capsys, problem, n, [1, 2], means)
+    sign = -1.0 if problem == "op" else 1.0
+    assert curves.shape == (2, 2) and bool((sign * curves[:, 1] <= sign * curves[:, 0]).all())
+
+
+def test_train_op_writes_a_checkpoint_that_test_op_reads(tmp_path, capsys):
+    """``train op`` at n=20 (1 epoch of 2 steps, batch 2, 4 ants, 2
+    validation instances), then ``test op -c`` at the golden scale 100."""
+    out = tmp_path / "op20.msgpack"
+    state = cli.main(["train", "op", "-n", "20", "-a", "4", "-e", "1", "-s", "2", "-b", "2",
+                      "--val-instances", "2", "-o", str(out)], device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert re.fullmatch(r"epoch 0: mean cost \d+\.\d{4}, val best@T=10 \d+\.\d{4} "
+                        r"\(\d+\.\ds\)", lines[0])
+    assert lines[-1] == f"saved {out}" and state.step == 2
+    means, _ = cli.main(["test", "op", "-n", "100", "--limit", "2", "-a", "4", "-t", "1",
+                         "-c", str(out)], device="cpu")
+    _three_lines(capsys, "op", 100, [1], means)
+
+
 @pytest.mark.parametrize("argv,feats", [(["tsp"], 2), (["tsp", "--local-search", "2opt"], 1)])
 def test_train_tsp_writes_a_checkpoint(argv, feats, tmp_path, capsys):
     """``train tsp`` (the family trainer, the k-NN graph on coordinates) and
@@ -140,6 +171,6 @@ def test_the_sparse_path_refuses_a_local_search_it_does_not_run(monkeypatch):
 
 
 def test_python_dash_m_runs_the_cli():
-    out = subprocess.run([sys.executable, "-m", "deepaco_tpu_torch", "test", "op"],
+    out = subprocess.run([sys.executable, "-m", "deepaco_tpu_torch", "test", "sop"],
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 1 and "item 10" in out.stderr

@@ -24,14 +24,19 @@ from deepaco_tpu.utils.checkpoint import load_checkpoint as jload_checkpoint
 from deepaco_tpu_torch import families
 from deepaco_tpu_torch.aco.problems import cvrp
 from deepaco_tpu_torch.aco.problems.cvrp import CVRPACO, validate_routes
-from deepaco_tpu_torch.models.gnn import Net, init_like_flax, to_jax_tree, to_jax_variables
+from deepaco_tpu_torch.aco.problems.op import validate_op
+from deepaco_tpu_torch.aco.problems.pctsp import validate_pctsp
+from deepaco_tpu_torch.aco.problems.smtwtp import validate_smtwtp
+from deepaco_tpu_torch.models.gnn import Net, init_like_flax, jax_layout, to_jax_tree
 from deepaco_tpu_torch.train import config, drivers
 from deepaco_tpu_torch.train import reinforce as tr
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 from deepaco_tpu_torch.utils.metrics import MetricsLogger
 
 B, A, DEPTH = 2, 5, 2
-SIZES = {"tsp": (20, 5), "cvrp": (12, 12)}           # n_nodes, k_sparse
+SIZES = {"tsp": (20, 5), "cvrp": (12, 12), "op": (20, 5), "pctsp": (12, 12),
+         "smtwtp": (12, 12)}                          # n_nodes, k_sparse
+NAMES = ["tsp", "cvrp", "op", "pctsp", "smtwtp"]
 
 
 def _cfg(mod, name, epochs=2, steps=5, batch=B):
@@ -56,9 +61,10 @@ def _replay_paths(name, jfamily, batch):
     """Feasible paths ``[B, horizon+1, A]`` of each instance in the JAX
     layout. TSP: from the start cities that JAX's ``path_log_probs`` takes
     (its spec's ``init`` at key 0), random orders of the other cities. CVRP:
-    routes that JAX's rollout samples on ``1/d``."""
-    n = batch["dist"].shape[-1]
+    routes that JAX's rollout samples on ``1/d``; OP, PCTSP and SMTWTP: on
+    a heuristic of ones."""
     if name == "tsp":
+        n = batch["dist"].shape[-1]
         ones = jnp.ones((n, n))
         inst0 = {k: jnp.asarray(v[0]) for k, v in batch.items()}
         _, starts = jfamily.spec(ones, ones, inst0, A).init(jax.random.PRNGKey(0))
@@ -70,9 +76,12 @@ def _replay_paths(name, jfamily, batch):
                 out[b, 1:, a] = rng.permutation(np.setdiff1d(np.arange(n), [s]))
         return out
 
+    m = jfamily.horizon_states(SIZES[name][0])[0]
+
     def sample(inst, key):
-        return jrollout(jfamily.spec(jnp.ones_like(inst["dist"]), 1.0 / inst["dist"],
-                                     inst, A), key).paths
+        inst = jfamily.prepare(inst)
+        heu = 1.0 / inst["dist"] if name == "cvrp" else jnp.ones((m, m))
+        return jrollout(jfamily.spec(jnp.ones((m, m)), heu, inst, A), key).paths
 
     keys = jax.random.split(jax.random.PRNGKey(3), B)
     batch = {k: jnp.asarray(v) for k, v in batch.items()}
@@ -86,15 +95,17 @@ def _jax_step(jfamily, model, cfg, state, batch, paths):
     interpret-mode Pallas layer from running op by op."""
     tx = jr.make_optimizer(cfg, cfg.train.epochs * cfg.train.steps_per_epoch)
     a = cfg.aco.n_ants
+    sign = -1.0 if jfamily.aco.maximize else 1.0
 
     def per_instance(params, batch_stats, inst, p):
         with jax.default_matmul_precision("highest"):
+            inst = jfamily.prepare(inst)
             heu, stats = jdrivers._forward_heu(jfamily, model, params, batch_stats, inst,
                                                cfg.k_sparse, True)
             spec = jfamily.spec(jnp.ones_like(heu), heu, inst, a)
             lp = jpath_log_probs(spec, p, alpha=jfamily.aco.alpha, beta=jfamily.aco.beta)
             costs = jfamily.cost(p, inst)
-            adv = jax.lax.stop_gradient(costs - jnp.mean(costs))
+            adv = jax.lax.stop_gradient(sign * (costs - jnp.mean(costs)))
             loss = jnp.sum(adv * jnp.sum(lp, axis=0)) / a
         return loss, stats
 
@@ -109,12 +120,15 @@ def _jax_step(jfamily, model, cfg, state, batch, paths):
                                                       updates)
 
 
-@pytest.mark.parametrize("name", ["tsp", "cvrp"])
+@pytest.mark.parametrize("name", NAMES)
 def test_one_step_matches_jax(name):
     """B=2 instances from a numpy seed, 5 ants, a 2-layer net (TSP: the
     dual-head net on the k-NN graph; CVRP: demand as the node feature on the
-    dense graph with self-loops, the heuristic transposed), the same weights
-    and the same replayed paths. JAX runs Net(use_pallas=True), the Pallas
+    dense graph with self-loops, the heuristic transposed; OP: the k-NN
+    graph, the extended instance, a maximized prize; PCTSP: the dense graph,
+    the heuristic over its smallest entry; SMTWTP: the dense job graph, no
+    node update, which leaves the node BatchNorms out of both trees), the
+    same weights and the same replayed paths. JAX runs Net(use_pallas=True), the Pallas
     layer in interpret mode. Tolerances as tests/test_torch_train.py holds
     TSP: loss rtol 1e-4 (a sum of advantage-weighted log-probabilities that
     nearly cancels); gradients rtol 1e-3 / atol 1e-6 (deep sums in other
@@ -142,8 +156,10 @@ def test_one_step_matches_jax(name):
                               torch.Generator(), paths=torch.from_numpy(paths))
     assert net.training
     out.loss.backward()
-    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
-             for n, p in net.named_parameters()}
+    # copies: the update below clips the gradients in place (SMTWTP's norm
+    # passes the clip of 3)
+    grads = jax_layout({n: (p.grad.clone() if p.grad is not None else torch.zeros_like(p))
+                        for n, p in net.named_parameters()}, net)
     state, _ = tr.optimizer_update(state, cfg)
 
     loss, jgrads, jstats, jparams = _jax_step(
@@ -152,7 +168,7 @@ def test_one_step_matches_jax(name):
         jnp.asarray(paths, jnp.int32))
     np.testing.assert_allclose(out.loss.item(), float(loss), rtol=1e-4)
     _assert_tree_close(to_jax_tree(grads)["params"], jgrads, 1e-3, 1e-6, "grad")
-    after = to_jax_variables(net)
+    after = to_jax_tree(jax_layout(net.state_dict(), net))
     _assert_tree_close(after["batch_stats"], jstats, 1e-5, 1e-6, "batch_stats")
     lr = cfg.train.lr
     before = dict(jax.tree_util.tree_leaves_with_path(jstate.params))
@@ -171,11 +187,18 @@ def test_one_step_matches_jax(name):
 def _valid(name, paths, inst):
     if name == "cvrp":
         return bool(validate_routes(paths, inst["demand"], families.CVRP_CAPACITY).all())
+    if name == "op":
+        return bool(validate_op(paths, inst["dist"], inst["max_len"]).all())
+    if name == "pctsp":
+        gate = (inst["prizes"].shape[-1] - 1) / 4.0
+        return bool(validate_pctsp(paths, inst["prizes"], gate).all())
+    if name == "smtwtp":
+        return bool(validate_smtwtp(paths).all())
     n = paths.shape[1]
     return bool((torch.sort(paths, dim=1).values == torch.arange(n)[:, None]).all())
 
 
-@pytest.mark.parametrize("name", ["tsp", "cvrp"])
+@pytest.mark.parametrize("name", NAMES)
 def test_sampled_step_runs_on_the_cpu(name, monkeypatch):
     """Two sampled steps of make_family_train_step: finite loss, cost and
     gradient norm, every sampled route valid and costing what the step
@@ -200,17 +223,18 @@ def test_sampled_step_runs_on_the_cpu(name, monkeypatch):
         batch = drivers.gen_batch(fam, rng, cfg.n_nodes, B)
         state, info = step(state, batch, gen)
         assert all(math.isfinite(float(v)) for v in info)
-        out, inst = seen[-1], drivers.instance_tensors(batch, "cpu")
+        out, inst = seen[-1], fam.prepare(drivers.instance_tensors(batch, "cpu"))
         assert out.paths.shape == (B, fam.horizon_states(cfg.n_nodes)[1] + 1, A)
         assert _valid(name, out.paths, inst)
         torch.testing.assert_close(out.costs, fam.cost(out.paths, inst))
     assert state.step == 2
-    moved = [not torch.equal(start[k], v) for k, v in state.net.state_dict().items()
+    moved = [not torch.equal(start[k], v)
+             for k, v in jax_layout(state.net.state_dict(), state.net).items()
              if v.dim() == 2 or "running" in k]
     assert len(moved) > 4 * DEPTH and all(moved)
 
 
-@pytest.mark.parametrize("name", ["tsp", "cvrp"])
+@pytest.mark.parametrize("name", NAMES)
 def test_train_family_draws_the_jax_instance_stream(name, monkeypatch):
     """The same seed gives the same training batches in both packages:
     ``init_family_state`` consumes one instance first in each. The JAX step
@@ -238,16 +262,19 @@ def test_train_family_draws_the_jax_instance_stream(name, monkeypatch):
             np.testing.assert_array_equal(t[k], j[k])
 
 
-def test_train_family_writes_checkpoints_that_both_packages_read(tmp_path):
+@pytest.mark.parametrize("name", ["cvrp", "smtwtp"])
+def test_train_family_writes_checkpoints_that_both_packages_read(tmp_path, name):
     """Two epochs of one step with validation: ``progress`` once an epoch
     with a validation cost, ``train_epoch`` and ``val`` events in the JSONL
     stream, ``-best`` and ``-last`` files; ``-last`` restores in the port
     (``restore_train_state``) and in JAX (``load_checkpoint`` into the
-    template of JAX's ``init_family_state``), with the trained weights."""
-    cfg, jcfg = _cfg(config, "cvrp", epochs=2, steps=1), _cfg(jconfig, "cvrp", epochs=2, steps=1)
+    template of JAX's ``init_family_state``), with the trained weights.
+    SMTWTP's net has no node update, and its file no node BatchNorms, as
+    JAX's has none."""
+    cfg, jcfg = _cfg(config, name, epochs=2, steps=1), _cfg(jconfig, name, epochs=2, steps=1)
     calls = []
     logger = MetricsLogger(str(tmp_path / "metrics.jsonl"))
-    state = drivers.train_family("cvrp", cfg, progress=lambda *a: calls.append(a),
+    state = drivers.train_family(name, cfg, progress=lambda *a: calls.append(a),
                                  val_instances=2, val_t=2,
                                  ckpt_path=str(tmp_path / "c.msgpack"), logger=logger,
                                  device="cpu")
@@ -259,17 +286,18 @@ def test_train_family_writes_checkpoints_that_both_packages_read(tmp_path):
               for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
     assert events == ["train_epoch", "val"] * 2
     last = str(tmp_path / "c-last.msgpack")
-    fam = families.get_family("cvrp")
+    fam = families.get_family(name)
     restored = tr.restore_train_state(load_checkpoint(last), drivers.family_model(fam), cfg)
     assert restored.step == 2
-    for a, b in zip(restored.net.state_dict().values(), state.net.state_dict().values()):
-        assert torch.equal(a, b)
-    jfam = jfamilies.get_family("cvrp")
+    kept = jax_layout(state.net.state_dict(), state.net)
+    for k, v in jax_layout(restored.net.state_dict(), restored.net).items():
+        assert torch.equal(v, kept[k])
+    jfam = jfamilies.get_family(name)
     template = jdrivers.init_family_state(jfam, jdrivers.family_model(jfam), jcfg,
                                           np.random.default_rng(0))
     jstate = jload_checkpoint(last, template)
     assert int(jstate.step) == 2
-    _assert_tree_close(to_jax_variables(state.net)["params"], jstate.params, 0, 0, "params")
+    _assert_tree_close(to_jax_tree(kept)["params"], jstate.params, 0, 0, "params")
 
 
 def test_validation_leaves_the_training_net_alone():

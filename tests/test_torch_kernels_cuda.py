@@ -1063,3 +1063,127 @@ def test_family_train_step_launches_k6_and_k7_on_the_card(dev, name):
     assert all(bool(torch.isfinite(v)) for v in info)
     assert all(not torch.equal(start[k], v) for k, v in state.net.state_dict().items()
                if v.dim() == 2)
+
+
+def test_embnet_layers_kernel_without_node_update_at_the_smtwtp_shape(dev):
+    """K9 with ``node_update=0`` on SMTWTP500's dense job graph (B=4 golden
+    instances, K = N = 501, the processing time as the edge feature) with
+    the ``smtwtp500_selftrained`` weights, against embnet_layers_plain: the
+    edge state and the head's output at rtol 1e-4 / atol 1e-5."""
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.train.drivers import family_model, instance_tensors
+    from deepaco_tpu_torch.utils.golden import smtwtp_test
+
+    fam = get_family("smtwtp")
+    net = family_model(fam, load_checkpoint(str(CKPT / "smtwtp500_selftrained.msgpack"))).to(dev)
+    assert not net.emb_net.node_update
+    inst = instance_tensors({k: v[:4] for k, v in smtwtp_test(500).items()}, dev)
+    g = fam.graph(inst, 0)
+    f = fused_gnn.fold_embnet_params(net.emb_net)
+    x = fused_gnn._node_embedding(f, g.x)
+    before = fused_gnn.embnet_layers.launches
+    got = fused_gnn.embnet_layers(f, x, g.nbr, g.edge, k=501, node_update=False)
+    assert fused_gnn.embnet_layers.launches == before + 1
+    want = fused_gnn.embnet_layers_plain(f, x, g.nbr, g.edge, k=501, node_update=False)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    heu = fused_gnn.net_forward_fast(net, g.x, g.nbr, g.edge)
+    plain = fused_gnn.net_forward_fast(net, g.x, g.nbr, g.edge,
+                                       layers=fused_gnn.embnet_layers_plain)
+    torch.testing.assert_close(heu, plain, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("name,n", [("op", 300), ("pctsp", 500)])
+def test_pick_kernel_on_op_and_pctsp_rows(dev, name, n):
+    """K7 on the rows of an OP300 and a PCTSP500 rollout (B=4 golden
+    instances, 20 ants, the classic heuristic): the family's own score rows,
+    masks (OP's budget and dummy node, PCTSP's depot gate and parking) and
+    noise at the start, a third and two thirds of the horizon, actions
+    exactly equal to the plain pick's and allowed, logp within 1e-5."""
+    from deepaco_tpu_torch.aco.engine import rollout
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.ops import pick
+    from deepaco_tpu_torch.train.drivers import instance_tensors
+    from deepaco_tpu_torch.utils import golden
+
+    fam = get_family(name)
+    inst = fam.prepare(instance_tensors({k: v[:4] for k, v in golden.GOLDEN[name](n).items()},
+                                        dev))
+    heu = fam.classic_heu(inst, fam.k_sparse(n))
+    spec = fam.spec(torch.ones_like(heu), heu, inst, 20)
+    at = {0, spec.horizon // 3, 2 * spec.horizon // 3}
+    steps, seen = iter(range(spec.horizon)), []
+
+    def check(score, mask, noise):
+        got = pick.fused_pick(score, mask, noise)
+        if next(steps) in at:
+            want = pick.fused_pick_plain(score, mask, noise)
+            assert torch.equal(got[0], want[0])
+            assert bool((mask.gather(1, got[0][:, None]) > 0).all())
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+            seen.append(int((mask > 0).sum(1).min()))
+        return got
+
+    before = pick.fused_pick.launches
+    rollout(spec, torch.Generator(device=dev).manual_seed(0), pick=check)
+    assert pick.fused_pick.launches == before + spec.horizon and len(seen) == 3
+
+
+def test_deposit_kernel_on_parked_pctsp_routes(dev):
+    """K8 on PCTSP500 routes that park on the depot (its self-loop repeated
+    to the horizon; B=4 golden instances, 20 ants, L = 503): equal bits to
+    scatter_add_ on the CPU, and within 2 k 2^-24 of each entry of
+    scatter_add_ on the card (k its terms)."""
+    from deepaco_tpu_torch.aco.engine import rollout
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.ops import deposit
+    from deepaco_tpu_torch.train.drivers import instance_tensors
+    from deepaco_tpu_torch.utils.golden import pctsp_test
+
+    fam = get_family("pctsp")
+    inst = instance_tensors({k: v[:4] for k, v in pctsp_test(500).items()}, dev)
+    heu = fam.classic_heu(inst, 50)
+    paths = rollout(fam.spec(torch.ones_like(heu), heu, inst, 20),
+                    torch.Generator(device=dev).manual_seed(1)).paths
+    assert bool((paths[:, -2:] == 0).all())             # every ant parked at the end
+    amounts = 1.0 / fam.cost(paths, inst)
+    got = deposit.tour_deposit(paths, amounts, 501, cyclic=False)
+    cpu = deposit.tour_deposit_plain(paths.cpu(), amounts.cpu(), 501, cyclic=False)
+    assert torch.equal(got.cpu(), cpu)
+    plain = deposit.tour_deposit_plain(paths, amounts, 501, cyclic=False)
+    k = deposit.tour_deposit_plain(paths, torch.ones_like(amounts), 501, cyclic=False)
+    assert bool(((got - plain).abs() <= 2 * k * 2.0 ** -24 * got).all())
+
+
+@pytest.mark.parametrize("name,n,ckpt", [("op", 100, "op100"), ("pctsp", 20, "pctsp20"),
+                                         ("smtwtp", 50, "smtwtp50")])
+def test_evaluate_family_runs_the_per_step_families_on_the_card(dev, name, n, ckpt):
+    """evaluate_family on 4 golden instances on the card: finite curves
+    that move one way, valid best solutions, and K9 once, K7 once a
+    construction step and K8 once an iteration; K6 and K7c never."""
+    from deepaco_tpu_torch.aco.problems.op import validate_op
+    from deepaco_tpu_torch.aco.problems.pctsp import validate_pctsp
+    from deepaco_tpu_torch.aco.problems.smtwtp import validate_smtwtp
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.ops import deposit, gnn_layer, pick
+    from deepaco_tpu_torch.train.drivers import evaluate_family, family_model, instance_tensors
+    from deepaco_tpu_torch.utils import golden
+
+    fam = get_family(name)
+    ds = {k: v[:4] for k, v in golden.GOLDEN[name](n).items()}
+    net = family_model(fam, load_checkpoint(str(CKPT / f"{ckpt}_selftrained.msgpack")))
+    counters = (fused_gnn.embnet_layers, gnn_layer.fused_gnn_layer, pick.fused_pick,
+                deposit.tour_deposit, cc.cvrp_construct)
+    before = [fn.launches for fn in counters]
+    _, curves, state = evaluate_family(name, ds, n_nodes=n, net=net, n_ants=8,
+                                       t_values=(1, 3), return_state=True)
+    horizon = fam.horizon_states(n)[1]
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 0, 3 * horizon, 3, 0]
+    sign = -1.0 if fam.aco.maximize else 1.0
+    assert curves.is_cuda and bool(torch.isfinite(curves).all())
+    assert bool((sign * curves[:, 1:] <= sign * curves[:, :-1]).all())
+    inst = fam.prepare(instance_tensors(ds, dev))
+    best = state.best_path[..., None]
+    valid = {"op": lambda: validate_op(best, inst["dist"], inst["max_len"]),
+             "pctsp": lambda: validate_pctsp(best, inst["prizes"], n / 4.0),
+             "smtwtp": lambda: validate_smtwtp(best)}[name]()
+    assert bool(valid.all())

@@ -215,10 +215,18 @@ def test_open_paths_take_search_update():
                                   {"vector_pheromone": True}, {"maximize": True},
                                   {"deposit_div_ants": True}, {"cost_offset": 1.0}])
 def test_unported_flags_raise(flag):
+    """The flags not ported yet raise in init_search and search_update;
+    maximize (OP) and cost_offset (SMTWTP), ported since, run both."""
     cfg = runner.ACOConfig(**flag)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        runner.init_search(5, 4, cfg, batch=(1,))
     state = runner.init_search(5, 4, runner.ACOConfig(), batch=(1,))
     paths = torch.stack([torch.randperm(5) for _ in range(2)], dim=1)[None]
+    if set(flag) <= {"maximize", "cost_offset"}:
+        state = runner.init_search(5, 4, cfg, batch=(1,))
+        got = runner.search_update(cfg, state, paths, torch.tensor([[2.0, 3.0]]))
+        assert got.best_cost.item() == (3.0 if cfg.maximize else 2.0)
+        assert bool(torch.isfinite(got.phe.tau).all())
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        runner.init_search(5, 4, cfg, batch=(1,))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         runner.search_update(cfg, state, paths, torch.ones(1, 2))

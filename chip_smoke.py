@@ -117,27 +117,32 @@ Phases, one JSON line each:
    dropped-deposit rates. Every best tour must be a permutation costing
    what the run reports, and the kernel arm's cost@T1 must lie within 1e-4
    of the plain arm's (the same noise; only K9's rounding parts them);
-14. the per-step families (``family_phase``), each at its largest golden
+14. the other families (``family_phase``), each at its largest golden
    scale with its largest checkpoint (12 layers, 32 units): OP300
    (``op300_selftrained``, 100 instances, max_len 6, k=30), PCTSP500 and
    SMTWTP500 (100 instances each, K = N = 501; SMTWTP without the node
-   update). K9 against its plain version on the family's graph, K7 on the
-   rows of one construction at a third and two thirds of its horizon
-   (actions exact), K8 on its routes (PCTSP's parked on the depot) held as
-   in phase 9; the path (``evaluate_family``, A=20, T=1 and 10) in a kernel
-   arm (K9 once, K7 10 x horizon, K8 10), a plain arm on the card
+   update), SOP100 (the masked dense graph, K = N = 100, no node update),
+   BPP120 (K = N = 121, capacity 150) and MKP300 (K = N = 300, five node
+   features; 100 instances each). K9 against its plain version on the
+   family's graph, K7 on the rows of one construction at a third and two
+   thirds of its horizon (actions exact) or, for BPP, K7c on its neural
+   score (paths bit-equal), K8 on its routes (PCTSP's and BPP's parked on
+   node 0, MKP's on the dummy item) held as in phase 9; the path
+   (``evaluate_family``, A=20, T=1 and 10) in a kernel arm (K9 once, K7 10
+   x horizon or K7c 10, K8 10), a plain arm on the card
    (``drivers.PLAIN_OPS``, the same generator seed) and a classic arm, each
    with its costs, wall, phase times, peak memory and launches; every best
    solution valid and scoring what the run says, the kernel arm's cost@T1
    within 1e-4 of the plain arm's, its cost@T10 within 1% of it and better
-   than the classic arm's (higher for OP, which maximizes); training at the
+   than the classic arm's (higher for OP, BPP and MKP, which maximize), and
+   both within 3% of the JAX package's (``JAX_COSTS``); training at the
    family's envelope (``family_train_config``: OP300 and PCTSP500 with 20
-   ants, SMTWTP500 with 50, batch 1, lr 3e-4): one step kernel arm against
-   plain arm held as in phase 11, K6 forward and backward on its graph and
-   K7 on its rows, two steps of ``make_family_train_step`` with exactly 12
-   + 12 K6 and ``horizon`` K7 launches a step and no K9, K7c or K8; and
-   ``cli.main(["test", name, ...])`` on the card, whose costs must be the
-   kernel arm's;
+   ants, SMTWTP500, SOP100 and MKP300 with 50, BPP120 with 120, batch 1,
+   lr 3e-4): one step kernel arm against plain arm held as in phase 11, K6
+   forward and backward on its graph and K7 on its rows, two steps of
+   ``make_family_train_step`` with exactly 12 + 12 K6 and ``horizon`` K7
+   launches a step and no K9, K7c or K8; and ``cli.main(["test", name,
+   ...])`` on the card, whose costs must be the kernel arm's;
 15. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7 from the
    TSP500-NLS training run, K7c and K8 from the CVRP path's kernel arm, K9
@@ -145,13 +150,14 @@ Phases, one JSON line each:
    path of either package, so its count is 0), error, times and bound; K6's
    and K7's entries also carry ``cvrp_train``: their launches in phase
    11's three steps and their times, error and bound at its shapes; K6,
-   K7, K8 and K9 carry ``op``, ``pctsp`` and ``smtwtp``: their launches on
-   that family's kernel arm (K7, K8, K9) and in its two training steps (K6,
-   K7), with their error, times and bound at its shapes.
+   K7, K8 and K9 carry ``op``, ``pctsp``, ``smtwtp``, ``sop``, ``bpp`` and
+   ``mkp`` (K7c ``bpp``): their launches on that family's kernel arm (K7 or
+   K7c, K8, K9) and in its two training steps (K6, K7), with their error,
+   times and bound at its shapes.
 
-Every path's cost (main cost@T10, NLS, CVRP, sparse, OP, PCTSP and
-SMTWTP cost@T1 and cost@T10, and both for the plain arms of the main, NLS
-and sparse paths) must equal the one recorded in ``RECORDED_COSTS`` to the 4 decimals
+Every path's cost (main cost@T10, NLS, CVRP, sparse, OP, PCTSP, SMTWTP,
+SOP, BPP and MKP cost@T1 and cost@T10, and both for the plain arms of the
+main, NLS and sparse paths) must equal the one recorded in ``RECORDED_COSTS`` to the 4 decimals
 recorded: the kernels are exact or held to their plain versions, and the
 inputs and seeds are fixed. K1's and K9's ``{"phase": "kernel"}`` lines
 also carry ``design_floor_ms``, the time their streamed edge state takes
@@ -179,17 +185,27 @@ TRAIN_STEPS = {"tsp500": 4, "tsp500_nls": 2}
 CVRP_TRAIN_STEPS, CVRP_VAL_B = 3, 4             # make_family_train_step's run; validation cut
 CVRP_N, CVRP_CKPT = 500, "checkpoints/cvrp500_selftrained.msgpack"
 # each family path's scale, checkpoint (the largest committed), and its
-# training envelope from RESULTS.md:175-181: ants, epochs, steps an epoch
+# training envelope from RESULTS.md:164, 170-171, 175-181: ants, epochs,
+# steps an epoch
 FAMILY_PATHS = {"cvrp": (CVRP_N, CVRP_CKPT, A_TRAIN, 5, 128),
                 "op": (300, "checkpoints/op300_selftrained.msgpack", 20, 15, 64),
                 "pctsp": (500, "checkpoints/pctsp500_selftrained.msgpack", 20, 15, 128),
-                "smtwtp": (500, "checkpoints/smtwtp500_selftrained.msgpack", 50, 5, 128)}
-PER_STEP = ("op", "pctsp", "smtwtp")   # the families that construct through K7 a step
+                "smtwtp": (500, "checkpoints/smtwtp500_selftrained.msgpack", 50, 5, 128),
+                "sop": (100, "checkpoints/sop100_selftrained.msgpack", 50, 5, 128),
+                "bpp": (120, "checkpoints/bpp120_selftrained.msgpack", 120, 5, 64),
+                "mkp": (300, "checkpoints/mkp300_selftrained.msgpack", 50, 10, 64)}
+# phase 14's families, in order; BPP constructs through K7c in inference, the
+# others through K7 a step
+FAMILY_PHASE = ("op", "pctsp", "smtwtp", "sop", "bpp", "mkp")
+ONE_PASS = ("bpp",)
 FAMILY_TRAIN_STEPS = 2
 FAMILY_PICK_AT = (0.0, 1 / 3, 2 / 3)    # K7's checks on their rows, as shares of the horizon
-# the JAX package's costs at T1 and T10 (RESULTS.md:175, 178, 179): quality
-# anchors, not speed targets
-JAX_COSTS = {"op": (72.78, 80.08), "pctsp": (16.20, 15.70), "smtwtp": (0.662, 0.572)}
+# the JAX package's costs at T1 and T10 (RESULTS.md:164, 170-171, 175, 178,
+# 179): quality anchors, not speed targets; each kernel arm's lies within
+# JAX_COST_SPAN of them
+JAX_COSTS = {"op": (72.78, 80.08), "pctsp": (16.20, 15.70), "smtwtp": (0.662, 0.572),
+             "sop": (71.67, 70.46), "bpp": (0.9542, 0.9586), "mkp": (58.2, 59.3)}
+JAX_COST_SPAN = 0.03
 CVRP_PICK_AT = (0.0, 0.15, 0.4, 0.7)   # K7's CVRP checks, as shares of the horizon
 SPARSE_N, SPARSE_B, SPARSE_LS_B = 2000, 30, 4    # the CLI's TSP2000 set; 2-opt arm's cut
 SPARSE_T, SPARSE_LS_T = (1, 10), (1, 2)
@@ -203,7 +219,8 @@ RECORDED_COSTS = {"main": (None, 19.6391), "main_plain": (20.6735, 19.6335),
                   "cvrp": (61.7577, 60.5177),
                   "sparse": (48.2913, 45.1827), "sparse_plain": (48.2913, 45.1980),
                   "op": (72.9418, 80.2401), "pctsp": (16.1978, 15.7033),
-                  "smtwtp": (0.6446, 0.5644)}
+                  "smtwtp": (0.6446, 0.5644), "sop": (72.1315, 70.8907),
+                  "bpp": (0.9544, 0.9588), "mkp": (57.9397, 59.2638)}
 # the CVRP kernel arm's cost@T10 as recorded through the per-step
 # construction (K7 a step, torch.rand noise); the one-pass construction
 # samples the same law and is held within 1% of it
@@ -348,11 +365,14 @@ def drive_family(net, ds, ops=None, name: str = "cvrp"):
 def valid_solutions(name: str, paths, inst):
     """Each solution's feasibility ``[B, A]`` by the family's validator, on
     the prepared instance."""
+    from deepaco_tpu_torch.aco.problems.bpp import validate_bpp
     from deepaco_tpu_torch.aco.problems.cvrp import validate_routes
+    from deepaco_tpu_torch.aco.problems.mkp import validate_mkp
     from deepaco_tpu_torch.aco.problems.op import validate_op
     from deepaco_tpu_torch.aco.problems.pctsp import validate_pctsp
     from deepaco_tpu_torch.aco.problems.smtwtp import validate_smtwtp
-    from deepaco_tpu_torch.families import CVRP_CAPACITY
+    from deepaco_tpu_torch.aco.problems.sop import validate_sop
+    from deepaco_tpu_torch.families import BPP_CAPACITY, CVRP_CAPACITY
 
     if name == "cvrp":
         return validate_routes(paths, inst["demand"], CVRP_CAPACITY)
@@ -360,6 +380,12 @@ def valid_solutions(name: str, paths, inst):
         return validate_op(paths, inst["dist"], inst["max_len"])
     if name == "pctsp":
         return validate_pctsp(paths, inst["prizes"], (inst["prizes"].shape[-1] - 1) / 4.0)
+    if name == "sop":
+        return validate_sop(paths, inst["prec"])
+    if name == "bpp":
+        return validate_bpp(paths, inst["demand"], BPP_CAPACITY)
+    if name == "mkp":
+        return validate_mkp(paths, inst["weight"], inst["prize"].shape[-1] // 2)
     return validate_smtwtp(paths)
 
 
@@ -553,30 +579,29 @@ def check_pick_rows(cuda_ms, captured, shares=CVRP_PICK_AT) -> dict:
                                                         6 * rows * n)))}
 
 
-def check_cvrp_construct(dev, cuda_ms, ds) -> dict:
-    """K7c (``cvrp_construct``) against its plain version at the CVRP path's
-    shape (B=100, N=501, A=20, capacity 50) on ``1/d``: paths bit-equal from
-    equal generator states, stochastic and greedy, and valid; its time, the
-    plain version's and the bound for the steps this run's ants take."""
+def check_cvrp_construct(dev, cuda_ms, score, demand, capacity: float,
+                         config: str = "cvrp500, 1/d") -> dict:
+    """K7c (``cvrp_construct``) against its plain version on ``score [B, N,
+    N]`` and ``demand [B, N]`` at ``capacity`` (the CVRP path's shape, B=100,
+    N=501, capacity 50, on ``1/d``; BPP120's, N=121, capacity 150, on its
+    neural heuristic): paths bit-equal from equal generator states,
+    stochastic and greedy, and valid (each customer or item once, no trip or
+    bin above capacity); its time, the plain version's and the bound for
+    the steps this run's ants take."""
     import torch
 
     from deepaco_tpu_torch.aco.problems.cvrp import validate_routes
-    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
-    from deepaco_tpu_torch.families import CVRP_CAPACITY
     from deepaco_tpu_torch.ops import cvrp_construct as cc
 
-    dist = torch.as_tensor(ds["dist"], device=dev)
-    demand = torch.as_tensor(ds["demand"], device=dev)
-    score = score_matrix(torch.ones_like(dist), 1.0 / dist, 1.0, 1.0)
     gen = lambda: torch.Generator(device=dev).manual_seed(SEED + 9)
     modes = {}
     for stochastic in (True, False):
-        got = cc.cvrp_construct(score, demand, CVRP_CAPACITY, A, gen(), stochastic=stochastic)
-        want = cc.cvrp_construct_plain(score, demand, CVRP_CAPACITY, A, gen(),
+        got = cc.cvrp_construct(score, demand, capacity, A, gen(), stochastic=stochastic)
+        want = cc.cvrp_construct_plain(score, demand, capacity, A, gen(),
                                        stochastic=stochastic)
         modes["stochastic" if stochastic else "greedy"] = {
             "equal": bool(torch.equal(got, want)),
-            "valid": bool(validate_routes(got, demand, CVRP_CAPACITY).all()),
+            "valid": bool(validate_routes(got, demand, capacity).all()),
             "differing_entries": int((got != want).sum()),
             "max_abs_err": (got - want).abs().max().item()}
         if stochastic:
@@ -587,16 +612,16 @@ def check_cvrp_construct(dev, cuda_ms, ds) -> dict:
     served = (paths != 0).long() * torch.arange(rows, device=dev)[None, :, None]
     steps = int((served.amax(dim=1) + 1).sum())
     g = gen()
-    ms = cuda_ms(lambda: cc.cvrp_construct(score, demand, CVRP_CAPACITY, A, g), 10)
-    plain_ms = cuda_ms(lambda: cc.cvrp_construct_plain(score, demand, CVRP_CAPACITY, A, g), 1)
+    ms = cuda_ms(lambda: cc.cvrp_construct(score, demand, capacity, A, g), 10)
+    plain_ms = cuda_ms(lambda: cc.cvrp_construct_plain(score, demand, capacity, A, g), 1)
     ok = all(m["equal"] and m["valid"] for m in modes.values())
     # score read once, demand read once, paths written once; per entry of
     # the steps taken: the uniform's add and multiply, two logarithms, the
     # noise add, the capacity compare, the mask select and the running-max
     # compare
     nbytes = 4 * b * n * n + 4 * b * n + 8 * b * rows * a
-    emit({"phase": "kernel", "name": "cvrp_construct", "B": b, "N": n, "A": a,
-          "capacity": CVRP_CAPACITY, "passed": ok, **modes, "steps_taken": steps,
+    emit({"phase": "kernel", "name": "cvrp_construct", "config": config, "B": b, "N": n,
+          "A": a, "capacity": capacity, "passed": ok, **modes, "steps_taken": steps,
           "steps_bound": b * a * (rows - 1), "ms": ms, "plain_ms": plain_ms,
           "tolerance": "paths bit-equal to the plain version (the same Philox noise)"})
     return {"name": "cvrp_construct", "route": "cuda",
@@ -1010,14 +1035,19 @@ def family_train_config(name: str = "cvrp"):
     5 x 128 steps, the dense graph with self-loops, K = N = 501. OP300: 20
     ants, 15 x 64 steps, the k-NN graph, K = 30. PCTSP500: 20 ants, 15 x 128
     steps, the dense graph, K = N = 501. SMTWTP500: 50 ants, 5 x 128 steps,
-    the dense job graph, K = N = 501, no node update."""
+    the dense job graph, K = N = 501, no node update. SOP100: 50 ants, 5 x
+    128 steps, the masked dense graph, K = N = 100, no node update. BPP120:
+    120 ants, 5 x 64 steps, the dense graph, K = N = 121, capacity 150.
+    MKP300: 50 ants, 10 x 64 steps, the dense graph with five node
+    features, K = N = 300, weight decay 0 (mkp/train.py:78)."""
     from deepaco_tpu_torch.train.config import ACOSettings, ProblemConfig, TrainConfig
 
     n, _, ants, epochs, steps = FAMILY_PATHS[name]
     return ProblemConfig(
         name=name, n_nodes=n, k_sparse=max(n // 10, 3),
         aco=ACOSettings(n_ants=ants),
-        train=TrainConfig(lr=3e-4, weight_decay=1e-2, grad_clip=3.0, epochs=epochs,
+        train=TrainConfig(lr=3e-4, weight_decay=0.0 if name == "mkp" else 1e-2,
+                          grad_clip=3.0, epochs=epochs,
                           steps_per_epoch=steps, batch_size=1, cosine_schedule=False,
                           seed=SEED))
 
@@ -1088,15 +1118,19 @@ def family_train_step_arms(dev, name: str = "cvrp", shares=CVRP_PICK_AT):
 
 
 def family_rollout(dev, name: str, net, ds):
-    """One construction of a per-step family's path at its full size (the
-    golden set, A=20) on its neural heuristic with tau = 1, a K7 a step.
-    Returns the paths, the update's amounts (``q * objective`` for OP,
-    ``1 / (cost + offset)`` else), the graph, and K7's inputs at the shares
-    FAMILY_PICK_AT of the horizon."""
+    """One construction of a phase-14 family's path at its full size (the
+    golden set, A=20) on its neural heuristic with tau = 1: a K7 a step, or
+    for BPP one K7c launch (``cvrp_construct`` on the score matrix, as its
+    first iteration runs it). Returns the paths, the update's amounts
+    (``q * objective`` for OP and MKP, ``fitness / A`` for BPP, ``1 / (cost
+    + offset)`` else), the graph, K7's inputs at the shares FAMILY_PICK_AT
+    of the horizon (none for BPP), and the score matrix."""
     import torch
 
     from deepaco_tpu_torch.aco.engine import rollout
-    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
+    from deepaco_tpu_torch.families import BPP_CAPACITY, get_family
+    from deepaco_tpu_torch.ops import cvrp_construct as cc
     from deepaco_tpu_torch.ops import pick
     from deepaco_tpu_torch.train import drivers
 
@@ -1105,6 +1139,13 @@ def family_rollout(dev, name: str, net, ds):
     n = FAMILY_PATHS[name][0]
     with torch.no_grad():
         heu = drivers._forward_heu(fam, net.eval(), inst, fam.k_sparse(n))
+        score = score_matrix(torch.ones_like(heu), heu, 1.0, 1.0)
+    graph = fam.graph(inst, fam.k_sparse(n))
+    if name in ONE_PASS:
+        with torch.no_grad():
+            paths = cc.cvrp_construct(score, inst["demand"], BPP_CAPACITY, A,
+                                      torch.Generator(device=dev).manual_seed(SEED + 12))
+        return paths, fam.cost(paths, inst) / A, graph, [], score
     spec = fam.spec(torch.ones_like(heu), heu, inst, A)
     at = {int(f * spec.horizon) for f in FAMILY_PICK_AT}
     steps = iter(range(spec.horizon))
@@ -1122,21 +1163,21 @@ def family_rollout(dev, name: str, net, ds):
         costs = fam.cost(paths, inst)
     q = fam.extras(inst).get("q")
     amounts = q[:, None] * costs if fam.aco.maximize else 1.0 / (costs + fam.aco.cost_offset)
-    return paths, amounts, fam.graph(inst, fam.k_sparse(n)), captured
+    return paths, amounts, graph, captured, score
 
 
 def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dict:
-    """Phase 14 for one per-step family (OP300, PCTSP500, SMTWTP500): its
-    kernels against their plain versions at its shapes, its path in three
-    arms, its training at the envelope, and the CLI's ``test``. Emits one
-    line for the path and one for training, and returns what the kernels'
-    line and the checks read."""
+    """Phase 14 for one family (OP300, PCTSP500, SMTWTP500, SOP100, BPP120,
+    MKP300): its kernels against their plain versions at its shapes, its
+    path in three arms, its training at the envelope, and the CLI's
+    ``test``. Emits one line for the path and one for training, and returns
+    what the kernels' line and the checks read."""
     import io
 
     import torch
 
     from deepaco_tpu_torch import cli
-    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.families import BPP_CAPACITY, get_family
     from deepaco_tpu_torch.models.gnn import jax_layout
     from deepaco_tpu_torch.ops import deposit, fused_gnn, gnn_layer, pick
     from deepaco_tpu_torch.ops import cvrp_construct as cc
@@ -1151,21 +1192,30 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     b = next(iter(inst.values())).shape[0]
     out = {"checks": {}}
 
-    # kernels at the family's shapes: K9 on its graph, K7 on its rows, K8
-    # on its routes (PCTSP's park on the depot, its self-loop repeated)
-    paths, amounts, g, picks = family_rollout(dev, name, net, ds)
-    out["k9"] = check_embnet_layers(cuda_ms, net, g, f"{name}{n}, K = {g.nbr.shape[-1]}")
-    out["k7"] = check_pick_rows(cuda_ms, picks, FAMILY_PICK_AT)
-    emit({"phase": "kernel", "name": "fused_pick", "config": f"{name}{n} rollout, N = "
-          f"{n_states}", **out["k7"], "tolerance": "actions exact and allowed; logp rtol "
-          "1e-5, atol 1e-5 (logsumexp order, expf/logf against torch's)"})
+    # kernels at the family's shapes: K9 on its graph (SOP's masked: no node
+    # update, so the mask changes nothing before the heuristic applies it),
+    # K7 on its rows or, for BPP, K7c on its score, K8 on its routes
+    # (PCTSP's and BPP's park on node 0, the self-loop repeated; MKP's on
+    # the dummy item)
+    paths, amounts, g, picks, score = family_rollout(dev, name, net, ds)
+    out["k9"] = check_embnet_layers(cuda_ms, net, g, f"{name}{n}, K = {g.nbr.shape[-1]}"
+                                    + (", masked" if g.mask is not None else ""))
+    if name in ONE_PASS:
+        out["k7c"] = check_cvrp_construct(dev, cuda_ms, score, inst["demand"],
+                                          BPP_CAPACITY, f"{name}{n}, neural heuristic")
+        out["checks"]["k7c"] = out["k7c"]["passed"]
+    else:
+        out["k7"] = check_pick_rows(cuda_ms, picks, FAMILY_PICK_AT)
+        emit({"phase": "kernel", "name": "fused_pick", "config": f"{name}{n} rollout, N = "
+              f"{n_states}", **out["k7"], "tolerance": "actions exact and allowed; logp rtol "
+              "1e-5, atol 1e-5 (logsumexp order, expf/logf against torch's)"})
+        out["checks"]["k7"] = out["k7"]["passed"]
     out["k8"] = deposit_case(dev, cuda_ms, paths, amounts, n_states, False)
     out["k8"]["below_library"] = out["k8"]["ms"] < out["k8"]["library_ms"]
     emit({"phase": "kernel", "name": "tour_deposit", "config": f"{name}{n} routes",
           **out["k8"], "tolerance": "as phase 9"})
-    del paths, amounts, g, picks
-    out["checks"].update(k9=out["k9"]["passed"], k7=out["k7"]["passed"],
-                         k8=out["k8"]["passed"])
+    del paths, amounts, g, picks, score
+    out["checks"].update(k9=out["k9"]["passed"], k8=out["k8"]["passed"])
 
     # the path in three arms, each with the counts set to 0 just before it
     # and read just after
@@ -1197,13 +1247,14 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     arms = {"kernel": arm(net, drivers.KERNEL_OPS), "plain": arm(net, drivers.PLAIN_OPS),
             "classic": arm(None, drivers.KERNEL_OPS)}
     t_max = max(T_VALUES)
-    want = {"kernel": {"embnet_layers": 1, "fused_gnn_layer": 0, "fused_pick": t_max * horizon,
-                       "tour_deposit": t_max, "cvrp_construct": 0},
+    # an iteration: one K7c launch (BPP) or a K7 launch a step (the others)
+    picks_run, passes_run = (0, t_max) if name in ONE_PASS else (t_max * horizon, 0)
+    want = {"kernel": {"embnet_layers": 1, "fused_gnn_layer": 0, "fused_pick": picks_run,
+                       "tour_deposit": t_max, "cvrp_construct": passes_run},
             "plain": {"embnet_layers": 0, "fused_gnn_layer": 0, "fused_pick": 0,
                       "tour_deposit": 0, "cvrp_construct": 0},
-            "classic": {"embnet_layers": 0, "fused_gnn_layer": 0,
-                        "fused_pick": t_max * horizon, "tour_deposit": t_max,
-                        "cvrp_construct": 0}}
+            "classic": {"embnet_layers": 0, "fused_gnn_layer": 0, "fused_pick": picks_run,
+                        "tour_deposit": t_max, "cvrp_construct": passes_run}}
     ck, cp, cc_ = (arms[a]["cost"] for a in ("kernel", "plain", "classic"))
     out["checks"].update(
         arms=all(r["finite"] and r["monotone"] and r["valid_best"] == b
@@ -1212,7 +1263,9 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
         # the arms draw the same noise: at T1 only K9's rounding parts them
         t1_kernel_vs_plain=abs(ck[0] - cp[0]) <= 1e-4 * abs(cp[0]),
         t10_kernel_vs_plain=abs(ck[-1] - cp[-1]) <= 0.01 * abs(cp[-1]),
-        neural_beats_classic=sign * ck[-1] < sign * cc_[-1])
+        neural_beats_classic=sign * ck[-1] < sign * cc_[-1],
+        near_jax=all(abs(c - j) <= JAX_COST_SPAN * abs(j)
+                     for c, j in zip(ck, JAX_COSTS[name])))
     emit({"phase": f"{name}_path", "B": b, "N": n_states, "A": A, "T": list(T_VALUES),
           "ckpt": ckpt, "jax_costs": JAX_COSTS[name], "launches_expected": want, **arms})
     out["arms"] = arms
@@ -1232,6 +1285,10 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     step_fn = drivers.make_family_train_step(fam, cfg, _ops=drivers.KERNEL_OPS._replace(
         timer=timer))
     start = {k: v.clone() for k, v in jax_layout(state.net.state_dict(), state.net).items()}
+    # the weights that get a gradient: without weight decay (MKP) no other moves
+    touched = set()
+    for pname, p in state.net.named_parameters():
+        p.register_hook(lambda g, pname=pname: touched.add(pname) if bool(g.any()) else None)
     rows = []
     for i in range(FAMILY_TRAIN_STEPS):
         batch = drivers.gen_batch(fam, rng, cfg.n_nodes, 1)
@@ -1251,7 +1308,8 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
                  "tour_deposit": 0}
     moved = all(not torch.equal(start[k], v)
                 for k, v in jax_layout(state.net.state_dict(), state.net).items()
-                if v.dim() == 2 or "running" in k)
+                if (v.dim() == 2 and (k in touched or cfg.train.weight_decay > 0))
+                or "running" in k)
     del state, start
     # (c) the CLI's test on the card: the kernel arm, through the CLI
     text = io.StringIO()
@@ -1285,19 +1343,23 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
 
 
 def family_kernel_fields(r: dict) -> dict:
-    """A per-step family's fields of K6, K7, K8 and K9 in the kernels' line,
-    from ``family_phase``'s result: the launches on its kernel arm (K7, K8,
-    K9) and in its training steps (K6, K7), and the error, times and bound
-    at its shapes."""
+    """A phase-14 family's fields of K6, K7, K7c, K8 and K9 in the kernels'
+    line, from ``family_phase``'s result: the launches on its kernel arm
+    (K7 or K7c, K8, K9) and in its training steps (K6, K7), and the error,
+    times and bound at its shapes (K7's at its inference rows, or for BPP,
+    which picks through K7 only in training, at its training rows)."""
     take = lambda d, keys: {k: d[k] for k in keys if k in d}
     timing = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     launches = r["arms"]["kernel"]["launches"]
     train = {"train_steps": FAMILY_TRAIN_STEPS}
+    fields = {} if "k7c" not in r else {"cvrp_construct": {
+        "launches": launches["cvrp_construct"], **take(r["k7c"], timing)}}
     return {
+        **fields,
         "embnet_layers": {"launches": launches["embnet_layers"], **take(r["k9"], timing)},
         "fused_pick": {"launches": launches["fused_pick"],
                        "train_launches": r["train_launches"]["fused_pick"], **train,
-                       **take(r["k7"], ("rows", "N") + timing)},
+                       **take(r.get("k7", r["pick_train"]), ("rows", "N") + timing)},
         "tour_deposit": {"launches": launches["tour_deposit"],
                          **take(r["k8"], ("B", "L", "A", "n") + timing)},
         "fused_gnn_layer": {"train_launches": r["train_launches"]["fused_gnn_layer"], **train,
@@ -1323,6 +1385,7 @@ def main() -> int:
     from deepaco_tpu_torch.eval.anytime import evaluate_tsp
     from deepaco_tpu_torch.models.gnn import Net, init_like_flax
     from deepaco_tpu_torch.aco.problems.cvrp import route_cost, validate_routes
+    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
     from deepaco_tpu_torch.families import CVRP_CAPACITY
     from deepaco_tpu_torch.ops import _build, deposit, fused_gnn, gnn_layer, pick, two_opt
     from deepaco_tpu_torch.ops import cvrp_construct as cc
@@ -1721,7 +1784,11 @@ def main() -> int:
     emit({"phase": "kernel", "name": "fused_pick", "config": "cvrp500 rollout, N = 501",
           **pick_501, "tolerance": "actions exact and allowed; logp rtol 1e-5, atol 1e-5 "
                                    "(logsumexp order, expf/logf against torch's)"})
-    kernels.append(check_cvrp_construct(dev, cuda_ms, cvrp_ds))
+    cvrp_dist = torch.as_tensor(cvrp_ds["dist"], device=dev)
+    kernels.append(check_cvrp_construct(
+        dev, cuda_ms, score_matrix(torch.ones_like(cvrp_dist), 1.0 / cvrp_dist, 1.0, 1.0),
+        torch.as_tensor(cvrp_ds["demand"], device=dev), CVRP_CAPACITY))
+    del cvrp_dist
     cvrp_g = cvrp_graph(torch.as_tensor(cvrp_ds["demand"], device=dev),
                         torch.as_tensor(cvrp_ds["dist"], device=dev))
     layer_501 = check_layer(dev, cuda_ms, cvrp_net, cvrp_g)
@@ -1960,9 +2027,9 @@ def main() -> int:
                 **{k: shape[k] for k in ("B", "N", "K", "rows", "max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by") if k in shape}}
 
-    # ---- 14. the per-step families: OP300, PCTSP500, SMTWTP500
+    # ---- 14. the other families: OP300, PCTSP500, SMTWTP500, SOP100, BPP120, MKP300
     family_runs = {name: family_phase(dev, root, cuda_ms, PhaseTimer, counted, name)
-                   for name in PER_STEP}
+                   for name in FAMILY_PHASE}
     for name, r in family_runs.items():
         fields = family_kernel_fields(r)
         for entry in kernels:

@@ -2,9 +2,11 @@
 loop (counterpart of ``deepaco_tpu/aco/runner.py``), batched over instances.
 
 The plain Ant System branch is ported, with CVRP's pheromone ``floor``,
-maximization (OP: deposit ``q * objective``, the best is the largest) and
-``cost_offset`` (SMTWTP: deposit ``q / (cost + 1)``). The other strategy
-flags raise ``NotImplementedError`` until their slice lands (ROADMAP.md).
+maximization (OP: deposit ``q * objective``, the best is the largest),
+``cost_offset`` (SMTWTP: deposit ``q / (cost + 1)``) and
+``deposit_div_ants`` (BPP: each ant deposits ``q * fitness / A``). The
+other strategy flags raise ``NotImplementedError`` until their slice lands
+(ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -40,16 +42,18 @@ class ACOConfig(NamedTuple):
     cost_offset: float = 0.0
 
 
-_UNPORTED = ("elitist", "min_max", "vector_pheromone", "deposit_div_ants")
+# each flag not ported yet, with the ROADMAP.md §1 item that takes it
+_UNPORTED = {"elitist": "item 4 (rcpsp)", "min_max": "item 4 (rcpsp)",
+             "vector_pheromone": "item 8.9 (mkp_items)"}
 
 
 def check_ported(cfg: ACOConfig) -> None:
-    """Raise for a strategy flag that is not ported yet."""
+    """Raise for a strategy flag that is not ported yet, naming its item."""
     on = [f for f in _UNPORTED if getattr(cfg, f)]
     if on:
         raise NotImplementedError(
-            f"ACOConfig flags {on} are not ported to deepaco_tpu_torch yet; "
-            "see ROADMAP.md")
+            f"ACOConfig flags {on} are not ported to deepaco_tpu_torch yet: "
+            + "; ".join(f"{f} waits for ROADMAP.md §1 {_UNPORTED[f]}" for f in on))
 
 
 class SearchState(NamedTuple):
@@ -106,8 +110,8 @@ def search_update(cfg: ACOConfig, state: SearchState, paths: torch.Tensor,
     state = track_best(state, paths, costs, cfg.maximize)
     phe = ph.as_update(state.phe, paths, costs, decay=cfg.decay,
                        cyclic=cfg.cyclic, symmetric=cfg.symmetric, q=q,
-                       maximize=cfg.maximize, cost_offset=cfg.cost_offset,
-                       deposit=deposit)
+                       maximize=cfg.maximize, div_ants=cfg.deposit_div_ants,
+                       cost_offset=cfg.cost_offset, deposit=deposit)
     if cfg.floor > 0.0:
         phe = phe._replace(tau=torch.clamp(phe.tau, min=cfg.floor))
     return state._replace(phe=phe)
@@ -164,7 +168,8 @@ def as_instance(values, device) -> torch.Tensor:
 class ProblemACO:
     """Base of the reference-style facades over one instance (counterpart
     of ``deepaco_tpu/aco/runner.py:319-398``; ``CVRPACO``, ``OPACO``,
-    ``PCTSPACO``, ``SMTWTPACO``). A subclass holds its instance's arrays with
+    ``PCTSPACO``, ``SMTWTPACO``, ``SOPACO``, ``BPPACO``, ``MKPACO``). A
+    subclass holds its instance's arrays with
     a batch axis of 1 (:func:`as_instance`) and ``heuristic``, and provides
     ``spec(tau, heu)`` (the rollout plug-in), ``cost(paths)`` (``[1, A]``),
     ``extras()`` (the update's ``q``) and, where inference constructs

@@ -2,10 +2,10 @@
 (counterpart of ``deepaco_tpu/cli.py``).
 
 The parser keeps the JAX package's ``train`` and ``test`` subcommands and
-their flags. Ported so far: ``train tsp|cvrp|op|pctsp|smtwtp`` through the
-family trainer (``train.drivers.train_family``), ``train tsp --local-search
-2opt|nls`` through ``train.reinforce.train_tsp``, ``test
-cvrp|op|pctsp|smtwtp`` on the golden sets through
+their flags. Ported so far: ``train tsp|cvrp|op|pctsp|smtwtp|sop|bpp|mkp``
+through the family trainer (``train.drivers.train_family``), ``train tsp
+--local-search 2opt|nls`` through ``train.reinforce.train_tsp``, ``test
+cvrp|op|pctsp|smtwtp|sop|bpp|mkp`` on the golden sets through
 ``train.drivers.evaluate_family``, and ``test tsp --sparse`` (the large-N
 sparse TSP protocol). Every other command, problem or flag exits naming its
 ROADMAP.md item.
@@ -97,8 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _load_net(args) -> Net:
     """The ``--ckpt`` weights, or ``checkpoints/<problem><n>.msgpack`` without
-    it, in the family's ``Net`` (SMTWTP's without the node update). A decode
-    error surfaces in the exit message, with its cause chained."""
+    it, in the family's ``Net`` (SMTWTP's and SOP's without the node
+    update). A decode error surfaces in the exit message, with its cause
+    chained."""
     path = args.ckpt
     if path is None:
         path = f"checkpoints/{args.problem}{args.nodes}.msgpack"
@@ -170,11 +171,12 @@ def _cmd_test_family(args, *, device=None):
     """A family's anytime protocol (cli.py:505-549): the golden set of scale
     ``n`` (``utils.golden``, the first ``--limit`` instances), the ``--ckpt``
     net or the classic heuristic, then ``evaluate_family``. Prints the JAX
-    CLI's three output lines (for OP the mean prize collected, which it
-    maximizes) and returns ``(means, curves)``."""
+    CLI's three output lines (for OP, BPP and MKP the mean objective, which
+    they maximize) and returns ``(means, curves)``. BPP's and MKP's writers
+    take any ``n``; the others make their golden scales only."""
     problem, n = args.problem, args.nodes
-    scales = golden.SCALES[problem]
-    if n not in scales:
+    scales = golden.SCALES.get(problem)
+    if scales is not None and n not in scales:
         raise SystemExit(f"test {problem} -n {n}: the golden {problem.upper()} writer makes "
                          f"the scales {scales} only")
     dev = resolve_device(device)

@@ -9,6 +9,9 @@ dimensions.
   OP        top-k kNN, feats = (dist-to-depot, prize) (op/utils.py:26-48)
   PCTSP     dense, feats = (prize, penalty)           (pctsp/utils.py:31-40)
   SMTWTP    dense over n+1 jobs, attr = proc[dst]     (smtwtp/utils.py:5-22)
+  MKP       dense, x = weight [n, m], attr = prize[src] (mkp/utils.py:27-36)
+  SOP       masked dense, x = cost row 0, mask = adj  (sop/utils.py:52-58)
+  BPP       ``cvrp_graph(demand, ones)``              (bpp/utils.py:14-23)
 """
 from __future__ import annotations
 
@@ -74,3 +77,21 @@ def smtwtp_graph(due_norm: torch.Tensor, weights: torch.Tensor,
     proc = torch.cat([processing.new_zeros((*lead, 1)), processing], dim=-1)
     edge = proc[..., None, :, None].expand(*lead, n + 1, n + 1, 1)
     return SparseGraph(x=x, nbr=_dense_nbr(lead, n + 1, due_norm.device), edge=edge)
+
+
+def mkp_graph(prize: torch.Tensor, weight: torch.Tensor) -> SparseGraph:
+    """The dense graph over the n items, self-loops included: ``x = weight
+    [..., n, m]``; every out-edge of item ``i`` carries ``prize[i]``, the
+    source's prize (builders.py:115-125)."""
+    lead, n = prize.shape[:-1], prize.shape[-1]
+    return SparseGraph(x=weight, nbr=_dense_nbr(lead, n, prize.device),
+                       edge=prize[..., :, None, None].expand(*lead, n, n, 1))
+
+
+def sop_graph(dist: torch.Tensor, adj: torch.Tensor) -> SparseGraph:
+    """The masked dense block over the allowed successors (builders.py:129-136):
+    ``x = dist[..., 0, :, None]``, ``edge = dist [..., n, n, 1]`` and
+    ``mask = adj``, where ``adj[i, j] = 1`` iff ``j`` may follow ``i``."""
+    return SparseGraph(x=dist[..., 0, :, None],
+                       nbr=_dense_nbr(dist.shape[:-2], dist.shape[-1], dist.device),
+                       edge=dist[..., None], mask=adj.to(torch.float32))

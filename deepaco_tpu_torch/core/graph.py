@@ -1,7 +1,8 @@
 """Regular sparse instance graphs (counterpart of ``deepaco_tpu/core/graph.py``).
 
 Every node has exactly ``k`` out-edges, so the graph is a neighbour table
-``nbr [..., N, K]`` with edge features ``edge [..., N, K, E]``. All functions
+``nbr [..., N, K]`` with edge features ``edge [..., N, K, E]`` and, for a
+masked block (SOP's), an edge-validity ``mask [..., N, K]``. All functions
 take any number of leading batch dimensions.
 """
 from __future__ import annotations
@@ -13,11 +14,14 @@ import torch
 
 class SparseGraph(NamedTuple):
     """A k-regular directed graph: ``x [..., N, F]``, ``nbr [..., N, K]``
-    (int64 destination ids) and ``edge [..., N, K, E]``."""
+    (int64 destination ids), ``edge [..., N, K, E]`` and an optional
+    ``mask [..., N, K]`` (float {0, 1}; None: every edge valid), the port's
+    form of one masked ``EdgeBlock`` (deepaco_tpu/models/gnn.py:43-64)."""
 
     x: torch.Tensor
     nbr: torch.Tensor
     edge: torch.Tensor
+    mask: torch.Tensor | None = None
 
 
 def topk_smallest(dist: torch.Tensor, k: int):
@@ -46,6 +50,12 @@ def scatter_to_dense(graph: SparseGraph, vec: torch.Tensor,
     dense = torch.full((*vec.shape[:-1], n), fill, dtype=vec.dtype,
                        device=vec.device)
     return dense.scatter(-1, graph.nbr, vec)
+
+
+def gather_from_dense(graph: SparseGraph, mat: torch.Tensor) -> torch.Tensor:
+    """Gather a dense ``[..., N, N]`` matrix onto the graph's support:
+    ``[..., N, K]``, the inverse of :func:`scatter_to_dense` there."""
+    return torch.gather(mat, -1, graph.nbr.expand(*mat.shape[:-2], *graph.nbr.shape[-2:]))
 
 
 def sparse_distance_matrix(dist: torch.Tensor, k: int,

@@ -6,14 +6,17 @@ post-processing, the rollout plug-in, the objective and the ACO flags. Its
 functions take instance dicts of tensors batched over ``B`` instances, and
 every reduction that JAX takes over one instance (its ``vmap``) reduces
 over the instance's own axes here, never over the batch. Ported: ``tsp``,
-``cvrp``, ``op``, ``pctsp`` and ``smtwtp``; the others follow in
-ROADMAP.md's order.
+``cvrp``, ``op``, ``pctsp``, ``smtwtp``, ``sop``, ``bpp`` and ``mkp``; the
+others follow in ROADMAP.md's order.
 
 The CVRP reference reshapes its per-edge heuristic with the source index
 varying fast (cvrp/train.ipynb cell 1, cvrp/utils.py:27-29), so its dense
-heuristic is the transpose of the ``(src, dst)`` layout; TSP, OP, PCTSP and
-SMTWTP scatter by ``(src, dst)`` with no transpose. PCTSP divides its
-heuristic by its smallest entry (pctsp/train.ipynb cell 1).
+heuristic is the transpose of the ``(src, dst)`` layout, and so is BPP's,
+which reuses the CVRP graph with unit edge attributes; TSP, OP, PCTSP,
+SMTWTP and SOP scatter by ``(src, dst)`` with no transpose. PCTSP divides
+its heuristic by its smallest entry (pctsp/train.ipynb cell 1); MKP does too
+and then transposes. SOP's masked dense block zeroes the output on the
+edges its precedences forbid.
 """
 from __future__ import annotations
 
@@ -23,16 +26,21 @@ import numpy as np
 import torch
 
 from deepaco_tpu_torch.aco.engine import rollout
+from deepaco_tpu_torch.aco.problems.bpp import bpp_default_heuristic, bpp_fitness
 from deepaco_tpu_torch.aco.problems.cvrp import cvrp_paths, cvrp_spec, route_cost
+from deepaco_tpu_torch.aco.problems.mkp import (extend_mkp, mkp_default_heuristic,
+                                                mkp_objective, mkp_spec)
 from deepaco_tpu_torch.aco.problems.op import (extend_op_instance, op_default_heuristic,
                                                op_objective, op_spec)
 from deepaco_tpu_torch.aco.problems.pctsp import (pctsp_default_heuristic,
                                                   pctsp_objective, pctsp_spec)
 from deepaco_tpu_torch.aco.problems.smtwtp import (smtwtp_cost, smtwtp_default_heuristic,
                                                    smtwtp_spec)
+from deepaco_tpu_torch.aco.problems.sop import sop_cost, sop_spec
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost, tsp_spec
 from deepaco_tpu_torch.aco.runner import ACOConfig
-from deepaco_tpu_torch.core.builders import cvrp_graph, op_graph, pctsp_graph, smtwtp_graph
+from deepaco_tpu_torch.core.builders import (cvrp_graph, mkp_graph, op_graph, pctsp_graph,
+                                             smtwtp_graph, sop_graph)
 from deepaco_tpu_torch.core.graph import (knn_graph, scatter_to_dense,
                                           sparse_distance_matrix)
 
@@ -40,6 +48,7 @@ EPS = 1e-10
 OP_MAX_LEN = {100: 4.0, 200: 5.0, 300: 6.0}        # op/test.py:13-17
 PCTSP_KN = {20: 2.0, 100: 4.0, 500: 9.0}           # pctsp/utils.py:4-8
 CVRP_CAPACITY = 50.0                                # cvrp/aco.py:7
+BPP_CAPACITY = 150.0                                # bpp/aco.py:9
 
 
 class Family(NamedTuple):
@@ -49,14 +58,15 @@ class Family(NamedTuple):
     n_ants)`` → the rollout plug-in (``aco.engine.RolloutSpec``) that
     training samples and replays, a pick a step; ``construct(tau, heu,
     inst, n_ants, generator, ops)`` → one inference iteration's paths
-    through ``ops`` (``train.drivers.FamilyOps``): TSP, OP, PCTSP and
-    SMTWTP the rollout of their ``spec``, a pick a step; CVRP one pass
-    (``ops.construct``) where K7c takes N; ``cost(paths, inst)`` → ``[B, A]``; ``horizon_states(n_nodes)``
+    through ``ops`` (``train.drivers.FamilyOps``): TSP, OP, PCTSP, SMTWTP,
+    SOP and MKP the rollout of their ``spec``, a pick a step; CVRP and BPP
+    one pass (``ops.construct``) where K7c takes N; ``cost(paths, inst)`` → ``[B, A]``; ``horizon_states(n_nodes)``
     → ``(pheromone size, rollout horizon)``; ``classic_heu(inst, k)`` → the
     classic arm's heuristic; ``model_kwargs`` the ``Net`` arguments as
     sorted pairs; ``prepare(inst)`` → the instance with the arrays its spec
-    and cost read (OP's extended ones), applied before everything else;
-    ``extras(inst)`` → the search's per-instance arguments (OP's ``q``)."""
+    and cost read (OP's and MKP's extended ones), applied before everything
+    else; ``extras(inst)`` → the search's per-instance arguments (OP's and
+    MKP's ``q``)."""
 
     name: str
     model_kwargs: tuple
@@ -123,6 +133,55 @@ def gen_smtwtp(rng: np.random.Generator, n: int) -> dict:
             "processing": rng.random(n, dtype=np.float32)}
 
 
+def gen_mkp(rng: np.random.Generator, n: int, m: int = 5) -> dict:
+    """Well-stated instances (mkp/utils.py:6-24): each dimension's weights
+    scaled so that the capacity ``n // 2`` lies between its largest weight
+    and its sum."""
+    prize = rng.random(n, dtype=np.float32)
+    w = rng.random((n, m), dtype=np.float32)
+    constraints = np.array([rng.uniform(w[:, j].max(), w[:, j].sum()) for j in range(m)])
+    w = w * (n // 2) / constraints[None, :]
+    return {"prize": prize, "weight": w.astype(np.float32)}
+
+
+def gen_bpp(rng: np.random.Generator, n: int) -> dict:
+    """The separator (size 0) and n items of integer sizes 20..100."""
+    demand = np.concatenate([[0.0], rng.integers(20, 101, n)]).astype(np.float32)
+    return {"demand": demand}
+
+
+def gen_sop(rng: np.random.Generator, n: int) -> dict:
+    """A random precedence DAG and a shifted cost matrix (sop/utils.py:5-43):
+    ``prec[j, i] = 1`` iff ``i`` must precede ``j``, ``adj[i, j] = 1`` iff
+    ``j`` may follow ``i``."""
+    r = [(0, i) for i in range(1, n)]
+    a = list(range(1, n))
+    precede = [set() for _ in range(n)]
+    for i in range(n - 3, -1, -1):
+        for j in range(i + 1, n - 1):
+            if rng.random() > 0.2:
+                continue
+            precede[i].add(j)
+            precede[i].update(precede[j])
+        for j in precede[i]:
+            r.append((a[i], a[j]))
+    dist = rng.random((n, n)).astype(np.float32)
+    dist[1:, :] += dist[0, :][None, :]
+    return {"dist": dist, **sop_masks(n, r)}
+
+
+def sop_masks(n: int, pairs) -> dict:
+    """``adj`` and ``prec [n, n]`` (f32) of the ordering pairs ``(i, j)``, ``i``
+    before ``j``: the diagonal and each edge ``j -> i`` are forbidden."""
+    adj = np.ones((n, n), np.float32)
+    np.fill_diagonal(adj, 0)
+    prec = np.zeros((n, n), np.float32)
+    for i, j in pairs:
+        adj[j, i] = 0.0
+        prec[j, i] = 1.0
+    return {"adj": adj, "prec": prec}
+
+
 # ------------------------------------------------- heuristic post-process --
 def _std_heu(g, out, inst):
     return scatter_to_dense(g, out) + EPS
@@ -136,6 +195,18 @@ def _dense_transposed_heu(g, out, inst):
 def _pctsp_heu(g, out, inst):
     # each instance's dense [N, N] output (row = src) over its own smallest entry
     return out / (out.amin(dim=(-2, -1), keepdim=True) + EPS) + EPS
+
+
+def _mkp_heu(g, out, inst):
+    # each instance's [n, n] output (row = src) over its own smallest entry,
+    # then transposed (mkp/train.py), and extended with the dummy item
+    heu = (out / (out.amin(dim=(-2, -1), keepdim=True) + EPS) + EPS).transpose(-1, -2)
+    return extend_mkp(inst["prize"], inst["weight"], heu)[2]
+
+
+def _sop_heu(g, out, inst):
+    # the masked dense block: forbidden edges contribute 0 (families.py:417-421)
+    return out * g.mask + EPS
 
 
 # ------------------------------------------------------- rollout plug-ins --
@@ -161,6 +232,20 @@ def _pctsp_spec(tau, heu, inst, a):
 
 def _smtwtp_spec(tau, heu, inst, a):
     return smtwtp_spec(tau, heu, a)
+
+
+def _sop_spec(tau, heu, inst, a):
+    return sop_spec(tau, heu, inst["prec"], a)
+
+
+def _mkp_spec(tau, heu, inst, a):
+    # the capacity n // 2 of n items (deepaco_tpu/families.py:331-333)
+    return mkp_spec(tau, heu, inst["weight_ext"], inst["prize"].shape[-1] // 2, a)
+
+
+def _mkp_prepare(inst: dict) -> dict:
+    prize_e, weight_e = extend_mkp(inst["prize"], inst["weight"])
+    return {**inst, "prize_ext": prize_e, "weight_ext": weight_e}
 
 
 def _op_prepare(inst: dict) -> dict:
@@ -246,6 +331,51 @@ FAMILIES = {
         aco=ACOConfig(cyclic=False, symmetric=False, cost_offset=1.0),
         horizon_states=lambda n: (n + 1, n),
         classic_heu=lambda inst, k: smtwtp_default_heuristic(inst["due"])),
+    "sop": Family(
+        name="sop",
+        model_kwargs=(("feats", 1), ("node_update", False)),
+        gen=gen_sop,
+        graph=lambda inst, k: sop_graph(inst["dist"], inst["adj"]),
+        heu_matrix=_sop_heu,
+        spec=_sop_spec,
+        construct=_per_step(_sop_spec),
+        cost=lambda paths, inst: sop_cost(inst["dist"], paths),
+        aco=ACOConfig(cyclic=False, symmetric=False),
+        horizon_states=lambda n: (n, n - 1),
+        classic_heu=lambda inst, k: 1.0 / (inst["dist"] + 1e-10)),
+    "bpp": Family(
+        name="bpp",
+        model_kwargs=(("feats", 1),),
+        gen=gen_bpp,
+        # bpp/utils.py:14-23: the dense graph, x = sizes, unit edge attributes
+        graph=lambda inst, k: cvrp_graph(inst["demand"], inst["demand"].new_ones(
+            (*inst["demand"].shape, inst["demand"].shape[-1]))),
+        heu_matrix=_dense_transposed_heu,
+        spec=lambda tau, heu, inst, a: cvrp_spec(tau, heu, inst["demand"], BPP_CAPACITY, a),
+        construct=lambda tau, heu, inst, a, generator, ops: cvrp_paths(
+            tau, heu, inst["demand"], BPP_CAPACITY, a, generator,
+            construct=ops.construct, pick=ops.pick),
+        cost=lambda paths, inst: bpp_fitness(inst["demand"], BPP_CAPACITY, paths),
+        aco=ACOConfig(maximize=True, cyclic=False, symmetric=False, floor=1e-10,
+                      deposit_div_ants=True),
+        horizon_states=lambda n: (n + 1, 2 * n),
+        classic_heu=lambda inst, k: bpp_default_heuristic(inst["demand"])),
+    "mkp": Family(
+        name="mkp",
+        model_kwargs=(("feats", 5),),
+        gen=gen_mkp,
+        graph=lambda inst, k: mkp_graph(inst["prize"], inst["weight"]),
+        heu_matrix=_mkp_heu,
+        spec=_mkp_spec,
+        construct=_per_step(_mkp_spec),
+        cost=lambda paths, inst: mkp_objective(inst["prize_ext"], paths),
+        aco=ACOConfig(maximize=True, cyclic=False, symmetric=False, floor=1e-10),
+        horizon_states=lambda n: (n + 1, n + 1),
+        classic_heu=lambda inst, k: extend_mkp(
+            inst["prize"], inst["weight"],
+            mkp_default_heuristic(inst["prize"], inst["weight"]))[2],
+        prepare=_mkp_prepare,
+        extras=lambda inst: {"q": 1.0 / inst["prize"].sum(dim=-1)}),
 }
 
 

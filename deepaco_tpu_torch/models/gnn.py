@@ -28,8 +28,12 @@ class TorchBatchNorm(nn.Module):
     the leading batch axis and the feature axis, as the JAX trainer takes
     them inside its ``vmap`` over instances (reinforce.py:166-169); each
     instance moves the running statistics by its own batch statistics and
-    the results are averaged over instances. Eval mode uses the running
-    statistics."""
+    the results are averaged over instances. A ``mask`` (``x``'s shape
+    without the feature axis, float {0, 1}) weights the train-mode
+    statistics (gnn.py:95-104): per instance ``count = max(sum(mask), 1)``,
+    the mean and the biased variance over the valid elements, the running
+    variance ``var * count / max(count - 1, 1)``. Eval mode uses the
+    running statistics and ignores the mask, as the JAX package does."""
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
         super().__init__()
@@ -40,18 +44,27 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         if self.training:
             if x.dim() < 3:
                 raise ValueError("train-mode BatchNorm takes [B, ..., F] with "
                                  f"a leading instance axis, got {tuple(x.shape)}")
             axes = tuple(range(1, x.dim() - 1))
-            count = math.prod(x.shape[1:-1])
-            mean = x.mean(dim=axes, keepdim=True)
-            var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
+            if mask is None:
+                count = math.prod(x.shape[1:-1])
+                mean = x.mean(dim=axes, keepdim=True)
+                var = ((x - mean) ** 2).mean(dim=axes, keepdim=True)
+                denom = max(count - 1, 1)
+            else:
+                w = mask[..., None].to(x.dtype)
+                count = torch.clamp(w.sum(dim=axes, keepdim=True), min=1.0)
+                mean = (x * w).sum(dim=axes, keepdim=True) / count
+                var = (w * (x - mean) ** 2).sum(dim=axes, keepdim=True) / count
+                denom = torch.clamp(count - 1.0, min=1.0).reshape(x.shape[0], 1)
+                count = count.reshape(x.shape[0], 1)
             with torch.no_grad():
                 stat = lambda t: t.reshape(x.shape[0], x.shape[-1])
-                unbiased = stat(var) * count / max(count - 1, 1)
+                unbiased = stat(var) * count / denom
                 keep = 1 - self.momentum
                 self.running_mean.copy_(torch.mean(
                     keep * self.running_mean + self.momentum * stat(mean), dim=0))
@@ -87,7 +100,15 @@ class EmbNet(nn.Module):
     def forward(self, g: SparseGraph, layer: Callable = fused_gnn_layer) -> torch.Tensor:
         """``layer`` computes each layer's ``(agg, pre)``: by default the
         wrapper of kernel K6 (the plain version on CPU tensors); the plain
-        version on any device when ``fused_gnn_layer_plain`` is passed."""
+        version on any device when ``fused_gnn_layer_plain`` is passed. A
+        masked graph (``g.mask``) weights the edge BatchNorms' train-mode
+        statistics; with the node update it raises, since the masked
+        neighbour mean (gnn.py:216-228) is not ported."""
+        if g.mask is not None and self.node_update:
+            raise NotImplementedError(
+                "a masked graph with the node update needs the masked neighbour mean "
+                "(deepaco_tpu/models/gnn.py:216-228), not ported yet: ROADMAP.md §1 "
+                "item 3 (rcpsp)")
         x = F.silu(self.v_lin0(g.x.float()))
         w = F.silu(self.e_lin0(g.edge.float()))
         index = reverse_adjacency(g.nbr)          # once per graph, all layers
@@ -102,7 +123,7 @@ class EmbNet(nn.Module):
                              index)
             if self.node_update:
                 x = x0 + F.silu(self.v_bns[i](x1 + agg))
-            w = w0 + F.silu(self.e_bns[i](pre))
+            w = w0 + F.silu(self.e_bns[i](pre, g.mask))
         return w
 
 

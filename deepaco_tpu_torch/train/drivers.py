@@ -17,10 +17,10 @@ its own search state: graph → GNN → dense heuristic (or the classic one),
 then ``aco.runner.run_anytime``. On the card the eval-mode GNN runs the
 folded layer stack K9 in one launch where ``embnet_supported`` takes the net
 (else one K6 launch a layer), every deposit K8, and each iteration's
-construction one launch of K7c (CVRP) or one K7 a step (TSP, OP, PCTSP,
-SMTWTP, and CVRP past K7c's N). Each instance batch first goes through
-``Family.prepare`` (OP's extended arrays), and ``Family.extras`` (OP's
-per-instance ``q``) reaches the search. The JAX version's host
+construction one launch of K7c (CVRP, BPP) or one K7 a step (TSP, OP,
+PCTSP, SMTWTP, SOP, MKP, and CVRP and BPP past K7c's N). Each instance batch
+first goes through ``Family.prepare`` (OP's and MKP's extended arrays), and
+``Family.extras`` (OP's and MKP's per-instance ``q``) reaches the search. The JAX version's host
 chunking of instances (``b_chunk``, a TPU watchdog workaround) and its
 ``mesh`` (multi-device) are not ported.
 """
@@ -54,9 +54,9 @@ class FamilyOps(NamedTuple):
     """What training and evaluation call for the GNN layer (``layer``, the
     per-layer route: training) or the folded layer stack (``layers``, the
     eval-mode route of :func:`_forward_heu`), each construction step
-    (``pick``: training, the TSP family's evaluation, and CVRP's past K7c's
-    N), each deposit, the CVRP family's whole construction in evaluation
-    (``construct``), and ``timer(name)``, a context manager around each
+    (``pick``: training, the per-step families' evaluation, and CVRP's and
+    BPP's past K7c's N), each deposit, the CVRP and BPP families' whole
+    construction in evaluation (``construct``), and ``timer(name)``, a context manager around each
     phase (evaluation: ``"heuristic"``, ``"construction"``, ``"update"``;
     a training step: ``"heuristic"``, ``"rollout"``, ``"backward"``,
     ``"optimizer"``). The default is kernels K6, K7, K8, K9, K7c and no
@@ -107,10 +107,15 @@ def _forward_heu(family: Family, net: Net, inst: dict, k_sparse: int,
     eval-mode net that :func:`embnet_supported` takes runs the folded layer
     stack (``ops.layers``, K9) under ``net_forward_fast``; a net in train
     mode, or one K9 does not take, runs ``net(g, ops.layer)``, a layer at a
-    time (K6)."""
+    time (K6). A masked graph (SOP's) takes K9 only without the node
+    update: then each edge's state depends on itself alone and eval mode
+    ignores the mask, so the mask changes nothing before ``heu_matrix``
+    applies it; with the node update ``net`` raises (the masked neighbour
+    mean is not ported)."""
     g = family.graph(inst, k_sparse)
     n, k = g.nbr.shape[-2:]
-    if not net.training and embnet_supported(net, n, k):
+    if (not net.training and embnet_supported(net, n, k)
+            and (g.mask is None or not net.node_update)):
         out = net_forward_fast(net, g.x, g.nbr, g.edge, layers=ops.layers)
     else:
         out = net(g, ops.layer)
@@ -128,7 +133,7 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     arrays ``[B, ...]`` in the family's layout, e.g. ``utils.golden.cvrp_test``).
 
     Returns ``(mean best-so-far at each of t_values, curves [B, t_max])`` (the
-    objective, larger is better, for a family that maximizes: OP), and
+    objective, larger is better, for a family that maximizes: OP, BPP, MKP), and
     with ``return_state`` also the final
     :class:`~deepaco_tpu_torch.aco.runner.SearchState` (its ``best_path
     [B, horizon+1]`` holds each instance's best solution). ``net=None`` runs

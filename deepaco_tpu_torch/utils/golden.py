@@ -1,27 +1,33 @@
 """Golden fixed-seed evaluation sets (counterpart of
 ``deepaco_tpu/utils/golden.py``; the other families wait for their slices).
 
-The reference commits no CVRP, OP, PCTSP or SMTWTP test files: each writer
-(cvrp/utils.py:42-53, op/utils.py:73-83, pctsp/utils.py:50-59,
-smtwtp/utils.py:32-44) seeds torch's CPU generator once and draws its
-instances scale after scale. This module repeats the same draws in the same
-order from a ``torch.Generator`` of its own, so its instances are the
-reference's, made with no file and without touching torch's global
-generator.
+The reference commits no CVRP, OP, PCTSP, SMTWTP, SOP, BPP or MKP test
+files: each writer (cvrp/utils.py:42-53, op/utils.py:73-83,
+pctsp/utils.py:50-59, smtwtp/utils.py:32-44, sop/utils.py:68-81,
+bpp/utils.py:29-39, mkp/utils.py:51-72) seeds torch's CPU generator once and
+draws its instances scale after scale. This module repeats the same draws in
+the same order from a ``torch.Generator`` of its own, so its instances are
+the reference's, made with no file and without touching torch's global
+generator. The MKP writer draws its knapsack constraints from numpy's
+global stream, which the reference never seeded; the JAX package seeds it
+with ``np_seed``, and this module draws the same numbers from a
+``numpy.random.RandomState(np_seed)`` of its own.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from deepaco_tpu_torch.families import OP_MAX_LEN, PCTSP_KN
+from deepaco_tpu_torch.families import OP_MAX_LEN, PCTSP_KN, sop_masks
 
 CVRP_SCALES = (20, 100, 500)
 OP_SCALES = (100, 200, 300)
 PCTSP_SCALES = (20, 100, 500)
 SMTWTP_SCALES = (50, 100, 500)
+SOP_SCALES = (20, 50, 100)
+# the writers that make only these scales; BPP's and MKP's take any n
 SCALES = {"cvrp": CVRP_SCALES, "op": OP_SCALES, "pctsp": PCTSP_SCALES,
-          "smtwtp": SMTWTP_SCALES}
+          "smtwtp": SMTWTP_SCALES, "sop": SOP_SCALES}
 
 
 def _check(name: str, n: int) -> None:
@@ -118,4 +124,63 @@ def smtwtp_test(n: int, count: int = 100, seed: int = 123456) -> dict:
             "weights": weights, "processing": processing}
 
 
-GOLDEN = {"cvrp": cvrp_test, "op": op_test, "pctsp": pctsp_test, "smtwtp": smtwtp_test}
+def sop_test(n: int, count: int = 100, seed: int = 123456) -> dict:
+    """The SOP set of ``n`` nodes (node 0 the start): ``dist``, ``adj`` and
+    ``prec [count, n, n]``, all f32. Each instance draws its cost matrix,
+    then one uniform per candidate ordering pair (sop/utils.py:46-51)."""
+    _check("sop", n)
+    gen = torch.Generator().manual_seed(seed)
+    for scale in SOP_SCALES:
+        insts = [_sop_instance(gen, scale) for _ in range(count)]
+        if scale == n:
+            break
+    return {k: np.stack([i[k] for i in insts]) for k in ("dist", "adj", "prec")}
+
+
+def _sop_instance(gen: torch.Generator, n: int) -> dict:
+    dist = torch.rand(size=(n, n), generator=gen)
+    dist[1:, :] += dist[0, :].clone()
+    pairs = [(0, i) for i in range(1, n)]
+    a = list(range(1, n))
+    precede = [set() for _ in range(n - 1)]
+    for i in range(n - 3, -1, -1):
+        for j in range(i + 1, n - 1):
+            if torch.rand(size=(1,), generator=gen) > 0.2:
+                continue
+            precede[i].add(j)
+            precede[i].update(precede[j])
+        pairs.extend((a[i], a[j]) for j in precede[i])
+    return {"dist": dist.numpy().astype(np.float32), **sop_masks(n, pairs)}
+
+
+def bpp_test(n: int = 120, count: int = 100, seed: int = 123456) -> dict:
+    """The BPP set of ``n`` items: ``demand [count, n+1]`` (sizes 20..100,
+    the separator 0 first), f32."""
+    gen = torch.Generator().manual_seed(seed)
+    dems = [np.concatenate([[0.0], torch.randint(20, 101, size=(n,), generator=gen).numpy()])
+            for _ in range(count)]
+    return {"demand": np.stack(dems).astype(np.float32)}
+
+
+def mkp_test(n: int = 50, count: int = 100, seed: int = 123456, np_seed: int = 0) -> dict:
+    """The MKP set of ``n`` items in 5 dimensions: ``prize [count, n]`` and
+    ``weight [count, n, 5]``, f32, each dimension scaled to the capacity
+    ``n // 2`` by a constraint drawn uniformly between its largest weight and
+    its sum (numpy's stream seeded with ``np_seed``)."""
+    gen = torch.Generator().manual_seed(seed)
+    nprng = np.random.RandomState(np_seed)
+    m = 5
+    prizes, weights = [], []
+    for _ in range(count):
+        prize = torch.rand(size=(n,), generator=gen)
+        w = torch.rand(size=(n, m), generator=gen)
+        constraints = np.array([nprng.uniform(float(w[:, j].max()), float(w[:, j].sum()))
+                                for j in range(m)])
+        weights.append(w.numpy() * (n // 2) / constraints[None, :])
+        prizes.append(prize.numpy())
+    return {"prize": np.stack(prizes).astype(np.float32),
+            "weight": np.stack(weights).astype(np.float32)}
+
+
+GOLDEN = {"cvrp": cvrp_test, "op": op_test, "pctsp": pctsp_test, "smtwtp": smtwtp_test,
+          "sop": sop_test, "bpp": bpp_test, "mkp": mkp_test}

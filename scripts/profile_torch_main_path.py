@@ -3,7 +3,7 @@
 
     python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train [--family F] | --family F | --sparse] [--out DIR]
 
-(F: cvrp, op, pctsp or smtwtp)
+(F: cvrp, op, pctsp, smtwtp, sop, bpp or mkp)
 
 Runs a path of ``chip_smoke.py`` with its weights, instances and
 configuration once to warm up, then once under ``torch.profiler``: by default
@@ -16,11 +16,14 @@ N=500, K=50, 30 ants, NLS advantage) after one step of warm-up; with
 ``--train --family F`` one training step of that family at its envelope
 (``chip_smoke.family_train_config``: CVRP500 with 50 ants, the 12-layer
 Net on the dense graph, K = N = 501; OP300 with 20 ants, K = 30; PCTSP500
-with 20 ants and SMTWTP500 with 50, K = N = 501; batch 1, through
+with 20 ants and SMTWTP500 with 50, K = N = 501; SOP100 with 50 ants on
+its masked graph, K = N = 100; BPP120 with 120 ants, K = N = 121; MKP300
+with 50 ants, K = N = 300; batch 1, through
 ``make_family_train_step``, the batch drawn as ``train_family`` draws it)
 after one step of warm-up; with ``--family F`` alone that family's path
 (``evaluate_family``, its largest checkpoint on its golden set at that
-scale: CVRP500, OP300, PCTSP500, SMTWTP500; A=20, T=10); with
+scale: CVRP500, OP300, PCTSP500, SMTWTP500, SOP100, BPP120, MKP300; A=20,
+T=10); with
 ``--sparse`` the kernel arm of the sparse path (``test tsp --sparse -n
 2000``: tsp500_selftrained, the CLI's 30 fixed-seed instances, k=200,
 A=20, T=10). Prints one
@@ -86,7 +89,8 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--ls", choices=("nls", "2opt"), default=None)
     parser.add_argument("--train", action="store_true")
-    parser.add_argument("--family", choices=("cvrp", "op", "pctsp", "smtwtp"), default=None)
+    parser.add_argument("--family", choices=("cvrp", "op", "pctsp", "smtwtp", "sop", "bpp",
+                                             "mkp"), default=None)
     parser.add_argument("--sparse", action="store_true")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()

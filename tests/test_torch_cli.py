@@ -41,7 +41,7 @@ def test_sparse_protocol_prints_the_jax_cli_lines(arm, capsys, monkeypatch):
     (["test", "op", "-n", "50"], r"scales \(100, 200, 300\)"),
     (["test", "tsp", "-n", "1001"], "ROADMAP.md §1 item 10"),
     (["test", "tsp", "--sparse", "-n", "1001", "--b-chunk", "4"], "--b-chunk .*item 10"),
-    (["train", "sop"], "train .*item 10"),
+    (["train", "mkp_items"], "train .*item 10"),
     (["test", "tsp", "--sparse", "-n", "1001", "--ckpt", "x.pt"], r"\.pt loader"),
     (["test", "tsp", "--sparse", "-n", "1003"], r"checkpoints/tsp1003\.msgpack"),
     (["train", "cvrp", "--local-search", "swapstar"], "swapstar .*item 8.8"),
@@ -171,6 +171,6 @@ def test_the_sparse_path_refuses_a_local_search_it_does_not_run(monkeypatch):
 
 
 def test_python_dash_m_runs_the_cli():
-    out = subprocess.run([sys.executable, "-m", "deepaco_tpu_torch", "test", "sop"],
+    out = subprocess.run([sys.executable, "-m", "deepaco_tpu_torch", "test", "mkp_items"],
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 1 and "item 10" in out.stderr

@@ -35,7 +35,7 @@ from deepaco_tpu_torch.utils.metrics import MetricsLogger
 
 B, A, DEPTH = 2, 5, 2
 SIZES = {"tsp": (20, 5), "cvrp": (12, 12), "op": (20, 5), "pctsp": (12, 12),
-         "smtwtp": (12, 12)}                          # n_nodes, k_sparse
+         "smtwtp": (12, 12), "sop": (12, 12), "mkp": (12, 12)}   # n_nodes, k_sparse
 NAMES = ["tsp", "cvrp", "op", "pctsp", "smtwtp"]
 
 
@@ -262,15 +262,16 @@ def test_train_family_draws_the_jax_instance_stream(name, monkeypatch):
             np.testing.assert_array_equal(t[k], j[k])
 
 
-@pytest.mark.parametrize("name", ["cvrp", "smtwtp"])
+@pytest.mark.parametrize("name", ["cvrp", "smtwtp", "sop", "mkp"])
 def test_train_family_writes_checkpoints_that_both_packages_read(tmp_path, name):
     """Two epochs of one step with validation: ``progress`` once an epoch
     with a validation cost, ``train_epoch`` and ``val`` events in the JSONL
     stream, ``-best`` and ``-last`` files; ``-last`` restores in the port
     (``restore_train_state``) and in JAX (``load_checkpoint`` into the
     template of JAX's ``init_family_state``), with the trained weights.
-    SMTWTP's net has no node update, and its file no node BatchNorms, as
-    JAX's has none."""
+    SMTWTP's and SOP's nets have no node update, and their files no node
+    BatchNorms, as JAX's have none; SOP's net reads one node feature, MKP's
+    five."""
     cfg, jcfg = _cfg(config, name, epochs=2, steps=1), _cfg(jconfig, name, epochs=2, steps=1)
     calls = []
     logger = MetricsLogger(str(tmp_path / "metrics.jsonl"))

@@ -87,14 +87,17 @@ def test_cvrp_training_and_cli_without_device_raise_when_cuda_is_absent(monkeypa
         CVRPACO(inst["dist"], inst["demand"])
 
 
-@pytest.mark.parametrize("name", ["op", "pctsp", "smtwtp"])
+@pytest.mark.parametrize("name", ["op", "pctsp", "smtwtp", "sop", "bpp", "mkp"])
 def test_family_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, name):
     """evaluate_family, train_family, the CLI's test and train, and the
-    family's facade (OPACO, PCTSPACO, SMTWTPACO)."""
+    family's facade (OPACO, PCTSPACO, SMTWTPACO, SOPACO, BPPACO, MKPACO)."""
     from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.aco.problems.bpp import BPPACO
+    from deepaco_tpu_torch.aco.problems.mkp import MKPACO
     from deepaco_tpu_torch.aco.problems.op import OPACO
     from deepaco_tpu_torch.aco.problems.pctsp import PCTSPACO
     from deepaco_tpu_torch.aco.problems.smtwtp import SMTWTPACO
+    from deepaco_tpu_torch.aco.problems.sop import SOPACO
     from deepaco_tpu_torch.families import get_family
     from deepaco_tpu_torch.train.config import ProblemConfig
     from deepaco_tpu_torch.train.drivers import evaluate_family, gen_batch, train_family
@@ -105,7 +108,7 @@ def test_family_entry_points_without_device_raise_when_cuda_is_absent(monkeypatc
         evaluate_family(name, batch, n_nodes=12)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_family(name, ProblemConfig(name=name, n_nodes=12, k_sparse=4))
-    n = {"op": 100, "pctsp": 20, "smtwtp": 50}[name]
+    n = {"op": 100, "pctsp": 20, "smtwtp": 50, "sop": 20, "bpp": 12, "mkp": 12}[name]
     for argv in (["test", name, "-n", str(n), "--classic", "--limit", "1"],
                  ["train", name, "-n", "12", "-e", "1", "-s", "1"]):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -113,7 +116,10 @@ def test_family_entry_points_without_device_raise_when_cuda_is_absent(monkeypatc
     one = {k: v[0] for k, v in batch.items()}
     facade = {"op": lambda: OPACO(one["dist"], one["prizes"], 4.0, k_sparse=4),
               "pctsp": lambda: PCTSPACO(one["dist"], one["prizes"], one["penalties"]),
-              "smtwtp": lambda: SMTWTPACO(one["processing"], one["due"], one["weights"])}
+              "smtwtp": lambda: SMTWTPACO(one["processing"], one["due"], one["weights"]),
+              "sop": lambda: SOPACO(one["dist"], one["prec"]),
+              "bpp": lambda: BPPACO(one["demand"]),
+              "mkp": lambda: MKPACO(one["prize"], one["weight"])}
     with pytest.raises(RuntimeError, match="CUDA"):
         facade[name]()
 

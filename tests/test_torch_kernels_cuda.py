@@ -1031,10 +1031,11 @@ def test_main_path_past_k3_limit_takes_the_plain_update_on_the_card(dev):
         bt.fused_tsp_update(state, paths, dist, decay=0.9, q=1.0, staged=True)
 
 
-@pytest.mark.parametrize("name", ["tsp", "cvrp"])
+@pytest.mark.parametrize("name", ["tsp", "cvrp", "sop", "bpp", "mkp"])
 def test_family_train_step_launches_k6_and_k7_on_the_card(dev, name):
     """One step of make_family_train_step on the card (TSP n=50, k=5; CVRP
-    20 customers, K = N = 21; 12-layer Net, 2 instances, 4 ants): 12 K6
+    20 customers, K = N = 21; SOP, BPP and MKP at n=20 on their dense
+    graphs, SOP's masked; 12-layer Net, 2 instances, 4 ants): 12 K6
     forward and 12 backward launches, one K7 a rollout step, no K7c and no
     K9; finite loss, cost and gradient norm; the weights move."""
     import numpy as np
@@ -1099,6 +1100,18 @@ def test_pick_kernel_on_op_and_pctsp_rows(dev, name, n):
     masks (OP's budget and dummy node, PCTSP's depot gate and parking) and
     noise at the start, a third and two thirds of the horizon, actions
     exactly equal to the plain pick's and allowed, logp within 1e-5."""
+    _check_pick_on_family_rows(dev, name, n)
+
+
+@pytest.mark.parametrize("name,n", [("sop", 100), ("mkp", 300)])
+def test_pick_kernel_on_sop_and_mkp_rows(dev, name, n):
+    """K7 on the rows of a SOP100 and an MKP300 rollout, held as on OP's and
+    PCTSP's: SOP's precedence masks, MKP's knapsack masks and the dummy
+    item it parks on."""
+    _check_pick_on_family_rows(dev, name, n)
+
+
+def _check_pick_on_family_rows(dev, name, n):
     from deepaco_tpu_torch.aco.engine import rollout
     from deepaco_tpu_torch.families import get_family
     from deepaco_tpu_torch.ops import pick
@@ -1155,14 +1168,17 @@ def test_deposit_kernel_on_parked_pctsp_routes(dev):
 
 
 @pytest.mark.parametrize("name,n,ckpt", [("op", 100, "op100"), ("pctsp", 20, "pctsp20"),
-                                         ("smtwtp", 50, "smtwtp50")])
+                                         ("smtwtp", 50, "smtwtp50"), ("sop", 20, "sop20"),
+                                         ("mkp", 50, "mkp300")])
 def test_evaluate_family_runs_the_per_step_families_on_the_card(dev, name, n, ckpt):
     """evaluate_family on 4 golden instances on the card: finite curves
     that move one way, valid best solutions, and K9 once, K7 once a
     construction step and K8 once an iteration; K6 and K7c never."""
+    from deepaco_tpu_torch.aco.problems.mkp import validate_mkp
     from deepaco_tpu_torch.aco.problems.op import validate_op
     from deepaco_tpu_torch.aco.problems.pctsp import validate_pctsp
     from deepaco_tpu_torch.aco.problems.smtwtp import validate_smtwtp
+    from deepaco_tpu_torch.aco.problems.sop import validate_sop
     from deepaco_tpu_torch.families import get_family
     from deepaco_tpu_torch.ops import deposit, gnn_layer, pick
     from deepaco_tpu_torch.train.drivers import evaluate_family, family_model, instance_tensors
@@ -1185,5 +1201,111 @@ def test_evaluate_family_runs_the_per_step_families_on_the_card(dev, name, n, ck
     best = state.best_path[..., None]
     valid = {"op": lambda: validate_op(best, inst["dist"], inst["max_len"]),
              "pctsp": lambda: validate_pctsp(best, inst["prizes"], n / 4.0),
-             "smtwtp": lambda: validate_smtwtp(best)}[name]()
+             "smtwtp": lambda: validate_smtwtp(best),
+             "sop": lambda: validate_sop(best, inst["prec"]),
+             "mkp": lambda: validate_mkp(best, inst["weight"], n // 2)}[name]()
     assert bool(valid.all())
+
+
+def test_embnet_layers_kernel_on_the_masked_sop_graph(dev):
+    """K9 on SOP100's masked dense block (B=4 golden instances, K = N = 100,
+    the ``sop100_selftrained`` weights, no node update): the heuristic that
+    ``_forward_heu`` routes through K9 and then masks equals the plain
+    ``Net`` forward on the masked graph (eval mode), masked the same way, at
+    rtol 1e-4 / atol 1e-5 on the head; K9 launches once."""
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.ops import gnn_layer
+    from deepaco_tpu_torch.train import drivers
+    from deepaco_tpu_torch.utils.golden import sop_test
+
+    fam = get_family("sop")
+    net = drivers.family_model(fam, load_checkpoint(str(CKPT / "sop100_selftrained.msgpack")))
+    net = net.to(dev).eval()
+    inst = drivers.instance_tensors({k: v[:4] for k, v in sop_test(100).items()}, dev)
+    g = fam.graph(inst, 0)
+    assert g.mask is not None and not net.emb_net.node_update
+    before = fused_gnn.embnet_layers.launches
+    with torch.no_grad():
+        heu = drivers._forward_heu(fam, net, inst, 0)
+        plain = net(g, gnn_layer.fused_gnn_layer_plain)
+    assert fused_gnn.embnet_layers.launches == before + 1
+    torch.testing.assert_close(heu, fam.heu_matrix(g, plain, inst), rtol=1e-4, atol=1e-5)
+    assert bool((heu[g.mask == 0] == 1e-10).all())
+
+
+def test_cvrp_construct_kernel_on_bpp120_at_capacity_150(dev):
+    """K7c on BPP120's golden sizes (B=8, N = 121, capacity 150, A=20; a bin
+    holds 1-7 items, so the "all packed, back at the separator" stop comes
+    at other steps than on CVRP) on the classic heuristic and on a random
+    one: paths bit-equal to the plain version's, stochastic and greedy, and
+    every item packed once with no bin above 150."""
+    from deepaco_tpu_torch.aco.problems.bpp import validate_bpp
+    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
+    from deepaco_tpu_torch.families import BPP_CAPACITY, get_family
+    from deepaco_tpu_torch.train.drivers import instance_tensors
+    from deepaco_tpu_torch.utils.golden import bpp_test
+
+    inst = instance_tensors({k: v[:8] for k, v in bpp_test(120).items()}, dev)
+    heu = get_family("bpp").classic_heu(inst, 0)
+    noise = torch.rand(heu.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                       device=dev)
+    for h in (heu, heu * (0.5 + noise)):
+        score = score_matrix(torch.ones_like(h), h, 1.0, 1.0)
+        _assert_cvrp_construct_matches_plain(score, inst["demand"], BPP_CAPACITY, 20, 5)
+        paths = cc.cvrp_construct(score, inst["demand"], BPP_CAPACITY, 20,
+                                  torch.Generator(device=dev).manual_seed(6))
+        assert bool(validate_bpp(paths, inst["demand"], BPP_CAPACITY).all())
+        assert bool((paths[:, -1] == 0).all())
+
+
+def test_deposit_kernel_on_parked_bpp_routes(dev):
+    """K8 on BPP120 routes (K7c on the classic heuristic; B=8, 20 ants,
+    L = 241) that end in long runs of (0, 0) self-loops, with the amounts
+    ``fitness / A``: equal bits to scatter_add_ on the CPU, and within 2 k
+    2^-24 of each entry of scatter_add_ on the card (k its terms)."""
+    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
+    from deepaco_tpu_torch.families import BPP_CAPACITY, get_family
+    from deepaco_tpu_torch.ops import deposit
+    from deepaco_tpu_torch.train.drivers import instance_tensors
+    from deepaco_tpu_torch.utils.golden import bpp_test
+
+    fam = get_family("bpp")
+    inst = instance_tensors({k: v[:8] for k, v in bpp_test(120).items()}, dev)
+    heu = fam.classic_heu(inst, 0)
+    paths = cc.cvrp_construct(score_matrix(torch.ones_like(heu), heu, 1.0, 1.0),
+                              inst["demand"], BPP_CAPACITY, 20,
+                              torch.Generator(device=dev).manual_seed(1))
+    assert bool((paths[:, -40:] == 0).all())            # long parked tails
+    amounts = fam.cost(paths, inst) / 20
+    got = deposit.tour_deposit(paths, amounts, 121, cyclic=False)
+    cpu = deposit.tour_deposit_plain(paths.cpu(), amounts.cpu(), 121, cyclic=False)
+    assert torch.equal(got.cpu(), cpu)
+    plain = deposit.tour_deposit_plain(paths, amounts, 121, cyclic=False)
+    k = deposit.tour_deposit_plain(paths, torch.ones_like(amounts), 121, cyclic=False)
+    assert bool(((got - plain).abs() <= 2 * k * 2.0 ** -24 * got).all())
+
+
+def test_evaluate_family_bpp_runs_k7c_on_the_card(dev):
+    """evaluate_family("bpp") on 4 golden BPP120 instances with the
+    ``bpp120_selftrained`` weights: finite curves that do not fall (the
+    fitness is maximized), valid best packings, and K9 once, K7c and K8
+    once an iteration; K6 and K7 never."""
+    from deepaco_tpu_torch.aco.problems.bpp import validate_bpp
+    from deepaco_tpu_torch.families import BPP_CAPACITY, get_family
+    from deepaco_tpu_torch.ops import deposit, gnn_layer, pick
+    from deepaco_tpu_torch.train.drivers import evaluate_family, family_model, instance_tensors
+    from deepaco_tpu_torch.utils.golden import bpp_test
+
+    fam = get_family("bpp")
+    ds = {k: v[:4] for k, v in bpp_test(120).items()}
+    net = family_model(fam, load_checkpoint(str(CKPT / "bpp120_selftrained.msgpack")))
+    counters = (fused_gnn.embnet_layers, gnn_layer.fused_gnn_layer, pick.fused_pick,
+                deposit.tour_deposit, cc.cvrp_construct)
+    before = [fn.launches for fn in counters]
+    _, curves, state = evaluate_family("bpp", ds, n_nodes=120, net=net, n_ants=8,
+                                       t_values=(1, 3), return_state=True)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 0, 0, 3, 3]
+    assert curves.is_cuda and bool(torch.isfinite(curves).all())
+    assert bool((curves[:, 1:] >= curves[:, :-1]).all())
+    inst = instance_tensors(ds, dev)
+    assert bool(validate_bpp(state.best_path[..., None], inst["demand"], BPP_CAPACITY).all())

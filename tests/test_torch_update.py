@@ -216,15 +216,20 @@ def test_open_paths_take_search_update():
                                   {"deposit_div_ants": True}, {"cost_offset": 1.0}])
 def test_unported_flags_raise(flag):
     """The flags not ported yet raise in init_search and search_update;
-    maximize (OP) and cost_offset (SMTWTP), ported since, run both."""
+    maximize (OP), cost_offset (SMTWTP) and deposit_div_ants (BPP), ported
+    since, run both (deposit_div_ants deposits as q = 1/A does)."""
     cfg = runner.ACOConfig(**flag)
     state = runner.init_search(5, 4, runner.ACOConfig(), batch=(1,))
     paths = torch.stack([torch.randperm(5) for _ in range(2)], dim=1)[None]
-    if set(flag) <= {"maximize", "cost_offset"}:
+    if set(flag) <= {"maximize", "cost_offset", "deposit_div_ants"}:
         state = runner.init_search(5, 4, cfg, batch=(1,))
-        got = runner.search_update(cfg, state, paths, torch.tensor([[2.0, 3.0]]))
+        costs = torch.tensor([[2.0, 3.0]])
+        got = runner.search_update(cfg, state, paths, costs)
         assert got.best_cost.item() == (3.0 if cfg.maximize else 2.0)
         assert bool(torch.isfinite(got.phe.tau).all())
+        if cfg.deposit_div_ants:
+            ref = runner.search_update(runner.ACOConfig(), state, paths, costs, q=0.5)
+            torch.testing.assert_close(got.phe.tau, ref.phe.tau)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         runner.init_search(5, 4, cfg, batch=(1,))

@@ -143,7 +143,39 @@ Phases, one JSON line each:
    ``make_family_train_step`` with exactly 12 + 12 K6 and ``horizon`` K7
    launches a step and no K9, K7c or K8; and ``cli.main(["test", name,
    ...])`` on the card, whose costs must be the kernel arm's;
-15. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
+15. CVRP-NLS500 (``cvrp_nls_phase``): ``cvrp_nls500_selftrained`` (12
+   layers, 32 units, the two-block graph at k = 5) on the first 4 golden
+   CVRP-NLS500 instances, 20 ants, T=1 and 10, seeds ``SEED + i``, the
+   protocol of ``test cvrp --local-search swapstar``. The plain
+   multi-block GNN pass timed at B=1 and B=4; K7c at capacity 1.0 on the
+   neural scores (B=4, N=501; paths bit-equal to its plain version's) and
+   K8 on one instance's routes whose 8 cheapest ants the native engine
+   rewrote (B=1, L=1001, A=20), held as in phase 9; the path through the
+   CLI's own function in a kernel arm (K7c, K8: each once an iteration)
+   and a plain arm on the first 2 instances, whose cost@T1 equals the
+   kernel arm's per instance to the digit and whose cost@T10 lies within
+   1%; the kernel arm within 2% of ``JAX_CVRP_NLS_COSTS`` (the JAX CLI on
+   the same 4 instances) with the full set's anchors printed beside, every
+   best route valid, each arm's phases (heuristic, construction, host
+   copy, local search, update) and instance 0 once more under the
+   profiler for the device's idle share; one training step at the
+   CVRP500-NLS envelope (30 ants, lr 1e-4, AdamW decay 1e-4, the net in
+   eval mode), K7c's paths against its plain version's and the two arms'
+   steps on them under phase 7's tolerances, the running statistics
+   unchanged; two steps of ``train_cvrp_nls``, saved and read back by the
+   CLI;
+16. MKP-items 500 (``family_phase`` with ``mkp_items``):
+   ``mkp_items500_selftrained`` (the transformer) on the 100 golden
+   instances, 20 ants, T=1 and 10: K7 on the rows of one construction
+   (``[B*A, 501]``), the path in a kernel arm (K7 501 times an iteration,
+   the vector pheromone, no K8 or K9), a plain arm equal to it to the digit
+   and a classic arm it beats at T10, within 3% of ``JAX_COSTS`` (its
+   idle share: ``scripts/profile_torch_main_path.py --family mkp_items``);
+   training at the envelope (50 ants, lr
+   3e-4, AdamW decay 1e-2, clip 3.0): one step kernel arm against plain
+   arm, two steps of ``make_family_train_step`` (501 K7 launches a step,
+   nothing else), and the CLI's ``test``;
+17. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7 from the
    TSP500-NLS training run, K7c and K8 from the CVRP path's kernel arm, K9
    from the sparse and the CVRP paths' kernel arms together; row 9 is on no
@@ -153,10 +185,11 @@ Phases, one JSON line each:
    K7, K8 and K9 carry ``op``, ``pctsp``, ``smtwtp``, ``sop``, ``bpp`` and
    ``mkp`` (K7c ``bpp``): their launches on that family's kernel arm (K7 or
    K7c, K8, K9) and in its two training steps (K6, K7), with their error,
-   times and bound at its shapes.
+   times and bound at its shapes; K7c and K8 carry ``cvrp_nls`` and K7
+   ``mkp_items`` the same way.
 
 Every path's cost (main cost@T10, NLS, CVRP, sparse, OP, PCTSP, SMTWTP,
-SOP, BPP and MKP cost@T1 and cost@T10, and both for the plain arms of the
+SOP, BPP, MKP, CVRP-NLS and MKP-items cost@T1 and cost@T10, and both for the plain arms of the
 main, NLS and sparse paths) must equal the one recorded in ``RECORDED_COSTS`` to the 4 decimals
 recorded: the kernels are exact or held to their plain versions, and the
 inputs and seeds are fixed. K1's and K9's ``{"phase": "kernel"}`` lines
@@ -193,7 +226,8 @@ FAMILY_PATHS = {"cvrp": (CVRP_N, CVRP_CKPT, A_TRAIN, 5, 128),
                 "smtwtp": (500, "checkpoints/smtwtp500_selftrained.msgpack", 50, 5, 128),
                 "sop": (100, "checkpoints/sop100_selftrained.msgpack", 50, 5, 128),
                 "bpp": (120, "checkpoints/bpp120_selftrained.msgpack", 120, 5, 64),
-                "mkp": (300, "checkpoints/mkp300_selftrained.msgpack", 50, 10, 64)}
+                "mkp": (300, "checkpoints/mkp300_selftrained.msgpack", 50, 10, 64),
+                "mkp_items": (500, "checkpoints/mkp_items500_selftrained.msgpack", 50, 5, 256)}
 # phase 14's families, in order; BPP constructs through K7c in inference, the
 # others through K7 a step
 FAMILY_PHASE = ("op", "pctsp", "smtwtp", "sop", "bpp", "mkp")
@@ -204,8 +238,22 @@ FAMILY_PICK_AT = (0.0, 1 / 3, 2 / 3)    # K7's checks on their rows, as shares o
 # 179): quality anchors, not speed targets; each kernel arm's lies within
 # JAX_COST_SPAN of them
 JAX_COSTS = {"op": (72.78, 80.08), "pctsp": (16.20, 15.70), "smtwtp": (0.662, 0.572),
-             "sop": (71.67, 70.46), "bpp": (0.9542, 0.9586), "mkp": (58.2, 59.3)}
+             "sop": (71.67, 70.46), "bpp": (0.9542, 0.9586), "mkp": (58.2, 59.3),
+             "mkp_items": (98.92, 99.99)}
 JAX_COST_SPAN = 0.03
+# phase 15, CVRP-NLS500: the checkpoint, the first CVRP_NLS_B golden
+# instances (the plain arm on the first CVRP_NLS_PLAIN_B); the JAX CLI's
+# means on those 4 instances (`python -m deepaco_tpu test cvrp -n 500
+# --local-search swapstar --ckpt CVRP_NLS_CKPT --limit 4 -t 1 10`, on a CPU),
+# which the kernel arm lies within CVRP_NLS_SPAN of, and the full set's
+# anchors (RESULTS.md:191), printed beside them; the training envelope
+# (RESULTS.md:191): ants, lr, epochs, steps an epoch
+CVRP_NLS_N, CVRP_NLS_CKPT = 500, "checkpoints/cvrp_nls500_selftrained.msgpack"
+CVRP_NLS_B, CVRP_NLS_PLAIN_B = 4, 2
+JAX_CVRP_NLS_COSTS, CVRP_NLS_SPAN = (33.4715, 33.0899), 0.02
+CVRP_NLS_ANCHORS = (30.160, 29.846)
+CVRP_NLS_TRAIN = (30, 1e-4, 15, 20)
+CVRP_NLS_TRAIN_STEPS = 2
 CVRP_PICK_AT = (0.0, 0.15, 0.4, 0.7)   # K7's CVRP checks, as shares of the horizon
 SPARSE_N, SPARSE_B, SPARSE_LS_B = 2000, 30, 4    # the CLI's TSP2000 set; 2-opt arm's cut
 SPARSE_T, SPARSE_LS_T = (1, 10), (1, 2)
@@ -220,7 +268,8 @@ RECORDED_COSTS = {"main": (None, 19.6391), "main_plain": (20.6735, 19.6335),
                   "sparse": (48.2913, 45.1827), "sparse_plain": (48.2913, 45.1980),
                   "op": (72.9418, 80.2401), "pctsp": (16.1978, 15.7033),
                   "smtwtp": (0.6446, 0.5644), "sop": (72.1315, 70.8907),
-                  "bpp": (0.9544, 0.9588), "mkp": (57.9397, 59.2638)}
+                  "bpp": (0.9544, 0.9588), "mkp": (57.9397, 59.2638),
+                  "cvrp_nls": (33.2462, 33.0091), "mkp_items": (98.9476, 100.0285)}
 # the CVRP kernel arm's cost@T10 as recorded through the per-step
 # construction (K7 a step, torch.rand noise); the one-pass construction
 # samples the same law and is held within 1% of it
@@ -386,6 +435,8 @@ def valid_solutions(name: str, paths, inst):
         return validate_bpp(paths, inst["demand"], BPP_CAPACITY)
     if name == "mkp":
         return validate_mkp(paths, inst["weight"], inst["prize"].shape[-1] // 2)
+    if name == "mkp_items":
+        return validate_mkp(paths, inst["weight"], 1.0)
     return validate_smtwtp(paths)
 
 
@@ -974,7 +1025,8 @@ def step_agreement(cfg, net_k, net_p, before: dict, out_k, out_p, advantage) -> 
         moved = (got - before[n]).abs()
         param_ok &= bool((moved <= lr * (1 + 1e-3) + lr * wd * before[n].abs()).all())
     stats = lambda net: {k: v for k, v in net.state_dict().items() if "running" in k}
-    bn_err = max(norm_err(a, b) for a, b in zip(stats(net_k).values(), stats(net_p).values()))
+    bn_err = max((norm_err(a, b) for a, b in zip(stats(net_k).values(),
+                                                 stats(net_p).values())), default=0.0)
     ok = (loss_err <= 1e-5 * scale and max(grad_errs.values()) <= 1e-3 and param_ok
           and bn_err <= 1e-4 and bool(torch.isfinite(out_k.loss)))
     worst = max(grad_errs, key=grad_errs.get)
@@ -1140,7 +1192,7 @@ def family_rollout(dev, name: str, net, ds):
     with torch.no_grad():
         heu = drivers._forward_heu(fam, net.eval(), inst, fam.k_sparse(n))
         score = score_matrix(torch.ones_like(heu), heu, 1.0, 1.0)
-    graph = fam.graph(inst, fam.k_sparse(n))
+    graph = fam.graph(inst, fam.k_sparse(n)) if fam.model_ctor is None else None
     if name in ONE_PASS:
         with torch.no_grad():
             paths = cc.cvrp_construct(score, inst["demand"], BPP_CAPACITY, A,
@@ -1168,10 +1220,14 @@ def family_rollout(dev, name: str, net, ds):
 
 def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dict:
     """Phase 14 for one family (OP300, PCTSP500, SMTWTP500, SOP100, BPP120,
-    MKP300): its kernels against their plain versions at its shapes, its
-    path in three arms, its training at the envelope, and the CLI's
-    ``test``. Emits one line for the path and one for training, and returns
-    what the kernels' line and the checks read."""
+    MKP300), and phase 16 for MKP-items 500: its kernels against their plain
+    versions at its shapes, its path in three arms, its training at the
+    envelope, and the CLI's ``test``. Emits one line for the path and one
+    for training, and returns what the kernels' line and the checks read.
+    A family whose model is no GNN (MKP-items' transformer) has no K9 or K6
+    to check or launch, and one whose pheromone is a vector no K8; where no
+    K9 runs, the plain arm computes the kernel arm's heuristic and draws its
+    noise, so their costs are held equal to the digit."""
     import io
 
     import torch
@@ -1187,6 +1243,7 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     n, ckpt = FAMILY_PATHS[name][:2]
     n_states, horizon = fam.horizon_states(n)
     sign = -1.0 if fam.aco.maximize else 1.0
+    gnn, edges = fam.model_ctor is None, not fam.aco.vector_pheromone
     net, ds = family_inputs(root, dev, name)
     inst = fam.prepare(drivers.instance_tensors(ds, dev))
     b = next(iter(inst.values())).shape[0]
@@ -1198,8 +1255,10 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     # (PCTSP's and BPP's park on node 0, the self-loop repeated; MKP's on
     # the dummy item)
     paths, amounts, g, picks, score = family_rollout(dev, name, net, ds)
-    out["k9"] = check_embnet_layers(cuda_ms, net, g, f"{name}{n}, K = {g.nbr.shape[-1]}"
-                                    + (", masked" if g.mask is not None else ""))
+    if gnn:
+        out["k9"] = check_embnet_layers(cuda_ms, net, g, f"{name}{n}, K = {g.nbr.shape[-1]}"
+                                        + (", masked" if g.mask is not None else ""))
+        out["checks"]["k9"] = out["k9"]["passed"]
     if name in ONE_PASS:
         out["k7c"] = check_cvrp_construct(dev, cuda_ms, score, inst["demand"],
                                           BPP_CAPACITY, f"{name}{n}, neural heuristic")
@@ -1210,12 +1269,13 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
               f"{n_states}", **out["k7"], "tolerance": "actions exact and allowed; logp rtol "
               "1e-5, atol 1e-5 (logsumexp order, expf/logf against torch's)"})
         out["checks"]["k7"] = out["k7"]["passed"]
-    out["k8"] = deposit_case(dev, cuda_ms, paths, amounts, n_states, False)
-    out["k8"]["below_library"] = out["k8"]["ms"] < out["k8"]["library_ms"]
-    emit({"phase": "kernel", "name": "tour_deposit", "config": f"{name}{n} routes",
-          **out["k8"], "tolerance": "as phase 9"})
+    if edges:
+        out["k8"] = deposit_case(dev, cuda_ms, paths, amounts, n_states, False)
+        out["k8"]["below_library"] = out["k8"]["ms"] < out["k8"]["library_ms"]
+        emit({"phase": "kernel", "name": "tour_deposit", "config": f"{name}{n} routes",
+              **out["k8"], "tolerance": "as phase 9"})
+        out["checks"]["k8"] = out["k8"]["passed"]
     del paths, amounts, g, picks, score
-    out["checks"].update(k9=out["k9"]["passed"], k8=out["k8"]["passed"])
 
     # the path in three arms, each with the counts set to 0 just before it
     # and read just after
@@ -1249,13 +1309,17 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     t_max = max(T_VALUES)
     # an iteration: one K7c launch (BPP) or a K7 launch a step (the others)
     picks_run, passes_run = (0, t_max) if name in ONE_PASS else (t_max * horizon, 0)
-    want = {"kernel": {"embnet_layers": 1, "fused_gnn_layer": 0, "fused_pick": picks_run,
-                       "tour_deposit": t_max, "cvrp_construct": passes_run},
+    deposits = t_max if edges else 0
+    want = {"kernel": {"embnet_layers": int(gnn), "fused_gnn_layer": 0, "fused_pick": picks_run,
+                       "tour_deposit": deposits, "cvrp_construct": passes_run},
             "plain": {"embnet_layers": 0, "fused_gnn_layer": 0, "fused_pick": 0,
                       "tour_deposit": 0, "cvrp_construct": 0},
             "classic": {"embnet_layers": 0, "fused_gnn_layer": 0, "fused_pick": picks_run,
-                        "tour_deposit": t_max, "cvrp_construct": passes_run}}
+                        "tour_deposit": deposits, "cvrp_construct": passes_run}}
     ck, cp, cc_ = (arms[a]["cost"] for a in ("kernel", "plain", "classic"))
+    if not gnn:
+        out["checks"]["plain_equals_kernel"] = ([round(c, 4) for c in ck]
+                                                == [round(c, 4) for c in cp])
     out["checks"].update(
         arms=all(r["finite"] and r["monotone"] and r["valid_best"] == b
                  and r["best_cost_is_cost"] for r in arms.values()),
@@ -1274,8 +1338,8 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     step_check, train_picks, train_batch, train_net = family_train_step_arms(
         dev, name, FAMILY_PICK_AT)
     tinst = fam.prepare(drivers.instance_tensors(train_batch, dev))
-    layer = check_layer(dev, cuda_ms, train_net, fam.graph(tinst, fam.k_sparse(n)),
-                        backward=True)
+    layer = (check_layer(dev, cuda_ms, train_net, fam.graph(tinst, fam.k_sparse(n)),
+                         backward=True) if gnn else None)
     pick_train = check_pick_rows(cuda_ms, train_picks, FAMILY_PICK_AT)
     del train_net, train_picks
     # (b) two steps of make_family_train_step, the counts set to 0 just
@@ -1302,7 +1366,7 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
                      "grad_norm": info.grad_norm.item(),
                      "wall_ms": (time.perf_counter() - t0) * 1e3, "phase_ms": timer.take(),
                      "launches": {fn.__name__: fn.launches for fn in counted}})
-    depth = state.net.depth
+    depth = state.net.depth if gnn else 0
     want_step = {"fused_gnn_layer": depth, "fused_gnn_layer_backward": depth,
                  "fused_pick": horizon, "cvrp_construct": 0, "embnet_layers": 0,
                  "tour_deposit": 0}
@@ -1321,9 +1385,10 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     out["train_launches"] = {fn.__name__: sum(r["launches"][fn.__name__] for r in rows)
                              for fn in counted}
     out["layer"], out["pick_train"] = layer, pick_train
+    if gnn:
+        out["checks"].update(k6_forward=layer["passed"], k6_backward=layer["backward"]["passed"])
     out["checks"].update(
-        step_agreement=step_check["passed"], k6_forward=layer["passed"],
-        k6_backward=layer["backward"]["passed"], k7_train=pick_train["passed"],
+        step_agreement=step_check["passed"], k7_train=pick_train["passed"],
         step_launches=all({k: r["launches"][k] for k in want_step} == want_step
                           for r in rows),
         train_finite=all(math.isfinite(r[key]) for r in rows
@@ -1342,6 +1407,261 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     return out
 
 
+def device_busy(fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: its wall, the device's busy
+    time (every kernel and copy on the card's timeline), their count and the
+    idle share ``1 - busy / wall``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # a record_function range also shows on the device timeline; it is no
+    # kernel and would count its span twice
+    spans = [ev.time_range.elapsed_us() / 1e3 for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation]
+    busy = sum(spans)
+    return {"wall_ms": wall_ms, "device_launches": len(spans),
+            "device_busy_ms": busy if spans else "not measured",
+            "device_idle_share": 1 - busy / wall_ms if spans else "not measured"}
+
+
+def cvrp_nls_args(root: Path, limit: int, ckpt: str | None = None, t_values=T_VALUES):
+    """The CLI's ``test cvrp --local-search swapstar`` at CVRP_NLS_N on the
+    first ``limit`` golden instances, A ants, seeds ``SEED + i``."""
+    from deepaco_tpu_torch import cli
+
+    return cli.build_parser().parse_args(
+        ["test", "cvrp", "-n", str(CVRP_NLS_N), "--local-search", "swapstar", "--ckpt",
+         ckpt or str(root / CVRP_NLS_CKPT), "--limit", str(limit), "-a", str(A),
+         "--seed", str(SEED), "-t", *map(str, t_values)])
+
+
+def drive_cvrp_nls(args, ops=None, stats: dict | None = None):
+    """One call of the CVRP-NLS path's entry point, ``cli._cmd_test_cvrp_ls``,
+    its output captured: ``(means, curves [B, len(T)], lines)``."""
+    import io
+
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.train.drivers import KERNEL_OPS
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        means, curves = cli._cmd_test_cvrp_ls(args, stats=stats, _ops=ops or KERNEL_OPS)
+    return means, curves, text.getvalue().splitlines()
+
+
+def cvrp_nls_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
+    """Phase 15, CVRP-NLS500 (``cvrp_nls500_selftrained``, 12 layers, the
+    two-block graph at k = 5, the first CVRP_NLS_B golden instances, A ants,
+    T_VALUES, seeds ``SEED + i``): the plain multi-block GNN pass timed; K7c
+    at capacity 1.0 on the batch's neural scores and K8 on one instance's
+    routes whose 8 cheapest ants the native engine rewrote, each against its
+    plain version; the path in a kernel arm (K7c, K8) and a plain arm
+    (``drivers.PLAIN_OPS``, the first CVRP_NLS_PLAIN_B instances), each with
+    its costs, wall, phases, launches and every best route validated, and
+    instance 0's kernel arm once more under the profiler for the device's
+    idle share; one training step at the CVRP500-NLS envelope, the kernel
+    arm against the plain arm on the same paths and LS costs; two steps of
+    ``train_cvrp_nls``, saved and read back by the CLI. Emits three lines
+    and returns what the kernels' line and the checks read."""
+    import copy
+    import types
+
+    import numpy as np
+    import torch
+
+    from deepaco_tpu_torch.aco.engine import path_log_probs
+    from deepaco_tpu_torch.aco.problems.cvrp import cvrp_spec, route_cost, validate_routes
+    from deepaco_tpu_torch.aco.problems.cvrp_nls import perturbation_metric
+    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
+    from deepaco_tpu_torch.ls import hgs
+    from deepaco_tpu_torch.models.gnn import Net
+    from deepaco_tpu_torch.ops import cvrp_construct as cc
+    from deepaco_tpu_torch.train import drivers, special
+    from deepaco_tpu_torch.train import reinforce as tr
+    from deepaco_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from deepaco_tpu_torch.utils.golden import cvrp_nls_test
+
+    n_nodes, t_max = CVRP_NLS_N + 1, max(T_VALUES)
+    out = {"checks": {}}
+    net = Net.from_jax_variables(load_checkpoint(str(root / CVRP_NLS_CKPT))).to(dev)
+    ds = cvrp_nls_test(CVRP_NLS_N, count=CVRP_NLS_B)
+    dist = torch.as_tensor(ds["dist"], device=dev)
+    demand = torch.as_tensor(ds["demand"], device=dev)
+
+    # the plain multi-block GNN pass (no kernel takes a map of source rows),
+    # batched as the CLI runs it and on one instance
+    heuristic = lambda b: special.cvrp_nls_heuristic(net, demand[:b], dist[:b], 5, 1e-10)
+    with torch.no_grad():
+        heu = heuristic(CVRP_NLS_B)
+        out["gnn_plain_ms"] = {f"B{b}": cuda_ms(lambda: heuristic(b), 3)
+                               for b in (1, CVRP_NLS_B)}
+    # K7c at capacity 1.0 on the normalised f32 demands
+    score = score_matrix(torch.ones_like(heu), heu, 1.0, 1.0)
+    out["k7c"] = check_cvrp_construct(dev, cuda_ms, score, demand, 1.0,
+                                      f"cvrp_nls{CVRP_NLS_N}, neural heuristic, capacity 1")
+    out["checks"]["k7c"] = out["k7c"]["passed"]
+    # K8 on instance 0's routes after the engine rewrote its 8 cheapest ants
+    paths = cc.cvrp_construct(score[:1], demand[:1], 1.0, A,
+                              torch.Generator(device=dev).manual_seed(SEED + 13))
+    host = paths[0].cpu().numpy().copy()
+    idx = np.argsort(route_cost(dist[:1], paths)[0].cpu().numpy())[:8]
+    host[:, idx] = hgs.multiple_swap_star(
+        ds["demand"][0].astype(np.float64), ds["dist"][0].astype(np.float64), host[:, idx],
+        count=100000, heu_dist=perturbation_metric(heu[0].cpu().numpy()))
+    rewritten = torch.from_numpy(host).to(dev)[None]
+    out["k8"] = deposit_case(dev, cuda_ms, rewritten, 1.0 / route_cost(dist[:1], rewritten),
+                             n_nodes, False)
+    out["k8"]["rewritten_ants"] = int((rewritten != paths).any(dim=1).sum())
+    emit({"phase": "kernel", "name": "tour_deposit", "config": f"cvrp_nls{CVRP_NLS_N} routes "
+          "rewritten by the native engine", **out["k8"], "tolerance": "as phase 9"})
+    out["checks"].update(k8=out["k8"]["passed"], k8_rewritten=out["k8"]["rewritten_ants"] > 0)
+    del paths, rewritten, score
+
+    # the path, the counts set to 0 just before each arm and read just after
+    def arm(limit, ops):
+        timer, stats = timer_cls(), {}
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        means, curves, lines = drive_cvrp_nls(cvrp_nls_args(root, limit),
+                                              ops._replace(timer=timer), stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        best = stats["best"][..., None]
+        valid = validate_routes(best, demand[:limit], 1.0)[:, 0]
+        recost = route_cost(dist[:limit], best)[:, 0]
+        return {"B": limit, "cost": means.tolist(), "per_instance": curves.tolist(),
+                "wall_s": wall, "phase_ms": timer.ms(), "cli": lines,
+                "launches": {fn.__name__: fn.launches for fn in counted},
+                "finite": bool(torch.isfinite(curves).all())
+                and curves.shape == (limit, len(T_VALUES)),
+                "monotone": bool((curves[:, 1:] <= curves[:, :-1]).all()),
+                "valid_best": int(valid.sum()),
+                "best_cost_is_cost": bool(torch.allclose(recost, curves[:, -1], rtol=1e-5))}
+
+    arms = {"kernel": arm(CVRP_NLS_B, drivers.KERNEL_OPS),
+            "plain": arm(CVRP_NLS_PLAIN_B, drivers.PLAIN_OPS)}
+    out["idle"] = device_busy(lambda: drive_cvrp_nls(cvrp_nls_args(root, 1)))
+    kernel_only = {"cvrp_construct": 1, "tour_deposit": 1}
+    want = {name: {fn.__name__: kernel_only.get(fn.__name__, 0) * r["B"] * t_max
+                   * (name == "kernel") for fn in counted} for name, r in arms.items()}
+    ck, cp = arms["kernel"]["per_instance"], arms["plain"]["per_instance"]
+    four = lambda rows: [[round(c, 4) for c in row] for row in rows]
+    out["checks"].update(
+        arms=all(r["finite"] and r["monotone"] and r["valid_best"] == r["B"]
+                 and r["best_cost_is_cost"] for r in arms.values()),
+        launches=all(arms[a]["launches"] == want[a] for a in arms),
+        # the same Philox noise, heuristic and engine: the first iteration's
+        # routes are the same; later ones read K8's tau or scatter_add's,
+        # which differ in their last bits
+        t1_plain_equals_kernel=[row[0] for row in four(ck[:CVRP_NLS_PLAIN_B])]
+        == [row[0] for row in four(cp)],
+        t10_kernel_vs_plain=bool(abs(np.mean(ck[:CVRP_NLS_PLAIN_B], 0)[-1]
+                                     - np.mean(cp, 0)[-1]) <= 0.01 * np.mean(cp, 0)[-1]),
+        near_jax=all(abs(c - j) <= CVRP_NLS_SPAN * j
+                     for c, j in zip(arms["kernel"]["cost"], JAX_CVRP_NLS_COSTS)))
+    out["arms"] = arms
+    phases = arms["kernel"]["phase_ms"]
+    emit({"phase": "cvrp_nls_path", "B": CVRP_NLS_B, "N": n_nodes, "A": A, "T": list(T_VALUES),
+          "ckpt": CVRP_NLS_CKPT, "jax_costs_first_4": JAX_CVRP_NLS_COSTS,
+          "jax_full_set_anchors": CVRP_NLS_ANCHORS, "gnn_plain_ms": out["gnn_plain_ms"],
+          "launches_per_iteration": kernel_only, "launches_expected": want,
+          "t10_plain_equals_kernel": four(ck[:CVRP_NLS_PLAIN_B]) == four(cp),
+          "local_search_share_of_wall": phases.get("local_search", 0.0)
+          / (1e3 * arms["kernel"]["wall_s"]),
+          "instance0_profiled": out["idle"], **arms})
+
+    # training at the CVRP500-NLS envelope: one step, kernel arm (K7c)
+    # against plain arm on the same paths and LS costs, the net in eval mode
+    ants, lr, epochs, steps = CVRP_NLS_TRAIN
+    cfg = special.cvrp_nls_config(CVRP_NLS_N, epochs=epochs, steps_per_epoch=steps, lr=lr,
+                                  n_ants=ants, seed=SEED)
+    gen_instance = special.cvrp_nls_instances(CVRP_NLS_N, SEED)
+    gen_instance()
+    dem1, dist1 = (torch.from_numpy(a)[None].to(dev) for a in gen_instance())
+    state = tr.init_train_state(Net(feats=1).to(dev), cfg,
+                                torch.Generator(device=dev).manual_seed(SEED))
+    net_k, net_p = state.net, copy.deepcopy(state.net)
+    before = copy.deepcopy(net_k.state_dict())
+    for fn in counted:
+        fn.launches = 0
+    sampled = {}
+    for name, net_arm, ops in (("kernel", net_k, drivers.KERNEL_OPS),
+                               ("plain", net_p, drivers.PLAIN_OPS)):
+        sample_fn, _ = special.make_cvrp_nls_train_fns(cfg, ops=ops)
+        sampled[name] = sample_fn(net_arm, dem1, dist1,
+                                  torch.Generator(device=dev).manual_seed(SEED + 14))
+    step_launches = {fn.__name__: fn.launches for fn in counted}
+    heu_k, paths_k, raw_k = sampled["kernel"]
+    improved = hgs.multiple_swap_star(
+        dem1[0].cpu().numpy().astype(np.float64), dist1[0].cpu().numpy().astype(np.float64),
+        paths_k[0].cpu().numpy(), count=max(CVRP_NLS_N, 50),
+        heu_dist=perturbation_metric(heu_k[0].cpu().numpy()))
+    ls = route_cost(dist1, torch.from_numpy(improved).to(dev)[None])
+    adv = ls - ls.mean(dim=-1, keepdim=True)
+    losses = {name: special.cvrp_nls_loss(net_arm, dem1, dist1, sampled[name][1], adv,
+                                          n_ants=ants)
+              for name, net_arm in (("kernel", net_k), ("plain", net_p))}
+    for loss in losses.values():
+        loss.backward()
+    with torch.no_grad():
+        lp = path_log_probs(cvrp_spec(torch.ones_like(heu_k), heu_k, dem1, 1.0, ants), paths_k)
+    arm_out = lambda name: types.SimpleNamespace(loss=losses[name], log_probs=lp,
+                                                 mean_cost=ls.mean())
+    step_check = step_agreement(cfg, net_k, net_p, before, arm_out("kernel"),
+                                arm_out("plain"), adv)
+    running_kept = all(torch.equal(before[k], v) for k, v in net_k.state_dict().items()
+                       if "running" in k)
+    same_paths = bool(torch.equal(paths_k, sampled["plain"][1]))
+    valid = validate_routes(torch.from_numpy(improved).to(dev)[None], dem1, 1.0)
+    del state, net_k, net_p, sampled
+    # two steps of train_cvrp_nls, saved and read back by the CLI
+    epochs_seen = []
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, trained = special.train_cvrp_nls(CVRP_NLS_N, epochs=epochs, steps_per_epoch=steps,
+                                        lr=lr, n_ants=ants, seed=SEED,
+                                        max_steps=CVRP_NLS_TRAIN_STEPS, device=dev,
+                                        progress=lambda *a: epochs_seen.append(a))
+    torch.cuda.synchronize()
+    train_wall = time.perf_counter() - t0
+    train_launches = {fn.__name__: fn.launches for fn in counted}
+    ckpt = root / "build" / "chip_smoke" / f"cvrp_nls{CVRP_NLS_N}-chip.msgpack"
+    save_checkpoint(str(ckpt), trained)
+    tree = load_checkpoint(str(ckpt))
+    reread_means, reread_curves, reread_lines = drive_cvrp_nls(
+        cvrp_nls_args(root, 1, str(ckpt), t_values=(1,)))
+    out["train_launches"] = train_launches
+    out["checks"].update(
+        step_agreement=step_check["passed"], train_same_paths=same_paths,
+        train_running_stats_kept=running_kept, train_routes_valid=bool(valid.all()),
+        train_step_launches=step_launches["cvrp_construct"] == 1
+        and step_launches["fused_pick"] == 0,
+        train_steps=trained.step == CVRP_NLS_TRAIN_STEPS and int(tree["step"])
+        == CVRP_NLS_TRAIN_STEPS and len(epochs_seen) == 1
+        and train_launches["cvrp_construct"] == CVRP_NLS_TRAIN_STEPS,
+        reread=bool(np.isfinite(reread_means).all()) and reread_curves.shape == (1, 1))
+    emit({"phase": "cvrp_nls_train", "B": 1, "N": n_nodes, "A": ants, "lr": lr,
+          "weight_decay": cfg.train.weight_decay,
+          "epochs_x_steps": [epochs, steps], "step_agreement": step_check,
+          "raw_mean_cost": raw_k.mean().item(), "ls_mean_cost": ls.mean().item(),
+          "step_launches": step_launches,
+          "train_cvrp_nls": {"steps": CVRP_NLS_TRAIN_STEPS, "wall_s": train_wall,
+                             "epochs": epochs_seen, "launches": train_launches,
+                             "file": str(ckpt.relative_to(root)), "reread_lines": reread_lines},
+          "checks": out["checks"]})
+    return out
+
+
 def family_kernel_fields(r: dict) -> dict:
     """A phase-14 family's fields of K6, K7, K7c, K8 and K9 in the kernels'
     line, from ``family_phase``'s result: the launches on its kernel arm
@@ -1352,21 +1672,25 @@ def family_kernel_fields(r: dict) -> dict:
     timing = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     launches = r["arms"]["kernel"]["launches"]
     train = {"train_steps": FAMILY_TRAIN_STEPS}
-    fields = {} if "k7c" not in r else {"cvrp_construct": {
-        "launches": launches["cvrp_construct"], **take(r["k7c"], timing)}}
-    return {
-        **fields,
-        "embnet_layers": {"launches": launches["embnet_layers"], **take(r["k9"], timing)},
-        "fused_pick": {"launches": launches["fused_pick"],
-                       "train_launches": r["train_launches"]["fused_pick"], **train,
-                       **take(r.get("k7", r["pick_train"]), ("rows", "N") + timing)},
-        "tour_deposit": {"launches": launches["tour_deposit"],
-                         **take(r["k8"], ("B", "L", "A", "n") + timing)},
-        "fused_gnn_layer": {"train_launches": r["train_launches"]["fused_gnn_layer"], **train,
-                            **take(r["layer"], ("B", "N", "K") + timing)},
-        "fused_gnn_layer_backward": {
+    fields = {"fused_pick": {"launches": launches["fused_pick"],
+                             "train_launches": r["train_launches"]["fused_pick"], **train,
+                             **take(r.get("k7", r["pick_train"]), ("rows", "N") + timing)}}
+    if "k7c" in r:
+        fields["cvrp_construct"] = {"launches": launches["cvrp_construct"],
+                                    **take(r["k7c"], timing)}
+    if "k8" in r:
+        fields["tour_deposit"] = {"launches": launches["tour_deposit"],
+                                  **take(r["k8"], ("B", "L", "A", "n") + timing)}
+    if "k9" in r:
+        fields["embnet_layers"] = {"launches": launches["embnet_layers"],
+                                   **take(r["k9"], timing)}
+    if r["layer"] is not None:
+        fields["fused_gnn_layer"] = {"train_launches": r["train_launches"]["fused_gnn_layer"],
+                                     **train, **take(r["layer"], ("B", "N", "K") + timing)}
+        fields["fused_gnn_layer_backward"] = {
             "train_launches": r["train_launches"]["fused_gnn_layer_backward"], **train,
-            **take(r["layer"]["backward"], timing)}}
+            **take(r["layer"]["backward"], timing)}
+    return fields
 
 
 def main() -> int:
@@ -2036,7 +2360,29 @@ def main() -> int:
             if entry["name"] in fields:
                 entry[name] = fields[entry["name"]]
 
-    # ---- 15. the kernels' line
+    # ---- 15. CVRP-NLS500: K7c at capacity 1, K8 on rewritten routes, the
+    # native engine in the loop, training on the LS costs
+    nls_run = cvrp_nls_phase(dev, root, cuda_ms, PhaseTimer, counted)
+    take = lambda d, keys: {k: d[k] for k in keys if k in d}
+    timing = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
+    nls_launches = nls_run["arms"]["kernel"]["launches"]
+    for entry in kernels:
+        if entry["name"] == "cvrp_construct":
+            entry["cvrp_nls"] = {"launches": nls_launches["cvrp_construct"],
+                                 "train_launches": nls_run["train_launches"]["cvrp_construct"],
+                                 **take(nls_run["k7c"], timing)}
+        if entry["name"] == "tour_deposit":
+            entry["cvrp_nls"] = {"launches": nls_launches["tour_deposit"],
+                                 **take(nls_run["k8"], ("B", "L", "A", "n") + timing)}
+
+    # ---- 16. MKP-items 500: the transformer, K7 a step, the vector pheromone
+    items_run = family_phase(dev, root, cuda_ms, PhaseTimer, counted, "mkp_items")
+    fields = family_kernel_fields(items_run)
+    for entry in kernels:
+        if entry["name"] in fields:
+            entry["mkp_items"] = fields[entry["name"]]
+
+    # ---- 17. the kernels' line
     emit({"kernels": kernels})
     failed = [k["name"] for k in kernels if not k["passed"]]
     if failed:
@@ -2117,12 +2463,14 @@ def main() -> int:
             fail(f"sparse {arm} arm launched {r['launches']}, expected {sparse_want[arm]}")
     if not sparse_arms["classic_2opt"]["cost"][0] < sparse_arms["classic"]["cost"][0]:
         fail("2-opt did not shorten the classic arm's tours at T1")
-    for name, r in family_runs.items():
+    for name, r in {**family_runs, "cvrp_nls": nls_run, "mkp_items": items_run}.items():
         if not all(r["checks"].values()):
             fail(f"{name}: {r['checks']}")
     costs = {"main": means, "main_plain": plain, "nls": nls, "nls_plain": nls_plain,
              "cvrp": ck, "sparse": sk, "sparse_plain": sp,
-             **{name: r["arms"]["kernel"]["cost"] for name, r in family_runs.items()}}
+             **{name: r["arms"]["kernel"]["cost"] for name, r in family_runs.items()},
+             "cvrp_nls": nls_run["arms"]["kernel"]["cost"],
+             "mkp_items": items_run["arms"]["kernel"]["cost"]}
     for path, recorded in RECORDED_COSTS.items():
         for got, want in zip(costs[path], recorded):
             if want is not None and round(got, 4) != want:

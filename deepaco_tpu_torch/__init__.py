@@ -2,30 +2,34 @@
 
 The package mirrors ``deepaco_tpu``'s module names, so each function's JAX
 counterpart sits at the same path there. It imports ``torch`` and ``numpy``
-only. It covers neural anytime inference for TSP, with and without
-neural-guided local search, REINFORCE training of the TSP heuristic, the
-CVRP, OP, PCTSP and SMTWTP families (inference and training through the
-family registry), and the large-N sparse-state TSP protocol behind
-``python -m deepaco_tpu_torch test tsp --sparse``:
+(and, for the native local-search engine, ``ctypes``) only. It covers
+neural anytime inference for TSP, with and without neural-guided local
+search, REINFORCE training of the TSP heuristic, the CVRP, OP, PCTSP,
+SMTWTP, SOP, BPP, MKP and MKP-items families (inference and training
+through the family registry), CVRP-NLS (the CVRP construction polished by
+the native SWAP* engine, inference and training), and the large-N
+sparse-state TSP protocol behind ``python -m deepaco_tpu_torch test tsp
+--sparse``:
 
-- ``utils``  — instance generators, the golden CVRP, OP, PCTSP and SMTWTP
-               sets, distance matrices, the checkpoint reader and writer
-- ``core``   — the regular ``[N, K]`` k-NN graph, the TSP-NLS, CVRP, OP,
-               PCTSP and SMTWTP graphs
-- ``models`` — EmbNet + ParNet heuristic network (``nn.Module``)
+- ``utils``  — instance generators, the golden sets, distance matrices, the
+               checkpoint reader and writer, the CVRPLib reader
+- ``core``   — the regular ``[N, K]`` graph, its blocks, and each family's graph
+- ``models`` — EmbNet + ParNet heuristic network (``nn.Module``); the
+               MKP-items transformer
 - ``ops``    — hand-written CUDA kernels (``csrc/``), their builder and their
                plain PyTorch versions
-- ``aco``    — pheromone state, Ant System update, the anytime runners
-               (dense, and ``large_tsp`` on the ``[N, K]`` support), the
-               construction engine, the TSP, CVRP, OP, PCTSP and SMTWTP
+- ``ls``     — the native CVRP local-search engine (``native/cvrp_ls.cpp``,
+               built with ``g++``) and its ctypes binding
+- ``aco``    — pheromone state (matrix and per-item vector), Ant System
+               update, the anytime runners (dense, and ``large_tsp`` on the
+               ``[N, K]`` support), the construction engine, the problem
                plug-ins and their facades
-- ``families`` — the problem-family registry (``tsp``, ``cvrp``, ``op``,
-               ``pctsp``, ``smtwtp``)
+- ``families`` — the problem-family registry
 - ``eval``   — the TSP anytime evaluation protocol (``evaluate_tsp``)
-- ``train``  — configuration, REINFORCE training (``train_tsp``), and the
-               training and evaluation of any ported family (``drivers``)
-- ``cli``    — the command line (``train``, ``test`` of the ported families,
-               ``test tsp --sparse``)
+- ``train``  — configuration, REINFORCE training (``train_tsp``), the
+               training and evaluation of any ported family (``drivers``),
+               and the CVRP-NLS trainer (``special``)
+- ``cli``    — the command line (``train``, ``test``, ``solve-cvrp``)
 
 Entry points run on ``torch.device("cuda")`` unless the caller passes
 ``device="cpu"``; with no card they raise (see :mod:`.device`).

@@ -1,6 +1,7 @@
 """Pheromone state and the Ant System update (counterpart of
 ``deepaco_tpu/aco/pheromone.py``). Every function takes leading batch
-dimensions: ``tau [..., N, N]``, ``paths [..., L, A]``, ``amounts [..., A]``.
+dimensions: ``tau [..., N, N]`` (or the per-item vector ``[..., N]`` of
+MKP's PH_items), ``paths [..., L, A]``, ``amounts [..., A]``.
 """
 from __future__ import annotations
 
@@ -19,10 +20,12 @@ class PheromoneState(NamedTuple):
 
 
 def init_pheromone(n: int, min_max: bool = False, tau_min: float = 0.1, *,
-                   batch: tuple = (), dtype=torch.float32,
-                   device=None) -> PheromoneState:
-    """Ones (reference tsp/aco.py:37-42); MAX-MIN starts at ``tau_min``."""
-    tau = torch.ones((*batch, n, n), dtype=dtype, device=device)
+                   batch: tuple = (), dtype=torch.float32, device=None,
+                   vector: bool = False) -> PheromoneState:
+    """Ones (reference tsp/aco.py:37-42), ``[..., n, n]`` or with ``vector``
+    the per-item ``[..., n]`` (mkp_transformer/aco.py:44); MAX-MIN starts
+    at ``tau_min``."""
+    tau = torch.ones((*batch, n) if vector else (*batch, n, n), dtype=dtype, device=device)
     if min_max:
         tau = tau * tau_min
     return PheromoneState(tau=tau, tau_max=torch.full(batch, -1.0, dtype=dtype,
@@ -67,3 +70,27 @@ def as_update(state: PheromoneState, paths: torch.Tensor, costs: torch.Tensor,
     tau = deposit(state.tau * decay, paths, amounts,
                   cyclic=cyclic, symmetric=symmetric)
     return state._replace(tau=tau)
+
+
+def vector_deposit(tau: torch.Tensor, picks: torch.Tensor, amounts: torch.Tensor) -> torch.Tensor:
+    """PH_items: ``amounts[a]`` added to ``tau [..., M]`` at every item of
+    ``picks [..., L, A]`` (mkp_transformer/aco.py:85-99), in a fixed order
+    on every device: each item takes its ants' amounts one after another in
+    the order of the step at which each ant first picked it, then by ant,
+    an ant that picked it ``c`` times adding ``c * amount`` at once. For an
+    item that each ant picks at most once (every real MKP item) this is the
+    step-then-ant order in which the JAX package's ``tau.at[picks].add``
+    adds, so the bits agree; no atomic add decides an order on the card."""
+    m = tau.shape[-1]
+    length, a = picks.shape[-2:]
+    p = picks.transpose(-1, -2).long()                               # [..., A, L]
+    lead = p.shape[:-2]
+    counts = torch.zeros((*lead, a, m), dtype=tau.dtype, device=tau.device)
+    counts.scatter_add_(-1, p, torch.ones_like(p, dtype=tau.dtype))
+    first = torch.full((*lead, a, m), length, dtype=torch.int64, device=tau.device)
+    first.scatter_reduce_(-1, p, torch.arange(length, device=tau.device).expand_as(p), "amin")
+    order = torch.argsort(first * a + torch.arange(a, device=tau.device)[:, None], dim=-2)
+    contrib = torch.gather(counts * amounts[..., :, None], -2, order)
+    for r in range(a):
+        tau = tau + contrib[..., r, :]
+    return tau

@@ -3,8 +3,9 @@ loop (counterpart of ``deepaco_tpu/aco/runner.py``), batched over instances.
 
 The plain Ant System branch is ported, with CVRP's pheromone ``floor``,
 maximization (OP: deposit ``q * objective``, the best is the largest),
-``cost_offset`` (SMTWTP: deposit ``q / (cost + 1)``) and
-``deposit_div_ants`` (BPP: each ant deposits ``q * fitness / A``). The
+``cost_offset`` (SMTWTP: deposit ``q / (cost + 1)``),
+``deposit_div_ants`` (BPP: each ant deposits ``q * fitness / A``) and the
+per-item vector pheromone (MKP's PH_items, ``vector_pheromone``). The
 other strategy flags raise ``NotImplementedError`` until their slice lands
 (ROADMAP.md).
 """
@@ -43,8 +44,7 @@ class ACOConfig(NamedTuple):
 
 
 # each flag not ported yet, with the ROADMAP.md §1 item that takes it
-_UNPORTED = {"elitist": "item 4 (rcpsp)", "min_max": "item 4 (rcpsp)",
-             "vector_pheromone": "item 8.9 (mkp_items)"}
+_UNPORTED = {"elitist": "item 4 (rcpsp)", "min_max": "item 4 (rcpsp)"}
 
 
 def check_ported(cfg: ACOConfig) -> None:
@@ -65,10 +65,11 @@ class SearchState(NamedTuple):
 def init_search(n: int, horizon: int, cfg: ACOConfig,
                 tau: torch.Tensor | None = None, *, batch: tuple = (),
                 device=None) -> SearchState:
-    """Fresh state with leading ``batch`` dimensions: tau of ones, best cost
-    +inf (-inf when maximizing), best path zeros ``[..., horizon + 1]``."""
+    """Fresh state with leading ``batch`` dimensions: tau of ones (``[...,
+    n, n]``, or ``[..., n]`` for ``vector_pheromone``), best cost +inf (-inf
+    when maximizing), best path zeros ``[..., horizon + 1]``."""
     check_ported(cfg)
-    phe = ph.init_pheromone(n, batch=batch, device=device)
+    phe = ph.init_pheromone(n, batch=batch, device=device, vector=cfg.vector_pheromone)
     if tau is not None:
         phe = phe._replace(tau=tau)
     return SearchState(
@@ -102,16 +103,26 @@ def search_update(cfg: ACOConfig, state: SearchState, paths: torch.Tensor,
     (``paths [..., L, A]``, ``costs [..., A]``); ``q`` overrides ``cfg.q``
     with a number or a per-instance tensor ``[...]`` (OP's ``1/sum(prizes)``);
     ``deposit`` is :func:`~deepaco_tpu_torch.aco.pheromone.deposit` (K8 on
-    the card) or its plain version."""
+    the card) or its plain version. With ``vector_pheromone`` every ant
+    deposits ``q * objective`` (``q / cost`` when minimizing) on each item
+    it picked, through :func:`~deepaco_tpu_torch.aco.pheromone.vector_deposit`
+    on any device (runner.py:124-133)."""
     check_ported(cfg)
     q = cfg.q if q is None else q
     if isinstance(q, torch.Tensor):
         q = q[..., None]                          # one value an instance, [..., 1]
     state = track_best(state, paths, costs, cfg.maximize)
-    phe = ph.as_update(state.phe, paths, costs, decay=cfg.decay,
-                       cyclic=cfg.cyclic, symmetric=cfg.symmetric, q=q,
-                       maximize=cfg.maximize, div_ants=cfg.deposit_div_ants,
-                       cost_offset=cfg.cost_offset, deposit=deposit)
+    if cfg.vector_pheromone:
+        amounts = q * costs if cfg.maximize else q / costs
+        if cfg.deposit_div_ants:
+            amounts = amounts / costs.shape[-1]
+        phe = state.phe._replace(tau=ph.vector_deposit(state.phe.tau * cfg.decay, paths,
+                                                       amounts))
+    else:
+        phe = ph.as_update(state.phe, paths, costs, decay=cfg.decay,
+                           cyclic=cfg.cyclic, symmetric=cfg.symmetric, q=q,
+                           maximize=cfg.maximize, div_ants=cfg.deposit_div_ants,
+                           cost_offset=cfg.cost_offset, deposit=deposit)
     if cfg.floor > 0.0:
         phe = phe._replace(tau=torch.clamp(phe.tau, min=cfg.floor))
     return state._replace(phe=phe)
@@ -168,8 +179,8 @@ def as_instance(values, device) -> torch.Tensor:
 class ProblemACO:
     """Base of the reference-style facades over one instance (counterpart
     of ``deepaco_tpu/aco/runner.py:319-398``; ``CVRPACO``, ``OPACO``,
-    ``PCTSPACO``, ``SMTWTPACO``, ``SOPACO``, ``BPPACO``, ``MKPACO``). A
-    subclass holds its instance's arrays with
+    ``PCTSPACO``, ``SMTWTPACO``, ``SOPACO``, ``BPPACO``, ``MKPACO``,
+    ``MKPItemsACO``, ``CVRPNLSACO``). A subclass holds its instance's arrays with
     a batch axis of 1 (:func:`as_instance`) and ``heuristic``, and provides
     ``spec(tau, heu)`` (the rollout plug-in), ``cost(paths)`` (``[1, A]``),
     ``extras()`` (the update's ``q``) and, where inference constructs

@@ -6,6 +6,7 @@ dimensions.
             ``core.graph.knn_graph`` itself
   TSP-NLS   top-k kNN, node feats = one-hot start     (tsp_nls/utils.py:17-45)
   CVRP      dense incl. self-loops, feats = demand    (cvrp/utils.py:24-33)
+  CVRP-NLS  customer kNN + depot star, two blocks     (cvrp_nls/utils.py:35-60)
   OP        top-k kNN, feats = (dist-to-depot, prize) (op/utils.py:26-48)
   PCTSP     dense, feats = (prize, penalty)           (pctsp/utils.py:31-40)
   SMTWTP    dense over n+1 jobs, attr = proc[dst]     (smtwtp/utils.py:5-22)
@@ -17,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from deepaco_tpu_torch.core.graph import SparseGraph, knn_graph
+from deepaco_tpu_torch.core.graph import EdgeBlock, SparseGraph, knn_graph, topk_smallest
 
 
 def start_node_features(coords: torch.Tensor, start_node: int = 0) -> torch.Tensor:
@@ -47,6 +48,27 @@ def cvrp_graph(demand: torch.Tensor, dist: torch.Tensor) -> SparseGraph:
     return SparseGraph(x=demand[..., None], nbr=_dense_nbr(dist.shape[:-2], dist.shape[-1],
                                                            dist.device),
                        edge=dist[..., None])
+
+
+def cvrp_nls_graph(demand: torch.Tensor, dist: torch.Tensor, k: int = 5) -> tuple:
+    """The two-block graph ``(x, (block_a, block_b))`` (builders.py:55-77):
+    block A holds each customer's k nearest customers and its depot edge
+    (``src = 1..N-1``, k+1 out-edges), block B the depot row over every
+    customer (``src = [0]``). Edge attributes are distances; both directions
+    of a depot edge carry ``dist[cust, 0]``. The k nearest are taken on
+    ``dist[1:, 1:]``, whose 1e-10 diagonal puts each customer itself among
+    them, ties to the lowest index as ``lax.top_k`` breaks them. ``x =
+    demand [..., N, 1]``."""
+    lead, n = dist.shape[:-2], dist.shape[-1]
+    cust = torch.arange(1, n, device=dist.device)
+    vals, idx = topk_smallest(dist[..., 1:, 1:], k)
+    nbr_a = torch.cat([idx + 1, idx.new_zeros((*lead, n - 1, 1))], dim=-1)
+    depot_attr = dist[..., 1:, 0]
+    edge_a = torch.cat([vals[..., None], depot_attr[..., None, None]], dim=-2)
+    block_a = EdgeBlock(src=cust, nbr=nbr_a, edge=edge_a)
+    block_b = EdgeBlock(src=cust.new_zeros(1), nbr=cust.expand(*lead, 1, n - 1),
+                        edge=depot_attr[..., None, :, None])
+    return demand[..., None].float(), (block_a, block_b)
 
 
 def op_graph(coords: torch.Tensor, dist: torch.Tensor, prizes: torch.Tensor,

@@ -1,9 +1,12 @@
-"""Regular sparse instance graphs (counterpart of ``deepaco_tpu/core/graph.py``).
+"""Regular sparse instance graphs (counterpart of ``deepaco_tpu/core/graph.py``)
+and the blocks of an irregular one (``deepaco_tpu/models/gnn.py:43-64``).
 
 Every node has exactly ``k`` out-edges, so the graph is a neighbour table
 ``nbr [..., N, K]`` with edge features ``edge [..., N, K, E]`` and, for a
 masked block (SOP's), an edge-validity ``mask [..., N, K]``. All functions
-take any number of leading batch dimensions.
+take any number of leading batch dimensions. An irregular graph (CVRP-NLS's
+customer k-NN plus the depot star) is ``(x, blocks)``: a few
+:class:`EdgeBlock` blocks, each regular over its own source rows.
 """
 from __future__ import annotations
 
@@ -22,6 +25,42 @@ class SparseGraph(NamedTuple):
     nbr: torch.Tensor
     edge: torch.Tensor
     mask: torch.Tensor | None = None
+
+
+class EdgeBlock(NamedTuple):
+    """A regular block of out-edges over the source rows ``src [R]`` (int64,
+    the same for every instance; None: ``arange(N)``, the k-regular case):
+    ``nbr [..., R, Kb]`` destination ids, ``edge [..., R, Kb, E]`` and an
+    optional ``mask [..., R, Kb]`` (float {0, 1}; None: every edge valid)."""
+
+    src: torch.Tensor | None
+    nbr: torch.Tensor
+    edge: torch.Tensor
+    mask: torch.Tensor | None = None
+
+
+def as_blocks(g) -> tuple[tuple[EdgeBlock, ...], torch.Tensor]:
+    """``(blocks, x)`` of a :class:`SparseGraph` (one block over every node)
+    or of ``(x, blocks)``."""
+    if isinstance(g, SparseGraph):
+        return (EdgeBlock(None, g.nbr, g.edge, g.mask),), g.x
+    x, blocks = g
+    return tuple(blocks), x
+
+
+def scatter_blocks(blocks, outs, n: int) -> torch.Tensor:
+    """Each block's per-edge values ``outs[i] [..., R, Kb]`` written into a
+    dense ``[..., N, N]`` matrix at ``(src, nbr)``, zeros elsewhere (the JAX
+    trainer's ``heu.at[rows, b.nbr].set(h)``, special.py:160-169). The
+    blocks' rows and each row's columns hold no duplicate, so the write
+    order does not matter."""
+    lead = outs[0].shape[:-2]
+    dense = torch.zeros((*lead, n * n), dtype=outs[0].dtype, device=outs[0].device)
+    for b, h in zip(blocks, outs):
+        src = (torch.arange(n, device=h.device) if b.src is None else b.src)[:, None]
+        flat = (src * n + b.nbr).expand(*lead, *b.nbr.shape[-2:]).reshape(*lead, -1)
+        dense = dense.scatter(-1, flat, h.reshape(*lead, -1))
+    return dense.reshape(*lead, n, n)
 
 
 def topk_smallest(dist: torch.Tensor, k: int):

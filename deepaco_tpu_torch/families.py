@@ -6,8 +6,9 @@ post-processing, the rollout plug-in, the objective and the ACO flags. Its
 functions take instance dicts of tensors batched over ``B`` instances, and
 every reduction that JAX takes over one instance (its ``vmap``) reduces
 over the instance's own axes here, never over the batch. Ported: ``tsp``,
-``cvrp``, ``op``, ``pctsp``, ``smtwtp``, ``sop``, ``bpp`` and ``mkp``; the
-others follow in ROADMAP.md's order.
+``cvrp``, ``op``, ``pctsp``, ``smtwtp``, ``sop``, ``bpp``, ``mkp`` and
+``mkp_items``; ``rcpsp`` follows in ROADMAP.md's order. CVRP-NLS is no
+family here, as in the JAX package: its trainer is ``train.special``.
 
 The CVRP reference reshapes its per-edge heuristic with the source index
 varying fast (cvrp/train.ipynb cell 1, cvrp/utils.py:27-29), so its dense
@@ -16,7 +17,10 @@ which reuses the CVRP graph with unit edge attributes; TSP, OP, PCTSP,
 SMTWTP and SOP scatter by ``(src, dst)`` with no transpose. PCTSP divides
 its heuristic by its smallest entry (pctsp/train.ipynb cell 1); MKP does too
 and then transposes. SOP's masked dense block zeroes the output on the
-edges its precedences forbid.
+edges its precedences forbid. MKP-items replaces the GNN wholesale: its
+``model_ctor``, ``forward`` and ``model_init`` hooks give the transformer
+over ``[price, weights]`` tokens, whose per-item heuristic meets a per-item
+vector pheromone.
 """
 from __future__ import annotations
 
@@ -29,7 +33,8 @@ from deepaco_tpu_torch.aco.engine import rollout
 from deepaco_tpu_torch.aco.problems.bpp import bpp_default_heuristic, bpp_fitness
 from deepaco_tpu_torch.aco.problems.cvrp import cvrp_paths, cvrp_spec, route_cost
 from deepaco_tpu_torch.aco.problems.mkp import (extend_mkp, mkp_default_heuristic,
-                                                mkp_objective, mkp_spec)
+                                                mkp_items_spec, mkp_objective, mkp_prior,
+                                                mkp_spec)
 from deepaco_tpu_torch.aco.problems.op import (extend_op_instance, op_default_heuristic,
                                                op_objective, op_spec)
 from deepaco_tpu_torch.aco.problems.pctsp import (pctsp_default_heuristic,
@@ -43,6 +48,8 @@ from deepaco_tpu_torch.core.builders import (cvrp_graph, mkp_graph, op_graph, pc
                                              smtwtp_graph, sop_graph)
 from deepaco_tpu_torch.core.graph import (knn_graph, scatter_to_dense,
                                           sparse_distance_matrix)
+from deepaco_tpu_torch.models.transformer import (TransformerModel,
+                                                  init_transformer_like_flax)
 
 EPS = 1e-10
 OP_MAX_LEN = {100: 4.0, 200: 5.0, 300: 6.0}        # op/test.py:13-17
@@ -65,8 +72,11 @@ class Family(NamedTuple):
     classic arm's heuristic; ``model_kwargs`` the ``Net`` arguments as
     sorted pairs; ``prepare(inst)`` → the instance with the arrays its spec
     and cost read (OP's and MKP's extended ones), applied before everything
-    else; ``extras(inst)`` → the search's per-instance arguments (OP's and
-    MKP's ``q``)."""
+    else; ``extras(inst)`` → the search's per-instance arguments (OP's,
+    MKP's and MKP-items' ``q``). A family whose model is no GNN (MKP-items)
+    sets ``model_ctor`` (the model's class, with ``from_jax_variables``),
+    ``forward(net, inst, k_sparse)`` → its heuristic, and ``model_init(net,
+    generator)``, its initialisation by the JAX package's law."""
 
     name: str
     model_kwargs: tuple
@@ -82,6 +92,9 @@ class Family(NamedTuple):
     k_sparse: Callable[[int], int] = staticmethod(lambda n: max(n // 10, 3))
     prepare: Callable[[dict], dict] = staticmethod(lambda inst: inst)
     extras: Callable[[dict], dict] = staticmethod(lambda inst: {})
+    model_ctor: type | None = None
+    forward: Callable | None = None
+    model_init: Callable | None = None
 
 
 # ----------------------------------------------------------- generators ----
@@ -142,6 +155,17 @@ def gen_mkp(rng: np.random.Generator, n: int, m: int = 5) -> dict:
     constraints = np.array([rng.uniform(w[:, j].max(), w[:, j].sum()) for j in range(m)])
     w = w * (n // 2) / constraints[None, :]
     return {"prize": prize, "weight": w.astype(np.float32)}
+
+
+def gen_mkp_items(rng: np.random.Generator, n: int, m: int = 5) -> dict:
+    """PH_items instances (mkp_transformer/utils.py:6-21): weights drawn as
+    ``[m, n]`` and each dimension divided by a constraint drawn between its
+    largest weight and its sum, so that every capacity is 1."""
+    price = rng.random(n, dtype=np.float32)
+    w = rng.random((m, n))
+    constraints = np.array([rng.uniform(w[j].max(), w[j].sum()) for j in range(m)])
+    w = (w / constraints[:, None]).T
+    return {"prize": price, "weight": w.astype(np.float32)}
 
 
 def gen_bpp(rng: np.random.Generator, n: int) -> dict:
@@ -246,6 +270,23 @@ def _mkp_spec(tau, heu, inst, a):
 def _mkp_prepare(inst: dict) -> dict:
     prize_e, weight_e = extend_mkp(inst["prize"], inst["weight"])
     return {**inst, "prize_ext": prize_e, "weight_ext": weight_e}
+
+
+def _items_src(inst: dict) -> torch.Tensor:
+    """The transformer's tokens ``[..., n, 1+m]``: each item's price, then
+    its weights (mkp_transformer/utils.py:24-30)."""
+    return torch.cat([inst["prize"][..., None], inst["weight"]], dim=-1)
+
+
+def _items_forward(net, inst: dict, k_sparse: int) -> torch.Tensor:
+    # the transformer's heuristic + EPS, extended with the dummy's 1e-8
+    # (families.py:383-386)
+    heu = net(_items_src(inst)) + EPS
+    return extend_mkp(inst["prize"], inst["weight"], heu_vec=heu)[2]
+
+
+def _mkp_items_spec(tau, heu, inst, a):
+    return mkp_items_spec(tau, heu, inst["weight_ext"], 1.0, a)
 
 
 def _op_prepare(inst: dict) -> dict:
@@ -376,6 +417,24 @@ FAMILIES = {
             mkp_default_heuristic(inst["prize"], inst["weight"]))[2],
         prepare=_mkp_prepare,
         extras=lambda inst: {"q": 1.0 / inst["prize"].sum(dim=-1)}),
+    "mkp_items": Family(
+        name="mkp_items",
+        model_kwargs=(),
+        gen=gen_mkp_items,
+        graph=lambda inst, k: _items_src(inst),
+        heu_matrix=lambda g, out, inst: out,
+        spec=_mkp_items_spec,
+        construct=_per_step(_mkp_items_spec),
+        cost=lambda paths, inst: mkp_objective(inst["prize_ext"], paths),
+        aco=ACOConfig(maximize=True, cyclic=False, symmetric=False, vector_pheromone=True),
+        horizon_states=lambda n: (n + 1, n + 1),
+        classic_heu=lambda inst, k: extend_mkp(
+            inst["prize"], inst["weight"], heu_vec=mkp_prior(inst["prize"], inst["weight"]))[2],
+        prepare=_mkp_prepare,
+        extras=lambda inst: {"q": 1.0 / inst["prize"].sum(dim=-1)},
+        model_ctor=TransformerModel,
+        forward=_items_forward,
+        model_init=init_transformer_like_flax),
 }
 
 

@@ -1,10 +1,17 @@
 """Edge-gated GNN heuristic network (counterpart of ``deepaco_tpu/models/gnn.py``).
 
-The single regular block: every node has ``K`` out-edges held in a
+The regular block: every node has ``K`` out-edges held in a
 :class:`~deepaco_tpu_torch.core.graph.SparseGraph`. Tensors carry leading
 batch dimensions (``x [B, N, F]``, ``nbr [B, N, K]``, ``edge [B, N, K, E]``).
 This module is the plain oracle for the heuristic kernel in
 :mod:`deepaco_tpu_torch.ops.fused_gnn`.
+
+An irregular graph ``(x, blocks)`` of
+:class:`~deepaco_tpu_torch.core.graph.EdgeBlock` blocks (CVRP-NLS's) runs the
+plain layer of gnn.py:213-256 on every device: each block's gated mean is
+merged into its source rows, and one edge BatchNorm covers the edges of all
+blocks. Neither K6 nor K9 takes a map of source rows, and the JAX package
+keeps such a graph off its fused layer too (gnn.py:177-180).
 """
 from __future__ import annotations
 
@@ -16,8 +23,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from deepaco_tpu_torch.core.graph import SparseGraph
-from deepaco_tpu_torch.ops.gnn_layer import fused_gnn_layer, reverse_adjacency
+from deepaco_tpu_torch.core.graph import SparseGraph, as_blocks
+from deepaco_tpu_torch.ops.gnn_layer import fused_gnn_layer, gather_nodes, reverse_adjacency
 
 
 class TorchBatchNorm(nn.Module):
@@ -97,13 +104,16 @@ class EmbNet(nn.Module):
         self.v_bns = nn.ModuleList(TorchBatchNorm(units) for _ in range(depth))
         self.e_bns = nn.ModuleList(TorchBatchNorm(units) for _ in range(depth))
 
-    def forward(self, g: SparseGraph, layer: Callable = fused_gnn_layer) -> torch.Tensor:
+    def forward(self, g, layer: Callable = fused_gnn_layer):
         """``layer`` computes each layer's ``(agg, pre)``: by default the
         wrapper of kernel K6 (the plain version on CPU tensors); the plain
         version on any device when ``fused_gnn_layer_plain`` is passed. A
         masked graph (``g.mask``) weights the edge BatchNorms' train-mode
         statistics; with the node update it raises, since the masked
-        neighbour mean (gnn.py:216-228) is not ported."""
+        neighbour mean (gnn.py:216-228) is not ported. An irregular graph
+        ``(x, blocks)`` takes :meth:`forward_blocks` and returns its list."""
+        if not isinstance(g, SparseGraph):
+            return self.forward_blocks(g)
         if g.mask is not None and self.node_update:
             raise NotImplementedError(
                 "a masked graph with the node update needs the masked neighbour mean "
@@ -125,6 +135,48 @@ class EmbNet(nn.Module):
                 x = x0 + F.silu(self.v_bns[i](x1 + agg))
             w = w0 + F.silu(self.e_bns[i](pre, g.mask))
         return w
+
+    def forward_blocks(self, g) -> list[torch.Tensor]:
+        """The plain layers over ``(x, blocks)`` (gnn.py:213-256): per block
+        ``[B, R, Kb, U]``. Each layer's node update adds every block's gated
+        mean into the block's source rows (``index_add`` by ``src``; a
+        block holds each source once, so no two adds meet); the edge update
+        is ``e_lin(w) + x3[src] + x4[nbr]`` per block, and one BatchNorm
+        takes its statistics over the concatenated edges of all blocks."""
+        blocks, x_in = as_blocks(g)
+        if any(b.mask is not None for b in blocks):
+            raise NotImplementedError(
+                "masked blocks need the masked neighbour mean (deepaco_tpu/models/"
+                "gnn.py:216-228), not ported yet: ROADMAP.md §1 item 3 (rcpsp); one "
+                "masked block runs as a SparseGraph")
+        n = x_in.shape[-2]
+        x = F.silu(self.v_lin0(x_in.float()))
+        ws = [F.silu(self.e_lin0(b.edge.float())) for b in blocks]
+        srcs = [torch.arange(n, device=x.device) if b.src is None else b.src for b in blocks]
+        for i in range(self.depth):
+            x0, ws0 = x, ws
+            x1 = self.v_lins1[i](x0)
+            x2 = self.v_lins2[i](x0)
+            x3 = self.v_lins3[i](x0)
+            x4 = self.v_lins4[i](x0)
+            if self.node_update:
+                agg = torch.zeros_like(x0)
+                for b, src, w0 in zip(blocks, srcs, ws0):
+                    gated = torch.sigmoid(w0) * gather_nodes(x2, b.nbr.expand(
+                        *x0.shape[:-2], *b.nbr.shape[-2:]))
+                    agg = agg.index_add(-2, src, gated.mean(dim=-2))
+                x = x0 + F.silu(self.v_bns[i](x1 + agg))
+            e_lin = self.e_lins0[i]
+            pre = [e_lin(w0) + x3[..., src, None, :]
+                   + gather_nodes(x4, b.nbr.expand(*x0.shape[:-2], *b.nbr.shape[-2:]))
+                   for b, src, w0 in zip(blocks, srcs, ws0)]
+            flat = self.e_bns[i](torch.cat([p.flatten(-3, -2) for p in pre], dim=-2))
+            ws, off = [], 0
+            for p, w0 in zip(pre, ws0):
+                size = p.shape[-3] * p.shape[-2]
+                ws.append(w0 + F.silu(flat[..., off:off + size, :].reshape(p.shape)))
+                off += size
+        return ws
 
 
 class ParNet(nn.Module):
@@ -156,11 +208,17 @@ class Net(nn.Module):
         if dual_heads:
             self.par_net_phe = ParNet(units=units)
 
-    def forward(self, g: SparseGraph, layer: Callable = fused_gnn_layer):
+    def forward(self, g, layer: Callable = fused_gnn_layer):
+        """A :class:`SparseGraph`'s ``[B, N, K]`` heads, or a list a block
+        for an irregular graph ``(x, blocks)``."""
         emb = self.emb_net(g, layer)
-        heu = self.par_net_heu(emb)
+        if isinstance(emb, list):
+            heads = lambda head: [head(e) for e in emb]
+        else:
+            heads = lambda head: head(emb)
+        heu = heads(self.par_net_heu)
         if self.dual_heads:
-            return self.par_net_phe(emb), heu
+            return heads(self.par_net_phe), heu
         return heu
 
     @classmethod
@@ -184,8 +242,9 @@ class Net(nn.Module):
 def _unused(net: nn.Module) -> tuple[str, ...]:
     """The ``state_dict`` entries that a net without the node update never
     reads, the node BatchNorms (kept as modules so that every net has one
-    layout)."""
-    return () if net.emb_net.node_update else ("emb_net.v_bns.",)
+    layout); none for a model without an ``emb_net``."""
+    emb = getattr(net, "emb_net", None)
+    return () if emb is None or emb.node_update else ("emb_net.v_bns.",)
 
 
 def load_jax_variables(net: nn.Module, variables: dict) -> None:
@@ -281,18 +340,20 @@ def jax_path(name: str) -> tuple[str, tuple[str, ...], bool]:
         leaf == "weight"
 
 
-def to_jax_tree(tensors: dict[str, torch.Tensor]) -> dict:
+def to_jax_tree(tensors: dict[str, torch.Tensor], path: Callable = jax_path) -> dict:
     """Tensors named as in the port's ``state_dict`` (weights, gradients or
     optimizer moments) → a Flax-shaped ``{"params", "batch_stats"}`` tree of
-    f32 numpy arrays, each Linear weight transposed to a ``kernel``."""
+    f32 numpy arrays (copies, which later updates of the tensors leave
+    alone), each Linear weight transposed to a ``kernel``; ``path`` is the
+    model's naming (:func:`jax_path`, the GNN's, by default)."""
     tree: dict = {}
     for name, t in tensors.items():
-        coll, keys, transposed = jax_path(name)
+        coll, keys, transposed = path(name)
         a = t.detach().float().cpu()
         node = tree.setdefault(coll, {})
         for key in keys[:-1]:
             node = node.setdefault(key, {})
-        node[keys[-1]] = np.ascontiguousarray((a.T if transposed else a).numpy())
+        node[keys[-1]] = (a.T if transposed else a).contiguous().numpy().copy()
     return tree
 
 

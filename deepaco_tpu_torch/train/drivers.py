@@ -18,9 +18,12 @@ then ``aco.runner.run_anytime``. On the card the eval-mode GNN runs the
 folded layer stack K9 in one launch where ``embnet_supported`` takes the net
 (else one K6 launch a layer), every deposit K8, and each iteration's
 construction one launch of K7c (CVRP, BPP) or one K7 a step (TSP, OP,
-PCTSP, SMTWTP, SOP, MKP, and CVRP and BPP past K7c's N). Each instance batch
-first goes through ``Family.prepare`` (OP's and MKP's extended arrays), and
-``Family.extras`` (OP's and MKP's per-instance ``q``) reaches the search. The JAX version's host
+PCTSP, SMTWTP, SOP, MKP, MKP-items, and CVRP and BPP past K7c's N). Each
+instance batch first goes through ``Family.prepare`` (OP's and MKP's
+extended arrays), and ``Family.extras`` (OP's and MKP's per-instance ``q``)
+reaches the search. A family with a ``forward`` hook (MKP-items'
+transformer) computes its heuristic there, in PyTorch on every device, and
+a ``vector_pheromone`` family deposits on items, not edges (no K8). The JAX version's host
 chunking of instances (``b_chunk``, a TPU watchdog workaround) and its
 ``mesh`` (multi-device) are not ported.
 """
@@ -75,12 +78,17 @@ PLAIN_OPS = FamilyOps(fused_gnn_layer_plain, fused_pick_plain, ph.deposit_plain,
                       layers=embnet_layers_plain, construct=cvrp_construct_plain)
 
 
-def family_model(family: Family, variables: dict | None = None, **sizes) -> Net:
+def family_model(family: Family, variables: dict | None = None, **sizes) -> torch.nn.Module:
     """The family's ``Net``: sized from and loaded with a Flax
     ``{"params", "batch_stats"}`` tree when given (``Net.from_jax_variables``,
     with the family's ``node_update``), else fresh with the family's
-    arguments and ``sizes`` (``feats``, ``edge_feats``)."""
+    arguments and ``sizes`` (``feats``, ``edge_feats``). A family with a
+    ``model_ctor`` gets that model instead (MKP-items' transformer)."""
     kwargs = dict(family.model_kwargs)
+    if family.model_ctor is not None:
+        if variables is not None:
+            return family.model_ctor.from_jax_variables(variables)
+        return family.model_ctor(**kwargs)
     if variables is not None:
         return Net.from_jax_variables(variables, node_update=kwargs.get("node_update", True))
     return Net(**{**kwargs, **sizes})
@@ -111,7 +119,9 @@ def _forward_heu(family: Family, net: Net, inst: dict, k_sparse: int,
     update: then each edge's state depends on itself alone and eval mode
     ignores the mask, so the mask changes nothing before ``heu_matrix``
     applies it; with the node update ``net`` raises (the masked neighbour
-    mean is not ported)."""
+    mean is not ported). A family's ``forward`` hook replaces all of this."""
+    if family.forward is not None:
+        return family.forward(net, inst, k_sparse)
     g = family.graph(inst, k_sparse)
     n, k = g.nbr.shape[-2:]
     if (not net.training and embnet_supported(net, n, k)
@@ -233,8 +243,12 @@ def init_family_state(family: Family, cfg: ProblemConfig, rng_np: np.random.Gene
     (drivers.py:116-131) it draws one instance from ``rng_np``, prepares it
     and builds its graph on the CPU, and sizes the net's node and edge
     features from that template, as Flax's ``init`` does; the batches that
-    follow are the JAX trainer's."""
+    follow are the JAX trainer's. A family with a ``model_ctor`` gets its
+    model, initialised by its ``model_init``."""
     template = {k: np.asarray(v)[None] for k, v in family.gen(rng_np, cfg.n_nodes).items()}
+    if family.model_ctor is not None:
+        return init_train_state(family_model(family).to(generator.device), cfg, generator,
+                                family.model_init)
     g = family.graph(family.prepare(instance_tensors(template, "cpu")), cfg.k_sparse)
     net = family_model(family, feats=g.x.shape[-1], edge_feats=g.edge.shape[-1])
     return init_train_state(net.to(generator.device), cfg, generator)

@@ -77,19 +77,20 @@ class TrainState(NamedTuple):
         "1": {"0": {count, mu, nu}, "1": {}, "2": {count} or {}}}``) and
         ``step``, with numpy leaves. A net without the node update leaves
         out the node BatchNorms, as the Flax net has none."""
-        variables = to_jax_tree(jax_layout(self.net.state_dict(), self.net))
+        path = _jax_path(self.net)
+        variables = to_jax_tree(jax_layout(self.net.state_dict(), self.net), path)
         named = jax_layout(dict(self.net.named_parameters()), self.net)
 
         def moment(key):
             return to_jax_tree({
                 name: self.optimizer.state[p][key] if p in self.optimizer.state
-                else torch.zeros_like(p) for name, p in named.items()})["params"]
+                else torch.zeros_like(p) for name, p in named.items()}, path)["params"]
 
         count = np.array(self.step, dtype=np.int32)
         adam = {"count": count, "mu": moment("exp_avg"), "nu": moment("exp_avg_sq")}
         schedule = {"count": count} if self.cosine else {}
         return {"params": variables["params"],
-                "batch_stats": variables["batch_stats"],
+                "batch_stats": variables.get("batch_stats", {}),
                 "opt_state": {"0": {}, "1": {"0": adam, "1": {}, "2": schedule}},
                 "step": count}
 
@@ -141,12 +142,18 @@ def make_optimizer(net: torch.nn.Module, cfg: ProblemConfig) -> torch.optim.Adam
                              amsgrad=False, maximize=False)
 
 
+def _jax_path(net: torch.nn.Module) -> Callable:
+    """The net's naming in the Flax variables: its own ``jax_path`` (the
+    transformer's) or the GNN's."""
+    return getattr(net, "jax_path", jax_path)
+
+
 def init_train_state(net: torch.nn.Module, cfg: ProblemConfig,
-                     generator: torch.Generator) -> TrainState:
-    """``net`` initialised in place by the JAX package's law
-    (:func:`init_like_flax`, drawn from ``generator``), with a fresh
-    optimizer at step 0."""
-    init_like_flax(net, generator)
+                     generator: torch.Generator, init: Callable = init_like_flax) -> TrainState:
+    """``net`` initialised in place by the JAX package's law (``init``,
+    :func:`init_like_flax` by default, drawn from ``generator``), with a
+    fresh optimizer at step 0."""
+    init(net, generator)
     return TrainState(net, make_optimizer(net, cfg), 0, cfg.train.cosine_schedule)
 
 
@@ -156,13 +163,17 @@ def restore_train_state(tree: dict, net: torch.nn.Module,
     with the tree's weights and statistics, and an optimizer holding its
     Adam moments and update count."""
     dev = next(net.parameters()).device
-    load_jax_variables(net, tree)
+    if hasattr(net, "load_jax_variables"):
+        net.load_jax_variables(tree)
+    else:
+        load_jax_variables(net, tree)
     opt = make_optimizer(net, cfg)
     adam = tree["opt_state"]["1"]["0"]
     count = int(adam["count"])
+    path = _jax_path(net)
     if count:
         def leaf(root, name):
-            _, keys, transposed = jax_path(name)
+            _, keys, transposed = path(name)
             for key in keys:
                 root = root[key]
             t = torch.from_numpy(np.array(root, dtype=np.float32))

@@ -1,17 +1,20 @@
 """Golden fixed-seed evaluation sets (counterpart of
-``deepaco_tpu/utils/golden.py``; the other families wait for their slices).
+``deepaco_tpu/utils/golden.py``; TSP's reads the reference's files and is
+not ported).
 
-The reference commits no CVRP, OP, PCTSP, SMTWTP, SOP, BPP or MKP test
-files: each writer (cvrp/utils.py:42-53, op/utils.py:73-83,
-pctsp/utils.py:50-59, smtwtp/utils.py:32-44, sop/utils.py:68-81,
-bpp/utils.py:29-39, mkp/utils.py:51-72) seeds torch's CPU generator once and
-draws its instances scale after scale. This module repeats the same draws in
-the same order from a ``torch.Generator`` of its own, so its instances are
-the reference's, made with no file and without touching torch's global
-generator. The MKP writer draws its knapsack constraints from numpy's
-global stream, which the reference never seeded; the JAX package seeds it
-with ``np_seed``, and this module draws the same numbers from a
-``numpy.random.RandomState(np_seed)`` of its own.
+The reference commits no CVRP, CVRP-NLS, OP, PCTSP, SMTWTP, SOP, BPP, MKP
+or MKP-items test files: each writer (cvrp/utils.py:42-53,
+cvrp_nls/utils.py:89-100, op/utils.py:73-83, pctsp/utils.py:50-59,
+smtwtp/utils.py:32-44, sop/utils.py:68-81, bpp/utils.py:29-39,
+mkp/utils.py:51-72, mkp_transformer/utils.py:46-67) seeds torch's CPU
+generator once and draws its instances, scale after scale where it makes
+several. This module repeats the same draws in the same order from a
+``torch.Generator`` of its own, seeded as ``torch.manual_seed`` seeds the
+global one, so its instances are the reference's, made with no file and
+without touching torch's global generator. The MKP writers draw their
+knapsack constraints from numpy's global stream, which the reference never
+seeded; the JAX package seeds it with ``np_seed``, and this module draws the
+same numbers from a ``numpy.random.RandomState(np_seed)`` of its own.
 """
 from __future__ import annotations
 
@@ -25,9 +28,14 @@ OP_SCALES = (100, 200, 300)
 PCTSP_SCALES = (20, 100, 500)
 SMTWTP_SCALES = (50, 100, 500)
 SOP_SCALES = (20, 50, 100)
-# the writers that make only these scales; BPP's and MKP's take any n
+MKP_ITEMS_SCALES = (300, 500)
+# the writers that make only these scales; BPP's and MKP's take any n,
+# CVRP-NLS's any n >= 1
 SCALES = {"cvrp": CVRP_SCALES, "op": OP_SCALES, "pctsp": PCTSP_SCALES,
-          "smtwtp": SMTWTP_SCALES, "sop": SOP_SCALES}
+          "smtwtp": SMTWTP_SCALES, "sop": SOP_SCALES, "mkp_items": MKP_ITEMS_SCALES}
+# the CVRP-NLS vehicle capacity by scale (cvrp_nls/utils.py:5-10): the
+# entry of the largest key at most n
+CVRP_NLS_CAPACITY = {1: 10, 20: 30, 50: 40, 100: 50, 400: 150, 1000: 200, 2000: 300}
 
 
 def _check(name: str, n: int) -> None:
@@ -57,6 +65,35 @@ def cvrp_test(n: int, count: int = 100, seed: int = 123456) -> dict:
     dist[:, idx, idx] = 1e-10
     return {"coords": coords, "dist": dist.astype(np.float32),
             "demand": np.stack(dem_l).astype(np.float32)}
+
+
+def cvrp_nls_capacity(n: int) -> int:
+    """The vehicle capacity of CVRP-NLS instances with ``n`` customers."""
+    if n < 1:
+        raise ValueError(f"CVRP-NLS scale {n}: the capacity table starts at 1 customer")
+    return [v for k, v in sorted(CVRP_NLS_CAPACITY.items()) if k <= n][-1]
+
+
+def cvrp_nls_test(n: int, count: int = 100, seed: int = 123456) -> dict:
+    """The CVRP-NLS test set of ``n`` customers: the generator seeded once
+    for the call, then per instance ``n + 1`` f64 locations (node 0 the
+    depot) and ``n`` integer demands 1..9 in f64, divided by the scale's
+    capacity. ``coords [count, n+1, 2]``, ``dist`` (diagonal 1e-10) and
+    ``demand [count, n+1]`` (0 at the depot) in f32, and ``capacity`` 1."""
+    cap = cvrp_nls_capacity(n)
+    gen = torch.Generator().manual_seed(seed)
+    coords_l, dem_l = [], []
+    for _ in range(count):
+        locations = torch.rand(size=(n + 1, 2), dtype=torch.double, generator=gen)
+        demands = torch.randint(1, 10, size=(n,), dtype=torch.double, generator=gen)
+        coords_l.append(locations.numpy())
+        dem_l.append(np.concatenate([[0.0], demands.numpy() / cap]))
+    coords = np.stack(coords_l)
+    dist = np.linalg.norm(coords[:, :, None] - coords[:, None], axis=-1)
+    idx = np.arange(n + 1)
+    dist[:, idx, idx] = 1e-10
+    return {"coords": coords.astype(np.float32), "dist": dist.astype(np.float32),
+            "demand": np.stack(dem_l).astype(np.float32), "capacity": np.float32(1.0)}
 
 
 def op_test(n: int, split: str = "test") -> dict:
@@ -182,5 +219,32 @@ def mkp_test(n: int = 50, count: int = 100, seed: int = 123456, np_seed: int = 0
             "weight": np.stack(weights).astype(np.float32)}
 
 
+def mkp_items_test(n: int, count: int = 100, seed: int = 123456, np_seed: int = 0) -> dict:
+    """The MKP-items set of ``n`` items in 5 dimensions (scales 300 and 500,
+    drawn in that order): ``prize [count, n]`` and ``weight [count, n, 5]``,
+    f32. Each instance draws its weights as ``[5, n]`` and divides each
+    dimension by a constraint drawn uniformly between its largest weight
+    and its sum (numpy's stream seeded with ``np_seed``), so that every
+    capacity is 1."""
+    _check("mkp_items", n)
+    gen = torch.Generator().manual_seed(seed)
+    nprng = np.random.RandomState(np_seed)
+    m = 5
+    for scale in MKP_ITEMS_SCALES:
+        prices, weights = [], []
+        for _ in range(count):
+            price = torch.rand(size=(scale,), generator=gen)
+            w = torch.rand(size=(m, scale), generator=gen)
+            constraints = np.array([nprng.uniform(float(w[j].max()), float(w[j].sum()))
+                                    for j in range(m)])
+            weights.append((w.numpy() / constraints[:, None]).T)
+            prices.append(price.numpy())
+        if scale == n:
+            break
+    return {"prize": np.stack(prices).astype(np.float32),
+            "weight": np.stack(weights).astype(np.float32)}
+
+
 GOLDEN = {"cvrp": cvrp_test, "op": op_test, "pctsp": pctsp_test, "smtwtp": smtwtp_test,
-          "sop": sop_test, "bpp": bpp_test, "mkp": mkp_test}
+          "sop": sop_test, "bpp": bpp_test, "mkp": mkp_test, "cvrp_nls": cvrp_nls_test,
+          "mkp_items": mkp_items_test}

@@ -3,7 +3,8 @@
 
     python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train [--family F] | --family F | --sparse] [--out DIR]
 
-(F: cvrp, op, pctsp, smtwtp, sop, bpp or mkp)
+(F: cvrp, op, pctsp, smtwtp, sop, bpp, mkp or mkp_items; without --train
+also cvrp_nls)
 
 Runs a path of ``chip_smoke.py`` with its weights, instances and
 configuration once to warm up, then once under ``torch.profiler``: by default
@@ -22,8 +23,11 @@ with 50 ants, K = N = 300; batch 1, through
 ``make_family_train_step``, the batch drawn as ``train_family`` draws it)
 after one step of warm-up; with ``--family F`` alone that family's path
 (``evaluate_family``, its largest checkpoint on its golden set at that
-scale: CVRP500, OP300, PCTSP500, SMTWTP500, SOP100, BPP120, MKP300; A=20,
-T=10); with
+scale: CVRP500, OP300, PCTSP500, SMTWTP500, SOP100, BPP120, MKP300,
+MKP-items 500; A=20, T=10); with ``--family cvrp_nls`` the CVRP-NLS path on
+one instance (``test cvrp -n 500 --local-search swapstar --limit 1``,
+``cvrp_nls500_selftrained``, A=20, T=1 and 10, the native engine on the
+host); with
 ``--sparse`` the kernel arm of the sparse path (``test tsp --sparse -n
 2000``: tsp500_selftrained, the CLI's 30 fixed-seed instances, k=200,
 A=20, T=10). Prints one
@@ -90,12 +94,14 @@ def main() -> int:
     parser.add_argument("--ls", choices=("nls", "2opt"), default=None)
     parser.add_argument("--train", action="store_true")
     parser.add_argument("--family", choices=("cvrp", "op", "pctsp", "smtwtp", "sop", "bpp",
-                                             "mkp"), default=None)
+                                             "mkp", "mkp_items", "cvrp_nls"), default=None)
     parser.add_argument("--sparse", action="store_true")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     if sum((args.train or args.family is not None, args.sparse, args.ls is not None)) > 1:
         parser.error("--ls, --train [--family], --family and --sparse each name one path")
+    if args.train and args.family == "cvrp_nls":
+        parser.error("--train profiles the family trainer; cvrp_nls trains apart from it")
     if not torch.cuda.is_available():
         print("profile_torch_main_path: no CUDA device", file=sys.stderr)
         return 1
@@ -107,6 +113,8 @@ def main() -> int:
     elif args.sparse:
         sparse_args = chip_smoke.sparse_args(ROOT)
         run = lambda: chip_smoke.drive_sparse(sparse_args)
+    elif args.family == "cvrp_nls":
+        run = lambda: chip_smoke.drive_cvrp_nls(chip_smoke.cvrp_nls_args(ROOT, 1))
     elif args.family:
         net, ds = chip_smoke.family_inputs(ROOT, torch.device("cuda"), args.family)
         run = lambda: chip_smoke.drive_family(net, ds, name=args.family)

@@ -1,6 +1,8 @@
-"""The port's command line (deepaco_tpu_torch/cli.py): ``test tsp --sparse``
-and ``test cvrp`` print the JAX CLI's three output lines, ``train`` writes
-checkpoints that the port reads back; everything not ported exits."""
+"""The port's command line (deepaco_tpu_torch/cli.py): ``test tsp --sparse``,
+``test cvrp`` (with and without ``--local-search swapstar``) print the JAX
+CLI's three output lines, ``train`` writes checkpoints that the port reads
+back, ``solve-cvrp`` prints the engine's routes; everything not ported
+exits."""
 import json
 import re
 import subprocess
@@ -41,13 +43,13 @@ def test_sparse_protocol_prints_the_jax_cli_lines(arm, capsys, monkeypatch):
     (["test", "op", "-n", "50"], r"scales \(100, 200, 300\)"),
     (["test", "tsp", "-n", "1001"], "ROADMAP.md §1 item 10"),
     (["test", "tsp", "--sparse", "-n", "1001", "--b-chunk", "4"], "--b-chunk .*item 10"),
-    (["train", "mkp_items"], "train .*item 10"),
+    (["test", "rcpsp"], "test rcpsp .*item 10"),
     (["test", "tsp", "--sparse", "-n", "1001", "--ckpt", "x.pt"], r"\.pt loader"),
     (["test", "tsp", "--sparse", "-n", "1003"], r"checkpoints/tsp1003\.msgpack"),
-    (["train", "cvrp", "--local-search", "swapstar"], "swapstar .*item 8.8"),
+    (["test", "tsp", "-n", "20", "--per-instance"], "--per-instance .*item 10"),
     (["test", "cvrp", "-n", "20", "--b-chunk", "4"], "--b-chunk .*item 10"),
     (["train", "rcpsp"], "train rcpsp .*item 10"),
-    (["solve-cvrp", "x.vrp"], "solve-cvrp .*item 10"),
+    (["test", "tsp", "-n", "100", "--local-search", "nls"], "test tsp .*item 10"),
 ])
 def test_what_is_not_ported_exits_with_a_reason(argv, match, monkeypatch):
     monkeypatch.chdir(ROOT)
@@ -171,6 +173,69 @@ def test_the_sparse_path_refuses_a_local_search_it_does_not_run(monkeypatch):
 
 
 def test_python_dash_m_runs_the_cli():
-    out = subprocess.run([sys.executable, "-m", "deepaco_tpu_torch", "test", "mkp_items"],
+    out = subprocess.run([sys.executable, "-m", "deepaco_tpu_torch", "test", "rcpsp"],
                          cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert out.returncode == 1 and "item 10" in out.stderr
+
+
+def test_cvrp_nls_protocol_prints_the_jax_cli_lines(capsys, monkeypatch):
+    """``test cvrp --local-search swapstar`` at n=20 with the default
+    checkpoint (cvrp_nls100_selftrained, the fallback for 20), 2 instances,
+    4 ants, T=1 and 2: a line an instance, then the JAX CLI's three lines
+    with the record of cli.py:434-436, and curves that do not rise."""
+    monkeypatch.chdir(ROOT)
+    means, curves = cli.main(["test", "cvrp", "-n", "20", "--local-search", "swapstar",
+                              "--limit", "2", "-a", "4", "-t", "1", "2"], device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [re.fullmatch(r"inst \d: \d+\.\ds", line) is not None for line in lines[:2]] == [
+        True, True]
+    assert re.fullmatch(r"total duration: \d+\.\d\ds", lines[2])
+    assert lines[3:5] == [f"T={t}, average cost is {v:.6f}." for t, v in zip((1, 2), means)]
+    out = json.loads(lines[5])
+    assert out["problem"] == "cvrp_nls" and out["n"] == 20 and out["instances"] == 2
+    assert curves.shape == (2, 2) and bool((curves[:, 1] <= curves[:, 0]).all())
+
+
+def test_train_cvrp_swapstar_writes_a_checkpoint_that_test_reads(tmp_path, capsys):
+    """``train cvrp --local-search swapstar`` at n=12 (1 epoch of 2 steps, 4
+    ants): the epoch and ``saved`` lines and a checkpoint that ``test cvrp
+    --local-search swapstar --ckpt`` reads at n=20."""
+    out = tmp_path / "nls12.msgpack"
+    state = cli.main(["train", "cvrp", "--local-search", "swapstar", "-n", "12", "-a", "4",
+                      "-e", "1", "-s", "2", "-o", str(out)], device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert re.fullmatch(r"epoch 0: mean cost \d+\.\d{4} \(\d+\.\ds\)", lines[0])
+    assert lines[-1] == f"saved {out}" and state.step == 2
+    means, curves = cli.main(["test", "cvrp", "-n", "20", "--local-search", "swapstar",
+                              "--limit", "1", "-a", "4", "-t", "1", "--ckpt", str(out)],
+                             device="cpu")
+    assert curves.shape == (1, 1) and np.isfinite(means).all()
+
+
+def test_solve_cvrp_prints_valid_routes(tmp_path, capsys):
+    """``solve-cvrp`` on a 12-customer CVRPLib file the test writes (depot
+    node 1, capacity 20), 50 iterations: ``Route #i`` lines that cover every
+    customer once within the capacity, the ``Cost`` of those routes and a
+    ``Time`` line."""
+    rng = np.random.default_rng(4)
+    coords = rng.integers(0, 100, (13, 2))
+    demands = np.concatenate([[0], rng.integers(1, 8, 12)])
+    text = ["NAME : t13", "TYPE : CVRP", "DIMENSION : 13", "EDGE_WEIGHT_TYPE : EUC_2D",
+            "CAPACITY : 20", "NODE_COORD_SECTION"]
+    text += [f"{i + 1} {x} {y}" for i, (x, y) in enumerate(coords)]
+    text += ["DEMAND_SECTION"] + [f"{i + 1} {d}" for i, d in enumerate(demands)]
+    text += ["DEPOT_SECTION", "1", "-1", "EOF"]
+    path = tmp_path / "t13.vrp"
+    path.write_text("\n".join(text) + "\n")
+    routes, cost = cli.main(["solve-cvrp", str(path), "--max-iters", "50", "--no-improve",
+                             "20"], device="cpu")
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[:-2] == [f"Route #{i + 1}: " + " ".join(str(int(c)) for c in r)
+                          for i, r in enumerate(routes)]
+    assert lines[-2] == f"Cost {cost:.2f}" and re.fullmatch(r"Time \d+\.\d\d", lines[-1])
+    served = np.sort(np.concatenate(routes))
+    np.testing.assert_array_equal(served, np.arange(1, 13))
+    assert all(demands[r].sum() <= 20 for r in routes)
+    dist = np.linalg.norm(coords[:, None] - coords[None], axis=-1)
+    total = sum(dist[0, r[0]] + dist[r[:-1], r[1:]].sum() + dist[r[-1], 0] for r in routes)
+    assert abs(total - cost) < 1e-6 * total

@@ -143,4 +143,4 @@ def test_registry_generators_equal_jax_and_unported_families_raise():
             np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{name} {k}")
     assert drivers.family_model(families.get_family("cvrp")).emb_net.v_lin0.in_features == 1
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        families.get_family("mkp_items")
+        families.get_family("rcpsp")

@@ -87,13 +87,14 @@ def test_cvrp_training_and_cli_without_device_raise_when_cuda_is_absent(monkeypa
         CVRPACO(inst["dist"], inst["demand"])
 
 
-@pytest.mark.parametrize("name", ["op", "pctsp", "smtwtp", "sop", "bpp", "mkp"])
+@pytest.mark.parametrize("name", ["op", "pctsp", "smtwtp", "sop", "bpp", "mkp", "mkp_items"])
 def test_family_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, name):
     """evaluate_family, train_family, the CLI's test and train, and the
-    family's facade (OPACO, PCTSPACO, SMTWTPACO, SOPACO, BPPACO, MKPACO)."""
+    family's facade (OPACO, PCTSPACO, SMTWTPACO, SOPACO, BPPACO, MKPACO,
+    MKPItemsACO)."""
     from deepaco_tpu_torch import cli
     from deepaco_tpu_torch.aco.problems.bpp import BPPACO
-    from deepaco_tpu_torch.aco.problems.mkp import MKPACO
+    from deepaco_tpu_torch.aco.problems.mkp import MKPACO, MKPItemsACO
     from deepaco_tpu_torch.aco.problems.op import OPACO
     from deepaco_tpu_torch.aco.problems.pctsp import PCTSPACO
     from deepaco_tpu_torch.aco.problems.smtwtp import SMTWTPACO
@@ -108,7 +109,8 @@ def test_family_entry_points_without_device_raise_when_cuda_is_absent(monkeypatc
         evaluate_family(name, batch, n_nodes=12)
     with pytest.raises(RuntimeError, match="CUDA"):
         train_family(name, ProblemConfig(name=name, n_nodes=12, k_sparse=4))
-    n = {"op": 100, "pctsp": 20, "smtwtp": 50, "sop": 20, "bpp": 12, "mkp": 12}[name]
+    n = {"op": 100, "pctsp": 20, "smtwtp": 50, "sop": 20, "bpp": 12, "mkp": 12,
+         "mkp_items": 300}[name]
     for argv in (["test", name, "-n", str(n), "--classic", "--limit", "1"],
                  ["train", name, "-n", "12", "-e", "1", "-s", "1"]):
         with pytest.raises(RuntimeError, match="CUDA"):
@@ -119,9 +121,43 @@ def test_family_entry_points_without_device_raise_when_cuda_is_absent(monkeypatc
               "smtwtp": lambda: SMTWTPACO(one["processing"], one["due"], one["weights"]),
               "sop": lambda: SOPACO(one["dist"], one["prec"]),
               "bpp": lambda: BPPACO(one["demand"]),
-              "mkp": lambda: MKPACO(one["prize"], one["weight"])}
+              "mkp": lambda: MKPACO(one["prize"], one["weight"]),
+              "mkp_items": lambda: MKPItemsACO(one["prize"], one["weight"])}
     with pytest.raises(RuntimeError, match="CUDA"):
         facade[name]()
+
+
+def test_cvrp_nls_entry_points_without_device_raise_when_cuda_is_absent(monkeypatch, tmp_path):
+    """CVRPNLSACO, train_cvrp_nls and the CLI's test and train cvrp
+    --local-search swapstar and solve-cvrp raise without a card; the host
+    engine (ls.hgs) and the transformer need none."""
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.aco.problems.cvrp_nls import CVRPNLSACO
+    from deepaco_tpu_torch.ls import hgs
+    from deepaco_tpu_torch.models.transformer import TransformerModel
+    from deepaco_tpu_torch.train.special import train_cvrp_nls
+    from deepaco_tpu_torch.utils.golden import cvrp_nls_test
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = cvrp_nls_test(10, count=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        CVRPNLSACO(ds["dist"][0], ds["demand"][0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_cvrp_nls(10, epochs=1, steps_per_epoch=1)
+    vrp = tmp_path / "t.vrp"
+    vrp.write_text("CAPACITY : 5\nNODE_COORD_SECTION\n1 0 0\n2 1 1\nDEMAND_SECTION\n"
+                   "1 0\n2 1\nDEPOT_SECTION\n1\n-1\nEOF\n")
+    for argv in (["test", "cvrp", "-n", "10", "--local-search", "swapstar", "--limit", "1"],
+                 ["train", "cvrp", "--local-search", "swapstar", "-n", "10", "-e", "1",
+                  "-s", "1"],
+                 ["solve-cvrp", str(vrp)]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    routes = hgs.path_to_routes(np.array([0, 1, 2, 0, 3, 0, 0]))
+    out = hgs.swapstar(ds["demand"][0][:4] * 0 + 0.1, ds["dist"][0][:4, :4], routes, 10)
+    assert sorted(np.concatenate(out).tolist()) == [1, 2, 3]
+    src = torch.rand(1, 7, 6, generator=torch.Generator().manual_seed(0))
+    assert TransformerModel()(src).shape == (1, 7)
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():

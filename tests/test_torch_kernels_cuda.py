@@ -1309,3 +1309,77 @@ def test_evaluate_family_bpp_runs_k7c_on_the_card(dev):
     assert bool((curves[:, 1:] >= curves[:, :-1]).all())
     inst = instance_tensors(ds, dev)
     assert bool(validate_bpp(state.best_path[..., None], inst["demand"], BPP_CAPACITY).all())
+
+
+def test_cvrp_construct_kernel_at_the_cvrp_nls500_shape(dev):
+    """K7c at capacity 1.0 on the golden CVRP-NLS500 instances (B=4, N =
+    501, A=20; demands k/150 in f32, so the loads are sums of rounded
+    fractions compared with 1.0), on ``1/d`` and on a random heuristic:
+    paths bit-equal to the plain version's (the same f32 additions in the
+    same order), stochastic and greedy, and every route within 1 + 1e-6."""
+    from deepaco_tpu_torch.aco.problems.cvrp import validate_routes
+    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
+    from deepaco_tpu_torch.train.drivers import instance_tensors
+    from deepaco_tpu_torch.utils.golden import cvrp_nls_test
+
+    ds = cvrp_nls_test(500, count=4)
+    inst = instance_tensors({"dist": ds["dist"], "demand": ds["demand"]}, dev)
+    heu = 1.0 / inst["dist"]
+    noise = torch.rand(heu.shape, generator=torch.Generator(device=dev).manual_seed(3),
+                       device=dev)
+    for h in (heu, heu * (0.5 + noise)):
+        score = score_matrix(torch.ones_like(h), h, 1.0, 1.0)
+        _assert_cvrp_construct_matches_plain(score, inst["demand"], 1.0, 20, 7)
+        paths = cc.cvrp_construct(score, inst["demand"], 1.0, 20,
+                                  torch.Generator(device=dev).manual_seed(8))
+        assert bool(validate_routes(paths, inst["demand"], 1.0).all())
+
+
+def test_deposit_kernel_on_ls_rewritten_cvrp_nls_routes(dev):
+    """K8 on CVRP-NLS500 routes (K7c on ``1/d``, B=1, A=20, L = 1001) whose
+    8 cheapest ants the native engine rewrote (fewer, fuller trips, then a
+    longer parked tail): equal bits to scatter_add_ on the CPU, within 2 k
+    2^-24 of each entry of scatter_add_ on the card; and CVRPNLSACO.run(2)
+    on the card launches K7c and K8 once an iteration, K7 never."""
+    import numpy as np
+
+    from deepaco_tpu_torch.aco.problems.cvrp import route_cost
+    from deepaco_tpu_torch.aco.problems.cvrp_nls import CVRPNLSACO
+    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
+    from deepaco_tpu_torch.ls import hgs
+    from deepaco_tpu_torch.ops import deposit, pick
+    from deepaco_tpu_torch.utils.golden import cvrp_nls_test
+
+    ds = cvrp_nls_test(500, count=1)
+    dist = torch.as_tensor(ds["dist"], device=dev)
+    demand = torch.as_tensor(ds["demand"], device=dev)
+    paths = cc.cvrp_construct(score_matrix(torch.ones_like(dist), 1.0 / dist, 1.0, 1.0),
+                              demand, 1.0, 20, torch.Generator(device=dev).manual_seed(1))
+    host = paths[0].cpu().numpy().copy()
+    idx = np.argsort(route_cost(dist, paths)[0].cpu().numpy())[:8]
+    host[:, idx] = hgs.multiple_swap_star(ds["demand"][0].astype(np.float64),
+                                          ds["dist"][0].astype(np.float64), host[:, idx],
+                                          count=1000)
+    rewritten = torch.from_numpy(host).to(dev)[None]
+    assert not torch.equal(rewritten, paths)
+    amounts = 1.0 / route_cost(dist, rewritten)
+    got = deposit.tour_deposit(rewritten, amounts, 501, cyclic=False)
+    cpu = deposit.tour_deposit_plain(rewritten.cpu(), amounts.cpu(), 501, cyclic=False)
+    assert torch.equal(got.cpu(), cpu)
+    plain = deposit.tour_deposit_plain(rewritten, amounts, 501, cyclic=False)
+    k = deposit.tour_deposit_plain(rewritten, torch.ones_like(amounts), 501, cyclic=False)
+    assert bool(((got - plain).abs() <= 2 * k * 2.0 ** -24 * got).all())
+    aco = CVRPNLSACO(ds["dist"][0], ds["demand"][0], n_ants=20, seed=0, device=dev)
+    before = (cc.cvrp_construct.launches, deposit.tour_deposit.launches,
+              pick.fused_pick.launches)
+    aco.run(2)
+    assert (cc.cvrp_construct.launches - before[0], deposit.tour_deposit.launches - before[1],
+            pick.fused_pick.launches - before[2]) == (2, 2, 0)
+
+
+def test_pick_kernel_on_mkp_items_rows(dev):
+    """K7 on the ``[B*A, n+1]`` rows of an MKP-items 500 rollout (B=4 golden
+    instances, 20 ants, the classic vector heuristic broadcast to every
+    ant, the knapsack masks at capacity 1 and the dummy item), held as on
+    OP's and PCTSP's rows."""
+    _check_pick_on_family_rows(dev, "mkp_items", 500)

@@ -226,7 +226,8 @@ def test_check_ported_takes_maximize_and_cost_offset_and_refuses_the_rest():
     runner.check_ported(cfg)
     state = runner.init_search(5, 4, cfg, batch=(2,), device="cpu")
     assert bool((state.best_cost == -float("inf")).all())
-    for flag in ("elitist", "min_max", "vector_pheromone"):
+    runner.check_ported(runner.ACOConfig(vector_pheromone=True, maximize=True))
+    for flag in ("elitist", "min_max"):
         with pytest.raises(NotImplementedError, match=flag):
             runner.check_ported(runner.ACOConfig(**{flag: True}))
 

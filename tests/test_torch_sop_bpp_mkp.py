@@ -324,8 +324,8 @@ def test_search_update_div_ants_and_floor_match_jax(name):
 
 def test_check_ported_names_the_item_each_flag_waits_for():
     runner.check_ported(runner.ACOConfig(deposit_div_ants=True, maximize=True, floor=1e-10))
-    for flag, item in (("elitist", "item 4"), ("min_max", "item 4"),
-                       ("vector_pheromone", "item 8.9")):
+    runner.check_ported(runner.ACOConfig(vector_pheromone=True, maximize=True))
+    for flag, item in (("elitist", "item 4"), ("min_max", "item 4")):
         with pytest.raises(NotImplementedError, match=f"{flag} waits for ROADMAP.md §1 {item}"):
             runner.check_ported(runner.ACOConfig(**{flag: True}))
 

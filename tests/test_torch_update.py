@@ -216,11 +216,20 @@ def test_open_paths_take_search_update():
                                   {"deposit_div_ants": True}, {"cost_offset": 1.0}])
 def test_unported_flags_raise(flag):
     """The flags not ported yet raise in init_search and search_update;
-    maximize (OP), cost_offset (SMTWTP) and deposit_div_ants (BPP), ported
-    since, run both (deposit_div_ants deposits as q = 1/A does)."""
+    maximize (OP), cost_offset (SMTWTP), deposit_div_ants (BPP) and
+    vector_pheromone (MKP-items), ported since, run both (deposit_div_ants
+    deposits as q = 1/A does; the vector pheromone starts at ones ``[B,
+    n]`` and each item takes 1/cost from each ant that picked it)."""
     cfg = runner.ACOConfig(**flag)
     state = runner.init_search(5, 4, runner.ACOConfig(), batch=(1,))
     paths = torch.stack([torch.randperm(5) for _ in range(2)], dim=1)[None]
+    if cfg.vector_pheromone:
+        state = runner.init_search(5, 4, cfg, batch=(1,))
+        assert torch.equal(state.phe.tau, torch.ones(1, 5))
+        got = runner.search_update(cfg, state, paths, torch.tensor([[2.0, 4.0]]))
+        torch.testing.assert_close(got.phe.tau, torch.full((1, 5), 0.9 + 0.5 + 0.25))
+        assert got.best_cost.item() == 2.0
+        return
     if set(flag) <= {"maximize", "cost_offset", "deposit_div_ants"}:
         state = runner.init_search(5, 4, cfg, batch=(1,))
         costs = torch.tensor([[2.0, 3.0]])

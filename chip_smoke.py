@@ -175,7 +175,35 @@ Phases, one JSON line each:
    3e-4, AdamW decay 1e-2, clip 3.0): one step kernel arm against plain
    arm, two steps of ``make_family_train_step`` (501 K7 launches a step,
    nothing else), and the CLI's ``test``;
-17. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
+17. RCPSP j120 (``rcpsp_phase``): an archive of 104 seeded j120-shaped
+   instances (``core.rcpsp.progen_rcp``: 122 activities, 4 resources,
+   ProGen's RF 0.5 and RS 0.3) written under a temporary
+   ``$DEEPACO_REFERENCE_ROOT``; K7 on the rows of one neural construction
+   through ``probs_fn`` (B=100, A=20, N=122) and K8 on the elitist update's
+   two lists (directed), held as in phases 6 and 9; ``cli._cmd_test_rcpsp``
+   (``test rcpsp -n 120`` with ``rcpsp120_selftrained``, 20 ants, T=1 and
+   10) in a kernel, a plain (``drivers.PLAIN_OPS``), a classic and a
+   ``--backfill`` arm: every best schedule passes ``check_schedule`` and
+   has the best makespan, the kernel arm's cost@T1 within 1e-4 of the
+   plain arm's and cost@T10 within 1%, K7 1,210 and K8 10 launches on the
+   kernel, classic and backfill arms and nothing else; one training step
+   (20 ants) kernel arm against plain arm as in phase 11, K7 on its rows,
+   then ``train rcpsp -n 120 -e 1 -s 2`` (242 K7 launches, nothing else)
+   and ``test rcpsp --ckpt`` of what it wrote; the kernel arm's first
+   iteration once more under the profiler for the device's idle share;
+18. ``test tsp`` on a golden file (``tsp_golden_phase``): the main path's
+   first 16 instances written as ``tsp/testDataset-500.pt`` under a
+   temporary ``$DEEPACO_REFERENCE_DATA``; K7, K4, K5 and K8 at the ACO
+   facade's shapes (one instance, 20 ants, N=500, the NLS heuristic);
+   four commands: the family path (``tsp500_selftrained``: K9 once, K7 a
+   step, K8), ``--local-search nls`` batched (``tsp_nls500_selftrained``:
+   K1, K2, K5, K3), the same ``--per-instance`` on the first 4 at T=1 and
+   2 (the facade: K1 once, K7 a step, K5 and K8 an iteration) and
+   ``--local-search 2opt --classic --per-instance`` (K7, K4, K8): every
+   best tour a permutation, each command's launches as predicted, the
+   per-instance NLS cost@T1 within 2% of the batched arm's on the same 4
+   instances; the family path's first iteration under the profiler;
+19. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7 from the
    TSP500-NLS training run, K7c and K8 from the CVRP path's kernel arm, K9
    from the sparse and the CVRP paths' kernel arms together; row 9 is on no
@@ -186,10 +214,12 @@ Phases, one JSON line each:
    ``mkp`` (K7c ``bpp``): their launches on that family's kernel arm (K7 or
    K7c, K8, K9) and in its two training steps (K6, K7), with their error,
    times and bound at its shapes; K7c and K8 carry ``cvrp_nls`` and K7
-   ``mkp_items`` the same way.
+   ``mkp_items`` the same way; K7 and K8 carry ``rcpsp`` and
+   ``tsp_facade``, K4 and K5 ``tsp_facade``.
 
 Every path's cost (main cost@T10, NLS, CVRP, sparse, OP, PCTSP, SMTWTP,
-SOP, BPP, MKP, CVRP-NLS and MKP-items cost@T1 and cost@T10, and both for the plain arms of the
+SOP, BPP, MKP, CVRP-NLS, MKP-items, RCPSP (kernel and backfill arms) and the four
+``test tsp`` commands' cost@T1 and cost@T10, and both for the plain arms of the
 main, NLS and sparse paths) must equal the one recorded in ``RECORDED_COSTS`` to the 4 decimals
 recorded: the kernels are exact or held to their plain versions, and the
 inputs and seeds are fixed. K1's and K9's ``{"phase": "kernel"}`` lines
@@ -203,6 +233,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -255,6 +286,15 @@ CVRP_NLS_ANCHORS = (30.160, 29.846)
 CVRP_NLS_TRAIN = (30, 1e-4, 15, 20)
 CVRP_NLS_TRAIN_STEPS = 2
 CVRP_PICK_AT = (0.0, 0.15, 0.4, 0.7)   # K7's CVRP checks, as shares of the horizon
+# phase 17, RCPSP j120: the archive the smoke writes (RCPSP_INSTANCES seeded
+# instances, the first 100 the test split, the other 4 the train split), the
+# checkpoint, the CLI's training cut to RCPSP_TRAIN_STEPS steps
+RCPSP_N, RCPSP_CKPT = 120, "checkpoints/rcpsp120_selftrained.msgpack"
+RCPSP_INSTANCES, RCPSP_TRAIN_STEPS = 104, 2
+# phase 18, test tsp on the golden file the smoke writes: the main path's
+# first TSP_GOLDEN_B instances; the per-instance arms on the first TSP_PER_B
+# at TSP_PER_T
+TSP_GOLDEN_B, TSP_PER_B, TSP_PER_T = 16, 4, (1, 2)
 SPARSE_N, SPARSE_B, SPARSE_LS_B = 2000, 30, 4    # the CLI's TSP2000 set; 2-opt arm's cut
 SPARSE_T, SPARSE_LS_T = (1, 10), (1, 2)
 # each path's cost@T1 and cost@T10 as recorded on an NVIDIA H100 80GB HBM3
@@ -269,7 +309,11 @@ RECORDED_COSTS = {"main": (None, 19.6391), "main_plain": (20.6735, 19.6335),
                   "op": (72.9418, 80.2401), "pctsp": (16.1978, 15.7033),
                   "smtwtp": (0.6446, 0.5644), "sop": (72.1315, 70.8907),
                   "bpp": (0.9544, 0.9588), "mkp": (57.9397, 59.2638),
-                  "cvrp_nls": (33.2462, 33.0091), "mkp_items": (98.9476, 100.0285)}
+                  "cvrp_nls": (33.2462, 33.0091), "mkp_items": (98.9476, 100.0285),
+                  "rcpsp": (137.7, 130.67), "rcpsp_backfill": (103.17, 100.22),
+                  "tsp_family": (20.9526, 19.8388), "tsp_nls_batched": (17.1227, 16.9536),
+                  "tsp_nls_per_instance": (17.1416, 17.0675),
+                  "tsp_2opt_per_instance": (17.7911, 17.741)}
 # the CVRP kernel arm's cost@T10 as recorded through the per-step
 # construction (K7 a step, torch.rand noise); the one-pass construction
 # samples the same law and is held within 1% of it
@@ -1662,6 +1706,392 @@ def cvrp_nls_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     return out
 
 
+def rcpsp_args(*extra: str, limit: int | None = None, t_values=T_VALUES):
+    """The CLI's ``test rcpsp -n 120`` on the archive's test split (its
+    first ``limit``), A ants, the neural arm with ``rcpsp120_selftrained``
+    unless ``extra`` says ``--classic`` or passes ``--ckpt``."""
+    from deepaco_tpu_torch import cli
+
+    argv = ["test", "rcpsp", "-n", str(RCPSP_N), "-a", str(A), "--seed", str(SEED),
+            "-t", *map(str, t_values), *extra]
+    if "--classic" not in extra and "--ckpt" not in extra:
+        argv += ["--ckpt", str(Path(__file__).resolve().parent / RCPSP_CKPT)]
+    if limit:
+        argv += ["--limit", str(limit)]
+    return cli.build_parser().parse_args(argv)
+
+
+def write_psplib_archive(root: Path) -> Path:
+    """RCPSP_INSTANCES seeded j120-shaped instances (122 activities, 4
+    renewable resources, ProGen's parameters: ``core.rcpsp.progen_rcp``) as
+    ``<root>/data/rcpsp/psplib.tar.gz``, the first 100 the test split."""
+    import numpy as np
+
+    from deepaco_tpu_torch.core import rcpsp as core
+
+    rng = np.random.default_rng(SEED + RCPSP_N)
+    path = root / "data" / "rcpsp" / "psplib.tar.gz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    core.write_psplib(str(path), [core.progen_rcp(rng, jobs=RCPSP_N)
+                                  for _ in range(RCPSP_INSTANCES)], subset=f"j{RCPSP_N}rcp")
+    return path
+
+
+@contextlib.contextmanager
+def reference_env(var: str, value: Path):
+    """``os.environ[var] = value`` for the block, then as it was."""
+    import os
+
+    old = os.environ.get(var)
+    os.environ[var] = str(value)
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ[var]
+        else:
+            os.environ[var] = old
+
+
+def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
+    """Phase 17, RCPSP j120 (``rcpsp120_selftrained``, 12 layers, 32 units):
+    the archive the smoke writes, K7 on one neural
+    construction's rows and K8 on an update's lists at the CLI's shapes
+    (B=100, A=20, n=122), the CLI's ``test rcpsp -n 120`` in four arms
+    (kernel, plain, classic, ``--backfill``), one training step kernel arm
+    against plain arm, ``train rcpsp -n 120 -e 1 -s 2`` and ``test rcpsp
+    --ckpt`` of what it wrote. Emits a line for the path and one for
+    training; returns what the kernels' line and the checks read."""
+    import io
+    import copy
+    import tempfile
+
+    import torch
+
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.aco.engine import rollout
+    from deepaco_tpu_torch.aco.problems import rcpsp as apr
+    from deepaco_tpu_torch.core.rcpsp import check_schedule, load_psplib, stack_rcpsp
+    from deepaco_tpu_torch.eval.rcpsp import rcpsp_heuristics, rcpsp_net
+    from deepaco_tpu_torch.ops import deposit, pick
+    from deepaco_tpu_torch.train import drivers, special
+    from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
+
+    tmp = Path(tempfile.mkdtemp(dir=root / "build"))
+    archive = write_psplib_archive(tmp)
+    test = load_psplib(str(archive), f"j{RCPSP_N}rcp", device=dev)
+    train = load_psplib(str(archive), f"j{RCPSP_N}rcp", split="train", device=dev)
+    data = stack_rcpsp(test)
+    n = data.n
+    out = {"checks": {}}
+
+    # K7 on one construction's rows (the neural heuristic, tau of ones),
+    # K8 on the first update's deposit: the best-so-far list and the
+    # iteration-best (elitist), directed, no wraparound
+    net = rcpsp_net(load_checkpoint(str(root / RCPSP_CKPT))).to(dev)
+    with torch.no_grad():
+        heu = rcpsp_heuristics(data, net)
+    cfg = apr.RCPSPConfig(n_ants=A, elitist=True, min_max=True)
+    spec = apr.rcpsp_spec(torch.ones_like(heu), heu, data, cfg)
+    at = {int(f * spec.horizon) for f in FAMILY_PICK_AT}
+    steps, captured = iter(range(spec.horizon)), []
+
+    def capture(score, mask, noise):
+        step = next(steps)
+        if step in at:
+            captured.append((step, score.clone(), mask.clone(), noise.clone()))
+        return pick.fused_pick(score, mask, noise)
+
+    with torch.no_grad():
+        paths = rollout(spec, torch.Generator(device=dev).manual_seed(SEED + 17),
+                        pick=capture).paths
+        costs = apr.makespans(data, paths)
+    out["k7"] = check_pick_rows(cuda_ms, captured, FAMILY_PICK_AT)
+    emit({"phase": "kernel", "name": "fused_pick", "config": f"rcpsp{RCPSP_N} rollout through "
+          "probs_fn, N = 122", **out["k7"], "tolerance": "actions exact and allowed; logp rtol "
+          "1e-5, atol 1e-5 (logsumexp order, expf/logf against torch's)"})
+    it = torch.argmin(costs, dim=-1)
+    best = paths.gather(-1, it[:, None, None].expand(-1, n, 1))
+    dep_paths = torch.cat([best, best], dim=-1)
+    amounts = (1.0 / costs.gather(-1, it[:, None])).expand(-1, 2).contiguous()
+    out["k8"] = deposit_case(dev, cuda_ms, dep_paths, amounts, n, False)
+    out["k8"]["below_library"] = out["k8"]["ms"] < out["k8"]["library_ms"]
+    emit({"phase": "kernel", "name": "tour_deposit", "config": f"rcpsp{RCPSP_N} update, the "
+          "best-so-far and the iteration-best lists", **out["k8"], "tolerance": "as phase 9"})
+    out["checks"].update(k7=out["k7"]["passed"], k8=out["k8"]["passed"])
+    del heu, spec, paths, costs, captured
+
+    # the path through the CLI in four arms, the counts set to 0 just before
+    # each and read just after
+    def arm(args, ops):
+        timer, stats = timer_cls(), {}
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with reference_env("DEEPACO_REFERENCE_ROOT", tmp), contextlib.redirect_stdout(text):
+            means, curves = cli._cmd_test_rcpsp(args, stats=stats,
+                                                _ops=ops._replace(timer=timer))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        starts = apr.ssgs_schedule(stats["data"], stats["best"][:, None], args.backfill)[:, 0]
+        feasible = sum(check_schedule(d, s) for d, s in zip(test, starts.cpu()))
+        return {"cost": [float(v) for v in means], "wall_s": wall, "phase_ms": timer.ms(),
+                "cli": text.getvalue().splitlines(),
+                "launches": {fn.__name__: fn.launches for fn in counted},
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+                "finite": bool(torch.isfinite(curves).all()),
+                "monotone": bool((curves[:, 1:] <= curves[:, :-1]).all()),
+                "feasible_best": int(feasible),
+                "best_is_makespan": bool(torch.equal(starts[:, -1].float(), curves[:, -1]))}
+
+    arms = {"kernel": arm(rcpsp_args(), drivers.KERNEL_OPS),
+            "plain": arm(rcpsp_args(), drivers.PLAIN_OPS),
+            "classic": arm(rcpsp_args("--classic"), drivers.KERNEL_OPS),
+            "backfill": arm(rcpsp_args("--backfill"), drivers.KERNEL_OPS)}
+    t_max = max(T_VALUES)
+    on = {"fused_pick": t_max * (n - 1), "tour_deposit": t_max}
+    want = {a: {fn.__name__: (0 if a == "plain" else on.get(fn.__name__, 0)) for fn in counted}
+            for a in arms}
+    ck, cp = arms["kernel"]["cost"], arms["plain"]["cost"]
+    b = len(test)
+    out["checks"].update(
+        arms=all(r["finite"] and r["monotone"] and r["feasible_best"] == b
+                 and r["best_is_makespan"] for r in arms.values()),
+        launches=all(arms[a]["launches"] == want[a] for a in arms),
+        # the same noise: only the plain pick's logsumexp order could part
+        # them, and it does not move an argmax
+        t1_kernel_vs_plain=abs(ck[0] - cp[0]) <= 1e-4 * cp[0],
+        t10_kernel_vs_plain=abs(ck[-1] - cp[-1]) <= 0.01 * cp[-1])
+    # the kernel arm's first iteration once more under the profiler: the
+    # device's idle share
+    with reference_env("DEEPACO_REFERENCE_ROOT", tmp), contextlib.redirect_stdout(io.StringIO()):
+        idle = device_busy(lambda: cli._cmd_test_rcpsp(rcpsp_args(t_values=(1,))))
+    emit({"phase": "rcpsp_path", "B": b, "N": n, "A": A, "T": list(T_VALUES),
+          "ckpt": RCPSP_CKPT, "t_max": data.t_max, "archive": "seeded ProGen j120 "
+          "(progen_rcp, RF 0.5, RS 0.3)", "launches_expected": want,
+          "kernel_arm_t1_under_profiler": idle, **arms})
+    out["arms"] = arms
+
+    # training: (a) one step from the seed's weights on the first train
+    # instance, the kernel arm (K7 a step) against the plain arm replaying
+    # its paths; (b) the CLI's train rcpsp, cut to 2 steps, and its test
+    cfg_t = special.rcpsp_config(n, n_ants=A, lr=3e-4)
+    one = stack_rcpsp(train[:1], max(d.t_max for d in train))
+    net_k = special.init_train_state(rcpsp_net().to(dev), cfg_t,
+                                     torch.Generator(device=dev).manual_seed(SEED)).net
+    net_p = copy.deepcopy(net_k)
+    before = copy.deepcopy(net_k.state_dict())
+    train_picks, steps_t = [], iter(range(n - 1))
+
+    def capture_t(score, mask, noise):
+        if next(steps_t) in at:
+            train_picks.append((len(train_picks), score.detach().clone(), mask.clone(),
+                                noise.clone()))
+        return pick.fused_pick(score, mask, noise)
+
+    aco = apr.RCPSPConfig(n_ants=A)
+    out_k = special.rcpsp_loss(net_k, one, aco, torch.Generator(device=dev).manual_seed(SEED),
+                               _ops=drivers.KERNEL_OPS._replace(pick=capture_t))
+    out_k.loss.backward()
+    out_p = special.rcpsp_loss(net_p, one, aco, torch.Generator(device=dev), paths=out_k.paths,
+                               _ops=drivers.PLAIN_OPS)
+    out_p.loss.backward()
+    adv = out_k.costs - out_k.costs.mean(dim=-1, keepdim=True)
+    step = step_agreement(cfg_t, net_k, net_p, before, out_k, out_p, adv / n)
+    pick_train = check_pick_rows(cuda_ms, train_picks, FAMILY_PICK_AT)
+    ckpt = root / "build" / "chip_smoke" / f"rcpsp{RCPSP_N}_trained.msgpack"
+    ckpt.unlink(missing_ok=True)
+    for fn in counted:
+        fn.launches = 0
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with reference_env("DEEPACO_REFERENCE_ROOT", tmp), contextlib.redirect_stdout(text):
+        cli.main(["train", "rcpsp", "-n", str(RCPSP_N), "-e", "1",
+                  "-s", str(RCPSP_TRAIN_STEPS), "-a", str(A), "-o", str(ckpt)])
+        train_wall = time.perf_counter() - t0
+        train_launches = {fn.__name__: fn.launches for fn in counted}
+        reread, _ = cli._cmd_test_rcpsp(rcpsp_args("--ckpt", str(ckpt), limit=4, t_values=(1,)))
+    train_lines = text.getvalue().splitlines()
+    tree = load_checkpoint(str(ckpt))
+    out["checks"].update(
+        step_agreement=step["passed"], k7_train=pick_train["passed"],
+        train_launches=train_launches["fused_pick"] == RCPSP_TRAIN_STEPS * (n - 1)
+        and sum(train_launches.values()) == train_launches["fused_pick"],
+        train_checkpoint=int(tree["step"]) == RCPSP_TRAIN_STEPS
+        and tree["params"]["emb_net"]["v_lin0"]["kernel"].shape == (5, 32),
+        reread_finite=all(math.isfinite(v) for v in reread))
+    emit({"phase": "rcpsp_train", "N": n, "A": A, "lr": cfg_t.train.lr,
+          "weight_decay": cfg_t.train.weight_decay, "clip": cfg_t.train.grad_clip,
+          "step_agreement": step, "k7": pick_train, "cli_wall_s": train_wall,
+          "cli_launches": train_launches, "cli_lines": train_lines,
+          "reread_cost_t1": [float(v) for v in reread], "checks": out["checks"]})
+    out["pick_train"], out["train_launches"] = pick_train, train_launches
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def tsp_golden_args(root: Path, *extra: str, limit: int | None = None, t_values=T_VALUES):
+    """The CLI's ``test tsp -n 500`` on the golden file the smoke writes, A
+    ants; ``extra`` carries the arm's flags and checkpoint."""
+    from deepaco_tpu_torch import cli
+
+    argv = ["test", "tsp", "-n", str(N), "-a", str(A), "--seed", str(SEED),
+            "-t", *map(str, t_values), *extra]
+    if limit:
+        argv += ["--limit", str(limit)]
+    return cli.build_parser().parse_args(argv)
+
+
+def tsp_golden_phase(dev, root: Path, cuda_ms, counted, coords) -> dict:
+    """Phase 18, ``test tsp`` on a golden file: ``testDataset-500.pt``
+    written from the main path's first TSP_GOLDEN_B instances under
+    ``$DEEPACO_REFERENCE_DATA``; K7, K4, K5 and K8 at the facade's shapes
+    (one instance, 20 ants, N=500: the rows of one construction from city
+    0 on the NLS heuristic, its tours, their cyclic deposit); then four
+    commands: the family path (``tsp500_selftrained``), ``--local-search
+    nls`` batched and ``--per-instance`` (``tsp_nls500_selftrained``), and
+    ``--local-search 2opt --classic --per-instance``. Emits one line and
+    returns what the kernels' line and the checks read."""
+    import io
+    import tempfile
+
+    import torch
+
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.aco.runner import ACO
+    from deepaco_tpu_torch.core.builders import start_node_features
+    from deepaco_tpu_torch.eval.anytime import dense_heuristic
+    from deepaco_tpu_torch.models.gnn import Net
+    from deepaco_tpu_torch.ops import pick, two_opt
+    from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
+    from deepaco_tpu_torch.utils.datasets import distance_matrix
+
+    tmp = Path(tempfile.mkdtemp(dir=root / "build"))
+    (tmp / "tsp").mkdir()
+    torch.save(coords[:TSP_GOLDEN_B].cpu().clone(), tmp / "tsp" / f"testDataset-{N}.pt")
+    out = {"checks": {}}
+
+    # the facade's shapes: instance 0, the NLS heuristic, one construction
+    c0 = coords[:1]
+    d0 = distance_matrix(c0)
+    nls_net = Net.from_jax_variables(load_checkpoint(str(root / NLS_CKPT))).to(dev)
+    heu0 = dense_heuristic(nls_net, start_node_features(c0), c0, d0, K)
+    aco = ACO(d0[0], n_ants=A, heuristic=heu0[0], local_search="nls", coords=c0[0], seed=SEED,
+              device=dev)
+    spec = aco.spec(aco.state.phe.tau, aco.heuristic)
+    at = {int(f * spec.horizon) for f in FAMILY_PICK_AT}
+    steps, captured = iter(range(spec.horizon)), []
+
+    def capture(score, mask, noise):
+        if next(steps) in at:
+            captured.append((len(captured), score.clone(), mask.clone(), noise.clone()))
+        return pick.fused_pick(score, mask, noise)
+
+    from deepaco_tpu_torch.aco.engine import rollout
+
+    with torch.no_grad():
+        paths = rollout(spec, aco.generator, pick=capture).paths
+    out["k7"] = check_pick_rows(cuda_ms, captured, FAMILY_PICK_AT)
+    emit({"phase": "kernel", "name": "fused_pick", "config": "tsp500 facade rollout, 20 ants",
+          **out["k7"], "tolerance": "actions exact and allowed; logp rtol 1e-5, atol 1e-5"})
+    tours = paths.transpose(1, 2).contiguous()
+    hd = two_opt.heuristic_dist(aco.heuristic)
+    ls = {}
+    for name, kern, plain, args, metric_bytes in (
+            ("batched_two_opt_euclid", two_opt.batched_two_opt_euclid,
+             two_opt.batched_two_opt_euclid_plain, (c0, tours, ACO.LS_BUDGET), 0),
+            ("batched_nls_euclid", two_opt.batched_nls_euclid, two_opt.batched_nls_euclid_plain,
+             (c0, hd, tours, ACO.LS_BUDGET), 2 * N * N)):
+        got = kern(*args)
+        scans = {}
+        want = plain(*args, scans=scans)
+        ok = bool(torch.equal(got, want))
+        ls[name] = {"B": 1, "A": A, "N": N, "passed": ok, "scans": scans,
+                    "max_abs_err": (got - want).abs().max().item(),
+                    "ms": cuda_ms(lambda: kern(*args), 3),
+                    "plain_ms": cuda_ms(lambda: plain(*args), 1), "library_ms": None,
+                    **dict(zip(("bound_ms", "bound_by"), ls_bound(N, 1, A, scans,
+                                                                  metric_bytes)))}
+        emit({"phase": "kernel", "name": name, "config": "tsp500 facade, one instance",
+              **ls[name], "tolerance": "tours exactly equal"})
+        out["checks"][name] = ok
+    improved = two_opt.batched_nls_euclid(c0, hd, tours, ACO.LS_BUDGET).transpose(1, 2)
+    cost = aco.cost(improved)
+    out["k8"] = deposit_case(dev, cuda_ms, improved, 1.0 / cost, N, True)
+    emit({"phase": "kernel", "name": "tour_deposit", "config": "tsp500 facade update, cyclic",
+          **out["k8"], "tolerance": "as phase 9"})
+    out["checks"].update(k7=out["k7"]["passed"], k8=out["k8"]["passed"])
+    out["ls"] = ls
+    del aco, heu0, paths, tours, improved
+
+    # the four commands, the counts set to 0 just before each and read
+    # just after
+    def run(args, fn):
+        stats = {}
+        for k in counted:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with reference_env("DEEPACO_REFERENCE_DATA", tmp), contextlib.redirect_stdout(text):
+            means, curves = fn(args, stats=stats)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        best = stats["best"]
+        ident = torch.arange(N, device=dev).expand_as(best)
+        return {"cost": [float(v) for v in means], "wall_s": wall,
+                "curves_t1": curves[:, 0].tolist(), "cli": text.getvalue().splitlines(),
+                "launches": {k.__name__: k.launches for k in counted},
+                "permutations": int((torch.sort(best, dim=-1).values == ident).all(-1).sum()),
+                "B": int(best.shape[0]),
+                "monotone": bool((curves[:, 1:] <= curves[:, :-1]).all())}
+
+    tsp_ckpt, nls = str(root / CKPT), ["--local-search", "nls", "--ckpt", str(root / NLS_CKPT)]
+    per = dict(limit=TSP_PER_B, t_values=TSP_PER_T)
+    arms = {
+        "tsp_family": run(tsp_golden_args(root, "--ckpt", tsp_ckpt), cli._cmd_test_family),
+        "tsp_nls_batched": run(tsp_golden_args(root, *nls), cli._cmd_test_tsp_ls),
+        "tsp_nls_per_instance": run(tsp_golden_args(root, *nls, "--per-instance", **per),
+                                    cli._cmd_test_tsp_ls),
+        "tsp_2opt_per_instance": run(tsp_golden_args(
+            root, "--local-search", "2opt", "--classic", "--per-instance", **per),
+            cli._cmd_test_tsp_ls)}
+    t_max, t_per = max(T_VALUES), TSP_PER_B * max(TSP_PER_T)
+    want = {"tsp_family": {"embnet_layers": 1, "fused_pick": t_max * (N - 1),
+                           "tour_deposit": t_max},
+            "tsp_nls_batched": {"tsp_dense_heuristic": 1, "dense_sweep_fused": t_max,
+                                "batched_nls_euclid": t_max, "fused_tsp_update": t_max},
+            "tsp_nls_per_instance": {"tsp_dense_heuristic": 1, "fused_pick": t_per * (N - 1),
+                                     "batched_nls_euclid": t_per, "tour_deposit": t_per},
+            "tsp_2opt_per_instance": {"fused_pick": t_per * (N - 1),
+                                      "batched_two_opt_euclid": t_per, "tour_deposit": t_per}}
+    launches_ok = {}
+    for key, r in arms.items():
+        launches_ok[key] = all(r["launches"][k] == want[key].get(k, 0) for k in r["launches"])
+    # the family path's first iteration once more under the profiler
+    with reference_env("DEEPACO_REFERENCE_DATA", tmp), contextlib.redirect_stdout(io.StringIO()):
+        idle = device_busy(lambda: cli._cmd_test_family(
+            tsp_golden_args(root, "--ckpt", tsp_ckpt, t_values=(1,))))
+    batched_t1 = sum(arms["tsp_nls_batched"]["curves_t1"][:TSP_PER_B]) / TSP_PER_B
+    per_t1 = arms["tsp_nls_per_instance"]["cost"][0]
+    out["checks"].update(
+        permutations=all(r["permutations"] == r["B"] for r in arms.values()),
+        monotone=all(r["monotone"] for r in arms.values()),
+        launches=all(launches_ok.values()),
+        per_instance_vs_batched_nls=abs(per_t1 - batched_t1) <= 0.02 * batched_t1)
+    emit({"phase": "tsp_golden", "B": TSP_GOLDEN_B, "per_instance_B": TSP_PER_B, "N": N,
+          "A": A, "launches_expected": want, "launches_ok": launches_ok,
+          "nls_t1_first4": {"batched": batched_t1, "per_instance": per_t1},
+          "family_t1_under_profiler": idle, **arms})
+    out["arms"] = arms
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def family_kernel_fields(r: dict) -> dict:
     """A phase-14 family's fields of K6, K7, K7c, K8 and K9 in the kernels'
     line, from ``family_phase``'s result: the launches on its kernel arm
@@ -2382,7 +2812,36 @@ def main() -> int:
         if entry["name"] in fields:
             entry["mkp_items"] = fields[entry["name"]]
 
-    # ---- 17. the kernels' line
+    # ---- 17. RCPSP j120: K7 through probs_fn, K8 on the elitist update
+    rcpsp_run = rcpsp_phase(dev, root, cuda_ms, PhaseTimer, counted)
+    # ---- 18. test tsp on a golden file: the family path, batched and
+    # per-instance local search through the ACO facade
+    golden_run = tsp_golden_phase(dev, root, cuda_ms, counted, coords)
+    rcpsp_launches = rcpsp_run["arms"]["kernel"]["launches"]
+    facade_launches = golden_run["arms"]["tsp_nls_per_instance"]["launches"]
+    two_opt_launches = golden_run["arms"]["tsp_2opt_per_instance"]["launches"]
+    for entry in kernels:
+        if entry["name"] == "fused_pick":
+            entry["rcpsp"] = {"launches": rcpsp_launches["fused_pick"],
+                              "train_launches": rcpsp_run["train_launches"]["fused_pick"],
+                              **take(rcpsp_run["k7"], ("rows", "N") + timing)}
+            entry["tsp_facade"] = {"launches": facade_launches["fused_pick"],
+                                   **take(golden_run["k7"], ("rows", "N") + timing)}
+        if entry["name"] == "tour_deposit":
+            entry["rcpsp"] = {"launches": rcpsp_launches["tour_deposit"],
+                              **take(rcpsp_run["k8"], ("B", "L", "A", "n") + timing)}
+            entry["tsp_facade"] = {"launches": facade_launches["tour_deposit"],
+                                   **take(golden_run["k8"], ("B", "L", "A", "n") + timing)}
+        if entry["name"] == "batched_two_opt_euclid":
+            entry["tsp_facade"] = {"launches": two_opt_launches["batched_two_opt_euclid"],
+                                   **take(golden_run["ls"][entry["name"]],
+                                          ("B", "A", "N") + timing)}
+        if entry["name"] == "batched_nls_euclid":
+            entry["tsp_facade"] = {"launches": facade_launches["batched_nls_euclid"],
+                                   **take(golden_run["ls"][entry["name"]],
+                                          ("B", "A", "N") + timing)}
+
+    # ---- 19. the kernels' line
     emit({"kernels": kernels})
     failed = [k["name"] for k in kernels if not k["passed"]]
     if failed:
@@ -2463,14 +2922,18 @@ def main() -> int:
             fail(f"sparse {arm} arm launched {r['launches']}, expected {sparse_want[arm]}")
     if not sparse_arms["classic_2opt"]["cost"][0] < sparse_arms["classic"]["cost"][0]:
         fail("2-opt did not shorten the classic arm's tours at T1")
-    for name, r in {**family_runs, "cvrp_nls": nls_run, "mkp_items": items_run}.items():
+    for name, r in {**family_runs, "cvrp_nls": nls_run, "mkp_items": items_run,
+                    "rcpsp": rcpsp_run, "tsp_golden": golden_run}.items():
         if not all(r["checks"].values()):
             fail(f"{name}: {r['checks']}")
     costs = {"main": means, "main_plain": plain, "nls": nls, "nls_plain": nls_plain,
              "cvrp": ck, "sparse": sk, "sparse_plain": sp,
              **{name: r["arms"]["kernel"]["cost"] for name, r in family_runs.items()},
              "cvrp_nls": nls_run["arms"]["kernel"]["cost"],
-             "mkp_items": items_run["arms"]["kernel"]["cost"]}
+             "mkp_items": items_run["arms"]["kernel"]["cost"],
+             "rcpsp": rcpsp_run["arms"]["kernel"]["cost"],
+             "rcpsp_backfill": rcpsp_run["arms"]["backfill"]["cost"],
+             **{key: r["cost"] for key, r in golden_run["arms"].items()}}
     for path, recorded in RECORDED_COSTS.items():
         for got, want in zip(costs[path], recorded):
             if want is not None and round(got, 4) != want:

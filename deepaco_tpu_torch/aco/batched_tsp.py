@@ -375,13 +375,15 @@ def run_anytime_batched(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
                         sample_dtype: torch.dtype = torch.bfloat16,
                         coords: torch.Tensor | None = None,
                         ls: str | None = None, ls_budget: int = 10000, *,
+                        stats: dict | None = None,
                         _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
     """Batched dense anytime sweep: ``heu, dist [B, N, N]`` → the curve
     ``[B, n_iterations]`` of best-so-far costs. ``ls`` (``"2opt"`` or
     ``"nls"``; K4 or K5 with ``coords [B, N, 2]``, the dense descents on
     ``dist`` without) improves every ant's tour with at most ``ls_budget``
     moves per descent before the update, and starts every ant at city 0
-    unless ``fixed_start`` says otherwise."""
+    unless ``fixed_start`` says otherwise. ``stats``, when given, receives
+    each instance's best tour (``best [B, N]``)."""
     b, n, _ = heu.shape
     a = cfg.n_ants
     log_heu = cfg.beta * torch.log(torch.clamp(heu.float(), min=1e-30))
@@ -404,4 +406,6 @@ def run_anytime_batched(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
                 cfg, state, paths, dist, update=_ops.update, sample_dtype=sample_dtype,
                 log_heu=log_heu if t + 1 < n_iterations else None)
         curve.append(state.best_cost)
+    if stats is not None:
+        stats["best"] = state.best_path
     return torch.stack(curve, dim=1)

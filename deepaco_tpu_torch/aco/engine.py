@@ -39,6 +39,12 @@ class RolloutSpec(NamedTuple):
     score_rows: optional ``state -> [B, A, M]`` pre-combined scores
                 (alpha, beta already applied); the engine then ignores its
                 own alpha and beta.
+    probs_fn:   optional ``state -> [B, A, M]`` unnormalised, already
+                masked probabilities (RCPSP's blend of direct and summation
+                evaluation, rcpsp/aco.py:183-206); the step's scores are
+                then ``log(max(probs, 1e-30))`` and its mask ``probs > 0``,
+                not ``mask`` (engine.py:93-97), and alpha and beta are
+                ignored.
     """
 
     horizon: int
@@ -48,6 +54,7 @@ class RolloutSpec(NamedTuple):
     mask: Callable[[Any], torch.Tensor]
     step: Callable[[Any, torch.Tensor], Any]
     score_rows: Callable[[Any], torch.Tensor] | None = None
+    probs_fn: Callable[[Any], torch.Tensor] | None = None
 
 
 class Rollout(NamedTuple):
@@ -71,19 +78,23 @@ def masked_logits(phe_rows, heu_rows, mask, alpha, beta):
     return torch.where(mask > 0, _log_scores(phe_rows, heu_rows, alpha, beta), NEG_INF)
 
 
-def _step_scores(spec: RolloutSpec, state, alpha, beta) -> torch.Tensor:
-    """The step's scores ``[B, A, M]`` before the mask, through whichever
-    interface the plug-in provides (engine.py:93-103). The pick applies the
-    mask itself, so the rollout launches no masking pass of its own."""
+def _step_inputs(spec: RolloutSpec, state, alpha, beta):
+    """The step's scores ``[B, A, M]`` before the mask, and the mask,
+    through whichever interface the plug-in provides (engine.py:93-103).
+    The pick applies the mask itself, so the rollout launches no masking
+    pass of its own."""
+    if spec.probs_fn is not None:
+        probs = spec.probs_fn(state)
+        return torch.log(torch.clamp(probs, min=1e-30)), (probs > 0).to(probs.dtype)
     if spec.score_rows is not None:
-        return spec.score_rows(state)
-    return _log_scores(*spec.prob_rows(state), alpha, beta)
+        return spec.score_rows(state), spec.mask(state)
+    return _log_scores(*spec.prob_rows(state), alpha, beta), spec.mask(state)
 
 
 def _step_logits(spec: RolloutSpec, state, alpha, beta) -> torch.Tensor:
     """The step's masked logits ``[B, A, M]``."""
-    return torch.where(spec.mask(state) > 0, _step_scores(spec, state, alpha, beta),
-                       NEG_INF)
+    scores, mask = _step_inputs(spec, state, alpha, beta)
+    return torch.where(mask > 0, scores, NEG_INF)
 
 
 def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
@@ -103,12 +114,11 @@ def rollout(spec: RolloutSpec, generator: torch.Generator, *, alpha: float = 1.0
     b, a = start.shape
     actions, log_probs = [start], []
     for _ in range(spec.horizon):
-        scores = _step_scores(spec, state, alpha, beta)
+        scores, mask = _step_inputs(spec, state, alpha, beta)
         m = scores.shape[-1]
         noise = gumbel(scores.shape, generator, scores.device)
         with torch.set_grad_enabled(require_prob and torch.is_grad_enabled()):
-            act, logp = pick(scores.reshape(b * a, m),
-                             spec.mask(state).reshape(b * a, m),
+            act, logp = pick(scores.reshape(b * a, m), mask.reshape(b * a, m),
                              noise.reshape(b * a, m))
         act = act.reshape(b, a)
         log_probs.append(logp.reshape(b, a) if require_prob

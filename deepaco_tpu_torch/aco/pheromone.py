@@ -1,5 +1,5 @@
-"""Pheromone state and the Ant System update (counterpart of
-``deepaco_tpu/aco/pheromone.py``). Every function takes leading batch
+"""Pheromone state, the Ant System and elitist updates and MAX-MIN's bounds
+(counterpart of ``deepaco_tpu/aco/pheromone.py``). Every function takes leading batch
 dimensions: ``tau [..., N, N]`` (or the per-item vector ``[..., N]`` of
 MKP's PH_items), ``paths [..., L, A]``, ``amounts [..., A]``.
 """
@@ -70,6 +70,50 @@ def as_update(state: PheromoneState, paths: torch.Tensor, costs: torch.Tensor,
     tau = deposit(state.tau * decay, paths, amounts,
                   cyclic=cyclic, symmetric=symmetric)
     return state._replace(tau=tau)
+
+
+def elitist_update(state: PheromoneState, paths: torch.Tensor, costs: torch.Tensor,
+                   *, decay: float, cyclic: bool = True, symmetric: bool = True,
+                   q: float | torch.Tensor = 1.0, maximize: bool = False,
+                   div_ants: bool = False, cost_offset: float = 0.0,
+                   deposit: Callable = deposit) -> PheromoneState:
+    """Elitist (tsp/aco.py:103-107): evaporate, then only each instance's
+    iteration-best ant (the first best) deposits ``q/(cost + offset)`` (``q
+    * objective`` when maximizing), through ``deposit`` with one ant;
+    ``div_ants`` does not apply, as in the JAX package."""
+    best = torch.argmax(costs, dim=-1) if maximize else torch.argmin(costs, dim=-1)
+    best_path = paths.gather(-1, best[..., None, None].expand(*paths.shape[:-1], 1))
+    best_cost = costs.gather(-1, best[..., None])
+    amounts = q * best_cost if maximize else q / (best_cost + cost_offset)
+    return state._replace(tau=deposit(state.tau * decay, best_path, amounts,
+                                      cyclic=cyclic, symmetric=symmetric))
+
+
+def _per_instance(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-instance value ``[...]`` broadcast against tau ``like``."""
+    return t.reshape(*t.shape, *([1] * (like.dim() - t.dim())))
+
+
+def min_max_clamp(state: PheromoneState, tau_min: float) -> PheromoneState:
+    """Clamp into ``[tau_min, tau_max]`` where the bound is set (``tau_max >
+    0``; tsp/aco.py:116-118)."""
+    tau_max = _per_instance(state.tau_max, state.tau)
+    tau = torch.where(tau_max > 0, torch.minimum(torch.clamp(state.tau, min=tau_min), tau_max),
+                      state.tau)
+    return state._replace(tau=tau)
+
+
+def min_max_on_new_best(state: PheromoneState, best_cost: torch.Tensor,
+                        scale: float | torch.Tensor, maximize: bool = False) -> PheromoneState:
+    """The bound of a new best (``best_cost [...]``): ``tau_max = scale /
+    best`` (minimization, tsp/aco.py:84-88) or ``scale * best``
+    (maximization, op/aco.py:121-124); the first time (no bound yet) tau is
+    rescaled so that its largest entry equals the bound."""
+    new_max = (scale * best_cost if maximize else scale / best_cost).to(state.tau.dtype)
+    cur_max = state.tau.flatten(start_dim=state.tau_max.dim()).amax(dim=-1)
+    rescaled = state.tau * _per_instance(new_max, state.tau) / _per_instance(cur_max, state.tau)
+    tau = torch.where(_per_instance(state.tau_max, state.tau) > 0, state.tau, rescaled)
+    return PheromoneState(tau=tau, tau_max=new_max)
 
 
 def vector_deposit(tau: torch.Tensor, picks: torch.Tensor, amounts: torch.Tensor) -> torch.Tensor:

@@ -162,4 +162,5 @@ class OPACO(ProblemACO):
         return op_objective(self.prizes, paths)
 
     def extras(self) -> dict:
-        return {"q": self.q}
+        """``q = 1/sum(prizes)`` and MAX-MIN's scale ``n q`` (op/aco.py:121-124)."""
+        return {"q": self.q, "mm_scale": (self.dist.shape[-1] - 1) * self.q}

@@ -2,17 +2,26 @@
 (counterpart of ``deepaco_tpu/cli.py``).
 
 The parser keeps the JAX package's ``train``, ``test`` and ``solve-cvrp``
-subcommands and their flags. Ported so far: ``train
+subcommands and their flags, all ported: ``train
 tsp|cvrp|op|pctsp|smtwtp|sop|bpp|mkp|mkp_items`` through the family trainer
 (``train.drivers.train_family``), ``train tsp --local-search 2opt|nls``
 through ``train.reinforce.train_tsp``, ``train cvrp --local-search
-swapstar`` through ``train.special.train_cvrp_nls``, ``test
-cvrp|op|pctsp|smtwtp|sop|bpp|mkp|mkp_items`` on the golden sets through
-``train.drivers.evaluate_family``, ``test cvrp --local-search swapstar``
-(the CVRP-NLS protocol with the native SWAP* engine), ``test tsp --sparse``
-(the large-N sparse TSP protocol) and ``solve-cvrp`` (the engine's hybrid
-genetic search on a CVRPLib file). Every other command, problem or flag
-exits naming its ROADMAP.md item.
+swapstar`` through ``train.special.train_cvrp_nls``, ``train rcpsp``
+through ``train.special.train_rcpsp``; ``test
+tsp|cvrp|op|pctsp|smtwtp|sop|bpp|mkp|mkp_items`` on the golden sets through
+``train.drivers.evaluate_family``, ``test tsp --local-search 2opt|nls``
+(batched through ``eval.anytime.evaluate_tsp``, or ``--per-instance``
+through the ``aco.runner.ACO`` facade), ``test cvrp --local-search
+swapstar`` (the CVRP-NLS protocol with the native SWAP* engine), ``test tsp
+--sparse`` (the large-N sparse TSP protocol), ``test rcpsp`` (with
+``--backfill``) on a PSPLIB archive, and ``solve-cvrp`` (the engine's
+hybrid genetic search on a CVRPLib file). ``--b-chunk`` (a TPU watchdog
+workaround) exits, and so does a ``.pt`` checkpoint (ROADMAP.md §1 item 2).
+
+The reference's data are read only from where the JAX CLI's variables
+point, and only when they are set: the PSPLIB archive from
+``$DEEPACO_REFERENCE_ROOT/data/rcpsp/psplib.tar.gz`` (cli.py:185-198) and
+the golden TSP files from ``$DEEPACO_REFERENCE_DATA/tsp/`` (datasets.py:18-38).
 """
 from __future__ import annotations
 
@@ -29,23 +38,29 @@ from deepaco_tpu_torch.aco.large_tsp import (KERNEL_OPS, LargeOps,
                                              run_anytime_knn)
 from deepaco_tpu_torch.aco.problems.cvrp import validate_routes
 from deepaco_tpu_torch.aco.problems.cvrp_nls import CVRPNLSACO
-from deepaco_tpu_torch.aco.runner import ACOConfig
+from deepaco_tpu_torch.aco.runner import ACO, ACOConfig
+from deepaco_tpu_torch.core.builders import start_node_features
+from deepaco_tpu_torch.core.rcpsp import load_psplib
 from deepaco_tpu_torch.device import resolve_device
-from deepaco_tpu_torch.families import FAMILIES, get_family
+from deepaco_tpu_torch.eval.anytime import dense_heuristic, evaluate_tsp
+from deepaco_tpu_torch.eval.rcpsp import evaluate_rcpsp, rcpsp_net
+from deepaco_tpu_torch.families import get_family
 from deepaco_tpu_torch.ls.hgs import solve_cvrp
 from deepaco_tpu_torch.models.gnn import Net
 from deepaco_tpu_torch.train import drivers
 from deepaco_tpu_torch.train.config import ACOSettings, ProblemConfig, TrainConfig
 from deepaco_tpu_torch.train.drivers import evaluate_family, family_model, train_family
 from deepaco_tpu_torch.train.reinforce import nls_local_search, train_tsp
-from deepaco_tpu_torch.train.special import cvrp_nls_heuristic, train_cvrp_nls
+from deepaco_tpu_torch.train.special import cvrp_nls_heuristic, train_cvrp_nls, train_rcpsp
 from deepaco_tpu_torch.utils import golden
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from deepaco_tpu_torch.utils.convert import parse_cvrplib
+from deepaco_tpu_torch.utils.datasets import reference_path
 
 PROBLEMS = ["tsp", "cvrp", "op", "pctsp", "smtwtp", "mkp", "mkp_items", "bpp",
             "sop", "rcpsp"]
-NOT_PORTED = "is not ported to deepaco_tpu_torch yet (ROADMAP.md §1 item 10)"
+B_CHUNK = ("a TPU watchdog workaround of the JAX CLI; the port runs the whole instance set "
+           "as one batch")
 SPARSE_SEED, SPARSE_INSTANCES = 123456, 30      # cli.py:289-291
 CVRP_NLS_K = 5                                  # the customer k-NN width (cvrp_nls/utils.py:35)
 CVRP_NLS_EPS = 1e-10                            # the test heuristic's offset (cli.py:403)
@@ -99,9 +114,13 @@ def build_parser() -> argparse.ArgumentParser:
     te.add_argument("--sparse", action="store_true",
                     help="TSP only: the large-N O(N*K) path (aco/large_tsp) on "
                          "fixed-seed uniform instances for n > 1000")
-    te.add_argument("--b-chunk", type=int, default=None, help=NOT_PORTED)
-    te.add_argument("--per-instance", action="store_true", help=NOT_PORTED)
-    te.add_argument("--backfill", action="store_true", help=NOT_PORTED)
+    te.add_argument("--b-chunk", type=int, default=None, help=B_CHUNK + "; exits")
+    te.add_argument("--per-instance", action="store_true",
+                    help="tsp with --local-search: the reference-style ACO facade, one "
+                         "instance at a time, instead of the whole batch")
+    te.add_argument("--backfill", action="store_true",
+                    help="rcpsp: decode with the gap-filling SSGS variant instead of the "
+                         "reference's append-only decoder")
 
     sv = sub.add_parser("solve-cvrp", help="the native engine's hybrid genetic search on a "
                         "CVRPLib .vrp file (the reference's HGS binary)")
@@ -115,11 +134,38 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def golden_set(problem: str, n: int, limit: int | None) -> dict:
+    """The first ``limit`` instances of ``problem``'s golden set of scale
+    ``n``; a missing reference file (TSP's) exits naming it or its
+    variable."""
+    try:
+        ds = golden.GOLDEN[problem](n)
+    except FileNotFoundError as err:
+        raise SystemExit(f"test {problem} -n {n}: {err}") from err
+    return {k: v[:limit] for k, v in ds.items()} if limit else ds
+
+
+def psplib_instances(args, split: str):
+    """The ``j<n>rcp`` instances of the PSPLIB archive under
+    ``$DEEPACO_REFERENCE_ROOT`` (cli.py:185-198): the test split's first
+    ``--limit``, or the train split; exits naming the variable when it is
+    unset, or the archive when it is missing."""
+    try:
+        archive = reference_path("DEEPACO_REFERENCE_ROOT", "data", "rcpsp", "psplib.tar.gz")
+    except FileNotFoundError as err:
+        raise SystemExit(str(err)) from err
+    insts = load_psplib(archive, f"j{args.nodes}rcp", split=split,
+                        limit=getattr(args, "limit", None) if split == "test" else None)
+    if not insts:
+        raise SystemExit(f"{archive} holds no j{args.nodes}rcp {split} instance")
+    return insts
+
+
 def _load_net(args) -> Net:
     """The ``--ckpt`` weights, or ``checkpoints/<problem><n>.msgpack`` without
     it, in the family's ``Net`` (SMTWTP's and SOP's without the node
-    update). A decode error surfaces in the exit message, with its cause
-    chained."""
+    update; RCPSP's with its node features padded to 5). A decode error
+    surfaces in the exit message, with its cause chained."""
     path = args.ckpt
     if path is None:
         path = f"checkpoints/{args.problem}{args.nodes}.msgpack"
@@ -133,6 +179,8 @@ def _load_net(args) -> Net:
         variables = load_checkpoint(path)
     except ValueError as err:
         raise SystemExit(f"cannot decode checkpoint {path}: {err}") from err
+    if args.problem == "rcpsp":
+        return rcpsp_net(variables)
     return family_model(get_family(args.problem), variables)
 
 
@@ -151,20 +199,19 @@ def _cmd_test_tsp_sparse(args, *, device=None, stats: dict | None = None,
     """The large-N sparse-state TSP protocol (cli.py:270-339), batched over
     instances: k-NN support, heuristic (neural over the support, or classic
     ``1/d``), then ``run_anytime_knn``. Instances are the JAX CLI's
-    fixed-seed uniform ones for n > 1000; for n <= 1000 it reads the
-    reference's golden TSP sets, which this repository does not hold, so it
-    exits. Prints the JAX CLI's three output lines and returns ``(means,
+    fixed-seed uniform ones for n > 1000 and the reference's golden TSP set
+    for n <= 1000 (``$DEEPACO_REFERENCE_DATA``; without it the command
+    exits). Prints the JAX CLI's three output lines and returns ``(means,
     curves)``. ``stats``, when given, also receives the run's fallback and
     off-support counts and each instance's best tour."""
     n = args.nodes
-    if n <= 1000:
-        raise SystemExit(f"test tsp --sparse at n={n} <= 1000 reads the reference's "
-                         "golden TSP sets (golden.tsp_test -> load_tsp_dataset), which "
-                         "this repository does not hold; use n > 1000")
     dev = resolve_device(device)
+    if n <= 1000:
+        coords_all = golden_set("tsp", n, args.limit)["coords"]
+    else:
+        coords_all = np.random.default_rng(SPARSE_SEED).random(
+            (args.limit or SPARSE_INSTANCES, n, 2)).astype(np.float32)
     k = args.k_sparse or max(n // 10, 3)
-    coords_all = np.random.default_rng(SPARSE_SEED).random(
-        (args.limit or SPARSE_INSTANCES, n, 2)).astype(np.float32)
     net = None if args.classic else _load_net(args).to(dev).eval()
     cfg = ACOConfig(n_ants=args.ants)
     t_values = args.t_aco
@@ -187,28 +234,32 @@ def _cmd_test_tsp_sparse(args, *, device=None, stats: dict | None = None,
     return means, curves
 
 
-def _cmd_test_family(args, *, device=None):
+def _cmd_test_family(args, *, device=None, stats: dict | None = None):
     """A family's anytime protocol (cli.py:505-549): the golden set of scale
-    ``n`` (``utils.golden``, the first ``--limit`` instances), the ``--ckpt``
+    ``n`` (``utils.golden``, the first ``--limit`` instances; TSP's the
+    reference's files under ``$DEEPACO_REFERENCE_DATA``), the ``--ckpt``
     net or the classic heuristic, then ``evaluate_family``. Prints the JAX
     CLI's three output lines (for OP, BPP and MKP the mean objective, which
-    they maximize) and returns ``(means, curves)``. BPP's and MKP's writers
-    take any ``n``; the others make their golden scales only."""
+    they maximize) and returns ``(means, curves)``; ``stats``, when given,
+    also receives each instance's best solution (``best``). BPP's and
+    MKP's writers take any ``n``; the others make their golden scales
+    only."""
     problem, n = args.problem, args.nodes
     scales = golden.SCALES.get(problem)
     if scales is not None and n not in scales:
         raise SystemExit(f"test {problem} -n {n}: the golden {problem.upper()} writer makes "
                          f"the scales {scales} only")
     dev = resolve_device(device)
-    ds = golden.GOLDEN[problem](n)
-    if args.limit:
-        ds = {k: v[:args.limit] for k, v in ds.items()}
+    ds = golden_set(problem, n, args.limit)
     net = None if args.classic else _load_net(args)
     t0 = time.time()
-    means, curves = evaluate_family(problem, ds, n_nodes=n, net=net, k_sparse=args.k_sparse,
-                                    n_ants=args.ants, t_values=tuple(args.t_aco),
-                                    seed=args.seed, device=dev)
+    means, curves, state = evaluate_family(problem, ds, n_nodes=n, net=net,
+                                           k_sparse=args.k_sparse, n_ants=args.ants,
+                                           t_values=tuple(args.t_aco), seed=args.seed,
+                                           device=dev, return_state=True)
     means = means.cpu().numpy()
+    if stats is not None:
+        stats.update(best=state.best_path)
     _report(args.t_aco, means, time.time() - t0, {"problem": problem, "n": n})
     return means, curves
 
@@ -285,26 +336,110 @@ def _cmd_test_cvrp_ls(args, *, device=None, stats: dict | None = None,
     return means, curves
 
 
+def _cmd_test_rcpsp(args, *, device=None, stats: dict | None = None,
+                    _ops: drivers.FamilyOps = drivers.KERNEL_OPS):
+    """The RCPSP anytime protocol (cli.py:201-268, rcpsp/test.ipynb cells
+    0-5): the first ``--limit`` of the 100 test instances of ``j<n>rcp``,
+    elitist MAX-MIN with ``--ants`` ants, the ``--ckpt`` net or the classic
+    prior, the reference's decoder or ``--backfill``'s. Prints the JAX
+    CLI's three lines and returns ``(means, curves)``; ``stats``, when
+    given, also receives the batched instances and each best activity list
+    (``data``, ``best``)."""
+    dev = resolve_device(device)
+    insts = psplib_instances(args, "test")
+    net = None if args.classic else _load_net(args)
+    t0 = time.time()
+    means, curves, data, state = evaluate_rcpsp(
+        insts, net, n_ants=args.ants, t_values=tuple(args.t_aco), seed=args.seed,
+        backfill=args.backfill, device=dev, return_state=True, _ops=_ops)
+    means = means.cpu().numpy()
+    if stats is not None:
+        stats.update(data=data, best=state.best_path)
+    _report(args.t_aco, means, time.time() - t0,
+            {"problem": "rcpsp", "n": args.nodes, "instances": len(insts),
+             "backfill": bool(args.backfill)})
+    return means, curves
+
+
+def _cmd_test_tsp_ls(args, *, device=None, stats: dict | None = None):
+    """The TSP-NLS protocol (cli.py:552-646, tsp_nls/test.py:17-56) on the
+    golden TSP set: local search (``2opt`` or ``nls``) on every ant, the
+    ``--ckpt`` net on the one-hot start graph (default
+    ``checkpoints/tsp_nls<n>.msgpack``) or the classic ``1/d`` on the k
+    nearest. The whole batch through ``evaluate_tsp(ls=...)``, or with
+    ``--per-instance`` the reference-style :class:`~deepaco_tpu_torch.aco.
+    runner.ACO` facade an instance at a time, seeds ``--seed + i``. Prints
+    the JAX CLI's three lines and returns ``(means, curves)``; ``stats``,
+    when given, also receives each instance's best tour (``best [B, n]``)."""
+    n, ts = args.nodes, args.t_aco
+    dev = resolve_device(device)
+    ds = golden_set("tsp", n, args.limit)
+    k = args.k_sparse or max(n // 10, 3)
+    net = None
+    if not args.classic:
+        if args.ckpt is None:
+            args.ckpt = f"checkpoints/tsp_nls{n}.msgpack"
+        net = _load_net(args).to(dev).eval()
+    coords_all = torch.as_tensor(ds["coords"], device=dev)
+    t0 = time.time()
+    if not args.per_instance:
+        found = {}
+        _, curves = evaluate_tsp(coords_all, net=net, k_sparse=k,
+                                 cfg=ACOConfig(n_ants=args.ants), t_values=tuple(ts),
+                                 seed=args.seed, ls=args.local_search, device=dev, stats=found)
+        best = found["best"]
+        curves = curves[:, [t - 1 for t in ts]]
+    else:
+        dist_all = torch.as_tensor(ds["dist"], device=dev)
+        heu_all = None
+        if net is not None:
+            heu_all = dense_heuristic(net, start_node_features(coords_all), coords_all,
+                                      dist_all, k)
+        curves, best = [], []
+        for i in range(coords_all.shape[0]):
+            aco = ACO(dist_all[i], n_ants=args.ants,
+                      heuristic=None if heu_all is None else heu_all[i],
+                      local_search=args.local_search, seed=args.seed + i,
+                      coords=coords_all[i], device=dev)
+            if heu_all is None:
+                aco.sparsify(k)
+            curve, done = [], 0
+            for t in ts:
+                aco.run(t - done)
+                done = t
+                curve.append(aco.lowest_cost)
+            curves.append(torch.stack(curve))
+            best.append(aco.shortest_path)
+        curves, best = torch.stack(curves), torch.stack(best)
+    means = curves.mean(dim=0).cpu().numpy()
+    if stats is not None:
+        stats.update(best=best)
+    _report(ts, means, time.time() - t0, {"problem": "tsp_" + args.local_search, "n": n})
+    return means, curves
+
+
 def cmd_test(args, *, device=None):
-    unported = [f for f in ("b_chunk", "per_instance", "backfill") if getattr(args, f)]
-    if unported:
-        raise SystemExit(f"--{unported[0].replace('_', '-')} {NOT_PORTED}")
+    if args.b_chunk:
+        raise SystemExit(f"--b-chunk is {B_CHUNK}")
+    if args.sparse and args.problem != "tsp":
+        raise SystemExit("--sparse applies to tsp")
+    if args.per_instance and not (args.problem == "tsp" and args.local_search):
+        raise SystemExit("--per-instance applies to test tsp with --local-search")
+    if args.problem == "rcpsp":
+        return _cmd_test_rcpsp(args, device=device)
     if args.problem == "tsp" and args.sparse:
         return _cmd_test_tsp_sparse(args, device=device)
-    if args.problem == "cvrp" and args.local_search and not args.sparse:
-        if args.local_search != "swapstar":
-            raise SystemExit(f"test cvrp --local-search {args.local_search}: cvrp's local "
-                             "search is the native SWAP* engine (swapstar)")
+    if args.local_search == "swapstar":
+        if args.problem != "cvrp":
+            raise SystemExit(f"test {args.problem} --local-search swapstar: the native "
+                             "SWAP* engine applies to cvrp")
         return _cmd_test_cvrp_ls(args, device=device)
-    if args.problem in FAMILIES and args.problem != "tsp" and not args.sparse:
-        if args.local_search:
-            raise SystemExit(f"test {args.problem} --local-search: local search applies "
-                             "to tsp and cvrp")
-        return _cmd_test_family(args, device=device)
-    tested = [p for p in FAMILIES if p != "tsp"]
-    raise SystemExit(f"test {args.problem}{' --sparse' if args.sparse else ''} "
-                     f"{NOT_PORTED}; only test {'|'.join(tested)}, test cvrp --local-search "
-                     "swapstar and test tsp --sparse are")
+    if args.local_search:
+        if args.problem != "tsp":
+            raise SystemExit(f"test {args.problem} --local-search {args.local_search}: "
+                             "2-opt and NLS apply to tsp")
+        return _cmd_test_tsp_ls(args, device=device)
+    return _cmd_test_family(args, device=device)
 
 
 def _epoch_printer(val_t: int | None = None):
@@ -361,6 +496,25 @@ def _cmd_train_cvrp_ls(args, *, device=None):
     return state
 
 
+def _cmd_train_rcpsp(args, *, device=None):
+    """RCPSP training (cli.py:183-198, rcpsp/train.ipynb): the train split
+    of ``j<n>rcp`` on one horizon, ``train_rcpsp`` with the flags' epochs,
+    steps, ants, rate and seed, a line an epoch; writes ``-o`` or
+    ``checkpoints/rcpsp<n>.msgpack``, which ``test rcpsp --ckpt`` reads."""
+    device = resolve_device(device)
+    insts = psplib_instances(args, "train")
+    t0 = time.time()
+    _, state = train_rcpsp(
+        insts, epochs=args.epochs, steps_per_epoch=args.steps, n_ants=args.ants, lr=args.lr,
+        seed=args.seed, device=device,
+        progress=lambda ep, c: print(f"epoch {ep}: mean makespan {c:.2f} "
+                                     f"({time.time() - t0:.1f}s)", flush=True))
+    out = args.output or f"checkpoints/rcpsp{args.nodes}.msgpack"
+    save_checkpoint(out, state)
+    print(f"saved {out}")
+    return state
+
+
 def cmd_solve_cvrp(args, *, device=None):
     """Solve one CVRPLib instance with the native engine's hybrid genetic
     search (cli.py:647-670) and print the solution as the reference binary
@@ -401,8 +555,8 @@ def cmd_train(args, *, device=None):
             raise SystemExit(f"train {args.problem} --local-search {args.local_search}: "
                              "2-opt and NLS training apply to tsp")
         return _cmd_train_tsp_ls(args, device=device)
-    if args.problem not in FAMILIES:
-        raise SystemExit(f"train {args.problem} {NOT_PORTED}")
+    if args.problem == "rcpsp":
+        return _cmd_train_rcpsp(args, device=device)
     wd = args.weight_decay
     if wd is None:
         # the reference's one per-family optimizer setting: the GNN MKP

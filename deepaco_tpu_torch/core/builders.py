@@ -13,9 +13,11 @@ dimensions.
   MKP       dense, x = weight [n, m], attr = prize[src] (mkp/utils.py:27-36)
   SOP       masked dense, x = cost row 0, mask = adj  (sop/utils.py:52-58)
   BPP       ``cvrp_graph(demand, ones)``              (bpp/utils.py:14-23)
+  RCPSP     masked dense, E = 2 edge types            (rcpsp_inst.py:202-222)
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from deepaco_tpu_torch.core.graph import EdgeBlock, SparseGraph, knn_graph, topk_smallest
@@ -117,3 +119,42 @@ def sop_graph(dist: torch.Tensor, adj: torch.Tensor) -> SparseGraph:
     return SparseGraph(x=dist[..., 0, :, None],
                        nbr=_dense_nbr(dist.shape[:-2], dist.shape[-1], dist.device),
                        edge=dist[..., None], mask=adj.to(torch.float32))
+
+
+def _related(adj: np.ndarray) -> np.ndarray:
+    """Whether each pair is ordered either way, or is one activity: the
+    transitive closure of ``adj [n, n]`` by repeated squaring, with its
+    transpose and the identity."""
+    reach = adj.astype(bool)
+    for _ in range(adj.shape[0]):
+        new = reach | (reach.astype(np.int64) @ reach.astype(np.int64) > 0)
+        if (new == reach).all():
+            break
+        reach = new
+    return reach | reach.T | np.eye(adj.shape[0], dtype=bool)
+
+
+def rcpsp_graph(data) -> SparseGraph:
+    """The masked dense block of an RCPSP instance (builders.py:139-169),
+    batched over ``data``'s leading dimensions (``core.rcpsp.RCPSPData``):
+    ``x = [duration / max(max, 1), resources / capacity] [..., n, 1+m]``;
+    ``edge [..., n, n, 2]`` is ``[1, 0]`` on a precedence edge and ``[0,
+    1]`` between two activities that neither precedes (transitively), zero
+    elsewhere; ``mask`` holds both kinds of edge and the sink's self-loop
+    (the reference's extra edge with attribute ``[0, 0]``)."""
+    adj = data.adj.cpu().numpy()
+    n = adj.shape[-1]
+    flat = adj.reshape(-1, n, n)
+    no_rel = ~np.stack([_related(a) for a in flat]).reshape(adj.shape)
+    dev = data.adj.device
+    t = data.duration.float()
+    t = t / torch.clamp(t.amax(dim=-1, keepdim=True), min=1.0)
+    r = data.resources.float() / data.capacity.float()[..., None, :]
+    x = torch.cat([t[..., None], r], dim=-1)
+    prec = torch.as_tensor(adj, dtype=torch.float32, device=dev)
+    norel = torch.as_tensor(no_rel, dtype=torch.float32, device=dev)
+    mask = np.logical_or(adj > 0, no_rel)
+    mask[..., n - 1, n - 1] = True
+    return SparseGraph(x=x, nbr=_dense_nbr(adj.shape[:-2], n, dev),
+                       edge=torch.stack([prec, norel], dim=-1),
+                       mask=torch.as_tensor(mask, dtype=torch.float32, device=dev))

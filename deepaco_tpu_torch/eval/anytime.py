@@ -13,7 +13,9 @@ import torch
 
 from deepaco_tpu_torch.aco.batched_tsp import (KERNEL_OPS, PathOps,
                                                run_anytime_batched)
-from deepaco_tpu_torch.aco.runner import ACOConfig
+from deepaco_tpu_torch.aco.engine import rollout
+from deepaco_tpu_torch.aco.problems.tsp import tour_cost, tsp_spec
+from deepaco_tpu_torch.aco.runner import ACOConfig, init_search, run_anytime
 from deepaco_tpu_torch.core.builders import start_node_features
 from deepaco_tpu_torch.core.graph import (knn_graph, scatter_to_dense,
                                           sparse_distance_matrix)
@@ -23,6 +25,22 @@ from deepaco_tpu_torch.ops.fused_gnn import (dense_heuristic_supported,
                                              embnet_supported, net_forward_fast)
 from deepaco_tpu_torch.ops.gnn_layer import fused_gnn_layer_plain
 from deepaco_tpu_torch.utils.datasets import distance_matrix
+
+
+def tsp_instance_curve(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
+                       generator: torch.Generator, t_max: int) -> torch.Tensor:
+    """The best-so-far cost after each of ``t_max`` iterations ``[t_max]``
+    of one instance (``heu, dist [N, N]``; anytime.py:24-32): ``tsp_spec``'s
+    rollout from uniform starts (K7 a step on the card) and the runner's
+    update (K8)."""
+    n = dist.shape[-1]
+    heu, dist = heu[None], dist[None]
+    state = init_search(n, n - 1, cfg, batch=(1,), device=dist.device)
+    _, curve = run_anytime(
+        lambda tau, gen: rollout(tsp_spec(tau, heu, cfg.n_ants, alpha=cfg.alpha,
+                                          beta=cfg.beta), gen).paths,
+        lambda paths: tour_cost(dist, paths), cfg, state, generator, t_max)
+    return curve[0]
 
 
 @torch.no_grad()
@@ -57,24 +75,24 @@ def batched_tsp_heuristic(net: Net, coords: torch.Tensor, k_sparse: int, *,
 
 def _eval_neural(net: Net, cfg: ACOConfig, k_sparse: int, t_max: int,
                  coords: torch.Tensor, generator: torch.Generator, *,
-                 _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
+                 stats: dict | None = None, _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
     with _ops.timer("heuristic"):
         heu, dist = batched_tsp_heuristic(net, coords, k_sparse, _ops=_ops)
-    return run_anytime_batched(heu, dist, cfg, generator, t_max, _ops=_ops)
+    return run_anytime_batched(heu, dist, cfg, generator, t_max, stats=stats, _ops=_ops)
 
 
 def _eval_classic(cfg: ACOConfig, k_sparse: int, t_max: int,
                   coords: torch.Tensor, generator: torch.Generator, *,
-                  _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
+                  stats: dict | None = None, _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
     with _ops.timer("heuristic"):
         dist = distance_matrix(coords)
         heu = 1.0 / sparse_distance_matrix(dist, k_sparse)
-    return run_anytime_batched(heu, dist, cfg, generator, t_max, _ops=_ops)
+    return run_anytime_batched(heu, dist, cfg, generator, t_max, stats=stats, _ops=_ops)
 
 
 def _eval_ls(net: Net | None, cfg: ACOConfig, k_sparse: int, t_max: int,
              ls: str, coords: torch.Tensor, generator: torch.Generator, *,
-             _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
+             stats: dict | None = None, _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
     """The TSP-NLS anytime protocol, batched. The neural heuristic is
     :func:`dense_heuristic` on the one-hot start-node feature
     (tsp_nls/utils.py:37-45); the classic one is
@@ -90,14 +108,14 @@ def _eval_ls(net: Net | None, cfg: ACOConfig, k_sparse: int, t_max: int,
             heu = dense_heuristic(net, start_node_features(coords), coords,
                                   dist, k_sparse, _ops=_ops)
     return run_anytime_batched(heu, dist, cfg, generator, t_max,
-                               coords=coords, ls=ls, _ops=_ops)
+                               coords=coords, ls=ls, stats=stats, _ops=_ops)
 
 
 @torch.no_grad()
 def evaluate_tsp(coords, *, net: Net | None = None, k_sparse: int,
                  cfg: ACOConfig | None = None,
                  t_values=(1, 10, 20, 30, 40, 50, 100), seed: int = 0,
-                 ls: str | None = None, device=None,
+                 ls: str | None = None, device=None, stats: dict | None = None,
                  _ops: PathOps = KERNEL_OPS):
     """Anytime sweep over ``coords [B, N, 2]``.
 
@@ -108,7 +126,8 @@ def evaluate_tsp(coords, *, net: Net | None = None, k_sparse: int,
     runs on ``device`` (``cuda`` by default; ``cpu`` only when asked), and
     ``net`` is moved there. The private ``_ops``
     (:class:`~deepaco_tpu_torch.aco.batched_tsp.PathOps`) swaps in the plain
-    versions of the kernels or a timer around each phase.
+    versions of the kernels or a timer around each phase. ``stats``, when
+    given, receives each instance's best tour (``best [B, N]``).
     """
     dev = resolve_device(device)
     cfg = cfg or ACOConfig()
@@ -119,12 +138,12 @@ def evaluate_tsp(coords, *, net: Net | None = None, k_sparse: int,
         net = net.to(dev).eval()
     if ls is not None:
         curves = _eval_ls(net, cfg, k_sparse, t_max, ls, coords, generator,
-                          _ops=_ops)
+                          stats=stats, _ops=_ops)
     elif net is None:
         curves = _eval_classic(cfg, k_sparse, t_max, coords, generator,
-                               _ops=_ops)
+                               stats=stats, _ops=_ops)
     else:
         curves = _eval_neural(net, cfg, k_sparse, t_max, coords, generator,
-                              _ops=_ops)
+                              stats=stats, _ops=_ops)
     idx = torch.tensor([t - 1 for t in t_values], device=dev)
     return curves[:, idx].mean(dim=0), curves

@@ -5,10 +5,10 @@ A family bundles the instance generator, the GNN graph, the heuristic's
 post-processing, the rollout plug-in, the objective and the ACO flags. Its
 functions take instance dicts of tensors batched over ``B`` instances, and
 every reduction that JAX takes over one instance (its ``vmap``) reduces
-over the instance's own axes here, never over the batch. Ported: ``tsp``,
+over the instance's own axes here, never over the batch: ``tsp``,
 ``cvrp``, ``op``, ``pctsp``, ``smtwtp``, ``sop``, ``bpp``, ``mkp`` and
-``mkp_items``; ``rcpsp`` follows in ROADMAP.md's order. CVRP-NLS is no
-family here, as in the JAX package: its trainer is ``train.special``.
+``mkp_items``, the JAX registry's. CVRP-NLS and RCPSP are no families here,
+as in the JAX package: their trainers are in ``train.special``.
 
 The CVRP reference reshapes its per-edge heuristic with the source index
 varying fast (cvrp/train.ipynb cell 1, cvrp/utils.py:27-29), so its dense
@@ -439,9 +439,9 @@ FAMILIES = {
 
 
 def get_family(name: str) -> Family:
-    """The registered family ``name``; a family not ported yet raises."""
+    """The registered family ``name``; ``KeyError`` for another name, as the
+    JAX registry raises (RCPSP is no family in either package: its trainer
+    is ``train.special.train_rcpsp``, its protocol ``eval.rcpsp``)."""
     if name not in FAMILIES:
-        raise NotImplementedError(
-            f"family {name!r} is not ported to deepaco_tpu_torch (ported: "
-            f"{sorted(FAMILIES)}); see ROADMAP.md")
+        raise KeyError(f"no family {name!r} (families: {sorted(FAMILIES)})")
     return FAMILIES[name]

@@ -11,7 +11,10 @@ An irregular graph ``(x, blocks)`` of
 plain layer of gnn.py:213-256 on every device: each block's gated mean is
 merged into its source rows, and one edge BatchNorm covers the edges of all
 blocks. Neither K6 nor K9 takes a map of source rows, and the JAX package
-keeps such a graph off its fused layer too (gnn.py:177-180).
+keeps such a graph off its fused layer too (gnn.py:177-180). So does a
+masked graph with the node update (RCPSP's): its neighbour mean runs over
+the valid edges only (gnn.py:216-228), which no kernel computes, and it
+runs the plain layer on every device too.
 """
 from __future__ import annotations
 
@@ -109,19 +112,20 @@ class EmbNet(nn.Module):
         wrapper of kernel K6 (the plain version on CPU tensors); the plain
         version on any device when ``fused_gnn_layer_plain`` is passed. A
         masked graph (``g.mask``) weights the edge BatchNorms' train-mode
-        statistics; with the node update it raises, since the masked
-        neighbour mean (gnn.py:216-228) is not ported. An irregular graph
-        ``(x, blocks)`` takes :meth:`forward_blocks` and returns its list."""
+        statistics; with the node update it takes the masked neighbour
+        mean, ``sum(sigmoid(w) x2[nbr] m) / max(sum m, 1)`` (gnn.py:216-228),
+        and the plain layer on every device, whatever ``layer`` is. An
+        irregular graph ``(x, blocks)`` takes :meth:`forward_blocks` and
+        returns its list."""
         if not isinstance(g, SparseGraph):
             return self.forward_blocks(g)
-        if g.mask is not None and self.node_update:
-            raise NotImplementedError(
-                "a masked graph with the node update needs the masked neighbour mean "
-                "(deepaco_tpu/models/gnn.py:216-228), not ported yet: ROADMAP.md §1 "
-                "item 3 (rcpsp)")
+        masked_mean = g.mask is not None and self.node_update
+        if masked_mean:
+            m = g.mask[..., None].float()
+            count = torch.clamp(m.sum(dim=-2), min=1.0)
         x = F.silu(self.v_lin0(g.x.float()))
         w = F.silu(self.e_lin0(g.edge.float()))
-        index = reverse_adjacency(g.nbr)          # once per graph, all layers
+        index = None if masked_mean else reverse_adjacency(g.nbr)   # once, all layers
         for i in range(self.depth):
             x0, w0 = x, w
             x1 = self.v_lins1[i](x0)
@@ -129,8 +133,14 @@ class EmbNet(nn.Module):
             x3 = self.v_lins3[i](x0)
             x4 = self.v_lins4[i](x0)
             e_lin = self.e_lins0[i]
-            agg, pre = layer(x2, x3, x4, g.nbr, w0, e_lin.weight.T, e_lin.bias,
-                             index)
+            if masked_mean:
+                gated = torch.sigmoid(w0) * gather_nodes(x2, g.nbr)
+                agg = torch.sum(gated * m, dim=-2) / count
+                pre = w0 @ e_lin.weight.T + e_lin.bias + x3[..., None, :] \
+                    + gather_nodes(x4, g.nbr)
+            else:
+                agg, pre = layer(x2, x3, x4, g.nbr, w0, e_lin.weight.T, e_lin.bias,
+                                 index)
             if self.node_update:
                 x = x0 + F.silu(self.v_bns[i](x1 + agg))
             w = w0 + F.silu(self.e_bns[i](pre, g.mask))
@@ -142,14 +152,18 @@ class EmbNet(nn.Module):
         mean into the block's source rows (``index_add`` by ``src``; a
         block holds each source once, so no two adds meet); the edge update
         is ``e_lin(w) + x3[src] + x4[nbr]`` per block, and one BatchNorm
-        takes its statistics over the concatenated edges of all blocks."""
+        takes its statistics over the concatenated edges of all blocks. A
+        masked block's mean runs over its valid edges, ``sum(gated m) /
+        max(sum m, 1)``, and its mask weights the edge BatchNorm's train-mode
+        statistics (the other blocks' edges with weight 1)."""
         blocks, x_in = as_blocks(g)
-        if any(b.mask is not None for b in blocks):
-            raise NotImplementedError(
-                "masked blocks need the masked neighbour mean (deepaco_tpu/models/"
-                "gnn.py:216-228), not ported yet: ROADMAP.md §1 item 3 (rcpsp); one "
-                "masked block runs as a SparseGraph")
         n = x_in.shape[-2]
+        lead = x_in.shape[:-2]
+        masks = None
+        if any(b.mask is not None for b in blocks):
+            masks = torch.cat([(torch.ones(b.nbr.shape, device=x_in.device) if b.mask is None
+                                else b.mask.float()).expand(*lead, *b.nbr.shape[-2:])
+                               .flatten(-2) for b in blocks], dim=-1)
         x = F.silu(self.v_lin0(x_in.float()))
         ws = [F.silu(self.e_lin0(b.edge.float())) for b in blocks]
         srcs = [torch.arange(n, device=x.device) if b.src is None else b.src for b in blocks]
@@ -164,13 +178,19 @@ class EmbNet(nn.Module):
                 for b, src, w0 in zip(blocks, srcs, ws0):
                     gated = torch.sigmoid(w0) * gather_nodes(x2, b.nbr.expand(
                         *x0.shape[:-2], *b.nbr.shape[-2:]))
-                    agg = agg.index_add(-2, src, gated.mean(dim=-2))
+                    if b.mask is None:
+                        mean = gated.mean(dim=-2)
+                    else:
+                        m = b.mask[..., None].float()
+                        mean = torch.sum(gated * m, dim=-2) / torch.clamp(m.sum(dim=-2),
+                                                                          min=1.0)
+                    agg = agg.index_add(-2, src, mean)
                 x = x0 + F.silu(self.v_bns[i](x1 + agg))
             e_lin = self.e_lins0[i]
             pre = [e_lin(w0) + x3[..., src, None, :]
                    + gather_nodes(x4, b.nbr.expand(*x0.shape[:-2], *b.nbr.shape[-2:]))
                    for b, src, w0 in zip(blocks, srcs, ws0)]
-            flat = self.e_bns[i](torch.cat([p.flatten(-3, -2) for p in pre], dim=-2))
+            flat = self.e_bns[i](torch.cat([p.flatten(-3, -2) for p in pre], dim=-2), masks)
             ws, off = [], 0
             for p, w0 in zip(pre, ws0):
                 size = p.shape[-3] * p.shape[-2]
@@ -195,14 +215,17 @@ class ParNet(nn.Module):
 
 class Net(nn.Module):
     """EmbNet + heuristic head, plus a pheromone head when ``dual_heads``;
-    returns ``heu [B, N, K]`` or ``(phe, heu)``."""
+    returns ``heu [B, N, K]`` or ``(phe, heu)``. With ``pad_feats`` node
+    features narrower than that are padded with zeros to it (RCPSP's five,
+    gnn.py:293-307); ``feats`` is then ``pad_feats``."""
 
     def __init__(self, feats: int = 2, edge_feats: int = 1, depth: int = 12,
                  units: int = 32, node_update: bool = True,
-                 dual_heads: bool = False):
+                 dual_heads: bool = False, pad_feats: int = 0):
         super().__init__()
+        feats = pad_feats or feats
         self.depth, self.units, self.node_update = depth, units, node_update
-        self.dual_heads = dual_heads
+        self.dual_heads, self.pad_feats = dual_heads, pad_feats
         self.emb_net = EmbNet(feats, edge_feats, depth, units, node_update)
         self.par_net_heu = ParNet(units=units)
         if dual_heads:
@@ -211,6 +234,7 @@ class Net(nn.Module):
     def forward(self, g, layer: Callable = fused_gnn_layer):
         """A :class:`SparseGraph`'s ``[B, N, K]`` heads, or a list a block
         for an irregular graph ``(x, blocks)``."""
+        g = self.pad(g)
         emb = self.emb_net(g, layer)
         if isinstance(emb, list):
             heads = lambda head: [head(e) for e in emb]
@@ -221,12 +245,22 @@ class Net(nn.Module):
             return heads(self.par_net_phe), heu
         return heu
 
+    def pad(self, g):
+        """``g`` with its node features zero-padded to ``pad_feats``."""
+        x = g.x if isinstance(g, SparseGraph) else g[0]
+        if not self.pad_feats or x.shape[-1] >= self.pad_feats:
+            return g
+        x = F.pad(x, (0, self.pad_feats - x.shape[-1]))
+        return g._replace(x=x) if isinstance(g, SparseGraph) else (x, g[1])
+
     @classmethod
-    def from_jax_variables(cls, variables: dict, node_update: bool | None = None) -> "Net":
+    def from_jax_variables(cls, variables: dict, node_update: bool | None = None,
+                           pad_feats: int = 0) -> "Net":
         """A ``Net`` sized from a Flax ``{"params", "batch_stats"}`` tree,
         loaded with its weights, in eval mode. ``node_update`` defaults to
         whether the tree holds the node BatchNorms, which a Flax net without
-        the node update (SMTWTP's) never creates."""
+        the node update (SMTWTP's) never creates; ``pad_feats`` is the
+        ``Net``'s."""
         p = variables["params"]
         emb = p["emb_net"]
         depth = sum(1 for key in emb if key.startswith("v_lins1_"))
@@ -234,7 +268,7 @@ class Net(nn.Module):
                   edge_feats=emb["e_lin0"]["kernel"].shape[0],
                   depth=depth, units=emb["v_lin0"]["kernel"].shape[1],
                   node_update="v_bns_0" in emb if node_update is None else node_update,
-                  dual_heads="par_net_phe" in p)
+                  dual_heads="par_net_phe" in p, pad_feats=pad_feats)
         load_jax_variables(net, variables)
         return net.eval()
 

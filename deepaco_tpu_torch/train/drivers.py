@@ -118,8 +118,9 @@ def _forward_heu(family: Family, net: Net, inst: dict, k_sparse: int,
     time (K6). A masked graph (SOP's) takes K9 only without the node
     update: then each edge's state depends on itself alone and eval mode
     ignores the mask, so the mask changes nothing before ``heu_matrix``
-    applies it; with the node update ``net`` raises (the masked neighbour
-    mean is not ported). A family's ``forward`` hook replaces all of this."""
+    applies it; with the node update (RCPSP's) ``net`` takes the masked
+    neighbour mean in its plain layer, whatever ``ops.layer`` is. A
+    family's ``forward`` hook replaces all of this."""
     if family.forward is not None:
         return family.forward(net, inst, k_sparse)
     g = family.graph(inst, k_sparse)

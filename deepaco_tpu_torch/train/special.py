@@ -1,8 +1,19 @@
-"""The CVRP-NLS trainer (counterpart of ``deepaco_tpu/train/special.py:147-267``),
-which falls outside the family trainer: its advantage comes from the costs
-of the native SWAP* engine on the host (cvrp_nls/train.py:14-55).
+"""The trainers outside the family trainer (counterpart of
+``deepaco_tpu/train/special.py``): RCPSP's, whose loss is scaled by 1/n
+with the clip 1.0 and whose graph needs the host's precedence analysis
+(rcpsp/train.ipynb cell 1), and CVRP-NLS's, whose advantage comes from the
+costs of the native SWAP* engine on the host (cvrp_nls/train.py:14-55).
 
-One step (:func:`cvrp_nls_train_step`): the heuristic of the two-block graph
+One RCPSP step (:func:`make_rcpsp_train_step`, special.py:35-70): the
+train-mode ``Net(pad_feats=5)`` on one instance's masked graph (its
+BatchNorms on the batch's statistics, the edge ones weighted by the mask;
+the masked layer in plain PyTorch on every device), tau of ones, the ants
+sampled through ``probs_fn`` (K7 a step on the card) and decoded by the
+reference's SSGS, the loss ``sum(adv * sum_t log p) / A / n``, and
+``optax.chain(clip_by_global_norm(1.0), adamw(lr))`` with optax's default
+weight decay 1e-4.
+
+One CVRP-NLS step (:func:`cvrp_nls_train_step`): the heuristic of the two-block graph
 with the net in **eval mode**, as the JAX trainer applies it (``train=False``,
 special.py:160), so the BatchNorms normalise with their running statistics
 and never update them; one construction without log-probabilities (K7c on
@@ -20,21 +31,121 @@ from typing import Callable
 import numpy as np
 import torch
 
-from deepaco_tpu_torch.aco.engine import path_log_probs
+from deepaco_tpu_torch.aco.engine import path_log_probs, rollout
 from deepaco_tpu_torch.aco.problems.cvrp import cvrp_paths, cvrp_spec, route_cost
 from deepaco_tpu_torch.aco.problems.cvrp_nls import perturbation_metric
+from deepaco_tpu_torch.aco.problems.rcpsp import RCPSPConfig, makespans, rcpsp_spec
 from deepaco_tpu_torch.core.builders import cvrp_nls_graph
+from deepaco_tpu_torch.core.rcpsp import RCPSPData, stack_rcpsp
 from deepaco_tpu_torch.core.graph import scatter_blocks
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.ls import hgs
 from deepaco_tpu_torch.models.gnn import Net
-from deepaco_tpu_torch.train.config import ACOSettings, ProblemConfig, TrainConfig
+from deepaco_tpu_torch.eval.rcpsp import RCPSP_FEATS, rcpsp_heuristics, rcpsp_net
+from deepaco_tpu_torch.train.config import ACOSettings, ModelConfig, ProblemConfig, TrainConfig
 from deepaco_tpu_torch.train.drivers import KERNEL_OPS, FamilyOps
-from deepaco_tpu_torch.train.reinforce import TrainState, init_train_state, optimizer_update
+from deepaco_tpu_torch.train.reinforce import (LossOut, StepInfo, TrainState, init_train_state,
+                                               optimizer_update)
 from deepaco_tpu_torch.utils.golden import cvrp_nls_capacity
 
 ADAMW_WEIGHT_DECAY = 1e-4        # optax.adamw's default
 TRAIN_EPS = 1e-5                 # the training heuristic's offset (special.py:147)
+
+
+# ------------------------------------------------------------------ RCPSP --
+def rcpsp_config(n_nodes: int, *, epochs: int = 5, steps_per_epoch: int = 20,
+                 n_ants: int = 10, lr: float = 3e-4, grad_clip: float = 1.0,
+                 seed: int = 0) -> ProblemConfig:
+    """The RCPSP trainer's configuration (special.py:73-88): ``lr``, AdamW
+    decay 1e-4, the clip ``grad_clip``, one instance a step, node features
+    padded to 5 (``model.pad_feats``)."""
+    return ProblemConfig(name="rcpsp", n_nodes=n_nodes, k_sparse=n_nodes,
+                         model=ModelConfig(pad_feats=RCPSP_FEATS),
+                         aco=ACOSettings(n_ants=n_ants),
+                         train=TrainConfig(lr=lr, weight_decay=ADAMW_WEIGHT_DECAY,
+                                           grad_clip=grad_clip, epochs=epochs,
+                                           steps_per_epoch=steps_per_epoch, batch_size=1,
+                                           seed=seed))
+
+
+def rcpsp_loss(net: Net, data: RCPSPData, aco_cfg: RCPSPConfig, generator: torch.Generator,
+               *, paths: torch.Tensor | None = None, _ops: FamilyOps = KERNEL_OPS) -> LossOut:
+    """The loss of one step on the batched instances ``data`` (one in the
+    trainer), differentiable in ``net``, which it puts in train mode: the
+    heuristic ``heu * mask + 1e-10`` on tau of ones, then ``aco_cfg.n_ants``
+    ants sampled (``rollout(require_prob=True)``, ``_ops.pick`` a step) or,
+    with ``paths [B, n, A]``, replayed (``path_log_probs``); the makespans
+    by the reference's decoder; the batch mean of ``sum(adv * sum_t log p)
+    / A / n``, ``adv = cost - mean`` detached."""
+    net.train(True)
+    with _ops.timer("heuristic"):
+        heu = rcpsp_heuristics(data, net)
+    with _ops.timer("rollout"):
+        spec = rcpsp_spec(torch.ones_like(heu), heu, data, aco_cfg)
+        if paths is None:
+            ro = rollout(spec, generator, require_prob=True, pick=_ops.pick)
+            paths, log_probs = ro.paths, ro.log_probs
+        else:
+            log_probs = path_log_probs(spec, paths)
+    with _ops.timer("decode"):
+        costs = makespans(data, paths)
+    adv = (costs - costs.mean(dim=-1, keepdim=True)).detach()
+    loss = (adv * log_probs.sum(dim=-2)).sum(dim=-1) / aco_cfg.n_ants / heu.shape[-1]
+    return LossOut(loss.mean(), costs.mean(), paths, log_probs, costs, None)
+
+
+def make_rcpsp_train_step(cfg: ProblemConfig, aco_cfg: RCPSPConfig | None = None, *,
+                          _ops: FamilyOps = KERNEL_OPS):
+    """``(state, data, generator) -> (state, StepInfo)``: :func:`rcpsp_loss`
+    on ``data`` (batched instances on the net's device), its gradient and
+    one optimizer update (the clip, then AdamW as optax runs them)."""
+    aco_cfg = aco_cfg or RCPSPConfig(n_ants=cfg.aco.n_ants)
+
+    def step(state: TrainState, data: RCPSPData, generator: torch.Generator):
+        out = rcpsp_loss(state.net, data, aco_cfg, generator, _ops=_ops)
+        with _ops.timer("backward"):
+            out.loss.backward()
+        with _ops.timer("optimizer"):
+            state, norm = optimizer_update(state, cfg)
+        return state, StepInfo(out.loss.detach(), out.mean_cost.detach(), norm)
+
+    return step
+
+
+def train_rcpsp(instances: list[RCPSPData], *, epochs: int = 5, steps_per_epoch: int = 20,
+                n_ants: int = 10, lr: float = 3e-4, grad_clip: float = 1.0, seed: int = 0,
+                progress: Callable | None = None, max_steps: int | None = None,
+                device=None, _ops: FamilyOps = KERNEL_OPS) -> tuple[Net, TrainState]:
+    """The RCPSP training loop (special.py:73-101) over ``instances`` (one
+    size; the decoder's horizon is the largest ``t_max``) on ``device``
+    (``cuda`` by default; ``cpu`` only when asked): a fresh net initialised
+    from ``seed`` by the JAX package's law, the ants drawn from a generator
+    seeded ``seed + 1``, and each of ``epochs * steps_per_epoch`` steps (or
+    the first ``max_steps``) on the instance that
+    ``numpy.random.default_rng(seed).integers`` picks. ``progress(epoch,
+    mean makespan of the epoch's last step)`` after each epoch. Returns
+    ``(net, state)``; ``state.tree()`` is the JAX ``TrainState``."""
+    dev = resolve_device(device)
+    cfg = rcpsp_config(instances[0].n, epochs=epochs, steps_per_epoch=steps_per_epoch,
+                       n_ants=n_ants, lr=lr, grad_clip=grad_clip, seed=seed)
+    t_max = max(d.t_max for d in instances)
+    batches = [stack_rcpsp([d], t_max, device=dev) for d in instances]
+    state = init_train_state(rcpsp_net(pad_feats=cfg.model.pad_feats).to(dev), cfg,
+                             torch.Generator(device=dev).manual_seed(seed))
+    step_fn = make_rcpsp_train_step(cfg, _ops=_ops)
+    generator = torch.Generator(device=dev).manual_seed(seed + 1)
+    rs = np.random.default_rng(seed)
+    n_steps = epochs * steps_per_epoch if max_steps is None else min(
+        max_steps, epochs * steps_per_epoch)
+    for epoch in range(-(-n_steps // steps_per_epoch)):
+        for _ in range(min(steps_per_epoch, n_steps - epoch * steps_per_epoch)):
+            state, info = step_fn(state, batches[int(rs.integers(len(instances)))], generator)
+        if progress is not None:
+            progress(epoch, info.mean_cost.item())
+    return state.net, state
+
+
+# --------------------------------------------------------------- CVRP-NLS --
 
 
 def cvrp_nls_config(n_nodes: int, *, epochs: int = 5, steps_per_epoch: int = 20,

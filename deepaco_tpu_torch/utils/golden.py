@@ -1,6 +1,6 @@
 """Golden fixed-seed evaluation sets (counterpart of
-``deepaco_tpu/utils/golden.py``; TSP's reads the reference's files and is
-not ported).
+``deepaco_tpu/utils/golden.py``). TSP's are the reference's committed files,
+read from ``$DEEPACO_REFERENCE_DATA`` (``utils.datasets.load_tsp_dataset``).
 
 The reference commits no CVRP, CVRP-NLS, OP, PCTSP, SMTWTP, SOP, BPP, MKP
 or MKP-items test files: each writer (cvrp/utils.py:42-53,
@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from deepaco_tpu_torch.families import OP_MAX_LEN, PCTSP_KN, sop_masks
+from deepaco_tpu_torch.utils.datasets import load_tsp_dataset
 
 CVRP_SCALES = (20, 100, 500)
 OP_SCALES = (100, 200, 300)
@@ -41,6 +42,17 @@ CVRP_NLS_CAPACITY = {1: 10, 20: 30, 50: 40, 100: 50, 400: 150, 1000: 200, 2000: 
 def _check(name: str, n: int) -> None:
     if n not in SCALES[name]:
         raise ValueError(f"unknown {name.upper()} scale {n}; the writer makes {SCALES[name]}")
+
+
+def tsp_test(n: int, split: str = "test") -> dict:
+    """The reference's TSP set of scale ``n`` (tsp/utils.py:47-54): ``coords
+    [B, n, 2]`` and ``dist [B, n, n]`` (diagonal 1e9), f32, the distances by
+    the JAX package's numpy expression (golden.py:30-39)."""
+    coords = load_tsp_dataset(n, split)
+    dist = np.linalg.norm(coords[:, :, None] - coords[:, None], axis=-1)
+    idx = np.arange(coords.shape[1])
+    dist[:, idx, idx] = 1e9
+    return {"coords": coords.astype(np.float32), "dist": dist.astype(np.float32)}
 
 
 def cvrp_test(n: int, count: int = 100, seed: int = 123456) -> dict:
@@ -245,6 +257,6 @@ def mkp_items_test(n: int, count: int = 100, seed: int = 123456, np_seed: int = 
             "weight": np.stack(weights).astype(np.float32)}
 
 
-GOLDEN = {"cvrp": cvrp_test, "op": op_test, "pctsp": pctsp_test, "smtwtp": smtwtp_test,
+GOLDEN = {"tsp": tsp_test, "cvrp": cvrp_test, "op": op_test, "pctsp": pctsp_test, "smtwtp": smtwtp_test,
           "sop": sop_test, "bpp": bpp_test, "mkp": mkp_test, "cvrp_nls": cvrp_nls_test,
           "mkp_items": mkp_items_test}

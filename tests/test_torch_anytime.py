@@ -15,6 +15,18 @@ from deepaco_tpu_torch.eval.anytime import evaluate_tsp
 from deepaco_tpu_torch.models.gnn import Net
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 CKPT = Path(__file__).resolve().parent.parent / "checkpoints"
 B, N, K, ANTS, T = 20, 100, 10, 16, (1, 5)
 

@@ -3,11 +3,24 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 from flax import serialization
 
 from deepaco_tpu_torch.utils import checkpoint
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
 
 CKPT = Path(__file__).resolve().parent.parent / "checkpoints"
 

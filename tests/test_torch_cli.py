@@ -1,9 +1,11 @@
 """The port's command line (deepaco_tpu_torch/cli.py): ``test tsp --sparse``,
 ``test cvrp`` (with and without ``--local-search swapstar``) print the JAX
 CLI's three output lines, ``train`` writes checkpoints that the port reads
-back, ``solve-cvrp`` prints the engine's routes; everything not ported
-exits."""
+back, ``solve-cvrp`` prints the engine's routes; what cannot run exits
+with its reason (``test|train rcpsp`` and ``test tsp`` in
+tests/test_torch_rcpsp.py and tests/test_torch_tsp_facade.py)."""
 import json
+import os
 import re
 import subprocess
 import sys
@@ -14,6 +16,18 @@ import pytest
 import torch
 
 from deepaco_tpu_torch import cli
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
 
 ROOT = Path(__file__).resolve().parent.parent
 SMALL = ["test", "tsp", "--sparse", "-n", "1001", "--limit", "1", "-a", "4", "-t", "1"]
@@ -38,21 +52,35 @@ def test_sparse_protocol_prints_the_jax_cli_lines(arm, capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["test", "tsp", "--sparse", "-n", "1000", "--classic"], "golden TSP sets"),
+    (["test", "tsp", "--sparse", "-n", "1000", "--classic"], "set DEEPACO_REFERENCE_DATA"),
     (["test", "cvrp", "-n", "1001"], r"scales \(20, 100, 500\)"),
     (["test", "op", "-n", "50"], r"scales \(100, 200, 300\)"),
-    (["test", "tsp", "-n", "1001"], "ROADMAP.md §1 item 10"),
-    (["test", "tsp", "--sparse", "-n", "1001", "--b-chunk", "4"], "--b-chunk .*item 10"),
-    (["test", "rcpsp"], "test rcpsp .*item 10"),
+    (["test", "tsp", "-n", "1001"], r"empty/tsp/testDataset-1001\.pt does not exist"),
+    (["test", "tsp", "--sparse", "-n", "1001", "--b-chunk", "4"], "--b-chunk is a TPU watchdog"),
+    (["test", "rcpsp"], "set DEEPACO_REFERENCE_ROOT"),
     (["test", "tsp", "--sparse", "-n", "1001", "--ckpt", "x.pt"], r"\.pt loader"),
     (["test", "tsp", "--sparse", "-n", "1003"], r"checkpoints/tsp1003\.msgpack"),
-    (["test", "tsp", "-n", "20", "--per-instance"], "--per-instance .*item 10"),
-    (["test", "cvrp", "-n", "20", "--b-chunk", "4"], "--b-chunk .*item 10"),
-    (["train", "rcpsp"], "train rcpsp .*item 10"),
-    (["test", "tsp", "-n", "100", "--local-search", "nls"], "test tsp .*item 10"),
-])
-def test_what_is_not_ported_exits_with_a_reason(argv, match, monkeypatch):
+    (["test", "tsp", "-n", "20", "--per-instance"], "--per-instance applies to test tsp with"),
+    (["test", "cvrp", "-n", "20", "--b-chunk", "4"], "--b-chunk is a TPU watchdog"),
+    (["train", "rcpsp"], "set DEEPACO_REFERENCE_ROOT"),
+    (["test", "tsp", "-n", "100", "--local-search", "nls"], "set DEEPACO_REFERENCE_DATA"),
+], ids=[f"argv{i}-{m}" for i, m in enumerate((   # each case keeps its first id
+    "golden TSP sets", r"scales \(20, 100, 500\)", r"scales \(100, 200, 300\)",
+    "ROADMAP.md §1 item 10", "--b-chunk .*item 10", "test rcpsp .*item 10", r"\.pt loader",
+    r"checkpoints/tsp1003\.msgpack", "--per-instance .*item 10", "--b-chunk .*item 10",
+    "train rcpsp .*item 10", "test tsp .*item 10"))])
+def test_what_is_not_ported_exits_with_a_reason(argv, match, monkeypatch, tmp_path):
+    """What the port cannot run exits with its reason: the reference's
+    data without the variable that points at them (named), or a missing
+    golden file (named, ``-n 1001`` with the variable set to an empty
+    directory), ``--b-chunk``, a flag where it does not apply, a missing or
+    ``.pt`` checkpoint."""
     monkeypatch.chdir(ROOT)
+    for var in ("DEEPACO_REFERENCE_DATA", "DEEPACO_REFERENCE_ROOT"):
+        monkeypatch.delenv(var, raising=False)
+    if argv[:4] == ["test", "tsp", "-n", "1001"]:
+        (tmp_path / "empty").mkdir()
+        monkeypatch.setenv("DEEPACO_REFERENCE_DATA", str(tmp_path / "empty"))
     with pytest.raises(SystemExit, match=match):
         cli.main(argv, device="cpu")
 
@@ -173,9 +201,14 @@ def test_the_sparse_path_refuses_a_local_search_it_does_not_run(monkeypatch):
 
 
 def test_python_dash_m_runs_the_cli():
+    """``python -m deepaco_tpu_torch test rcpsp`` where torch sees no card
+    exits non-zero with its reason: the command runs on the card unless
+    asked otherwise, and says so before it reads any data."""
+    env = {k: v for k, v in os.environ.items() if k != "DEEPACO_REFERENCE_ROOT"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
     out = subprocess.run([sys.executable, "-m", "deepaco_tpu_torch", "test", "rcpsp"],
-                         cwd=ROOT, capture_output=True, text=True, timeout=300)
-    assert out.returncode == 1 and "item 10" in out.stderr
+                         cwd=ROOT, capture_output=True, text=True, timeout=300, env=env)
+    assert out.returncode == 1 and "none is available; pass device='cpu'" in out.stderr
 
 
 def test_cvrp_nls_protocol_prints_the_jax_cli_lines(capsys, monkeypatch):

@@ -1,6 +1,7 @@
 """Port parity: the construction sweep and its Gumbel law (aco/batched_tsp.py)."""
 import ml_dtypes
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -9,6 +10,17 @@ import jax.numpy as jnp
 from deepaco_tpu.aco import batched_tsp as jbt
 from deepaco_tpu_torch.aco import batched_tsp as bt
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def _score(b, n, seed):

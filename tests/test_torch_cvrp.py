@@ -18,6 +18,18 @@ from deepaco_tpu_torch.core.builders import cvrp_graph
 from deepaco_tpu_torch.families import CVRP_CAPACITY
 from deepaco_tpu_torch.utils import golden
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 B, N = 3, 21                      # 20 customers and the depot
 
 

@@ -31,11 +31,24 @@ from deepaco_tpu_torch.aco.problems.cvrp import route_cost, validate_routes
 from deepaco_tpu_torch.aco.problems.cvrp_nls import CVRPNLSACO, perturbation_metric
 from deepaco_tpu_torch.core.builders import cvrp_nls_graph
 from deepaco_tpu_torch.ls import hgs
-from deepaco_tpu_torch.models.gnn import Net, init_like_flax, to_jax_tree, to_jax_variables
+from deepaco_tpu_torch.models.gnn import (Net, from_jax_variables, init_like_flax, to_jax_tree,
+                                          to_jax_variables)
 from deepaco_tpu_torch.train import drivers, special
 from deepaco_tpu_torch.train import reinforce as tr
 from deepaco_tpu_torch.utils import convert, golden
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT100 = ROOT / "checkpoints" / "cvrp_nls100_selftrained.msgpack"
@@ -120,7 +133,9 @@ def test_block_net_in_train_mode_matches_jax():
     instance's two blocks: one edge BatchNorm over both blocks' edges (the
     node BatchNorm over the nodes), so each block's output at rtol 1e-5 /
     atol 1e-6 and the running statistics after the step at rtol 1e-5 /
-    atol 1e-7 equal JAX's ``apply(train=True)``; a masked block raises."""
+    atol 1e-7 equal JAX's ``apply(train=True)``; so they do with a random
+    mask on the customer block (its mean over the valid edges, its edges
+    weighted by the mask in the shared BatchNorm, gnn.py:216-246)."""
     ds = _set(N, 1)
     net = init_like_flax(Net(feats=1, depth=2), torch.Generator().manual_seed(2)).train()
     variables = to_jax_variables(net)
@@ -136,8 +151,19 @@ def test_block_net_in_train_mode_matches_jax():
         np.testing.assert_allclose(stats[path], np.asarray(v), rtol=1e-5, atol=1e-7,
                                    err_msg=jax.tree_util.keystr(path))
     x, (a, b) = g
-    with pytest.raises(NotImplementedError, match="masked"):
-        net((x, (a._replace(mask=torch.ones_like(a.nbr, dtype=torch.float32)), b)))
+    mask = (np.random.default_rng(4).random(tuple(a.nbr.shape)) < 0.7).astype(np.float32)
+    net.load_state_dict(from_jax_variables(variables))
+    with torch.no_grad():
+        outs = net((x, (a._replace(mask=torch.from_numpy(mask)), b)))
+    jx, (ja, jb) = jg
+    jouts, upd = JNet(depth=2).apply(variables, (jx, (ja._replace(mask=jnp.asarray(mask[0])), jb)),
+                                     train=True, mutable=["batch_stats"])
+    for o, jo in zip(outs, jouts):
+        np.testing.assert_allclose(o[0].numpy(), np.asarray(jo), rtol=1e-5, atol=1e-6)
+    stats = dict(jax.tree_util.tree_leaves_with_path(to_jax_variables(net)["batch_stats"]))
+    for path, v in jax.tree_util.tree_leaves_with_path(upd["batch_stats"]):
+        np.testing.assert_allclose(stats[path], np.asarray(v), rtol=1e-5, atol=1e-7,
+                                   err_msg=jax.tree_util.keystr(path))
 
 
 def test_parse_cvrplib_equals_jax(tmp_path):

@@ -16,6 +16,17 @@ from deepaco_tpu_torch.aco import pheromone as ph
 from deepaco_tpu_torch.ops import deposit as dep
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _case(kind, seed):
     """``paths [B, L, A]`` int32 and ``amounts [B, A]``: permutation tours,
     or CVRP-like routes whose last 12 steps park on the depot (the edge

@@ -13,6 +13,17 @@ from deepaco_tpu_torch.aco import engine
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost, tsp_spec
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _instances(b, n, seed):
     """Distances (diagonal 1e9), heuristic 1/d and a random pheromone."""
     rng = np.random.default_rng(seed)

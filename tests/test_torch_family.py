@@ -21,6 +21,18 @@ from deepaco_tpu_torch.train import drivers
 from deepaco_tpu_torch.utils import golden
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 CKPT = Path(__file__).resolve().parent.parent / "checkpoints"
 
 
@@ -142,5 +154,9 @@ def test_registry_generators_equal_jax_and_unported_families_raise():
         for k in ref:
             np.testing.assert_array_equal(got[k], ref[k], err_msg=f"{name} {k}")
     assert drivers.family_model(families.get_family("cvrp")).emb_net.v_lin0.in_features == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    # RCPSP is no family in either package: its trainer and protocol are
+    # train.special and eval.rcpsp; JAX's registry raises KeyError for it
+    with pytest.raises(KeyError):
+        jfamilies.get_family("rcpsp")
+    with pytest.raises(KeyError, match="rcpsp"):
         families.get_family("rcpsp")

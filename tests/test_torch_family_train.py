@@ -33,6 +33,18 @@ from deepaco_tpu_torch.train import reinforce as tr
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 from deepaco_tpu_torch.utils.metrics import MetricsLogger
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 B, A, DEPTH = 2, 5, 2
 SIZES = {"tsp": (20, 5), "cvrp": (12, 12), "op": (20, 5), "pctsp": (12, 12),
          "smtwtp": (12, 12), "sop": (12, 12), "mkp": (12, 12)}   # n_nodes, k_sparse
@@ -354,7 +366,8 @@ def test_cvrpaco_sample_replays_in_jax(cvrp_instance):
 def test_cvrpaco_run_improves_and_passes_alpha_beta(cvrp_instance, monkeypatch):
     """run(1) five times: lowest_cost never rises, shortest_path is a valid
     route that costs lowest_cost; alpha=2 and beta=0.5 reach score_matrix
-    (the construction's scores); min_max and elitist raise."""
+    (the construction's scores); under min_max and elitist, ported since,
+    the best never rises either and MAX-MIN's tau stays within its bounds."""
     inst, heu = cvrp_instance
     seen = []
     real = cvrp.score_matrix
@@ -375,8 +388,13 @@ def test_cvrpaco_run_improves_and_passes_alpha_beta(cvrp_instance, monkeypatch):
     np.testing.assert_allclose(cvrp.route_cost(aco.distances[0], best[:, None]).item(),
                                costs[-1], rtol=1e-6)
     for flag in ("min_max", "elitist"):
-        with pytest.raises(NotImplementedError, match=flag):
-            CVRPACO(inst["dist"], inst["demand"], **{flag: True}, device="cpu")
+        flagged = CVRPACO(inst["dist"], inst["demand"], n_ants=A, heuristic=heu, seed=3,
+                          device="cpu", **{flag: True})
+        costs = [flagged.run(1).item() for _ in range(3)]
+        assert costs == sorted(costs, reverse=True) and math.isfinite(costs[-1])
+        if flag == "min_max":
+            tau, bound = flagged.state.phe.tau, flagged.state.phe.tau_max.item()
+            assert bound > 0 and bool((tau <= bound).all() and (tau >= 1e-10).all())
 
 
 def test_step_phases_reach_the_metrics_stream_and_a_trace(tmp_path):

@@ -14,6 +14,18 @@ from deepaco_tpu.ops.pallas_kernels import (fused_gnn_layer_ad,
                                             gated_mean_aggregate_pallas)
 from deepaco_tpu_torch.ops import gnn_layer
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 B, N, K, U = 2, 24, 6, 32
 NAMES = ("x2", "x3", "x4", "w", "ew", "eb")
 

@@ -9,6 +9,18 @@ import numpy as np
 import pytest
 import torch
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 
 BLOCKER = r"""
@@ -158,6 +170,42 @@ def test_cvrp_nls_entry_points_without_device_raise_when_cuda_is_absent(monkeypa
     assert sorted(np.concatenate(out).tolist()) == [1, 2, 3]
     src = torch.rand(1, 7, 6, generator=torch.Generator().manual_seed(0))
     assert TransformerModel()(src).shape == (1, 7)
+
+
+def test_rcpsp_and_tsp_facade_entry_points_without_device_raise_when_cuda_is_absent(
+        monkeypatch):
+    """evaluate_rcpsp, train_rcpsp, RCPSPACO, the ACO facade, and the CLI's
+    test and train rcpsp and test tsp (family, batched and per-instance
+    local search) raise without a card before they read any data; the
+    instance layer (parser, priors, graph, decoder) needs none."""
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.aco.problems.rcpsp import RCPSPACO, makespans
+    from deepaco_tpu_torch.aco.runner import ACO
+    from deepaco_tpu_torch.core import rcpsp as core
+    from deepaco_tpu_torch.core.builders import rcpsp_graph
+    from deepaco_tpu_torch.eval.rcpsp import evaluate_rcpsp
+    from deepaco_tpu_torch.train.special import train_rcpsp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = core.parse_rcp(core.progen_rcp(np.random.default_rng(0), jobs=8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        evaluate_rcpsp([data], t_values=(1,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_rcpsp([data], epochs=1, steps_per_epoch=1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RCPSPACO(data)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ACO(np.ones((5, 5), np.float32))
+    for argv in (["test", "rcpsp", "-n", "30"], ["train", "rcpsp", "-n", "30"],
+                 ["test", "tsp", "-n", "20"], ["test", "tsp", "-n", "20", "--local-search",
+                                               "nls", "--per-instance", "--classic"],
+                 ["test", "tsp", "-n", "20", "--local-search", "2opt", "--classic"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(argv)
+    batch = core.stack_rcpsp([data])
+    assert rcpsp_graph(batch).x.shape == (1, 10, 5)
+    paths = torch.arange(10)[None, :, None]
+    assert makespans(batch, paths).shape == (1, 1)
 
 
 def test_kernel_wrappers_refuse_non_cuda_devices():

@@ -1383,3 +1383,86 @@ def test_pick_kernel_on_mkp_items_rows(dev):
     ant, the knapsack masks at capacity 1 and the dummy item), held as on
     OP's and PCTSP's rows."""
     _check_pick_on_family_rows(dev, "mkp_items", 500)
+
+
+def _rcpsp_j120(dev, count=4):
+    """``count`` seeded j120-shaped instances (122 activities, 4 resources)
+    stacked on the card, and their classic prior."""
+    import numpy as np
+
+    from deepaco_tpu_torch.core import rcpsp as core
+
+    rng = np.random.default_rng(120)
+    datas = [core.parse_rcp(core.progen_rcp(rng, jobs=120)) for _ in range(count)]
+    data = core.stack_rcpsp(datas, device=dev)
+    return datas, data, core.default_rcpsp_heuristic(data)
+
+
+def test_pick_kernel_on_rcpsp_rows(dev):
+    """K7 on the rows of a j120 RCPSP rollout through ``probs_fn`` (B=4
+    instances, 20 ants, the classic prior, the summation blend at gamma 0.5):
+    scores ``log(max(p, 1e-30))`` and the mask ``p > 0``, at the start, a
+    third and two thirds of the 121 steps: actions exactly equal to the
+    plain pick's and allowed, logp within 1e-5; one launch a step."""
+    from deepaco_tpu_torch.aco.engine import rollout
+    from deepaco_tpu_torch.aco.problems.rcpsp import RCPSPConfig, rcpsp_spec
+    from deepaco_tpu_torch.ops import pick
+
+    _, data, heu = _rcpsp_j120(dev)
+    spec = rcpsp_spec(torch.ones_like(heu), heu, data, RCPSPConfig(n_ants=20, gamma=0.5))
+    at = {0, spec.horizon // 3, 2 * spec.horizon // 3}
+    steps, seen = iter(range(spec.horizon)), []
+
+    def check(score, mask, noise):
+        got = pick.fused_pick(score, mask, noise)
+        if next(steps) in at:
+            want = pick.fused_pick_plain(score, mask, noise)
+            assert torch.equal(got[0], want[0])
+            assert bool((mask.gather(1, got[0][:, None]) > 0).all())
+            torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-5)
+            seen.append(int((mask > 0).sum(1).min()))
+        return got
+
+    before = pick.fused_pick.launches
+    paths = rollout(spec, torch.Generator(device=dev).manual_seed(0), pick=check).paths
+    assert pick.fused_pick.launches == before + 121 and len(seen) == 3
+    assert bool((torch.sort(paths, dim=1).values
+                 == torch.arange(122, device=dev)[None, :, None]).all())
+
+
+def test_deposit_kernel_on_rcpsp_paths_and_best(dev):
+    """K8 on the update of a j120 RCPSP iteration: the 20 ants' activity
+    lists and the best-so-far list (directed, no wraparound, n = 122, B=4,
+    A = 21): bit-equal to ``scatter_add_`` on the CPU, within 2 k 2^-24 of
+    each entry of ``scatter_add_`` on the card (k its terms, atomics in any
+    order), and ``rcpsp_update`` through it (one launch) bit-equal to the
+    plain update on the CPU."""
+    from deepaco_tpu_torch.aco import pheromone as ph
+    from deepaco_tpu_torch.aco.engine import rollout
+    from deepaco_tpu_torch.aco.problems.rcpsp import (RCPSPConfig, init_rcpsp_search,
+                                                      makespans, rcpsp_spec, rcpsp_update)
+    from deepaco_tpu_torch.ops import deposit
+
+    _, data, heu = _rcpsp_j120(dev)
+    cfg = RCPSPConfig(n_ants=20, elitist=False, min_max=True)
+    paths = rollout(rcpsp_spec(torch.ones_like(heu), heu, data, cfg),
+                    torch.Generator(device=dev).manual_seed(1)).paths
+    costs = makespans(data, paths)
+    best = paths[..., :1]
+    both = torch.cat([best, paths], dim=-1)
+    amounts = torch.cat([1.0 / costs[:, :1], 1.0 / costs], dim=-1)
+    got = deposit.tour_deposit(both, amounts, 122, cyclic=False)
+    assert torch.equal(got.cpu(), deposit.tour_deposit_plain(both.cpu(), amounts.cpu(), 122,
+                                                             cyclic=False))
+    plain = deposit.tour_deposit_plain(both, amounts, 122, cyclic=False)
+    k = deposit.tour_deposit_plain(both, torch.ones_like(amounts), 122, cyclic=False)
+    assert bool(((got - plain).abs() <= 2 * k * 2.0 ** -24 * got).all())
+    state = init_rcpsp_search(4, 122, cfg, device=dev)
+    before = deposit.tour_deposit.launches
+    ours = rcpsp_update(cfg, state, paths, costs)
+    assert deposit.tour_deposit.launches == before + 1
+    cpu = lambda t: t.cpu()
+    ref = rcpsp_update(cfg, type(state)(*map(cpu, state)), paths.cpu(), costs.cpu(),
+                       deposit=ph.deposit_plain)
+    for a, b in zip(ours, ref):
+        assert torch.equal(a.cpu(), b)

@@ -14,6 +14,17 @@ from deepaco_tpu_torch.aco import large_tsp as tl
 from deepaco_tpu_torch.aco.runner import ACOConfig
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _coords(b, n, seed):
     return np.random.default_rng(seed).random((b, n, 2)).astype(np.float32)
 

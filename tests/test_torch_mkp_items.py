@@ -33,6 +33,18 @@ from deepaco_tpu_torch.train import reinforce as tr
 from deepaco_tpu_torch.utils import golden
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 CKPT300 = ROOT / "checkpoints" / "mkp_items300_selftrained.msgpack"
 NAME, N, B, A = "mkp_items", 50, 3, 6

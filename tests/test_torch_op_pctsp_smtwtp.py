@@ -30,6 +30,18 @@ from deepaco_tpu_torch.train import drivers
 from deepaco_tpu_torch.utils import golden
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 CKPT = Path(__file__).resolve().parent.parent / "checkpoints"
 NAMES = ("op", "pctsp", "smtwtp")
 SIZE = {"op": 20, "pctsp": 20, "smtwtp": 30}          # n of the generated instances
@@ -222,14 +234,19 @@ def test_search_update_maximize_and_cost_offset_match_jax(name):
 
 
 def test_check_ported_takes_maximize_and_cost_offset_and_refuses_the_rest():
+    """``check_ported`` is gone with the last unported flags: maximize,
+    cost_offset and the vector pheromone start their search, and so do
+    elitist and min_max (MAX-MIN's tau at tau_min, SMTWTP's static bound)."""
+    assert not hasattr(runner, "check_ported")
     cfg = runner.ACOConfig(maximize=True, cost_offset=1.0)
-    runner.check_ported(cfg)
     state = runner.init_search(5, 4, cfg, batch=(2,), device="cpu")
     assert bool((state.best_cost == -float("inf")).all())
-    runner.check_ported(runner.ACOConfig(vector_pheromone=True, maximize=True))
+    runner.init_search(5, 4, runner.ACOConfig(vector_pheromone=True, maximize=True), batch=(2,))
     for flag in ("elitist", "min_max"):
-        with pytest.raises(NotImplementedError, match=flag):
-            runner.check_ported(runner.ACOConfig(**{flag: True}))
+        runner.init_search(5, 4, runner.ACOConfig(**{flag: True}), batch=(2,))
+    mm = runner.init_search(5, 4, runner.ACOConfig(min_max=True, mm_static_max=1.0), batch=(2,))
+    assert torch.equal(mm.phe.tau, torch.full((2, 5, 5), 0.1))
+    assert torch.equal(mm.phe.tau_max, torch.ones(2))
 
 
 @pytest.mark.parametrize("name,n", [("op", 100), ("pctsp", 20), ("smtwtp", 50)])
@@ -339,7 +356,8 @@ def test_facade_sample_replays_in_jax_and_run_improves(name):
     equal JAX's ``path_log_probs`` of its paths through JAX's facade spec
     (rtol 1e-5, atol 1e-5) and its costs JAX's cost (rtol 1e-6); ``run(1)``
     four times never gets worse, and the best path is valid and scores the
-    best; min_max and elitist raise."""
+    best; under min_max and elitist, ported since, the best never gets
+    worse either."""
     aco, jaco, inst = _facades(name)
     costs, log_probs, paths = aco.sample()
     ref = jengine.path_log_probs(jaco.spec_fn(jaco.state.phe.tau, jaco.data, jaco.cfg),
@@ -354,8 +372,9 @@ def test_facade_sample_replays_in_jax_and_run_improves(name):
     assert bool(_valid(name, path, inst).all())
     np.testing.assert_allclose(aco.cost(path).item(), aco.lowest_cost.item(), rtol=1e-6)
     for flag in ("min_max", "elitist"):
-        with pytest.raises(NotImplementedError, match=flag):
-            _facades_flag(name, inst, flag)
+        flagged = _facades_flag(name, inst, flag)
+        best = [sign * flagged.run(1).item() for _ in range(3)]
+        assert best == sorted(best, reverse=True)
 
 
 def _facades_flag(name, inst, flag):

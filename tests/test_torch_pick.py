@@ -11,6 +11,18 @@ import jax.numpy as jnp
 from deepaco_tpu.ops.pallas_kernels import NEG_INF, fused_pick_pallas
 from deepaco_tpu_torch.ops import pick
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 A, N = 6, 30
 
 

@@ -37,6 +37,17 @@ from deepaco_tpu_torch.models.gnn import Net, init_like_flax, to_jax_variables
 from deepaco_tpu_torch.ops import fused_gnn, two_opt
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def instances(b, n, seed):
     """Coordinates [b, n, 2] f32 and their JAX distance matrices, numpy."""
     c = np.random.default_rng(seed).random((b, n, 2)).astype(np.float32)

@@ -33,12 +33,25 @@ from deepaco_tpu_torch.aco.problems.bpp import BPPACO, bpp_fitness, validate_bpp
 from deepaco_tpu_torch.aco.problems.mkp import MKPACO, validate_mkp
 from deepaco_tpu_torch.aco.problems.sop import SOPACO, validate_sop
 from deepaco_tpu_torch.core.graph import gather_from_dense, knn_graph, scatter_to_dense
-from deepaco_tpu_torch.models.gnn import EmbNet, Net, TorchBatchNorm, jax_layout, to_jax_tree
+from deepaco_tpu_torch.models.gnn import (Net, TorchBatchNorm, init_like_flax, jax_layout,
+                                          to_jax_tree, to_jax_variables)
 from deepaco_tpu_torch.ops import fused_gnn
 from deepaco_tpu_torch.train import config, drivers
 from deepaco_tpu_torch.train import reinforce as tr
 from deepaco_tpu_torch.utils import golden
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
 
 ROOT = Path(__file__).resolve().parent.parent
 CKPT = ROOT / "checkpoints"
@@ -123,19 +136,31 @@ def test_masked_batchnorm_matches_jax_in_train_mode():
                                bn(torch.from_numpy(x)))
 
 
-def test_masked_graph_with_the_node_update_raises():
-    """The masked neighbour mean is RCPSP's and is not ported: a masked
-    graph with the node update raises, in train and in eval mode, and the
-    eval route of ``drivers._forward_heu`` does not take K9 for it."""
-    inst, _ = _batch("sop", b=1)
+def test_masked_graph_with_the_node_update_raises(monkeypatch):
+    """A masked graph with the node update no longer raises: it takes the
+    masked neighbour mean (RCPSP's, gnn.py:216-228) in train and in eval
+    mode, equal to JAX's at rtol 1e-5, and the eval route of
+    ``drivers._forward_heu`` does not take K9 for it (it runs the plain
+    layer, as the JAX package keeps it off its fused layer)."""
+    inst, jinst = _batch("sop", b=1)
     g = families.get_family("sop").graph(inst, K)
-    emb = EmbNet(feats=1, depth=1, node_update=True)
-    for training in (True, False):
-        with pytest.raises(NotImplementedError, match="item 3"):
-            emb.train(training)(g)
-    net = Net(feats=1, depth=1, node_update=True).eval()
-    with pytest.raises(NotImplementedError, match="item 3"):
-        drivers._forward_heu(families.get_family("sop"), net, inst, K)
+    net = init_like_flax(Net(feats=1, depth=2, node_update=True),
+                         torch.Generator().manual_seed(0))
+    variables = to_jax_variables(net)
+    jg = jfamilies.get_family("sop").graph(jinst[0], K)
+    for training in (False, True):
+        with torch.no_grad():
+            got = net.train(training)(g)
+        want = JNet(depth=2).apply(variables, jg, train=training,
+                                   mutable=["batch_stats"] if training else False)
+        want = (want[0] if training else want)[0]        # the one block's output
+        np.testing.assert_allclose(got[0].numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    calls = []
+    real = fused_gnn.net_forward_fast
+    monkeypatch.setattr(drivers, "net_forward_fast",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    drivers._forward_heu(families.get_family("sop"), net.eval(), inst, K)
+    assert not calls
 
 
 def test_gather_from_dense_matches_jax_and_inverts_scatter():
@@ -323,11 +348,17 @@ def test_search_update_div_ants_and_floor_match_jax(name):
 
 
 def test_check_ported_names_the_item_each_flag_waits_for():
-    runner.check_ported(runner.ACOConfig(deposit_div_ants=True, maximize=True, floor=1e-10))
-    runner.check_ported(runner.ACOConfig(vector_pheromone=True, maximize=True))
-    for flag, item in (("elitist", "item 4"), ("min_max", "item 4")):
-        with pytest.raises(NotImplementedError, match=f"{flag} waits for ROADMAP.md §1 {item}"):
-            runner.check_ported(runner.ACOConfig(**{flag: True}))
+    """No flag waits for an item any more: ``check_ported`` and its table
+    are gone, and elitist and min_max (item 4, ported since) run an update
+    with BPP's deposit_div_ants and floor."""
+    assert not hasattr(runner, "check_ported") and not hasattr(runner, "_UNPORTED")
+    paths = torch.stack([torch.randperm(6) for _ in range(3)], dim=1)[None]
+    for flag in ("elitist", "min_max"):
+        cfg = runner.ACOConfig(deposit_div_ants=True, maximize=True, floor=1e-10,
+                               cyclic=False, symmetric=False, **{flag: True})
+        state = runner.init_search(6, 5, cfg, batch=(1,))
+        got = runner.search_update(cfg, state, paths, torch.tensor([[0.5, 0.9, 0.7]]))
+        assert got.best_cost.item() == np.float32(0.9) and bool((got.phe.tau >= 1e-10).all())
 
 
 @pytest.mark.parametrize("name,n,ckpt", [("sop", 20, "sop20"), ("sop", 50, "sop50"),
@@ -573,7 +604,9 @@ def test_facade_sample_replays_in_jax_and_run_improves(name):
     (MKP's started from the port's first items through JAX's own knapsack
     update) at rtol 1e-5 / atol 1e-5, and its costs JAX's (rtol 1e-6);
     ``run(1)`` four times never gets worse (BPPACO through K7c's plain
-    version), the best path is valid and scores the best; min_max raises."""
+    version), the best path is valid and scores the best; SOPACO and MKPACO
+    under min_max (ported since) never get worse and keep tau under the
+    bound (MKP's static 20)."""
     aco, jaco, inst = _facades(name)
     costs, log_probs, paths = aco.sample()
     jspec = jaco.spec_fn(jaco.state.phe.tau, jaco.data, jaco.cfg)
@@ -600,6 +633,10 @@ def test_facade_sample_replays_in_jax_and_run_improves(name):
         assert aco.best_fitness == aco.best_cost
     else:
         raw = lambda k: inst[k][0].numpy()
-        with pytest.raises(NotImplementedError, match="min_max"):
-            (SOPACO(raw("dist"), raw("prec"), min_max=True, device="cpu") if name == "sop"
-             else MKPACO(raw("prize"), raw("weight"), min_max=True, device="cpu"))
+        flagged = (SOPACO(raw("dist"), raw("prec"), min_max=True, device="cpu") if name == "sop"
+                   else MKPACO(raw("prize"), raw("weight"), min_max=True, device="cpu"))
+        best = [sign * flagged.run(1).item() for _ in range(3)]
+        assert best == sorted(best, reverse=True)
+        bound = flagged.state.phe.tau_max.item()
+        assert bound == (20.0 if name == "mkp" else bound) and bound > 0
+        assert bool((flagged.state.phe.tau <= bound).all())

@@ -24,6 +24,18 @@ from deepaco_tpu_torch.ops.two_opt import heuristic_dist
 from deepaco_tpu_torch.train import config
 from deepaco_tpu_torch.train import reinforce as tr
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 B, N, K, A, DEPTH = 3, 20, 5, 4, 2
 
 

@@ -30,6 +30,17 @@ from deepaco_tpu_torch.core.graph import knn_graph
 from deepaco_tpu_torch.ops import two_opt
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def instance(n, seed):
     """Coordinates [n, 2] f32 and the JAX distance matrix, both numpy."""
     c = np.random.default_rng(seed).random((n, 2)).astype(np.float32)

@@ -19,6 +19,17 @@ from deepaco_tpu_torch.aco import runner
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_torch_threads():
+    """Two intra-op threads for torch while this module runs: the tier-1
+    command runs six pytest workers at once, and an OpenMP pool as wide as
+    the host in each of them oversubscribes its cores many times over."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
+
 def _case(b=3, n=20, a=6, seed=0):
     rng = np.random.default_rng(seed)
     c = rng.random((b, n, 2)).astype(np.float32)
@@ -215,11 +226,13 @@ def test_open_paths_take_search_update():
                                   {"vector_pheromone": True}, {"maximize": True},
                                   {"deposit_div_ants": True}, {"cost_offset": 1.0}])
 def test_unported_flags_raise(flag):
-    """The flags not ported yet raise in init_search and search_update;
-    maximize (OP), cost_offset (SMTWTP), deposit_div_ants (BPP) and
-    vector_pheromone (MKP-items), ported since, run both (deposit_div_ants
-    deposits as q = 1/A does; the vector pheromone starts at ones ``[B,
-    n]`` and each item takes 1/cost from each ant that picked it)."""
+    """Every strategy flag is ported and runs in init_search and
+    search_update (none raises any more): maximize (OP), cost_offset
+    (SMTWTP), deposit_div_ants (BPP, as q = 1/A deposits), vector_pheromone
+    (MKP-items: ones ``[B, n]``, each item takes 1/cost from each ant that
+    picked it), elitist (only the iteration-best ant deposits) and min_max
+    (tau starts at tau_min, the first best sets tau_max = n / best and
+    rescales tau to it, the clamp holds tau in [tau_min, tau_max])."""
     cfg = runner.ACOConfig(**flag)
     state = runner.init_search(5, 4, runner.ACOConfig(), batch=(1,))
     paths = torch.stack([torch.randperm(5) for _ in range(2)], dim=1)[None]
@@ -240,7 +253,15 @@ def test_unported_flags_raise(flag):
             ref = runner.search_update(runner.ACOConfig(), state, paths, costs, q=0.5)
             torch.testing.assert_close(got.phe.tau, ref.phe.tau)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        runner.init_search(5, 4, cfg, batch=(1,))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        runner.search_update(cfg, state, paths, torch.ones(1, 2))
+    state = runner.init_search(5, 4, cfg, batch=(1,))
+    costs = torch.tensor([[2.0, 4.0]])
+    got = runner.search_update(cfg, state, paths, costs)
+    assert got.best_cost.item() == 2.0 and torch.equal(got.best_path[0], paths[0, :, 0])
+    if cfg.elitist:
+        ref = runner.search_update(runner.ACOConfig(), state, paths[..., :1], costs[:, :1])
+        torch.testing.assert_close(got.phe.tau, ref.phe.tau)
+    else:
+        assert torch.equal(state.phe.tau, torch.full((1, 5, 5), 0.1))
+        assert got.phe.tau_max.item() == 5 / 2.0
+        assert bool((got.phe.tau >= 0.1).all() and (got.phe.tau <= 2.5).all())
+        assert got.phe.tau.max().item() == 2.5

@@ -203,7 +203,28 @@ Phases, one JSON line each:
    best tour a permutation, each command's launches as predicted, the
    per-instance NLS cost@T1 within 2% of the batched arm's on the same 4
    instances; the family path's first iteration under the profiler;
-19. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
+19. the remaining single-card paths (``remaining_phase``): (a)
+   ``cvrp500_selftrained`` (with an extra head) and
+   ``mkp_items500_selftrained`` written as reference-layout ``.pt`` files,
+   ``test cvrp -n 500`` and ``test mkp_items -n 500`` through the CLI with
+   ``--ckpt`` the ``.pt`` and the msgpack: equal cost lines, launches as on
+   the family paths (K9 1, K7c 10, K8 10; K7 5,010), and
+   ``save_params_npz`` of the net read from the ``.pt`` holding the
+   msgpack's names and arrays; (b) ``AdaptiveCVRPACO`` on the first 4
+   golden CVRP500 instances (``1/d``, 20 ants, T=10, seeds 0-3) beside
+   ``CVRPACO(elitist=True)``: cost@T10 at most 1.05x the elitist one,
+   valid best routes that cost what the run reports, pools of 1-5, K7c 10
+   an instance and K8 once an improving iteration; K7c at B=1 and K8 on its
+   rewritten route against their plain versions; (c) ``run_anytime_sparse``
+   at the main path's inputs on K1's heuristic (K1 1, K3 10, no K2) and
+   its plain arm: cost@T1 within 1e-4, cost@T10 within 1% of each other
+   and within 2% of the main path's recorded cost@T10, best tours
+   permutations, the fallback share and the syncs' share of the wall, the
+   first iteration under the profiler; K3 with the f32 score against its
+   plain version; (d) ``make_mkp_items_train_step`` at MKP-items 500's
+   envelope: the family loss it runs, kernel arm against plain arm held
+   as in phase 7, then the step itself, K7 501 each and nothing else;
+20. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7 from the
    TSP500-NLS training run, K7c and K8 from the CVRP path's kernel arm, K9
    from the sparse and the CVRP paths' kernel arms together; row 9 is on no
@@ -215,12 +236,16 @@ Phases, one JSON line each:
    K7c, K8, K9) and in its two training steps (K6, K7), with their error,
    times and bound at its shapes; K7c and K8 carry ``cvrp_nls`` and K7
    ``mkp_items`` the same way; K7 and K8 carry ``rcpsp`` and
-   ``tsp_facade``, K4 and K5 ``tsp_facade``.
+   ``tsp_facade``, K4 and K5 ``tsp_facade``; phase 19's launches: K1 and
+   K3 ``sparse_runner`` (K3 also its f32-score times), K9, K7c, K8 and K7
+   ``reference_pt``, K7c and K8 ``adaptive_cvrp`` (with their times at
+   its shapes), K7 ``mkp_items_step``.
 
 Every path's cost (main cost@T10, NLS, CVRP, sparse, OP, PCTSP, SMTWTP,
-SOP, BPP, MKP, CVRP-NLS, MKP-items, RCPSP (kernel and backfill arms) and the four
-``test tsp`` commands' cost@T1 and cost@T10, and both for the plain arms of the
-main, NLS and sparse paths) must equal the one recorded in ``RECORDED_COSTS`` to the 4 decimals
+SOP, BPP, MKP, CVRP-NLS, MKP-items, RCPSP (kernel and backfill arms), the four
+``test tsp`` commands', the adaptive and elitist CVRP baselines' and the sparse
+runner's cost@T1 and cost@T10, and both for the plain arms of the main, NLS
+and sparse paths and the sparse runner) must equal the one recorded in ``RECORDED_COSTS`` to the 4 decimals
 recorded: the kernels are exact or held to their plain versions, and the
 inputs and seeds are fixed. K1's and K9's ``{"phase": "kernel"}`` lines
 also carry ``design_floor_ms``, the time their streamed edge state takes
@@ -295,6 +320,7 @@ RCPSP_INSTANCES, RCPSP_TRAIN_STEPS = 104, 2
 # first TSP_GOLDEN_B instances; the per-instance arms on the first TSP_PER_B
 # at TSP_PER_T
 TSP_GOLDEN_B, TSP_PER_B, TSP_PER_T = 16, 4, (1, 2)
+ADAPTIVE_B = 4          # phase 19: the golden CVRP500 instances of the adaptive baseline
 SPARSE_N, SPARSE_B, SPARSE_LS_B = 2000, 30, 4    # the CLI's TSP2000 set; 2-opt arm's cut
 SPARSE_T, SPARSE_LS_T = (1, 10), (1, 2)
 # each path's cost@T1 and cost@T10 as recorded on an NVIDIA H100 80GB HBM3
@@ -313,7 +339,9 @@ RECORDED_COSTS = {"main": (None, 19.6391), "main_plain": (20.6735, 19.6335),
                   "rcpsp": (137.7, 130.67), "rcpsp_backfill": (103.17, 100.22),
                   "tsp_family": (20.9526, 19.8388), "tsp_nls_batched": (17.1227, 16.9536),
                   "tsp_nls_per_instance": (17.1416, 17.0675),
-                  "tsp_2opt_per_instance": (17.7911, 17.741)}
+                  "tsp_2opt_per_instance": (17.7911, 17.741),
+                  "adaptive_cvrp": (133.0119, 128.2005), "elitist_cvrp": (189.5996, 182.5418),
+                  "sparse_runner": (20.8735, 19.767), "sparse_runner_plain": (20.8735, 19.7675)}
 # the CVRP kernel arm's cost@T10 as recorded through the per-step
 # construction (K7 a step, torch.rand noise); the one-pass construction
 # samples the same law and is held within 1% of it
@@ -2092,6 +2120,319 @@ def tsp_golden_phase(dev, root: Path, cuda_ms, counted, coords) -> dict:
     return out
 
 
+def reference_state_dict(net, extra_head: bool = False) -> dict:
+    """``net``'s weights under the reference's ``state_dict`` names, as its
+    ``pretrained/*.pt`` files hold them: a GNN's BatchNorm entries under
+    ``.module.`` with ``num_batches_tracked`` added, and ``extra_head`` a
+    copy of the heuristic head as ``par_net_phe`` (which a single-head net
+    does not read), and without the node BatchNorms a net without the node
+    update never reads; the transformer's under ``transformer_encoder.
+    layers.<i>.self_attn.*`` and ``decoder_heu.lins.<i>``
+    (mkp_transformer/net.py)."""
+    import torch
+
+    attn = {"in_proj_w": "self_attn.in_proj_weight", "in_proj_b": "self_attn.in_proj_bias",
+            "out_proj.weight": "self_attn.out_proj.weight",
+            "out_proj.bias": "self_attn.out_proj.bias"}
+    emb = getattr(net, "emb_net", None)
+    unread = () if emb is None or emb.node_update else ("emb_net.v_bns.",)
+    sd = {}
+    for name, t in net.state_dict().items():
+        if name.startswith(unread):
+            continue
+        t = t.detach().cpu().clone()
+        parts = name.split(".")
+        if parts[0] == "layers":
+            rest = ".".join(parts[2:])
+            sd[f"transformer_encoder.layers.{parts[1]}.{attn.get(rest, rest)}"] = t
+        elif parts[0] == "head":
+            sd[f"decoder_heu.lins.{parts[1]}.{parts[2]}"] = t
+        elif len(parts) == 4 and parts[1] in ("v_bns", "e_bns"):
+            module = ".".join(parts[:3]) + ".module"
+            sd[f"{module}.{parts[3]}"] = t
+            sd[f"{module}.num_batches_tracked"] = torch.tensor(0)
+        else:
+            sd[name] = t
+            if extra_head and parts[0] == "par_net_heu":
+                sd["par_net_phe." + ".".join(parts[1:])] = t.clone()
+    return sd
+
+
+def remaining_phase(dev, root: Path, cuda_ms, counted, net, coords, main_wall: float) -> dict:
+    """Phase 19, the remaining single-card paths, each run with the kernels'
+    counts set to 0 just before it and read just after:
+
+    (a) reference ``.pt`` checkpoints: ``cvrp500_selftrained`` (with an
+        extra head) and ``mkp_items500_selftrained`` written under the
+        reference's names, then ``test cvrp -n 500`` and ``test mkp_items
+        -n 500`` through the CLI with ``--ckpt`` the ``.pt`` and the
+        msgpack; ``save_params_npz`` of the CVRP net read from the ``.pt``;
+    (b) ``AdaptiveCVRPACO`` on the first ADAPTIVE_B golden CVRP500
+        instances (``1/d``, seeds 0-3) beside ``CVRPACO(elitist=True)``,
+        an iteration at a time; K7c at its B=1 shape and K8 on its rewritten
+        routes against their plain versions;
+    (c) ``run_anytime_sparse`` at the main path's inputs on K1's heuristic,
+        kernel and plain arms; K3 with its f32 score against its plain
+        version on the runner's first iteration;
+    (d) ``make_mkp_items_train_step`` at MKP-items 500's envelope: the
+        family loss it runs, kernel arm against plain arm on the same paths
+        (phase 7's tolerances), then the step itself.
+    Emits one line and returns what the kernels' line and the checks read."""
+    import copy
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from deepaco_tpu_torch import cli
+    from deepaco_tpu_torch.aco import batched_tsp as bt
+    from deepaco_tpu_torch.aco.adaptive_cvrp import AdaptiveCVRPACO
+    from deepaco_tpu_torch.aco.problems.cvrp import CVRPACO, route_cost, validate_routes
+    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
+    from deepaco_tpu_torch.aco.runner import ACOConfig, track_best
+    from deepaco_tpu_torch.core.graph import topk_smallest
+    from deepaco_tpu_torch.families import CVRP_CAPACITY, get_family
+    from deepaco_tpu_torch.models.gnn import to_jax_variables
+    from deepaco_tpu_torch.train import drivers, special
+    from deepaco_tpu_torch.train import reinforce as tr
+    from deepaco_tpu_torch.utils.checkpoint import load_checkpoint, save_params_npz
+    from deepaco_tpu_torch.utils.datasets import distance_matrix
+    from deepaco_tpu_torch.utils.golden import GOLDEN
+
+    tmp = Path(tempfile.mkdtemp(dir=root / "build"))
+    out = {"checks": {}}
+    checks = out["checks"]
+
+    def zero():
+        for k in counted:
+            k.launches = 0
+        torch.cuda.synchronize()
+
+    def counts():
+        return {k.__name__: k.launches for k in counted}
+
+    def only(got: dict, want: dict) -> bool:
+        return all(v == want.get(k, 0) for k, v in got.items())
+
+    # (a) reference .pt checkpoints through the CLI
+    t_max = max(T_VALUES)
+    cli_arms, cli_want = {}, {"cvrp": {"embnet_layers": 1, "cvrp_construct": t_max,
+                                       "tour_deposit": t_max},
+                              "mkp_items": {"fused_pick": t_max * (FAMILY_PATHS["mkp_items"][0]
+                                                                   + 1)}}
+    for name in ("cvrp", "mkp_items"):
+        n, ckpt = FAMILY_PATHS[name][:2]
+        pt = tmp / f"{name}{n}.pt"
+        torch.save(reference_state_dict(drivers.family_model(
+            get_family(name), load_checkpoint(str(root / ckpt))), extra_head=name == "cvrp"), pt)
+        for kind, path in (("pt", pt), ("msgpack", root / ckpt)):
+            args = cli.build_parser().parse_args(
+                ["test", name, "-n", str(n), "-a", str(A), "--seed", str(SEED),
+                 "-t", *map(str, T_VALUES), "--ckpt", str(path)])
+            zero()
+            t0 = time.perf_counter()
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                means, _ = cli._cmd_test_family(args)
+            torch.cuda.synchronize()
+            cli_arms[f"{name}_{kind}"] = {
+                "cost": [float(v) for v in means], "wall_s": time.perf_counter() - t0,
+                "launches": counts(), "cost_lines": text.getvalue().splitlines()[1:-1]}
+        got, want = cli_arms[f"{name}_pt"], cli_arms[f"{name}_msgpack"]
+        checks[f"{name}_pt_equals_msgpack"] = got["cost_lines"] == want["cost_lines"]
+        checks[f"{name}_pt_launches"] = only(got["launches"], cli_want[name])
+        checks[f"{name}_msgpack_launches"] = only(want["launches"], cli_want[name])
+    npz_net = drivers.family_model(get_family("cvrp"), cli.read_variables(
+        str(tmp / f"cvrp{FAMILY_PATHS['cvrp'][0]}.pt")))
+    save_params_npz(str(tmp / "cvrp.npz"), to_jax_variables(npz_net)["params"])
+    flat = {}
+
+    def walk(node, keys):
+        if isinstance(node, dict):
+            for key, value in node.items():
+                walk(value, (*keys, key))
+        else:
+            flat["/".join(keys)] = np.asarray(node)
+
+    walk(load_checkpoint(str(root / CVRP_CKPT))["params"], ())
+    with np.load(tmp / "cvrp.npz") as npz:
+        checks["npz_names_and_arrays"] = (set(npz.files) == set(flat) and all(
+            np.array_equal(npz[k], flat[k]) for k in flat))
+        out["npz_arrays"] = len(npz.files)
+    del npz_net
+
+    # (b) the adaptive-elitist CVRP baseline beside the elitist facade
+    ds = GOLDEN["cvrp"](CVRP_N)
+    adaptive, elitist = [], []
+    for i in range(ADAPTIVE_B):
+        d, dem = ds["dist"][i], ds["demand"][i]
+        aco = AdaptiveCVRPACO(d, dem, capacity=CVRP_CAPACITY, n_ants=A, seed=i, device=dev)
+        zero()
+        t0 = time.perf_counter()
+        curve, improved = [], 0
+        for _ in range(t_max):
+            before = aco.best_cost.item()
+            aco.run(1)
+            curve.append(aco.best_cost.item())
+            improved += curve[-1] < before
+        wall = time.perf_counter() - t0
+        launches = counts()
+        best = aco.best_path[None, :, None]
+        recost = route_cost(aco.distances, best)[0, 0].item()
+        adaptive.append({
+            "curve": curve, "wall_s": wall, "launches": launches,
+            "improved_iterations": improved, "elite_pool": len(aco.elite_pool),
+            "valid": bool(validate_routes(best, aco.demand, CVRP_CAPACITY)[0, 0]),
+            "route_cost": recost,
+            "launches_ok": only(launches, {"cvrp_construct": t_max, "tour_deposit": improved}),
+            "cost_is_route_cost": abs(recost - curve[-1]) <= 1e-4 * curve[-1]})
+        el = CVRPACO(d, dem, capacity=CVRP_CAPACITY, n_ants=A, elitist=True, seed=i, device=dev)
+        zero()
+        t0 = time.perf_counter()
+        el_curve = [el.run(1).item() for _ in range(t_max)]
+        elitist.append({"curve": el_curve, "wall_s": time.perf_counter() - t0,
+                        "launches": counts()})
+        if i == 0:
+            # K7c at the facade's B=1 shape on its last pheromone, K8 on the
+            # iteration's routes after the improvement phase (elitist: one ant)
+            k7c = check_cvrp_construct(dev, cuda_ms, score_matrix(aco.state.phe.tau, aco.heuristic,
+                                                                  1.0, 1.0),
+                                       aco.demand, CVRP_CAPACITY, "adaptive cvrp500, B=1")
+            paths = aco.construct(aco.state.phe.tau, aco.heuristic, aco.generator)
+            costs = aco.cost(paths)[0].cpu().numpy().copy()
+            host, costs = aco.improvement_phase(paths[0].cpu().numpy().copy(), costs)
+            j = int(np.argmin(costs))
+            k8 = deposit_case(dev, cuda_ms, torch.as_tensor(host[:, j:j + 1], device=dev)[None],
+                              torch.tensor([[1.0 / costs[j]]], device=dev), CVRP_N + 1, False)
+            emit({"phase": "kernel", "name": "tour_deposit",
+                  "config": "adaptive cvrp500, the improved iteration-best route", **k8,
+                  "tolerance": "as phase 9"})
+            out.update(k7c=k7c, k8=k8)
+    mean = lambda runs, t: sum(r["curve"][t] for r in runs) / len(runs)
+    out["adaptive_cost"] = [mean(adaptive, t - 1) for t in T_VALUES]
+    out["elitist_cost"] = [mean(elitist, t - 1) for t in T_VALUES]
+    checks.update(
+        adaptive_within_1_05_of_elitist=out["adaptive_cost"][-1] <= 1.05 * out["elitist_cost"][-1],
+        adaptive_valid=all(r["valid"] and r["cost_is_route_cost"] for r in adaptive),
+        adaptive_pool=all(1 <= r["elite_pool"] <= 5 for r in adaptive),
+        adaptive_launches=all(r["launches_ok"] for r in adaptive),
+        elitist_launches=all(only(r["launches"], {"cvrp_construct": t_max,
+                                                  "tour_deposit": t_max}) for r in elitist),
+        adaptive_k7c=out["k7c"]["passed"], adaptive_k8=out["k8"]["passed"])
+
+    # (c) the sparse-support runner at the main path's inputs
+    dist = distance_matrix(coords)
+    nbr = topk_smallest(dist, K)[1]
+    cfg = ACOConfig(n_ants=A)
+
+    def sparse_run(ops, t=t_max):
+        stats = {}
+        zero()
+        t0 = time.perf_counter()
+        heu = ops.heuristic(net, coords, dist, K)
+        curve = bt.run_anytime_sparse(heu, dist, nbr, cfg, torch.Generator(device=dev).manual_seed(
+            SEED), t, stats=stats, _ops=ops)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        best = stats.pop("best")
+        ident = torch.arange(N, device=dev).expand_as(best)
+        return {"cost": [curve[:, t_ - 1].mean().item() for t_ in T_VALUES if t_ <= t],
+                "wall_s": wall, "launches": counts(), **stats,
+                "fallback_share": stats["fallback_steps"] / stats["steps"],
+                "sync_share_of_wall": stats["sync_s"] / wall,
+                "permutations": int((torch.sort(best, dim=-1).values == ident).all(-1).sum()),
+                "monotone": bool((curve[:, 1:] <= curve[:, :-1]).all())}, heu
+
+    sparse_run(bt.KERNEL_OPS, 1)                       # first touch
+    sk, heu = sparse_run(bt.KERNEL_OPS)
+    sp, _ = sparse_run(bt.PLAIN_OPS)
+    sk["device_t1_under_profiler"] = device_busy(lambda: sparse_run(bt.KERNEL_OPS, 1))
+    out["sparse"] = {"kernel": sk, "plain": sp, "main_path_wall_s": main_wall}
+    checks.update(
+        sparse_launches=only(sk["launches"], {"tsp_dense_heuristic": 1,
+                                              "fused_tsp_update": t_max}),
+        sparse_plain_launches=only(sp["launches"], {}),
+        sparse_t1_vs_plain=abs(sk["cost"][0] - sp["cost"][0]) <= 1e-4 * sp["cost"][0],
+        sparse_t10_vs_plain=abs(sk["cost"][-1] - sp["cost"][-1]) <= 0.01 * sp["cost"][-1],
+        sparse_t10_vs_main=abs(sk["cost"][-1] - RECORDED_COSTS["main"][1])
+        <= 0.02 * RECORDED_COSTS["main"][1],
+        sparse_permutations=all(r["permutations"] == B and r["monotone"] for r in (sk, sp)))
+    # K3 with the f32 score on the runner's first iteration: the sweep's
+    # tours from uniform starts on a pheromone of ones
+    log_heu = torch.log(torch.clamp(heu, min=1e-30))
+    state = bt._batched_init(B, N, cfg, dev)
+    score = bt.next_score(state.phe.tau, log_heu, 1.0, torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    start = torch.randint(0, N, (B, A), generator=gen, device=dev)
+    tours = bt.sweep_construct(score, torch.gather(score, -1, nbr), nbr, start, gen)
+    kw = {"decay": 0.9, "q": 1.0, "log_heu": log_heu, "score_dtype": torch.float32}
+    got, costs_k, score_k = bt.fused_tsp_update(state, tours, dist, **kw)
+    ref, costs_p, _ = bt.fused_tsp_update_plain(state, tours, dist, **kw)
+    own = track_best(state, tours, costs_k)
+    k3_ok = bool(torch.allclose(got.phe.tau, ref.phe.tau, rtol=1e-6, atol=0)
+                 and torch.allclose(costs_k, costs_p, rtol=1e-6, atol=0)
+                 and torch.equal(got.best_cost, own.best_cost)
+                 and torch.equal(got.best_path, own.best_path)
+                 and torch.equal(score_k, bt.next_score(got.phe.tau, log_heu, 1.0,
+                                                        torch.float32)))
+    out["k3_f32"] = {"passed": k3_ok,
+                     "max_abs_err": max((got.phe.tau - ref.phe.tau).abs().max().item(),
+                                        (costs_k - costs_p).abs().max().item()),
+                     "ms": cuda_ms(lambda: bt.fused_tsp_update(state, tours, dist, **kw), 20),
+                     "plain_ms": cuda_ms(lambda: bt.fused_tsp_update_plain(state, tours, dist,
+                                                                            **kw), 5),
+                     **dict(zip(("bound_ms", "bound_by"), bound(*k3_work(B, N, A, 4))))}
+    emit({"phase": "kernel", "name": "fused_tsp_update", "config": "sparse runner, f32 score",
+          **out["k3_f32"], "tolerance": "as phase 2, the f32 score bit-equal to next_score of "
+                                        "the kernel's own tau'"})
+    checks["sparse_k3_f32"] = k3_ok
+    del dist, nbr, heu, log_heu, state, score, tours, got, ref, own, score_k
+
+    # (d) the MKP-items single-instance step at its envelope
+    family, tcfg, tstate, rng, gen = family_train_inputs(dev, "mkp_items")
+    inst = family.gen(rng, tcfg.n_nodes)
+    prize = torch.as_tensor(inst["prize"], device=dev)
+    weight = torch.as_tensor(inst["weight"], device=dev)
+    net_k = tstate.net
+    net_p, net_s = copy.deepcopy(net_k), copy.deepcopy(net_k)
+    before = copy.deepcopy(net_k.state_dict())
+    zero()
+    one = {"prize": prize[None], "weight": weight[None]}
+    out_k = drivers.family_loss(family, net_k, one, tcfg, gen)
+    out_k.loss.backward()
+    arm_launches = counts()
+    out_p = drivers.family_loss(family, net_p, one, tcfg, gen, paths=out_k.paths,
+                                _ops=drivers.PLAIN_OPS)
+    out_p.loss.backward()
+    agreement = step_agreement(tcfg, net_k, net_p, before, out_k, out_p,
+                               -(out_k.costs - out_k.costs.mean(dim=-1, keepdim=True)))
+    step = special.make_mkp_items_train_step(tcfg)
+    zero()
+    t0 = time.perf_counter()
+    s_state, mon = step(tr.TrainState(net_s, tr.make_optimizer(net_s, tcfg), 0, False),
+                        inst["prize"], inst["weight"], gen)
+    mon = mon.item()
+    step_wall = time.perf_counter() - t0
+    step_launches = counts()
+    horizon = tcfg.n_nodes + 1
+    out["items_step"] = {"N": tcfg.n_nodes, "A": tcfg.aco.n_ants, "agreement": agreement,
+                         "arm_launches": arm_launches, "step_launches": step_launches,
+                         "step_wall_s": step_wall, "mean_objective": mon}
+    checks.update(items_step_agreement=agreement["passed"],
+                  items_step_launches=(only(arm_launches, {"fused_pick": horizon})
+                                       and only(step_launches, {"fused_pick": horizon})),
+                  items_step_ran=s_state.step == 1 and math.isfinite(mon))
+
+    emit({"phase": "remaining_paths", "reference_pt": cli_arms, "launches_expected": cli_want,
+          "npz_arrays": out["npz_arrays"], "adaptive": adaptive, "elitist": elitist,
+          "adaptive_cost": out["adaptive_cost"], "elitist_cost": out["elitist_cost"],
+          "sparse": out["sparse"], "items_step": out["items_step"], "checks": checks})
+    out.update(cli=cli_arms, adaptive=adaptive, elitist=elitist)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def family_kernel_fields(r: dict) -> dict:
     """A phase-14 family's fields of K6, K7, K7c, K8 and K9 in the kernels'
     line, from ``family_phase``'s result: the launches on its kernel arm
@@ -2841,7 +3182,38 @@ def main() -> int:
                                    **take(golden_run["ls"][entry["name"]],
                                           ("B", "A", "N") + timing)}
 
-    # ---- 19. the kernels' line
+    # ---- 19. the remaining single-card paths: reference .pt checkpoints
+    # through the CLI, the adaptive CVRP baseline, the sparse-support
+    # runner, the MKP-items single-instance step
+    rest_run = remaining_phase(dev, root, cuda_ms, counted, net, coords, wall)
+    sparse_launches = rest_run["sparse"]["kernel"]["launches"]
+    adaptive_launches = {k: sum(r["launches"][k] for r in rest_run["adaptive"])
+                         for k in ("cvrp_construct", "tour_deposit")}
+    new_paths = {
+        "tsp_dense_heuristic": {"sparse_runner": {"launches": sparse_launches[
+            "tsp_dense_heuristic"]}},
+        "fused_tsp_update": {"sparse_runner": {"launches": sparse_launches["fused_tsp_update"],
+                                               "score": "f32",
+                                               **take(rest_run["k3_f32"], timing)}},
+        "embnet_layers": {"reference_pt": {"launches": rest_run["cli"]["cvrp_pt"]["launches"][
+            "embnet_layers"]}},
+        "cvrp_construct": {"reference_pt": {"launches": rest_run["cli"]["cvrp_pt"]["launches"][
+                               "cvrp_construct"]},
+                           "adaptive_cvrp": {"launches": adaptive_launches["cvrp_construct"],
+                                             "instances": ADAPTIVE_B, "B": 1,
+                                             **take(rest_run["k7c"], timing)}},
+        "tour_deposit": {"reference_pt": {"launches": rest_run["cli"]["cvrp_pt"]["launches"][
+                             "tour_deposit"]},
+                         "adaptive_cvrp": {"launches": adaptive_launches["tour_deposit"],
+                                           **take(rest_run["k8"], ("B", "L", "A", "n") + timing)}},
+        "fused_pick": {"reference_pt": {"launches": rest_run["cli"]["mkp_items_pt"]["launches"][
+                           "fused_pick"]},
+                       "mkp_items_step": {"launches": rest_run["items_step"]["step_launches"][
+                           "fused_pick"]}}}
+    for entry in kernels:
+        entry.update(new_paths.get(entry["name"], {}))
+
+    # ---- 20. the kernels' line
     emit({"kernels": kernels})
     failed = [k["name"] for k in kernels if not k["passed"]]
     if failed:
@@ -2923,7 +3295,8 @@ def main() -> int:
     if not sparse_arms["classic_2opt"]["cost"][0] < sparse_arms["classic"]["cost"][0]:
         fail("2-opt did not shorten the classic arm's tours at T1")
     for name, r in {**family_runs, "cvrp_nls": nls_run, "mkp_items": items_run,
-                    "rcpsp": rcpsp_run, "tsp_golden": golden_run}.items():
+                    "rcpsp": rcpsp_run, "tsp_golden": golden_run,
+                    "remaining_paths": rest_run}.items():
         if not all(r["checks"].values()):
             fail(f"{name}: {r['checks']}")
     costs = {"main": means, "main_plain": plain, "nls": nls, "nls_plain": nls_plain,
@@ -2933,7 +3306,10 @@ def main() -> int:
              "mkp_items": items_run["arms"]["kernel"]["cost"],
              "rcpsp": rcpsp_run["arms"]["kernel"]["cost"],
              "rcpsp_backfill": rcpsp_run["arms"]["backfill"]["cost"],
-             **{key: r["cost"] for key, r in golden_run["arms"].items()}}
+             **{key: r["cost"] for key, r in golden_run["arms"].items()},
+             "adaptive_cvrp": rest_run["adaptive_cost"], "elitist_cvrp": rest_run["elitist_cost"],
+             "sparse_runner": rest_run["sparse"]["kernel"]["cost"],
+             "sparse_runner_plain": rest_run["sparse"]["plain"]["cost"]}
     for path, recorded in RECORDED_COSTS.items():
         for got, want in zip(costs[path], recorded):
             if want is not None and round(got, 4) != want:

@@ -23,6 +23,11 @@ With ``ls="2opt"`` or ``"nls"`` every ant's tour goes through local search
 between construction and update: K4 or K5 of :mod:`deepaco_tpu_torch.ops.two_opt`
 from coordinates, or its dense descents on ``dist`` when none are given.
 
+:func:`run_anytime_sparse` (with :func:`sweep_construct`) samples over the
+``[N, K]`` k-NN support only, with an exact dense step whenever an ant has
+no unvisited neighbour left; its update is K3, its sweep plain PyTorch on
+every device (plain XLA in the JAX package too).
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
 raises. The runner's private ``_ops=PLAIN_OPS`` calls the plain versions on
 any device, the oracle that ``chip_smoke.py`` holds the kernel path against.
@@ -30,11 +35,13 @@ any device, the oracle that ``chip_smoke.py`` holds the kernel path against.
 from __future__ import annotations
 
 import functools
+import time
 from typing import Callable, NamedTuple
 
 import torch
 
 from deepaco_tpu_torch.aco import pheromone as ph
+from deepaco_tpu_torch.aco.engine import gumbel
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost
 from deepaco_tpu_torch.aco.runner import (ACOConfig, SearchState, _no_timer,
                                           init_search, search_update, track_best)
@@ -408,4 +415,100 @@ def run_anytime_batched(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
         curve.append(state.best_cost)
     if stats is not None:
         stats["best"] = state.best_path
+    return torch.stack(curve, dim=1)
+
+
+# ----------------------------------------------------------- sparse path ---
+def _gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``table [B, N, X]`` gathered at ``idx [B, A]`` → ``[B, A, X]``."""
+    return torch.gather(table, 1, idx[..., None].expand(*idx.shape, table.shape[-1]))
+
+
+def sweep_construct(score_dense: torch.Tensor, score_sparse: torch.Tensor,
+                    nbr: torch.Tensor, start: torch.Tensor, generator: torch.Generator, *,
+                    stochastic: bool = True, count_dense: bool = False,
+                    stats: dict | None = None):
+    """Every ant's tour over the k-NN support (batched_tsp.py:343-405):
+    ``score_dense [B, N, N]`` (the exact fallback rows), ``score_sparse [B,
+    N, K]`` the same scores on the support ``nbr [B, N, K]``, ``start [B,
+    A]``. A step picks among each ant's unvisited neighbours (Gumbel noise
+    over ``[B, A, K]`` from ``generator``, or the first maximum when not
+    ``stochastic``) unless some ant of the batch has none left; then every
+    ant takes the dense step (noise over ``[B, A, N]``). The JAX package
+    branches on the device (``lax.cond``); here the predicate reaches the
+    host, one synchronisation a step, and only the branch taken runs. The
+    visited set is a bool ``[B, A, N]`` mask in place of JAX's packed words
+    (a TPU layout choice), as in ``large_tsp.sweep_construct_knn``.
+    ``stats``, when given, adds the synchronisations (``syncs``) and the
+    host's seconds blocked in them (``sync_s``).
+
+    Returns paths ``[B, N, A]`` (row 0 the start), and with ``count_dense``
+    also the number of dense steps."""
+    b, n, _ = score_sparse.shape
+    dev = score_sparse.device
+    cur = start.long()
+    visited = torch.zeros((*cur.shape, n), dtype=torch.bool, device=dev)
+    visited.scatter_(-1, cur[..., None], True)
+    steps, dense = [cur], 0
+    for _ in range(n - 1):
+        nbr_rows = _gather_rows(nbr, cur)                            # [B, A, K]
+        open_nbr = ~visited.gather(-1, nbr_rows)
+        t0 = time.perf_counter()
+        sparse_ok = bool(open_nbr.any(dim=-1).all())
+        if stats is not None:
+            stats["sync_s"] = stats.get("sync_s", 0.0) + time.perf_counter() - t0
+            stats["syncs"] = stats.get("syncs", 0) + 1
+        if sparse_ok:
+            logits = torch.where(open_nbr, _gather_rows(score_sparse, cur), NEG_INF)
+        else:
+            dense += 1
+            logits = torch.where(visited, NEG_INF, _gather_rows(score_dense, cur))
+        if stochastic:
+            logits = logits + gumbel(logits.shape, generator, dev)
+        pick = torch.argmax(logits, dim=-1)
+        cur = nbr_rows.gather(-1, pick[..., None])[..., 0] if sparse_ok else pick
+        visited.scatter_(-1, cur[..., None], True)
+        steps.append(cur)
+    paths = torch.stack(steps, dim=1)
+    return (paths, dense) if count_dense else paths
+
+
+@torch.no_grad()
+def run_anytime_sparse(heu: torch.Tensor, dist: torch.Tensor, nbr: torch.Tensor,
+                       cfg: ACOConfig, generator: torch.Generator, n_iterations: int,
+                       fixed_start: int | None = None, *, stats: dict | None = None,
+                       _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
+    """Batched anytime TSP over the sparse support (batched_tsp.py:408-436):
+    ``heu [B, N, N]`` (floored off the support, as ``scatter_to_dense(...) +
+    1e-10`` and K1 make it), ``dist [B, N, N]``, the support ``nbr [B, N,
+    K]`` the heuristic lives on → the curve ``[B, n_iterations]`` of
+    best-so-far costs. Each iteration samples with :func:`sweep_construct`
+    on the f32 score ``alpha*log(tau) + beta*log(heu)``, from uniform starts
+    unless ``fixed_start``, then updates through ``_batched_update`` (K3,
+    which also writes the next score; ``_ops.update`` takes its plain
+    version). ``stats``, when given, receives ``fallback_steps``, ``steps``
+    (sweep steps in all), ``syncs``, ``sync_s`` and each instance's best
+    tour (``best [B, N]``); ``_ops.timer`` wraps ``"construction"`` and
+    ``"update"``."""
+    b, n, _ = heu.shape
+    a = cfg.n_ants
+    log_heu = cfg.beta * torch.log(torch.clamp(heu.float(), min=1e-30))
+    state = _batched_init(b, n, cfg, heu.device)
+    counts = {} if stats is None else stats
+    counts.update(fallback_steps=0, steps=0, syncs=0, sync_s=0.0)
+    score = next_score(state.phe.tau, log_heu, cfg.alpha, torch.float32)
+    curve = []
+    for t in range(n_iterations):
+        with _ops.timer("construction"):
+            start = _start_cities(generator, b, a, n, fixed_start, heu.device)
+            paths, dense = sweep_construct(score, torch.gather(score, -1, nbr), nbr, start,
+                                           generator, count_dense=True, stats=counts)
+        counts["fallback_steps"] += dense
+        counts["steps"] += n - 1
+        with _ops.timer("update"):   # the last iteration writes no score
+            state, score = _batched_update(
+                cfg, state, paths, dist, update=_ops.update, sample_dtype=torch.float32,
+                log_heu=log_heu if t + 1 < n_iterations else None)
+        curve.append(state.best_cost)
+    counts["best"] = state.best_path
     return torch.stack(curve, dim=1)

@@ -16,7 +16,15 @@ swapstar`` (the CVRP-NLS protocol with the native SWAP* engine), ``test tsp
 --sparse`` (the large-N sparse TSP protocol), ``test rcpsp`` (with
 ``--backfill``) on a PSPLIB archive, and ``solve-cvrp`` (the engine's
 hybrid genetic search on a CVRPLib file). ``--b-chunk`` (a TPU watchdog
-workaround) exits, and so does a ``.pt`` checkpoint (ROADMAP.md §1 item 2).
+workaround) exits.
+
+``--ckpt`` takes a msgpack train state or a reference ``.pt`` state dict
+(``models.torch_compat.load_reference_checkpoint``), and each command loads
+it into the net the JAX command builds, which ignores what else the file
+holds. Without ``--ckpt`` a command takes the reference's pretrained file
+first, as the JAX CLI does (cli.py:440-454), when ``$DEEPACO_REFERENCE_ROOT``
+is set and ``pretrained/<layout>`` exists under it, else the committed
+msgpack it names.
 
 The reference's data are read only from where the JAX CLI's variables
 point, and only when they are set: the PSPLIB archive from
@@ -28,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import pickle
 import time
 
 import numpy as np
@@ -47,6 +56,7 @@ from deepaco_tpu_torch.eval.rcpsp import evaluate_rcpsp, rcpsp_net
 from deepaco_tpu_torch.families import get_family
 from deepaco_tpu_torch.ls.hgs import solve_cvrp
 from deepaco_tpu_torch.models.gnn import Net
+from deepaco_tpu_torch.models.torch_compat import load_reference_checkpoint
 from deepaco_tpu_torch.train import drivers
 from deepaco_tpu_torch.train.config import ACOSettings, ProblemConfig, TrainConfig
 from deepaco_tpu_torch.train.drivers import evaluate_family, family_model, train_family
@@ -64,6 +74,9 @@ B_CHUNK = ("a TPU watchdog workaround of the JAX CLI; the port runs the whole in
 SPARSE_SEED, SPARSE_INSTANCES = 123456, 30      # cli.py:289-291
 CVRP_NLS_K = 5                                  # the customer k-NN width (cvrp_nls/utils.py:35)
 CVRP_NLS_EPS = 1e-10                            # the test heuristic's offset (cli.py:403)
+# the reference's pretrained files that do not follow <problem>/<problem><n>.pt
+# (cli.py:443-445)
+REFERENCE_LAYOUT = {"mkp_items": "mkp_transformer/mkp{n}.pt", "rcpsp": "rcpsp/rcpsp{n}-5.pt"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -102,7 +115,9 @@ def build_parser() -> argparse.ArgumentParser:
     te.add_argument("-t", "--t-aco", type=int, nargs="+",
                     default=[1, 10, 20, 30, 40, 50, 100])
     te.add_argument("-c", "--ckpt", default=None,
-                    help=".msgpack checkpoint (default checkpoints/<problem><n>.msgpack)")
+                    help=".msgpack or reference .pt checkpoint (default: the reference's "
+                         "pretrained .pt under $DEEPACO_REFERENCE_ROOT, else "
+                         "checkpoints/<problem><n>.msgpack)")
     te.add_argument("--classic", action="store_true",
                     help="classic-ACO baseline (no model)")
     te.add_argument("--limit", type=int, default=None,
@@ -161,27 +176,48 @@ def psplib_instances(args, split: str):
     return insts
 
 
-def _load_net(args) -> Net:
-    """The ``--ckpt`` weights, or ``checkpoints/<problem><n>.msgpack`` without
-    it, in the family's ``Net`` (SMTWTP's and SOP's without the node
-    update; RCPSP's with its node features padded to 5). A decode error
-    surfaces in the exit message, with its cause chained."""
-    path = args.ckpt
-    if path is None:
-        path = f"checkpoints/{args.problem}{args.nodes}.msgpack"
-        if not os.path.exists(path):
-            raise SystemExit(f"no checkpoint for {args.problem}{args.nodes}: pass "
-                             f"--ckpt, --classic, or train one (looked at {[path]})")
-    if path.endswith(".pt"):
-        raise SystemExit(f"{path}: reference .pt checkpoints wait for the .pt loader "
-                         "(ROADMAP.md §1 item 2); pass a .msgpack")
+def default_checkpoint(what: str, reference: list[str], committed: list[str]) -> str:
+    """The first checkpoint that exists: each of the reference's
+    ``pretrained/`` files ``reference`` under ``$DEEPACO_REFERENCE_ROOT``
+    (looked at only when the variable is set), then each of the
+    ``committed`` msgpack files, the JAX CLI's order (cli.py:296-302,
+    363-370, 440-454, 566-571). Exits naming what it looked at when none
+    does."""
+    root = os.environ.get("DEEPACO_REFERENCE_ROOT")
+    cands = [os.path.join(root, "pretrained", r) for r in reference] if root else []
+    cands += committed
+    for path in cands:
+        if os.path.exists(path):
+            return path
+    raise SystemExit(f"no checkpoint for {what}: pass --ckpt or train one (looked at {cands})")
+
+
+def read_variables(path: str) -> dict:
+    """The Flax tree of a checkpoint: a reference ``.pt`` state dict, or a
+    msgpack train state. A file that cannot be read or decoded exits naming
+    it and the error, with its cause chained."""
     try:
-        variables = load_checkpoint(path)
-    except ValueError as err:
-        raise SystemExit(f"cannot decode checkpoint {path}: {err}") from err
-    if args.problem == "rcpsp":
+        if path.endswith(".pt"):
+            return load_reference_checkpoint(path)
+        return load_checkpoint(path)
+    except (OSError, ValueError, RuntimeError, pickle.UnpicklingError) as err:
+        raise SystemExit(f"cannot read checkpoint {path}: {err}") from err
+
+
+def _load_net(args, reference: list[str] | None = None) -> torch.nn.Module:
+    """The ``--ckpt`` weights, or without it :func:`default_checkpoint` of
+    ``reference`` (by default the problem's reference layout) and
+    ``checkpoints/<problem><n>.msgpack``, in the family's ``Net`` (SMTWTP's
+    and SOP's without the node update; RCPSP's single-head, with its node
+    features padded to 5)."""
+    problem, n = args.problem, args.nodes
+    layout = REFERENCE_LAYOUT.get(problem, "{p}/{p}{n}.pt").format(p=problem, n=n)
+    path = args.ckpt or default_checkpoint(f"{problem}{n}", reference or [layout],
+                                           [f"checkpoints/{problem}{n}.msgpack"])
+    variables = read_variables(path)
+    if problem == "rcpsp":
         return rcpsp_net(variables)
-    return family_model(get_family(args.problem), variables)
+    return family_model(get_family(problem), variables)
 
 
 def _report(t_values, means: np.ndarray, duration: float, record: dict) -> None:
@@ -212,7 +248,10 @@ def _cmd_test_tsp_sparse(args, *, device=None, stats: dict | None = None,
         coords_all = np.random.default_rng(SPARSE_SEED).random(
             (args.limit or SPARSE_INSTANCES, n, 2)).astype(np.float32)
     k = args.k_sparse or max(n // 10, 3)
-    net = None if args.classic else _load_net(args).to(dev).eval()
+    # the largest reference TSP file first (cli.py:296-302); the dual-head
+    # TSP Net (cli.py:307)
+    net = None if args.classic else _load_net(
+        args, [f"tsp/tsp{m}.pt" for m in (n, 500, 100)]).to(dev).eval()
     cfg = ACOConfig(n_ants=args.ants)
     t_values = args.t_aco
     generator = torch.Generator(device=dev).manual_seed(args.seed)
@@ -265,13 +304,13 @@ def _cmd_test_family(args, *, device=None, stats: dict | None = None):
 
 
 def cvrp_nls_checkpoint(n: int) -> str:
-    """The committed ``checkpoints/cvrp_nls{n}_selftrained.msgpack``, else
-    the 500's, else the 100's, as the JAX CLI falls back (cli.py:363-370)."""
-    cands = [f"checkpoints/cvrp_nls{m}_selftrained.msgpack" for m in (n, 500, 100)]
-    for path in cands:
-        if os.path.exists(path):
-            return path
-    raise SystemExit(f"no cvrp_nls checkpoint found (looked at {cands}); pass --ckpt")
+    """The reference's ``pretrained/cvrp_nls/cvrp{n,500,100}.pt`` under
+    ``$DEEPACO_REFERENCE_ROOT`` (cli.py:363-370), else the committed
+    ``checkpoints/cvrp_nls{n,500,100}_selftrained.msgpack``: the first that
+    exists."""
+    return default_checkpoint("cvrp_nls", [f"cvrp_nls/cvrp{m}.pt" for m in (n, 500, 100)],
+                              [f"checkpoints/cvrp_nls{m}_selftrained.msgpack"
+                               for m in (n, 500, 100)])
 
 
 def _cmd_test_cvrp_ls(args, *, device=None, stats: dict | None = None,
@@ -300,13 +339,8 @@ def _cmd_test_cvrp_ls(args, *, device=None, stats: dict | None = None,
         raise SystemExit(f"test cvrp -n {n} --local-search swapstar: {err}") from err
     b = ds["coords"].shape[0]
     path = args.ckpt or cvrp_nls_checkpoint(n)
-    if path.endswith(".pt"):
-        raise SystemExit(f"{path}: reference .pt checkpoints wait for the .pt loader "
-                         "(ROADMAP.md §1 item 2); pass a .msgpack")
-    try:
-        net = Net.from_jax_variables(load_checkpoint(path)).to(dev)
-    except ValueError as err:
-        raise SystemExit(f"cannot decode checkpoint {path}: {err}") from err
+    # the single-head Net (cli.py:394)
+    net = Net.from_jax_variables(read_variables(path), dual_heads=False).to(dev)
     dist_all = torch.as_tensor(ds["dist"][:b], device=dev)
     demand_all = torch.as_tensor(ds["demand"][:b], device=dev)
     curves, best = [], []
@@ -377,9 +411,12 @@ def _cmd_test_tsp_ls(args, *, device=None, stats: dict | None = None):
     k = args.k_sparse or max(n // 10, 3)
     net = None
     if not args.classic:
-        if args.ckpt is None:
-            args.ckpt = f"checkpoints/tsp_nls{n}.msgpack"
-        net = _load_net(args).to(dev).eval()
+        # the reference's tsp_nls weights first (cli.py:566-571); the
+        # single-head Net on the one-hot start graph (cli.py:575)
+        path = args.ckpt or default_checkpoint(
+            f"tsp_nls{n}", [f"tsp_nls/tsp{n}.pt", f"tsp_nls/tsp_nls{n}.pt"],
+            [f"checkpoints/tsp_nls{n}.msgpack"])
+        net = Net.from_jax_variables(read_variables(path), dual_heads=False).to(dev).eval()
     coords_all = torch.as_tensor(ds["coords"], device=dev)
     t0 = time.time()
     if not args.per_instance:

@@ -34,7 +34,7 @@ def rcpsp_net(variables: dict | None = None, pad_feats: int = RCPSP_FEATS) -> Ne
     ``pad_feats``: loaded from a Flax tree in eval mode when given, else
     fresh."""
     if variables is not None:
-        return Net.from_jax_variables(variables, pad_feats=pad_feats)
+        return Net.from_jax_variables(variables, pad_feats=pad_feats, dual_heads=False)
     return Net(edge_feats=2, pad_feats=pad_feats)
 
 

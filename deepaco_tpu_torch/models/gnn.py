@@ -255,12 +255,14 @@ class Net(nn.Module):
 
     @classmethod
     def from_jax_variables(cls, variables: dict, node_update: bool | None = None,
-                           pad_feats: int = 0) -> "Net":
+                           pad_feats: int = 0, dual_heads: bool | None = None) -> "Net":
         """A ``Net`` sized from a Flax ``{"params", "batch_stats"}`` tree,
         loaded with its weights, in eval mode. ``node_update`` defaults to
         whether the tree holds the node BatchNorms, which a Flax net without
-        the node update (SMTWTP's) never creates; ``pad_feats`` is the
-        ``Net``'s."""
+        the node update (SMTWTP's) never creates, and ``dual_heads`` to
+        whether it holds the pheromone head; ``pad_feats`` is the ``Net``'s.
+        Given, they build the net a command builds, which ignores what else
+        the tree holds (:func:`load_jax_variables`)."""
         p = variables["params"]
         emb = p["emb_net"]
         depth = sum(1 for key in emb if key.startswith("v_lins1_"))
@@ -268,7 +270,8 @@ class Net(nn.Module):
                   edge_feats=emb["e_lin0"]["kernel"].shape[0],
                   depth=depth, units=emb["v_lin0"]["kernel"].shape[1],
                   node_update="v_bns_0" in emb if node_update is None else node_update,
-                  dual_heads="par_net_phe" in p, pad_feats=pad_feats)
+                  dual_heads="par_net_phe" in p if dual_heads is None else dual_heads,
+                  pad_feats=pad_feats)
         load_jax_variables(net, variables)
         return net.eval()
 
@@ -282,11 +285,16 @@ def _unused(net: nn.Module) -> tuple[str, ...]:
 
 
 def load_jax_variables(net: nn.Module, variables: dict) -> None:
-    """Load a Flax ``{"params", "batch_stats"}`` tree into ``net``; a net
-    without the node update may lack the node BatchNorms, which then keep
-    their values."""
+    """Load a Flax ``{"params", "batch_stats"}`` tree into ``net``. A
+    pheromone head that a single-head net does not read is ignored, as
+    Flax's ``apply`` ignores it; any other entry ``net`` has no place for
+    raises. Every entry ``net`` reads must be there, except the node
+    BatchNorms of a net without the node update, which then keep their
+    values."""
     missing, unexpected = net.load_state_dict(from_jax_variables(variables), strict=False)
     missing = [k for k in missing if not k.startswith(_unused(net))]
+    if not getattr(net, "dual_heads", True):
+        unexpected = [k for k in unexpected if not k.startswith("par_net_phe.")]
     if missing or unexpected:
         raise RuntimeError(f"the Flax tree does not fit the Net: missing {missing}, "
                            f"unexpected {unexpected}")

@@ -11,10 +11,16 @@ through ``nn.TransformerEncoderLayer`` or ``scaled_dot_product_attention``,
 whose fused paths round otherwise. The JAX package has no Pallas kernel
 here, and neither has the port. Tensors carry a leading batch axis: ``src
 [B, n, 6]`` → ``[B, n]``.
+
+:func:`torch_transformer_to_flax` and :func:`load_transformer_checkpoint`
+read the reference's state dict (``pretrained/mkp_transformer/*.pt``) into
+the Flax ``{"params"}`` tree that :meth:`TransformerModel.from_jax_variables`
+takes (transformer.py:81-144).
 """
 from __future__ import annotations
 
 import math
+import re
 
 import numpy as np
 import torch
@@ -22,6 +28,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from deepaco_tpu_torch.models.gnn import init_like_flax
+from deepaco_tpu_torch.models.torch_compat import _numpy, _set
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -144,3 +151,52 @@ def init_transformer_like_flax(net: TransformerModel,
             norm.weight.fill_(1.0)
             norm.bias.zero_()
     return net
+
+
+_LAYER_LEAVES = {
+    "self_attn.in_proj_weight": ("in_proj_w",), "self_attn.in_proj_bias": ("in_proj_b",),
+    "self_attn.out_proj.weight": ("out_proj", "kernel"),
+    "self_attn.out_proj.bias": ("out_proj", "bias"),
+    "linear1.weight": ("linear1", "kernel"), "linear1.bias": ("linear1", "bias"),
+    "linear2.weight": ("linear2", "kernel"), "linear2.bias": ("linear2", "bias"),
+    "norm1.weight": ("norm1", "scale"), "norm1.bias": ("norm1", "bias"),
+    "norm2.weight": ("norm2", "scale"), "norm2.bias": ("norm2", "bias")}
+
+
+def torch_transformer_to_flax(state_dict) -> dict:
+    """The reference ``TransformerModel`` state dict (mkp_transformer/net.py:
+    ``encoder``, ``transformer_encoder.layers.<i>.*``, ``decoder_heu.lins.<i>``)
+    → the JAX model's ``{"params"}`` of numpy arrays. A Linear's ``weight`` is
+    the transposed ``kernel``; ``in_proj_weight`` keeps torch's ``[3d, d]``;
+    ``_dummy`` entries are dropped and any other name raises ``ValueError``."""
+    params: dict = {}
+    for key, val in state_dict.items():
+        arr = _numpy(val)
+        if key.endswith("_dummy"):
+            continue
+        if key in ("encoder.weight", "encoder.bias"):
+            _set(params, ("encoder", "kernel") if key.endswith("weight") else ("encoder", "bias"),
+                arr.T if key.endswith("weight") else arr)
+            continue
+        m = re.fullmatch(r"transformer_encoder\.layers\.(\d+)\.(.+)", key)
+        if m:
+            i, rest = m.groups()
+            if rest not in _LAYER_LEAVES:
+                raise ValueError(f"unrecognized layer key: {key}")
+            leaf = _LAYER_LEAVES[rest]
+            _set(params, (f"layer_{i}", *leaf), arr.T if leaf[-1] == "kernel" else arr)
+            continue
+        m = re.fullmatch(r"decoder_heu\.lins\.(\d+)\.(weight|bias)", key)
+        if m:
+            i, wb = m.groups()
+            _set(params, (f"head_lin_{i}", "kernel" if wb == "weight" else "bias"),
+                arr.T if wb == "weight" else arr)
+            continue
+        raise ValueError(f"unrecognized checkpoint key: {key}")
+    return {"params": params}
+
+
+def load_transformer_checkpoint(path: str) -> dict:
+    """A reference MKP-items ``.pt`` file (``torch.load`` on the CPU, tensors
+    only) as the Flax ``{"params"}`` tree."""
+    return torch_transformer_to_flax(torch.load(path, map_location="cpu", weights_only=True))

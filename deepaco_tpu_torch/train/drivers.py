@@ -81,16 +81,18 @@ PLAIN_OPS = FamilyOps(fused_gnn_layer_plain, fused_pick_plain, ph.deposit_plain,
 def family_model(family: Family, variables: dict | None = None, **sizes) -> torch.nn.Module:
     """The family's ``Net``: sized from and loaded with a Flax
     ``{"params", "batch_stats"}`` tree when given (``Net.from_jax_variables``,
-    with the family's ``node_update``), else fresh with the family's
-    arguments and ``sizes`` (``feats``, ``edge_feats``). A family with a
-    ``model_ctor`` gets that model instead (MKP-items' transformer)."""
+    with the family's ``node_update`` and ``dual_heads``, ignoring what else
+    the tree holds, as the JAX family's ``Net`` does), else fresh with the
+    family's arguments and ``sizes`` (``feats``, ``edge_feats``). A family
+    with a ``model_ctor`` gets that model instead (MKP-items' transformer)."""
     kwargs = dict(family.model_kwargs)
     if family.model_ctor is not None:
         if variables is not None:
             return family.model_ctor.from_jax_variables(variables)
         return family.model_ctor(**kwargs)
     if variables is not None:
-        return Net.from_jax_variables(variables, node_update=kwargs.get("node_update", True))
+        return Net.from_jax_variables(variables, node_update=kwargs.get("node_update", True),
+                                      dual_heads=kwargs.get("dual_heads", False))
     return Net(**{**kwargs, **sizes})
 
 

@@ -1,8 +1,10 @@
 """The trainers outside the family trainer (counterpart of
 ``deepaco_tpu/train/special.py``): RCPSP's, whose loss is scaled by 1/n
 with the clip 1.0 and whose graph needs the host's precedence analysis
-(rcpsp/train.ipynb cell 1), and CVRP-NLS's, whose advantage comes from the
-costs of the native SWAP* engine on the host (cvrp_nls/train.py:14-55).
+(rcpsp/train.ipynb cell 1), CVRP-NLS's, whose advantage comes from the
+costs of the native SWAP* engine on the host (cvrp_nls/train.py:14-55),
+and the MKP-items transformer's single-instance step
+(:func:`make_mkp_items_train_step`, mkp_transformer/train.py:14-30).
 
 One RCPSP step (:func:`make_rcpsp_train_step`, special.py:35-70): the
 train-mode ``Net(pad_feats=5)`` on one instance's masked graph (its
@@ -23,6 +25,14 @@ advantage ``ls_costs - mean``; then the gradient of ``sum(adv * sum_t
 log p) / A``, the recorded paths replayed through ``path_log_probs``, and
 ``optax.chain(clip_by_global_norm(3.0), adamw(lr))`` with optax's default
 weight decay 1e-4.
+
+One MKP-items step (special.py:117-145): the transformer on one instance's
+``[price, weights]`` tokens plus 1e-10, ``extend_mkp``'s dummy item, a
+pheromone of ones, ``mkp_items_spec``'s rollout with its log-probabilities
+(K7 a step on the card), ``mkp_objective``, and the maximising loss
+``sum((mean - objective) * sum_t log p) / A``; the optimizer is the
+configuration's (clip, AdamW). The CLI trains MKP-items through the family
+trainer, as the JAX CLI does.
 """
 from __future__ import annotations
 
@@ -42,8 +52,9 @@ from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.ls import hgs
 from deepaco_tpu_torch.models.gnn import Net
 from deepaco_tpu_torch.eval.rcpsp import RCPSP_FEATS, rcpsp_heuristics, rcpsp_net
+from deepaco_tpu_torch.families import get_family
 from deepaco_tpu_torch.train.config import ACOSettings, ModelConfig, ProblemConfig, TrainConfig
-from deepaco_tpu_torch.train.drivers import KERNEL_OPS, FamilyOps
+from deepaco_tpu_torch.train.drivers import KERNEL_OPS, FamilyOps, make_family_train_step
 from deepaco_tpu_torch.train.reinforce import (LossOut, StepInfo, TrainState, init_train_state,
                                                optimizer_update)
 from deepaco_tpu_torch.utils.golden import cvrp_nls_capacity
@@ -143,6 +154,24 @@ def train_rcpsp(instances: list[RCPSPData], *, epochs: int = 5, steps_per_epoch:
         if progress is not None:
             progress(epoch, info.mean_cost.item())
     return state.net, state
+
+
+# -------------------------------------------------------------- MKP-items --
+def make_mkp_items_train_step(cfg: ProblemConfig, *, _ops: FamilyOps = KERNEL_OPS):
+    """``(state, prize [n], weight [n, m], generator) -> (state, mean
+    objective)``: the ``mkp_items`` family's train step
+    (``drivers.make_family_train_step``, which runs the module note's
+    step) on a batch of this one instance (numpy arrays or tensors, moved
+    to the net's device), ``cfg.aco.n_ants`` ants. The mean objective is a
+    0-d tensor; nothing waits for the card."""
+    family_step = make_family_train_step(get_family("mkp_items"), cfg, _ops=_ops)
+
+    def step(state: TrainState, prize, weight, generator: torch.Generator):
+        batch = {"prize": torch.as_tensor(prize)[None], "weight": torch.as_tensor(weight)[None]}
+        state, info = family_step(state, batch, generator)
+        return state, info.mean_cost
+
+    return step
 
 
 # --------------------------------------------------------------- CVRP-NLS --

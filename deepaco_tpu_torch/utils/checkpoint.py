@@ -13,6 +13,8 @@ joined back. The result is nested dicts of numpy arrays with the top keys
 :func:`save_checkpoint` writes the same layout back (maps with string keys,
 numpy arrays and scalars as extension types 1 and 3), so that the JAX
 package's ``load_checkpoint`` restores a file the port wrote.
+:func:`save_params_npz` writes the flat ``.npz`` export of a parameter
+tree (checkpoint.py:33-40).
 """
 from __future__ import annotations
 
@@ -257,3 +259,22 @@ def save_checkpoint(path: str, state) -> None:
     with open(tmp, "wb") as f:
         f.write(data)
     os.replace(tmp, path)
+
+
+def save_params_npz(path: str, params: dict) -> None:
+    """The flat ``.npz`` export of a parameter tree (nested dicts of arrays,
+    e.g. ``models.gnn.to_jax_variables(net)["params"]``): one array for each
+    leaf, named by its keys joined with ``/`` (``emb_net/v_lins1_0/kernel``),
+    the names ``jax.tree_util``'s key paths give in the JAX package."""
+    flat = {}
+
+    def walk(node, keys):
+        if isinstance(node, dict):
+            for key in sorted(node):
+                walk(node[key], (*keys, str(key)))
+        else:
+            flat["/".join(keys)] = np.asarray(node)
+
+    walk(params, ())
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)

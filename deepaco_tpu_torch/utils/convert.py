@@ -1,8 +1,52 @@
-"""CVRPLib instance reader (the port's own copy of
-``deepaco_tpu/utils/convert.py:33-82``, ``parse_cvrplib``)."""
+"""Instance converters (the port's own copy of
+``deepaco_tpu/utils/convert.py``): the TSPLIB/Concorde coordinate reader
+:func:`parse_tsplib`, :func:`normalize_coords` and :func:`convert_file`
+(convert.py:12-31, 85-98), which write a ``.npy`` of coordinates, and the
+CVRPLib reader :func:`parse_cvrplib` (convert.py:33-82)."""
 from __future__ import annotations
 
 import numpy as np
+
+
+def parse_tsplib(text: str) -> np.ndarray:
+    """A TSPLIB/Concorde file's ``NODE_COORD_SECTION`` → ``[n, 2]`` f32
+    coordinates, read up to ``EOF``, a blank line or a ``TOUR`` section;
+    ``ValueError`` when the file has none."""
+    coords = []
+    in_section = False
+    for line in text.splitlines():
+        token = line.strip()
+        if token.upper().startswith("NODE_COORD_SECTION"):
+            in_section = True
+            continue
+        if not in_section:
+            continue
+        if token.upper() in ("EOF", "") or token.upper().startswith("TOUR"):
+            break
+        parts = token.split()
+        coords.append([float(parts[1]), float(parts[2])])
+    if not coords:
+        raise ValueError("no NODE_COORD_SECTION found")
+    return np.asarray(coords, np.float32)
+
+
+def normalize_coords(coords: np.ndarray) -> np.ndarray:
+    """Shift to the origin and scale by the larger span into the unit
+    square (the training distribution)."""
+    lo = coords.min(axis=0)
+    span = coords.max(axis=0) - lo
+    return (coords - lo) / max(float(span.max()), 1e-9)
+
+
+def convert_file(path: str, out_path: str, normalize: bool = True) -> np.ndarray:
+    """Read the TSPLIB file ``path``, normalise it unless told not to, save
+    the coordinates with ``np.save`` to ``out_path`` and return them."""
+    with open(path) as f:
+        coords = parse_tsplib(f.read())
+    if normalize:
+        coords = normalize_coords(coords)
+    np.save(out_path, coords)
+    return coords
 
 
 def parse_cvrplib(text: str) -> dict:

@@ -58,7 +58,8 @@ def test_sparse_protocol_prints_the_jax_cli_lines(arm, capsys, monkeypatch):
     (["test", "tsp", "-n", "1001"], r"empty/tsp/testDataset-1001\.pt does not exist"),
     (["test", "tsp", "--sparse", "-n", "1001", "--b-chunk", "4"], "--b-chunk is a TPU watchdog"),
     (["test", "rcpsp"], "set DEEPACO_REFERENCE_ROOT"),
-    (["test", "tsp", "--sparse", "-n", "1001", "--ckpt", "x.pt"], r"\.pt loader"),
+    (["test", "tsp", "--sparse", "-n", "1001", "--ckpt", "x.pt"],
+     r"cannot read checkpoint x\.pt: .*No such file"),
     (["test", "tsp", "--sparse", "-n", "1003"], r"checkpoints/tsp1003\.msgpack"),
     (["test", "tsp", "-n", "20", "--per-instance"], "--per-instance applies to test tsp with"),
     (["test", "cvrp", "-n", "20", "--b-chunk", "4"], "--b-chunk is a TPU watchdog"),
@@ -66,15 +67,16 @@ def test_sparse_protocol_prints_the_jax_cli_lines(arm, capsys, monkeypatch):
     (["test", "tsp", "-n", "100", "--local-search", "nls"], "set DEEPACO_REFERENCE_DATA"),
 ], ids=[f"argv{i}-{m}" for i, m in enumerate((   # each case keeps its first id
     "golden TSP sets", r"scales \(20, 100, 500\)", r"scales \(100, 200, 300\)",
-    "ROADMAP.md §1 item 10", "--b-chunk .*item 10", "test rcpsp .*item 10", r"\.pt loader",
+    "ROADMAP.md §1 item 10", "--b-chunk .*item 10", "test rcpsp .*item 10", "unreadable .pt",
     r"checkpoints/tsp1003\.msgpack", "--per-instance .*item 10", "--b-chunk .*item 10",
     "train rcpsp .*item 10", "test tsp .*item 10"))])
 def test_what_is_not_ported_exits_with_a_reason(argv, match, monkeypatch, tmp_path):
     """What the port cannot run exits with its reason: the reference's
     data without the variable that points at them (named), or a missing
     golden file (named, ``-n 1001`` with the variable set to an empty
-    directory), ``--b-chunk``, a flag where it does not apply, a missing or
-    ``.pt`` checkpoint."""
+    directory), ``--b-chunk``, a flag where it does not apply, a missing
+    checkpoint, or a ``.pt`` one that cannot be read (named, with the
+    error)."""
     monkeypatch.chdir(ROOT)
     for var in ("DEEPACO_REFERENCE_DATA", "DEEPACO_REFERENCE_ROOT"):
         monkeypatch.delenv(var, raising=False)

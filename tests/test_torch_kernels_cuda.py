@@ -1466,3 +1466,54 @@ def test_deposit_kernel_on_rcpsp_paths_and_best(dev):
                        deposit=ph.deposit_plain)
     for a, b in zip(ours, ref):
         assert torch.equal(a.cpu(), b)
+
+
+def test_sparse_runner_launches_k1_and_k3_and_matches_its_plain_arm(dev):
+    """``run_anytime_sparse`` on 4 TSP100 instances (k=10, 20 ants, T=3) on
+    K1's heuristic: K1 once and K3 an iteration, no K2; the same noise as
+    the plain arm (plain heuristic and update), so cost@T1 within 1e-4 of
+    it; every best tour a permutation of its own length."""
+    coords = uniform_coords(100, torch.Generator().manual_seed(0), batch=4, device=dev)
+    dist = distance_matrix(coords)
+    net = Net.from_jax_variables(load_checkpoint(str(CKPT / "tsp100_selftrained.msgpack")))
+    net = net.to(dev)
+    nbr = topk_smallest(dist, 10)[1]
+    curves = {}
+    for arm, ops in (("kernel", bt.KERNEL_OPS), ("plain", bt.PLAIN_OPS)):
+        for fn in (fused_gnn.tsp_dense_heuristic, bt.dense_sweep_fused, bt.fused_tsp_update):
+            fn.launches = 0
+        stats = {}
+        heu = ops.heuristic(net, coords, dist, 10)
+        curves[arm] = bt.run_anytime_sparse(heu, dist, nbr, ACOConfig(n_ants=20),
+                                            torch.Generator(device=dev).manual_seed(0), 3,
+                                            stats=stats, _ops=ops)
+        want = (1, 0, 3) if arm == "kernel" else (0, 0, 0)
+        assert (fused_gnn.tsp_dense_heuristic.launches, bt.dense_sweep_fused.launches,
+                bt.fused_tsp_update.launches) == want
+        assert bool((torch.sort(stats["best"], dim=1).values
+                     == torch.arange(100, device=dev)).all())
+    torch.testing.assert_close(curves["kernel"][:, 0], curves["plain"][:, 0], rtol=1e-4, atol=0)
+
+
+def test_adaptive_cvrp_on_the_card(dev):
+    """``AdaptiveCVRPACO`` on one golden CVRP100 instance (20 ants, T=5):
+    K7c every iteration and K8 once an improving one; a valid best route
+    that costs what the run reports."""
+    from deepaco_tpu_torch.aco.adaptive_cvrp import AdaptiveCVRPACO
+    from deepaco_tpu_torch.aco.problems.cvrp import route_cost, validate_routes
+    from deepaco_tpu_torch.ops import deposit
+    from deepaco_tpu_torch.utils.golden import cvrp_test
+
+    ds = cvrp_test(100)
+    aco = AdaptiveCVRPACO(ds["dist"][0], ds["demand"][0], n_ants=20, seed=0, device=dev)
+    cc.cvrp_construct.launches = deposit.tour_deposit.launches = 0
+    improved = 0
+    for _ in range(5):
+        before = aco.best_cost.item()
+        aco.run(1)
+        improved += aco.best_cost.item() < before
+    assert cc.cvrp_construct.launches == 5 and deposit.tour_deposit.launches == improved >= 1
+    best = aco.best_path[None, :, None]
+    assert bool(validate_routes(best, aco.demand, 50.0).all())
+    torch.testing.assert_close(route_cost(aco.distances, best)[0, 0], aco.best_cost,
+                               rtol=1e-4, atol=0)

@@ -1,8 +1,10 @@
 """Port parity: MKP-items (models/transformer.py, the vector pheromone of
 aco/pheromone.py and aco/runner.py, aco/problems/mkp.py's PH_items plug-in
-and facade, the family's hooks in families.py and train/drivers.py,
-utils/golden.mkp_items_test and the CLI) against the JAX package, on inputs
-made from numpy seeds and the golden writer."""
+and facade, the family's hooks in families.py and train/drivers.py, the
+single-instance step of train/special.py, utils/golden.mkp_items_test and
+the CLI) against the JAX package, on inputs made from numpy seeds and the
+golden writer."""
+import copy
 import functools
 from pathlib import Path
 
@@ -22,6 +24,7 @@ from deepaco_tpu.models.transformer import TransformerModel as JTransformer
 from deepaco_tpu.train import config as jconfig
 from deepaco_tpu.train import drivers as jdrivers
 from deepaco_tpu.train import reinforce as jr
+from deepaco_tpu.train import special as jspecial
 from deepaco_tpu.utils import golden as jgolden
 from deepaco_tpu_torch import cli, families
 from deepaco_tpu_torch.aco import engine, pheromone, runner
@@ -30,6 +33,7 @@ from deepaco_tpu_torch.models.gnn import to_jax_tree
 from deepaco_tpu_torch.models.transformer import TransformerModel, init_transformer_like_flax
 from deepaco_tpu_torch.train import config, drivers
 from deepaco_tpu_torch.train import reinforce as tr
+from deepaco_tpu_torch.train import special
 from deepaco_tpu_torch.utils import golden
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -276,6 +280,75 @@ def test_one_train_step_on_replayed_paths_matches_jax():
     after = dict(jax.tree_util.tree_leaves_with_path(
         to_jax_tree(net.state_dict(), TransformerModel.jax_path)["params"]))
     ref_params = dict(jax.tree_util.tree_leaves_with_path(jparams))
+    for path, g in jax.tree_util.tree_leaves_with_path(jgrads):
+        key = jax.tree_util.keystr(path)
+        np.testing.assert_allclose(flat[path], np.asarray(g), rtol=1e-3, atol=1e-6, err_msg=key)
+        signal = np.abs(np.asarray(g)) > 1e-6
+        np.testing.assert_allclose(after[path][signal], np.asarray(ref_params[path])[signal],
+                                   rtol=1e-6, atol=1e-7, err_msg=key)
+
+
+def _jax_items_loss(model, params, prize, weight, paths):
+    """JAX's MKP-items step's loss (special.py:124-136) with ``paths``
+    replayed through ``path_log_probs``: ``(loss, mean objective)``."""
+    src = jnp.concatenate([prize[:, None], weight], axis=1)
+    heu = model.apply({"params": params}, src) + 1e-10
+    prize_e, weight_e, heu_e = jspecial.extend_mkp(prize, weight, heu_vec=heu)
+    spec = jspecial.mkp_items_spec(jnp.ones_like(heu_e), heu_e, weight_e,
+                                   jnp.asarray(1.0, jnp.float32), A)
+    objs = jspecial.mkp_objective(prize_e, paths)
+    adv = jax.lax.stop_gradient(jnp.mean(objs) - objs)
+    return jnp.sum(adv * jnp.sum(jengine.path_log_probs(spec, paths), axis=0)) / A, \
+        jnp.mean(objs)
+
+
+def test_mkp_items_train_step_on_replayed_paths_matches_jax(monkeypatch):
+    """``train.special.make_mkp_items_train_step`` on one instance of 30
+    items, 6 ants, the transformer from the port's init (Flax's law): the
+    port's step samples, and the family loss it runs draws the same paths
+    for the gradients; JAX's own step runs on the same paths (its
+    ``rollout`` replaying them through ``path_log_probs``). The loss at rtol
+    1e-4 and every gradient within 1e-3 of JAX's (rtol, atol 1e-6), the mean
+    objective at rtol 1e-6, and the weights after clip + AdamW at rtol 1e-6
+    / atol 1e-7 wherever |gradient| > 1e-6, as the family step is held."""
+    cfg, jcfg = _cfg(config), _cfg(jconfig)
+    inst = families.get_family(NAME).gen(np.random.default_rng(2), cfg.n_nodes)
+    prize, weight = inst["prize"], inst["weight"]
+    net = init_transformer_like_flax(TransformerModel(), torch.Generator().manual_seed(0))
+    params = to_jax_tree(net.state_dict(), TransformerModel.jax_path)["params"]
+    stepped = copy.deepcopy(net)
+    one = {"prize": torch.from_numpy(prize)[None], "weight": torch.from_numpy(weight)[None]}
+    out = drivers.family_loss(families.get_family(NAME), net, one, cfg,
+                              torch.Generator().manual_seed(3))
+    out.loss.backward()
+    grads = to_jax_tree({n: p.grad for n, p in net.named_parameters()},
+                        TransformerModel.jax_path)["params"]
+    state, mean_obj = special.make_mkp_items_train_step(cfg)(
+        tr.TrainState(stepped, tr.make_optimizer(stepped, cfg), 0, False), prize, weight,
+        torch.Generator().manual_seed(3))
+    assert state.step == 1 and mean_obj.item() == out.mean_cost.item()
+    assert out.paths.shape == (1, cfg.n_nodes + 2, A)
+    paths = jnp.asarray(out.paths[0].numpy(), jnp.int32)
+
+    def replay(spec, rng, *, alpha=1.0, beta=1.0, require_prob=False):
+        return jengine.Rollout(paths, jengine.path_log_probs(spec, paths, alpha=alpha, beta=beta),
+                               None)
+
+    monkeypatch.setattr(jspecial, "rollout", replay)
+    tx = jr.make_optimizer(jcfg, 10)
+    jstate, jmon = jspecial.make_mkp_items_train_step(JTransformer(), tx, n_ants=A)(
+        jr.TrainState(params, {}, tx.init(params), 0), jnp.asarray(prize), jnp.asarray(weight),
+        jax.random.PRNGKey(0))
+    (loss, mon), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: _jax_items_loss(JTransformer(), p, jnp.asarray(prize), jnp.asarray(weight),
+                                  paths), has_aux=True))(params)
+    np.testing.assert_allclose(out.loss.item(), float(loss), rtol=1e-4)
+    np.testing.assert_allclose(mean_obj.item(), float(jmon), rtol=1e-6)
+    assert float(mon) == float(jmon)
+    flat = dict(jax.tree_util.tree_leaves_with_path(grads))
+    after = dict(jax.tree_util.tree_leaves_with_path(
+        to_jax_tree(stepped.state_dict(), TransformerModel.jax_path)["params"]))
+    ref_params = dict(jax.tree_util.tree_leaves_with_path(jstate.params))
     for path, g in jax.tree_util.tree_leaves_with_path(jgrads):
         key = jax.tree_util.keystr(path)
         np.testing.assert_allclose(flat[path], np.asarray(g), rtol=1e-3, atol=1e-6, err_msg=key)

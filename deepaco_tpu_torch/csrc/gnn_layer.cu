@@ -25,7 +25,9 @@
 //
 // Layout: x2, x3, x4 [B, N, U]; nbr [B, R, K] int32 (ids within the
 // instance); w, pre, d_pre, d_w [B, R, K, U]; ew [U, U] in the Flax [in, out]
-// orientation, eb [U]. R = N for the layer.
+// orientation, eb [U]. R = N for the layer; R < N on a row shard
+// (parallel/gnn_shard.py), where x3, w, nbr, agg and pre hold the shard's
+// rows (row r of instance r / R) and x2, x4 the instance's N nodes.
 //   fwd (edge_loop, FwdTail; the product acc = w @ ew):
 //     agg[r] = (sum_k sigmoid(w[r,k]) * x2[nbr[r,k]]) / K
 //     pre[r,k] = ((acc + eb) + x3[r]) + x4[nbr[r,k]]

@@ -5,11 +5,16 @@ and the objects are linked into ``build/kernels/libdeepaco_kernels.so`` at
 the repository root. The library exposes a plain C interface and is loaded
 with ``ctypes``: pointers and the stream are ``c_void_p``, and every entry
 returns ``cudaGetLastError()``, which :func:`check` turns into an exception.
-The library is rebuilt when it is missing or older than any source.
+The library is rebuilt when it is missing or older than any source. A lock
+file beside it serialises the builders, so that ranks which start together
+on a fresh tree compile once: the first builds under the lock, the others
+wait for it and then find the library fresh.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import os
 import shutil
@@ -47,12 +52,33 @@ def _stale() -> bool:
     return any(p.stat().st_mtime > built for p in deps)
 
 
-def build() -> dict:
-    """Compile every source in parallel and link the library. Returns the
-    wall seconds and the compiler's output (``-Xptxas -v`` resource lines);
-    raises with that output if a step fails."""
-    nvcc = nvcc_path()
+@contextlib.contextmanager
+def _locked():
+    """Hold the lock file beside the library (released when it closes): one
+    builder at a time, across processes."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f".{LIB_PATH.name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
+def build() -> dict:
+    """Compile every source in parallel and link the library, under the
+    lock. Returns the wall seconds and the compiler's output (``-Xptxas -v``
+    resource lines); raises with that output if a step fails."""
+    with _locked():
+        return _compile()
+
+
+def ensure_built() -> dict | None:
+    """Build the library under the lock when it is missing or stale (checked
+    again once the lock is held); ``None`` when another builder made it."""
+    with _locked():
+        return _compile() if _stale() else None
+
+
+def _compile() -> dict:
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
@@ -88,8 +114,7 @@ def build() -> dict:
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if it is missing or stale."""
-    if _stale():
-        build()
+    ensure_built()
     return ctypes.CDLL(str(LIB_PATH))
 
 

@@ -24,6 +24,9 @@ them to XLA (pallas_kernels.py:303-304).
   launches K6 both ways or raises.
 - :func:`gated_mean_aggregate`: ``agg`` alone (TPU kernel row 8); its CUDA
   route is K6's forward with the ``pre`` output compiled out.
+- :func:`fused_gnn_layer_rows`: the forward, without gradient, on a block of
+  ``R`` rows against node tables of ``N`` nodes (the row-sharded GNN of
+  ``parallel/gnn_shard.py``); one K6 forward launch on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -245,6 +248,44 @@ def gated_mean_aggregate(x: torch.Tensor, nbr: torch.Tensor,
     return agg
 
 
+@torch.no_grad()
+def fused_gnn_layer_rows(x2, x3, x4, nbr, w, ew, eb):
+    """``(agg [B, R, U], pre [B, R, K, U])`` of one layer on a block of
+    ``R`` rows: ``x3 [B, R, U]``, ``nbr [B, R, K]`` and ``w [B, R, K, U]``
+    hold the block's rows, ``x2, x4 [B, N, U]`` the whole node tables, which
+    ``nbr`` indexes. No gradient. A CPU tensor takes
+    :func:`fused_gnn_layer_plain`; a CUDA tensor launches K6's forward, whose
+    ``x3``, ``agg`` and ``pre`` follow the block's row and whose ``x2`` and
+    ``x4`` follow the instance's ``N`` nodes, or raises."""
+    if x2.device.type == "cpu":
+        return fused_gnn_layer_plain(x2, x3, x4, nbr, w, ew, eb)
+    _build.require_cuda("fused_gnn_layer_rows", x2, x3, x4, nbr, w, ew, eb)
+    b, r, k = nbr.shape
+    u = x2.shape[-1]
+    if u != UNITS or x2.dim() != 3 or x2.shape[0] != b:
+        raise ValueError(f"fused_gnn_layer_rows: expected x2 [B, N, {UNITS}] for "
+                         f"nbr {tuple(nbr.shape)}, got {tuple(x2.shape)}")
+    n = x2.shape[1]
+    for t, shape in ((x3, (b, r, u)), (x4, (b, n, u)), (w, (b, r, k, u)),
+                     (ew, (u, u)), (eb, (u,))):
+        if t.shape != shape:
+            raise ValueError(f"fused_gnn_layer_rows: expected {shape}, got {tuple(t.shape)}")
+    if any(t.dtype != torch.float32 for t in (x2, x3, x4, w, ew, eb)):
+        raise ValueError("fused_gnn_layer_rows: K6 takes f32 tensors")
+    if nbr.numel():
+        # K6 reads x2[nbr] and x4[nbr] unchecked
+        lo, hi = (int(v) for v in torch.aminmax(nbr))
+        if lo < 0 or hi >= n:
+            raise IndexError(f"fused_gnn_layer_rows: neighbour ids span [{lo}, {hi}], "
+                             f"outside [0, {n})")
+    out = _launch_forward(x2.contiguous(), x3.contiguous(), x4.contiguous(),
+                          nbr.to(torch.int32).contiguous(), w.contiguous(),
+                          ew.contiguous(), eb.contiguous(), write_pre=True)
+    fused_gnn_layer_rows.launches += 1
+    return out
+
+
 fused_gnn_layer.launches = 0
 fused_gnn_layer_backward.launches = 0
 gated_mean_aggregate.launches = 0
+fused_gnn_layer_rows.launches = 0

@@ -24,8 +24,19 @@ extended arrays), and ``Family.extras`` (OP's and MKP's per-instance ``q``)
 reaches the search. A family with a ``forward`` hook (MKP-items'
 transformer) computes its heuristic there, in PyTorch on every device, and
 a ``vector_pheromone`` family deposits on items, not edges (no K8). The JAX version's host
-chunking of instances (``b_chunk``, a TPU watchdog workaround) and its
-``mesh`` (multi-device) are not ported.
+chunking of instances (``b_chunk``, a TPU watchdog workaround) is not
+ported.
+
+With a ``mesh`` (``parallel.make_mesh``), :func:`evaluate_family` shards the
+batch over the mesh's ``instance`` axis: the rank at instance coordinate
+``i`` runs the routine above on its contiguous block, with a generator
+seeded ``parallel._axes.block_seed(seed, i)`` (``seed`` itself for block
+0), and the curves are gathered over ``instance``, so every rank returns the
+whole batch's. Ranks that share an instance coordinate along ``ant``
+compute the same block, as JAX's ``P("instance")`` replicates it. JAX draws
+a key an instance; the port draws one stream a batch, so a sharded run
+equals each block run alone with its block seed, concatenated (a one-rank
+mesh gives the unsharded run to the digit).
 """
 from __future__ import annotations
 
@@ -34,6 +45,7 @@ from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from deepaco_tpu_torch.aco import pheromone as ph
 from deepaco_tpu_torch.aco.engine import path_log_probs, rollout
@@ -46,6 +58,7 @@ from deepaco_tpu_torch.ops.fused_gnn import (embnet_layers, embnet_layers_plain,
                                              embnet_supported, net_forward_fast)
 from deepaco_tpu_torch.ops.gnn_layer import fused_gnn_layer, fused_gnn_layer_plain
 from deepaco_tpu_torch.ops.pick import fused_pick, fused_pick_plain
+from deepaco_tpu_torch.parallel._axes import block_seed, instance_block, rank_device
 from deepaco_tpu_torch.train.config import ProblemConfig
 from deepaco_tpu_torch.train.reinforce import (LossOut, StepInfo, TrainState,
                                                init_train_state, optimizer_update,
@@ -140,7 +153,7 @@ def _forward_heu(family: Family, net: Net, inst: dict, k_sparse: int,
 def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = None,
                     k_sparse: int | None = None, n_ants: int = 20,
                     t_values=(1, 10, 20, 30, 40, 50, 100), seed: int = 0,
-                    device=None, return_state: bool = False,
+                    device=None, return_state: bool = False, mesh=None,
                     _ops: FamilyOps = KERNEL_OPS):
     """The anytime protocol over an instance batch (``batch``: a dict of
     arrays ``[B, ...]`` in the family's layout, e.g. ``utils.golden.cvrp_test``).
@@ -156,8 +169,16 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     that a trainer can validate its net between steps. The private ``_ops``
     (:class:`FamilyOps`) swaps in the plain versions of the kernels or a
     timer around each phase.
+
+    ``mesh``: shard the batch over the mesh's ``instance`` axis (the module's
+    notes); refuses a ``B`` the axis does not divide, a ``device`` of
+    another type than the mesh's, and ``return_state``.
     """
     dev = resolve_device(device)
+    if mesh is not None:
+        return _evaluate_sharded(name, batch, mesh, dev, n_nodes=n_nodes, net=net,
+                                 k_sparse=k_sparse, n_ants=n_ants, t_values=t_values,
+                                 seed=seed, return_state=return_state, _ops=_ops)
     family = get_family(name)
     cfg = family.aco._replace(n_ants=n_ants)
     k_sparse = family.k_sparse(n_nodes) if k_sparse is None else k_sparse
@@ -181,6 +202,27 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     idx = torch.tensor([t - 1 for t in t_values], device=dev)
     means = curves[:, idx].mean(dim=0)
     return (means, curves, state) if return_state else (means, curves)
+
+
+def _evaluate_sharded(name: str, batch: dict, mesh, dev, *, seed: int,
+                      return_state: bool, **kwargs):
+    """:func:`evaluate_family` over ``mesh``'s ``instance`` axis: this rank's
+    block with its block seed, then the curves gathered over the axis."""
+    if return_state:
+        raise ValueError("evaluate_family: return_state is not gathered over a mesh")
+    if mesh.device_type != dev.type:
+        raise ValueError(f"evaluate_family: a {mesh.device_type} mesh cannot run on {dev}")
+    block = instance_block(mesh)
+    b = len(next(iter(batch.values())))
+    rows = block.rows(b)
+    _, curves = evaluate_family(name, {k: v[rows] for k, v in batch.items()},
+                                seed=block_seed(seed, block.index),
+                                device=rank_device(), **kwargs)
+    parts = [torch.empty_like(curves) for _ in range(block.count)]
+    dist.all_gather(parts, curves.contiguous(), group=mesh.get_group("instance"))
+    curves = torch.cat(parts, dim=0)
+    idx = torch.tensor([t - 1 for t in kwargs["t_values"]], device=curves.device)
+    return curves[:, idx].mean(dim=0), curves
 
 
 # --------------------------------------------------------------- training --

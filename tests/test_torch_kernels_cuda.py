@@ -595,6 +595,95 @@ def test_gated_mean_aggregate_refuses_an_id_out_of_range(layer_case, bad):
     assert gnn_layer.gated_mean_aggregate.launches == before
 
 
+@pytest.mark.parametrize("b,parts", [(1, 2), (1, 8), (3, 2), (3, 8)])
+def test_gnn_layer_rows_kernel_on_a_row_shard_matches_plain(dev, b, parts):
+    """K6's forward on each of ``parts`` row shards (R = N/parts rows
+    against the N-node tables, the row-sharded GNN's call) against the
+    plain layer on the shard and against the whole layer's rows: rtol 1e-5,
+    atol 1e-5 (sums in another order, products in 3xTF32); one launch a
+    shard, and a second call gives the same bits."""
+    from deepaco_tpu_torch.ops import gnn_layer
+
+    n, k, u = 256, 20, gnn_layer.UNITS
+    coords = uniform_coords(n, torch.Generator().manual_seed(b + parts), batch=b, device=dev)
+    nbr = topk_smallest(distance_matrix(coords), k)[1]
+    g = torch.Generator(device=dev).manual_seed(parts)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    x2, x3, x4, w = rnd(b, n, u), rnd(b, n, u), rnd(b, n, u), rnd(b, n, k, u)
+    ew, eb = rnd(u, u) * 0.1, rnd(u) * 0.1
+    with torch.no_grad():
+        whole = gnn_layer.fused_gnn_layer_plain(x2, x3, x4, nbr, w, ew, eb)
+    r = n // parts
+    for i in range(parts):
+        rows = slice(i * r, (i + 1) * r)
+        args = (x2, x3[:, rows], x4, nbr[:, rows], w[:, rows], ew, eb)
+        before = gnn_layer.fused_gnn_layer_rows.launches
+        got = gnn_layer.fused_gnn_layer_rows(*args)
+        assert gnn_layer.fused_gnn_layer_rows.launches == before + 1
+        again = gnn_layer.fused_gnn_layer_rows(*args)
+        want = gnn_layer.fused_gnn_layer_plain(*args)
+        for a, a2, p, full in zip(got, again, want, whole):
+            assert a.shape == p.shape
+            torch.testing.assert_close(a, p, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(a, full[:, rows], rtol=1e-5, atol=1e-5)
+            assert torch.equal(a, a2)
+
+
+def test_gnn_layer_rows_refuses_an_id_out_of_range(dev):
+    """An id outside the N-node tables raises before K6 reads them."""
+    from deepaco_tpu_torch.ops import gnn_layer
+
+    u = gnn_layer.UNITS
+    x = torch.zeros(1, 40, u, device=dev)
+    nbr = torch.zeros(1, 10, 4, dtype=torch.int64, device=dev)
+    nbr[0, 3, 1] = 40
+    before = gnn_layer.fused_gnn_layer_rows.launches
+    with pytest.raises(IndexError, match="outside"):
+        gnn_layer.fused_gnn_layer_rows(x, x[:, :10], x, nbr, torch.zeros(1, 10, 4, u, device=dev),
+                                       torch.zeros(u, u, device=dev), torch.zeros(u, device=dev))
+    assert gnn_layer.fused_gnn_layer_rows.launches == before
+
+
+def test_sharded_embnet_forward_on_a_one_rank_nccl_group(dev):
+    """``parallel.sharded_embnet_forward`` on a one-rank NCCL group (the
+    world a single card gives) with the tsp500 weights on a k-NN graph of
+    N=500, K=50: eval and train mode against the unsharded ``EmbNet`` with
+    the plain layer (train mode on a copy, whose running statistics move;
+    the sharded forward's do not), within 1e-4 of the largest entry (12
+    layers of K6 in 3xTF32 against f32 products); 12 K6 launches a call."""
+    import copy
+
+    import torch.distributed as dist
+
+    from deepaco_tpu_torch.core.graph import knn_graph
+    from deepaco_tpu_torch.ops import gnn_layer
+    from deepaco_tpu_torch.parallel import make_mesh, sharded_embnet_forward
+    from deepaco_tpu_torch.parallel.multihost import init_distributed
+
+    net = Net.from_jax_variables(
+        load_checkpoint(str(CKPT / "tsp500_selftrained.msgpack"))).to(dev)
+    emb = net.emb_net.eval()
+    coords = uniform_coords(500, torch.Generator().manual_seed(3), batch=1, device=dev)
+    g = knn_graph(coords, distance_matrix(coords), 50)
+    assert not dist.is_initialized()
+    init_distributed(num_processes=1)
+    try:
+        mesh = make_mesh(1, 1)
+        before = {k: v.clone() for k, v in emb.state_dict().items()}
+        for train in (False, True):
+            launches = gnn_layer.fused_gnn_layer_rows.launches
+            got = sharded_embnet_forward(emb, g.x[0], g.nbr[0], g.edge[0], mesh, train=train)
+            assert gnn_layer.fused_gnn_layer_rows.launches == launches + emb.depth
+            ref_net = copy.deepcopy(emb).train(train)
+            with torch.no_grad():
+                want = ref_net(g, gnn_layer.fused_gnn_layer_plain)[0]
+            scale = want.abs().max().item()
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale)
+        assert all(torch.equal(v, emb.state_dict()[k]) for k, v in before.items())
+    finally:
+        dist.destroy_process_group()
+
+
 def test_pick_kernel_matches_plain(dev):
     """K7 on 96 rows of 300 with a third visited: actions exact, logp and
     the backward within 1e-5; ties go to the lowest index, NaN first."""

@@ -41,16 +41,24 @@ Phases, one JSON line each:
    [600, 500] rows mid-rollout with the same noise (actions exactly equal);
 7. one training step in each configuration, kernel arm against plain arm
    from the same weights and instances: the kernel arm samples with
-   ``rollout(require_prob=True)`` through K6, K7 (and K5 for NLS), the plain
-   arm replays its paths through ``path_log_probs`` with the plain layer;
-   loss, every gradient, the running statistics and the updated weights
-   must agree;
+   ``rollout(require_prob=True)`` through K6, K7r (and K5 for NLS), the
+   plain arm replays its paths through ``path_log_probs`` with the plain
+   layer; loss, every gradient, the running statistics and the updated
+   weights must agree; K7r (``fused_rollout``, the whole rollout in one
+   launch forward and one backward) on each step's own score, starts and
+   noise (TSP500: B=1, 50 ants, uniform starts; TSP500-NLS: B=20, 30 ants
+   from city 0) against ``fused_rollout_plain`` and ``rollout_backward_plain``
+   (``check_rollout``: paths exact, log-probabilities rtol 1e-5, d_score
+   within 1e-4 of its largest entry, a repeat bit-equal), each direction's
+   time by CUDA events and by the profiler, and its peak memory;
 8. ``train_tsp`` in both configurations at full width, nothing cut: TSP500
    (dual-head Net, 50 ants, batch 1, lr 3e-4, 4 steps) and TSP500-NLS (the
    one-hot start Net, 30 ants, batch 20, lr 6e-4 cosine over 20x20 steps,
    NLS advantage, 2 steps), per step its loss, mean cost, gradient norm,
-   wall and phase times; the kernels' counts are set to 0 just before the
-   NLS run and read just after. The NLS state is saved with
+   wall, phase times and peak memory; the kernels' counts are set to 0 just
+   before each run and read just after: one K7r launch each way a step and
+   no K7; one more step under the profiler (the device's busy time, idle
+   share and launches a step). The NLS state is saved with
    ``save_checkpoint``, read back with ``load_checkpoint`` and
    ``Net.from_jax_variables`` and evaluated with ``evaluate_tsp`` (4
    instances, T=1);
@@ -87,16 +95,17 @@ Phases, one JSON line each:
    customers, capacity 50, 50 ants, batch 1, lr 3e-4, the 12-layer Net on
    the dense graph, K = N = 501; nothing cut but the number of steps):
    (a) one step from the seed's weights on the first batch ``train_family``
-   draws, the kernel arm (K6 a layer forward and backward, K7 a step)
-   against the plain arm replaying its paths with the plain layer, held as
-   in phase 7, every route valid and costing what the step reports; K6's
-   forward and backward at B=1, K = N = 501 and K7 on the rollout's own
-   [50, 501] rows against their plain versions; (b) three steps of
-   ``make_family_train_step``, each with its loss, mean cost, gradient
-   norm, wall, phase times and launches (counts set to 0 just before each
-   step and read just after): exactly 12 K6 forward and 12 backward
-   launches and 1,000 K7 launches a step, no K7c or K9 launch, everything
-   finite, the weights moved; (c) ``train_family`` cut to 2 steps with 4
+   draws, the kernel arm (K6 a layer forward and backward, K7r) against the
+   plain arm replaying its paths with the plain layer, held as in phase 7,
+   every route valid and costing what the step reports; K6's forward and
+   backward at B=1, K = N = 501 and K7r on the rollout's own inputs (50
+   ants, 1,000 steps, capacity 50) against their plain versions; (b) three
+   steps of ``make_family_train_step``, each with its loss, mean cost,
+   gradient norm, wall, phase times and launches (counts set to 0 just
+   before each step and read just after): exactly 12 K6 forward and 12
+   backward launches and one K7r launch each way a step, no K7, K7c or K9
+   launch, everything finite, the weights moved, and one more step under
+   the profiler; (c) ``train_family`` cut to 2 steps with 4
    validation instances at T=2, its ``-best`` and ``-last`` checkpoints
    under ``build/chip_smoke/``, ``-last`` read back (``load_checkpoint``,
    ``family_model``) and evaluated; (d) ``cli.main(["test", "cvrp", "-n",
@@ -140,16 +149,18 @@ Phases, one JSON line each:
    family's envelope (``family_train_config``: OP300 and PCTSP500 with 20
    ants, SMTWTP500, SOP100 and MKP300 with 50, BPP120 with 120, batch 1,
    lr 3e-4): one step kernel arm against plain arm held as in phase 11, K6
-   forward and backward on its graph and K7 on its rows, two steps of
-   ``make_family_train_step`` with exactly 12 + 12 K6 and ``horizon`` K7
-   launches a step and no K9, K7c or K8; and ``cli.main(["test", name,
+   forward and backward on its graph and K7 on its rows (BPP: K7r on its
+   rollout, capacity 150), two steps of ``make_family_train_step`` with
+   exactly 12 + 12 K6 and ``horizon`` K7 launches a step (BPP: one K7r
+   launch each way, no K7) and no K9, K7c or K8; and ``cli.main(["test", name,
    ...])`` on the card, whose costs must be the kernel arm's;
 15. CVRP-NLS500 (``cvrp_nls_phase``): ``cvrp_nls500_selftrained`` (12
    layers, 32 units, the two-block graph at k = 5) on the first 4 golden
    CVRP-NLS500 instances, 20 ants, T=1 and 10, seeds ``SEED + i``, the
    protocol of ``test cvrp --local-search swapstar``. The plain
    multi-block GNN pass timed at B=1 and B=4; K7c at capacity 1.0 on the
-   neural scores (B=4, N=501; paths bit-equal to its plain version's) and
+   neural scores (B=4, N=501; paths bit-equal to its plain version's), K7r
+   at capacity 1.0 on instance 0's score (30 ants; as phase 7) and
    K8 on one instance's routes whose 8 cheapest ants the native engine
    rewrote (B=1, L=1001, A=20), held as in phase 9; the path through the
    CLI's own function in a kernel arm (K7c, K8: each once an iteration)
@@ -242,8 +253,8 @@ Phases, one JSON line each:
    sampled once on the starting weights against the unsharded step from the
    same weights (loss and gradient norm rtol 1e-5, gradients within 1e-5 of
    the largest entry, running statistics rtol 1e-5, the weights bit-equal on
-   every rank), then 2 sampled steps of 12 + 12 K6 and 499 K7 launches each;
-   K7 on the step's first rows (80 x 500); (c) ``evaluate_family("cvrp",
+   every rank), then 2 sampled steps of 12 + 12 K6 and one K7r launch each
+   way and no K7 each; K7r on the step's rollout (4 x 20 ants, N=500); (c) ``evaluate_family("cvrp",
    mesh=)`` on the golden CVRP500 set, T=1 and 10: equal to the rank's block
    run alone with its ``block_seed``, its costs ``RECORDED_COSTS["cvrp"]``
    at world size 1, every best route valid, K9 1, K7c 10, K8 10; (d)
@@ -255,12 +266,15 @@ Phases, one JSON line each:
    alone with ``colony_seed``; K8 at the migration's shape (B=1, L=500,
    A=1) held as in phase 9;
 21. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
-   path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7 from the
-   TSP500-NLS training run, K7c and K8 from the CVRP path's kernel arm, K9
-   from the sparse and the CVRP paths' kernel arms together; row 9 is on no
-   path of either package, so its count is 0), error, times and bound; K6's
-   and K7's entries also carry ``cvrp_train``: their launches in phase
-   11's three steps and their times, error and bound at its shapes; K6,
+   path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7r (forward
+   ``fused_rollout``, backward ``fused_rollout_backward``) from the
+   TSP500-NLS training run, K7 from phase 18's family path (K7 a step), K7c
+   and K8 from the CVRP path's kernel arm, K9 from the sparse and the CVRP
+   paths' kernel arms together; row 9 is on no path of either package, so
+   its count is 0), error, times and bound; K7r's entries carry ``tsp500``,
+   ``bpp``, ``cvrp_nls`` and ``parallel`` too; K6's and K7r's entries also
+   carry ``cvrp_train``: their launches in phase 11's three steps and their
+   times, error and bound at its shapes; K6,
    K7, K8 and K9 carry ``op``, ``pctsp``, ``smtwtp``, ``sop``, ``bpp`` and
    ``mkp`` (K7c ``bpp``): their launches on that family's kernel arm (K7 or
    K7c, K8, K9) and in its two training steps (K6, K7), with their error,
@@ -330,6 +344,8 @@ FAMILY_PATHS = {"cvrp": (CVRP_N, CVRP_CKPT, A_TRAIN, 5, 128),
 # others through K7 a step
 FAMILY_PHASE = ("op", "pctsp", "smtwtp", "sop", "bpp", "mkp")
 ONE_PASS = ("bpp",)
+# the families whose training rollout takes K7r (the TSP and CVRP plug-ins)
+FUSED_TRAIN = ("cvrp", "bpp")
 FAMILY_TRAIN_STEPS = 2
 FAMILY_PICK_AT = (0.0, 1 / 3, 2 / 3)    # K7's checks on their rows, as shares of the horizon
 # the JAX package's costs at T1 and T10 (RESULTS.md:164, 170-171, 175, 178,
@@ -746,6 +762,148 @@ def check_pick_rows(cuda_ms, captured, shares=CVRP_PICK_AT) -> dict:
                                                         6 * rows * n)))}
 
 
+ROLLOUT_TOLERANCE = ("paths exact; log_probs rtol 1e-5, atol 1e-6 (K7's limit: logsumexp order, "
+                     "expf/logf against torch's); d_score rtol 1e-4, atol 1e-5 of its largest "
+                     "entry (K6's limit: softmax and sum order), a repeat and autograd through "
+                     "the wrapper bit-equal to the entry")
+
+
+@contextlib.contextmanager
+def captured_rollouts(store: list):
+    """While open, the engine's one-launch route for ``fused_pick`` records
+    K7r's inputs ``(score, start, noise, shape)`` in ``store`` and then
+    launches K7r as before."""
+    from deepaco_tpu_torch.aco import engine
+    from deepaco_tpu_torch.ops import pick, rollout
+
+    def capture(score, start, noise, shape):
+        store.append((score.detach(), start, noise, shape))
+        return rollout.fused_rollout(score, start, noise, shape)
+
+    engine._FUSED[pick.fused_pick] = capture
+    try:
+        yield store
+    finally:
+        engine._FUSED[pick.fused_pick] = rollout.fused_rollout
+
+
+def rollout_work(score, noise, shape, paths):
+    """K7r's bytes and f32 operations for ``bound``, forward and backward,
+    over the steps this run's ants take (a CVRP ant stops once back at the
+    depot with every customer served: its later picks are certain). Forward:
+    the score, those steps' noise, the starts and demands read, paths and
+    log-probabilities written; a select, compare, exp and add for the
+    logsumexp and an add and compare for the maximum a column a step.
+    Backward: score, g and paths read, d_score written; an exp, subtract,
+    multiply and add a column a step."""
+    import torch
+
+    b, n, _ = score.shape
+    t, _, a, _ = noise.shape
+    if shape.kind == "cvrp":
+        idx = torch.arange(1, t + 1, device=paths.device)[None, :, None]
+        last = ((paths[:, 1:] != 0) * idx).amax(dim=1)       # the last customer's index
+        steps = int((last + 1).clamp(max=t).sum())
+    else:
+        steps = b * a * t
+    out_bytes = 8 * b * (t + 1) * a + 4 * b * t * a
+    fwd = (4 * b * n * n + 4 * steps * n + 8 * b * a + 4 * b * n + out_bytes, 6 * steps * n)
+    bwd = (8 * b * n * n + 4 * b * t * a + 8 * b * (t + 1) * a, 4 * steps * n)
+    return fwd, bwd, steps
+
+
+def kernel_device_ms(fn, names, reps: int = 5) -> dict:
+    """``fn()`` ``reps`` times under ``torch.profiler``: the device time a
+    call of each kernel whose name holds one of ``names``, in ms, from the
+    kernels on the card's timeline as ``device_busy`` reads them ("not
+    measured" where the trace shows none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {name: 0.0 for name in names}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
+            for name in names:
+                if name in ev.name:
+                    out[name] += ev.time_range.elapsed_us() / 1e3 / reps
+    return {k: v if v > 0 else "not measured" for k, v in out.items()}
+
+
+def check_rollout(cuda_ms, score, start, noise, shape, config: str) -> dict:
+    """K7r on a rollout's own inputs (``score [B, N, N]``, ``start [B, A]``,
+    ``noise [T, B, A, N]``, the plug-in's shape): the forward against
+    ``fused_rollout_plain`` on the same noise, the backward on one cotangent
+    against ``rollout_backward_plain`` (ROLLOUT_TOLERANCE), a repeat of the
+    backward and autograd through ``fused_rollout`` bit-equal to it; each
+    direction's time by CUDA events and by the profiler's device time, the
+    plain versions' times, the peak memory of one forward and backward, and
+    the bounds for the steps this run's ants take. Emits one line."""
+    import torch
+
+    from deepaco_tpu_torch.ops import rollout
+
+    dev = score.device
+    b, n, _ = score.shape
+    a, t = start.shape[1], noise.shape[0]
+    g = torch.randn((b, t, a), generator=torch.Generator(device=dev).manual_seed(SEED + 30),
+                    device=dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    paths_k, logp_k, trace = rollout.fused_rollout_forward(score, start, noise, shape)
+    d_k = rollout.fused_rollout_backward(score, trace, g, shape)
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    again = rollout.fused_rollout_backward(score, trace, g, shape)
+    leaf = score.clone().requires_grad_(True)
+    _, logp_a = rollout.fused_rollout(leaf, start, noise, shape)
+    d_a, = torch.autograd.grad(logp_a, leaf, g)
+    with torch.no_grad():
+        paths_p, logp_p = rollout.fused_rollout_plain(score, start, noise, shape)
+    d_p = rollout.rollout_backward_plain(score, paths_p, g, shape)
+    scale = d_p.abs().max().item()
+    paths_equal = bool(torch.equal(paths_k, paths_p))
+    logp_ok = bool(torch.allclose(logp_k, logp_p, rtol=1e-5, atol=1e-6))
+    d_ok = bool(torch.allclose(d_k, d_p, rtol=1e-4, atol=1e-5 * scale))
+    repeat_equal = bool(torch.equal(d_k, again) and torch.equal(d_k, d_a))
+    fwd_ms = cuda_ms(lambda: rollout.fused_rollout_forward(score, start, noise, shape), 5)
+    bwd_ms = cuda_ms(lambda: rollout.fused_rollout_backward(score, trace, g, shape), 5)
+    with torch.no_grad():
+        plain_ms = cuda_ms(lambda: rollout.fused_rollout_plain(score, start, noise, shape), 1)
+    bwd_plain_ms = cuda_ms(lambda: rollout.rollout_backward_plain(score, paths_p, g, shape), 1)
+    device = kernel_device_ms(lambda: (rollout.fused_rollout_forward(score, start, noise, shape),
+                                       rollout.fused_rollout_backward(score, trace, g, shape)),
+                              ("rollout_fwd", "rollout_bwd"))
+    fwd_work, bwd_work, steps = rollout_work(score, noise, shape, paths_k)
+    fwd_bound, bwd_bound = bound(*fwd_work), bound(*bwd_work)
+    common = {"B": b, "N": n, "A": a, "T": t, "ant_steps": steps}
+    out = {
+        "config": config, **common, "passed": paths_equal and logp_ok and d_ok and repeat_equal,
+        "paths_equal": paths_equal, "logp_close": logp_ok, "d_score_close": d_ok,
+        "d_score_repeat_and_autograd_equal": repeat_equal, "peak_gb": peak_gb,
+        "forward": {"max_abs_err": (logp_k - logp_p).abs().max().item(), "ms": fwd_ms,
+                    "device_ms": device["rollout_fwd"], "plain_ms": plain_ms,
+                    "library_ms": None, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
+        "backward": {"max_abs_err": (d_k - d_p).abs().max().item(), "d_score_scale": scale,
+                     "ms": bwd_ms, "device_ms": device["rollout_bwd"], "plain_ms": bwd_plain_ms,
+                     "library_ms": None, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}}
+    emit({"phase": "kernel", "name": "fused_rollout", **out, "tolerance": ROLLOUT_TOLERANCE})
+    return out
+
+
+def rollout_entries(r: dict) -> dict:
+    """``check_rollout``'s result as the fields of K7r's two entries in the
+    kernels' line: name -> its shapes, error, times and bound."""
+    shapes = {k: r[k] for k in ("config", "B", "N", "A", "T", "ant_steps")}
+    return {"fused_rollout": {**shapes, **r["forward"]},
+            "fused_rollout_backward": {**shapes, **r["backward"]}}
+
+
 def check_cvrp_construct(dev, cuda_ms, score, demand, capacity: float,
                          config: str = "cvrp500, 1/d") -> dict:
     """K7c (``cvrp_construct``) against its plain version on ``score [B, N,
@@ -1160,10 +1318,11 @@ def step_agreement(cfg, net_k, net_p, before: dict, out_k, out_p, advantage) -> 
                          "at most lr; running statistics within 1e-4"}
 
 
-def train_step_arms(dev, name: str) -> dict:
+def train_step_arms(dev, name: str, rollouts: list | None = None) -> dict:
     """One training step of configuration ``name`` from the same weights and
-    instances: the kernel arm samples through K6, K7 (and K5), the plain arm
-    replays its paths with the plain layer. Returns the comparison."""
+    instances: the kernel arm samples through K6, K7r (and K5), the plain
+    arm replays its paths with the plain layer. Returns the comparison; K7r's
+    inputs go to ``rollouts``."""
     import copy
 
     import torch
@@ -1180,7 +1339,8 @@ def train_step_arms(dev, name: str) -> dict:
     coords = uniform_coords(N, torch.Generator().manual_seed(SEED + 2),
                             batch=cfg.train.batch_size, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
-    out_k = tr.tsp_loss(net_k, coords, cfg, gen, local_search=ls)
+    with captured_rollouts([] if rollouts is None else rollouts):
+        out_k = tr.tsp_loss(net_k, coords, cfg, gen, local_search=ls)
     out_k.loss.backward()
     replay_ls = (lambda *a: out_k.ls_costs) if ls is not None else None
     out_p = tr.tsp_loss(net_p, coords, cfg, gen, local_search=replay_ls,
@@ -1240,9 +1400,11 @@ def family_train_inputs(dev, name: str = "cvrp"):
 def family_train_step_arms(dev, name: str = "cvrp", shares=CVRP_PICK_AT):
     """One training step of a family from the seed's weights on the first
     batch that ``train_family`` draws: the kernel arm samples through K6 and
-    K7 a step, the plain arm replays its paths with the plain layer. Returns
-    the comparison (with the solutions' validity and costs), K7's inputs at
-    the ``shares`` of the rollout, the batch and the stepped net."""
+    K7r (the TSP and CVRP plug-ins: CVRP, BPP) or K7 a step, the plain arm
+    replays its paths with the plain layer. Returns the comparison (with the
+    solutions' validity and costs), K7r's inputs ``[(score, start, noise,
+    shape)]`` or K7's at the ``shares`` of the rollout, the batch and the
+    stepped net."""
     import copy
 
     import torch
@@ -1267,8 +1429,12 @@ def family_train_step_arms(dev, name: str = "cvrp", shares=CVRP_PICK_AT):
             captured.append((step, score.detach().clone(), mask.clone(), noise.clone()))
         return pick.fused_pick(score, mask, noise)
 
-    out_k = drivers.family_loss(family, net_k, inst, cfg, gen,
-                                _ops=drivers.KERNEL_OPS._replace(pick=capture))
+    if name in FUSED_TRAIN:
+        with captured_rollouts(captured):
+            out_k = drivers.family_loss(family, net_k, inst, cfg, gen)
+    else:
+        out_k = drivers.family_loss(family, net_k, inst, cfg, gen,
+                                    _ops=drivers.KERNEL_OPS._replace(pick=capture))
     out_k.loss.backward()
     out_p = drivers.family_loss(family, net_p, inst, cfg, gen, paths=out_k.paths,
                                 _ops=drivers.PLAIN_OPS)
@@ -1456,7 +1622,9 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     tinst = fam.prepare(drivers.instance_tensors(train_batch, dev))
     layer = (check_layer(dev, cuda_ms, train_net, fam.graph(tinst, fam.k_sparse(n)),
                          backward=True) if gnn else None)
-    pick_train = check_pick_rows(cuda_ms, train_picks, FAMILY_PICK_AT)
+    fused = name in FUSED_TRAIN
+    pick_train = (check_rollout(cuda_ms, *train_picks[0], f"{name}{n} training rollout")
+                  if fused else check_pick_rows(cuda_ms, train_picks, FAMILY_PICK_AT))
     del train_net, train_picks
     # (b) two steps of make_family_train_step, the counts set to 0 just
     # before each and read just after
@@ -1484,8 +1652,9 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
                      "launches": {fn.__name__: fn.launches for fn in counted}})
     depth = state.net.depth if gnn else 0
     want_step = {"fused_gnn_layer": depth, "fused_gnn_layer_backward": depth,
-                 "fused_pick": horizon, "cvrp_construct": 0, "embnet_layers": 0,
-                 "tour_deposit": 0}
+                 "fused_pick": 0 if fused else horizon, "fused_rollout": int(fused),
+                 "fused_rollout_backward": int(fused), "cvrp_construct": 0,
+                 "embnet_layers": 0, "tour_deposit": 0}
     moved = all(not torch.equal(start[k], v)
                 for k, v in jax_layout(state.net.state_dict(), state.net).items()
                 if (v.dim() == 2 and (k in touched or cfg.train.weight_decay > 0))
@@ -1500,11 +1669,13 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     out["cli_costs"] = [float(v) for v in cli_means]
     out["train_launches"] = {fn.__name__: sum(r["launches"][fn.__name__] for r in rows)
                              for fn in counted}
-    out["layer"], out["pick_train"] = layer, pick_train
+    out["layer"] = layer
+    out["pick_train"], out["rollout_train"] = (None, pick_train) if fused else (pick_train, None)
     if gnn:
         out["checks"].update(k6_forward=layer["passed"], k6_backward=layer["backward"]["passed"])
     out["checks"].update(
-        step_agreement=step_check["passed"], k7_train=pick_train["passed"],
+        step_agreement=step_check["passed"],
+        **{"k7r_train" if fused else "k7_train": pick_train["passed"]},
         step_launches=all({k: r["launches"][k] for k in want_step} == want_step
                           for r in rows),
         train_finite=all(math.isfinite(r[key]) for r in rows
@@ -1516,7 +1687,8 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
         == [round(v, 4) for v in ck])
     emit({"phase": f"{name}_train", "B": 1, "N": n_states, "A": cfg.aco.n_ants,
           "lr": cfg.train.lr, "epochs_x_steps": [cfg.train.epochs, cfg.train.steps_per_epoch],
-          "step_agreement": step_check, "k6": layer, "k7": pick_train, "steps": rows,
+          "step_agreement": step_check, "k6": layer, "k7r" if fused else "k7": pick_train,
+          "steps": rows,
           "launches_per_step_expected": want_step,
           "cli": {"argv": ["test", name, "-n", str(n), "-c", ckpt], "lines": cli_lines},
           "checks": out["checks"]})
@@ -1591,9 +1763,10 @@ def cvrp_nls_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     import numpy as np
     import torch
 
-    from deepaco_tpu_torch.aco.engine import path_log_probs
+    from deepaco_tpu_torch.aco.engine import gumbel, path_log_probs
     from deepaco_tpu_torch.aco.problems.cvrp import cvrp_spec, route_cost, validate_routes
     from deepaco_tpu_torch.aco.problems.cvrp_nls import perturbation_metric
+    from deepaco_tpu_torch.ops.rollout import RolloutShape
     from deepaco_tpu_torch.aco.problems.tsp import score_matrix
     from deepaco_tpu_torch.ls import hgs
     from deepaco_tpu_torch.models.gnn import Net
@@ -1622,6 +1795,16 @@ def cvrp_nls_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     out["k7c"] = check_cvrp_construct(dev, cuda_ms, score, demand, 1.0,
                                       f"cvrp_nls{CVRP_NLS_N}, neural heuristic, capacity 1")
     out["checks"]["k7c"] = out["k7c"]["passed"]
+    # K7r at capacity 1.0 on instance 0's neural score, the training
+    # envelope's ants (the CVRP-NLS step samples through K7c and replays
+    # through path_log_probs; a facade's sample_nls takes K7r)
+    gen_r = torch.Generator(device=dev).manual_seed(SEED + 14)
+    ants = CVRP_NLS_TRAIN[0]
+    out["k7r"] = check_rollout(
+        cuda_ms, score[:1], torch.zeros((1, ants), dtype=torch.int64, device=dev),
+        gumbel((2 * (n_nodes - 1), 1, ants, n_nodes), gen_r, dev),
+        RolloutShape("cvrp", demand[:1], 1.0), f"cvrp_nls{CVRP_NLS_N}, capacity 1")
+    out["checks"]["k7r"] = out["k7r"]["passed"]
     # K8 on instance 0's routes after the engine rewrote its 8 cheapest ants
     paths = cc.cvrp_construct(score[:1], demand[:1], 1.0, A,
                               torch.Generator(device=dev).manual_seed(SEED + 13))
@@ -2571,7 +2754,9 @@ def parallel_checks(dev, root: Path, mesh, net, coords, heu0, cuda_ms=None) -> d
     from deepaco_tpu_torch.aco.runner import ACOConfig, init_search, run_anytime
     from deepaco_tpu_torch.core.graph import knn_graph
     from deepaco_tpu_torch.ops import cvrp_construct as cc
+    from deepaco_tpu_torch.aco.engine import gumbel
     from deepaco_tpu_torch.ops import deposit, fused_gnn, gnn_layer, pick
+    from deepaco_tpu_torch.ops import rollout as rollout_ops
     from deepaco_tpu_torch.parallel import (edges_per_second_bench, make_sharded_tsp_train_step,
                                             sharded_embnet_forward)
     from deepaco_tpu_torch.parallel._axes import block_seed, instance_block
@@ -2582,8 +2767,9 @@ def parallel_checks(dev, root: Path, mesh, net, coords, heu0, cuda_ms=None) -> d
     from deepaco_tpu_torch.utils.datasets import distance_matrix, uniform_coords
 
     counted = (gnn_layer.fused_gnn_layer_rows, gnn_layer.fused_gnn_layer,
-               gnn_layer.fused_gnn_layer_backward, pick.fused_pick, deposit.tour_deposit,
-               cc.cvrp_construct, fused_gnn.embnet_layers)
+               gnn_layer.fused_gnn_layer_backward, pick.fused_pick, rollout_ops.fused_rollout,
+               rollout_ops.fused_rollout_backward, deposit.tour_deposit, cc.cvrp_construct,
+               fused_gnn.embnet_layers)
 
     def zero():
         torch.cuda.synchronize()
@@ -2707,28 +2893,26 @@ def parallel_checks(dev, root: Path, mesh, net, coords, heu0, cuda_ms=None) -> d
         steps.append({"loss": info.loss.item(), "mean_cost": info.mean_cost.item(),
                       "grad_norm": info.grad_norm.item(),
                       "wall_s": time.perf_counter() - t0, "launches": launches})
-    want = {"fused_gnn_layer": 12, "fused_gnn_layer_backward": 12, "fused_pick": N - 1}
+    want = {"fused_gnn_layer": 12, "fused_gnn_layer_backward": 12, "fused_pick": 0,
+            "fused_rollout": 1, "fused_rollout_backward": 1}
     checks["train_steps"] = all(
         all(s["launches"][k] == v for k, v in want.items())
         and math.isfinite(s["loss"]) and math.isfinite(s["grad_norm"]) for s in steps)
     flat = torch.cat([p.detach().reshape(-1) for p in state.net.parameters()])
     checks["train_steps_weights_equal_on_every_rank"] = same_on_every_rank(flat)
-    # K7 at the sharded step's rows: the first step of its ants on the heuristic
-    with torch.no_grad():
-        h = heu_s[rows]
-        b_l = h.shape[0]
-        start = replay[rows][:, 0, ants]
-        score = score_matrix(torch.ones_like(h), h, 1.0, 1.0)
-        row_scores = score.gather(1, start[..., None].expand(-1, -1, N)).reshape(-1, N)
-        mask = torch.ones_like(row_scores)
-        mask.scatter_(1, start.reshape(-1, 1), 0.0)
-        noise = -torch.log(-torch.log(torch.rand(row_scores.shape, generator=gen,
-                                                  device=dev).clamp_(min=1e-30)))
-    k7 = check_pick_rows(cuda_ms, [(0, row_scores, mask, noise)], shares=(0.0,)) \
-        if cuda_ms is not None else None
-    if k7 is not None:
-        checks["k7_step_rows"] = k7["passed"]
-    out.update(train_agreement=agreement, train_steps=steps, k7=k7)
+    # K7r at the sharded step's rollout: its instances and starts on the heuristic
+    k7r = None
+    if cuda_ms is not None:
+        with torch.no_grad():
+            h = heu_s[rows]
+            start = replay[rows][:, 0, ants]
+            score = score_matrix(torch.ones_like(h), h, 1.0, 1.0)
+            noise = gumbel((N - 1, *start.shape, N), gen, dev)
+        k7r = check_rollout(cuda_ms, score, start, noise, rollout_ops.TSP_SHAPE,
+                            f"sharded tsp{N} train step, one rank's rollout")
+        checks["k7r_step_rollout"] = k7r["passed"]
+        del score, noise
+    out.update(train_agreement=agreement, train_steps=steps, k7r=k7r)
     del w0, s_arm, u_arm, state, heu_s
 
     # ---- (c) evaluate_family("cvrp", mesh=)
@@ -2878,7 +3062,7 @@ def parallel_phase(dev, root: Path, cuda_ms, net, coords) -> dict:
         for r, rr in enumerate(ranks):
             res["checks"].update({f"world{cards}_rank{r}_{k}": v
                                   for k, v in rr["checks"].items()})
-    emit({"phase": "parallel", **{k: v for k, v in res.items() if k not in ("k7", "k8")},
+    emit({"phase": "parallel", **{k: v for k, v in res.items() if k not in ("k7r", "k8")},
           "card": card_line(),
           "tolerance": "the sharded forward within 1e-4 of the largest entry of the "
                        "unsharded plain EmbNet; K6 on a row shard rtol 1e-5, atol 1e-5; the "
@@ -2890,18 +3074,21 @@ def parallel_phase(dev, root: Path, cuda_ms, net, coords) -> dict:
 
 
 def family_kernel_fields(r: dict) -> dict:
-    """A phase-14 family's fields of K6, K7, K7c, K8 and K9 in the kernels'
-    line, from ``family_phase``'s result: the launches on its kernel arm
-    (K7 or K7c, K8, K9) and in its training steps (K6, K7), and the error,
-    times and bound at its shapes (K7's at its inference rows, or for BPP,
-    which picks through K7 only in training, at its training rows)."""
+    """A phase-14 family's fields of K6, K7, K7r, K7c, K8 and K9 in the
+    kernels' line, from ``family_phase``'s result: the launches on its
+    kernel arm (K7 or K7c, K8, K9) and in its training steps (K6, K7 or
+    K7r), and the error, times and bound at its shapes (K7's at its
+    inference rows, K7r's at BPP's training rollout)."""
     take = lambda d, keys: {k: d[k] for k in keys if k in d}
     timing = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     launches = r["arms"]["kernel"]["launches"]
     train = {"train_steps": FAMILY_TRAIN_STEPS}
     fields = {"fused_pick": {"launches": launches["fused_pick"],
                              "train_launches": r["train_launches"]["fused_pick"], **train,
-                             **take(r.get("k7", r["pick_train"]), ("rows", "N") + timing)}}
+                             **take(r.get("k7") or r["pick_train"] or {}, ("rows", "N") + timing)}}
+    if r["rollout_train"] is not None:
+        for name, entry in rollout_entries(r["rollout_train"]).items():
+            fields[name] = {"train_launches": r["train_launches"][name], **train, **entry}
     if "k7c" in r:
         fields["cvrp_construct"] = {"launches": launches["cvrp_construct"],
                                     **take(r["k7c"], timing)}
@@ -2921,6 +3108,8 @@ def family_kernel_fields(r: dict) -> dict:
 
 
 def main() -> int:
+    import copy
+
     import torch
 
     if sys.argv[1:] not in ([], ["--parallel-only"]):
@@ -2944,6 +3133,7 @@ def main() -> int:
     from deepaco_tpu_torch.families import CVRP_CAPACITY
     from deepaco_tpu_torch.ops import _build, deposit, fused_gnn, gnn_layer, pick, two_opt
     from deepaco_tpu_torch.ops import cvrp_construct as cc
+    from deepaco_tpu_torch.ops import rollout as rollout_ops
     from deepaco_tpu_torch.train import drivers
     from deepaco_tpu_torch.train import reinforce as tr
     from deepaco_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -3205,6 +3395,7 @@ def main() -> int:
                bt.fused_tsp_update, two_opt.batched_two_opt_euclid,
                two_opt.batched_nls_euclid, gnn_layer.fused_gnn_layer,
                gnn_layer.fused_gnn_layer_backward, pick.fused_pick,
+               rollout_ops.fused_rollout, rollout_ops.fused_rollout_backward,
                deposit.tour_deposit, cc.cvrp_construct, fused_gnn.embnet_layers)
 
     class PhaseTimer:
@@ -3276,10 +3467,22 @@ def main() -> int:
     # ---- 6. the training kernels against their plain versions
     row8_ok = check_training_kernels(dev, cuda_ms, kernels)
 
-    # ---- 7. one training step, kernel arm against plain arm
-    step_checks = [train_step_arms(dev, name) for name in TRAIN_STEPS]
-    for check in step_checks:
-        emit(check)
+    # ---- 7. one training step, kernel arm against plain arm; K7r on each
+    # step's own rollout
+    step_checks, rollout_checks = [], {}
+    for name in TRAIN_STEPS:
+        captured = []
+        step_checks.append(train_step_arms(dev, name, captured))
+        emit(step_checks[-1])
+        rollout_checks[name] = check_rollout(cuda_ms, *captured[0], f"{name} training rollout")
+        del captured
+    for name, fields in rollout_entries(rollout_checks["tsp500_nls"]).items():
+        kernels.append({
+            "name": name, "route": "cuda", "source": "deepaco_tpu_torch/csrc/rollout.cu",
+            "replaces": "deepaco_tpu/ops/pallas_kernels.py:65 (fused_pick_pallas, every step of "
+                        "the scan deepaco_tpu/aco/engine.py:104-129 with require_prob)",
+            "passed": all(r["passed"] for r in rollout_checks.values()), **fields,
+            "tsp500": rollout_entries(rollout_checks["tsp500"])[name]})
 
     # ---- 8. train_tsp in both configurations, then save, reload, evaluate
     def train_run(name):
@@ -3295,12 +3498,15 @@ def main() -> int:
             rows.append({"step": i, "loss": info.loss.item(),
                          "mean_cost": info.mean_cost.item(),
                          "grad_norm": info.grad_norm.item(),
-                         "wall_ms": (now - last[0]) * 1e3, "phase_ms": timer.take()})
+                         "wall_ms": (now - last[0]) * 1e3, "phase_ms": timer.take(),
+                         "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+            torch.cuda.reset_peak_memory_stats()
             last[0] = time.perf_counter()
 
         for fn in counted:
             fn.launches = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         last[0] = time.perf_counter()
         state = tr.train_tsp(Net(**net_kwargs), cfg, local_search=ls, progress=progress,
                              max_steps=TRAIN_STEPS[name],
@@ -3314,12 +3520,24 @@ def main() -> int:
             if a.dim() == 2 or "running" in k)
         finite = all(math.isfinite(r[key]) for r in rows
                      for key in ("loss", "mean_cost", "grad_norm"))
+        # one more step on the trained state under the profiler: the
+        # device's busy time, idle share and launches a step
+        step_fn = tr.make_tsp_train_step(cfg, ls, _ops=tr.KERNEL_OPS)
+        spare, spare_gen = copy.deepcopy(state), torch.Generator(device=dev).manual_seed(SEED + 31)
+        profiled = device_busy(lambda: step_fn(spare, spare_gen))
+        del spare
+        # a step: one K7r launch each way, no K7
+        steps = TRAIN_STEPS[name]
+        rollout_ok = (counts["fused_rollout"] == steps and counts["fused_rollout_backward"] == steps
+                      and counts["fused_pick"] == 0)
         emit({"phase": "train", "config": name, "B": cfg.train.batch_size, "N": N,
               "K": K, "A": cfg.aco.n_ants, "lr": cfg.train.lr,
               "cosine": cfg.train.cosine_schedule, "steps": rows, "launches": counts,
-              "weights_moved": moved, "finite": finite})
-        if not (moved and finite and len(rows) == TRAIN_STEPS[name]):
-            fail(f"training {name}: moved {moved}, finite {finite}, {len(rows)} steps")
+              "profiled_step": profiled, "weights_moved": moved, "finite": finite,
+              "rollout_launches_ok": rollout_ok})
+        if not (moved and finite and len(rows) == steps and rollout_ok):
+            fail(f"training {name}: moved {moved}, finite {finite}, {len(rows)} steps, "
+                 f"launches {counts}")
         return state, counts
 
     train_runs = {name: train_run(name) for name in TRAIN_STEPS}
@@ -3408,19 +3626,17 @@ def main() -> int:
 
     from deepaco_tpu_torch import cli
 
-    # (a) one step, kernel arm against plain arm; K6 and K7 at its shapes
-    step_check, train_picks, train_batch, train_net = family_train_step_arms(dev, "cvrp")
+    # (a) one step, kernel arm against plain arm; K6 and K7r at its shapes
+    step_check, train_rollouts, train_batch, train_net = family_train_step_arms(dev, "cvrp")
     layer_train = check_layer(dev, cuda_ms, train_net, cvrp_graph(
         torch.as_tensor(train_batch["demand"], device=dev),
         torch.as_tensor(train_batch["dist"], device=dev)), backward=True)
     emit({"phase": "kernel", "name": "fused_gnn_layer", "config": "cvrp500 training, B=1, "
           "K = N = 501", **layer_train, "tolerance": "forward rtol 1e-5, atol 1e-5 (sum order); "
           "backward rtol 1e-4, atol 1e-5 of the largest entry"})
-    pick_train = check_pick_rows(cuda_ms, train_picks)
-    emit({"phase": "kernel", "name": "fused_pick", "config": "cvrp500 training rollout, "
-          "50 ants, N = 501", **pick_train, "tolerance": "actions exact and allowed; logp "
-          "rtol 1e-5, atol 1e-5 (logsumexp order, expf/logf against torch's)"})
-    del train_net, train_picks
+    rollout_train = check_rollout(cuda_ms, *train_rollouts[0],
+                                  f"cvrp{CVRP_N} training rollout, {A_TRAIN} ants")
+    del train_net, train_rollouts
 
     # (b) make_family_train_step: the kernels' counts set to 0 just before
     # each step and read just after
@@ -3444,7 +3660,7 @@ def main() -> int:
                            "launches": {fn.__name__: fn.launches for fn in counted}})
     depth = train_state.net.depth
     want_step = {"fused_gnn_layer": depth, "fused_gnn_layer_backward": depth,
-                 "fused_pick": family.horizon_states(train_cfg.n_nodes)[1],
+                 "fused_pick": 0, "fused_rollout": 1, "fused_rollout_backward": 1,
                  "cvrp_construct": 0, "embnet_layers": 0}
     step_launches_ok = all({k: r["launches"][k] for k in want_step} == want_step
                            for r in train_rows)
@@ -3455,7 +3671,12 @@ def main() -> int:
                       if v.dim() == 2 or "running" in k)
     cvrp_train_launches = {fn.__name__: sum(r["launches"][fn.__name__] for r in train_rows)
                            for fn in counted}
-    del train_state, start
+    # one more step under the profiler: the device's busy time, idle share
+    # and launches a step
+    spare = copy.deepcopy(train_state)
+    batch = drivers.gen_batch(family, train_rng, train_cfg.n_nodes, 1)
+    cvrp_profiled = device_busy(lambda: step_fn(spare, batch, train_gen))
+    del train_state, start, spare
 
     # (c) a short train_family run: one epoch cut to 2 steps, validation,
     # checkpoints; -last read back and evaluated
@@ -3499,12 +3720,13 @@ def main() -> int:
     cvrp_train_ok = {"step_agreement": step_check["passed"],
                      "k6_forward": layer_train["passed"],
                      "k6_backward": layer_train["backward"]["passed"],
-                     "k7": pick_train["passed"], "step_launches": step_launches_ok,
+                     "k7r": rollout_train["passed"], "step_launches": step_launches_ok,
                      "finite": train_finite, "weights_moved": train_moved,
                      "train_family": family_ok, "cli": cli_ok}
     emit({"phase": "cvrp_train", "B": 1, "N": CVRP_N + 1, "A": A_TRAIN,
           "lr": train_cfg.train.lr, "checks": cvrp_train_ok, "step_agreement": step_check,
           "steps": train_rows, "launches_per_step_expected": want_step,
+          "profiled_step": cvrp_profiled,
           "train_family": {"steps": 2, "val_instances": CVRP_VAL_B, "val_t": 2,
                            "wall_s": family_wall, "epochs": epochs, "launches": family_launches,
                            "files": [str(f.relative_to(root)) for f in written],
@@ -3577,20 +3799,26 @@ def main() -> int:
                      "cvrp_construct": cvrp_arms["kernel"]["launches"]["cvrp_construct"],
                      "batched_two_opt_euclid": arms["classic_2opt"]["launches"]["batched_two_opt_euclid"],
                      "batched_nls_euclid": arms["nls"]["launches"]["batched_nls_euclid"],
+                     # K7 steps the per-step rollouts, no longer training: phase 18's
+                     # test tsp family path (set there)
+                     "fused_pick": None,
                      **{fn.__name__: train_launches[fn.__name__] for fn in (
                          gnn_layer.fused_gnn_layer, gnn_layer.fused_gnn_layer_backward,
-                         pick.fused_pick)}}
+                         rollout_ops.fused_rollout, rollout_ops.fused_rollout_backward)}}
     train_shapes = {"fused_gnn_layer": layer_train, "fused_gnn_layer_backward":
                     {**layer_train["backward"], **{k: layer_train[k] for k in ("B", "N", "K")}},
-                    "fused_pick": {**pick_train, "B": 1}}
+                    **rollout_entries(rollout_train)}
     for entry in kernels:
         entry["launches"] = path_launches[entry["name"]]
         shape = train_shapes.get(entry["name"])
         if shape is not None:
             entry["cvrp_train"] = {
                 "launches": cvrp_train_launches[entry["name"]], "steps": CVRP_TRAIN_STEPS,
-                **{k: shape[k] for k in ("B", "N", "K", "rows", "max_abs_err", "ms", "plain_ms",
+                **{k: shape[k] for k in ("config", "B", "N", "K", "A", "T", "ant_steps", "rows",
+                                         "max_abs_err", "ms", "device_ms", "plain_ms",
                                          "bound_ms", "bound_by") if k in shape}}
+        if entry["name"] in ("fused_rollout", "fused_rollout_backward"):
+            entry["tsp500"]["train_launches"] = train_runs["tsp500"][1][entry["name"]]
 
     # ---- 14. the other families: OP300, PCTSP500, SMTWTP500, SOP100, BPP120, MKP300
     family_runs = {name: family_phase(dev, root, cuda_ms, PhaseTimer, counted, name)
@@ -3607,6 +3835,9 @@ def main() -> int:
     take = lambda d, keys: {k: d[k] for k in keys if k in d}
     timing = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     nls_launches = nls_run["arms"]["kernel"]["launches"]
+    for name, fields in rollout_entries(nls_run["k7r"]).items():
+        next(k for k in kernels if k["name"] == name)["cvrp_nls"] = {
+            "train_launches": nls_run["train_launches"][name], **fields}
     for entry in kernels:
         if entry["name"] == "cvrp_construct":
             entry["cvrp_nls"] = {"launches": nls_launches["cvrp_construct"],
@@ -3630,9 +3861,11 @@ def main() -> int:
     golden_run = tsp_golden_phase(dev, root, cuda_ms, counted, coords)
     rcpsp_launches = rcpsp_run["arms"]["kernel"]["launches"]
     facade_launches = golden_run["arms"]["tsp_nls_per_instance"]["launches"]
+    path_launches["fused_pick"] = golden_run["arms"]["tsp_family"]["launches"]["fused_pick"]
     two_opt_launches = golden_run["arms"]["tsp_2opt_per_instance"]["launches"]
     for entry in kernels:
         if entry["name"] == "fused_pick":
+            entry["launches"] = path_launches["fused_pick"]
             entry["rcpsp"] = {"launches": rcpsp_launches["fused_pick"],
                               "train_launches": rcpsp_run["train_launches"]["fused_pick"],
                               **take(rcpsp_run["k7"], ("rows", "N") + timing)}
@@ -3699,8 +3932,10 @@ def main() -> int:
             **par_worlds}},
         "fused_pick": {"parallel": {
             "train_launches": par_steps["fused_pick"], "steps": 1,
-            "island_launches": par["island"]["launches"]["fused_pick"],
-            **take(par["k7"], ("rows", "N") + timing), **par_worlds}},
+            "island_launches": par["island"]["launches"]["fused_pick"], **par_worlds}},
+        **{name: {"parallel": {"train_launches": par_steps[name], "steps": 1, **fields,
+                               **par_worlds}}
+           for name, fields in rollout_entries(par["k7r"]).items()},
         "tour_deposit": {"parallel": {
             "launches": par["cvrp"]["launches"]["tour_deposit"],
             "island_launches": par["island"]["launches"]["tour_deposit"],

@@ -7,8 +7,12 @@ takes the Gumbel-max of ``alpha*log(phe) + beta*log(heu)`` under the
 feasibility mask, the same law as the reference's
 ``Categorical(phe**alpha * heu**beta * mask)`` (tsp/aco.py:165-177).
 ``rollout(require_prob=True)`` also returns the log-probability of each
-sampled action, differentiable in the plug-in's score matrix: each step is
-one :func:`~deepaco_tpu_torch.ops.pick.fused_pick` (kernel K7 on the card).
+sampled action, differentiable in the plug-in's score matrix. A plug-in
+that carries ``fused`` (TSP's and CVRP's, so TSP, CVRP and BPP training and
+the facades' ``sample``) then takes the whole rollout in one
+:func:`~deepaco_tpu_torch.ops.rollout.fused_rollout` (kernel K7r on the
+card, one launch forward and one backward); every other rollout is one
+:func:`~deepaco_tpu_torch.ops.pick.fused_pick` (kernel K7) a step.
 
 Gumbel noise follows ``jax.random.gumbel``'s f32 law, ``-log(-log U)`` with
 ``U`` uniform on ``[tiny, 1)``, drawn from the caller's ``torch.Generator``;
@@ -20,7 +24,9 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from deepaco_tpu_torch.ops.pick import fused_pick
+from deepaco_tpu_torch.ops.pick import fused_pick, fused_pick_plain
+from deepaco_tpu_torch.ops.rollout import (fused_rollout, fused_rollout_plain,
+                                           fused_rollout_supported)
 
 NEG_INF = -1e30
 _TINY = 1.1754944e-38            # smallest normal f32
@@ -45,6 +51,11 @@ class RolloutSpec(NamedTuple):
                 then ``log(max(probs, 1e-30))`` and its mask ``probs > 0``,
                 not ``mask`` (engine.py:93-97), and alpha and beta are
                 ignored.
+    fused:      optional ``(score [B, N, N], ops.rollout.RolloutShape)``:
+                the score matrix that ``score_rows`` gathers from and the
+                state the plug-in keeps (TSP's visited set, or CVRP's with
+                its demand and capacity), for the one-launch route of
+                ``rollout(require_prob=True)``.
     """
 
     horizon: int
@@ -55,11 +66,17 @@ class RolloutSpec(NamedTuple):
     step: Callable[[Any, torch.Tensor], Any]
     score_rows: Callable[[Any], torch.Tensor] | None = None
     probs_fn: Callable[[Any], torch.Tensor] | None = None
+    fused: tuple | None = None
+
+
+# the one-launch rollout that stands for each pick, on the fused route
+_FUSED = {fused_pick: fused_rollout, fused_pick_plain: fused_rollout_plain}
 
 
 class Rollout(NamedTuple):
     """paths ``[B, horizon+1, A]`` int64, row 0 the start; log_probs
-    ``[B, horizon, A]`` (zeros unless ``require_prob``); the final state."""
+    ``[B, horizon, A]`` (zeros unless ``require_prob``); the final state
+    (None on the fused route, which keeps its state on the card)."""
 
     paths: torch.Tensor
     log_probs: torch.Tensor
@@ -108,8 +125,19 @@ def rollout(spec: RolloutSpec, generator: torch.Generator, *, alpha: float = 1.0
             pick: Callable = fused_pick) -> Rollout:
     """Construct every ant's solution (``ACO.gen_path``, tsp/aco.py:134-163),
     one ``pick`` a step: :func:`fused_pick` (K7 on the card) or
-    ``fused_pick_plain``."""
+    ``fused_pick_plain``.
+
+    With ``require_prob``, a spec that carries ``fused`` and N that K7r
+    takes, the pick's one-launch counterpart (:func:`fused_rollout`, K7r on
+    the card, or :func:`fused_rollout_plain`) runs the whole rollout on
+    the noise of all steps drawn in one call, the very numbers that a call
+    a step draws from a CPU generator. Its ``Rollout.state`` is None."""
     start = spec.start(generator)
+    routed = _FUSED.get(pick) if require_prob and spec.fused is not None else None
+    if routed is not None and fused_rollout_supported(spec.fused[0].shape[-1]):
+        score, shape = spec.fused
+        noise = gumbel((spec.horizon, *start.shape, score.shape[-1]), generator, score.device)
+        return Rollout(*routed(score, start, noise, shape), None)
     state = spec.init(start)
     b, a = start.shape
     actions, log_probs = [start], []

@@ -24,13 +24,16 @@ from deepaco_tpu_torch.aco.runner import ACOConfig, ProblemACO, as_instance
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.ops.cvrp_construct import cvrp_construct, cvrp_construct_supported
 from deepaco_tpu_torch.ops.pick import fused_pick
+from deepaco_tpu_torch.ops.rollout import RolloutShape
 
 
 def cvrp_spec(phe: torch.Tensor, heu: torch.Tensor, demand: torch.Tensor,
               capacity: float, n_ants: int, alpha: float = 1.0,
               beta: float = 1.0):
     """The engine's plug-in for ``phe, heu [B, N, N]`` (N = customers + 1),
-    ``demand [B, N]`` (0 at the depot) and ``n_ants`` ants per instance."""
+    ``demand [B, N]`` (0 at the depot) and ``n_ants`` ants per instance;
+    the spec carries the score matrix and the capacity state for the
+    engine's one-launch route (K7r)."""
     from deepaco_tpu_torch.aco.engine import RolloutSpec
 
     b, n, _ = phe.shape
@@ -68,7 +71,8 @@ def cvrp_spec(phe: torch.Tensor, heu: torch.Tensor, demand: torch.Tensor,
                        prob_rows=lambda state: (rows(phe, state[0]),
                                                 rows(heu, state[0])),
                        mask=lambda state: state[1] * state[3], step=step,
-                       score_rows=lambda state: rows(score, state[0]))
+                       score_rows=lambda state: rows(score, state[0]),
+                       fused=(score, RolloutShape("cvrp", demand, capacity)))
 
 
 def cvrp_paths(phe: torch.Tensor, heu: torch.Tensor, demand: torch.Tensor,

@@ -92,7 +92,7 @@ class CVRPNLSACO(CVRPACO):
 
     def sample_nls(self):
         """``(ls_costs [A], log_probs [L-1, A], raw_costs [A])``: one
-        construction a pick a step (``ops.pick``, K7) with its
+        construction through ``ops.pick``'s one-launch rollout (K7r) with its
         log-probabilities, every ant refined (cvrp_nls/aco.py:106-111)."""
         ro = rollout(self.spec(self.state.phe.tau, self.heuristic), self.generator,
                      require_prob=True, pick=self.ops.pick)

@@ -43,8 +43,10 @@ def tsp_spec(phe: torch.Tensor, heu: torch.Tensor, n_ants: int,
              fixed_start: int | None = None, alpha: float = 1.0,
              beta: float = 1.0):
     """The engine's plug-in for ``phe, heu [B, N, N]`` and ``n_ants`` ants
-    per instance; ``score`` stays differentiable in ``phe`` and ``heu``."""
+    per instance; ``score`` stays differentiable in ``phe`` and ``heu``, and
+    the spec carries it for the engine's one-launch route (K7r)."""
     from deepaco_tpu_torch.aco.engine import RolloutSpec
+    from deepaco_tpu_torch.ops.rollout import TSP_SHAPE
 
     b, n, _ = phe.shape
     score = score_matrix(phe, heu, alpha, beta)
@@ -71,7 +73,8 @@ def tsp_spec(phe: torch.Tensor, heu: torch.Tensor, n_ants: int,
                        prob_rows=lambda state: (rows(phe, state[0]),
                                                 rows(heu, state[0])),
                        mask=lambda state: state[1], step=step,
-                       score_rows=lambda state: rows(score, state[0]))
+                       score_rows=lambda state: rows(score, state[0]),
+                       fused=(score, TSP_SHAPE))
 
 
 def tour_cost(dist: torch.Tensor, paths: torch.Tensor) -> torch.Tensor:

@@ -233,9 +233,10 @@ class ProblemACO:
         return rollout(self.spec(tau, heu), generator).paths
 
     def sample(self, require_prob: bool = True):
-        """One construction on the current pheromone, a pick a step (K7 on
-        the card): ``(costs [A], log_probs [horizon, A], paths [horizon+1,
-        A])``, the log-probabilities differentiable in the heuristic."""
+        """One construction on the current pheromone (K7r on the card for
+        the TSP and CVRP plug-ins, else K7 a step): ``(costs [A], log_probs
+        [horizon, A], paths [horizon+1, A])``, the log-probabilities
+        differentiable in the heuristic."""
         ro = rollout(self.spec(self.state.phe.tau, self.heuristic), self.generator,
                      require_prob=require_prob)
         return self.cost(ro.paths)[0], ro.log_probs[0], ro.paths[0]

@@ -63,7 +63,8 @@ class Family(NamedTuple):
     → :class:`~deepaco_tpu_torch.core.graph.SparseGraph`; ``heu_matrix(g,
     out, inst)`` → the dense heuristic ``[B, N, N]``; ``spec(tau, heu, inst,
     n_ants)`` → the rollout plug-in (``aco.engine.RolloutSpec``) that
-    training samples and replays, a pick a step; ``construct(tau, heu,
+    training samples (TSP, CVRP, BPP: K7r's one launch; the others a pick a
+    step) and replays; ``construct(tau, heu,
     inst, n_ants, generator, ops)`` → one inference iteration's paths
     through ``ops`` (``train.drivers.FamilyOps``): TSP, OP, PCTSP, SMTWTP,
     SOP and MKP the rollout of their ``spec``, a pick a step; CVRP and BPP

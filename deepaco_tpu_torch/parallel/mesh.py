@@ -92,7 +92,7 @@ def make_sharded_tsp_train_step(net: torch.nn.Module, cfg: ProblemConfig, mesh, 
     2]`` (:func:`~deepaco_tpu_torch.parallel.multihost.host_local_batch`)
     and its own generator. Every rank of the block runs the same train-mode
     GNN on it (K6 a layer forward and backward on the card) and samples ant
-    block ``a``, ``A / n_ant`` ants an instance (K7 a step), or with
+    block ``a``, ``A / n_ant`` ants an instance (one K7r launch each way), or with
     ``paths [B/I, N, A / n_ant]`` replays those tours: ``tsp_loss`` at
     ``A / n_ant`` ants, whose own baseline it replaces. Each instance's
     baseline is its mean cost over all ``A`` ants (an ``all_reduce`` of cost

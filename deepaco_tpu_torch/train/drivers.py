@@ -8,8 +8,9 @@ BatchNorm statistics per instance, averaged over the instance batch as the
 JAX step's ``vmap`` takes them, samples with ``rollout(require_prob=True)``
 through the family's ``spec``, and updates with the loss ``sum(sign *
 (cost - mean) * sum_t log p) / A``. On the card every GNN layer is one
-launch of kernel K6 forward and one backward, and every construction step
-one launch of K7. Products stay in full f32 (TF32 is never switched on), as
+launch of kernel K6 forward and one backward, and the rollout one launch of
+K7r each way (TSP, CVRP and BPP, whose plug-ins carry their score matrix)
+or one launch of K7 a step (the other families). Products stay in full f32 (TF32 is never switched on), as
 the JAX step runs under ``default_matmul_precision("highest")``.
 
 :func:`evaluate_family` runs the whole batch at once, every instance with
@@ -70,8 +71,10 @@ class FamilyOps(NamedTuple):
     """What training and evaluation call for the GNN layer (``layer``, the
     per-layer route: training) or the folded layer stack (``layers``, the
     eval-mode route of :func:`_forward_heu`), each construction step
-    (``pick``: training, the per-step families' evaluation, and CVRP's and
-    BPP's past K7c's N), each deposit, the CVRP and BPP families' whole
+    (``pick``: training, where ``fused_pick`` stands for K7r and
+    ``fused_pick_plain`` for its plain version on the TSP and CVRP
+    plug-ins, the per-step families' evaluation, and CVRP's and BPP's past
+    K7c's N), each deposit, the CVRP and BPP families' whole
     construction in evaluation (``construct``), and ``timer(name)``, a context manager around each
     phase (evaluation: ``"heuristic"``, ``"construction"``, ``"update"``;
     a training step: ``"heuristic"``, ``"rollout"``, ``"backward"``,
@@ -235,8 +238,9 @@ def family_loss(family: Family, net: Net, inst: dict, cfg: ProblemConfig,
     (BatchNorm on batch statistics does not fold into K9), then the
     family's ``spec`` on a pheromone of ones, after ``Family.prepare``.
     Without ``paths`` the
-    ``cfg.aco.n_ants`` ants sample (``rollout(require_prob=True)``, a pick
-    a step); with ``paths [B, horizon+1, A]`` their log-probabilities are
+    ``cfg.aco.n_ants`` ants sample (``rollout(require_prob=True)``: the
+    pick's one-launch rollout, K7r, for the TSP and CVRP plug-ins, else a
+    pick a step); with ``paths [B, horizon+1, A]`` their log-probabilities are
     replayed (``path_log_probs``). The loss is the batch mean of
     ``sum(sign * (cost - mean cost) * sum_t log p) / A``, the advantage
     detached, ``sign = -1`` for a family that maximizes."""

@@ -12,8 +12,8 @@ One step: instances from the trainer's generator, the train-mode GNN
 (BatchNorm statistics per instance, as the JAX step's ``vmap`` takes them),
 the dense heuristic, a sampled rollout with log-probabilities, optionally
 NLS on every ant, the loss, its gradient and the update. On the card the
-GNN layers run kernel K6 (forward and backward), every construction step
-kernel K7 and the local search kernel K5.
+GNN layers run kernel K6 (forward and backward), the rollout kernel K7r
+(one launch forward, one backward) and the local search kernel K5.
 
 The optimizer follows optax's ``chain(clip_by_global_norm, adamw)`` where
 torch's defaults differ: the clip scales by ``max_norm / norm`` only when

@@ -4,8 +4,8 @@ kernels built from another tree's sources, on one card, in turns (other,
 this, this, other).
 
     python3 scripts/compare_kernels.py --other path/to/deepaco_tpu_torch/csrc \
-        [--kernels K1 K2 K3 K4 K5 K6 K7 K8 K9] [--k8-variant DIR ...] [--k7-variant DIR ...]
-        [--out FILE]
+        [--kernels K1 K2 K3 K4 K5 K6 K7 K7r K8 K9] [--k8-variant DIR ...]
+        [--k7-variant DIR ...] [--k7r-variant DIR ...] [--out FILE]
 
 ``--other`` is the ``csrc`` directory of another checkout (for example the
 parent commit unpacked with ``git archive``); its ``two_opt.cu`` and
@@ -117,10 +117,23 @@ is called through its C entries, which must have the parent's signatures
   ``common.cuh`` it includes) with this tree's C entry, timed beside K7c
   in the same turns, its equality to K7c's paths reported, not required.
 
+- K7r (``--kernels K7r``; ``--other`` is not read): the training rollout
+  with its log-probabilities at TSP500-NLS's shape (B=20, 30 ants from
+  city 0, the ``tsp_nls500_selftrained`` heuristic), CVRP500's (B=1, 50
+  ants, capacity 50) and BPP120's (B=1, 120 ants, capacity 150): the
+  per-step route (K7 and the plug-in's glue a step, autograd's backward)
+  against the fused route (one K7r launch each way), forward and backward
+  together, medians of 6 alternating turns; each ``--k7r-variant``
+  directory holds a ``rollout.cu`` (and the ``common.cuh`` it includes)
+  with this tree's C entries, its forward and backward timed beside this
+  tree's in the same turns (5 launches a turn), its paths' and gradient's
+  equality to this build's reported, not required. This build's paths
+  must equal ``fused_rollout_plain``'s.
+
 Both builds of K2, K3, K4, K5 and K8 must give equal outputs, K3's two
 variants too, K7c its plain version's, and this tree's K6 its plain
-version's within the tolerances above: the script exits 1 on any
-inequality.
+version's within the tolerances above, and K7r's paths its plain
+version's: the script exits 1 on any inequality.
 Prints one JSON object and writes it to ``--out`` when given. Needs a CUDA
 device and ``nvcc``.
 """
@@ -1053,6 +1066,151 @@ def compare_k7(result, same, other_csrc: Path, variants: list, dev, stream):
         "k7c_alone": k7c_alone, "device_ms_by_kernel": device}
 
 
+def k7r_cases(dev):
+    """K7r's inputs at the training shapes, name -> (score, start, noise,
+    shape): TSP500-NLS (``tsp_nls500_selftrained``'s heuristic on the main
+    path's first 20 instances, 30 ants from city 0), CVRP500
+    (``cvrp500_selftrained`` on the first golden instance, 50 ants, capacity
+    50) and BPP120 (``bpp120_selftrained``, 120 ants, capacity 150)."""
+    import torch
+
+    from deepaco_tpu_torch.aco.engine import gumbel
+    from deepaco_tpu_torch.aco.problems.tsp import score_matrix
+    from deepaco_tpu_torch.core.builders import start_node_features
+    from deepaco_tpu_torch.families import BPP_CAPACITY, CVRP_CAPACITY, get_family
+    from deepaco_tpu_torch.ops import fused_gnn
+    from deepaco_tpu_torch.ops.rollout import TSP_SHAPE, RolloutShape
+    from deepaco_tpu_torch.train.drivers import _forward_heu, instance_tensors
+    from deepaco_tpu_torch.utils.datasets import distance_matrix
+
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 20)
+    nls_net, _ = cs.main_path_inputs(ROOT, dev, ls="nls")
+    _, coords = cs.main_path_inputs(ROOT, dev)
+    c = coords[:cs.B_TRAIN]
+    with torch.no_grad():
+        heu = fused_gnn.tsp_dense_heuristic(nls_net, start_node_features(c), distance_matrix(c),
+                                            cs.K)
+    a = cs.A_TRAIN_NLS
+    # the score contiguous, as the wrapper passes it (a family's heuristic
+    # may come transposed)
+    cases = {"tsp500_nls": (score_matrix(torch.ones_like(heu), heu, 1.0, 1.0).contiguous(),
+                            torch.zeros((c.shape[0], a), dtype=torch.int64, device=dev),
+                            gumbel((cs.N - 1, c.shape[0], a, cs.N), gen, dev), TSP_SHAPE)}
+    for name, capacity, ants in (("cvrp", CVRP_CAPACITY, cs.A_TRAIN),
+                                 ("bpp", BPP_CAPACITY, cs.FAMILY_PATHS["bpp"][2])):
+        net, ds = cs.family_inputs(ROOT, dev, name)
+        inst = instance_tensors({k: v[:1] for k, v in ds.items()}, dev)
+        with torch.no_grad():
+            heu = _forward_heu(get_family(name), net.eval(), inst, 0)
+        n = heu.shape[-1]
+        cases[f"{name}{n - 1}"] = (
+            score_matrix(torch.ones_like(heu), heu, 1.0, 1.0).contiguous(),
+            torch.zeros((1, ants), dtype=torch.int64, device=dev),
+            gumbel((2 * (n - 1), 1, ants, n), gen, dev),
+            RolloutShape("cvrp", inst["demand"], capacity))
+    return cases
+
+
+def compare_k7r(result, same, variants: list, dev):
+    """K7r at the training shapes (``k7r_cases``): the training rollout,
+    forward and backward, through the per-step route (the plug-in's step
+    loop, K7 and PyTorch's glue a step, autograd's backward) against the
+    fused route (one K7r launch each way), medians of 6 turns; and each
+    ``--k7r-variant`` build of another ``rollout.cu`` against this tree's,
+    forward and backward apart, medians of 6 turns of 5 launches, with its
+    paths' and gradient's equality to this build's. This build's paths must
+    equal ``fused_rollout_plain``'s."""
+    import torch
+
+    from deepaco_tpu_torch.ops import _build
+    from deepaco_tpu_torch.ops import rollout as ro
+    from deepaco_tpu_torch.ops.pick import fused_pick
+
+    P, I, F = _build.P, _build.I, _build.F
+    fwd_args, bwd_args = [P] * 4 + [F] + [I] * 6 + [P] * 8, [P] * 9 + [I] * 5 + [P] * 2
+    entries = {"this": (_build.function("deepaco_rollout_fwd", fwd_args),
+                        _build.function("deepaco_rollout_bwd", bwd_args))}
+    for k, path in enumerate(variants):
+        lib = build_other(path, ("rollout.cu",), f"k7r_variant{k}")
+        lib.deepaco_rollout_fwd.argtypes, lib.deepaco_rollout_bwd.argtypes = fwd_args, bwd_args
+        lib.deepaco_rollout_fwd.restype = lib.deepaco_rollout_bwd.restype = ctypes.c_int
+        entries[f"variant_{path.name}"] = (lib.deepaco_rollout_fwd, lib.deepaco_rollout_bwd)
+    stream = _build.stream_ptr(dev)
+    ptr = lambda x: None if x is None else x.data_ptr()
+
+    def forward(entry, score, start, noise, shape):
+        """One launch of a build's forward entry: (paths, logp, trace)."""
+        cvrp = shape.kind == "cvrp"
+        b, n, _ = score.shape
+        a, t = start.shape[1], noise.shape[0]
+        new = lambda shape_, dtype: torch.empty(shape_, dtype=dtype, device=dev)
+        paths, logp, lse = new((b, t + 1, a), torch.int64), new((b, t, a), torch.float32), \
+            new((b, t, a), torch.float32)
+        pos = new((b, a, n), torch.int32)
+        rem = new((b, t, a), torch.float32) if cvrp else None
+        dep = new((b, a, t), torch.int32) if cvrp else None
+        ndep = new((b, a), torch.int32) if cvrp else None
+        _build.check(entry(score.data_ptr(), start.data_ptr(), noise.data_ptr(),
+                           ptr(shape.demand) if cvrp else None, float(shape.capacity), b, n, a,
+                           t, int(cvrp), 0, paths.data_ptr(), logp.data_ptr(), lse.data_ptr(),
+                           pos.data_ptr(), ptr(rem), ptr(dep), ptr(ndep), stream),
+                     "deepaco_rollout_fwd")
+        return paths, logp, ro.RolloutTrace(paths, lse, pos, rem, dep, ndep)
+
+    def backward(entry, score, trace, g, shape):
+        cvrp = shape.kind == "cvrp"
+        b, n, _ = score.shape
+        d = torch.empty_like(score)
+        _build.check(entry(score.data_ptr(), trace.paths.data_ptr(), g.data_ptr(),
+                           trace.lse.data_ptr(), trace.pos.data_ptr(), ptr(trace.rem),
+                           ptr(trace.dep), ptr(trace.ndep), ptr(shape.demand) if cvrp else None,
+                           b, n, g.shape[2], g.shape[1], int(cvrp), d.data_ptr(), stream),
+                     "deepaco_rollout_bwd")
+        return d
+
+    def route(score, start, noise, shape, fused):
+        """The training rollout and its backward: K7r, or K7 a step with
+        the plug-in's glue, on the same score, starts and noise."""
+        leaf = score.clone().requires_grad_(True)
+        if fused:
+            _, logp = ro.fused_rollout(leaf, start, noise, shape)
+        else:
+            _, logp = ro._step_loop(leaf, start, noise, shape, fused_pick)
+        logp.sum().backward()
+        return leaf.grad
+
+    out = {}
+    for name, (score, start, noise, shape) in k7r_cases(dev).items():
+        g = torch.randn((score.shape[0], noise.shape[0], start.shape[1]),
+                        generator=torch.Generator(device=dev).manual_seed(cs.SEED + 21),
+                        device=dev)
+        with torch.no_grad():
+            want, _ = ro.fused_rollout_plain(score, start, noise, shape)
+        runs = {k: forward(fwd, score, start, noise, shape) for k, (fwd, _) in entries.items()}
+        d = {k: backward(entries[k][1], score, runs[k][2], g, shape) for k in entries}
+        same[f"K7r_{name}"] = bool(torch.equal(runs["this"][0], want))
+        case = {"B": score.shape[0], "N": score.shape[-1], "A": start.shape[1],
+                "T": noise.shape[0], "paths_equal_plain": same[f"K7r_{name}"],
+                "route": medians_of_turns(
+                    {"per_step": lambda: route(score, start, noise, shape, False),
+                     "fused": lambda: route(score, start, noise, shape, True)}, reps=1, rounds=6),
+                "forward": medians_of_turns(
+                    {k: (lambda fwd=fwd: forward(fwd, score, start, noise, shape))
+                     for k, (fwd, _) in entries.items()}, reps=5, rounds=6),
+                "backward": medians_of_turns(
+                    {k: (lambda k=k: backward(entries[k][1], score, runs[k][2], g, shape))
+                     for k in entries}, reps=5, rounds=6)}
+        case["route"]["speedup"] = (case["route"]["per_step"]["median_ms"]
+                                    / case["route"]["fused"]["median_ms"])
+        for k in entries:
+            case["forward"][k]["paths_equal_this"] = bool(torch.equal(runs[k][0], runs["this"][0]))
+            case["forward"][k]["logp_max_abs_diff"] = (runs[k][1] - runs["this"][1]).abs().max().item()
+            case["backward"][k]["d_max_abs_diff"] = (d[k] - d["this"]).abs().max().item()
+            case["backward"][k]["d_equal_this"] = bool(torch.equal(d[k], d["this"]))
+        out[name] = case
+    result["K7r"] = out
+
+
 def main() -> int:
     import torch
 
@@ -1069,6 +1227,8 @@ def main() -> int:
                     help="a directory with a sweep.cu (and the common.cuh it includes)")
     ap.add_argument("--k7-variant", type=Path, action="append", default=[],
                     help="a directory with a cvrp_sweep.cu (and the common.cuh it includes)")
+    ap.add_argument("--k7r-variant", type=Path, action="append", default=[],
+                    help="a directory with a rollout.cu (and the common.cuh it includes)")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     picked = set(args.kernels)
@@ -1105,6 +1265,8 @@ def main() -> int:
     if "K7" in picked:
         compare_k7(result, same, args.other.resolve(), [p.resolve() for p in args.k7_variant],
                    dev, stream)
+    if "K7r" in picked:
+        compare_k7r(result, same, [p.resolve() for p in args.k7r_variant], dev)
     result["outputs_equal"] = same
     line = json.dumps(result)
     print(line, flush=True)

@@ -717,24 +717,126 @@ def test_pick_kernel_matches_plain(dev):
     assert pick.fused_pick(ties, tie_mask, torch.zeros_like(ties))[0].tolist() == [3, 40]
 
 
+def _rollout_case(dev, kind, b, n, a, capacity=None, seed=0):
+    """K7r's inputs: a score matrix ``log(heu)`` of a random heuristic, the
+    starts (uniform for ``"tsp"``, city 0 for ``"tsp0"``, the depot for
+    CVRP), noise for every step, and the shape: CVRP demands 1-9, or k/150
+    at capacity 1 (CVRP-NLS), or BPP's sizes 20-100 at capacity 150."""
+    from deepaco_tpu_torch.aco.engine import gumbel
+    from deepaco_tpu_torch.ops import rollout
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    score = torch.log(0.01 + torch.rand((b, n, n), generator=g, device=dev))
+    if kind.startswith("tsp"):
+        start = (torch.randint(0, n, (b, a), generator=g, device=dev) if kind == "tsp"
+                 else torch.zeros((b, a), dtype=torch.int64, device=dev))
+        shape, t = rollout.TSP_SHAPE, n - 1
+    else:
+        lo, hi, scale = {"cvrp": (1, 10, 1.0), "cvrp_nls": (1, 10, 150.0),
+                         "bpp": (20, 101, 1.0)}[kind]
+        demand = torch.randint(lo, hi, (b, n), generator=g, device=dev).float() / scale
+        demand[:, 0] = 0.0
+        start = torch.zeros((b, a), dtype=torch.int64, device=dev)
+        shape, t = rollout.RolloutShape("cvrp", demand, capacity), 2 * (n - 1)
+    return score, start, gumbel((t, b, a, n), g, dev), shape
+
+
+ROLLOUT_CASES = [("tsp", 3, 50, 6, None), ("tsp0", 2, 33, 5, None), ("cvrp", 3, 51, 5, 50.0),
+                 ("cvrp_nls", 2, 101, 6, 1.0), ("bpp", 2, 121, 8, 150.0),
+                 ("tsp", 1, 1500, 3, None), ("tsp0", 1, 4096, 2, None), ("tsp", 2, 2, 3, None),
+                 ("cvrp", 1, 2, 2, 50.0),
+                 ("tsp0", 20, 500, 30, None), ("cvrp", 1, 501, 50, 50.0)]
+
+
+@pytest.mark.parametrize("kind,b,n,a,capacity", ROLLOUT_CASES)
+def test_rollout_kernel_matches_plain(dev, kind, b, n, a, capacity):
+    """K7r forward against fused_rollout_plain on the same noise (paths
+    exact at every warp count, log-probabilities rtol 1e-5 / atol 1e-6),
+    and its backward through autograd against rollout_backward_plain
+    (rtol 1e-4, atol 1e-5 of the largest entry), equal bits on a repeat;
+    one launch each way. The last two cases are TSP500-NLS training's and
+    CVRP500's shapes."""
+    from deepaco_tpu_torch.ops import rollout
+
+    score, start, noise, shape = _rollout_case(dev, kind, b, n, a, capacity)
+    want_paths, want_logp = rollout.fused_rollout_plain(score, start, noise, shape)
+    for warps in (1, 2, 4, 8):
+        if n <= 512 * warps:
+            paths, logp, _ = rollout.fused_rollout_forward(score, start, noise, shape,
+                                                           warps=warps)
+            assert torch.equal(paths, want_paths), warps
+            torch.testing.assert_close(logp, want_logp, rtol=1e-5, atol=1e-6)
+    leaf = score.clone().requires_grad_(True)
+    fwd, bwd = rollout.fused_rollout.launches, rollout.fused_rollout_backward.launches
+    paths, logp = rollout.fused_rollout(leaf, start, noise, shape)
+    assert torch.equal(paths, want_paths)
+    g = torch.randn(logp.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                    device=dev)
+    d1, = torch.autograd.grad(logp, leaf, g, retain_graph=True)
+    d2, = torch.autograd.grad(logp, leaf, g)
+    assert (rollout.fused_rollout.launches - fwd, rollout.fused_rollout_backward.launches
+            - bwd) == (1, 2)
+    assert torch.equal(d1, d2)
+    want = rollout.rollout_backward_plain(score, want_paths, g, shape)
+    torch.testing.assert_close(d1, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
+
+
+def test_rollout_kernel_takes_nan_first_and_refuses_what_it_cannot_take(dev):
+    """A NaN score is picked before every number, as torch.argmax orders it;
+    N past 4096, f64 scores and a CPU tensor mixed in raise."""
+    from deepaco_tpu_torch.ops import rollout
+
+    score, start, noise, shape = _rollout_case(dev, "tsp0", 2, 40, 3)
+    score[:, 0, 17] = float("nan")
+    paths, _ = rollout.fused_rollout(score, start, noise, shape)
+    want, _ = rollout.fused_rollout_plain(score, start, noise, shape)
+    assert torch.equal(paths, want) and bool((paths[:, 1] == 17).all())
+    with pytest.raises(ValueError, match="f32"):
+        rollout.fused_rollout(score.double(), start, noise, shape)
+    with pytest.raises(ValueError):
+        rollout.fused_rollout(score, start.cpu(), noise, shape)
+    big = torch.zeros((1, 4097, 4097), device=dev)
+    with pytest.raises(ValueError, match="4096"):
+        rollout.fused_rollout(big, torch.zeros((1, 1), dtype=torch.int64, device=dev),
+                              torch.zeros((1, 1, 1, 4097), device=dev), shape)
+
+
+def test_engine_routes_training_rollouts_through_the_rollout_kernel(dev):
+    """``rollout(require_prob=True)`` on the TSP plug-in launches K7r once
+    and K7 never; without log-probabilities it steps through K7."""
+    from deepaco_tpu_torch.aco.engine import rollout as run
+    from deepaco_tpu_torch.aco.problems.tsp import tsp_spec
+    from deepaco_tpu_torch.ops import pick, rollout
+
+    heu = 0.01 + torch.rand((2, 30, 30), device=dev)
+    spec = tsp_spec(torch.ones_like(heu), heu, 4)
+    counters = (pick.fused_pick, rollout.fused_rollout)
+    before = [fn.launches for fn in counters]
+    out = run(spec, torch.Generator(device=dev).manual_seed(0), require_prob=True)
+    assert out.log_probs.shape == (2, 29, 4) and out.state is None
+    run(spec, torch.Generator(device=dev).manual_seed(0))
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [29, 1]
+
+
 def test_train_tsp_runs_on_the_card_through_the_kernels(dev):
     """One NLS-shaped step of train_tsp at N=60 on the default device:
-    finite, and K6 (12 launches a direction at depth 12), K7 (N-1) and K5
-    launched."""
-    from deepaco_tpu_torch.ops import gnn_layer, pick
+    finite, and K6 (12 launches a direction at depth 12), K7r (one launch
+    forward, one backward), K5 launched, and K7 not at all."""
+    from deepaco_tpu_torch.ops import gnn_layer, pick, rollout
     from deepaco_tpu_torch.train import config, reinforce as tr
 
     cfg = config.ProblemConfig(n_nodes=60, k_sparse=6, aco=config.ACOSettings(n_ants=8),
                                train=config.TrainConfig(batch_size=2, cosine_schedule=True))
     counters = (gnn_layer.fused_gnn_layer, gnn_layer.fused_gnn_layer_backward,
-                pick.fused_pick, two_opt.batched_nls_euclid)
+                pick.fused_pick, rollout.fused_rollout, rollout.fused_rollout_backward,
+                two_opt.batched_nls_euclid)
     before = [fn.launches for fn in counters]
     infos = []
     state = tr.train_tsp(Net(feats=1), cfg, local_search=tr.nls_local_search(),
                          max_steps=1, progress=lambda i, info: infos.append(info))
     assert state.step == 1 and next(state.net.parameters()).is_cuda
     assert all(torch.isfinite(v).all() for v in infos[0])
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 12, 59, 1]
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [12, 12, 0, 1, 1, 1]
 
 
 def _deposit_case(dev, cyclic):
@@ -1125,12 +1227,13 @@ def test_family_train_step_launches_k6_and_k7_on_the_card(dev, name):
     """One step of make_family_train_step on the card (TSP n=50, k=5; CVRP
     20 customers, K = N = 21; SOP, BPP and MKP at n=20 on their dense
     graphs, SOP's masked; 12-layer Net, 2 instances, 4 ants): 12 K6
-    forward and 12 backward launches, one K7 a rollout step, no K7c and no
-    K9; finite loss, cost and gradient norm; the weights move."""
+    forward and 12 backward launches, the rollout as one K7r launch forward
+    and one backward (TSP, CVRP and BPP) or one K7 a step (SOP, MKP), no
+    K7c and no K9; finite loss, cost and gradient norm; the weights move."""
     import numpy as np
 
     from deepaco_tpu_torch.families import get_family
-    from deepaco_tpu_torch.ops import gnn_layer, pick
+    from deepaco_tpu_torch.ops import gnn_layer, pick, rollout
     from deepaco_tpu_torch.train import drivers
     from deepaco_tpu_torch.train.config import ACOSettings, ProblemConfig, TrainConfig
 
@@ -1143,13 +1246,16 @@ def test_family_train_step_launches_k6_and_k7_on_the_card(dev, name):
                                       torch.Generator(device=dev).manual_seed(0))
     start = {k: v.clone() for k, v in state.net.state_dict().items()}
     counted = (gnn_layer.fused_gnn_layer, gnn_layer.fused_gnn_layer_backward, pick.fused_pick,
-               cc.cvrp_construct, fused_gnn.embnet_layers)
+               rollout.fused_rollout, rollout.fused_rollout_backward, cc.cvrp_construct,
+               fused_gnn.embnet_layers)
     before = [fn.launches for fn in counted]
     state, info = drivers.make_family_train_step(family, cfg)(
         state, drivers.gen_batch(family, rng, n, 2), torch.Generator(device=dev).manual_seed(1))
     torch.cuda.synchronize()
     launched = [fn.launches - b for fn, b in zip(counted, before)]
-    assert launched == [12, 12, family.horizon_states(n)[1], 0, 0]
+    fused = name in ("tsp", "cvrp", "bpp")
+    assert launched == [12, 12, 0 if fused else family.horizon_states(n)[1], int(fused),
+                        int(fused), 0, 0]
     assert all(bool(torch.isfinite(v)) for v in info)
     assert all(not torch.equal(start[k], v) for k, v in state.net.state_dict().items()
                if v.dim() == 2)

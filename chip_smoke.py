@@ -135,25 +135,32 @@ Phases, one JSON line each:
    BPP120 (K = N = 121, capacity 150) and MKP300 (K = N = 300, five node
    features; 100 instances each). K9 against its plain version on the
    family's graph, K7 on the rows of one construction at a third and two
-   thirds of its horizon (actions exact) or, for BPP, K7c on its neural
-   score (paths bit-equal), K8 on its routes (PCTSP's and BPP's parked on
+   thirds of its horizon (actions exact; OP, PCTSP) or, for BPP, K7c on its
+   neural score (paths bit-equal), or for SMTWTP, SOP and MKP K7r's
+   untraced forward on one construction (``check_rollout_paths``: paths
+   bit-equal to ``fused_rollout_paths_plain`` and to the traced forward,
+   B=100, A=20), K8 on its routes (PCTSP's and BPP's parked on
    node 0, MKP's on the dummy item) held as in phase 9; the path
    (``evaluate_family``, A=20, T=1 and 10) in a kernel arm (K9 once, K7 10
-   x horizon or K7c 10, K8 10), a plain arm on the card
+   x horizon, K7c 10 or K7r's untraced forward 10, K8 10), a plain arm on the card
    (``drivers.PLAIN_OPS``, the same generator seed) and a classic arm, each
    with its costs, wall, phase times, peak memory and launches; every best
    solution valid and scoring what the run says, the kernel arm's cost@T1
    within 1e-4 of the plain arm's, its cost@T10 within 1% of it and better
    than the classic arm's (higher for OP, BPP and MKP, which maximize), and
-   both within 3% of the JAX package's (``JAX_COSTS``); training at the
+   the kernel arm's mean over seeds 0-7 (``JAX_SEEDS``; the 7 more runs
+   through ``evaluate_family``) within 3% of the JAX package's at both T
+   (``JAX_COSTS``); training at the
    family's envelope (``family_train_config``: OP300 and PCTSP500 with 20
    ants, SMTWTP500, SOP100 and MKP300 with 50, BPP120 with 120, batch 1,
    lr 3e-4): one step kernel arm against plain arm held as in phase 11, K6
-   forward and backward on its graph and K7 on its rows (BPP: K7r on its
-   rollout, capacity 150), two steps of ``make_family_train_step`` with
-   exactly 12 + 12 K6 and ``horizon`` K7 launches a step (BPP: one K7r
-   launch each way, no K7) and no K9, K7c or K8; and ``cli.main(["test", name,
-   ...])`` on the card, whose costs must be the kernel arm's;
+   forward and backward on its graph and K7 on its rows (OP, PCTSP) or K7r
+   on its rollout (``check_rollout``; BPP at capacity 150, SMTWTP, SOP and
+   MKP at B=1, 50 ants), two steps of ``make_family_train_step`` with
+   exactly 12 + 12 K6 and ``horizon`` K7 launches a step (OP, PCTSP) or one
+   K7r launch each way and no K7 (BPP, SMTWTP, SOP, MKP) and no K9, K7c or
+   K8; and ``cli.main(["test", name, ...])`` on the card, whose costs must
+   be the kernel arm's;
 15. CVRP-NLS500 (``cvrp_nls_phase``): ``cvrp_nls500_selftrained`` (12
    layers, 32 units, the two-block graph at k = 5) on the first 4 golden
    CVRP-NLS500 instances, 20 ants, T=1 and 10, seeds ``SEED + i``, the
@@ -205,16 +212,20 @@ Phases, one JSON line each:
    iteration once more under the profiler for the device's idle share;
 18. ``test tsp`` on a golden file (``tsp_golden_phase``): the main path's
    first 16 instances written as ``tsp/testDataset-500.pt`` under a
-   temporary ``$DEEPACO_REFERENCE_DATA``; K7, K4, K5 and K8 at the ACO
-   facade's shapes (one instance, 20 ants, N=500, the NLS heuristic);
-   four commands: the family path (``tsp500_selftrained``: K9 once, K7 a
-   step, K8), ``--local-search nls`` batched (``tsp_nls500_selftrained``:
-   K1, K2, K5, K3), the same ``--per-instance`` on the first 4 at T=1 and
-   2 (the facade: K1 once, K7 a step, K5 and K8 an iteration) and
-   ``--local-search 2opt --classic --per-instance`` (K7, K4, K8): every
-   best tour a permutation, each command's launches as predicted, the
-   per-instance NLS cost@T1 within 2% of the batched arm's on the same 4
-   instances; the family path's first iteration under the profiler;
+   temporary ``$DEEPACO_REFERENCE_DATA``; K7r's untraced forward, K4, K5
+   and K8 at the ACO facade's shapes (one instance, 20 ants, N=500, the NLS
+   heuristic); four commands: the family path (``tsp500_selftrained``: K9
+   once, K7r's untraced forward and K8 an iteration), ``--local-search
+   nls`` batched (``tsp_nls500_selftrained``: K1, K2, K5, K3), the same
+   ``--per-instance`` on the first 4 at T=1 and 2 (the facade: K1 once,
+   K7r's untraced forward, K5 and K8 an iteration) and ``--local-search
+   2opt --classic --per-instance`` (K7r untraced, K4, K8): every best tour
+   a permutation, each command's launches as predicted, each one's peak
+   memory, the per-instance NLS cost@T1 within 2% of the batched arm's on
+   the same 4 instances; the family path's plain arm
+   (``drivers.PLAIN_OPS``, the same noise): cost@T1 within 1e-4 and
+   cost@T10 within 1% of the kernel arm's; the family path's first
+   iteration under the profiler;
 19. the remaining single-card paths (``remaining_phase``): (a)
    ``cvrp500_selftrained`` (with an extra head) and
    ``mkp_items500_selftrained`` written as reference-layout ``.pt`` files,
@@ -261,14 +272,16 @@ Phases, one JSON line each:
    ``multi_colony_tsp_search`` on the main path's first instance with K1's
    heuristic (20 ants, 5 rounds of 2 iterations, ``migrate_weight=1``,
    ``blend=0.25``): a monotone curve, the same on every rank, its first and
-   last cost ``RECORDED_COSTS["island"]``, K7 4,990 and K8 15; without
+   last cost ``RECORDED_COSTS["island"]``, K7r's untraced forward 10, K7
+   none and K8 15, its peak memory; without
    migration and blend each round equal to the best of the colonies run
    alone with ``colony_seed``; K8 at the migration's shape (B=1, L=500,
    A=1) held as in phase 9;
 21. ``{"kernels": [...]}``: per kernel its launches (K1-K3 from the main
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7r (forward
    ``fused_rollout``, backward ``fused_rollout_backward``) from the
-   TSP500-NLS training run, K7 from phase 18's family path (K7 a step), K7c
+   TSP500-NLS training run, K7r's untraced forward (``fused_rollout_paths``)
+   from phase 18's family path, K7 from phase 14's OP300 path, K7c
    and K8 from the CVRP path's kernel arm, K9 from the sparse and the CVRP
    paths' kernel arms together; row 9 is on no path of either package, so
    its count is 0), error, times and bound; K7r's entries carry ``tsp500``,
@@ -276,17 +289,20 @@ Phases, one JSON line each:
    carry ``cvrp_train``: their launches in phase 11's three steps and their
    times, error and bound at its shapes; K6,
    K7, K8 and K9 carry ``op``, ``pctsp``, ``smtwtp``, ``sop``, ``bpp`` and
-   ``mkp`` (K7c ``bpp``): their launches on that family's kernel arm (K7 or
-   K7c, K8, K9) and in its two training steps (K6, K7), with their error,
-   times and bound at its shapes; K7c and K8 carry ``cvrp_nls`` and K7
-   ``mkp_items`` the same way; K7 and K8 carry ``rcpsp`` and
-   ``tsp_facade``, K4 and K5 ``tsp_facade``; phase 19's launches: K1 and
+   ``mkp`` (K7c ``bpp``): their launches on that family's kernel arm (K7, K7c or K7r
+   untraced, K8, K9) and in its two training steps (K6, K7 or K7r), with
+   their error, times and bound at its shapes; K7r's untraced forward
+   (``fused_rollout_paths``: SMTWTP500's inference shape, its launches from
+   phase 18's family path) carries ``smtwtp``, ``sop`` and ``mkp``; K7c and
+   K8 carry ``cvrp_nls`` and K7
+   ``mkp_items`` the same way; K7 (its launches from the OP300 path) carries
+   ``rcpsp``, K7r untraced, K8, K4 and K5 ``tsp_facade``; phase 19's launches: K1 and
    K3 ``sparse_runner`` (K3 also its f32-score times), K9, K7c, K8 and K7
    ``reference_pt``, K7c and K8 ``adaptive_cvrp`` (with their times at
    its shapes), K7 ``mkp_items_step``; phase 20's under ``parallel``: K6's row-shard
    launches, its launches in a sharded step and its time, error and bound
-   on the row shard; K6 backward's and K7's in a sharded step, K7's in the
-   island search and at the step's rows; K8's on ``evaluate_family(mesh=)``
+   on the row shard; K6 backward's and K7's in a sharded step, K7r
+   untraced's in the island search; K8's on ``evaluate_family(mesh=)``
    and in the island search with its time at the migration's shape; K7c's
    and K9's on ``evaluate_family(mesh=)``; each with the world sizes that
    ran.
@@ -340,21 +356,23 @@ FAMILY_PATHS = {"cvrp": (CVRP_N, CVRP_CKPT, A_TRAIN, 5, 128),
                 "bpp": (120, "checkpoints/bpp120_selftrained.msgpack", 120, 5, 64),
                 "mkp": (300, "checkpoints/mkp300_selftrained.msgpack", 50, 10, 64),
                 "mkp_items": (500, "checkpoints/mkp_items500_selftrained.msgpack", 50, 5, 256)}
-# phase 14's families, in order; BPP constructs through K7c in inference, the
-# others through K7 a step
+# phase 14's families, in order; BPP constructs through K7c in inference,
+# SMTWTP, SOP and MKP through K7r's untraced forward (FUSED_INFER), OP and
+# PCTSP through K7 a step
 FAMILY_PHASE = ("op", "pctsp", "smtwtp", "sop", "bpp", "mkp")
 ONE_PASS = ("bpp",)
-# the families whose training rollout takes K7r (the TSP and CVRP plug-ins)
-FUSED_TRAIN = ("cvrp", "bpp")
+FUSED_INFER = ("smtwtp", "sop", "mkp")
+# the families whose training rollout takes K7r (the plug-ins with ``fused``)
+FUSED_TRAIN = ("cvrp", "bpp", "smtwtp", "sop", "mkp")
 FAMILY_TRAIN_STEPS = 2
 FAMILY_PICK_AT = (0.0, 1 / 3, 2 / 3)    # K7's checks on their rows, as shares of the horizon
 # the JAX package's costs at T1 and T10 (RESULTS.md:164, 170-171, 175, 178,
-# 179): quality anchors, not speed targets; each kernel arm's lies within
-# JAX_COST_SPAN of them
+# 179): quality anchors, not speed targets; each kernel arm's mean over
+# JAX_SEEDS seeds lies within JAX_COST_SPAN of them
 JAX_COSTS = {"op": (72.78, 80.08), "pctsp": (16.20, 15.70), "smtwtp": (0.662, 0.572),
              "sop": (71.67, 70.46), "bpp": (0.9542, 0.9586), "mkp": (58.2, 59.3),
              "mkp_items": (98.92, 99.99)}
-JAX_COST_SPAN = 0.03
+JAX_COST_SPAN, JAX_SEEDS = 0.03, 8
 # phase 15, CVRP-NLS500: the checkpoint, the first CVRP_NLS_B golden
 # instances (the plain arm on the first CVRP_NLS_PLAIN_B); the JAX CLI's
 # means on those 4 instances (`python -m deepaco_tpu test cvrp -n 500
@@ -391,16 +409,16 @@ RECORDED_COSTS = {"main": (None, 19.6391), "main_plain": (20.6735, 19.6335),
                   "cvrp": (61.7577, 60.5177),
                   "sparse": (48.2913, 45.1827), "sparse_plain": (48.2913, 45.1980),
                   "op": (72.9418, 80.2401), "pctsp": (16.1978, 15.7033),
-                  "smtwtp": (0.6446, 0.5644), "sop": (72.1315, 70.8907),
-                  "bpp": (0.9544, 0.9588), "mkp": (57.9397, 59.2638),
+                  "smtwtp": (0.6824, 0.5497), "sop": (72.2384, 70.8659),
+                  "bpp": (0.9544, 0.9588), "mkp": (58.1421, 59.3408),
                   "cvrp_nls": (33.2462, 33.0091), "mkp_items": (98.9476, 100.0285),
                   "rcpsp": (137.7, 130.67), "rcpsp_backfill": (103.17, 100.22),
-                  "tsp_family": (20.9526, 19.8388), "tsp_nls_batched": (17.1227, 16.9536),
-                  "tsp_nls_per_instance": (17.1416, 17.0675),
-                  "tsp_2opt_per_instance": (17.7911, 17.741),
+                  "tsp_family": (20.883, 19.8193), "tsp_nls_batched": (17.1227, 16.9536),
+                  "tsp_nls_per_instance": (17.1562, 17.0908),
+                  "tsp_2opt_per_instance": (17.8571, 17.7711),
                   "adaptive_cvrp": (133.0119, 128.2005), "elitist_cvrp": (189.5996, 182.5418),
                   "sparse_runner": (20.8735, 19.767), "sparse_runner_plain": (20.8735, 19.7675),
-                  "island": (21.1257, 20.1653)}
+                  "island": (20.6805, 20.1142)}
 # the CVRP kernel arm's cost@T10 as recorded through the per-step
 # construction (K7 a step, torch.rand noise); the one-pass construction
 # samples the same law and is held within 1% of it
@@ -533,13 +551,13 @@ def family_inputs(root: Path, dev, name: str = "cvrp"):
     return net.to(dev), GOLDEN[name](n)
 
 
-def drive_family(net, ds, ops=None, name: str = "cvrp"):
+def drive_family(net, ds, ops=None, name: str = "cvrp", seed: int = SEED):
     """One call of a family path's entry point, ``evaluate_family`` (``net=None``
     is the classic arm); returns ``(means, curves, final state)``."""
     from deepaco_tpu_torch.train.drivers import KERNEL_OPS, evaluate_family
 
     return evaluate_family(name, ds, n_nodes=FAMILY_PATHS[name][0], net=net, n_ants=A,
-                           t_values=T_VALUES, seed=SEED, return_state=True,
+                           t_values=T_VALUES, seed=seed, return_state=True,
                            _ops=ops or KERNEL_OPS)
 
 
@@ -770,53 +788,68 @@ ROLLOUT_TOLERANCE = ("paths exact; log_probs rtol 1e-5, atol 1e-6 (K7's limit: l
 
 @contextlib.contextmanager
 def captured_rollouts(store: list):
-    """While open, the engine's one-launch route for ``fused_pick`` records
-    K7r's inputs ``(score, start, noise, shape)`` in ``store`` and then
-    launches K7r as before."""
+    """While open, the engine's one-launch routes for ``fused_pick`` (with
+    log-probabilities and without) record K7r's inputs ``(score, start,
+    noise, shape)`` in ``store`` and then launch K7r as before."""
     from deepaco_tpu_torch.aco import engine
-    from deepaco_tpu_torch.ops import pick, rollout
+    from deepaco_tpu_torch.ops import pick
 
-    def capture(score, start, noise, shape):
-        store.append((score.detach(), start, noise, shape))
-        return rollout.fused_rollout(score, start, noise, shape)
+    routes = engine._FUSED[pick.fused_pick]
 
-    engine._FUSED[pick.fused_pick] = capture
+    def capturing(route):
+        def capture(score, start, noise, shape):
+            store.append((score.detach(), start, noise, shape))
+            return route(score, start, noise, shape)
+        return capture
+
+    engine._FUSED[pick.fused_pick] = tuple(capturing(r) for r in routes)
     try:
         yield store
     finally:
-        engine._FUSED[pick.fused_pick] = rollout.fused_rollout
+        engine._FUSED[pick.fused_pick] = routes
 
 
-def rollout_work(score, noise, shape, paths):
+def rollout_work(score, noise, shape, paths, traced: bool = True):
     """K7r's bytes and f32 operations for ``bound``, forward and backward,
     over the steps this run's ants take (a CVRP ant stops once back at the
-    depot with every customer served: its later picks are certain). Forward:
-    the score, those steps' noise, the starts and demands read, paths and
-    log-probabilities written; a select, compare, exp and add for the
-    logsumexp and an add and compare for the maximum a column a step.
-    Backward: score, g and paths read, d_score written; an exp, subtract,
-    multiply and add a column a step."""
+    depot with every customer served, an MKP ant once on the dummy item:
+    their later picks are certain). Forward: the score, those steps' noise,
+    the starts and the plug-in's own input (CVRP's demands, SOP's
+    precedence bytes and predecessor counts, MKP's weights) read, paths and
+    (traced) log-probabilities written; a select, compare, exp and add for
+    the logsumexp and an add and compare for the maximum a column a step,
+    and MKP's add and compare a dimension. Backward: score, g and paths
+    read, d_score written; an exp, subtract, multiply and add a column a
+    step."""
     import torch
 
     b, n, _ = score.shape
     t, _, a, _ = noise.shape
-    if shape.kind == "cvrp":
+    if shape.kind in ("cvrp", "mkp"):
         idx = torch.arange(1, t + 1, device=paths.device)[None, :, None]
-        last = ((paths[:, 1:] != 0) * idx).amax(dim=1)       # the last customer's index
-        steps = int((last + 1).clamp(max=t).sum())
+        if shape.kind == "cvrp":
+            last = ((paths[:, 1:] != 0) * idx).amax(dim=1)   # the last customer's index
+            steps = int((last + 1).clamp(max=t).sum())
+        else:                                                # the first dummy pick's index
+            first = torch.where(paths[:, 1:] == shape.dummy, idx, t + 1).amin(dim=1)
+            steps = int(first.clamp(max=t).sum())
     else:
         steps = b * a * t
-    out_bytes = 8 * b * (t + 1) * a + 4 * b * t * a
-    fwd = (4 * b * n * n + 4 * steps * n + 8 * b * a + 4 * b * n + out_bytes, 6 * steps * n)
+    own = {"cvrp": 4 * b * n, "sop": b * n * n + 4 * b * n,
+           "mkp": 0 if shape.weight is None else 4 * shape.weight.numel()}.get(shape.kind, 0)
+    ops = 6 + (2 * shape.weight.shape[-1] if shape.kind == "mkp" else 0)
+    out_bytes = 8 * b * (t + 1) * a + (4 * b * t * a if traced else 0)
+    fwd = (4 * b * n * n + 4 * steps * n + 8 * b * a + own + out_bytes, ops * steps * n)
     bwd = (8 * b * n * n + 4 * b * t * a + 8 * b * (t + 1) * a, 4 * steps * n)
     return fwd, bwd, steps
 
 
 def kernel_device_ms(fn, names, reps: int = 5) -> dict:
-    """``fn()`` ``reps`` times under ``torch.profiler``: the device time a
-    call of each kernel whose name holds one of ``names``, in ms, from the
-    kernels on the card's timeline as ``device_busy`` reads them ("not
-    measured" where the trace shows none)."""
+    """``fn()`` ``reps`` times under ``torch.profiler``: the device time of
+    a launch of each kernel whose name holds one of ``names``, in ms, from
+    the kernels on the card's timeline as ``device_busy`` reads them: their
+    total over the launches the trace holds (it may hold fewer than
+    ``reps``), or "not measured" where it holds none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -825,13 +858,14 @@ def kernel_device_ms(fn, names, reps: int = 5) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {name: 0.0 for name in names}
+    total, seen = {name: 0.0 for name in names}, {name: 0 for name in names}
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.is_user_annotation:
             for name in names:
                 if name in ev.name:
-                    out[name] += ev.time_range.elapsed_us() / 1e3 / reps
-    return {k: v if v > 0 else "not measured" for k, v in out.items()}
+                    total[name] += ev.time_range.elapsed_us() / 1e3
+                    seen[name] += 1
+    return {k: total[k] / seen[k] if seen[k] else "not measured" for k in names}
 
 
 def check_rollout(cuda_ms, score, start, noise, shape, config: str) -> dict:
@@ -893,6 +927,49 @@ def check_rollout(cuda_ms, score, start, noise, shape, config: str) -> dict:
                      "ms": bwd_ms, "device_ms": device["rollout_bwd"], "plain_ms": bwd_plain_ms,
                      "library_ms": None, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}}
     emit({"phase": "kernel", "name": "fused_rollout", **out, "tolerance": ROLLOUT_TOLERANCE})
+    return out
+
+
+def check_rollout_paths(cuda_ms, score, start, noise, shape, config: str) -> dict:
+    """K7r's untraced forward (``fused_rollout_paths``, the inference route)
+    on a rollout's own inputs: its paths against ``fused_rollout_paths_plain``
+    on the same noise and against the traced forward's, bit for bit; its
+    time by CUDA events and by the profiler's device time, the traced
+    forward's and the plain version's beside it, the peak memory of one
+    call, and the bound of the steps this run's ants take. Emits one line."""
+    import torch
+
+    from deepaco_tpu_torch.ops import rollout
+
+    b, n, _ = score.shape
+    a, t = start.shape[1], noise.shape[0]
+    untraced = lambda: rollout.fused_rollout_forward(score, start, noise, shape, trace=False)[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    paths_k = untraced()
+    torch.cuda.synchronize()
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    traced = rollout.fused_rollout_forward(score, start, noise, shape)[0]
+    paths_p = rollout.fused_rollout_paths_plain(score, start, noise, shape)
+    paths_equal = bool(torch.equal(paths_k, paths_p))
+    traced_equal = bool(torch.equal(paths_k, traced))
+    ms = cuda_ms(untraced, 5)
+    traced_ms = cuda_ms(lambda: rollout.fused_rollout_forward(score, start, noise, shape), 5)
+    plain_ms = cuda_ms(lambda: rollout.fused_rollout_paths_plain(score, start, noise, shape), 1)
+    device = kernel_device_ms(untraced, ("rollout_fwd",))
+    work, _, steps = rollout_work(score, noise, shape, paths_k, traced=False)
+    bound_ms, bound_by = bound(*work)
+    out = {"config": config, "B": b, "N": n, "A": a, "T": t, "ant_steps": steps,
+           "passed": paths_equal and traced_equal, "paths_equal_plain": paths_equal,
+           "paths_equal_traced": traced_equal, "peak_gb": peak_gb,
+           "noise_gb": noise.numel() * 4 / 1e9,
+           "max_abs_err": float((paths_k - paths_p).abs().max()),
+           "ms": ms, "device_ms": device["rollout_fwd"], "traced_ms": traced_ms,
+           "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+           "bound_by": bound_by, "chain_ms_at_2_4_us_a_step": t * 2.4e-3}
+    emit({"phase": "kernel", "name": "fused_rollout_paths", **out,
+          "tolerance": "paths exact against the plain step loop and the traced forward"})
     return out
 
 
@@ -1455,10 +1532,12 @@ def family_rollout(dev, name: str, net, ds):
     """One construction of a phase-14 family's path at its full size (the
     golden set, A=20) on its neural heuristic with tau = 1: a K7 a step, or
     for BPP one K7c launch (``cvrp_construct`` on the score matrix, as its
-    first iteration runs it). Returns the paths, the update's amounts
-    (``q * objective`` for OP and MKP, ``fitness / A`` for BPP, ``1 / (cost
-    + offset)`` else), the graph, K7's inputs at the shares FAMILY_PICK_AT
-    of the horizon (none for BPP), and the score matrix."""
+    first iteration runs it), or for SMTWTP, SOP and MKP one launch of K7r's
+    untraced forward. Returns the paths, the update's amounts (``q *
+    objective`` for OP and MKP, ``fitness / A`` for BPP, ``1 / (cost +
+    offset)`` else), the graph, K7's inputs at the shares FAMILY_PICK_AT of
+    the horizon (K7r's ``(score, start, noise, shape)`` for SMTWTP, SOP and
+    MKP; none for BPP), and the score matrix."""
     import torch
 
     from deepaco_tpu_torch.aco.engine import rollout
@@ -1491,9 +1570,13 @@ def family_rollout(dev, name: str, net, ds):
             captured.append((step, score.clone(), mask.clone(), noise.clone()))
         return pick.fused_pick(score, mask, noise)
 
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
     with torch.no_grad():
-        paths = rollout(spec, torch.Generator(device=dev).manual_seed(SEED + 12),
-                        pick=capture).paths
+        if name in FUSED_INFER:
+            with captured_rollouts(captured):
+                paths = rollout(spec, gen).paths
+        else:
+            paths = rollout(spec, gen, pick=capture).paths
         costs = fam.cost(paths, inst)
     q = fam.extras(inst).get("q")
     amounts = q[:, None] * costs if fam.aco.maximize else 1.0 / (costs + fam.aco.cost_offset)
@@ -1517,7 +1600,7 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     from deepaco_tpu_torch import cli
     from deepaco_tpu_torch.families import BPP_CAPACITY, get_family
     from deepaco_tpu_torch.models.gnn import jax_layout
-    from deepaco_tpu_torch.ops import deposit, fused_gnn, gnn_layer, pick
+    from deepaco_tpu_torch.ops import deposit, fused_gnn, gnn_layer, pick, rollout
     from deepaco_tpu_torch.ops import cvrp_construct as cc
     from deepaco_tpu_torch.train import drivers
 
@@ -1525,6 +1608,7 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     n, ckpt = FAMILY_PATHS[name][:2]
     n_states, horizon = fam.horizon_states(n)
     sign = -1.0 if fam.aco.maximize else 1.0
+    fused_infer = name in FUSED_INFER
     gnn, edges = fam.model_ctor is None, not fam.aco.vector_pheromone
     net, ds = family_inputs(root, dev, name)
     inst = fam.prepare(drivers.instance_tensors(ds, dev))
@@ -1533,9 +1617,9 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
 
     # kernels at the family's shapes: K9 on its graph (SOP's masked: no node
     # update, so the mask changes nothing before the heuristic applies it),
-    # K7 on its rows or, for BPP, K7c on its score, K8 on its routes
-    # (PCTSP's and BPP's park on node 0, the self-loop repeated; MKP's on
-    # the dummy item)
+    # K7 on its rows or, for BPP, K7c on its score, for SMTWTP, SOP and MKP
+    # K7r's untraced forward on its rollout, K8 on its routes (PCTSP's and
+    # BPP's park on node 0, the self-loop repeated; MKP's on the dummy item)
     paths, amounts, g, picks, score = family_rollout(dev, name, net, ds)
     if gnn:
         out["k9"] = check_embnet_layers(cuda_ms, net, g, f"{name}{n}, K = {g.nbr.shape[-1]}"
@@ -1545,6 +1629,10 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
         out["k7c"] = check_cvrp_construct(dev, cuda_ms, score, inst["demand"],
                                           BPP_CAPACITY, f"{name}{n}, neural heuristic")
         out["checks"]["k7c"] = out["k7c"]["passed"]
+    elif fused_infer:
+        out["k7r_paths"] = check_rollout_paths(cuda_ms, *picks[0],
+                                               f"{name}{n} inference rollout, B={b}, A={A}")
+        out["checks"]["k7r_paths"] = out["k7r_paths"]["passed"]
     else:
         out["k7"] = check_pick_rows(cuda_ms, picks, FAMILY_PICK_AT)
         emit({"phase": "kernel", "name": "fused_pick", "config": f"{name}{n} rollout, N = "
@@ -1578,7 +1666,7 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
         return {"cost": cost.tolist(), "wall_s": wall, "phase_ms": timer.ms(),
                 "launches": {fn.__name__: fn.launches for fn in (
                     fused_gnn.embnet_layers, gnn_layer.fused_gnn_layer, pick.fused_pick,
-                    deposit.tour_deposit, cc.cvrp_construct)},
+                    deposit.tour_deposit, cc.cvrp_construct, rollout.fused_rollout_paths)},
                 "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
                 "finite": bool(torch.isfinite(curves).all())
                 and curves.shape == (b, max(T_VALUES)),
@@ -1589,16 +1677,29 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     arms = {"kernel": arm(net, drivers.KERNEL_OPS), "plain": arm(net, drivers.PLAIN_OPS),
             "classic": arm(None, drivers.KERNEL_OPS)}
     t_max = max(T_VALUES)
-    # an iteration: one K7c launch (BPP) or a K7 launch a step (the others)
-    picks_run, passes_run = (0, t_max) if name in ONE_PASS else (t_max * horizon, 0)
+    # an iteration: one K7c launch (BPP), one K7r launch (SMTWTP, SOP, MKP)
+    # or a K7 launch a step (the others)
+    passes_run = t_max if name in ONE_PASS else 0
+    rollouts_run = t_max if fused_infer else 0
+    picks_run = 0 if passes_run or rollouts_run else t_max * horizon
     deposits = t_max if edges else 0
-    want = {"kernel": {"embnet_layers": int(gnn), "fused_gnn_layer": 0, "fused_pick": picks_run,
-                       "tour_deposit": deposits, "cvrp_construct": passes_run},
+    construct = {"fused_pick": picks_run, "cvrp_construct": passes_run,
+                 "fused_rollout_paths": rollouts_run}
+    want = {"kernel": {"embnet_layers": int(gnn), "fused_gnn_layer": 0,
+                       "tour_deposit": deposits, **construct},
             "plain": {"embnet_layers": 0, "fused_gnn_layer": 0, "fused_pick": 0,
-                      "tour_deposit": 0, "cvrp_construct": 0},
-            "classic": {"embnet_layers": 0, "fused_gnn_layer": 0, "fused_pick": picks_run,
-                        "tour_deposit": deposits, "cvrp_construct": passes_run}}
+                      "tour_deposit": 0, "cvrp_construct": 0, "fused_rollout_paths": 0},
+            "classic": {"embnet_layers": 0, "fused_gnn_layer": 0, "tour_deposit": deposits,
+                        **construct}}
     ck, cp, cc_ = (arms[a]["cost"] for a in ("kernel", "plain", "classic"))
+    # JAX's costs are one run of its own stream, and one seed of the port
+    # spreads by up to 5% about its mean (SMTWTP500, on the one-launch and
+    # the per-step route alike: scripts/route_seed_spread.py), so the
+    # anchor holds the kernel arm's mean over JAX_SEEDS seeds (seed 0 the
+    # arm above)
+    seed_costs = [ck] + [drive_family(net, ds, name=name, seed=seed)[0].tolist()
+                         for seed in range(SEED + 1, SEED + JAX_SEEDS)]
+    seed_mean = [statistics.fmean(c) for c in zip(*seed_costs)]
     if not gnn:
         out["checks"]["plain_equals_kernel"] = ([round(c, 4) for c in ck]
                                                 == [round(c, 4) for c in cp])
@@ -1611,9 +1712,10 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
         t10_kernel_vs_plain=abs(ck[-1] - cp[-1]) <= 0.01 * abs(cp[-1]),
         neural_beats_classic=sign * ck[-1] < sign * cc_[-1],
         near_jax=all(abs(c - j) <= JAX_COST_SPAN * abs(j)
-                     for c, j in zip(ck, JAX_COSTS[name])))
+                     for c, j in zip(seed_mean, JAX_COSTS[name])))
     emit({"phase": f"{name}_path", "B": b, "N": n_states, "A": A, "T": list(T_VALUES),
-          "ckpt": ckpt, "jax_costs": JAX_COSTS[name], "launches_expected": want, **arms})
+          "ckpt": ckpt, "jax_costs": JAX_COSTS[name], "kernel_seed_costs": seed_costs,
+          "kernel_seed_mean": seed_mean, "launches_expected": want, **arms})
     out["arms"] = arms
 
     # training at the envelope: (a) one step, kernel arm against plain arm
@@ -1653,8 +1755,8 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     depth = state.net.depth if gnn else 0
     want_step = {"fused_gnn_layer": depth, "fused_gnn_layer_backward": depth,
                  "fused_pick": 0 if fused else horizon, "fused_rollout": int(fused),
-                 "fused_rollout_backward": int(fused), "cvrp_construct": 0,
-                 "embnet_layers": 0, "tour_deposit": 0}
+                 "fused_rollout_backward": int(fused), "fused_rollout_paths": 0,
+                 "cvrp_construct": 0, "embnet_layers": 0, "tour_deposit": 0}
     moved = all(not torch.equal(start[k], v)
                 for k, v in jax_layout(state.net.state_dict(), state.net).items()
                 if (v.dim() == 2 and (k in touched or cfg.train.weight_decay > 0))
@@ -2204,9 +2306,9 @@ def tsp_golden_args(root: Path, *extra: str, limit: int | None = None, t_values=
 def tsp_golden_phase(dev, root: Path, cuda_ms, counted, coords) -> dict:
     """Phase 18, ``test tsp`` on a golden file: ``testDataset-500.pt``
     written from the main path's first TSP_GOLDEN_B instances under
-    ``$DEEPACO_REFERENCE_DATA``; K7, K4, K5 and K8 at the facade's shapes
-    (one instance, 20 ants, N=500: the rows of one construction from city
-    0 on the NLS heuristic, its tours, their cyclic deposit); then four
+    ``$DEEPACO_REFERENCE_DATA``; K7r's untraced forward, K4, K5 and K8 at
+    the facade's shapes (one instance, 20 ants, N=500: one construction
+    from city 0 on the NLS heuristic, its tours, their cyclic deposit); then four
     commands: the family path (``tsp500_selftrained``), ``--local-search
     nls`` batched and ``--per-instance`` (``tsp_nls500_selftrained``), and
     ``--local-search 2opt --classic --per-instance``. Emits one line and
@@ -2220,8 +2322,10 @@ def tsp_golden_phase(dev, root: Path, cuda_ms, counted, coords) -> dict:
     from deepaco_tpu_torch.aco.runner import ACO
     from deepaco_tpu_torch.core.builders import start_node_features
     from deepaco_tpu_torch.eval.anytime import dense_heuristic
+    from deepaco_tpu_torch.aco.engine import rollout
     from deepaco_tpu_torch.models.gnn import Net
-    from deepaco_tpu_torch.ops import pick, two_opt
+    from deepaco_tpu_torch.ops import two_opt
+    from deepaco_tpu_torch.train import drivers
     from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
     from deepaco_tpu_torch.utils.datasets import distance_matrix
 
@@ -2237,22 +2341,12 @@ def tsp_golden_phase(dev, root: Path, cuda_ms, counted, coords) -> dict:
     heu0 = dense_heuristic(nls_net, start_node_features(c0), c0, d0, K)
     aco = ACO(d0[0], n_ants=A, heuristic=heu0[0], local_search="nls", coords=c0[0], seed=SEED,
               device=dev)
-    spec = aco.spec(aco.state.phe.tau, aco.heuristic)
-    at = {int(f * spec.horizon) for f in FAMILY_PICK_AT}
-    steps, captured = iter(range(spec.horizon)), []
-
-    def capture(score, mask, noise):
-        if next(steps) in at:
-            captured.append((len(captured), score.clone(), mask.clone(), noise.clone()))
-        return pick.fused_pick(score, mask, noise)
-
-    from deepaco_tpu_torch.aco.engine import rollout
-
-    with torch.no_grad():
-        paths = rollout(spec, aco.generator, pick=capture).paths
-    out["k7"] = check_pick_rows(cuda_ms, captured, FAMILY_PICK_AT)
-    emit({"phase": "kernel", "name": "fused_pick", "config": "tsp500 facade rollout, 20 ants",
-          **out["k7"], "tolerance": "actions exact and allowed; logp rtol 1e-5, atol 1e-5"})
+    captured = []
+    with torch.no_grad(), captured_rollouts(captured):
+        paths = rollout(aco.spec(aco.state.phe.tau, aco.heuristic), aco.generator).paths
+    out["k7r_paths"] = check_rollout_paths(cuda_ms, *captured[0],
+                                           "tsp500 facade rollout, B=1, A=20, from city 0")
+    del captured
     tours = paths.transpose(1, 2).contiguous()
     hd = two_opt.heuristic_dist(aco.heuristic)
     ls = {}
@@ -2279,7 +2373,7 @@ def tsp_golden_phase(dev, root: Path, cuda_ms, counted, coords) -> dict:
     out["k8"] = deposit_case(dev, cuda_ms, improved, 1.0 / cost, N, True)
     emit({"phase": "kernel", "name": "tour_deposit", "config": "tsp500 facade update, cyclic",
           **out["k8"], "tolerance": "as phase 9"})
-    out["checks"].update(k7=out["k7"]["passed"], k8=out["k8"]["passed"])
+    out["checks"].update(k7r_paths=out["k7r_paths"]["passed"], k8=out["k8"]["passed"])
     out["ls"] = ls
     del aco, heu0, paths, tours, improved
 
@@ -2290,6 +2384,8 @@ def tsp_golden_phase(dev, root: Path, cuda_ms, counted, coords) -> dict:
         for k in counted:
             k.launches = 0
         torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         text = io.StringIO()
         with reference_env("DEEPACO_REFERENCE_DATA", tmp), contextlib.redirect_stdout(text):
@@ -2299,6 +2395,7 @@ def tsp_golden_phase(dev, root: Path, cuda_ms, counted, coords) -> dict:
         best = stats["best"]
         ident = torch.arange(N, device=dev).expand_as(best)
         return {"cost": [float(v) for v in means], "wall_s": wall,
+                "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
                 "curves_t1": curves[:, 0].tolist(), "cli": text.getvalue().splitlines(),
                 "launches": {k.__name__: k.launches for k in counted},
                 "permutations": int((torch.sort(best, dim=-1).values == ident).all(-1).sum()),
@@ -2316,17 +2413,29 @@ def tsp_golden_phase(dev, root: Path, cuda_ms, counted, coords) -> dict:
             root, "--local-search", "2opt", "--classic", "--per-instance", **per),
             cli._cmd_test_tsp_ls)}
     t_max, t_per = max(T_VALUES), TSP_PER_B * max(TSP_PER_T)
-    want = {"tsp_family": {"embnet_layers": 1, "fused_pick": t_max * (N - 1),
+    # the TSP inference rollouts: one K7r untraced launch an iteration
+    want = {"tsp_family": {"embnet_layers": 1, "fused_rollout_paths": t_max,
                            "tour_deposit": t_max},
             "tsp_nls_batched": {"tsp_dense_heuristic": 1, "dense_sweep_fused": t_max,
                                 "batched_nls_euclid": t_max, "fused_tsp_update": t_max},
-            "tsp_nls_per_instance": {"tsp_dense_heuristic": 1, "fused_pick": t_per * (N - 1),
+            "tsp_nls_per_instance": {"tsp_dense_heuristic": 1, "fused_rollout_paths": t_per,
                                      "batched_nls_euclid": t_per, "tour_deposit": t_per},
-            "tsp_2opt_per_instance": {"fused_pick": t_per * (N - 1),
+            "tsp_2opt_per_instance": {"fused_rollout_paths": t_per,
                                       "batched_two_opt_euclid": t_per, "tour_deposit": t_per}}
     launches_ok = {}
     for key, r in arms.items():
         launches_ok[key] = all(r["launches"][k] == want[key].get(k, 0) for k in r["launches"])
+    # the family path's plain arm (drivers.PLAIN_OPS: the plain K9, the
+    # plain step loop, the plain deposit) on the same instances, net and
+    # seed, hence the same noise
+    fam_args = tsp_golden_args(root, "--ckpt", tsp_ckpt)
+    with reference_env("DEEPACO_REFERENCE_DATA", tmp):
+        fam_ds = cli.golden_set("tsp", N, None)
+    fam_plain, _ = drivers.evaluate_family(
+        "tsp", fam_ds, n_nodes=N, net=cli._load_net(fam_args), k_sparse=fam_args.k_sparse,
+        n_ants=A, t_values=T_VALUES, seed=SEED, device=dev, _ops=drivers.PLAIN_OPS)
+    fam_plain = [float(v) for v in fam_plain]
+    fam_kernel = arms["tsp_family"]["cost"]
     # the family path's first iteration once more under the profiler
     with reference_env("DEEPACO_REFERENCE_DATA", tmp), contextlib.redirect_stdout(io.StringIO()):
         idle = device_busy(lambda: cli._cmd_test_family(
@@ -2337,10 +2446,13 @@ def tsp_golden_phase(dev, root: Path, cuda_ms, counted, coords) -> dict:
         permutations=all(r["permutations"] == r["B"] for r in arms.values()),
         monotone=all(r["monotone"] for r in arms.values()),
         launches=all(launches_ok.values()),
-        per_instance_vs_batched_nls=abs(per_t1 - batched_t1) <= 0.02 * batched_t1)
+        per_instance_vs_batched_nls=abs(per_t1 - batched_t1) <= 0.02 * batched_t1,
+        family_t1_kernel_vs_plain=abs(fam_kernel[0] - fam_plain[0]) <= 1e-4 * fam_plain[0],
+        family_t10_kernel_vs_plain=abs(fam_kernel[-1] - fam_plain[-1]) <= 0.01 * fam_plain[-1])
     emit({"phase": "tsp_golden", "B": TSP_GOLDEN_B, "per_instance_B": TSP_PER_B, "N": N,
           "A": A, "launches_expected": want, "launches_ok": launches_ok,
           "nls_t1_first4": {"batched": batched_t1, "per_instance": per_t1},
+          "tsp_family_plain_cost": fam_plain,
           "family_t1_under_profiler": idle, **arms})
     out["arms"] = arms
     shutil.rmtree(tmp, ignore_errors=True)
@@ -2768,8 +2880,8 @@ def parallel_checks(dev, root: Path, mesh, net, coords, heu0, cuda_ms=None) -> d
 
     counted = (gnn_layer.fused_gnn_layer_rows, gnn_layer.fused_gnn_layer,
                gnn_layer.fused_gnn_layer_backward, pick.fused_pick, rollout_ops.fused_rollout,
-               rollout_ops.fused_rollout_backward, deposit.tour_deposit, cc.cvrp_construct,
-               fused_gnn.embnet_layers)
+               rollout_ops.fused_rollout_backward, rollout_ops.fused_rollout_paths,
+               deposit.tour_deposit, cc.cvrp_construct, fused_gnn.embnet_layers)
 
     def zero():
         torch.cuda.synchronize()
@@ -2947,12 +3059,15 @@ def parallel_checks(dev, root: Path, mesh, net, coords, heu0, cuda_ms=None) -> d
     icfg = ACOConfig(n_ants=A)
     d0 = distance_matrix(coords[:1])[0]
     zero()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     curve = multi_colony_tsp_search(mesh, heu0, d0, icfg, SEED, n_rounds=PAR_ROUNDS,
                                     sync_every=PAR_SYNC, migrate_weight=1.0, blend=PAR_BLEND,
                                     device=dev)
     launches = read()
     wall = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
     curve0 = multi_colony_tsp_search(mesh, heu0, d0, icfg, SEED, n_rounds=PAR_ROUNDS,
                                      sync_every=PAR_SYNC, migrate_weight=0.0, blend=0.0,
                                      device=dev)
@@ -2966,7 +3081,8 @@ def parallel_checks(dev, root: Path, mesh, net, coords, heu0, cuda_ms=None) -> d
         colonies.append(alone[0])
     ends = [(r + 1) * PAR_SYNC - 1 for r in range(PAR_ROUNDS)]
     best_alone = torch.stack(colonies).min(dim=0).values[ends]
-    i_want = {"fused_pick": PAR_ROUNDS * PAR_SYNC * (N - 1),
+    # an iteration: one K7r untraced launch, one update; a migration a round
+    i_want = {"fused_pick": 0, "fused_rollout_paths": PAR_ROUNDS * PAR_SYNC,
               "tour_deposit": PAR_ROUNDS * PAR_SYNC + PAR_ROUNDS}
     checks["island_monotone"] = bool((curve[1:] <= curve[:-1]).all()) and bool(
         torch.isfinite(curve).all()) and same_on_every_rank(curve)
@@ -2975,7 +3091,7 @@ def parallel_checks(dev, root: Path, mesh, net, coords, heu0, cuda_ms=None) -> d
     checks["island_launches"] = all(launches[k] == v for k, v in i_want.items())
     out["island"] = {"curve": curve.tolist(), "curve_without_migration": curve0.tolist(),
                      "cost": [curve[0].item(), curve[-1].item()], "wall_s": wall,
-                     "launches": launches, "colonies": mesh.size(0)}
+                     "peak_gb": peak_gb, "launches": launches, "colonies": mesh.size(0)}
     if cuda_ms is not None:
         # K8 at the migration's shape: one colony's best tour, one ant
         best = colony_state.best_path[:, :, None]
@@ -3076,9 +3192,10 @@ def parallel_phase(dev, root: Path, cuda_ms, net, coords) -> dict:
 def family_kernel_fields(r: dict) -> dict:
     """A phase-14 family's fields of K6, K7, K7r, K7c, K8 and K9 in the
     kernels' line, from ``family_phase``'s result: the launches on its
-    kernel arm (K7 or K7c, K8, K9) and in its training steps (K6, K7 or
-    K7r), and the error, times and bound at its shapes (K7's at its
-    inference rows, K7r's at BPP's training rollout)."""
+    kernel arm (K7, K7c or K7r's untraced forward, K8, K9) and in its
+    training steps (K6, K7 or K7r), and the error, times and bound at its
+    shapes (K7's at its inference rows, K7r's at its training rollout and,
+    untraced, at its inference rollout)."""
     take = lambda d, keys: {k: d[k] for k in keys if k in d}
     timing = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     launches = r["arms"]["kernel"]["launches"]
@@ -3092,6 +3209,11 @@ def family_kernel_fields(r: dict) -> dict:
     if "k7c" in r:
         fields["cvrp_construct"] = {"launches": launches["cvrp_construct"],
                                     **take(r["k7c"], timing)}
+    if "k7r_paths" in r:
+        fields["fused_rollout_paths"] = {
+            "launches": launches["fused_rollout_paths"],
+            **take(r["k7r_paths"], ("config", "B", "N", "A", "T", "ant_steps", "device_ms",
+                                    "traced_ms", "peak_gb") + timing)}
     if "k8" in r:
         fields["tour_deposit"] = {"launches": launches["tour_deposit"],
                                   **take(r["k8"], ("B", "L", "A", "n") + timing)}
@@ -3178,7 +3300,8 @@ def main() -> int:
         if not all(par["checks"].values()):
             fail(f"parallel: {par['checks']}")
         for path, got in (("cvrp", par["cvrp"]["cost"]), ("island", par["island"]["cost"])):
-            if [round(c, 4) for c in got] != list(RECORDED_COSTS[path]):
+            if any(want is not None and round(c, 4) != want
+                   for c, want in zip(got, RECORDED_COSTS[path])):
                 fail(f"parallel {path} cost {got} differs from the recorded "
                      f"{RECORDED_COSTS[path]}")
         return finish()
@@ -3396,7 +3519,8 @@ def main() -> int:
                two_opt.batched_nls_euclid, gnn_layer.fused_gnn_layer,
                gnn_layer.fused_gnn_layer_backward, pick.fused_pick,
                rollout_ops.fused_rollout, rollout_ops.fused_rollout_backward,
-               deposit.tour_deposit, cc.cvrp_construct, fused_gnn.embnet_layers)
+               rollout_ops.fused_rollout_paths, deposit.tour_deposit, cc.cvrp_construct,
+               fused_gnn.embnet_layers)
 
     class PhaseTimer:
         """CUDA events around each phase; read after the run has synchronised."""
@@ -3823,6 +3947,18 @@ def main() -> int:
     # ---- 14. the other families: OP300, PCTSP500, SMTWTP500, SOP100, BPP120, MKP300
     family_runs = {name: family_phase(dev, root, cuda_ms, PhaseTimer, counted, name)
                    for name in FAMILY_PHASE}
+    # K7r's untraced forward, the inference rollouts' kernel: SMTWTP500's
+    # shape at the top, its launches from phase 18's test tsp family path
+    paths_check = family_runs["smtwtp"]["k7r_paths"]
+    kernels.append({
+        "name": "fused_rollout_paths", "route": "cuda",
+        "source": "deepaco_tpu_torch/csrc/rollout.cu",
+        "replaces": "deepaco_tpu/ops/pallas_kernels.py:65 (fused_pick_pallas, every step of "
+                    "the scan deepaco_tpu/aco/engine.py:104-129 without require_prob)",
+        "passed": all(family_runs[f]["k7r_paths"]["passed"] for f in FUSED_INFER),
+        **{k: paths_check[k] for k in ("config", "B", "N", "A", "T", "ant_steps", "max_abs_err",
+                                       "ms", "device_ms", "traced_ms", "plain_ms",
+                                       "library_ms", "bound_ms", "bound_by", "peak_gb")}})
     for name, r in family_runs.items():
         fields = family_kernel_fields(r)
         for entry in kernels:
@@ -3861,7 +3997,11 @@ def main() -> int:
     golden_run = tsp_golden_phase(dev, root, cuda_ms, counted, coords)
     rcpsp_launches = rcpsp_run["arms"]["kernel"]["launches"]
     facade_launches = golden_run["arms"]["tsp_nls_per_instance"]["launches"]
-    path_launches["fused_pick"] = golden_run["arms"]["tsp_family"]["launches"]["fused_pick"]
+    # K7 steps the OP, PCTSP, MKP-items and RCPSP rollouts: OP300's path; the
+    # TSP inference rollouts take K7r's untraced forward: test tsp's family path
+    path_launches["fused_pick"] = family_runs["op"]["arms"]["kernel"]["launches"]["fused_pick"]
+    path_launches["fused_rollout_paths"] = golden_run["arms"]["tsp_family"]["launches"][
+        "fused_rollout_paths"]
     two_opt_launches = golden_run["arms"]["tsp_2opt_per_instance"]["launches"]
     for entry in kernels:
         if entry["name"] == "fused_pick":
@@ -3869,8 +4009,11 @@ def main() -> int:
             entry["rcpsp"] = {"launches": rcpsp_launches["fused_pick"],
                               "train_launches": rcpsp_run["train_launches"]["fused_pick"],
                               **take(rcpsp_run["k7"], ("rows", "N") + timing)}
-            entry["tsp_facade"] = {"launches": facade_launches["fused_pick"],
-                                   **take(golden_run["k7"], ("rows", "N") + timing)}
+        if entry["name"] == "fused_rollout_paths":
+            entry["launches"] = path_launches["fused_rollout_paths"]
+            entry["tsp_facade"] = {"launches": facade_launches["fused_rollout_paths"],
+                                   **take(golden_run["k7r_paths"],
+                                          ("B", "N", "A", "T", "device_ms") + timing)}
         if entry["name"] == "tour_deposit":
             entry["rcpsp"] = {"launches": rcpsp_launches["tour_deposit"],
                               **take(rcpsp_run["k8"], ("B", "L", "A", "n") + timing)}
@@ -3931,8 +4074,9 @@ def main() -> int:
             "train_launches": par_steps["fused_gnn_layer_backward"], "steps": 1,
             **par_worlds}},
         "fused_pick": {"parallel": {
-            "train_launches": par_steps["fused_pick"], "steps": 1,
-            "island_launches": par["island"]["launches"]["fused_pick"], **par_worlds}},
+            "train_launches": par_steps["fused_pick"], "steps": 1, **par_worlds}},
+        "fused_rollout_paths": {"parallel": {
+            "island_launches": par["island"]["launches"]["fused_rollout_paths"], **par_worlds}},
         **{name: {"parallel": {"train_launches": par_steps[name], "steps": 1, **fields,
                                **par_worlds}}
            for name, fields in rollout_entries(par["k7r"]).items()},

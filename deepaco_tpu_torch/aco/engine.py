@@ -8,10 +8,12 @@ feasibility mask, the same law as the reference's
 ``Categorical(phe**alpha * heu**beta * mask)`` (tsp/aco.py:165-177).
 ``rollout(require_prob=True)`` also returns the log-probability of each
 sampled action, differentiable in the plug-in's score matrix. A plug-in
-that carries ``fused`` (TSP's and CVRP's, so TSP, CVRP and BPP training and
-the facades' ``sample``) then takes the whole rollout in one
-:func:`~deepaco_tpu_torch.ops.rollout.fused_rollout` (kernel K7r on the
-card, one launch forward and one backward); every other rollout is one
+that carries ``fused`` (TSP's, SMTWTP's, CVRP's, SOP's and MKP's PH_suc)
+takes the whole rollout in one launch of kernel K7r on the card:
+:func:`~deepaco_tpu_torch.ops.rollout.fused_rollout` with
+``require_prob`` (one launch forward and one backward), else
+:func:`~deepaco_tpu_torch.ops.rollout.fused_rollout_paths` (the paths
+alone); every other rollout is one
 :func:`~deepaco_tpu_torch.ops.pick.fused_pick` (kernel K7) a step.
 
 Gumbel noise follows ``jax.random.gumbel``'s f32 law, ``-log(-log U)`` with
@@ -25,7 +27,8 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from deepaco_tpu_torch.ops.pick import fused_pick, fused_pick_plain
-from deepaco_tpu_torch.ops.rollout import (fused_rollout, fused_rollout_plain,
+from deepaco_tpu_torch.ops.rollout import (fused_rollout, fused_rollout_paths,
+                                           fused_rollout_paths_plain, fused_rollout_plain,
                                            fused_rollout_supported)
 
 NEG_INF = -1e30
@@ -53,9 +56,9 @@ class RolloutSpec(NamedTuple):
                 ignored.
     fused:      optional ``(score [B, N, N], ops.rollout.RolloutShape)``:
                 the score matrix that ``score_rows`` gathers from and the
-                state the plug-in keeps (TSP's visited set, or CVRP's with
-                its demand and capacity), for the one-launch route of
-                ``rollout(require_prob=True)``.
+                state the plug-in keeps (TSP's visited set; CVRP's with its
+                demand and capacity; SOP's with its precedences; MKP's with
+                its knapsack), for the one-launch route of ``rollout``.
     """
 
     horizon: int
@@ -69,8 +72,10 @@ class RolloutSpec(NamedTuple):
     fused: tuple | None = None
 
 
-# the one-launch rollout that stands for each pick, on the fused route
-_FUSED = {fused_pick: fused_rollout, fused_pick_plain: fused_rollout_plain}
+# the one-launch rollouts that stand for each pick on the fused route: with
+# log-probabilities (training) and the paths alone (inference)
+_FUSED = {fused_pick: (fused_rollout, fused_rollout_paths),
+          fused_pick_plain: (fused_rollout_plain, fused_rollout_paths_plain)}
 
 
 class Rollout(NamedTuple):
@@ -117,7 +122,7 @@ def _step_logits(spec: RolloutSpec, state, alpha, beta) -> torch.Tensor:
 def gumbel(shape, generator: torch.Generator, device) -> torch.Tensor:
     """f32 Gumbel noise by ``jax.random.gumbel``'s law."""
     u = torch.rand(shape, generator=generator, device=generator.device)
-    return (-torch.log(-torch.log(u.clamp_(min=_TINY)))).to(device)
+    return u.clamp_(min=_TINY).log_().neg_().log_().neg_().to(device)
 
 
 def rollout(spec: RolloutSpec, generator: torch.Generator, *, alpha: float = 1.0,
@@ -127,17 +132,24 @@ def rollout(spec: RolloutSpec, generator: torch.Generator, *, alpha: float = 1.0
     one ``pick`` a step: :func:`fused_pick` (K7 on the card) or
     ``fused_pick_plain``.
 
-    With ``require_prob``, a spec that carries ``fused`` and N that K7r
-    takes, the pick's one-launch counterpart (:func:`fused_rollout`, K7r on
-    the card, or :func:`fused_rollout_plain`) runs the whole rollout on
-    the noise of all steps drawn in one call, the very numbers that a call
-    a step draws from a CPU generator. Its ``Rollout.state`` is None."""
+    For a spec that carries ``fused`` and N that K7r takes, the pick's
+    one-launch counterpart runs the whole rollout on the noise of all steps
+    drawn in one call, the very numbers that a call a step draws from a CPU
+    generator: with ``require_prob`` :func:`fused_rollout` (K7r on the
+    card) or :func:`fused_rollout_plain`, else, under ``no_grad``,
+    :func:`fused_rollout_paths` (K7r's untraced forward) or
+    :func:`fused_rollout_paths_plain`, the log-probabilities then zeros.
+    Its ``Rollout.state`` is None."""
     start = spec.start(generator)
-    routed = _FUSED.get(pick) if require_prob and spec.fused is not None else None
-    if routed is not None and fused_rollout_supported(spec.fused[0].shape[-1]):
+    routes = _FUSED.get(pick) if spec.fused is not None else None
+    if routes is not None and fused_rollout_supported(spec.fused[0].shape[-1], spec.fused[1]):
         score, shape = spec.fused
         noise = gumbel((spec.horizon, *start.shape, score.shape[-1]), generator, score.device)
-        return Rollout(*routed(score, start, noise, shape), None)
+        if require_prob:
+            return Rollout(*routes[0](score, start, noise, shape), None)
+        paths = routes[1](score, start, noise, shape)
+        return Rollout(paths, torch.zeros((start.shape[0], spec.horizon, start.shape[1]),
+                                          device=score.device), None)
     state = spec.init(start)
     b, a = start.shape
     actions, log_probs = [start], []

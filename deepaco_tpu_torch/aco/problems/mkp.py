@@ -61,8 +61,10 @@ def mkp_spec(phe: torch.Tensor, heu: torch.Tensor, weight_e: torch.Tensor, capac
              n_ants: int, alpha: float = 1.0, beta: float = 1.0):
     """The engine's plug-in for the dummy-extended ``phe, heu [B, n+1, n+1]``
     and ``weight_e [B, n+1, m]``; ``start`` draws each ant's first item
-    uniformly from the real ones with the caller's generator."""
+    uniformly from the real ones with the caller's generator. The spec
+    carries MKP's shape for the engine's one-launch route (K7r)."""
     from deepaco_tpu_torch.aco.engine import RolloutSpec
+    from deepaco_tpu_torch.ops.rollout import RolloutShape
 
     b, m_items, _ = phe.shape
     update, dummy = _knapsack_masks(weight_e, capacity)
@@ -87,7 +89,9 @@ def mkp_spec(phe: torch.Tensor, heu: torch.Tensor, weight_e: torch.Tensor, capac
     return RolloutSpec(horizon=m_items, start=start, init=init,
                        prob_rows=lambda state: (rows(phe, state[0]), rows(heu, state[0])),
                        mask=lambda state: state[1] * state[2], step=step,
-                       score_rows=lambda state: rows(score, state[0]))
+                       score_rows=lambda state: rows(score, state[0]),
+                       fused=(score, RolloutShape("mkp", capacity=capacity, weight=weight_e,
+                                                  dummy=dummy)))
 
 
 def mkp_items_spec(phe_vec: torch.Tensor, heu_vec: torch.Tensor, weight_e: torch.Tensor,

@@ -24,8 +24,11 @@ from deepaco_tpu_torch.device import resolve_device
 def smtwtp_spec(phe: torch.Tensor, heu: torch.Tensor, n_ants: int, alpha: float = 1.0,
                 beta: float = 1.0):
     """The engine's plug-in for ``phe, heu [B, n+1, n+1]``; every ant starts
-    at the dummy job 0."""
+    at the dummy job 0. Its walk is TSP's from a fixed start (the dummy
+    closed at ``init``, a horizon of n steps), so the spec carries TSP's
+    shape for the engine's one-launch route (K7r)."""
     from deepaco_tpu_torch.aco.engine import RolloutSpec
+    from deepaco_tpu_torch.ops.rollout import TSP_SHAPE
 
     b, m, _ = phe.shape
     score = score_matrix(phe, heu, alpha, beta)
@@ -45,7 +48,8 @@ def smtwtp_spec(phe: torch.Tensor, heu: torch.Tensor, n_ants: int, alpha: float 
     return RolloutSpec(horizon=m - 1, start=start, init=init,
                        prob_rows=lambda state: (rows(phe, state[0]), rows(heu, state[0])),
                        mask=lambda state: state[1], step=step,
-                       score_rows=lambda state: rows(score, state[0]))
+                       score_rows=lambda state: rows(score, state[0]),
+                       fused=(score, TSP_SHAPE))
 
 
 def smtwtp_cost(processing: torch.Tensor, due: torch.Tensor, weights: torch.Tensor,

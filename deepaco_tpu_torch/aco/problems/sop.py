@@ -25,9 +25,11 @@ from deepaco_tpu_torch.device import resolve_device
 
 def sop_spec(phe: torch.Tensor, heu: torch.Tensor, prec: torch.Tensor, n_ants: int,
              alpha: float = 1.0, beta: float = 1.0):
-    """The engine's plug-in for ``phe, heu, prec [B, n, n]``; every ant
-    starts at node 0."""
+    """The engine's plug-in for ``phe, heu, prec [B, n, n]`` (``prec`` 0/1);
+    every ant starts at node 0. The spec carries SOP's shape for the
+    engine's one-launch route (K7r)."""
     from deepaco_tpu_torch.aco.engine import RolloutSpec
+    from deepaco_tpu_torch.ops.rollout import RolloutShape
 
     b, n, _ = phe.shape
     score = score_matrix(phe, heu, alpha, beta)
@@ -53,7 +55,8 @@ def sop_spec(phe: torch.Tensor, heu: torch.Tensor, prec: torch.Tensor, n_ants: i
     return RolloutSpec(horizon=n - 1, start=start, init=init,
                        prob_rows=lambda state: (rows(phe, state[0]), rows(heu, state[0])),
                        mask=lambda state: state[1] * (state[2] == 0).to(phe.dtype),
-                       step=step, score_rows=lambda state: rows(score, state[0]))
+                       step=step, score_rows=lambda state: rows(score, state[0]),
+                       fused=(score, RolloutShape("sop", prec=prec)))
 
 
 def sop_cost(dist: torch.Tensor, paths: torch.Tensor) -> torch.Tensor:

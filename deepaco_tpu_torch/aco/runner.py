@@ -229,12 +229,14 @@ class ProblemACO:
 
     def construct(self, tau: torch.Tensor, heu: torch.Tensor,
                   generator: torch.Generator) -> torch.Tensor:
-        """One iteration's solutions: the rollout of ``spec``, K7 a step."""
+        """One iteration's solutions: the rollout of ``spec`` (K7r's
+        untraced forward for a plug-in that carries ``fused``, else K7 a
+        step)."""
         return rollout(self.spec(tau, heu), generator).paths
 
     def sample(self, require_prob: bool = True):
         """One construction on the current pheromone (K7r on the card for
-        the TSP and CVRP plug-ins, else K7 a step): ``(costs [A], log_probs
+        a plug-in that carries ``fused``, else K7 a step): ``(costs [A], log_probs
         [horizon, A], paths [horizon+1, A])``, the log-probabilities
         differentiable in the heuristic."""
         ro = rollout(self.spec(self.state.phe.tau, self.heuristic), self.generator,
@@ -268,8 +270,9 @@ class ACO(ProblemACO):
     """The reference-style TSP facade (tsp/aco.py:4-177; ``deepaco_tpu/aco/
     runner.py:162-312``) over one instance ``distances [n, n]`` with the
     heuristic ``1/d`` unless given. Each iteration constructs through
-    ``tsp_spec``'s rollout (K7 a step on the card) from uniform starts, or
-    from ``fixed_start`` (0 under local search, tsp_nls/aco.py:191), runs
+    ``tsp_spec``'s rollout (K7r's untraced forward on the card) from
+    uniform starts, or from ``fixed_start`` (0 under local search,
+    tsp_nls/aco.py:191), runs
     ``local_search`` (``"2opt"`` or ``"nls"``) on every ant to its fixed
     point (budget 10000), and updates (K8, cyclic and symmetric). With
     ``coords [n, 2]`` the local search is K4 or K5 on the card (their plain

@@ -1,41 +1,62 @@
-// K7r: a whole sampled construction with its log-probabilities, every step of
-// every ant in one launch, and its gradient in the score matrix in one more.
+// K7r: a whole sampled construction, every step of every ant in one launch,
+// with its log-probabilities and their gradient in the score matrix in one
+// more, or (untraced) its paths alone.
 //
-// Replaces, on the training paths (engine.rollout(require_prob=True) over the
-// TSP and CVRP plug-ins: TSP, TSP-NLS, CVRP and BPP training, the facades'
-// sample), deepaco_tpu/ops/pallas_kernels.py:65 fused_pick_pallas a step, the
-// step of the construction scan deepaco_tpu/aco/engine.py:104-129. The port
-// ran that scan as a host loop, K7 (csrc/pick.cu) and 14-48 PyTorch launches
-// of glue a step (row gathers, masks, noise), and autograd's backward a step.
+// Replaces deepaco_tpu/ops/pallas_kernels.py:65 fused_pick_pallas a step, the
+// step of the construction scan deepaco_tpu/aco/engine.py:104-129, on every
+// rollout whose plug-in keeps the visited set and at most a few registers of
+// state (engine.rollout over a spec with `fused`): TSP (and SMTWTP, TSP's walk
+// from the dummy job), CVRP and BPP, SOP and MKP (PH_suc), in training
+// (traced: logp and what the backward reads) and inference (untraced: the
+// paths). The port ran that scan as a host loop, K7 (csrc/pick.cu) and 14-48
+// PyTorch launches of glue a step, and autograd's backward a step.
 //
-// Forward, a block an ant (1-8 warps, G <= 16 columns a thread), K7c's
-// structure (csrc/cvrp_sweep.cu) on the given noise:
+// Forward, a block an ant (1-8 warps, G <= 16 columns a thread, G <= 8 for
+// MKP), K7c's structure (csrc/cvrp_sweep.cu) on the given noise:
 // - the visited set is one register word a thread, bit j for the column
-//   tid + j * threads; the demands of those columns are registers; the CVRP
-//   load `used`, the count of customers left and the current node are the
-//   same in every thread, so the depot rule (closed right after a depot pick
-//   while customers remain) needs no exchange;
-// - each step issues its G loads of the row score[b, cur, :] together (the
-//   whole [B, N, N] of a TSP500-NLS step is 20 MB, held in the 50 MB L2),
-//   then the next step's noise[t + 1, b, a, :], which no pick decides, so
-//   that it arrives during this step; then K7's logsumexp (a maximum, then a
-//   sum of exps) and first maximum of logits + noise (NaN above every
-//   number, ties to the lower column), the logit of the maximum and whether
-//   its column was visited riding along (key 2c + bit);
-// - it writes the action, logp = logit - lse, and the step's lse (and, for
-//   CVRP, capacity - used) for the backward, and each node's path index pos.
-// An ant of CVRP back at the depot with every customer served picks the depot
-// with certainty and log-probability 0 (when score[b, 0, 0] is finite, not
-// below -1e30, and the depot's demand fits): the loop stops there and writes
-// those steps directly, and the backward skips them (their gradient is 0).
+//   tid + j * threads. The kind's state:
+//   CVRP: the columns' demands are registers; the load `used`, the count of
+//     customers left and the current node are the same in every thread, so
+//     the depot rule (closed right after a depot pick while customers remain)
+//     needs no exchange;
+//   SOP: each column's count of unvisited predecessors is a register int;
+//     each step subtracts the row succ[cur, :] (succ = prec^T, 0/1 bytes)
+//     before it decides the open set, so a column opens once its count is 0;
+//   MKP: each column's m <= 8 weights are registers, and the knapsack's m f32
+//     sums (added in pick order, as the plug-in adds them) are the same in
+//     every thread; a real item is open when unpicked and fitting in every
+//     dimension, recomputed each step (with non-negative weights the sums only
+//     grow, so the plug-in's cumulative mask is the same set), and the dummy
+//     item once no real item is open (a block-wide vote);
+// - each step issues its G loads of the row score[b, cur, :] together (SOP:
+//   with its row of succ), then the next step's noise[t + 1, b, a, :], which
+//   no pick decides, so that it arrives during this step; then K7's
+//   logsumexp (a maximum, then a sum of exps) and first maximum of logits +
+//   noise (NaN above every number, ties to the lower column), the logit of
+//   the maximum and whether its column was visited riding along (key 2c +
+//   bit);
+// - it writes the action and, traced, logp = logit - lse, the step's lse
+//   (and CVRP's capacity - used, MKP's knapsack, SOP's step at which each
+//   column's count reached 0) for the backward, and each node's path index
+//   pos. Untraced it writes the paths alone, the same bits.
+// An ant that parks picks its node with certainty and log-probability 0: a
+// CVRP ant back at the depot with every customer served (when score[b, 0, 0]
+// is finite above -1e30 and the depot's demand fits), an MKP ant on the dummy
+// item with no real item open (when score[b, dummy, dummy] is finite above
+// -1e30). The loop stops there and writes those steps directly, and the
+// backward skips them (their gradient is 0).
 //
 // Backward, a block a row r and 32 columns of an instance, no atomics: each
 // thread sums its column's terms
 //     g[b,t,a] * (1[c = a_{t+1}] - exp(score[b,r,c] - lse_t)) * open_t(c)
 // over the steps that leave row r, warp w the ants w, w + 4, ... in order,
 // then the four sums in order, so a repeat gives equal bits (the depot row
-// of CVRP and BPP, a few thousand departures, splits four ways). A TSP ant leaves each row once, at t = pos(r), and there
-// open_t(c) <=> pos(c) > t. A CVRP ant leaves a customer row at most once, and
+// of CVRP and BPP, a few thousand departures, splits four ways). A TSP, SOP
+// or MKP ant leaves each row once, at t = pos(r), and there open_t(c) <=>
+// pos(c) > t and: SOP ready(c) <= t; MKP (real c) every knap_t + w[c] <=
+// capacity on the forward's own sums, the dummy open iff it was picked (it
+// opens only as the last open column). MKP's dummy row holds parked steps
+// only: its gradient is 0. A CVRP ant leaves a customer row at most once, and
 // the depot at the departures the forward listed (2t + the depot's own open
 // bit); open_t(c) adds demand[c] <= rem_t, the forward's own f32 value.
 //
@@ -49,9 +70,46 @@ namespace deepaco {
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kMaxWarps = 8;   // warps an ant
-constexpr int kMaxCols = 16;   // columns a thread: N <= 16 * 32 * 8 = 4096
-constexpr int kBwdWarps = 4;   // a backward block: 32 columns, each warp a share of the ants
+constexpr int kMaxWarps = 8;    // warps an ant
+constexpr int kMaxCols = 16;    // columns a thread: N <= 16 * 32 * 8 = 4096
+constexpr int kMkpMaxCols = 8;  // MKP: a thread's columns' weights are registers, N <= 2048
+constexpr int kMaxDims = 8;     // MKP: capacity dimensions
+constexpr int kBwdWarps = 4;    // a backward block: 32 columns, each warp a share of the ants
+
+enum Kind : int { kTsp = 0, kCvrp = 1, kSop = 2, kMkp = 3 };
+
+// The plug-in's inputs; a kind reads its own and leaves the others null.
+struct Plugin {
+  const float* demand;   // CVRP [B, N]
+  const uint8_t* succ;   // SOP [B, N, N]: succ[b, k, c] = 1 iff k must precede c
+  const int* npred;      // SOP [B, N]: each node's count of predecessors
+  const float* weight;   // MKP [B, N, m]
+  float capacity;        // CVRP, MKP
+  int m, dummy;          // MKP: dimensions, the dummy item
+};
+
+// What the traced forward writes for the backward (null untraced, and where
+// a kind keeps no such state).
+struct Trace {
+  float* logp;  // [B, T, A]
+  float* lse;   // [B, T, A]
+  int* pos;     // [B, A, N]
+  float* rem;   // CVRP [B, T, A]
+  int* dep;     // CVRP [B, A, T]
+  int* ndep;    // CVRP [B, A]
+  int* ready;   // SOP [B, A, N]
+  float* knap;  // MKP [B, T, A, m]
+};
+
+struct Fwd {
+  const float* score;
+  const int64_t* start;
+  const float* noise;
+  Plugin pl;
+  int B, N, A, T;
+  int64_t* paths;
+  Trace tr;
+};
 
 // A candidate of the running first maximum: v = logit + noise, key = 2 *
 // column + (column visited before the step), and the logit itself.
@@ -65,38 +123,62 @@ __device__ __forceinline__ void take_first(const Cand& o, Cand& best) {
   if (argmax_before(o.v, o.key, best.v, best.key)) best = o;
 }
 
+// Whether an MKP item of weights w fits beside the knapsack's sums.
+__device__ __forceinline__ bool fits(const float* knap, const float* w, int m, float capacity) {
+  bool ok = true;
+#pragma unroll
+  for (int k = 0; k < kMaxDims; ++k) {
+    if (k < m) ok = ok && __fadd_rn(knap[k], w[k]) <= capacity;
+  }
+  return ok;
+}
+
 // One ant a block of 32 * warps threads; G: columns a thread (a power of two,
 // G * threads >= N), column tid + j * threads in slot j.
-template <bool kCvrp, int G>
-__global__ void __launch_bounds__(32 * kMaxWarps)
-    rollout_fwd_kernel(const float* __restrict__ score, const int64_t* __restrict__ start,
-                       const float* __restrict__ noise, const float* __restrict__ demand,
-                       float capacity, int B, int N, int A, int T, int64_t* __restrict__ paths,
-                       float* __restrict__ logp, float* __restrict__ lse, int* __restrict__ pos,
-                       float* __restrict__ rem, int* __restrict__ dep, int* __restrict__ ndep) {
+template <int kKind, bool kTrace, int G>
+__global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p) {
+  constexpr bool kCv = kKind == kCvrp, kSp = kKind == kSop, kMk = kKind == kMkp;
   __shared__ Cand s_best[2][kMaxWarps];
   __shared__ float s_top[2][kMaxWarps], s_total[2][kMaxWarps];
+  const int B = p.B, N = p.N, A = p.A, T = p.T;
   const int threads = blockDim.x, warps = threads >> 5;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long ant = blockIdx.x;  // b * A + a
   const int b = (int)(ant / A), a = (int)(ant % A);
-  const float* inst = score + (size_t)b * N * N;
-  const float* dem_row = kCvrp ? demand + (size_t)b * N : nullptr;
-  const float* my_noise = noise + (size_t)ant * N;  // step t at my_noise + t * step_stride
+  const float* inst = p.score + (size_t)b * N * N;
+  const float* dem_row = kCv ? p.pl.demand + (size_t)b * N : nullptr;
+  const uint8_t* succ = kSp ? p.pl.succ + (size_t)b * N * N : nullptr;
+  const int m = kMk ? p.pl.m : 0, dummy = kMk ? p.pl.dummy : -1;
+  const float* w_inst = kMk ? p.pl.weight + (size_t)b * N * m : nullptr;
+  const float* my_noise = p.noise + (size_t)ant * N;  // step t at my_noise + t * step_stride
   const size_t step_stride = (size_t)B * A * N;
-  int* my_pos = pos + (size_t)ant * N;
-  int64_t* out = paths + (size_t)b * (T + 1) * A + a;  // step s at out[s * A]
-  const size_t row0 = (size_t)b * T * A + a;            // [B, T, A] outputs at row0 + t * A
+  int* my_pos = kTrace ? p.tr.pos + (size_t)ant * N : nullptr;
+  int* my_ready = kTrace && kSp ? p.tr.ready + (size_t)ant * N : nullptr;
+  int64_t* out = p.paths + (size_t)b * (T + 1) * A + a;  // step s at out[s * A]
+  const size_t row0 = (size_t)b * T * A + a;              // [B, T, A] outputs at row0 + t * A
 
-  uint32_t live = 0, vis = 0;  // bit j: column tid + j * threads exists / was visited
-  float dem[G], g[G];          // the columns' demands; this step's noise, read a step ahead
+  uint32_t live = 0, vis = 0, rdy = 0;  // bit j: column tid + j * threads exists / visited / ready
+  float g[G];                           // this step's noise, read a step ahead
+  float dem[kCv ? G : 1];               // CVRP: the columns' demands
+  int cnt[kSp ? G : 1];                 // SOP: the columns' unvisited predecessors
+  float w[kMk ? G : 1][kMk ? kMaxDims : 1];  // MKP: the columns' weights
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     const int c = tid + j * threads;
     const bool here = c < N;
     live |= (uint32_t)here << j;
-    if (here) my_pos[c] = T + 1;
-    dem[j] = kCvrp && here ? __ldg(dem_row + c) : 0.0f;
+    if (kTrace && here) my_pos[c] = T + 1;
+    if constexpr (kCv) dem[j] = here ? __ldg(dem_row + c) : 0.0f;
+    if constexpr (kSp) {
+      cnt[j] = here ? __ldg(p.pl.npred + (size_t)b * N + c) : 0;
+      if (kTrace && here) my_ready[c] = T + 1;
+    }
+    if constexpr (kMk) {
+#pragma unroll
+      for (int k = 0; k < kMaxDims; ++k) {
+        w[j][k] = here && k < m ? __ldg(w_inst + (size_t)c * m + k) : 0.0f;
+      }
+    }
     g[j] = here && T > 0 ? __ldg(my_noise + c) : 0.0f;
   }
   // mark column c reached at path index s (its owner alone)
@@ -105,42 +187,94 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       const uint32_t bit = 1u << (c / threads);
       if (!(vis & bit)) {
         vis |= bit;
-        my_pos[c] = s;
+        if (kTrace) my_pos[c] = s;
       }
     }
   };
   // the plug-in's init is a step with the start as its action
-  int cur = (int)start[ant];
+  int cur = (int)p.start[ant];
   int left = N - 1;
   float used = 0.0f;
-  if (kCvrp) {
+  float knap[kMk ? kMaxDims : 1];  // MKP: the knapsack's sums, the same in every thread
+  if constexpr (kCv) {
     left -= cur != 0;
     used = __fadd_rn(0.0f, __ldg(dem_row + cur));
   }
+  if constexpr (kMk) {
+#pragma unroll
+    for (int k = 0; k < kMaxDims; ++k) {
+      knap[k] = k < m ? __fadd_rn(0.0f, __ldg(w_inst + (size_t)cur * m + k)) : 0.0f;
+    }
+  }
   visit(cur, 0);
   if (tid == 0) out[0] = cur;
-  float s00 = 0.0f, park_rem = 0.0f;
+  // parking: the parked step's lse (its only open logit) and, for CVRP, rem
+  float park_lse = 0.0f, park_rem = 0.0f;
   bool park = false;
-  if (kCvrp) {
-    s00 = __ldg(inst);
+  if constexpr (kCv) {
+    park_lse = __ldg(inst);
     const float d0 = __ldg(dem_row);
-    park_rem = __fsub_rn(capacity, __fadd_rn(0.0f, d0));
-    park = isfinite(s00) && s00 > kNegInf && d0 <= park_rem;
+    park_rem = __fsub_rn(p.pl.capacity, __fadd_rn(0.0f, d0));
+    park = isfinite(park_lse) && park_lse > kNegInf && d0 <= park_rem;
+  }
+  if constexpr (kMk) {
+    park_lse = __ldg(inst + (size_t)dummy * N + dummy);
+    park = isfinite(park_lse) && park_lse > kNegInf;
   }
   int nd = 0, t = 0;
   for (; t < T; ++t) {
-    if (kCvrp && park && cur == 0 && left == 0) break;  // the same in every thread
-    const bool depot_closed = kCvrp && cur == 0 && left > 0;
-    const float r = kCvrp ? __fsub_rn(capacity, used) : 0.0f;
+    if (kCv && park && cur == 0 && left == 0) break;  // the same in every thread
     const float* row = inst + (size_t)cur * N;
     float l[G];
+    if constexpr (kSp) {
+      // the row's score and succ loads together, for the unvisited columns
+      const uint8_t* srow = succ + (size_t)cur * N;
+      uint8_t sc[G];
 #pragma unroll
-    for (int j = 0; j < G; ++j) {  // the row's loads first, all in flight together
-      const int c = tid + j * threads;
-      bool open = (live >> j) & 1u;
-      open = open && ((kCvrp && c == 0) ? !depot_closed : !((vis >> j) & 1u));
-      if (kCvrp) open = open && dem[j] <= r;
-      l[j] = open ? __ldg(row + c) : kNegInf;
+      for (int j = 0; j < G; ++j) {
+        const int c = tid + j * threads;
+        const bool cand = ((live & ~vis) >> j) & 1u;
+        l[j] = cand ? __ldg(row + c) : kNegInf;
+        sc[j] = cand ? __ldg(srow + c) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        cnt[j] -= sc[j];
+        if (((live & ~rdy) >> j) & 1u && cnt[j] == 0) {
+          rdy |= 1u << j;
+          if (kTrace) my_ready[tid + j * threads] = t;
+        }
+        if (cnt[j] != 0) l[j] = kNegInf;
+      }
+    } else {
+      uint32_t open = 0;
+      const bool depot_closed = kCv && cur == 0 && left > 0;
+      const float r = kCv ? __fsub_rn(p.pl.capacity, used) : 0.0f;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int c = tid + j * threads;
+        bool o = (live >> j) & 1u;
+        if constexpr (kCv) {
+          o = o && (c == 0 ? !depot_closed : !((vis >> j) & 1u)) && dem[j] <= r;
+        } else if constexpr (kMk) {
+          o = o && c != dummy && !((vis >> j) & 1u) && fits(knap, w[j], m, p.pl.capacity);
+        } else {
+          o = o && !((vis >> j) & 1u);
+        }
+        open |= (uint32_t)o << j;
+      }
+      if constexpr (kMk) {  // the dummy opens once no real item does
+        const bool any = warps > 1 ? __syncthreads_or(open != 0) != 0
+                                   : __any_sync(kFullMask, open != 0);
+        if (!any) {
+          if (park && cur == dummy) break;  // the same in every thread
+          if (dummy % threads == tid) open |= 1u << (dummy / threads);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {  // the row's loads first, all in flight together
+        l[j] = (open >> j) & 1u ? __ldg(row + tid + j * threads) : kNegInf;
+      }
     }
     float g_next[G];  // the next step's noise, in flight during this step
     const float* noise_next = my_noise + (size_t)(t + 1) * step_stride;
@@ -174,91 +308,140 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     for (int off = 16; off > 0; off >>= 1) top = fmaxf(top, __shfl_xor_sync(kFullMask, top, off));
     float total = warp_sum(mx == -INFINITY ? 0.0f : sum * expf(mx - top));
     if (warps > 1) {  // the warps in order; buffers alternate by step parity
-      const int p = t & 1;
+      const int par = t & 1;
       if (lane == 0) {
-        s_best[p][warp] = best;
-        s_top[p][warp] = top;
-        s_total[p][warp] = total;
+        s_best[par][warp] = best;
+        s_top[par][warp] = top;
+        s_total[par][warp] = total;
       }
       __syncthreads();
-      best = s_best[p][0];
-      top = s_top[p][0];
-      for (int w = 1; w < warps; ++w) {
-        take_first(s_best[p][w], best);
-        top = fmaxf(top, s_top[p][w]);
+      best = s_best[par][0];
+      top = s_top[par][0];
+      for (int wi = 1; wi < warps; ++wi) {
+        take_first(s_best[par][wi], best);
+        top = fmaxf(top, s_top[par][wi]);
       }
       total = 0.0f;
-      for (int w = 0; w < warps; ++w) {
-        const float tw = s_top[p][w];
-        total += tw == -INFINITY ? 0.0f : s_total[p][w] * expf(tw - top);
+      for (int wi = 0; wi < warps; ++wi) {
+        const float tw = s_top[par][wi];
+        total += tw == -INFINITY ? 0.0f : s_total[par][wi] * expf(tw - top);
       }
     }
     const int nxt = best.key >> 1;
-    const float lg = logf(total);
     if (tid == 0) {
       out[(size_t)(t + 1) * A] = nxt;
-      logp[row0 + (size_t)t * A] = (best.l - top) - lg;
-      lse[row0 + (size_t)t * A] = top + lg;
-      if (kCvrp) {
-        rem[row0 + (size_t)t * A] = r;
-        if (cur == 0) dep[(size_t)ant * T + nd] = 2 * t + (left == 0);
+      if constexpr (kTrace) {
+        const float lg = logf(total);
+        const size_t i = row0 + (size_t)t * A;
+        p.tr.logp[i] = (best.l - top) - lg;
+        p.tr.lse[i] = top + lg;
+        if constexpr (kCv) {
+          p.tr.rem[i] = __fsub_rn(p.pl.capacity, used);
+          if (cur == 0) p.tr.dep[(size_t)ant * T + nd] = 2 * t + (left == 0);
+        }
+        if constexpr (kMk) {
+#pragma unroll
+          for (int k = 0; k < kMaxDims; ++k) {
+            if (k < m) p.tr.knap[i * m + k] = knap[k];
+          }
+        }
       }
     }
-    if (kCvrp) {
+    if constexpr (kCv) {
       nd += cur == 0;
       left -= (nxt != 0 && !(best.key & 1)) ? 1 : 0;
       used = __fadd_rn(nxt == 0 ? 0.0f : used, __ldg(dem_row + nxt));
+    }
+    if constexpr (kMk) {
+#pragma unroll
+      for (int k = 0; k < kMaxDims; ++k) {
+        if (k < m) knap[k] = __fadd_rn(knap[k], __ldg(w_inst + (size_t)nxt * m + k));
+      }
     }
     visit(nxt, t + 1);
     cur = nxt;
 #pragma unroll
     for (int j = 0; j < G; ++j) g[j] = g_next[j];
   }
-  if (kCvrp) {
-    for (int s = t + tid; s < T; s += threads) {  // parked: the depot, log-probability 0
-      out[(size_t)(s + 1) * A] = 0;
-      logp[row0 + (size_t)s * A] = 0.0f;
-      lse[row0 + (size_t)s * A] = s00;
-      rem[row0 + (size_t)s * A] = park_rem;
+  if constexpr (kCv || kMk) {
+    const int parked = kCv ? 0 : dummy;
+    for (int s = t + tid; s < T; s += threads) {  // parked: certain, log-probability 0
+      out[(size_t)(s + 1) * A] = parked;
+      if constexpr (kTrace) {
+        const size_t i = row0 + (size_t)s * A;
+        p.tr.logp[i] = 0.0f;
+        p.tr.lse[i] = park_lse;
+        if constexpr (kCv) p.tr.rem[i] = park_rem;
+        if constexpr (kMk) {
+#pragma unroll
+          for (int k = 0; k < kMaxDims; ++k) {
+            if (k < m) p.tr.knap[i * m + k] = knap[k];
+          }
+        }
+      }
     }
-    if (tid == 0) ndep[ant] = nd;
+    if (kTrace && kCv && tid == 0) p.tr.ndep[ant] = nd;
   }
 }
 
 // A block: 32 columns of row r of instance b; warp w sums the ants w, w +
 // kBwdWarps, ... in order, then warp 0 adds the warps' sums in order.
-template <bool kCvrp>
+template <int kKind>
 __global__ void __launch_bounds__(32 * kBwdWarps)
     rollout_bwd_kernel(const float* __restrict__ score, const int64_t* __restrict__ paths,
-                       const float* __restrict__ g, const float* __restrict__ lse,
-                       const int* __restrict__ pos, const float* __restrict__ rem,
-                       const int* __restrict__ dep, const int* __restrict__ ndep,
-                       const float* __restrict__ demand, int B, int N, int A, int T,
-                       float* __restrict__ d_score) {
+                       const float* __restrict__ g, const Plugin pl, const Trace tr, int B,
+                       int N, int A, int T, float* __restrict__ d_score) {
+  constexpr bool kCv = kKind == kCvrp, kSp = kKind == kSop, kMk = kKind == kMkp;
   __shared__ float s_part[kBwdWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + lane;
   const int r = blockIdx.y, b = blockIdx.z;
   const bool live = c < N;
   const float s = live ? __ldg(score + ((size_t)b * N + r) * N + c) : 0.0f;
-  const float dc = kCvrp && live ? __ldg(demand + (size_t)b * N + c) : 0.0f;
+  const float dc = kCv && live ? __ldg(pl.demand + (size_t)b * N + c) : 0.0f;
+  const int m = kMk ? pl.m : 0;
+  float wc[kMk ? kMaxDims : 1];  // MKP: the column's weights
+  if constexpr (kMk) {
+#pragma unroll
+    for (int k = 0; k < kMaxDims; ++k) {
+      wc[k] = live && k < m ? __ldg(pl.weight + ((size_t)b * N + c) * m + k) : 0.0f;
+    }
+  }
   float acc = 0.0f;
-  for (int a = warp; a < A; a += kBwdWarps) {
+  // MKP's dummy row holds parked steps alone: gradient 0
+  const int ants = kMk && r == pl.dummy ? 0 : A;
+  for (int a = warp; a < ants; a += kBwdWarps) {
     const long ant = (long)b * A + a;
-    const int* ant_pos = pos + (size_t)ant * N;
+    const int* ant_pos = tr.pos + (size_t)ant * N;
     const int pc = live ? __ldg(ant_pos + c) : 0;
+    const int rc = kSp && live ? __ldg(tr.ready + (size_t)ant * N + c) : 0;
     // the term of the step t that leaves row r; depot_open: the visit rule's
     // verdict on column 0 there
     const auto term = [&](int t, bool depot_open) {
       const size_t i = ((size_t)b * T + t) * A + a;
       const int nxt = (int)__ldg(paths + ((size_t)b * (T + 1) + t + 1) * A + a);
-      bool open = (kCvrp && c == 0) ? depot_open : pc > t;
-      if (kCvrp) open = open && dc <= __ldg(rem + i);
-      if (live && open) acc += __ldg(g + i) * ((c == nxt ? 1.0f : 0.0f) - expf(s - __ldg(lse + i)));
+      bool open;
+      if constexpr (kCv) {
+        open = (c == 0 ? depot_open : pc > t) && dc <= __ldg(tr.rem + i);
+      } else if constexpr (kSp) {
+        open = pc > t && rc <= t;
+      } else if constexpr (kMk) {
+        if (c == pl.dummy) {
+          open = nxt == c;
+        } else {
+          float kt[kMaxDims];
+#pragma unroll
+          for (int k = 0; k < kMaxDims; ++k) kt[k] = k < m ? __ldg(tr.knap + i * m + k) : 0.0f;
+          open = pc > t && fits(kt, wc, m, pl.capacity);
+        }
+      } else {
+        open = pc > t;
+      }
+      if (live && open) acc += __ldg(g + i) * ((c == nxt ? 1.0f : 0.0f) - expf(s - __ldg(tr.lse + i)));
     };
-    if (kCvrp && r == 0) {
-      const int cnt = __ldg(ndep + ant);
-      const int* list = dep + (size_t)ant * T;
+    if (kCv && r == 0) {
+      const int cnt = __ldg(tr.ndep + ant);
+      const int* list = tr.dep + (size_t)ant * T;
       for (int k = 0; k < cnt; ++k) {
         const int e = __ldg(list + k);
         term(e >> 1, e & 1);
@@ -278,32 +461,60 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
   }
 }
 
-template <bool kCvrp, int G>
-void launch_fwd(unsigned blocks, int warps, cudaStream_t s, const float* score,
-                const int64_t* start, const float* noise, const float* demand, float capacity,
-                int B, int N, int A, int T, int64_t* paths, float* logp, float* lse, int* pos,
-                float* rem, int* dep, int* ndep) {
-  rollout_fwd_kernel<kCvrp, G><<<blocks, 32 * warps, 0, s>>>(
-      score, start, noise, demand, capacity, B, N, A, T, paths, logp, lse, pos, rem, dep, ndep);
+template <int kKind, bool kTrace, int G>
+int launch_g(unsigned blocks, int warps, cudaStream_t s, const Fwd& p) {
+  rollout_fwd_kernel<kKind, kTrace, G><<<blocks, 32 * warps, 0, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <int kKind, bool kTrace>
+int launch_fwd(int per, unsigned blocks, int warps, cudaStream_t s, const Fwd& p) {
+  if (per <= 1) return launch_g<kKind, kTrace, 1>(blocks, warps, s, p);
+  if (per <= 2) return launch_g<kKind, kTrace, 2>(blocks, warps, s, p);
+  if (per <= 4) return launch_g<kKind, kTrace, 4>(blocks, warps, s, p);
+  if (per <= 8) return launch_g<kKind, kTrace, 8>(blocks, warps, s, p);
+  if constexpr (kKind != kMkp) {
+    if (per <= kMaxCols) return launch_g<kKind, kTrace, kMaxCols>(blocks, warps, s, p);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int kKind>
+int launch_kind(bool trace, int per, unsigned blocks, int warps, cudaStream_t s, const Fwd& p) {
+  return trace ? launch_fwd<kKind, true>(per, blocks, warps, s, p)
+               : launch_fwd<kKind, false>(per, blocks, warps, s, p);
 }
 
 }  // namespace
 }  // namespace deepaco
 
-// score [B,N,N] f32, start [B,A] int64, noise [T,B,A,N] f32, demand [B,N] f32
-// (CVRP; null for TSP) -> paths [B,T+1,A] int64, logp and lse [B,T,A] f32,
-// pos [B,A,N] int32; CVRP also rem [B,T,A] f32, dep [B,A,T] and ndep [B,A]
-// int32. warps: 1, 2, 4 or 8 an ant (16 columns a thread at most), 0 to choose.
-extern "C" int deepaco_rollout_fwd(const float* score, const int64_t* start, const float* noise,
-                                   const float* demand, float capacity, int B, int N, int A,
-                                   int T, int cvrp, int warps, int64_t* paths, float* logp,
-                                   float* lse, int* pos, float* rem, int* dep, int* ndep,
-                                   void* stream) {
+// score [B,N,N] f32, start [B,A] int64, noise [T,B,A,N] f32 and the kind's
+// inputs (CVRP: demand [B,N] f32 and capacity; SOP: succ [B,N,N] uint8,
+// succ[b,k,c] = 1 iff k must precede c, and npred [B,N] int32; MKP: weight
+// [B,N,m] f32, m <= 8, capacity and the dummy's index, N <= 2048; null where
+// unused) -> paths [B,T+1,A] int64; traced also logp and lse [B,T,A] f32 and
+// pos [B,A,N] int32, CVRP rem [B,T,A] f32, dep [B,A,T] and ndep [B,A] int32,
+// SOP ready [B,A,N] int32, MKP knap [B,T,A,m] f32. kind: 0 TSP, 1 CVRP, 2
+// SOP, 3 MKP. warps: 1, 2, 4 or 8 an ant (16 columns a thread at most, 8 for
+// MKP), 0 to choose.
+extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start,
+                                        const float* noise, const float* demand,
+                                        const uint8_t* succ, const int* npred, const float* weight,
+                                        float capacity, int m, int dummy, int B, int N, int A,
+                                        int T, int kind, int trace, int warps, int64_t* paths,
+                                        float* logp, float* lse, int* pos, float* rem, int* dep,
+                                        int* ndep, int* ready, float* knap, void* stream) {
   using namespace deepaco;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N < 2 || N > 32 * kMaxWarps * kMaxCols) return cudaErrorInvalidValue;
-  int least = 1;  // at most kMaxCols columns a thread
-  while (32 * least * kMaxCols < N) least *= 2;
+  const int max_cols = kind == kMkp ? kMkpMaxCols : kMaxCols;
+  if (kind < kTsp || kind > kMkp || N < 2 || N > 32 * kMaxWarps * max_cols) {
+    return cudaErrorInvalidValue;
+  }
+  if (kind == kMkp && (m < 1 || m > kMaxDims || dummy < 0 || dummy >= N)) {
+    return cudaErrorInvalidValue;
+  }
+  int least = 1;  // at most max_cols columns a thread
+  while (32 * least * max_cols < N) least *= 2;
   if (warps == 0) {  // the ants' warps at most 12 an SM, as K7c chooses
     int device = 0, sms = 0;
     cudaGetDevice(&device);
@@ -315,39 +526,82 @@ extern "C" int deepaco_rollout_fwd(const float* score, const int64_t* start, con
   if ((warps & (warps - 1)) || warps > kMaxWarps || warps < least) return cudaErrorInvalidValue;
   const int per = (N + 32 * warps - 1) / (32 * warps);
   const unsigned blocks = (unsigned)((long)B * A);
-  if (!cvrp) demand = nullptr, rem = nullptr, dep = nullptr, ndep = nullptr;
-#define DEEPACO_ROLLOUT_G(g)                                                                    \
-  if (per <= g) {                                                                               \
-    (cvrp ? launch_fwd<true, g> : launch_fwd<false, g>)(blocks, warps, s, score, start, noise,  \
-                                                        demand, capacity, B, N, A, T, paths,    \
-                                                        logp, lse, pos, rem, dep, ndep);        \
-    return cudaGetLastError();                                                                  \
+  const bool tr = trace != 0;
+  Fwd p{score, start, noise,
+        Plugin{kind == kCvrp ? demand : nullptr, kind == kSop ? succ : nullptr,
+               kind == kSop ? npred : nullptr, kind == kMkp ? weight : nullptr, capacity, m,
+               dummy},
+        B, N, A, T, paths,
+        tr ? Trace{logp, lse, pos, kind == kCvrp ? rem : nullptr, kind == kCvrp ? dep : nullptr,
+                   kind == kCvrp ? ndep : nullptr, kind == kSop ? ready : nullptr,
+                   kind == kMkp ? knap : nullptr}
+           : Trace{}};
+  switch (kind) {
+    case kTsp: return launch_kind<kTsp>(tr, per, blocks, warps, s, p);
+    case kCvrp: return launch_kind<kCvrp>(tr, per, blocks, warps, s, p);
+    case kSop: return launch_kind<kSop>(tr, per, blocks, warps, s, p);
+    default: return launch_kind<kMkp>(tr, per, blocks, warps, s, p);
   }
-  DEEPACO_ROLLOUT_G(1)
-  DEEPACO_ROLLOUT_G(2)
-  DEEPACO_ROLLOUT_G(4)
-  DEEPACO_ROLLOUT_G(8)
-  DEEPACO_ROLLOUT_G(kMaxCols)
-#undef DEEPACO_ROLLOUT_G
-  return cudaErrorInvalidValue;
 }
 
 // The gradient d_score [B,N,N] f32 of sum(g * logp) for g [B,T,A] f32 and the
-// forward's paths, lse, pos (and rem, dep, ndep, demand for CVRP).
+// traced forward's outputs and inputs, as deepaco_rollout_fwd_kind takes them.
+extern "C" int deepaco_rollout_bwd_kind(const float* score, const int64_t* paths, const float* g,
+                                        const float* lse, const int* pos, const float* rem,
+                                        const int* dep, const int* ndep, const int* ready,
+                                        const float* knap, const float* demand,
+                                        const float* weight, float capacity, int m, int dummy,
+                                        int B, int N, int A, int T, int kind, float* d_score,
+                                        void* stream) {
+  using namespace deepaco;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kind < kTsp || kind > kMkp || (kind == kMkp && (m < 1 || m > kMaxDims))) {
+    return cudaErrorInvalidValue;
+  }
+  const dim3 grid((unsigned)((N + 31) / 32), (unsigned)N, (unsigned)B);
+  const Plugin pl{demand, nullptr, nullptr, weight, capacity, m, dummy};
+  const Trace tr{nullptr, const_cast<float*>(lse), const_cast<int*>(pos),
+                 const_cast<float*>(rem), const_cast<int*>(dep), const_cast<int*>(ndep),
+                 const_cast<int*>(ready), const_cast<float*>(knap)};
+  const int threads = 32 * kBwdWarps;
+  switch (kind) {
+    case kTsp:
+      rollout_bwd_kernel<kTsp><<<grid, threads, 0, s>>>(score, paths, g, pl, tr, B, N, A, T,
+                                                         d_score);
+      break;
+    case kCvrp:
+      rollout_bwd_kernel<kCvrp><<<grid, threads, 0, s>>>(score, paths, g, pl, tr, B, N, A, T,
+                                                          d_score);
+      break;
+    case kSop:
+      rollout_bwd_kernel<kSop><<<grid, threads, 0, s>>>(score, paths, g, pl, tr, B, N, A, T,
+                                                         d_score);
+      break;
+    default:
+      rollout_bwd_kernel<kMkp><<<grid, threads, 0, s>>>(score, paths, g, pl, tr, B, N, A, T,
+                                                         d_score);
+  }
+  return cudaGetLastError();
+}
+
+// The TSP and CVRP kinds, traced, in the signature that earlier builds of
+// this file export, so that scripts/compare_kernels.py --k7r-variant times
+// them against this build.
+extern "C" int deepaco_rollout_fwd(const float* score, const int64_t* start, const float* noise,
+                                   const float* demand, float capacity, int B, int N, int A,
+                                   int T, int cvrp, int warps, int64_t* paths, float* logp,
+                                   float* lse, int* pos, float* rem, int* dep, int* ndep,
+                                   void* stream) {
+  return deepaco_rollout_fwd_kind(score, start, noise, demand, nullptr, nullptr, nullptr,
+                                  capacity, 0, 0, B, N, A, T, cvrp ? 1 : 0, 1, warps, paths, logp,
+                                  lse, pos, rem, dep, ndep, nullptr, nullptr, stream);
+}
+
 extern "C" int deepaco_rollout_bwd(const float* score, const int64_t* paths, const float* g,
                                    const float* lse, const int* pos, const float* rem,
                                    const int* dep, const int* ndep, const float* demand, int B,
                                    int N, int A, int T, int cvrp, float* d_score, void* stream) {
-  using namespace deepaco;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((unsigned)((N + 31) / 32), (unsigned)N, (unsigned)B);
-  if (cvrp) {
-    rollout_bwd_kernel<true><<<grid, 32 * kBwdWarps, 0, s>>>(score, paths, g, lse, pos, rem, dep,
-                                                             ndep, demand, B, N, A, T, d_score);
-  } else {
-    rollout_bwd_kernel<false><<<grid, 32 * kBwdWarps, 0, s>>>(score, paths, g, lse, pos, nullptr,
-                                                              nullptr, nullptr, nullptr, B, N, A,
-                                                              T, d_score);
-  }
-  return cudaGetLastError();
+  return deepaco_rollout_bwd_kind(score, paths, g, lse, pos, rem, dep, ndep, nullptr, nullptr,
+                                  demand, nullptr, 0.0f, 0, 0, B, N, A, T, cvrp ? 1 : 0, d_score,
+                                  stream);
 }

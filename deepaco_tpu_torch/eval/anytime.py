@@ -31,7 +31,7 @@ def tsp_instance_curve(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
                        generator: torch.Generator, t_max: int) -> torch.Tensor:
     """The best-so-far cost after each of ``t_max`` iterations ``[t_max]``
     of one instance (``heu, dist [N, N]``; anytime.py:24-32): ``tsp_spec``'s
-    rollout from uniform starts (K7 a step on the card) and the runner's
+    rollout from uniform starts (one K7r launch on the card) and the runner's
     update (K8)."""
     n = dist.shape[-1]
     heu, dist = heu[None], dist[None]

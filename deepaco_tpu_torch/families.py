@@ -63,11 +63,12 @@ class Family(NamedTuple):
     → :class:`~deepaco_tpu_torch.core.graph.SparseGraph`; ``heu_matrix(g,
     out, inst)`` → the dense heuristic ``[B, N, N]``; ``spec(tau, heu, inst,
     n_ants)`` → the rollout plug-in (``aco.engine.RolloutSpec``) that
-    training samples (TSP, CVRP, BPP: K7r's one launch; the others a pick a
-    step) and replays; ``construct(tau, heu,
+    training samples (TSP, SMTWTP, CVRP, BPP, SOP, MKP: K7r's one launch;
+    the others a pick a step) and replays; ``construct(tau, heu,
     inst, n_ants, generator, ops)`` → one inference iteration's paths
     through ``ops`` (``train.drivers.FamilyOps``): TSP, OP, PCTSP, SMTWTP,
-    SOP and MKP the rollout of their ``spec``, a pick a step; CVRP and BPP
+    SOP, MKP and MKP-items the rollout of their ``spec`` (TSP, SMTWTP, SOP
+    and MKP K7r's untraced forward, the others a pick a step); CVRP and BPP
     one pass (``ops.construct``) where K7c takes N; ``cost(paths, inst)`` → ``[B, A]``; ``horizon_states(n_nodes)``
     → ``(pheromone size, rollout horizon)``; ``classic_heu(inst, k)`` → the
     classic arm's heuristic; ``model_kwargs`` the ``Net`` arguments as

@@ -1,8 +1,8 @@
-"""A whole sampled construction with its log-probabilities, every step of
-every ant in one launch forward and one launch backward: kernel K7r, the
-training counterpart of the construction scan
-``deepaco_tpu/aco/engine.py:104-129`` (``rollout(require_prob=True)``),
-whose step is ``deepaco_tpu/ops/pallas_kernels.py:65 fused_pick_pallas``.
+"""A whole sampled construction, every step of every ant in one launch: kernel
+K7r, the construction scan ``deepaco_tpu/aco/engine.py:104-129`` (``rollout``)
+whose step is ``deepaco_tpu/ops/pallas_kernels.py:65 fused_pick_pallas``. In
+training it also writes each step's log-probability, and its backward is one
+more launch; in inference it writes the paths alone.
 
 Over ``score [B, N, N]`` f32 (``score_matrix(tau, heu, alpha, beta)``,
 differentiable), ``start [B, A]`` and ``noise [T, B, A, N]``, each ant at
@@ -10,33 +10,43 @@ each step ``t < T``
 
     open_t   = TSP:  not visited_t(c)
                CVRP: visit_mask_t(c) and demand[c] <= capacity - used_t
+               SOP:  not visited_t(c) and no predecessor of c unvisited
+               MKP:  c real: not visited_t(c) and knapsack_t + weight[c] <=
+                     capacity in every dimension; the dummy: no real c open
     logits_t = where(open_t, score[b, cur_t, :], -1e30)
     a_{t+1}  = first argmax(logits_t + noise[t])      NaN above every number
     logp_t   = logits_t[a_{t+1}] - logsumexp(logits_t)
 
-with the state of ``aco/problems/tsp.py``'s and ``aco/problems/cvrp.py``'s
-plug-ins: the CVRP load ``used`` resets at a depot pick and then adds the
-pick's demand in f32, and the depot closes right after a depot pick while
-customers remain. The outputs are ``paths [B, T+1, A]`` (row 0 the start)
-and ``log_probs [B, T, A]``, as ``engine.Rollout`` holds them. The backward
-of ``sum(g * log_probs)`` in ``score`` is
+with the state of the plug-ins of ``aco/problems/``: ``tsp.py`` (and
+``smtwtp.py``, TSP's walk from the dummy job), ``cvrp.py`` (the load
+``used`` resets at a depot pick and then adds the pick's demand in f32, and
+the depot closes right after a depot pick while customers remain),
+``sop.py`` (the count of each node's unvisited predecessors) and
+``mkp.py``'s PH_suc plug-in (the knapsack adds the picked weights in f32, in
+pick order). The outputs are ``paths [B, T+1, A]`` (row 0 the start) and
+``log_probs [B, T, A]``, as ``engine.Rollout`` holds them. The backward of
+``sum(g * log_probs)`` in ``score`` is
 
     d_score[b, r, c] = sum over (a, t) with cur_t = r of
                        g[b, t, a] * (1[c = a_{t+1}] - softmax(logits_t)[c]) * open_t(c)
 
 - :func:`fused_rollout_plain`: the step loop over ``fused_pick_plain``
   that ``engine.rollout`` runs, with ``noise[t]`` at step ``t``; autograd
-  differentiates it. It is K7r's oracle.
+  differentiates it. It is K7r's oracle; :func:`fused_rollout_paths_plain`
+  its paths.
 - :func:`rollout_backward_plain`: the backward above in PyTorch, from the
   paths; the oracle of K7r's backward.
-- :func:`fused_rollout`: the wrapper. A CPU tensor takes the step loop over
-  ``fused_pick`` (K7's plain forward and its PyTorch backward, a step), the
-  route ``engine.rollout`` took before; a CUDA tensor launches K7r's forward
-  (:func:`fused_rollout_forward`, ``csrc/rollout.cu``), and its backward
-  K7r's backward (:func:`fused_rollout_backward`), or raises.
+- :func:`fused_rollout`: the training wrapper. A CPU tensor takes the step
+  loop over ``fused_pick`` (K7's plain forward and its PyTorch backward, a
+  step); a CUDA tensor launches K7r's forward (:func:`fused_rollout_forward`,
+  ``csrc/rollout.cu``), and its backward K7r's backward
+  (:func:`fused_rollout_backward`), or raises.
+- :func:`fused_rollout_paths`: the inference wrapper, the paths alone: the
+  same step loop under ``no_grad`` on a CPU tensor, one launch of K7r's
+  untraced forward on a CUDA tensor.
 
-K7r takes 2 <= N <= 4096 (:func:`fused_rollout_supported`); past that the
-engine steps through K7.
+K7r takes 2 <= N <= 4096, MKP N <= 2048 with at most 8 dimensions
+(:func:`fused_rollout_supported`); past that the engine steps through K7.
 """
 from __future__ import annotations
 
@@ -49,16 +59,25 @@ from deepaco_tpu_torch.ops.pick import fused_pick, fused_pick_plain
 
 NEG_INF = -1e30
 FUSED_ROLLOUT_MAX_N = 4096      # 16 columns a thread, 8 warps an ant
+MKP_MAX_N, MKP_MAX_DIMS = 2048, 8   # MKP: 8 columns a thread, their weights in registers
+_KINDS = {"tsp": 0, "cvrp": 1, "sop": 2, "mkp": 3}
 
 
 class RolloutShape(NamedTuple):
-    """Which plug-in's state the rollout keeps: ``"tsp"`` (the visited set),
-    or ``"cvrp"`` with ``demand [B, N]`` (0 at the depot, node 0) and the
-    vehicle's ``capacity``."""
+    """Which plug-in's state the rollout keeps: ``"tsp"`` (the visited set);
+    ``"cvrp"`` with ``demand [B, N]`` (0 at the depot, node 0) and the
+    vehicle's ``capacity``; ``"sop"`` with ``prec [B, N, N]`` (``prec[b, j,
+    k]`` nonzero iff ``k`` must precede ``j``, a 0/1 matrix as
+    ``sop_spec`` takes it); ``"mkp"`` with ``weight [B, N, m]`` (the dummy
+    item's row among them), the ``capacity`` of every dimension and the
+    ``dummy`` item's index."""
 
     kind: str
     demand: torch.Tensor | None = None
     capacity: float = 0.0
+    prec: torch.Tensor | None = None
+    weight: torch.Tensor | None = None
+    dummy: int = -1
 
 
 TSP_SHAPE = RolloutShape("tsp")
@@ -71,26 +90,40 @@ class RolloutTrace(NamedTuple):
     1`` if never); for CVRP ``rem [B, T, A]`` (``capacity - used_t`` in f32)
     and each ant's depot departures ``dep [B, A, T]`` int32 (``2 t + 1`` if
     no customer was left at step ``t``, else ``2 t``), ``ndep [B, A]`` of
-    them. Parked steps (an ant back at the depot with every customer
-    served, whose pick and log-probability 0 are certain) are left out."""
+    them; for SOP ``ready [B, A, N]`` int32 (the step at which each node's
+    last predecessor was visited, ``T + 1`` if never); for MKP the knapsack
+    ``knap [B, T, A, m]`` of each step. Parked steps (a CVRP ant back at the
+    depot with every customer served, an MKP ant on the dummy item, whose
+    pick and log-probability 0 are certain) are left out."""
 
     paths: torch.Tensor
     lse: torch.Tensor
     pos: torch.Tensor
-    rem: torch.Tensor | None
-    dep: torch.Tensor | None
-    ndep: torch.Tensor | None
+    rem: torch.Tensor | None = None
+    dep: torch.Tensor | None = None
+    ndep: torch.Tensor | None = None
+    ready: torch.Tensor | None = None
+    knap: torch.Tensor | None = None
 
 
-def fused_rollout_supported(n: int) -> bool:
-    """Whether K7r takes ``n`` nodes."""
+def fused_rollout_supported(n: int, shape: RolloutShape = TSP_SHAPE) -> bool:
+    """Whether K7r takes ``n`` nodes of the plug-in ``shape``."""
+    if shape.kind == "mkp":
+        return 2 <= n <= MKP_MAX_N and 1 <= shape.weight.shape[-1] <= MKP_MAX_DIMS
     return 2 <= n <= FUSED_ROLLOUT_MAX_N
+
+
+def _succ(prec: torch.Tensor) -> torch.Tensor:
+    """``succ [B, N, N]`` uint8 of a SOP precedence matrix: row ``k`` the
+    nodes that ``k`` must precede (``prec^T``), 1 where nonzero."""
+    return (prec != 0).transpose(-1, -2).contiguous().to(torch.uint8)
 
 
 class _Walk:
     """The plug-in's state for ``B x A`` ants from ``start [B, A]``: the
     visited set and, for CVRP, the load, the customers left and the depot
-    rule, as ``cvrp_construct_plain`` keeps them."""
+    rule, as ``cvrp_construct_plain`` keeps them; for SOP the count of each
+    node's unvisited predecessors; for MKP the knapsack."""
 
     def __init__(self, start: torch.Tensor, n: int, shape: RolloutShape):
         self.shape = shape
@@ -98,24 +131,49 @@ class _Walk:
         if shape.kind == "cvrp":
             self.left = torch.full(start.shape, n - 1, dtype=torch.int64, device=start.device)
             self.used = torch.zeros(start.shape, dtype=torch.float32, device=start.device)
+        elif shape.kind == "sop":
+            self.succ = _succ(shape.prec).long()
+            self.count = self.succ.sum(dim=1)[:, None, :].expand(*start.shape, n).clone()
+        elif shape.kind == "mkp":
+            self.knap = torch.zeros((*start.shape, shape.weight.shape[-1]),
+                                    dtype=torch.float32, device=start.device)
         self.step(start)
+
+    def _rows(self, m: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
+        """Row ``act`` of each instance's ``m [B, N, ...]``, ``[B, A, ...]``."""
+        return m[torch.arange(m.shape[0], device=m.device)[:, None], act]
 
     def open(self) -> torch.Tensor:
         """``[B, A, N]`` bool: the columns this step may pick."""
-        if self.shape.kind == "tsp":
+        kind = self.shape.kind
+        if kind == "tsp":
             return ~self.closed
+        if kind == "sop":
+            return ~self.closed & (self.count == 0)
+        if kind == "mkp":
+            w, dummy = self.shape.weight, self.shape.dummy
+            fit = (self.knap[..., None, :] + w[:, None] <= self.shape.capacity).all(dim=-1)
+            real = ~self.closed & fit
+            real[..., dummy] = False
+            real[..., dummy] = ~real.any(dim=-1)
+            return real
         rem = self.shape.capacity - self.used
         return ~self.closed & (self.shape.demand[:, None, :] <= rem[..., None])
 
     def step(self, act: torch.Tensor) -> None:
-        if self.shape.kind == "tsp":
-            self.closed.scatter_(-1, act[..., None], True)
-            return
-        was = self.closed.gather(-1, act[..., None])[..., 0]
-        self.left = self.left - ((act != 0) & ~was).long()
+        kind = self.shape.kind
+        if kind == "sop":
+            self.count = self.count - self._rows(self.succ, act)
+        elif kind == "mkp":
+            self.knap = self.knap + self._rows(self.shape.weight, act)
+        elif kind == "cvrp":
+            was = self.closed.gather(-1, act[..., None])[..., 0]
+            self.left = self.left - ((act != 0) & ~was).long()
+            self.used = torch.where(act == 0, 0.0, self.used) + torch.gather(self.shape.demand,
+                                                                            1, act)
         self.closed.scatter_(-1, act[..., None], True)
-        self.used = torch.where(act == 0, 0.0, self.used) + torch.gather(self.shape.demand, 1, act)
-        self.closed[..., 0] = (act == 0) & (self.left > 0)
+        if kind == "cvrp":
+            self.closed[..., 0] = (act == 0) & (self.left > 0)
 
 
 def _step_loop(score, start, noise, shape: RolloutShape, pick):
@@ -144,6 +202,13 @@ def fused_rollout_plain(score: torch.Tensor, start: torch.Tensor, noise: torch.T
     """``(paths [B, T+1, A] int64, log_probs [B, T, A])`` in PyTorch, a
     ``fused_pick_plain`` a step; ``log_probs`` differentiable in ``score``."""
     return _step_loop(score, start, noise, shape, fused_pick_plain)
+
+
+@torch.no_grad()
+def fused_rollout_paths_plain(score: torch.Tensor, start: torch.Tensor, noise: torch.Tensor,
+                              shape: RolloutShape = TSP_SHAPE) -> torch.Tensor:
+    """The paths of :func:`fused_rollout_plain`."""
+    return _step_loop(score, start, noise, shape, fused_pick_plain)[0]
 
 
 def rollout_backward_plain(score: torch.Tensor, paths: torch.Tensor, g: torch.Tensor,
@@ -176,55 +241,72 @@ def _ptr(x: torch.Tensor | None):
 
 
 def _check(name, score, start, noise, shape):
-    _build.require_cuda(name, score, start, noise,
-                        *(() if shape.kind == "tsp" else (shape.demand,)))
+    inputs = {"cvrp": (shape.demand,), "sop": (shape.prec,), "mkp": (shape.weight,)}
+    _build.require_cuda(name, score, start, noise, *inputs.get(shape.kind, ()))
     b, n, _ = score.shape
     if score.shape != (b, n, n) or start.dim() != 2 or start.shape[0] != b \
             or noise.shape != (noise.shape[0], b, start.shape[1], n):
         raise ValueError(f"{name}: expected score [B, N, N], start [B, A] and noise [T, B, A, N]")
     if score.dtype != torch.float32 or noise.dtype != torch.float32:
         raise ValueError(f"{name}: K7r takes f32 score and noise")
-    if shape.kind not in ("tsp", "cvrp"):
+    if shape.kind not in _KINDS:
         raise ValueError(f"{name}: unknown rollout shape {shape.kind!r}")
     if shape.kind == "cvrp" and (shape.demand.shape != (b, n)
                                  or shape.demand.dtype != torch.float32):
         raise ValueError(f"{name}: expected f32 demand [B, N]")
-    if not fused_rollout_supported(n):
-        raise ValueError(f"{name}: K7r takes 2 <= N <= {FUSED_ROLLOUT_MAX_N}, got {n}")
+    if shape.kind == "sop" and shape.prec.shape != (b, n, n):
+        raise ValueError(f"{name}: expected prec [B, N, N]")
+    if shape.kind == "mkp" and (shape.weight.dim() != 3 or shape.weight.shape[:2] != (b, n)
+                                or shape.weight.dtype != torch.float32
+                                or not 0 <= shape.dummy < n):
+        raise ValueError(f"{name}: expected f32 weight [B, N, m] and a dummy item below N")
+    if not fused_rollout_supported(n, shape):
+        raise ValueError(f"{name}: K7r takes 2 <= N <= {FUSED_ROLLOUT_MAX_N} (MKP: N <= "
+                         f"{MKP_MAX_N}, m <= {MKP_MAX_DIMS}), got N = {n}")
 
 
 def fused_rollout_forward(score: torch.Tensor, start: torch.Tensor, noise: torch.Tensor,
-                          shape: RolloutShape = TSP_SHAPE, *, warps: int = 0):
+                          shape: RolloutShape = TSP_SHAPE, *, warps: int = 0,
+                          trace: bool = True):
     """One launch of K7r's forward on CUDA tensors: ``(paths, log_probs,
-    trace)``, no gradient. ``warps`` (1, 2, 4 or 8 an ant, at least N / 512;
-    0 chooses) changes no path."""
+    trace)``, no gradient; ``trace=False`` writes the paths alone (``(paths,
+    None, None)``, the same paths) and counts as a launch of
+    :func:`fused_rollout_paths`. ``warps`` (1, 2, 4 or 8 an ant, at least N
+    / 512, MKP N / 256; 0 chooses) changes no path."""
     _check("fused_rollout", score, start, noise, shape)
     b, n, _ = score.shape
     a, t = start.shape[1], noise.shape[0]
     dev = score.device
-    cvrp = shape.kind == "cvrp"
+    kind = shape.kind
+    m = shape.weight.shape[-1] if kind == "mkp" else 0
+    new = lambda dims, dtype, want=True: (torch.empty(dims, dtype=dtype, device=dev)
+                                          if trace and want else None)
     paths = torch.empty((b, t + 1, a), dtype=torch.int64, device=dev)
-    logp = torch.empty((b, t, a), dtype=torch.float32, device=dev)
-    lse = torch.empty((b, t, a), dtype=torch.float32, device=dev)
-    pos = torch.empty((b, a, n), dtype=torch.int32, device=dev)
-    rem = torch.empty((b, t, a), dtype=torch.float32, device=dev) if cvrp else None
-    dep = torch.empty((b, a, t), dtype=torch.int32, device=dev) if cvrp else None
-    ndep = torch.empty((b, a), dtype=torch.int32, device=dev) if cvrp else None
-    trace = RolloutTrace(paths, lse, pos, rem, dep, ndep)
-    if b * a == 0:
-        return paths, logp, trace
-    # the inputs held contiguous until the launch is queued
-    score, start, noise = score.contiguous(), start.contiguous(), noise.contiguous()
-    demand = shape.demand.contiguous() if cvrp else None
-    P, I, F = _build.P, _build.I, _build.F
-    fn = _build.function("deepaco_rollout_fwd", [P] * 4 + [F] + [I] * 6 + [P] * 7 + [P])
-    rc = fn(score.data_ptr(), start.data_ptr(), noise.data_ptr(), _ptr(demand),
-            float(shape.capacity), b, n, a, t, int(cvrp), warps, paths.data_ptr(), logp.data_ptr(),
-            lse.data_ptr(), pos.data_ptr(), _ptr(rem), _ptr(dep), _ptr(ndep),
-            _build.stream_ptr(dev))
-    _build.check(rc, "deepaco_rollout_fwd")
-    fused_rollout.launches += 1
-    return paths, logp, trace
+    logp, lse = new((b, t, a), torch.float32), new((b, t, a), torch.float32)
+    rt = RolloutTrace(paths, lse, new((b, a, n), torch.int32),
+                      new((b, t, a), torch.float32, kind == "cvrp"),
+                      new((b, a, t), torch.int32, kind == "cvrp"),
+                      new((b, a), torch.int32, kind == "cvrp"),
+                      new((b, a, n), torch.int32, kind == "sop"),
+                      new((b, t, a, m), torch.float32, kind == "mkp"))
+    if b * a > 0:
+        # the inputs held contiguous until the launch is queued
+        score, start, noise = score.contiguous(), start.contiguous(), noise.contiguous()
+        demand = shape.demand.contiguous() if kind == "cvrp" else None
+        weight = shape.weight.contiguous() if kind == "mkp" else None
+        succ = _succ(shape.prec) if kind == "sop" else None
+        npred = succ.sum(dim=1, dtype=torch.int32) if kind == "sop" else None
+        P, I, F = _build.P, _build.I, _build.F
+        fn = _build.function("deepaco_rollout_fwd_kind",
+                             [P] * 7 + [F] + [I] * 9 + [P] * 9 + [P])
+        rc = fn(score.data_ptr(), start.data_ptr(), noise.data_ptr(), _ptr(demand), _ptr(succ),
+                _ptr(npred), _ptr(weight), float(shape.capacity), m, shape.dummy, b, n, a, t,
+                _KINDS[kind], int(trace), warps, paths.data_ptr(), _ptr(logp), _ptr(rt.lse),
+                _ptr(rt.pos), _ptr(rt.rem), _ptr(rt.dep), _ptr(rt.ndep), _ptr(rt.ready),
+                _ptr(rt.knap), _build.stream_ptr(dev))
+        _build.check(rc, "deepaco_rollout_fwd_kind")
+        (fused_rollout if trace else fused_rollout_paths).launches += 1
+    return (paths, logp, rt) if trace else (paths, None, None)
 
 
 def fused_rollout_backward(score: torch.Tensor, trace: RolloutTrace, g: torch.Tensor,
@@ -241,16 +323,19 @@ def fused_rollout_backward(score: torch.Tensor, trace: RolloutTrace, g: torch.Te
     t, a = g.shape[1], g.shape[2]
     if g.shape != (b, t, a) or trace.paths.shape != (b, t + 1, a):
         raise ValueError("fused_rollout_backward: expected g [B, T, A] for paths [B, T+1, A]")
-    cvrp = shape.kind == "cvrp"
     score, g = score.contiguous(), g.float().contiguous()
-    demand = shape.demand.contiguous() if cvrp else None
+    demand = shape.demand.contiguous() if shape.kind == "cvrp" else None
+    weight = shape.weight.contiguous() if shape.kind == "mkp" else None
+    m = weight.shape[-1] if weight is not None else 0
     d = torch.empty_like(score)
-    P, I = _build.P, _build.I
-    fn = _build.function("deepaco_rollout_bwd", [P] * 9 + [I] * 5 + [P] + [P])
+    P, I, F = _build.P, _build.I, _build.F
+    fn = _build.function("deepaco_rollout_bwd_kind", [P] * 12 + [F] + [I] * 7 + [P] + [P])
     rc = fn(score.data_ptr(), trace.paths.data_ptr(), g.data_ptr(), trace.lse.data_ptr(),
             trace.pos.data_ptr(), _ptr(trace.rem), _ptr(trace.dep), _ptr(trace.ndep),
-            _ptr(demand), b, n, a, t, int(cvrp), d.data_ptr(), _build.stream_ptr(score.device))
-    _build.check(rc, "deepaco_rollout_bwd")
+            _ptr(trace.ready), _ptr(trace.knap), _ptr(demand), _ptr(weight),
+            float(shape.capacity), m, shape.dummy, b, n, a, t, _KINDS[shape.kind], d.data_ptr(),
+            _build.stream_ptr(score.device))
+    _build.check(rc, "deepaco_rollout_bwd_kind")
     fused_rollout_backward.launches += 1
     return d
 
@@ -263,6 +348,7 @@ class FusedRollout(torch.autograd.Function):
     def forward(ctx, score, start, noise, shape):
         paths, logp, trace = fused_rollout_forward(score, start, noise, shape)
         ctx.shape = shape
+        ctx.held = [x is not None for x in trace]
         ctx.save_for_backward(score, *(x for x in trace if x is not None))
         ctx.mark_non_differentiable(paths)
         return paths, logp
@@ -270,7 +356,8 @@ class FusedRollout(torch.autograd.Function):
     @staticmethod
     def backward(ctx, _d_paths, d_logp):
         score, *saved = ctx.saved_tensors
-        trace = RolloutTrace(*saved, *[None] * (len(RolloutTrace._fields) - len(saved)))
+        saved = iter(saved)
+        trace = RolloutTrace(*(next(saved) if held else None for held in ctx.held))
         return fused_rollout_backward(score, trace, d_logp, ctx.shape), None, None, None
 
 
@@ -284,5 +371,17 @@ def fused_rollout(score: torch.Tensor, start: torch.Tensor, noise: torch.Tensor,
     return FusedRollout.apply(score, start, noise, shape)
 
 
+@torch.no_grad()
+def fused_rollout_paths(score: torch.Tensor, start: torch.Tensor, noise: torch.Tensor,
+                        shape: RolloutShape = TSP_SHAPE) -> torch.Tensor:
+    """The paths ``[B, T+1, A]`` of the rollout, no log-probabilities: on
+    CUDA one launch of K7r's untraced forward, on the CPU a ``fused_pick``
+    a step (the paths of :func:`fused_rollout`)."""
+    if score.device.type == "cpu":
+        return _step_loop(score, start, noise, shape, fused_pick)[0]
+    return fused_rollout_forward(score, start, noise, shape, trace=False)[0]
+
+
 fused_rollout.launches = 0
 fused_rollout_backward.launches = 0
+fused_rollout_paths.launches = 0

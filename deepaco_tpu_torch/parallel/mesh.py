@@ -194,8 +194,8 @@ def multi_colony_tsp_search(mesh, heuristic, distances, cfg: ACOConfig, seed: in
     """The island model over ``mesh`` (mesh.py:112-181): one colony a rank
     along ``axis`` (ranks that share that coordinate run the same colony),
     on ``heuristic`` and ``distances [n, n]``. A round is ``sync_every``
-    iterations of ``aco.runner.run_anytime`` (``tsp_spec``'s rollout, K7 a
-    step; the Ant System update, K8), drawn from a generator seeded with
+    iterations of ``aco.runner.run_anytime`` (``tsp_spec``'s rollout, one
+    K7r launch; the Ant System update, K8), drawn from a generator seeded with
     :func:`colony_seed` ``(seed, colony)``; then an ``all_gather`` over
     ``axis`` of every colony's best cost and tour, and :func:`migrate`
     (the blend's mean an ``all_reduce``), after which every colony holds the

@@ -9,8 +9,8 @@ JAX step's ``vmap`` takes them, samples with ``rollout(require_prob=True)``
 through the family's ``spec``, and updates with the loss ``sum(sign *
 (cost - mean) * sum_t log p) / A``. On the card every GNN layer is one
 launch of kernel K6 forward and one backward, and the rollout one launch of
-K7r each way (TSP, CVRP and BPP, whose plug-ins carry their score matrix)
-or one launch of K7 a step (the other families). Products stay in full f32 (TF32 is never switched on), as
+K7r each way (TSP, SMTWTP, CVRP, BPP, SOP and MKP, whose plug-ins carry
+their score matrix) or one launch of K7 a step (OP, PCTSP, MKP-items). Products stay in full f32 (TF32 is never switched on), as
 the JAX step runs under ``default_matmul_precision("highest")``.
 
 :func:`evaluate_family` runs the whole batch at once, every instance with
@@ -18,8 +18,9 @@ its own search state: graph → GNN → dense heuristic (or the classic one),
 then ``aco.runner.run_anytime``. On the card the eval-mode GNN runs the
 folded layer stack K9 in one launch where ``embnet_supported`` takes the net
 (else one K6 launch a layer), every deposit K8, and each iteration's
-construction one launch of K7c (CVRP, BPP) or one K7 a step (TSP, OP,
-PCTSP, SMTWTP, SOP, MKP, MKP-items, and CVRP and BPP past K7c's N). Each
+construction one launch of K7c (CVRP, BPP), one launch of K7r's untraced
+forward (TSP, SMTWTP, SOP, MKP) or one K7 a step (OP, PCTSP, MKP-items, and
+CVRP and BPP past K7c's N). Each
 instance batch first goes through ``Family.prepare`` (OP's and MKP's
 extended arrays), and ``Family.extras`` (OP's and MKP's per-instance ``q``)
 reaches the search. A family with a ``forward`` hook (MKP-items'
@@ -71,10 +72,10 @@ class FamilyOps(NamedTuple):
     """What training and evaluation call for the GNN layer (``layer``, the
     per-layer route: training) or the folded layer stack (``layers``, the
     eval-mode route of :func:`_forward_heu`), each construction step
-    (``pick``: training, where ``fused_pick`` stands for K7r and
-    ``fused_pick_plain`` for its plain version on the TSP and CVRP
-    plug-ins, the per-step families' evaluation, and CVRP's and BPP's past
-    K7c's N), each deposit, the CVRP and BPP families' whole
+    (``pick``: where ``fused_pick`` stands for K7r and ``fused_pick_plain``
+    for its plain version on the plug-ins that carry ``fused``, in
+    training and evaluation; the per-step families' rollouts, and CVRP's
+    and BPP's past K7c's N), each deposit, the CVRP and BPP families' whole
     construction in evaluation (``construct``), and ``timer(name)``, a context manager around each
     phase (evaluation: ``"heuristic"``, ``"construction"``, ``"update"``;
     a training step: ``"heuristic"``, ``"rollout"``, ``"backward"``,
@@ -239,8 +240,8 @@ def family_loss(family: Family, net: Net, inst: dict, cfg: ProblemConfig,
     family's ``spec`` on a pheromone of ones, after ``Family.prepare``.
     Without ``paths`` the
     ``cfg.aco.n_ants`` ants sample (``rollout(require_prob=True)``: the
-    pick's one-launch rollout, K7r, for the TSP and CVRP plug-ins, else a
-    pick a step); with ``paths [B, horizon+1, A]`` their log-probabilities are
+    pick's one-launch rollout, K7r, for the plug-ins that carry ``fused``,
+    else a pick a step); with ``paths [B, horizon+1, A]`` their log-probabilities are
     replayed (``path_log_probs``). The loss is the batch mean of
     ``sum(sign * (cost - mean cost) * sum_t log p) / A``, the advantage
     detached, ``sign = -1`` for a family that maximizes."""

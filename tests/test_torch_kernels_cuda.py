@@ -719,15 +719,34 @@ def test_pick_kernel_matches_plain(dev):
 
 def _rollout_case(dev, kind, b, n, a, capacity=None, seed=0):
     """K7r's inputs: a score matrix ``log(heu)`` of a random heuristic, the
-    starts (uniform for ``"tsp"``, city 0 for ``"tsp0"``, the depot for
-    CVRP), noise for every step, and the shape: CVRP demands 1-9, or k/150
-    at capacity 1 (CVRP-NLS), or BPP's sizes 20-100 at capacity 150."""
+    starts (uniform for ``"tsp"`` and MKP's real items, city 0 for
+    ``"tsp0"`` and SOP, the depot for CVRP), noise for every step, and the
+    shape: CVRP demands 1-9, or k/150 at capacity 1 (CVRP-NLS), or BPP's
+    sizes 20-100 at capacity 150; SOP's precedences of ``families.gen_sop``
+    (N nodes); MKP's weights of ``families.gen_mkp`` (N - 1 items in 5
+    dimensions and the dummy, capacity (N - 1) // 2)."""
+    import numpy as np
+
     from deepaco_tpu_torch.aco.engine import gumbel
+    from deepaco_tpu_torch.families import gen_mkp, gen_sop
     from deepaco_tpu_torch.ops import rollout
 
     g = torch.Generator(device=dev).manual_seed(seed)
     score = torch.log(0.01 + torch.rand((b, n, n), generator=g, device=dev))
-    if kind.startswith("tsp"):
+    rng = np.random.default_rng(seed)
+    if kind == "sop":
+        prec = torch.as_tensor(np.stack([gen_sop(rng, n)["prec"] for _ in range(b)]),
+                               device=dev)
+        start = torch.zeros((b, a), dtype=torch.int64, device=dev)
+        shape, t = rollout.RolloutShape("sop", prec=prec), n - 1
+    elif kind == "mkp":
+        w = torch.as_tensor(np.stack([gen_mkp(rng, n - 1)["weight"] for _ in range(b)]),
+                            device=dev)
+        weight = torch.cat([w, torch.zeros((b, 1, w.shape[-1]), device=dev)], dim=1)
+        start = torch.randint(0, n - 1, (b, a), generator=g, device=dev)
+        shape, t = rollout.RolloutShape("mkp", capacity=(n - 1) // 2, weight=weight,
+                                        dummy=n - 1), n
+    elif kind.startswith("tsp"):
         start = (torch.randint(0, n, (b, a), generator=g, device=dev) if kind == "tsp"
                  else torch.zeros((b, a), dtype=torch.int64, device=dev))
         shape, t = rollout.TSP_SHAPE, n - 1
@@ -745,27 +764,38 @@ ROLLOUT_CASES = [("tsp", 3, 50, 6, None), ("tsp0", 2, 33, 5, None), ("cvrp", 3, 
                  ("cvrp_nls", 2, 101, 6, 1.0), ("bpp", 2, 121, 8, 150.0),
                  ("tsp", 1, 1500, 3, None), ("tsp0", 1, 4096, 2, None), ("tsp", 2, 2, 3, None),
                  ("cvrp", 1, 2, 2, 50.0),
-                 ("tsp0", 20, 500, 30, None), ("cvrp", 1, 501, 50, 50.0)]
+                 ("tsp0", 20, 500, 30, None), ("cvrp", 1, 501, 50, 50.0),
+                 ("sop", 3, 20, 5, None), ("sop", 1, 100, 50, None), ("sop", 1, 700, 3, None),
+                 ("mkp", 3, 31, 6, None), ("mkp", 1, 301, 50, None), ("mkp", 1, 2048, 2, None),
+                 ("tsp0", 1, 501, 50, None)]
 
 
 @pytest.mark.parametrize("kind,b,n,a,capacity", ROLLOUT_CASES)
 def test_rollout_kernel_matches_plain(dev, kind, b, n, a, capacity):
     """K7r forward against fused_rollout_plain on the same noise (paths
-    exact at every warp count, log-probabilities rtol 1e-5 / atol 1e-6),
-    and its backward through autograd against rollout_backward_plain
-    (rtol 1e-4, atol 1e-5 of the largest entry), equal bits on a repeat;
-    one launch each way. The last two cases are TSP500-NLS training's and
-    CVRP500's shapes."""
+    exact at every warp count, log-probabilities rtol 1e-5 / atol 1e-6; the
+    untraced forward's paths, inference's, bit-equal to them, one launch of
+    ``fused_rollout_paths``), and its backward through autograd against
+    rollout_backward_plain (rtol 1e-4, atol 1e-5 of the largest entry),
+    equal bits on a repeat; one launch each way. Among the cases are
+    TSP500-NLS training's, CVRP500's, SOP100's, MKP300's and SMTWTP500's
+    (TSP's walk from job 0) shapes."""
     from deepaco_tpu_torch.ops import rollout
 
     score, start, noise, shape = _rollout_case(dev, kind, b, n, a, capacity)
     want_paths, want_logp = rollout.fused_rollout_plain(score, start, noise, shape)
     for warps in (1, 2, 4, 8):
-        if n <= 512 * warps:
+        if n <= (256 if kind == "mkp" else 512) * warps:
             paths, logp, _ = rollout.fused_rollout_forward(score, start, noise, shape,
                                                            warps=warps)
             assert torch.equal(paths, want_paths), warps
             torch.testing.assert_close(logp, want_logp, rtol=1e-5, atol=1e-6)
+            untraced, none, _ = rollout.fused_rollout_forward(score, start, noise, shape,
+                                                              warps=warps, trace=False)
+            assert torch.equal(untraced, want_paths) and none is None, warps
+    before = rollout.fused_rollout_paths.launches
+    assert torch.equal(rollout.fused_rollout_paths(score, start, noise, shape), want_paths)
+    assert rollout.fused_rollout_paths.launches == before + 1
     leaf = score.clone().requires_grad_(True)
     fwd, bwd = rollout.fused_rollout.launches, rollout.fused_rollout_backward.launches
     paths, logp = rollout.fused_rollout(leaf, start, noise, shape)
@@ -803,19 +833,24 @@ def test_rollout_kernel_takes_nan_first_and_refuses_what_it_cannot_take(dev):
 
 def test_engine_routes_training_rollouts_through_the_rollout_kernel(dev):
     """``rollout(require_prob=True)`` on the TSP plug-in launches K7r once
-    and K7 never; without log-probabilities it steps through K7."""
+    and K7 never; without log-probabilities it launches K7r's untraced
+    forward once, on the same paths; a plug-in without ``fused`` steps
+    through K7."""
     from deepaco_tpu_torch.aco.engine import rollout as run
     from deepaco_tpu_torch.aco.problems.tsp import tsp_spec
     from deepaco_tpu_torch.ops import pick, rollout
 
     heu = 0.01 + torch.rand((2, 30, 30), device=dev)
     spec = tsp_spec(torch.ones_like(heu), heu, 4)
-    counters = (pick.fused_pick, rollout.fused_rollout)
+    counters = (pick.fused_pick, rollout.fused_rollout, rollout.fused_rollout_paths)
     before = [fn.launches for fn in counters]
     out = run(spec, torch.Generator(device=dev).manual_seed(0), require_prob=True)
     assert out.log_probs.shape == (2, 29, 4) and out.state is None
-    run(spec, torch.Generator(device=dev).manual_seed(0))
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [29, 1]
+    paths = run(spec, torch.Generator(device=dev).manual_seed(0)).paths
+    assert torch.equal(paths, out.paths)
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [0, 1, 1]
+    run(spec._replace(fused=None), torch.Generator(device=dev).manual_seed(0))
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [29, 1, 1]
 
 
 def test_train_tsp_runs_on_the_card_through_the_kernels(dev):
@@ -1228,8 +1263,8 @@ def test_family_train_step_launches_k6_and_k7_on_the_card(dev, name):
     20 customers, K = N = 21; SOP, BPP and MKP at n=20 on their dense
     graphs, SOP's masked; 12-layer Net, 2 instances, 4 ants): 12 K6
     forward and 12 backward launches, the rollout as one K7r launch forward
-    and one backward (TSP, CVRP and BPP) or one K7 a step (SOP, MKP), no
-    K7c and no K9; finite loss, cost and gradient norm; the weights move."""
+    and one backward, no K7, K7c or K9; finite loss, cost and gradient
+    norm; the weights move."""
     import numpy as np
 
     from deepaco_tpu_torch.families import get_family
@@ -1253,9 +1288,7 @@ def test_family_train_step_launches_k6_and_k7_on_the_card(dev, name):
         state, drivers.gen_batch(family, rng, n, 2), torch.Generator(device=dev).manual_seed(1))
     torch.cuda.synchronize()
     launched = [fn.launches - b for fn, b in zip(counted, before)]
-    fused = name in ("tsp", "cvrp", "bpp")
-    assert launched == [12, 12, 0 if fused else family.horizon_states(n)[1], int(fused),
-                        int(fused), 0, 0]
+    assert launched == [12, 12, 0, 1, 1, 0, 0]
     assert all(bool(torch.isfinite(v)) for v in info)
     assert all(not torch.equal(start[k], v) for k, v in state.net.state_dict().items()
                if v.dim() == 2)
@@ -1367,15 +1400,17 @@ def test_deposit_kernel_on_parked_pctsp_routes(dev):
                                          ("mkp", 50, "mkp300")])
 def test_evaluate_family_runs_the_per_step_families_on_the_card(dev, name, n, ckpt):
     """evaluate_family on 4 golden instances on the card: finite curves
-    that move one way, valid best solutions, and K9 once, K7 once a
-    construction step and K8 once an iteration; K6 and K7c never."""
+    that move one way, valid best solutions, and K9 once, K8 once an
+    iteration, and the construction K7 once a step (OP, PCTSP) or K7r's
+    untraced forward once an iteration (SMTWTP, SOP, MKP); K6 and K7c
+    never."""
     from deepaco_tpu_torch.aco.problems.mkp import validate_mkp
     from deepaco_tpu_torch.aco.problems.op import validate_op
     from deepaco_tpu_torch.aco.problems.pctsp import validate_pctsp
     from deepaco_tpu_torch.aco.problems.smtwtp import validate_smtwtp
     from deepaco_tpu_torch.aco.problems.sop import validate_sop
     from deepaco_tpu_torch.families import get_family
-    from deepaco_tpu_torch.ops import deposit, gnn_layer, pick
+    from deepaco_tpu_torch.ops import deposit, gnn_layer, pick, rollout
     from deepaco_tpu_torch.train.drivers import evaluate_family, family_model, instance_tensors
     from deepaco_tpu_torch.utils import golden
 
@@ -1383,12 +1418,14 @@ def test_evaluate_family_runs_the_per_step_families_on_the_card(dev, name, n, ck
     ds = {k: v[:4] for k, v in golden.GOLDEN[name](n).items()}
     net = family_model(fam, load_checkpoint(str(CKPT / f"{ckpt}_selftrained.msgpack")))
     counters = (fused_gnn.embnet_layers, gnn_layer.fused_gnn_layer, pick.fused_pick,
-                deposit.tour_deposit, cc.cvrp_construct)
+                deposit.tour_deposit, cc.cvrp_construct, rollout.fused_rollout_paths)
     before = [fn.launches for fn in counters]
     _, curves, state = evaluate_family(name, ds, n_nodes=n, net=net, n_ants=8,
                                        t_values=(1, 3), return_state=True)
     horizon = fam.horizon_states(n)[1]
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 0, 3 * horizon, 3, 0]
+    fused = name in ("smtwtp", "sop", "mkp")
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [
+        1, 0, 0 if fused else 3 * horizon, 3, 0, 3 if fused else 0]
     sign = -1.0 if fam.aco.maximize else 1.0
     assert curves.is_cuda and bool(torch.isfinite(curves).all())
     assert bool((sign * curves[:, 1:] <= sign * curves[:, :-1]).all())

@@ -234,15 +234,18 @@ def test_train_step_equals_the_per_step_route(name, monkeypatch):
 
 
 def test_fused_rollout_supported_and_unrouted_cases():
-    """K7r's range of N, and the rollouts that keep the step loop: no
-    ``require_prob``, a pick other than K7 or its plain version."""
+    """K7r's range of N, and the rollouts that keep the step loop: a pick
+    other than K7 or its plain version, a spec without ``fused``; with or
+    without ``require_prob`` the rest take the one-launch route."""
     assert not ro.fused_rollout_supported(1)
     assert ro.fused_rollout_supported(2) and ro.fused_rollout_supported(4096)
     assert not ro.fused_rollout_supported(4097)
     heu, _ = _inputs("tsp_uniform")
     spec = _spec("tsp_uniform", torch.from_numpy(heu), None)
-    assert engine.rollout(spec, torch.Generator(), require_prob=False).state is not None
     other = lambda s, m, g: fused_pick_plain(s, m, g)
-    assert engine.rollout(spec, torch.Generator(), require_prob=True,
-                          pick=other).state is not None
-    assert engine.rollout(spec, torch.Generator(), require_prob=True).state is None
+    for require_prob in (True, False):
+        assert engine.rollout(spec, torch.Generator(), require_prob=require_prob,
+                              pick=other).state is not None
+        assert engine.rollout(spec._replace(fused=None), torch.Generator(),
+                              require_prob=require_prob).state is not None
+        assert engine.rollout(spec, torch.Generator(), require_prob=require_prob).state is None

@@ -134,15 +134,14 @@ Phases, one JSON line each:
    update), SOP100 (the masked dense graph, K = N = 100, no node update),
    BPP120 (K = N = 121, capacity 150) and MKP300 (K = N = 300, five node
    features; 100 instances each). K9 against its plain version on the
-   family's graph, K7 on the rows of one construction at a third and two
-   thirds of its horizon (actions exact; OP, PCTSP) or, for BPP, K7c on its
-   neural score (paths bit-equal), or for SMTWTP, SOP and MKP K7r's
+   family's graph, for BPP K7c on its neural score (paths bit-equal), for
+   OP, PCTSP, SMTWTP, SOP and MKP K7r's
    untraced forward on one construction (``check_rollout_paths``: paths
    bit-equal to ``fused_rollout_paths_plain`` and to the traced forward,
    B=100, A=20), K8 on its routes (PCTSP's and BPP's parked on
    node 0, MKP's on the dummy item) held as in phase 9; the path
-   (``evaluate_family``, A=20, T=1 and 10) in a kernel arm (K9 once, K7 10
-   x horizon, K7c 10 or K7r's untraced forward 10, K8 10), a plain arm on the card
+   (``evaluate_family``, A=20, T=1 and 10) in a kernel arm (K9 once, K7c
+   10 or K7r's untraced forward 10, K7 never, K8 10), a plain arm on the card
    (``drivers.PLAIN_OPS``, the same generator seed) and a classic arm, each
    with its costs, wall, phase times, peak memory and launches; every best
    solution valid and scoring what the run says, the kernel arm's cost@T1
@@ -154,12 +153,12 @@ Phases, one JSON line each:
    family's envelope (``family_train_config``: OP300 and PCTSP500 with 20
    ants, SMTWTP500, SOP100 and MKP300 with 50, BPP120 with 120, batch 1,
    lr 3e-4): one step kernel arm against plain arm held as in phase 11, K6
-   forward and backward on its graph and K7 on its rows (OP, PCTSP) or K7r
-   on its rollout (``check_rollout``; BPP at capacity 150, SMTWTP, SOP and
-   MKP at B=1, 50 ants), two steps of ``make_family_train_step`` with
-   exactly 12 + 12 K6 and ``horizon`` K7 launches a step (OP, PCTSP) or one
-   K7r launch each way and no K7 (BPP, SMTWTP, SOP, MKP) and no K9, K7c or
-   K8; and ``cli.main(["test", name, ...])`` on the card, whose costs must
+   forward and backward on its graph and K7r on its rollout
+   (``check_rollout``; BPP at capacity 150, OP300 and PCTSP500 at B=1, 20
+   ants, SMTWTP, SOP and MKP at B=1, 50 ants), two steps of
+   ``make_family_train_step`` with exactly 12 + 12 K6 and one K7r launch
+   each way and no K7, K9, K7c or K8; and ``cli.main(["test", name, ...])``
+   on the card, whose costs must
    be the kernel arm's;
 15. CVRP-NLS500 (``cvrp_nls_phase``): ``cvrp_nls500_selftrained`` (12
    layers, 32 units, the two-block graph at k = 5) on the first 4 golden
@@ -281,7 +280,7 @@ Phases, one JSON line each:
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7r (forward
    ``fused_rollout``, backward ``fused_rollout_backward``) from the
    TSP500-NLS training run, K7r's untraced forward (``fused_rollout_paths``)
-   from phase 18's family path, K7 from phase 14's OP300 path, K7c
+   from phase 18's family path, K7 from phase 16's MKP-items 500 path, K7c
    and K8 from the CVRP path's kernel arm, K9 from the sparse and the CVRP
    paths' kernel arms together; row 9 is on no path of either package, so
    its count is 0), error, times and bound; K7r's entries carry ``tsp500``,
@@ -293,9 +292,10 @@ Phases, one JSON line each:
    untraced, K8, K9) and in its two training steps (K6, K7 or K7r), with
    their error, times and bound at its shapes; K7r's untraced forward
    (``fused_rollout_paths``: SMTWTP500's inference shape, its launches from
-   phase 18's family path) carries ``smtwtp``, ``sop`` and ``mkp``; K7c and
-   K8 carry ``cvrp_nls`` and K7
-   ``mkp_items`` the same way; K7 (its launches from the OP300 path) carries
+   phase 18's family path) carries ``op``, ``pctsp``, ``smtwtp``, ``sop``
+   and ``mkp``; K7c and K8 carry ``cvrp_nls`` and K7
+   ``mkp_items`` the same way; K7 (its launches from the MKP-items 500
+   path) carries
    ``rcpsp``, K7r untraced, K8, K4 and K5 ``tsp_facade``; phase 19's launches: K1 and
    K3 ``sparse_runner`` (K3 also its f32-score times), K9, K7c, K8 and K7
    ``reference_pt``, K7c and K8 ``adaptive_cvrp`` (with their times at
@@ -357,13 +357,12 @@ FAMILY_PATHS = {"cvrp": (CVRP_N, CVRP_CKPT, A_TRAIN, 5, 128),
                 "mkp": (300, "checkpoints/mkp300_selftrained.msgpack", 50, 10, 64),
                 "mkp_items": (500, "checkpoints/mkp_items500_selftrained.msgpack", 50, 5, 256)}
 # phase 14's families, in order; BPP constructs through K7c in inference,
-# SMTWTP, SOP and MKP through K7r's untraced forward (FUSED_INFER), OP and
-# PCTSP through K7 a step
+# the others through K7r's untraced forward (FUSED_INFER)
 FAMILY_PHASE = ("op", "pctsp", "smtwtp", "sop", "bpp", "mkp")
 ONE_PASS = ("bpp",)
-FUSED_INFER = ("smtwtp", "sop", "mkp")
+FUSED_INFER = ("op", "pctsp", "smtwtp", "sop", "mkp")
 # the families whose training rollout takes K7r (the plug-ins with ``fused``)
-FUSED_TRAIN = ("cvrp", "bpp", "smtwtp", "sop", "mkp")
+FUSED_TRAIN = ("cvrp", "bpp", "op", "pctsp", "smtwtp", "sop", "mkp")
 FAMILY_TRAIN_STEPS = 2
 FAMILY_PICK_AT = (0.0, 1 / 3, 2 / 3)    # K7's checks on their rows, as shares of the horizon
 # the JAX package's costs at T1 and T10 (RESULTS.md:164, 170-171, 175, 178,
@@ -408,7 +407,7 @@ RECORDED_COSTS = {"main": (None, 19.6391), "main_plain": (20.6735, 19.6335),
                   "nls": (17.1227, 16.9536), "nls_plain": (17.1133, 16.9749),
                   "cvrp": (61.7577, 60.5177),
                   "sparse": (48.2913, 45.1827), "sparse_plain": (48.2913, 45.1980),
-                  "op": (72.9418, 80.2401), "pctsp": (16.1978, 15.7033),
+                  "op": (73.2084, 80.1825), "pctsp": (16.2131, 15.7105),
                   "smtwtp": (0.6824, 0.5497), "sop": (72.2384, 70.8659),
                   "bpp": (0.9544, 0.9588), "mkp": (58.1421, 59.3408),
                   "cvrp_nls": (33.2462, 33.0091), "mkp_items": (98.9476, 100.0285),
@@ -812,32 +811,36 @@ def captured_rollouts(store: list):
 def rollout_work(score, noise, shape, paths, traced: bool = True):
     """K7r's bytes and f32 operations for ``bound``, forward and backward,
     over the steps this run's ants take (a CVRP ant stops once back at the
-    depot with every customer served, an MKP ant once on the dummy item:
-    their later picks are certain). Forward: the score, those steps' noise,
-    the starts and the plug-in's own input (CVRP's demands, SOP's
-    precedence bytes and predecessor counts, MKP's weights) read, paths and
-    (traced) log-probabilities written; a select, compare, exp and add for
-    the logsumexp and an add and compare for the maximum a column a step,
-    and MKP's add and compare a dimension. Backward: score, g and paths
-    read, d_score written; an exp, subtract, multiply and add a column a
-    step."""
+    depot with every customer served, a PCTSP ant once back at the depot,
+    an MKP or OP ant once on the dummy: their later picks are certain).
+    Forward: the score, those steps' noise, the starts and the plug-in's own
+    input (CVRP's demands, SOP's precedence bytes and predecessor counts,
+    MKP's weights, OP's distances and budgets, PCTSP's prizes) read, paths
+    and (traced) log-probabilities written; a select, compare, exp and add
+    for the logsumexp and an add and compare for the maximum a column a
+    step, MKP's add and compare a dimension, OP's two adds and a compare.
+    Backward: score, g and paths read, d_score written; an exp, subtract,
+    multiply and add a column a step."""
     import torch
 
     b, n, _ = score.shape
     t, _, a, _ = noise.shape
-    if shape.kind in ("cvrp", "mkp"):
+    if shape.kind in ("cvrp", "mkp", "op", "pctsp"):
         idx = torch.arange(1, t + 1, device=paths.device)[None, :, None]
         if shape.kind == "cvrp":
             last = ((paths[:, 1:] != 0) * idx).amax(dim=1)   # the last customer's index
             steps = int((last + 1).clamp(max=t).sum())
-        else:                                                # the first dummy pick's index
-            first = torch.where(paths[:, 1:] == shape.dummy, idx, t + 1).amin(dim=1)
+        else:                                        # the first dummy (depot) pick's index
+            park = 0 if shape.kind == "pctsp" else shape.dummy
+            first = torch.where(paths[:, 1:] == park, idx, t + 1).amin(dim=1)
             steps = int(first.clamp(max=t).sum())
     else:
         steps = b * a * t
     own = {"cvrp": 4 * b * n, "sop": b * n * n + 4 * b * n,
-           "mkp": 0 if shape.weight is None else 4 * shape.weight.numel()}.get(shape.kind, 0)
-    ops = 6 + (2 * shape.weight.shape[-1] if shape.kind == "mkp" else 0)
+           "mkp": 0 if shape.weight is None else 4 * shape.weight.numel(),
+           "op": 4 * b * n * n + 4 * b, "pctsp": 4 * b * n}.get(shape.kind, 0)
+    ops = 6 + {"mkp": 2 * shape.weight.shape[-1] if shape.weight is not None else 0,
+               "op": 3}.get(shape.kind, 0)
     out_bytes = 8 * b * (t + 1) * a + (4 * b * t * a if traced else 0)
     fwd = (4 * b * n * n + 4 * steps * n + 8 * b * a + own + out_bytes, ops * steps * n)
     bwd = (8 * b * n * n + 4 * b * t * a + 8 * b * (t + 1) * a, 4 * steps * n)
@@ -1530,14 +1533,14 @@ def family_train_step_arms(dev, name: str = "cvrp", shares=CVRP_PICK_AT):
 
 def family_rollout(dev, name: str, net, ds):
     """One construction of a phase-14 family's path at its full size (the
-    golden set, A=20) on its neural heuristic with tau = 1: a K7 a step, or
-    for BPP one K7c launch (``cvrp_construct`` on the score matrix, as its
-    first iteration runs it), or for SMTWTP, SOP and MKP one launch of K7r's
-    untraced forward. Returns the paths, the update's amounts (``q *
-    objective`` for OP and MKP, ``fitness / A`` for BPP, ``1 / (cost +
-    offset)`` else), the graph, K7's inputs at the shares FAMILY_PICK_AT of
-    the horizon (K7r's ``(score, start, noise, shape)`` for SMTWTP, SOP and
-    MKP; none for BPP), and the score matrix."""
+    golden set, A=20) on its neural heuristic with tau = 1: for BPP one K7c
+    launch (``cvrp_construct`` on the score matrix, as its first iteration
+    runs it), for OP, PCTSP, SMTWTP, SOP and MKP one launch of K7r's
+    untraced forward, else a K7 a step. Returns the paths, the update's
+    amounts (``q * objective`` for OP and MKP, ``fitness / A`` for BPP, ``1
+    / (cost + offset)`` else), the graph, K7r's ``(score, start, noise,
+    shape)`` (FUSED_INFER) or K7's inputs at the shares FAMILY_PICK_AT of
+    the horizon (none for BPP), and the score matrix."""
     import torch
 
     from deepaco_tpu_torch.aco.engine import rollout
@@ -1617,8 +1620,8 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
 
     # kernels at the family's shapes: K9 on its graph (SOP's masked: no node
     # update, so the mask changes nothing before the heuristic applies it),
-    # K7 on its rows or, for BPP, K7c on its score, for SMTWTP, SOP and MKP
-    # K7r's untraced forward on its rollout, K8 on its routes (PCTSP's and
+    # for BPP K7c on its score, for OP, PCTSP, SMTWTP, SOP and MKP K7r's
+    # untraced forward on its rollout, else K7 on its rows, K8 on its routes (PCTSP's and
     # BPP's park on node 0, the self-loop repeated; MKP's on the dummy item)
     paths, amounts, g, picks, score = family_rollout(dev, name, net, ds)
     if gnn:
@@ -1677,8 +1680,8 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     arms = {"kernel": arm(net, drivers.KERNEL_OPS), "plain": arm(net, drivers.PLAIN_OPS),
             "classic": arm(None, drivers.KERNEL_OPS)}
     t_max = max(T_VALUES)
-    # an iteration: one K7c launch (BPP), one K7r launch (SMTWTP, SOP, MKP)
-    # or a K7 launch a step (the others)
+    # an iteration: one K7c launch (BPP), one K7r launch (FUSED_INFER) or a
+    # K7 launch a step (MKP-items)
     passes_run = t_max if name in ONE_PASS else 0
     rollouts_run = t_max if fused_infer else 0
     picks_run = 0 if passes_run or rollouts_run else t_max * horizon
@@ -3997,9 +4000,9 @@ def main() -> int:
     golden_run = tsp_golden_phase(dev, root, cuda_ms, counted, coords)
     rcpsp_launches = rcpsp_run["arms"]["kernel"]["launches"]
     facade_launches = golden_run["arms"]["tsp_nls_per_instance"]["launches"]
-    # K7 steps the OP, PCTSP, MKP-items and RCPSP rollouts: OP300's path; the
+    # K7 steps the MKP-items and RCPSP rollouts: MKP-items 500's path; the
     # TSP inference rollouts take K7r's untraced forward: test tsp's family path
-    path_launches["fused_pick"] = family_runs["op"]["arms"]["kernel"]["launches"]["fused_pick"]
+    path_launches["fused_pick"] = items_run["arms"]["kernel"]["launches"]["fused_pick"]
     path_launches["fused_rollout_paths"] = golden_run["arms"]["tsp_family"]["launches"][
         "fused_rollout_paths"]
     two_opt_launches = golden_run["arms"]["tsp_2opt_per_instance"]["launches"]

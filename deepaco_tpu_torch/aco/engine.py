@@ -8,7 +8,8 @@ feasibility mask, the same law as the reference's
 ``Categorical(phe**alpha * heu**beta * mask)`` (tsp/aco.py:165-177).
 ``rollout(require_prob=True)`` also returns the log-probability of each
 sampled action, differentiable in the plug-in's score matrix. A plug-in
-that carries ``fused`` (TSP's, SMTWTP's, CVRP's, SOP's and MKP's PH_suc)
+that carries ``fused`` (TSP's, SMTWTP's, CVRP's, SOP's, MKP's PH_suc, OP's
+and PCTSP's)
 takes the whole rollout in one launch of kernel K7r on the card:
 :func:`~deepaco_tpu_torch.ops.rollout.fused_rollout` with
 ``require_prob`` (one launch forward and one backward), else
@@ -58,7 +59,9 @@ class RolloutSpec(NamedTuple):
                 the score matrix that ``score_rows`` gathers from and the
                 state the plug-in keeps (TSP's visited set; CVRP's with its
                 demand and capacity; SOP's with its precedences; MKP's with
-                its knapsack), for the one-launch route of ``rollout``.
+                its knapsack; OP's with its distances and budget; PCTSP's
+                with its prizes and gate), for the one-launch route of
+                ``rollout``.
     """
 
     horizon: int

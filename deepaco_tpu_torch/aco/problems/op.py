@@ -39,16 +39,19 @@ def extend_op_instance(dist: torch.Tensor, prizes: torch.Tensor, heu: torch.Tens
 def op_spec(phe: torch.Tensor, heu: torch.Tensor, dist: torch.Tensor,
             max_len: torch.Tensor, n_ants: int, alpha: float = 1.0, beta: float = 1.0):
     """The engine's plug-in for the extended ``phe, heu, dist [B, n+1, n+1]``
-    and ``max_len [B]`` (or a number); every ant starts at the depot."""
+    and ``max_len [B]`` (or a number); every ant starts at the depot. The
+    spec carries OP's shape for the engine's one-launch route (K7r)."""
     from deepaco_tpu_torch.aco.engine import RolloutSpec
+    from deepaco_tpu_torch.ops.rollout import RolloutShape
 
     b, m, _ = phe.shape
     dummy = m - 1
     score = score_matrix(phe, heu, alpha, beta)
     rows = row_gatherer(b, m, phe.device)
     back = dist[..., :, 0][:, None, :]                              # [B, 1, m]
-    limit = torch.as_tensor(max_len, dtype=dist.dtype, device=dist.device)
-    limit = limit.reshape(-1)[:, None, None].expand(b, 1, 1)
+    lengths = torch.as_tensor(max_len, dtype=dist.dtype, device=dist.device).reshape(-1)
+    lengths = lengths.expand(b).contiguous()
+    limit = lengths[:, None, None]
 
     def update_mask(mask, travel, cur):
         mask = clear_onehot(mask, cur)
@@ -82,7 +85,9 @@ def op_spec(phe: torch.Tensor, heu: torch.Tensor, dist: torch.Tensor,
     return RolloutSpec(horizon=m, start=start, init=init,
                        prob_rows=lambda state: (rows(phe, state[0]), rows(heu, state[0])),
                        mask=lambda state: state[2], step=step,
-                       score_rows=lambda state: rows(score, state[0]))
+                       score_rows=lambda state: rows(score, state[0]),
+                       fused=(score, RolloutShape("op", dist=dist, max_len=lengths,
+                                                  dummy=dummy)))
 
 
 def op_objective(prizes: torch.Tensor, paths: torch.Tensor) -> torch.Tensor:

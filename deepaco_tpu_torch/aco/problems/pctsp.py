@@ -27,8 +27,10 @@ def pctsp_spec(phe: torch.Tensor, heu: torch.Tensor, prizes: torch.Tensor,
                min_prizes: float, n_ants: int, alpha: float = 1.0, beta: float = 1.0):
     """The engine's plug-in for ``phe, heu [B, N, N]`` (N = nodes + 1, the
     depot first), ``prizes [B, N]`` (0 at the depot) and the prize gate
-    ``min_prizes``."""
+    ``min_prizes``. The spec carries PCTSP's shape for the engine's
+    one-launch route (K7r)."""
     from deepaco_tpu_torch.aco.engine import RolloutSpec
+    from deepaco_tpu_torch.ops.rollout import RolloutShape
 
     b, n, _ = phe.shape
     score = score_matrix(phe, heu, alpha, beta)
@@ -70,7 +72,9 @@ def pctsp_spec(phe: torch.Tensor, heu: torch.Tensor, prizes: torch.Tensor,
     return RolloutSpec(horizon=n + 1, start=start, init=init,
                        prob_rows=lambda state: (rows(phe, state[0]), rows(heu, state[0])),
                        mask=lambda state: state[1] * state[2], step=step,
-                       score_rows=lambda state: rows(score, state[0]))
+                       score_rows=lambda state: rows(score, state[0]),
+                       fused=(score, RolloutShape("pctsp", prizes=prizes,
+                                                  min_prizes=min_prizes)))
 
 
 def pctsp_objective(dist: torch.Tensor, prizes: torch.Tensor, penalties: torch.Tensor,

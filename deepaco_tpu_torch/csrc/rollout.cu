@@ -6,7 +6,7 @@
 // step of the construction scan deepaco_tpu/aco/engine.py:104-129, on every
 // rollout whose plug-in keeps the visited set and at most a few registers of
 // state (engine.rollout over a spec with `fused`): TSP (and SMTWTP, TSP's walk
-// from the dummy job), CVRP and BPP, SOP and MKP (PH_suc), in training
+// from the dummy job), CVRP and BPP, SOP, MKP (PH_suc), OP and PCTSP, in training
 // (traced: logp and what the backward reads) and inference (untraced: the
 // paths). The port ran that scan as a host loop, K7 (csrc/pick.cu) and 14-48
 // PyTorch launches of glue a step, and autograd's backward a step.
@@ -28,6 +28,20 @@
 //     dimension, recomputed each step (with non-negative weights the sums only
 //     grow, so the plug-in's cumulative mask is the same set), and the dummy
 //     item once no real item is open (a block-wide vote);
+//   OP: the tour length `travel` (f32, `travel + dist[cur, next]` a pick) is
+//     the same in every thread, and each column's dist[c, 0] is a register.
+//     The mask is cumulative: at each node but the dummy a real column closes
+//     for good once (travel + dist[cur, c]) + dist[c, 0] > max_len, so the
+//     closed bits hold "visited or once infeasible" (with f32 rounding, or a
+//     distance that is no metric, a column can fail once and fit later: the
+//     plug-in keeps it shut). The row dist[cur, :] is loaded beside the score
+//     row. The dummy opens once no real column is open (a block vote);
+//   PCTSP: the prize collected (f32, added in pick order), the count of
+//     customers left and the depot gate are the same in every thread. The
+//     start is no pick (the plug-in's init applies none); the depot opens from
+//     the step after a pick that takes the prize above min_prizes (compared in
+//     f32) or visits the last customer, and stays open; a depot pick shuts
+//     every customer;
 // - each step issues its G loads of the row score[b, cur, :] together (SOP:
 //   with its row of succ), then the next step's noise[t + 1, b, a, :], which
 //   no pick decides, so that it arrives during this step; then K7's
@@ -41,9 +55,10 @@
 //   pos. Untraced it writes the paths alone, the same bits.
 // An ant that parks picks its node with certainty and log-probability 0: a
 // CVRP ant back at the depot with every customer served (when score[b, 0, 0]
-// is finite above -1e30 and the depot's demand fits), an MKP ant on the dummy
-// item with no real item open (when score[b, dummy, dummy] is finite above
-// -1e30). The loop stops there and writes those steps directly, and the
+// is finite above -1e30 and the depot's demand fits), an MKP or OP ant on the
+// dummy with no real column open (when score[b, dummy, dummy] is finite above
+// -1e30), a PCTSP ant back at the depot with the gate open (when score[b, 0,
+// 0] is). The loop stops there and writes those steps directly, and the
 // backward skips them (their gradient is 0).
 //
 // Backward, a block a row r and 32 columns of an instance, no atomics: each
@@ -56,7 +71,12 @@
 // pos(c) > t and: SOP ready(c) <= t; MKP (real c) every knap_t + w[c] <=
 // capacity on the forward's own sums, the dummy open iff it was picked (it
 // opens only as the last open column). MKP's dummy row holds parked steps
-// only: its gradient is 0. A CVRP ant leaves a customer row at most once, and
+// only: its gradient is 0. OP's pos is the path index at which each column
+// closed (visited or infeasible): the ant left row r at t = pos(r) iff
+// paths[t] = r, open_t(c) <=> pos(c) > t, the dummy as MKP's. PCTSP's pos
+// holds each customer's pick and the trace its gate step: the ant leaves the
+// start's row at t = 0 and a customer's at pos(r); open_t(c) <=> pos(c) > t,
+// the depot t >= gate. A CVRP ant leaves a customer row at most once, and
 // the depot at the departures the forward listed (2t + the depot's own open
 // bit); open_t(c) adds demand[c] <= rem_t, the forward's own f32 value.
 //
@@ -76,7 +96,7 @@ constexpr int kMkpMaxCols = 8;  // MKP: a thread's columns' weights are register
 constexpr int kMaxDims = 8;     // MKP: capacity dimensions
 constexpr int kBwdWarps = 4;    // a backward block: 32 columns, each warp a share of the ants
 
-enum Kind : int { kTsp = 0, kCvrp = 1, kSop = 2, kMkp = 3 };
+enum Kind : int { kTsp = 0, kCvrp = 1, kSop = 2, kMkp = 3, kOp = 4, kPctsp = 5 };
 
 // The plug-in's inputs; a kind reads its own and leaves the others null.
 struct Plugin {
@@ -84,8 +104,12 @@ struct Plugin {
   const uint8_t* succ;   // SOP [B, N, N]: succ[b, k, c] = 1 iff k must precede c
   const int* npred;      // SOP [B, N]: each node's count of predecessors
   const float* weight;   // MKP [B, N, m]
+  const float* dist;     // OP [B, N, N]
+  const float* max_len;  // OP [B]
+  const float* prizes;   // PCTSP [B, N]
   float capacity;        // CVRP, MKP
-  int m, dummy;          // MKP: dimensions, the dummy item
+  float min_prizes;      // PCTSP: the depot's gate
+  int m, dummy;          // MKP: dimensions; MKP, OP: the dummy column
 };
 
 // What the traced forward writes for the backward (null untraced, and where
@@ -99,6 +123,7 @@ struct Trace {
   int* ndep;    // CVRP [B, A]
   int* ready;   // SOP [B, A, N]
   float* knap;  // MKP [B, T, A, m]
+  int* gate;    // PCTSP [B, A]
 };
 
 struct Fwd {
@@ -138,6 +163,8 @@ __device__ __forceinline__ bool fits(const float* knap, const float* w, int m, f
 template <int kKind, bool kTrace, int G>
 __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p) {
   constexpr bool kCv = kKind == kCvrp, kSp = kKind == kSop, kMk = kKind == kMkp;
+  constexpr bool kO = kKind == kOp, kPc = kKind == kPctsp;
+  constexpr bool kDummy = kMk || kO;  // a dummy column that opens once no real one is open
   __shared__ Cand s_best[2][kMaxWarps];
   __shared__ float s_top[2][kMaxWarps], s_total[2][kMaxWarps];
   const int B = p.B, N = p.N, A = p.A, T = p.T;
@@ -148,8 +175,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
   const float* inst = p.score + (size_t)b * N * N;
   const float* dem_row = kCv ? p.pl.demand + (size_t)b * N : nullptr;
   const uint8_t* succ = kSp ? p.pl.succ + (size_t)b * N * N : nullptr;
-  const int m = kMk ? p.pl.m : 0, dummy = kMk ? p.pl.dummy : -1;
+  const int m = kMk ? p.pl.m : 0, dummy = kDummy ? p.pl.dummy : -1;
   const float* w_inst = kMk ? p.pl.weight + (size_t)b * N * m : nullptr;
+  const float* d_inst = kO ? p.pl.dist + (size_t)b * N * N : nullptr;
+  const float* prize_row = kPc ? p.pl.prizes + (size_t)b * N : nullptr;
+  const float limit = kO ? __ldg(p.pl.max_len + b) : 0.0f;
   const float* my_noise = p.noise + (size_t)ant * N;  // step t at my_noise + t * step_stride
   const size_t step_stride = (size_t)B * A * N;
   int* my_pos = kTrace ? p.tr.pos + (size_t)ant * N : nullptr;
@@ -162,6 +192,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
   float dem[kCv ? G : 1];               // CVRP: the columns' demands
   int cnt[kSp ? G : 1];                 // SOP: the columns' unvisited predecessors
   float w[kMk ? G : 1][kMk ? kMaxDims : 1];  // MKP: the columns' weights
+  float back[kO ? G : 1];               // OP: the columns' dist[c, 0]
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     const int c = tid + j * threads;
@@ -169,6 +200,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
     live |= (uint32_t)here << j;
     if (kTrace && here) my_pos[c] = T + 1;
     if constexpr (kCv) dem[j] = here ? __ldg(dem_row + c) : 0.0f;
+    if constexpr (kO) back[j] = here ? __ldg(d_inst + (size_t)c * N) : 0.0f;
     if constexpr (kSp) {
       cnt[j] = here ? __ldg(p.pl.npred + (size_t)b * N + c) : 0;
       if (kTrace && here) my_ready[c] = T + 1;
@@ -181,7 +213,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
     }
     g[j] = here && T > 0 ? __ldg(my_noise + c) : 0.0f;
   }
-  // mark column c reached at path index s (its owner alone)
+  // mark column c reached (OP: closed) at path index s (its owner alone)
   const auto visit = [&](int c, int s) {
     if (c % threads == tid) {
       const uint32_t bit = 1u << (c / threads);
@@ -191,10 +223,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
       }
     }
   };
-  // the plug-in's init is a step with the start as its action
+  // the plug-in's init is a step with the start as its action (PCTSP: none;
+  // OP's feasibility at the start is its step 0's)
   int cur = (int)p.start[ant];
   int left = N - 1;
-  float used = 0.0f;
+  float used = 0.0f;  // CVRP: the load; OP: the tour length; PCTSP: the prize collected
+  bool home = false, gate_open = false;  // PCTSP: a depot pick made; the depot's gate
+  int gate_step = T + 1;
   float knap[kMk ? kMaxDims : 1];  // MKP: the knapsack's sums, the same in every thread
   if constexpr (kCv) {
     left -= cur != 0;
@@ -206,7 +241,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
       knap[k] = k < m ? __fadd_rn(0.0f, __ldg(w_inst + (size_t)cur * m + k)) : 0.0f;
     }
   }
-  visit(cur, 0);
+  if constexpr (!kPc) visit(cur, 0);
   if (tid == 0) out[0] = cur;
   // parking: the parked step's lse (its only open logit) and, for CVRP, rem
   float park_lse = 0.0f, park_rem = 0.0f;
@@ -217,13 +252,25 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
     park_rem = __fsub_rn(p.pl.capacity, __fadd_rn(0.0f, d0));
     park = isfinite(park_lse) && park_lse > kNegInf && d0 <= park_rem;
   }
-  if constexpr (kMk) {
-    park_lse = __ldg(inst + (size_t)dummy * N + dummy);
+  if constexpr (kDummy || kPc) {
+    const int parked = kPc ? 0 : dummy;
+    park_lse = __ldg(inst + (size_t)parked * N + parked);
     park = isfinite(park_lse) && park_lse > kNegInf;
   }
+  // MKP, OP: the dummy opens once no real column does (a block vote); true
+  // where the ant is parked on it (the same in every thread)
+  const auto parked_on_dummy = [&](uint32_t& open) {
+    const bool any = warps > 1 ? __syncthreads_or(open != 0) != 0
+                               : __any_sync(kFullMask, open != 0);
+    if (any) return false;
+    if (park && cur == dummy) return true;
+    if (dummy % threads == tid) open |= 1u << (dummy / threads);
+    return false;
+  };
   int nd = 0, t = 0;
   for (; t < T; ++t) {
     if (kCv && park && cur == 0 && left == 0) break;  // the same in every thread
+    if (kPc && park && home && gate_open) break;
     const float* row = inst + (size_t)cur * N;
     float l[G];
     if constexpr (kSp) {
@@ -246,6 +293,36 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
         }
         if (cnt[j] != 0) l[j] = kNegInf;
       }
+    } else if constexpr (kO) {
+      // the row's score and dist loads together, for the open real columns and
+      // the dummy; at the dummy the plug-in keeps its mask
+      const float* drow = d_inst + (size_t)cur * N;
+      const bool update = cur != dummy;
+      float dr[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int c = tid + j * threads;
+        const bool cand = (((live & ~vis) >> j) & 1u) && c != dummy;
+        l[j] = cand || c == dummy ? __ldg(row + c) : kNegInf;
+        dr[j] = cand && update ? __ldg(drow + c) : 0.0f;
+      }
+      uint32_t open = 0;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        const int c = tid + j * threads;
+        bool o = (((live & ~vis) >> j) & 1u) && c != dummy;
+        if (o && update && !(__fadd_rn(__fadd_rn(used, dr[j]), back[j]) <= limit)) {
+          vis |= 1u << j;  // out of reach: shut for good
+          if (kTrace) my_pos[c] = t;
+          o = false;
+        }
+        open |= (uint32_t)o << j;
+      }
+      if (parked_on_dummy(open)) break;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (!((open >> j) & 1u)) l[j] = kNegInf;
+      }
     } else {
       uint32_t open = 0;
       const bool depot_closed = kCv && cur == 0 && left > 0;
@@ -258,18 +335,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
           o = o && (c == 0 ? !depot_closed : !((vis >> j) & 1u)) && dem[j] <= r;
         } else if constexpr (kMk) {
           o = o && c != dummy && !((vis >> j) & 1u) && fits(knap, w[j], m, p.pl.capacity);
+        } else if constexpr (kPc) {
+          o = o && (c == 0 ? gate_open : !home && !((vis >> j) & 1u));
         } else {
           o = o && !((vis >> j) & 1u);
         }
         open |= (uint32_t)o << j;
       }
-      if constexpr (kMk) {  // the dummy opens once no real item does
-        const bool any = warps > 1 ? __syncthreads_or(open != 0) != 0
-                                   : __any_sync(kFullMask, open != 0);
-        if (!any) {
-          if (park && cur == dummy) break;  // the same in every thread
-          if (dummy % threads == tid) open |= 1u << (dummy / threads);
-        }
+      if constexpr (kMk) {
+        if (parked_on_dummy(open)) break;
       }
 #pragma unroll
       for (int j = 0; j < G; ++j) {  // the row's loads first, all in flight together
@@ -358,13 +432,27 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
         if (k < m) knap[k] = __fadd_rn(knap[k], __ldg(w_inst + (size_t)nxt * m + k));
       }
     }
-    visit(nxt, t + 1);
+    if constexpr (kO) used = __fadd_rn(used, __ldg(d_inst + (size_t)cur * N + nxt));
+    if constexpr (kPc) {
+      used = __fadd_rn(used, __ldg(prize_row + nxt));
+      if (nxt == 0) {  // home: every customer shut, and "every customer visited" holds
+        home = true;
+        left = 0;
+      } else if (!home) {
+        left -= !(best.key & 1);
+      }
+      if (nxt != 0 && !gate_open && (used > p.pl.min_prizes || left == 0)) {
+        gate_open = true;
+        gate_step = t + 1;
+      }
+    }
+    if (!kPc || nxt != 0) visit(nxt, t + 1);
     cur = nxt;
 #pragma unroll
     for (int j = 0; j < G; ++j) g[j] = g_next[j];
   }
-  if constexpr (kCv || kMk) {
-    const int parked = kCv ? 0 : dummy;
+  if constexpr (kCv || kDummy || kPc) {
+    const int parked = kDummy ? dummy : 0;
     for (int s = t + tid; s < T; s += threads) {  // parked: certain, log-probability 0
       out[(size_t)(s + 1) * A] = parked;
       if constexpr (kTrace) {
@@ -381,6 +469,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
       }
     }
     if (kTrace && kCv && tid == 0) p.tr.ndep[ant] = nd;
+    if (kTrace && kPc && tid == 0) p.tr.gate[ant] = gate_step;
   }
 }
 
@@ -392,6 +481,7 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
                        const float* __restrict__ g, const Plugin pl, const Trace tr, int B,
                        int N, int A, int T, float* __restrict__ d_score) {
   constexpr bool kCv = kKind == kCvrp, kSp = kKind == kSop, kMk = kKind == kMkp;
+  constexpr bool kO = kKind == kOp, kPc = kKind == kPctsp;
   __shared__ float s_part[kBwdWarps][32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int c = blockIdx.x * 32 + lane;
@@ -408,13 +498,14 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
     }
   }
   float acc = 0.0f;
-  // MKP's dummy row holds parked steps alone: gradient 0
-  const int ants = kMk && r == pl.dummy ? 0 : A;
+  // MKP's and OP's dummy row holds parked steps alone: gradient 0
+  const int ants = (kMk || kO) && r == pl.dummy ? 0 : A;
   for (int a = warp; a < ants; a += kBwdWarps) {
     const long ant = (long)b * A + a;
     const int* ant_pos = tr.pos + (size_t)ant * N;
     const int pc = live ? __ldg(ant_pos + c) : 0;
     const int rc = kSp && live ? __ldg(tr.ready + (size_t)ant * N + c) : 0;
+    const int gate = kPc ? __ldg(tr.gate + ant) : 0;
     // the term of the step t that leaves row r; depot_open: the visit rule's
     // verdict on column 0 there
     const auto term = [&](int t, bool depot_open) {
@@ -425,6 +516,10 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
         open = (c == 0 ? depot_open : pc > t) && dc <= __ldg(tr.rem + i);
       } else if constexpr (kSp) {
         open = pc > t && rc <= t;
+      } else if constexpr (kO) {
+        open = c == pl.dummy ? nxt == c : pc > t;
+      } else if constexpr (kPc) {
+        open = c == 0 ? t >= gate : pc > t;
       } else if constexpr (kMk) {
         if (c == pl.dummy) {
           open = nxt == c;
@@ -446,8 +541,14 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
         const int e = __ldg(list + k);
         term(e >> 1, e & 1);
       }
-    } else {
+    } else if (kO) {  // pos(r): the step at which r closed, by a visit or out of reach
       const int t = __ldg(ant_pos + r);
+      if (t < T && __ldg(paths + ((size_t)b * (T + 1) + t) * A + a) == r) term(t, true);
+    } else {
+      // PCTSP: the start's row at step 0 (no pick), a customer's at its pick;
+      // the depot's later steps are parked
+      if (kPc && __ldg(paths + (size_t)b * (T + 1) * A + a) == r) term(0, true);
+      const int t = kPc && r == 0 ? T : __ldg(ant_pos + r);
       if (t < T) term(t, true);
     }
   }
@@ -485,34 +586,46 @@ int launch_kind(bool trace, int per, unsigned blocks, int warps, cudaStream_t s,
                : launch_fwd<kKind, false>(per, blocks, warps, s, p);
 }
 
+template <int kKind>
+int launch_bwd(const float* score, const int64_t* paths, const float* g, const Plugin& pl,
+               const Trace& tr, int B, int N, int A, int T, float* d_score, cudaStream_t s) {
+  const dim3 grid((unsigned)((N + 31) / 32), (unsigned)N, (unsigned)B);
+  rollout_bwd_kernel<kKind><<<grid, 32 * kBwdWarps, 0, s>>>(score, paths, g, pl, tr, B, N, A, T,
+                                                             d_score);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace deepaco
 
 // score [B,N,N] f32, start [B,A] int64, noise [T,B,A,N] f32 and the kind's
 // inputs (CVRP: demand [B,N] f32 and capacity; SOP: succ [B,N,N] uint8,
 // succ[b,k,c] = 1 iff k must precede c, and npred [B,N] int32; MKP: weight
-// [B,N,m] f32, m <= 8, capacity and the dummy's index, N <= 2048; null where
-// unused) -> paths [B,T+1,A] int64; traced also logp and lse [B,T,A] f32 and
-// pos [B,A,N] int32, CVRP rem [B,T,A] f32, dep [B,A,T] and ndep [B,A] int32,
-// SOP ready [B,A,N] int32, MKP knap [B,T,A,m] f32. kind: 0 TSP, 1 CVRP, 2
-// SOP, 3 MKP. warps: 1, 2, 4 or 8 an ant (16 columns a thread at most, 8 for
-// MKP), 0 to choose.
+// [B,N,m] f32, m <= 8, capacity and the dummy's index, N <= 2048; OP: dist
+// [B,N,N] f32, max_len [B] f32 and the dummy's index; PCTSP: prizes [B,N] f32
+// and min_prizes; null where unused) -> paths [B,T+1,A] int64; traced also
+// logp and lse [B,T,A] f32 and pos [B,A,N] int32, CVRP rem [B,T,A] f32, dep
+// [B,A,T] and ndep [B,A] int32, SOP ready [B,A,N] int32, MKP knap [B,T,A,m]
+// f32, PCTSP gate [B,A] int32. kind: 0 TSP, 1 CVRP, 2 SOP, 3 MKP, 4 OP, 5
+// PCTSP. warps: 1, 2, 4 or 8 an ant (16 columns a thread at most, 8 for MKP),
+// 0 to choose.
 extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start,
                                         const float* noise, const float* demand,
                                         const uint8_t* succ, const int* npred, const float* weight,
-                                        float capacity, int m, int dummy, int B, int N, int A,
-                                        int T, int kind, int trace, int warps, int64_t* paths,
-                                        float* logp, float* lse, int* pos, float* rem, int* dep,
-                                        int* ndep, int* ready, float* knap, void* stream) {
+                                        const float* dist, const float* max_len,
+                                        const float* prizes, float capacity, float min_prizes,
+                                        int m, int dummy, int B, int N, int A, int T, int kind,
+                                        int trace, int warps, int64_t* paths, float* logp,
+                                        float* lse, int* pos, float* rem, int* dep, int* ndep,
+                                        int* ready, float* knap, int* gate, void* stream) {
   using namespace deepaco;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int max_cols = kind == kMkp ? kMkpMaxCols : kMaxCols;
-  if (kind < kTsp || kind > kMkp || N < 2 || N > 32 * kMaxWarps * max_cols) {
+  if (kind < kTsp || kind > kPctsp || N < 2 || N > 32 * kMaxWarps * max_cols) {
     return cudaErrorInvalidValue;
   }
-  if (kind == kMkp && (m < 1 || m > kMaxDims || dummy < 0 || dummy >= N)) {
-    return cudaErrorInvalidValue;
-  }
+  if (kind == kMkp && (m < 1 || m > kMaxDims)) return cudaErrorInvalidValue;
+  if ((kind == kMkp || kind == kOp) && (dummy < 0 || dummy >= N)) return cudaErrorInvalidValue;
   int least = 1;  // at most max_cols columns a thread
   while (32 * least * max_cols < N) least *= 2;
   if (warps == 0) {  // the ants' warps at most 12 an SM, as K7c chooses
@@ -529,18 +642,21 @@ extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start
   const bool tr = trace != 0;
   Fwd p{score, start, noise,
         Plugin{kind == kCvrp ? demand : nullptr, kind == kSop ? succ : nullptr,
-               kind == kSop ? npred : nullptr, kind == kMkp ? weight : nullptr, capacity, m,
-               dummy},
+               kind == kSop ? npred : nullptr, kind == kMkp ? weight : nullptr,
+               kind == kOp ? dist : nullptr, kind == kOp ? max_len : nullptr,
+               kind == kPctsp ? prizes : nullptr, capacity, min_prizes, m, dummy},
         B, N, A, T, paths,
         tr ? Trace{logp, lse, pos, kind == kCvrp ? rem : nullptr, kind == kCvrp ? dep : nullptr,
                    kind == kCvrp ? ndep : nullptr, kind == kSop ? ready : nullptr,
-                   kind == kMkp ? knap : nullptr}
+                   kind == kMkp ? knap : nullptr, kind == kPctsp ? gate : nullptr}
            : Trace{}};
   switch (kind) {
     case kTsp: return launch_kind<kTsp>(tr, per, blocks, warps, s, p);
     case kCvrp: return launch_kind<kCvrp>(tr, per, blocks, warps, s, p);
     case kSop: return launch_kind<kSop>(tr, per, blocks, warps, s, p);
-    default: return launch_kind<kMkp>(tr, per, blocks, warps, s, p);
+    case kMkp: return launch_kind<kMkp>(tr, per, blocks, warps, s, p);
+    case kOp: return launch_kind<kOp>(tr, per, blocks, warps, s, p);
+    default: return launch_kind<kPctsp>(tr, per, blocks, warps, s, p);
   }
 }
 
@@ -549,39 +665,28 @@ extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start
 extern "C" int deepaco_rollout_bwd_kind(const float* score, const int64_t* paths, const float* g,
                                         const float* lse, const int* pos, const float* rem,
                                         const int* dep, const int* ndep, const int* ready,
-                                        const float* knap, const float* demand,
+                                        const float* knap, const int* gate, const float* demand,
                                         const float* weight, float capacity, int m, int dummy,
                                         int B, int N, int A, int T, int kind, float* d_score,
                                         void* stream) {
   using namespace deepaco;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind < kTsp || kind > kMkp || (kind == kMkp && (m < 1 || m > kMaxDims))) {
+  if (kind < kTsp || kind > kPctsp || (kind == kMkp && (m < 1 || m > kMaxDims))) {
     return cudaErrorInvalidValue;
   }
-  const dim3 grid((unsigned)((N + 31) / 32), (unsigned)N, (unsigned)B);
-  const Plugin pl{demand, nullptr, nullptr, weight, capacity, m, dummy};
+  const Plugin pl{demand, nullptr, nullptr, weight, nullptr, nullptr, nullptr, capacity, 0.0f,
+                  m, dummy};
   const Trace tr{nullptr, const_cast<float*>(lse), const_cast<int*>(pos),
                  const_cast<float*>(rem), const_cast<int*>(dep), const_cast<int*>(ndep),
-                 const_cast<int*>(ready), const_cast<float*>(knap)};
-  const int threads = 32 * kBwdWarps;
+                 const_cast<int*>(ready), const_cast<float*>(knap), const_cast<int*>(gate)};
   switch (kind) {
-    case kTsp:
-      rollout_bwd_kernel<kTsp><<<grid, threads, 0, s>>>(score, paths, g, pl, tr, B, N, A, T,
-                                                         d_score);
-      break;
-    case kCvrp:
-      rollout_bwd_kernel<kCvrp><<<grid, threads, 0, s>>>(score, paths, g, pl, tr, B, N, A, T,
-                                                          d_score);
-      break;
-    case kSop:
-      rollout_bwd_kernel<kSop><<<grid, threads, 0, s>>>(score, paths, g, pl, tr, B, N, A, T,
-                                                         d_score);
-      break;
-    default:
-      rollout_bwd_kernel<kMkp><<<grid, threads, 0, s>>>(score, paths, g, pl, tr, B, N, A, T,
-                                                         d_score);
+    case kTsp: return launch_bwd<kTsp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
+    case kCvrp: return launch_bwd<kCvrp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
+    case kSop: return launch_bwd<kSop>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
+    case kMkp: return launch_bwd<kMkp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
+    case kOp: return launch_bwd<kOp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
+    default: return launch_bwd<kPctsp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
   }
-  return cudaGetLastError();
 }
 
 // The TSP and CVRP kinds, traced, in the signature that earlier builds of
@@ -592,9 +697,10 @@ extern "C" int deepaco_rollout_fwd(const float* score, const int64_t* start, con
                                    int T, int cvrp, int warps, int64_t* paths, float* logp,
                                    float* lse, int* pos, float* rem, int* dep, int* ndep,
                                    void* stream) {
-  return deepaco_rollout_fwd_kind(score, start, noise, demand, nullptr, nullptr, nullptr,
-                                  capacity, 0, 0, B, N, A, T, cvrp ? 1 : 0, 1, warps, paths, logp,
-                                  lse, pos, rem, dep, ndep, nullptr, nullptr, stream);
+  return deepaco_rollout_fwd_kind(score, start, noise, demand, nullptr, nullptr, nullptr, nullptr,
+                                  nullptr, nullptr, capacity, 0.0f, 0, 0, B, N, A, T,
+                                  cvrp ? 1 : 0, 1, warps, paths, logp, lse, pos, rem, dep, ndep,
+                                  nullptr, nullptr, nullptr, stream);
 }
 
 extern "C" int deepaco_rollout_bwd(const float* score, const int64_t* paths, const float* g,
@@ -602,6 +708,6 @@ extern "C" int deepaco_rollout_bwd(const float* score, const int64_t* paths, con
                                    const int* dep, const int* ndep, const float* demand, int B,
                                    int N, int A, int T, int cvrp, float* d_score, void* stream) {
   return deepaco_rollout_bwd_kind(score, paths, g, lse, pos, rem, dep, ndep, nullptr, nullptr,
-                                  demand, nullptr, 0.0f, 0, 0, B, N, A, T, cvrp ? 1 : 0, d_score,
-                                  stream);
+                                  nullptr, demand, nullptr, 0.0f, 0, 0, B, N, A, T, cvrp ? 1 : 0,
+                                  d_score, stream);
 }

@@ -238,7 +238,9 @@ def _sop_heu(g, out, inst):
 # ------------------------------------------------------- rollout plug-ins --
 def _per_step(spec: Callable) -> Callable:
     """The ``construct`` of a family that samples its ``spec``'s rollout in
-    inference too, one ``ops.pick`` (K7) a step."""
+    inference too, through ``engine.rollout`` with ``ops.pick``: one
+    launch of K7r's untraced forward where the spec carries ``fused``, else
+    K7 a step."""
     return lambda tau, heu, inst, a, generator, ops: rollout(
         spec(tau, heu, inst, a), generator, pick=ops.pick).paths
 

@@ -13,6 +13,12 @@ each step ``t < T``
                SOP:  not visited_t(c) and no predecessor of c unvisited
                MKP:  c real: not visited_t(c) and knapsack_t + weight[c] <=
                      capacity in every dimension; the dummy: no real c open
+               OP:   c real: not visited_t(c) and, at every node s <= t the
+                     ant stood on but the dummy, (travel_s + dist[cur_s, c])
+                     + dist[c, 0] <= max_len; the dummy: no real c open
+               PCTSP: c > 0: not visited_t(c) and no depot pick yet; the
+                     depot: the prize collected rose above min_prizes, or
+                     every customer was visited, at a pick before t
     logits_t = where(open_t, score[b, cur_t, :], -1e30)
     a_{t+1}  = first argmax(logits_t + noise[t])      NaN above every number
     logp_t   = logits_t[a_{t+1}] - logsumexp(logits_t)
@@ -21,9 +27,12 @@ with the state of the plug-ins of ``aco/problems/``: ``tsp.py`` (and
 ``smtwtp.py``, TSP's walk from the dummy job), ``cvrp.py`` (the load
 ``used`` resets at a depot pick and then adds the pick's demand in f32, and
 the depot closes right after a depot pick while customers remain),
-``sop.py`` (the count of each node's unvisited predecessors) and
+``sop.py`` (the count of each node's unvisited predecessors),
 ``mkp.py``'s PH_suc plug-in (the knapsack adds the picked weights in f32, in
-pick order). The outputs are ``paths [B, T+1, A]`` (row 0 the start) and
+pick order), ``op.py`` (the tour length adds ``dist[cur, a]`` in f32 a pick;
+the mask is cumulative: a column out of reach once stays shut) and
+``pctsp.py`` (the start is no pick; the prize adds in f32 in pick order; a
+depot pick parks the ant). The outputs are ``paths [B, T+1, A]`` (row 0 the start) and
 ``log_probs [B, T, A]``, as ``engine.Rollout`` holds them. The backward of
 ``sum(g * log_probs)`` in ``score`` is
 
@@ -47,6 +56,8 @@ pick order). The outputs are ``paths [B, T+1, A]`` (row 0 the start) and
 
 K7r takes 2 <= N <= 4096, MKP N <= 2048 with at most 8 dimensions
 (:func:`fused_rollout_supported`); past that the engine steps through K7.
+Every kind's parked steps (a CVRP or PCTSP ant home for good, an MKP or OP
+ant on the dummy) are certain, with log-probability 0.
 """
 from __future__ import annotations
 
@@ -60,7 +71,7 @@ from deepaco_tpu_torch.ops.pick import fused_pick, fused_pick_plain
 NEG_INF = -1e30
 FUSED_ROLLOUT_MAX_N = 4096      # 16 columns a thread, 8 warps an ant
 MKP_MAX_N, MKP_MAX_DIMS = 2048, 8   # MKP: 8 columns a thread, their weights in registers
-_KINDS = {"tsp": 0, "cvrp": 1, "sop": 2, "mkp": 3}
+_KINDS = {"tsp": 0, "cvrp": 1, "sop": 2, "mkp": 3, "op": 4, "pctsp": 5}
 
 
 class RolloutShape(NamedTuple):
@@ -70,7 +81,10 @@ class RolloutShape(NamedTuple):
     k]`` nonzero iff ``k`` must precede ``j``, a 0/1 matrix as
     ``sop_spec`` takes it); ``"mkp"`` with ``weight [B, N, m]`` (the dummy
     item's row among them), the ``capacity`` of every dimension and the
-    ``dummy`` item's index."""
+    ``dummy`` item's index; ``"op"`` with the extended ``dist [B, N, N]``,
+    each instance's ``max_len [B]`` and the ``dummy`` node's index;
+    ``"pctsp"`` with ``prizes [B, N]`` (the depot, node 0, first) and the
+    gate ``min_prizes`` (compared in f32)."""
 
     kind: str
     demand: torch.Tensor | None = None
@@ -78,6 +92,10 @@ class RolloutShape(NamedTuple):
     prec: torch.Tensor | None = None
     weight: torch.Tensor | None = None
     dummy: int = -1
+    dist: torch.Tensor | None = None
+    max_len: torch.Tensor | None = None
+    prizes: torch.Tensor | None = None
+    min_prizes: float = 0.0
 
 
 TSP_SHAPE = RolloutShape("tsp")
@@ -92,9 +110,14 @@ class RolloutTrace(NamedTuple):
     no customer was left at step ``t``, else ``2 t``), ``ndep [B, A]`` of
     them; for SOP ``ready [B, A, N]`` int32 (the step at which each node's
     last predecessor was visited, ``T + 1`` if never); for MKP the knapsack
-    ``knap [B, T, A, m]`` of each step. Parked steps (a CVRP ant back at the
-    depot with every customer served, an MKP ant on the dummy item, whose
-    pick and log-probability 0 are certain) are left out."""
+    ``knap [B, T, A, m]`` of each step. For OP ``pos`` holds the path index
+    at which each column closed, by a visit or out of reach (``T + 1`` if
+    never); for PCTSP, whose start is no pick, the path index of each
+    customer's pick, and ``gate [B, A]`` int32 the path index of the pick
+    that opened the depot (``T + 1`` if none). Parked steps (a CVRP ant back
+    at the depot with every customer served, a PCTSP ant back at the depot,
+    an MKP or OP ant on the dummy, whose pick and log-probability 0 are
+    certain) are left out."""
 
     paths: torch.Tensor
     lse: torch.Tensor
@@ -104,6 +127,7 @@ class RolloutTrace(NamedTuple):
     ndep: torch.Tensor | None = None
     ready: torch.Tensor | None = None
     knap: torch.Tensor | None = None
+    gate: torch.Tensor | None = None
 
 
 def fused_rollout_supported(n: int, shape: RolloutShape = TSP_SHAPE) -> bool:
@@ -123,7 +147,9 @@ class _Walk:
     """The plug-in's state for ``B x A`` ants from ``start [B, A]``: the
     visited set and, for CVRP, the load, the customers left and the depot
     rule, as ``cvrp_construct_plain`` keeps them; for SOP the count of each
-    node's unvisited predecessors; for MKP the knapsack."""
+    node's unvisited predecessors; for MKP the knapsack; for OP the tour
+    length, with the columns out of reach among the closed ones; for PCTSP
+    the prize collected and the depot's gate (the start is no pick)."""
 
     def __init__(self, start: torch.Tensor, n: int, shape: RolloutShape):
         self.shape = shape
@@ -137,17 +163,47 @@ class _Walk:
         elif shape.kind == "mkp":
             self.knap = torch.zeros((*start.shape, shape.weight.shape[-1]),
                                     dtype=torch.float32, device=start.device)
+        elif shape.kind == "op":
+            self.travel = torch.zeros(start.shape, dtype=torch.float32, device=start.device)
+            self.cur = start
+            self._reach()
+            return
+        elif shape.kind == "pctsp":
+            self.collected = torch.zeros(start.shape, dtype=torch.float32, device=start.device)
+            self.gate = torch.zeros(start.shape, dtype=torch.bool, device=start.device)
+            return
         self.step(start)
 
     def _rows(self, m: torch.Tensor, act: torch.Tensor) -> torch.Tensor:
         """Row ``act`` of each instance's ``m [B, N, ...]``, ``[B, A, ...]``."""
         return m[torch.arange(m.shape[0], device=m.device)[:, None], act]
 
+    def _reach(self) -> None:
+        """OP's mask update at ``cur``: ``cur`` closes, and unless it is the
+        dummy every real column that the ant could not reach and still get
+        back to the depot within ``max_len`` from there, added in op.py's
+        order."""
+        dist, dummy = self.shape.dist, self.shape.dummy
+        self.closed.scatter_(-1, self.cur[..., None], True)
+        trails = self.travel[..., None] + self._rows(dist, self.cur) + dist[..., :, 0][:, None, :]
+        out = ~(trails <= self.shape.max_len[:, None, None]) & (self.cur != dummy)[..., None]
+        out[..., dummy] = False
+        self.closed |= out
+
     def open(self) -> torch.Tensor:
         """``[B, A, N]`` bool: the columns this step may pick."""
         kind = self.shape.kind
         if kind == "tsp":
             return ~self.closed
+        if kind == "pctsp":
+            real = ~self.closed
+            real[..., 0] = self.gate
+            return real
+        if kind == "op":
+            real = ~self.closed
+            real[..., self.shape.dummy] = False
+            real[..., self.shape.dummy] = ~real.any(dim=-1)
+            return real
         if kind == "sop":
             return ~self.closed & (self.count == 0)
         if kind == "mkp":
@@ -162,6 +218,21 @@ class _Walk:
 
     def step(self, act: torch.Tensor) -> None:
         kind = self.shape.kind
+        if kind == "op":
+            n = self.closed.shape[-1]
+            self.travel = self.travel + torch.gather(self.shape.dist.reshape(-1, n * n), 1,
+                                                     self.cur * n + act)
+            self.cur = act
+            self._reach()
+            return
+        if kind == "pctsp":
+            self.collected = self.collected + torch.gather(self.shape.prizes, 1, act)
+            self.closed.scatter_(-1, act[..., None], True)
+            home = act == 0
+            self.closed[..., 1:] |= home[..., None]
+            everyone = self.closed[..., 1:].all(dim=-1)
+            self.gate |= ~home & ((self.collected > self.shape.min_prizes) | everyone)
+            return
         if kind == "sop":
             self.count = self.count - self._rows(self.succ, act)
         elif kind == "mkp":
@@ -241,7 +312,8 @@ def _ptr(x: torch.Tensor | None):
 
 
 def _check(name, score, start, noise, shape):
-    inputs = {"cvrp": (shape.demand,), "sop": (shape.prec,), "mkp": (shape.weight,)}
+    inputs = {"cvrp": (shape.demand,), "sop": (shape.prec,), "mkp": (shape.weight,),
+              "op": (shape.dist, shape.max_len), "pctsp": (shape.prizes,)}
     _build.require_cuda(name, score, start, noise, *inputs.get(shape.kind, ()))
     b, n, _ = score.shape
     if score.shape != (b, n, n) or start.dim() != 2 or start.shape[0] != b \
@@ -260,6 +332,15 @@ def _check(name, score, start, noise, shape):
                                 or shape.weight.dtype != torch.float32
                                 or not 0 <= shape.dummy < n):
         raise ValueError(f"{name}: expected f32 weight [B, N, m] and a dummy item below N")
+    if shape.kind == "op" and (shape.dist.shape != (b, n, n) or shape.max_len.shape != (b,)
+                               or shape.dist.dtype != torch.float32
+                               or shape.max_len.dtype != torch.float32
+                               or not 0 <= shape.dummy < n):
+        raise ValueError(f"{name}: expected f32 dist [B, N, N], max_len [B] and a dummy "
+                         "node below N")
+    if shape.kind == "pctsp" and (shape.prizes.shape != (b, n)
+                                  or shape.prizes.dtype != torch.float32):
+        raise ValueError(f"{name}: expected f32 prizes [B, N]")
     if not fused_rollout_supported(n, shape):
         raise ValueError(f"{name}: K7r takes 2 <= N <= {FUSED_ROLLOUT_MAX_N} (MKP: N <= "
                          f"{MKP_MAX_N}, m <= {MKP_MAX_DIMS}), got N = {n}")
@@ -288,7 +369,8 @@ def fused_rollout_forward(score: torch.Tensor, start: torch.Tensor, noise: torch
                       new((b, a, t), torch.int32, kind == "cvrp"),
                       new((b, a), torch.int32, kind == "cvrp"),
                       new((b, a, n), torch.int32, kind == "sop"),
-                      new((b, t, a, m), torch.float32, kind == "mkp"))
+                      new((b, t, a, m), torch.float32, kind == "mkp"),
+                      new((b, a), torch.int32, kind == "pctsp"))
     if b * a > 0:
         # the inputs held contiguous until the launch is queued
         score, start, noise = score.contiguous(), start.contiguous(), noise.contiguous()
@@ -296,14 +378,18 @@ def fused_rollout_forward(score: torch.Tensor, start: torch.Tensor, noise: torch
         weight = shape.weight.contiguous() if kind == "mkp" else None
         succ = _succ(shape.prec) if kind == "sop" else None
         npred = succ.sum(dim=1, dtype=torch.int32) if kind == "sop" else None
+        dist = shape.dist.contiguous() if kind == "op" else None
+        max_len = shape.max_len.contiguous() if kind == "op" else None
+        prizes = shape.prizes.contiguous() if kind == "pctsp" else None
         P, I, F = _build.P, _build.I, _build.F
         fn = _build.function("deepaco_rollout_fwd_kind",
-                             [P] * 7 + [F] + [I] * 9 + [P] * 9 + [P])
+                             [P] * 10 + [F] * 2 + [I] * 9 + [P] * 10 + [P])
         rc = fn(score.data_ptr(), start.data_ptr(), noise.data_ptr(), _ptr(demand), _ptr(succ),
-                _ptr(npred), _ptr(weight), float(shape.capacity), m, shape.dummy, b, n, a, t,
+                _ptr(npred), _ptr(weight), _ptr(dist), _ptr(max_len), _ptr(prizes),
+                float(shape.capacity), float(shape.min_prizes), m, shape.dummy, b, n, a, t,
                 _KINDS[kind], int(trace), warps, paths.data_ptr(), _ptr(logp), _ptr(rt.lse),
                 _ptr(rt.pos), _ptr(rt.rem), _ptr(rt.dep), _ptr(rt.ndep), _ptr(rt.ready),
-                _ptr(rt.knap), _build.stream_ptr(dev))
+                _ptr(rt.knap), _ptr(rt.gate), _build.stream_ptr(dev))
         _build.check(rc, "deepaco_rollout_fwd_kind")
         (fused_rollout if trace else fused_rollout_paths).launches += 1
     return (paths, logp, rt) if trace else (paths, None, None)
@@ -329,10 +415,10 @@ def fused_rollout_backward(score: torch.Tensor, trace: RolloutTrace, g: torch.Te
     m = weight.shape[-1] if weight is not None else 0
     d = torch.empty_like(score)
     P, I, F = _build.P, _build.I, _build.F
-    fn = _build.function("deepaco_rollout_bwd_kind", [P] * 12 + [F] + [I] * 7 + [P] + [P])
+    fn = _build.function("deepaco_rollout_bwd_kind", [P] * 13 + [F] + [I] * 7 + [P] + [P])
     rc = fn(score.data_ptr(), trace.paths.data_ptr(), g.data_ptr(), trace.lse.data_ptr(),
             trace.pos.data_ptr(), _ptr(trace.rem), _ptr(trace.dep), _ptr(trace.ndep),
-            _ptr(trace.ready), _ptr(trace.knap), _ptr(demand), _ptr(weight),
+            _ptr(trace.ready), _ptr(trace.knap), _ptr(trace.gate), _ptr(demand), _ptr(weight),
             float(shape.capacity), m, shape.dummy, b, n, a, t, _KINDS[shape.kind], d.data_ptr(),
             _build.stream_ptr(score.device))
     _build.check(rc, "deepaco_rollout_bwd_kind")

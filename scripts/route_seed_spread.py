@@ -4,7 +4,7 @@ one-launch rollout (K7r's untraced forward, one noise draw an iteration) and
 through the per-step route (K7 a step, a noise draw a step), beside the JAX
 package's recorded costs.
 
-    python3 scripts/route_seed_spread.py [--families smtwtp sop mkp] [--seeds 10]
+    python3 scripts/route_seed_spread.py [--families op pctsp smtwtp sop mkp] [--seeds 10]
         [--out FILE]
 
 For each family it runs ``chip_smoke.py``'s phase-14 path (the golden set at
@@ -32,7 +32,8 @@ ROOT = Path(__file__).resolve().parent.parent
 
 def main() -> int:
     parser = argparse.ArgumentParser()
-    parser.add_argument("--families", nargs="+", default=["smtwtp", "sop", "mkp"])
+    parser.add_argument("--families", nargs="+",
+                        default=["op", "pctsp", "smtwtp", "sop", "mkp"])
     parser.add_argument("--seeds", type=int, default=10)
     parser.add_argument("--out", type=Path)
     args = parser.parse_args()

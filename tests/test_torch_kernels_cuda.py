@@ -724,11 +724,16 @@ def _rollout_case(dev, kind, b, n, a, capacity=None, seed=0):
     shape: CVRP demands 1-9, or k/150 at capacity 1 (CVRP-NLS), or BPP's
     sizes 20-100 at capacity 150; SOP's precedences of ``families.gen_sop``
     (N nodes); MKP's weights of ``families.gen_mkp`` (N - 1 items in 5
-    dimensions and the dummy, capacity (N - 1) // 2)."""
+    dimensions and the dummy, capacity (N - 1) // 2); OP's distances of
+    ``families.gen_op`` (N - 1 nodes and the dummy; ``"op_rand"``: uniform
+    distances, no metric, so that a column out of reach once can fit later)
+    with a budget of 1-4 an instance; PCTSP's prizes of ``families.gen_pctsp``
+    (the depot and N - 1 customers) with the gate (N - 1) / 4."""
     import numpy as np
 
     from deepaco_tpu_torch.aco.engine import gumbel
-    from deepaco_tpu_torch.families import gen_mkp, gen_sop
+    from deepaco_tpu_torch.aco.problems.op import extend_op_instance
+    from deepaco_tpu_torch.families import gen_mkp, gen_op, gen_pctsp, gen_sop
     from deepaco_tpu_torch.ops import rollout
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -746,6 +751,19 @@ def _rollout_case(dev, kind, b, n, a, capacity=None, seed=0):
         start = torch.randint(0, n - 1, (b, a), generator=g, device=dev)
         shape, t = rollout.RolloutShape("mkp", capacity=(n - 1) // 2, weight=weight,
                                         dummy=n - 1), n
+    elif kind.startswith("op"):
+        dist = (np.stack([gen_op(rng, n - 1)["dist"] for _ in range(b)]) if kind == "op"
+                else (0.05 + rng.random((b, n - 1, n - 1))).astype(np.float32))
+        dist = torch.as_tensor(dist, device=dev)
+        dist = extend_op_instance(dist, dist[..., 0], dist)[0]
+        max_len = torch.as_tensor(rng.uniform(1.0, 4.0, b).astype(np.float32), device=dev)
+        start = torch.zeros((b, a), dtype=torch.int64, device=dev)
+        shape, t = rollout.RolloutShape("op", dist=dist, max_len=max_len, dummy=n - 1), n
+    elif kind == "pctsp":
+        prizes = torch.as_tensor(np.stack([gen_pctsp(rng, n - 1)["prizes"] for _ in range(b)]),
+                                 device=dev)
+        start = torch.zeros((b, a), dtype=torch.int64, device=dev)
+        shape, t = rollout.RolloutShape("pctsp", prizes=prizes, min_prizes=(n - 1) / 4.0), n + 1
     elif kind.startswith("tsp"):
         start = (torch.randint(0, n, (b, a), generator=g, device=dev) if kind == "tsp"
                  else torch.zeros((b, a), dtype=torch.int64, device=dev))
@@ -767,7 +785,13 @@ ROLLOUT_CASES = [("tsp", 3, 50, 6, None), ("tsp0", 2, 33, 5, None), ("cvrp", 3, 
                  ("tsp0", 20, 500, 30, None), ("cvrp", 1, 501, 50, 50.0),
                  ("sop", 3, 20, 5, None), ("sop", 1, 100, 50, None), ("sop", 1, 700, 3, None),
                  ("mkp", 3, 31, 6, None), ("mkp", 1, 301, 50, None), ("mkp", 1, 2048, 2, None),
-                 ("tsp0", 1, 501, 50, None)]
+                 ("tsp0", 1, 501, 50, None),
+                 ("op", 3, 31, 6, None), ("op", 1, 302, 20, None), ("op", 1, 302, 50, None),
+                 ("op", 100, 302, 20, None), ("op_rand", 2, 41, 8, None),
+                 ("op", 1, 4096, 2, None),
+                 ("pctsp", 3, 21, 5, None), ("pctsp", 1, 501, 20, None),
+                 ("pctsp", 1, 501, 50, None), ("pctsp", 100, 501, 20, None),
+                 ("pctsp", 1, 4096, 2, None)]
 
 
 @pytest.mark.parametrize("kind,b,n,a,capacity", ROLLOUT_CASES)
@@ -779,7 +803,8 @@ def test_rollout_kernel_matches_plain(dev, kind, b, n, a, capacity):
     rollout_backward_plain (rtol 1e-4, atol 1e-5 of the largest entry),
     equal bits on a repeat; one launch each way. Among the cases are
     TSP500-NLS training's, CVRP500's, SOP100's, MKP300's and SMTWTP500's
-    (TSP's walk from job 0) shapes."""
+    (TSP's walk from job 0) shapes, and OP300's and PCTSP500's at their
+    training (B=1, A=20 and 50) and inference (B=100, A=20) shapes."""
     from deepaco_tpu_torch.ops import rollout
 
     score, start, noise, shape = _rollout_case(dev, kind, b, n, a, capacity)
@@ -1401,9 +1426,9 @@ def test_deposit_kernel_on_parked_pctsp_routes(dev):
 def test_evaluate_family_runs_the_per_step_families_on_the_card(dev, name, n, ckpt):
     """evaluate_family on 4 golden instances on the card: finite curves
     that move one way, valid best solutions, and K9 once, K8 once an
-    iteration, and the construction K7 once a step (OP, PCTSP) or K7r's
-    untraced forward once an iteration (SMTWTP, SOP, MKP); K6 and K7c
-    never."""
+    iteration, and the construction K7r's untraced forward once an
+    iteration (OP and PCTSP since they took K7r's kinds; SMTWTP, SOP,
+    MKP); K6, K7 and K7c never."""
     from deepaco_tpu_torch.aco.problems.mkp import validate_mkp
     from deepaco_tpu_torch.aco.problems.op import validate_op
     from deepaco_tpu_torch.aco.problems.pctsp import validate_pctsp
@@ -1422,10 +1447,7 @@ def test_evaluate_family_runs_the_per_step_families_on_the_card(dev, name, n, ck
     before = [fn.launches for fn in counters]
     _, curves, state = evaluate_family(name, ds, n_nodes=n, net=net, n_ants=8,
                                        t_values=(1, 3), return_state=True)
-    horizon = fam.horizon_states(n)[1]
-    fused = name in ("smtwtp", "sop", "mkp")
-    assert [fn.launches - b for fn, b in zip(counters, before)] == [
-        1, 0, 0 if fused else 3 * horizon, 3, 0, 3 if fused else 0]
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [1, 0, 0, 3, 0, 3]
     sign = -1.0 if fam.aco.maximize else 1.0
     assert curves.is_cuda and bool(torch.isfinite(curves).all())
     assert bool((sign * curves[:, 1:] <= sign * curves[:, :-1]).all())

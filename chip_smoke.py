@@ -184,31 +184,38 @@ Phases, one JSON line each:
    CLI;
 16. MKP-items 500 (``family_phase`` with ``mkp_items``):
    ``mkp_items500_selftrained`` (the transformer) on the 100 golden
-   instances, 20 ants, T=1 and 10: K7 on the rows of one construction
-   (``[B*A, 501]``), the path in a kernel arm (K7 501 times an iteration,
-   the vector pheromone, no K8 or K9), a plain arm equal to it to the digit
-   and a classic arm it beats at T10, within 3% of ``JAX_COSTS`` (its
-   idle share: ``scripts/profile_torch_main_path.py --family mkp_items``);
-   training at the envelope (50 ants, lr
-   3e-4, AdamW decay 1e-2, clip 3.0): one step kernel arm against plain
-   arm, two steps of ``make_family_train_step`` (501 K7 launches a step,
-   nothing else), and the CLI's ``test``;
+   instances, 20 ants, T=1 and 10: K7r's untraced forward (the ``"items"``
+   kind: one score row an instance) on one construction's own inputs (B=100,
+   A=20, N=501), the path in a kernel arm (K7r's untraced forward once an
+   iteration, the vector pheromone, no K7, K8 or K9), a plain arm equal to
+   it to the digit and a classic arm it beats at T10, within 3% of
+   ``JAX_COSTS`` over 8 seeds (its idle share:
+   ``scripts/profile_torch_main_path.py --family mkp_items``); training at
+   the envelope (50 ants, lr 3e-4, AdamW decay 1e-2, clip 3.0): one step
+   kernel arm against plain arm with K7r on its rollout (B=1, A=50), two
+   steps of ``make_family_train_step`` (K7r once each way a step, nothing
+   else), and the CLI's ``test``;
 17. RCPSP j120 (``rcpsp_phase``): an archive of 104 seeded j120-shaped
    instances (``core.rcpsp.progen_rcp``: 122 activities, 4 resources,
    ProGen's RF 0.5 and RS 0.3) written under a temporary
-   ``$DEEPACO_REFERENCE_ROOT``; K7 on the rows of one neural construction
-   through ``probs_fn`` (B=100, A=20, N=122) and K8 on the elitist update's
-   two lists (directed), held as in phases 6 and 9; ``cli._cmd_test_rcpsp``
-   (``test rcpsp -n 120`` with ``rcpsp120_selftrained``, 20 ants, T=1 and
-   10) in a kernel, a plain (``drivers.PLAIN_OPS``), a classic and a
-   ``--backfill`` arm: every best schedule passes ``check_schedule`` and
-   has the best makespan, the kernel arm's cost@T1 within 1e-4 of the
-   plain arm's and cost@T10 within 1%, K7 1,210 and K8 10 launches on the
+   ``$DEEPACO_REFERENCE_ROOT``; K7r's untraced forward (SOP's kind on the
+   direct evaluation's score and ``adj^T``) on one neural construction's
+   own inputs (B=100, A=20, N=122) and K8 on the elitist update's two lists
+   (directed), held as in phases 6 and 9; ``cli._cmd_test_rcpsp`` (``test
+   rcpsp -n 120`` with ``rcpsp120_selftrained``, 20 ants, T=1 and 10) in a
+   kernel, a plain (``drivers.PLAIN_OPS``), a classic and a ``--backfill``
+   arm: every best schedule passes ``check_schedule`` and has the best
+   makespan, the kernel arm's cost@T1 within 1e-4 of the plain arm's and
+   cost@T10 within 1%, K7r's untraced forward 10 and K8 10 launches on the
    kernel, classic and backfill arms and nothing else; one training step
-   (20 ants) kernel arm against plain arm as in phase 11, K7 on its rows,
-   then ``train rcpsp -n 120 -e 1 -s 2`` (242 K7 launches, nothing else)
-   and ``test rcpsp --ckpt`` of what it wrote; the kernel arm's first
-   iteration once more under the profiler for the device's idle share;
+   (20 ants) kernel arm against plain arm as in phase 11, K7r on its
+   rollout, then ``train rcpsp -n 120 -e 1 -s 2`` (K7r once each way a
+   step, nothing else) and ``test rcpsp --ckpt`` of what it wrote; the
+   kernel arm's first iteration once more under the profiler for the
+   device's idle share; the blend (``RCPSPACO`` with gamma 0.5 and c 0.6 on
+   the first test instance, 20 ants, T=2): K7 a step (242) and K8 2
+   launches, nothing else, a feasible best schedule, and K7 on the rows of
+   one more construction on its pheromone against its plain version;
 18. ``test tsp`` on a golden file (``tsp_golden_phase``): the main path's
    first 16 instances written as ``tsp/testDataset-500.pt`` under a
    temporary ``$DEEPACO_REFERENCE_DATA``; K7r's untraced forward, K4, K5
@@ -230,7 +237,7 @@ Phases, one JSON line each:
    ``mkp_items500_selftrained`` written as reference-layout ``.pt`` files,
    ``test cvrp -n 500`` and ``test mkp_items -n 500`` through the CLI with
    ``--ckpt`` the ``.pt`` and the msgpack: equal cost lines, launches as on
-   the family paths (K9 1, K7c 10, K8 10; K7 5,010), and
+   the family paths (K9 1, K7c 10, K8 10; K7r's untraced forward 10), and
    ``save_params_npz`` of the net read from the ``.pt`` holding the
    msgpack's names and arrays; (b) ``AdaptiveCVRPACO`` on the first 4
    golden CVRP500 instances (``1/d``, 20 ants, T=10, seeds 0-3) beside
@@ -245,7 +252,8 @@ Phases, one JSON line each:
    first iteration under the profiler; K3 with the f32 score against its
    plain version; (d) ``make_mkp_items_train_step`` at MKP-items 500's
    envelope: the family loss it runs, kernel arm against plain arm held
-   as in phase 7, then the step itself, K7 501 each and nothing else;
+   as in phase 7, then the step itself, K7r once each way in each and
+   nothing else;
 20. the multi-GPU paths (``parallel_phase``, ``parallel/``) at world size 1,
    a one-rank NCCL group and a 1 x 1 mesh (NCCL refuses two ranks on one
    card), and with two cards or more also one rank a card on a 2 x D/2 mesh
@@ -280,11 +288,14 @@ Phases, one JSON line each:
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7r (forward
    ``fused_rollout``, backward ``fused_rollout_backward``) from the
    TSP500-NLS training run, K7r's untraced forward (``fused_rollout_paths``)
-   from phase 18's family path, K7 from phase 16's MKP-items 500 path, K7c
+   from phase 18's family path, K7 from phase 17's RCPSP blend run, K7c
    and K8 from the CVRP path's kernel arm, K9 from the sparse and the CVRP
    paths' kernel arms together; row 9 is on no path of either package, so
    its count is 0), error, times and bound; K7r's entries carry ``tsp500``,
-   ``bpp``, ``cvrp_nls`` and ``parallel`` too; K6's and K7r's entries also
+   ``bpp``, ``cvrp_nls``, ``mkp_items``, ``rcpsp`` and ``parallel`` too
+   (their launches in that path's training and, untraced, on its kernel
+   arm, with their error, times and bound at its shapes); K6's and K7r's
+   entries also
    carry ``cvrp_train``: their launches in phase 11's three steps and their
    times, error and bound at its shapes; K6,
    K7, K8 and K9 carry ``op``, ``pctsp``, ``smtwtp``, ``sop``, ``bpp`` and
@@ -292,14 +303,16 @@ Phases, one JSON line each:
    untraced, K8, K9) and in its two training steps (K6, K7 or K7r), with
    their error, times and bound at its shapes; K7r's untraced forward
    (``fused_rollout_paths``: SMTWTP500's inference shape, its launches from
-   phase 18's family path) carries ``op``, ``pctsp``, ``smtwtp``, ``sop``
-   and ``mkp``; K7c and K8 carry ``cvrp_nls`` and K7
-   ``mkp_items`` the same way; K7 (its launches from the MKP-items 500
-   path) carries
-   ``rcpsp``, K7r untraced, K8, K4 and K5 ``tsp_facade``; phase 19's launches: K1 and
-   K3 ``sparse_runner`` (K3 also its f32-score times), K9, K7c, K8 and K7
-   ``reference_pt``, K7c and K8 ``adaptive_cvrp`` (with their times at
-   its shapes), K7 ``mkp_items_step``; phase 20's under ``parallel``: K6's row-shard
+   phase 18's family path) carries ``op``, ``pctsp``, ``smtwtp``, ``sop``,
+   ``mkp``, ``mkp_items`` and ``rcpsp``; K7c and K8 carry ``cvrp_nls`` the
+   same way; K7 (its launches from the RCPSP blend run) carries
+   ``rcpsp_blend`` (its launches, error, times and bound on the blend's
+   rows) and ``rcpsp`` (0 on the direct evaluation's path and training), K8
+   ``rcpsp``, K7r untraced, K8, K4 and K5 ``tsp_facade``; phase 19's
+   launches: K1 and K3 ``sparse_runner`` (K3 also its f32-score times), K9,
+   K7c, K8 and K7r untraced ``reference_pt``, K7c and K8 ``adaptive_cvrp``
+   (with their times at its shapes), K7r ``mkp_items_step``; phase 20's
+   under ``parallel``: K6's row-shard
    launches, its launches in a sharded step and its time, error and bound
    on the row shard; K6 backward's and K7's in a sharded step, K7r
    untraced's in the island search; K8's on ``evaluate_family(mesh=)``
@@ -357,12 +370,10 @@ FAMILY_PATHS = {"cvrp": (CVRP_N, CVRP_CKPT, A_TRAIN, 5, 128),
                 "mkp": (300, "checkpoints/mkp300_selftrained.msgpack", 50, 10, 64),
                 "mkp_items": (500, "checkpoints/mkp_items500_selftrained.msgpack", 50, 5, 256)}
 # phase 14's families, in order; BPP constructs through K7c in inference,
-# the others through K7r's untraced forward (FUSED_INFER)
+# the others (and phase 16's MKP-items) through K7r's untraced forward, and
+# every family's training rollout takes K7r (the plug-ins carry ``fused``)
 FAMILY_PHASE = ("op", "pctsp", "smtwtp", "sop", "bpp", "mkp")
 ONE_PASS = ("bpp",)
-FUSED_INFER = ("op", "pctsp", "smtwtp", "sop", "mkp")
-# the families whose training rollout takes K7r (the plug-ins with ``fused``)
-FUSED_TRAIN = ("cvrp", "bpp", "op", "pctsp", "smtwtp", "sop", "mkp")
 FAMILY_TRAIN_STEPS = 2
 FAMILY_PICK_AT = (0.0, 1 / 3, 2 / 3)    # K7's checks on their rows, as shares of the horizon
 # the JAX package's costs at T1 and T10 (RESULTS.md:164, 170-171, 175, 178,
@@ -391,6 +402,9 @@ CVRP_PICK_AT = (0.0, 0.15, 0.4, 0.7)   # K7's CVRP checks, as shares of the hori
 # checkpoint, the CLI's training cut to RCPSP_TRAIN_STEPS steps
 RCPSP_N, RCPSP_CKPT = 120, "checkpoints/rcpsp120_selftrained.msgpack"
 RCPSP_INSTANCES, RCPSP_TRAIN_STEPS = 104, 2
+# the blend (gamma >= 0.05, c < 1), K7's last route: RCPSPACO on the first
+# test instance, RCPSP_BLEND_T iterations
+RCPSP_BLEND, RCPSP_BLEND_T = {"gamma": 0.5, "c": 0.6}, 2
 # phase 18, test tsp on the golden file the smoke writes: the main path's
 # first TSP_GOLDEN_B instances; the per-instance arms on the first TSP_PER_B
 # at TSP_PER_T
@@ -410,8 +424,8 @@ RECORDED_COSTS = {"main": (None, 19.6391), "main_plain": (20.6735, 19.6335),
                   "op": (73.2084, 80.1825), "pctsp": (16.2131, 15.7105),
                   "smtwtp": (0.6824, 0.5497), "sop": (72.2384, 70.8659),
                   "bpp": (0.9544, 0.9588), "mkp": (58.1421, 59.3408),
-                  "cvrp_nls": (33.2462, 33.0091), "mkp_items": (98.9476, 100.0285),
-                  "rcpsp": (137.7, 130.67), "rcpsp_backfill": (103.17, 100.22),
+                  "cvrp_nls": (33.2462, 33.0091), "mkp_items": (98.8829, 99.9512),
+                  "rcpsp": (136.82, 130.13), "rcpsp_backfill": (103.08, 100.17),
                   "tsp_family": (20.883, 19.8193), "tsp_nls_batched": (17.1227, 16.9536),
                   "tsp_nls_per_instance": (17.1562, 17.0908),
                   "tsp_2opt_per_instance": (17.8571, 17.7711),
@@ -812,10 +826,11 @@ def rollout_work(score, noise, shape, paths, traced: bool = True):
     """K7r's bytes and f32 operations for ``bound``, forward and backward,
     over the steps this run's ants take (a CVRP ant stops once back at the
     depot with every customer served, a PCTSP ant once back at the depot,
-    an MKP or OP ant once on the dummy: their later picks are certain).
-    Forward: the score, those steps' noise, the starts and the plug-in's own
-    input (CVRP's demands, SOP's precedence bytes and predecessor counts,
-    MKP's weights, OP's distances and budgets, PCTSP's prizes) read, paths
+    an MKP, MKP-items or OP ant once on the dummy: their later picks are
+    certain). Forward: the score (MKP-items: its one row an instance), those
+    steps' noise, the starts and the plug-in's own input (CVRP's demands,
+    SOP's precedence bytes and predecessor counts, MKP's and MKP-items'
+    weights, OP's distances and budgets, PCTSP's prizes) read, paths
     and (traced) log-probabilities written; a select, compare, exp and add
     for the logsumexp and an add and compare for the maximum a column a
     step, MKP's add and compare a dimension, OP's two adds and a compare.
@@ -823,9 +838,10 @@ def rollout_work(score, noise, shape, paths, traced: bool = True):
     multiply and add a column a step."""
     import torch
 
-    b, n, _ = score.shape
+    b, n = score.shape[0], score.shape[-1]
+    score_bytes = 4 * score.numel()
     t, _, a, _ = noise.shape
-    if shape.kind in ("cvrp", "mkp", "op", "pctsp"):
+    if shape.kind in ("cvrp", "mkp", "items", "op", "pctsp"):
         idx = torch.arange(1, t + 1, device=paths.device)[None, :, None]
         if shape.kind == "cvrp":
             last = ((paths[:, 1:] != 0) * idx).amax(dim=1)   # the last customer's index
@@ -838,12 +854,13 @@ def rollout_work(score, noise, shape, paths, traced: bool = True):
         steps = b * a * t
     own = {"cvrp": 4 * b * n, "sop": b * n * n + 4 * b * n,
            "mkp": 0 if shape.weight is None else 4 * shape.weight.numel(),
+           "items": 0 if shape.weight is None else 4 * shape.weight.numel(),
            "op": 4 * b * n * n + 4 * b, "pctsp": 4 * b * n}.get(shape.kind, 0)
-    ops = 6 + {"mkp": 2 * shape.weight.shape[-1] if shape.weight is not None else 0,
-               "op": 3}.get(shape.kind, 0)
+    dims = 2 * shape.weight.shape[-1] if shape.weight is not None else 0
+    ops = 6 + {"mkp": dims, "items": dims, "op": 3}.get(shape.kind, 0)
     out_bytes = 8 * b * (t + 1) * a + (4 * b * t * a if traced else 0)
-    fwd = (4 * b * n * n + 4 * steps * n + 8 * b * a + own + out_bytes, ops * steps * n)
-    bwd = (8 * b * n * n + 4 * b * t * a + 8 * b * (t + 1) * a, 4 * steps * n)
+    fwd = (score_bytes + 4 * steps * n + 8 * b * a + own + out_bytes, ops * steps * n)
+    bwd = (2 * score_bytes + 4 * b * t * a + 8 * b * (t + 1) * a, 4 * steps * n)
     return fwd, bwd, steps
 
 
@@ -872,8 +889,8 @@ def kernel_device_ms(fn, names, reps: int = 5) -> dict:
 
 
 def check_rollout(cuda_ms, score, start, noise, shape, config: str) -> dict:
-    """K7r on a rollout's own inputs (``score [B, N, N]``, ``start [B, A]``,
-    ``noise [T, B, A, N]``, the plug-in's shape): the forward against
+    """K7r on a rollout's own inputs (``score [B, N, N]``, MKP-items' ``[B,
+    N]``, ``start [B, A]``, ``noise [T, B, A, N]``, the plug-in's shape): the forward against
     ``fused_rollout_plain`` on the same noise, the backward on one cotangent
     against ``rollout_backward_plain`` (ROLLOUT_TOLERANCE), a repeat of the
     backward and autograd through ``fused_rollout`` bit-equal to it; each
@@ -885,7 +902,7 @@ def check_rollout(cuda_ms, score, start, noise, shape, config: str) -> dict:
     from deepaco_tpu_torch.ops import rollout
 
     dev = score.device
-    b, n, _ = score.shape
+    b, n = score.shape[0], score.shape[-1]
     a, t = start.shape[1], noise.shape[0]
     g = torch.randn((b, t, a), generator=torch.Generator(device=dev).manual_seed(SEED + 30),
                     device=dev)
@@ -915,7 +932,10 @@ def check_rollout(cuda_ms, score, start, noise, shape, config: str) -> dict:
     bwd_plain_ms = cuda_ms(lambda: rollout.rollout_backward_plain(score, paths_p, g, shape), 1)
     device = kernel_device_ms(lambda: (rollout.fused_rollout_forward(score, start, noise, shape),
                                        rollout.fused_rollout_backward(score, trace, g, shape)),
-                              ("rollout_fwd", "rollout_bwd"))
+                              ("rollout_fwd", "rollout_bwd", "rollout_items_sum"))
+    if shape.kind == "items" and "not measured" not in (device["rollout_bwd"],
+                                                        device["rollout_items_sum"]):
+        device["rollout_bwd"] += device["rollout_items_sum"]    # its second pass
     fwd_work, bwd_work, steps = rollout_work(score, noise, shape, paths_k)
     fwd_bound, bwd_bound = bound(*fwd_work), bound(*bwd_work)
     common = {"B": b, "N": n, "A": a, "T": t, "ant_steps": steps}
@@ -944,7 +964,7 @@ def check_rollout_paths(cuda_ms, score, start, noise, shape, config: str) -> dic
 
     from deepaco_tpu_torch.ops import rollout
 
-    b, n, _ = score.shape
+    b, n = score.shape[0], score.shape[-1]
     a, t = start.shape[1], noise.shape[0]
     untraced = lambda: rollout.fused_rollout_forward(score, start, noise, shape, trace=False)[0]
     torch.cuda.synchronize()
@@ -1477,19 +1497,17 @@ def family_train_inputs(dev, name: str = "cvrp"):
     return family, cfg, drivers.init_family_state(family, cfg, rng, gen), rng, gen
 
 
-def family_train_step_arms(dev, name: str = "cvrp", shares=CVRP_PICK_AT):
+def family_train_step_arms(dev, name: str = "cvrp"):
     """One training step of a family from the seed's weights on the first
-    batch that ``train_family`` draws: the kernel arm samples through K6 and
-    K7r (the TSP and CVRP plug-ins: CVRP, BPP) or K7 a step, the plain arm
-    replays its paths with the plain layer. Returns the comparison (with the
-    solutions' validity and costs), K7r's inputs ``[(score, start, noise,
-    shape)]`` or K7's at the ``shares`` of the rollout, the batch and the
-    stepped net."""
+    batch that ``train_family`` draws: the kernel arm samples through K6 (a
+    GNN's) and K7r, the plain arm replays its paths with the plain layer.
+    Returns the comparison (with the solutions' validity and costs), K7r's
+    inputs ``[(score, start, noise, shape)]``, the batch and the stepped
+    net."""
     import copy
 
     import torch
 
-    from deepaco_tpu_torch.ops import pick
     from deepaco_tpu_torch.train import drivers
 
     family, cfg, state, rng, gen = family_train_inputs(dev, name)
@@ -1498,23 +1516,9 @@ def family_train_step_arms(dev, name: str = "cvrp", shares=CVRP_PICK_AT):
     before = copy.deepcopy(net_k.state_dict())
     batch = drivers.gen_batch(family, rng, cfg.n_nodes, cfg.train.batch_size)
     inst = family.prepare(drivers.instance_tensors(batch, dev))
-    horizon = family.horizon_states(cfg.n_nodes)[1]
-    at = {int(f * horizon) for f in shares}
-    steps = iter(range(horizon))
     captured = []
-
-    def capture(score, mask, noise):
-        step = next(steps)
-        if step in at:
-            captured.append((step, score.detach().clone(), mask.clone(), noise.clone()))
-        return pick.fused_pick(score, mask, noise)
-
-    if name in FUSED_TRAIN:
-        with captured_rollouts(captured):
-            out_k = drivers.family_loss(family, net_k, inst, cfg, gen)
-    else:
-        out_k = drivers.family_loss(family, net_k, inst, cfg, gen,
-                                    _ops=drivers.KERNEL_OPS._replace(pick=capture))
+    with captured_rollouts(captured):
+        out_k = drivers.family_loss(family, net_k, inst, cfg, gen)
     out_k.loss.backward()
     out_p = drivers.family_loss(family, net_p, inst, cfg, gen, paths=out_k.paths,
                                 _ops=drivers.PLAIN_OPS)
@@ -1535,19 +1539,18 @@ def family_rollout(dev, name: str, net, ds):
     """One construction of a phase-14 family's path at its full size (the
     golden set, A=20) on its neural heuristic with tau = 1: for BPP one K7c
     launch (``cvrp_construct`` on the score matrix, as its first iteration
-    runs it), for OP, PCTSP, SMTWTP, SOP and MKP one launch of K7r's
-    untraced forward, else a K7 a step. Returns the paths, the update's
-    amounts (``q * objective`` for OP and MKP, ``fitness / A`` for BPP, ``1
-    / (cost + offset)`` else), the graph, K7r's ``(score, start, noise,
-    shape)`` (FUSED_INFER) or K7's inputs at the shares FAMILY_PICK_AT of
-    the horizon (none for BPP), and the score matrix."""
+    runs it), for the others (OP, PCTSP, SMTWTP, SOP, MKP, MKP-items) one
+    launch of K7r's untraced forward. Returns the paths, the update's
+    amounts (``q * objective`` for OP, MKP and MKP-items, ``fitness / A``
+    for BPP, ``1 / (cost + offset)`` else), the graph, K7r's ``[(score,
+    start, noise, shape)]`` (none for BPP), and the score matrix (MKP-items:
+    its one row an instance)."""
     import torch
 
     from deepaco_tpu_torch.aco.engine import rollout
     from deepaco_tpu_torch.aco.problems.tsp import score_matrix
     from deepaco_tpu_torch.families import BPP_CAPACITY, get_family
     from deepaco_tpu_torch.ops import cvrp_construct as cc
-    from deepaco_tpu_torch.ops import pick
     from deepaco_tpu_torch.train import drivers
 
     fam = get_family(name)
@@ -1563,23 +1566,10 @@ def family_rollout(dev, name: str, net, ds):
                                       torch.Generator(device=dev).manual_seed(SEED + 12))
         return paths, fam.cost(paths, inst) / A, graph, [], score
     spec = fam.spec(torch.ones_like(heu), heu, inst, A)
-    at = {int(f * spec.horizon) for f in FAMILY_PICK_AT}
-    steps = iter(range(spec.horizon))
     captured = []
-
-    def capture(score, mask, noise):
-        step = next(steps)
-        if step in at:
-            captured.append((step, score.clone(), mask.clone(), noise.clone()))
-        return pick.fused_pick(score, mask, noise)
-
     gen = torch.Generator(device=dev).manual_seed(SEED + 12)
-    with torch.no_grad():
-        if name in FUSED_INFER:
-            with captured_rollouts(captured):
-                paths = rollout(spec, gen).paths
-        else:
-            paths = rollout(spec, gen, pick=capture).paths
+    with torch.no_grad(), captured_rollouts(captured):
+        paths = rollout(spec, gen).paths
         costs = fam.cost(paths, inst)
     q = fam.extras(inst).get("q")
     amounts = q[:, None] * costs if fam.aco.maximize else 1.0 / (costs + fam.aco.cost_offset)
@@ -1589,8 +1579,10 @@ def family_rollout(dev, name: str, net, ds):
 def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dict:
     """Phase 14 for one family (OP300, PCTSP500, SMTWTP500, SOP100, BPP120,
     MKP300), and phase 16 for MKP-items 500: its kernels against their plain
-    versions at its shapes, its path in three arms, its training at the
-    envelope, and the CLI's ``test``. Emits one line for the path and one
+    versions at its shapes (K7c for BPP, K7r's untraced forward for the
+    others, K7r on its training rollout, K6, K8 and K9 where they run), its
+    path in three arms, its training at the envelope, and the CLI's
+    ``test``. Emits one line for the path and one
     for training, and returns what the kernels' line and the checks read.
     A family whose model is no GNN (MKP-items' transformer) has no K9 or K6
     to check or launch, and one whose pheromone is a vector no K8; where no
@@ -1609,9 +1601,8 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
 
     fam = get_family(name)
     n, ckpt = FAMILY_PATHS[name][:2]
-    n_states, horizon = fam.horizon_states(n)
+    n_states = fam.horizon_states(n)[0]
     sign = -1.0 if fam.aco.maximize else 1.0
-    fused_infer = name in FUSED_INFER
     gnn, edges = fam.model_ctor is None, not fam.aco.vector_pheromone
     net, ds = family_inputs(root, dev, name)
     inst = fam.prepare(drivers.instance_tensors(ds, dev))
@@ -1620,9 +1611,9 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
 
     # kernels at the family's shapes: K9 on its graph (SOP's masked: no node
     # update, so the mask changes nothing before the heuristic applies it),
-    # for BPP K7c on its score, for OP, PCTSP, SMTWTP, SOP and MKP K7r's
-    # untraced forward on its rollout, else K7 on its rows, K8 on its routes (PCTSP's and
-    # BPP's park on node 0, the self-loop repeated; MKP's on the dummy item)
+    # for BPP K7c on its score, for the others K7r's untraced forward on its
+    # rollout, K8 on its routes (PCTSP's and BPP's park on node 0, the
+    # self-loop repeated; MKP's on the dummy item)
     paths, amounts, g, picks, score = family_rollout(dev, name, net, ds)
     if gnn:
         out["k9"] = check_embnet_layers(cuda_ms, net, g, f"{name}{n}, K = {g.nbr.shape[-1]}"
@@ -1632,16 +1623,10 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
         out["k7c"] = check_cvrp_construct(dev, cuda_ms, score, inst["demand"],
                                           BPP_CAPACITY, f"{name}{n}, neural heuristic")
         out["checks"]["k7c"] = out["k7c"]["passed"]
-    elif fused_infer:
+    else:
         out["k7r_paths"] = check_rollout_paths(cuda_ms, *picks[0],
                                                f"{name}{n} inference rollout, B={b}, A={A}")
         out["checks"]["k7r_paths"] = out["k7r_paths"]["passed"]
-    else:
-        out["k7"] = check_pick_rows(cuda_ms, picks, FAMILY_PICK_AT)
-        emit({"phase": "kernel", "name": "fused_pick", "config": f"{name}{n} rollout, N = "
-              f"{n_states}", **out["k7"], "tolerance": "actions exact and allowed; logp rtol "
-              "1e-5, atol 1e-5 (logsumexp order, expf/logf against torch's)"})
-        out["checks"]["k7"] = out["k7"]["passed"]
     if edges:
         out["k8"] = deposit_case(dev, cuda_ms, paths, amounts, n_states, False)
         out["k8"]["below_library"] = out["k8"]["ms"] < out["k8"]["library_ms"]
@@ -1680,14 +1665,11 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     arms = {"kernel": arm(net, drivers.KERNEL_OPS), "plain": arm(net, drivers.PLAIN_OPS),
             "classic": arm(None, drivers.KERNEL_OPS)}
     t_max = max(T_VALUES)
-    # an iteration: one K7c launch (BPP), one K7r launch (FUSED_INFER) or a
-    # K7 launch a step (MKP-items)
+    # an iteration: one K7c launch (BPP) or one K7r launch
     passes_run = t_max if name in ONE_PASS else 0
-    rollouts_run = t_max if fused_infer else 0
-    picks_run = 0 if passes_run or rollouts_run else t_max * horizon
     deposits = t_max if edges else 0
-    construct = {"fused_pick": picks_run, "cvrp_construct": passes_run,
-                 "fused_rollout_paths": rollouts_run}
+    construct = {"fused_pick": 0, "cvrp_construct": passes_run,
+                 "fused_rollout_paths": t_max - passes_run}
     want = {"kernel": {"embnet_layers": int(gnn), "fused_gnn_layer": 0,
                        "tour_deposit": deposits, **construct},
             "plain": {"embnet_layers": 0, "fused_gnn_layer": 0, "fused_pick": 0,
@@ -1722,14 +1704,11 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     out["arms"] = arms
 
     # training at the envelope: (a) one step, kernel arm against plain arm
-    step_check, train_picks, train_batch, train_net = family_train_step_arms(
-        dev, name, FAMILY_PICK_AT)
+    step_check, train_picks, train_batch, train_net = family_train_step_arms(dev, name)
     tinst = fam.prepare(drivers.instance_tensors(train_batch, dev))
     layer = (check_layer(dev, cuda_ms, train_net, fam.graph(tinst, fam.k_sparse(n)),
                          backward=True) if gnn else None)
-    fused = name in FUSED_TRAIN
-    pick_train = (check_rollout(cuda_ms, *train_picks[0], f"{name}{n} training rollout")
-                  if fused else check_pick_rows(cuda_ms, train_picks, FAMILY_PICK_AT))
+    rollout_train = check_rollout(cuda_ms, *train_picks[0], f"{name}{n} training rollout")
     del train_net, train_picks
     # (b) two steps of make_family_train_step, the counts set to 0 just
     # before each and read just after
@@ -1757,9 +1736,9 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
                      "launches": {fn.__name__: fn.launches for fn in counted}})
     depth = state.net.depth if gnn else 0
     want_step = {"fused_gnn_layer": depth, "fused_gnn_layer_backward": depth,
-                 "fused_pick": 0 if fused else horizon, "fused_rollout": int(fused),
-                 "fused_rollout_backward": int(fused), "fused_rollout_paths": 0,
-                 "cvrp_construct": 0, "embnet_layers": 0, "tour_deposit": 0}
+                 "fused_pick": 0, "fused_rollout": 1, "fused_rollout_backward": 1,
+                 "fused_rollout_paths": 0, "cvrp_construct": 0, "embnet_layers": 0,
+                 "tour_deposit": 0}
     moved = all(not torch.equal(start[k], v)
                 for k, v in jax_layout(state.net.state_dict(), state.net).items()
                 if (v.dim() == 2 and (k in touched or cfg.train.weight_decay > 0))
@@ -1775,12 +1754,12 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
     out["train_launches"] = {fn.__name__: sum(r["launches"][fn.__name__] for r in rows)
                              for fn in counted}
     out["layer"] = layer
-    out["pick_train"], out["rollout_train"] = (None, pick_train) if fused else (pick_train, None)
+    out["rollout_train"] = rollout_train
     if gnn:
         out["checks"].update(k6_forward=layer["passed"], k6_backward=layer["backward"]["passed"])
     out["checks"].update(
         step_agreement=step_check["passed"],
-        **{"k7r_train" if fused else "k7_train": pick_train["passed"]},
+        k7r_train=rollout_train["passed"],
         step_launches=all({k: r["launches"][k] for k in want_step} == want_step
                           for r in rows),
         train_finite=all(math.isfinite(r[key]) for r in rows
@@ -1792,7 +1771,7 @@ def family_phase(dev, root: Path, cuda_ms, timer_cls, counted, name: str) -> dic
         == [round(v, 4) for v in ck])
     emit({"phase": f"{name}_train", "B": 1, "N": n_states, "A": cfg.aco.n_ants,
           "lr": cfg.train.lr, "epochs_x_steps": [cfg.train.epochs, cfg.train.steps_per_epoch],
-          "step_agreement": step_check, "k6": layer, "k7r" if fused else "k7": pick_train,
+          "step_agreement": step_check, "k6": layer, "k7r": rollout_train,
           "steps": rows,
           "launches_per_step_expected": want_step,
           "cli": {"argv": ["test", name, "-n", str(n), "-c", ckpt], "lines": cli_lines},
@@ -2115,13 +2094,17 @@ def reference_env(var: str, value: Path):
 
 def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     """Phase 17, RCPSP j120 (``rcpsp120_selftrained``, 12 layers, 32 units):
-    the archive the smoke writes, K7 on one neural
-    construction's rows and K8 on an update's lists at the CLI's shapes
-    (B=100, A=20, n=122), the CLI's ``test rcpsp -n 120`` in four arms
-    (kernel, plain, classic, ``--backfill``), one training step kernel arm
-    against plain arm, ``train rcpsp -n 120 -e 1 -s 2`` and ``test rcpsp
-    --ckpt`` of what it wrote. Emits a line for the path and one for
-    training; returns what the kernels' line and the checks read."""
+    the archive the smoke writes, K7r's untraced forward on one neural
+    construction (the direct evaluation, SOP's kind) and K8 on an update's
+    lists at the CLI's shapes (B=100, A=20, n=122), the CLI's ``test rcpsp
+    -n 120`` in four arms (kernel, plain, classic, ``--backfill``), one
+    training step kernel arm against plain arm with K7r on its rollout,
+    ``train rcpsp -n 120 -e 1 -s 2`` and ``test rcpsp --ckpt`` of what it
+    wrote, and the blend (``RCPSPACO`` with RCPSP_BLEND on the first test
+    instance, RCPSP_BLEND_T iterations): K7 a step, held against its plain
+    version on the blend's rows. Emits a line for the path, one for
+    training and one for the blend; returns what the kernels' line and the
+    checks read."""
     import io
     import copy
     import tempfile
@@ -2133,7 +2116,7 @@ def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     from deepaco_tpu_torch.aco.problems import rcpsp as apr
     from deepaco_tpu_torch.core.rcpsp import check_schedule, load_psplib, stack_rcpsp
     from deepaco_tpu_torch.eval.rcpsp import rcpsp_heuristics, rcpsp_net
-    from deepaco_tpu_torch.ops import deposit, pick
+    from deepaco_tpu_torch.ops import pick
     from deepaco_tpu_torch.train import drivers, special
     from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -2145,31 +2128,20 @@ def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     n = data.n
     out = {"checks": {}}
 
-    # K7 on one construction's rows (the neural heuristic, tau of ones),
-    # K8 on the first update's deposit: the best-so-far list and the
-    # iteration-best (elitist), directed, no wraparound
+    # K7r's untraced forward on one construction (the neural heuristic, tau
+    # of ones), K8 on the first update's deposit: the best-so-far list and
+    # the iteration-best (elitist), directed, no wraparound
     net = rcpsp_net(load_checkpoint(str(root / RCPSP_CKPT))).to(dev)
     with torch.no_grad():
         heu = rcpsp_heuristics(data, net)
     cfg = apr.RCPSPConfig(n_ants=A, elitist=True, min_max=True)
     spec = apr.rcpsp_spec(torch.ones_like(heu), heu, data, cfg)
-    at = {int(f * spec.horizon) for f in FAMILY_PICK_AT}
-    steps, captured = iter(range(spec.horizon)), []
-
-    def capture(score, mask, noise):
-        step = next(steps)
-        if step in at:
-            captured.append((step, score.clone(), mask.clone(), noise.clone()))
-        return pick.fused_pick(score, mask, noise)
-
-    with torch.no_grad():
-        paths = rollout(spec, torch.Generator(device=dev).manual_seed(SEED + 17),
-                        pick=capture).paths
+    captured = []
+    with torch.no_grad(), captured_rollouts(captured):
+        paths = rollout(spec, torch.Generator(device=dev).manual_seed(SEED + 17)).paths
         costs = apr.makespans(data, paths)
-    out["k7"] = check_pick_rows(cuda_ms, captured, FAMILY_PICK_AT)
-    emit({"phase": "kernel", "name": "fused_pick", "config": f"rcpsp{RCPSP_N} rollout through "
-          "probs_fn, N = 122", **out["k7"], "tolerance": "actions exact and allowed; logp rtol "
-          "1e-5, atol 1e-5 (logsumexp order, expf/logf against torch's)"})
+    out["k7r_paths"] = check_rollout_paths(cuda_ms, *captured[0], f"rcpsp{RCPSP_N} inference "
+                                           f"rollout, B={len(test)}, A={A}")
     it = torch.argmin(costs, dim=-1)
     best = paths.gather(-1, it[:, None, None].expand(-1, n, 1))
     dep_paths = torch.cat([best, best], dim=-1)
@@ -2178,7 +2150,7 @@ def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     out["k8"]["below_library"] = out["k8"]["ms"] < out["k8"]["library_ms"]
     emit({"phase": "kernel", "name": "tour_deposit", "config": f"rcpsp{RCPSP_N} update, the "
           "best-so-far and the iteration-best lists", **out["k8"], "tolerance": "as phase 9"})
-    out["checks"].update(k7=out["k7"]["passed"], k8=out["k8"]["passed"])
+    out["checks"].update(k7r_paths=out["k7r_paths"]["passed"], k8=out["k8"]["passed"])
     del heu, spec, paths, costs, captured
 
     # the path through the CLI in four arms, the counts set to 0 just before
@@ -2213,7 +2185,7 @@ def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
             "classic": arm(rcpsp_args("--classic"), drivers.KERNEL_OPS),
             "backfill": arm(rcpsp_args("--backfill"), drivers.KERNEL_OPS)}
     t_max = max(T_VALUES)
-    on = {"fused_pick": t_max * (n - 1), "tour_deposit": t_max}
+    on = {"fused_rollout_paths": t_max, "tour_deposit": t_max}
     want = {a: {fn.__name__: (0 if a == "plain" else on.get(fn.__name__, 0)) for fn in counted}
             for a in arms}
     ck, cp = arms["kernel"]["cost"], arms["plain"]["cost"]
@@ -2237,32 +2209,29 @@ def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     out["arms"] = arms
 
     # training: (a) one step from the seed's weights on the first train
-    # instance, the kernel arm (K7 a step) against the plain arm replaying
-    # its paths; (b) the CLI's train rcpsp, cut to 2 steps, and its test
+    # instance, the kernel arm (K7r each way) against the plain arm replaying
+    # its paths, K7r on its rollout; (b) the CLI's train rcpsp, cut to 2
+    # steps, and its test
     cfg_t = special.rcpsp_config(n, n_ants=A, lr=3e-4)
     one = stack_rcpsp(train[:1], max(d.t_max for d in train))
     net_k = special.init_train_state(rcpsp_net().to(dev), cfg_t,
                                      torch.Generator(device=dev).manual_seed(SEED)).net
     net_p = copy.deepcopy(net_k)
     before = copy.deepcopy(net_k.state_dict())
-    train_picks, steps_t = [], iter(range(n - 1))
-
-    def capture_t(score, mask, noise):
-        if next(steps_t) in at:
-            train_picks.append((len(train_picks), score.detach().clone(), mask.clone(),
-                                noise.clone()))
-        return pick.fused_pick(score, mask, noise)
-
+    train_rollouts = []
     aco = apr.RCPSPConfig(n_ants=A)
-    out_k = special.rcpsp_loss(net_k, one, aco, torch.Generator(device=dev).manual_seed(SEED),
-                               _ops=drivers.KERNEL_OPS._replace(pick=capture_t))
+    with captured_rollouts(train_rollouts):
+        out_k = special.rcpsp_loss(net_k, one, aco,
+                                   torch.Generator(device=dev).manual_seed(SEED))
     out_k.loss.backward()
     out_p = special.rcpsp_loss(net_p, one, aco, torch.Generator(device=dev), paths=out_k.paths,
                                _ops=drivers.PLAIN_OPS)
     out_p.loss.backward()
     adv = out_k.costs - out_k.costs.mean(dim=-1, keepdim=True)
     step = step_agreement(cfg_t, net_k, net_p, before, out_k, out_p, adv / n)
-    pick_train = check_pick_rows(cuda_ms, train_picks, FAMILY_PICK_AT)
+    rollout_train = check_rollout(cuda_ms, *train_rollouts[0],
+                                  f"rcpsp{RCPSP_N} training rollout, {A} ants")
+    del train_rollouts
     ckpt = root / "build" / "chip_smoke" / f"rcpsp{RCPSP_N}_trained.msgpack"
     ckpt.unlink(missing_ok=True)
     for fn in counted:
@@ -2278,18 +2247,60 @@ def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     train_lines = text.getvalue().splitlines()
     tree = load_checkpoint(str(ckpt))
     out["checks"].update(
-        step_agreement=step["passed"], k7_train=pick_train["passed"],
-        train_launches=train_launches["fused_pick"] == RCPSP_TRAIN_STEPS * (n - 1)
-        and sum(train_launches.values()) == train_launches["fused_pick"],
+        step_agreement=step["passed"], k7r_train=rollout_train["passed"],
+        train_launches=train_launches["fused_rollout"] == RCPSP_TRAIN_STEPS
+        and train_launches["fused_rollout_backward"] == RCPSP_TRAIN_STEPS
+        and sum(train_launches.values()) == 2 * RCPSP_TRAIN_STEPS,
         train_checkpoint=int(tree["step"]) == RCPSP_TRAIN_STEPS
         and tree["params"]["emb_net"]["v_lin0"]["kernel"].shape == (5, 32),
         reread_finite=all(math.isfinite(v) for v in reread))
     emit({"phase": "rcpsp_train", "N": n, "A": A, "lr": cfg_t.train.lr,
           "weight_decay": cfg_t.train.weight_decay, "clip": cfg_t.train.grad_clip,
-          "step_agreement": step, "k7": pick_train, "cli_wall_s": train_wall,
+          "step_agreement": step, "k7r": rollout_train, "cli_wall_s": train_wall,
           "cli_launches": train_launches, "cli_lines": train_lines,
           "reread_cost_t1": [float(v) for v in reread], "checks": out["checks"]})
-    out["pick_train"], out["train_launches"] = pick_train, train_launches
+    out["rollout_train"], out["train_launches"] = rollout_train, train_launches
+
+    # the blend, K7's last route: RCPSPACO on the first test instance, the
+    # counts set to 0 just before its run and read just after; then K7 on
+    # the rows of one more construction on its pheromone, at the shares
+    # FAMILY_PICK_AT of the horizon
+    blend = apr.RCPSPACO(test[0], n_ants=A, seed=SEED, device=dev, **RCPSP_BLEND)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    blend_best = float(blend.run(RCPSP_BLEND_T))
+    torch.cuda.synchronize()
+    blend_wall = time.perf_counter() - t0
+    blend_launches = {fn.__name__: fn.launches for fn in counted}
+    bspec = apr.rcpsp_spec(blend.state.tau, blend.heuristic, blend.data, blend.cfg)
+    at = {int(f * bspec.horizon) for f in FAMILY_PICK_AT}
+    steps, blend_rows = iter(range(bspec.horizon)), []
+
+    def capture(score, mask, noise):
+        if next(steps) in at:
+            blend_rows.append((len(blend_rows), score.clone(), mask.clone(), noise.clone()))
+        return pick.fused_pick(score, mask, noise)
+
+    with torch.no_grad():
+        rollout(bspec, torch.Generator(device=dev).manual_seed(SEED + 18), pick=capture)
+    out["k7"] = check_pick_rows(cuda_ms, blend_rows, FAMILY_PICK_AT)
+    emit({"phase": "kernel", "name": "fused_pick", "config": f"rcpsp{RCPSP_N} blend "
+          f"{RCPSP_BLEND} rollout through probs_fn, B=1, A={A}, N = {n}", **out["k7"],
+          "tolerance": "actions exact and allowed; logp rtol 1e-5, atol 1e-5 (logsumexp "
+                       "order, expf/logf against torch's)"})
+    route, starts, makespan = blend.best_solution
+    blend_want = {fn.__name__: 0 for fn in counted}
+    blend_want.update(fused_pick=RCPSP_BLEND_T * (n - 1), tour_deposit=RCPSP_BLEND_T)
+    out["blend"] = {"launches": blend_launches, "wall_s": blend_wall, "best": blend_best,
+                    **RCPSP_BLEND, "T": RCPSP_BLEND_T, "A": A, "N": n}
+    out["checks"].update(
+        blend_k7=out["k7"]["passed"], blend_launches=blend_launches == blend_want,
+        blend_feasible=bool(check_schedule(test[0], torch.as_tensor(starts)))
+        and makespan == blend_best and math.isfinite(blend_best))
+    emit({"phase": "rcpsp_blend", **out["blend"], "launches_expected": blend_want,
+          "k7": out["k7"], "checks": out["checks"]})
     shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -2561,8 +2572,7 @@ def remaining_phase(dev, root: Path, cuda_ms, counted, net, coords, main_wall: f
     t_max = max(T_VALUES)
     cli_arms, cli_want = {}, {"cvrp": {"embnet_layers": 1, "cvrp_construct": t_max,
                                        "tour_deposit": t_max},
-                              "mkp_items": {"fused_pick": t_max * (FAMILY_PATHS["mkp_items"][0]
-                                                                   + 1)}}
+                              "mkp_items": {"fused_rollout_paths": t_max}}
     for name in ("cvrp", "mkp_items"):
         n, ckpt = FAMILY_PATHS[name][:2]
         pt = tmp / f"{name}{n}.pt"
@@ -2757,13 +2767,13 @@ def remaining_phase(dev, root: Path, cuda_ms, counted, net, coords, main_wall: f
     mon = mon.item()
     step_wall = time.perf_counter() - t0
     step_launches = counts()
-    horizon = tcfg.n_nodes + 1
+    k7r_step = {"fused_rollout": 1, "fused_rollout_backward": 1}
     out["items_step"] = {"N": tcfg.n_nodes, "A": tcfg.aco.n_ants, "agreement": agreement,
                          "arm_launches": arm_launches, "step_launches": step_launches,
                          "step_wall_s": step_wall, "mean_objective": mon}
     checks.update(items_step_agreement=agreement["passed"],
-                  items_step_launches=(only(arm_launches, {"fused_pick": horizon})
-                                       and only(step_launches, {"fused_pick": horizon})),
+                  items_step_launches=(only(arm_launches, k7r_step)
+                                       and only(step_launches, k7r_step)),
                   items_step_ran=s_state.step == 1 and math.isfinite(mon))
 
     emit({"phase": "remaining_paths", "reference_pt": cli_arms, "launches_expected": cli_want,
@@ -3196,19 +3206,17 @@ def family_kernel_fields(r: dict) -> dict:
     """A phase-14 family's fields of K6, K7, K7r, K7c, K8 and K9 in the
     kernels' line, from ``family_phase``'s result: the launches on its
     kernel arm (K7, K7c or K7r's untraced forward, K8, K9) and in its
-    training steps (K6, K7 or K7r), and the error, times and bound at its
-    shapes (K7's at its inference rows, K7r's at its training rollout and,
-    untraced, at its inference rollout)."""
+    training steps (K6, K7, K7r), and the error, times and bound at its
+    shapes (K7r's at its training rollout and, untraced, at its inference
+    rollout); K7 launches on none of these paths."""
     take = lambda d, keys: {k: d[k] for k in keys if k in d}
     timing = ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")
     launches = r["arms"]["kernel"]["launches"]
     train = {"train_steps": FAMILY_TRAIN_STEPS}
     fields = {"fused_pick": {"launches": launches["fused_pick"],
-                             "train_launches": r["train_launches"]["fused_pick"], **train,
-                             **take(r.get("k7") or r["pick_train"] or {}, ("rows", "N") + timing)}}
-    if r["rollout_train"] is not None:
-        for name, entry in rollout_entries(r["rollout_train"]).items():
-            fields[name] = {"train_launches": r["train_launches"][name], **train, **entry}
+                             "train_launches": r["train_launches"]["fused_pick"], **train}}
+    for name, entry in rollout_entries(r["rollout_train"]).items():
+        fields[name] = {"train_launches": r["train_launches"][name], **train, **entry}
     if "k7c" in r:
         fields["cvrp_construct"] = {"launches": launches["cvrp_construct"],
                                     **take(r["k7c"], timing)}
@@ -3926,8 +3934,8 @@ def main() -> int:
                      "cvrp_construct": cvrp_arms["kernel"]["launches"]["cvrp_construct"],
                      "batched_two_opt_euclid": arms["classic_2opt"]["launches"]["batched_two_opt_euclid"],
                      "batched_nls_euclid": arms["nls"]["launches"]["batched_nls_euclid"],
-                     # K7 steps the per-step rollouts, no longer training: phase 18's
-                     # test tsp family path (set there)
+                     # K7 steps the RCPSP blend alone, no longer training: phase 17's
+                     # blend run (set after phase 18)
                      "fused_pick": None,
                      **{fn.__name__: train_launches[fn.__name__] for fn in (
                          gnn_layer.fused_gnn_layer, gnn_layer.fused_gnn_layer_backward,
@@ -3958,7 +3966,8 @@ def main() -> int:
         "source": "deepaco_tpu_torch/csrc/rollout.cu",
         "replaces": "deepaco_tpu/ops/pallas_kernels.py:65 (fused_pick_pallas, every step of "
                     "the scan deepaco_tpu/aco/engine.py:104-129 without require_prob)",
-        "passed": all(family_runs[f]["k7r_paths"]["passed"] for f in FUSED_INFER),
+        "passed": all(r["k7r_paths"]["passed"] for r in family_runs.values()
+                      if "k7r_paths" in r),
         **{k: paths_check[k] for k in ("config", "B", "N", "A", "T", "ant_steps", "max_abs_err",
                                        "ms", "device_ms", "traced_ms", "plain_ms",
                                        "library_ms", "bound_ms", "bound_by", "peak_gb")}})
@@ -3986,23 +3995,25 @@ def main() -> int:
             entry["cvrp_nls"] = {"launches": nls_launches["tour_deposit"],
                                  **take(nls_run["k8"], ("B", "L", "A", "n") + timing)}
 
-    # ---- 16. MKP-items 500: the transformer, K7 a step, the vector pheromone
+    # ---- 16. MKP-items 500: the transformer, K7r's "items" kind, the vector
+    # pheromone
     items_run = family_phase(dev, root, cuda_ms, PhaseTimer, counted, "mkp_items")
     fields = family_kernel_fields(items_run)
     for entry in kernels:
         if entry["name"] in fields:
             entry["mkp_items"] = fields[entry["name"]]
 
-    # ---- 17. RCPSP j120: K7 through probs_fn, K8 on the elitist update
+    # ---- 17. RCPSP j120: K7r (SOP's kind) on the direct evaluation, K8 on
+    # the elitist update, K7 on the blend
     rcpsp_run = rcpsp_phase(dev, root, cuda_ms, PhaseTimer, counted)
     # ---- 18. test tsp on a golden file: the family path, batched and
     # per-instance local search through the ACO facade
     golden_run = tsp_golden_phase(dev, root, cuda_ms, counted, coords)
     rcpsp_launches = rcpsp_run["arms"]["kernel"]["launches"]
     facade_launches = golden_run["arms"]["tsp_nls_per_instance"]["launches"]
-    # K7 steps the MKP-items and RCPSP rollouts: MKP-items 500's path; the
-    # TSP inference rollouts take K7r's untraced forward: test tsp's family path
-    path_launches["fused_pick"] = items_run["arms"]["kernel"]["launches"]["fused_pick"]
+    # K7 steps the RCPSP blend alone: phase 17's blend run; the TSP inference
+    # rollouts take K7r's untraced forward: test tsp's family path
+    path_launches["fused_pick"] = rcpsp_run["blend"]["launches"]["fused_pick"]
     path_launches["fused_rollout_paths"] = golden_run["arms"]["tsp_family"]["launches"][
         "fused_rollout_paths"]
     two_opt_launches = golden_run["arms"]["tsp_2opt_per_instance"]["launches"]
@@ -4010,9 +4021,19 @@ def main() -> int:
         if entry["name"] == "fused_pick":
             entry["launches"] = path_launches["fused_pick"]
             entry["rcpsp"] = {"launches": rcpsp_launches["fused_pick"],
-                              "train_launches": rcpsp_run["train_launches"]["fused_pick"],
-                              **take(rcpsp_run["k7"], ("rows", "N") + timing)}
+                              "train_launches": rcpsp_run["train_launches"]["fused_pick"]}
+            entry["rcpsp_blend"] = {"launches": rcpsp_run["blend"]["launches"]["fused_pick"],
+                                    **RCPSP_BLEND, "T": RCPSP_BLEND_T,
+                                    **take(rcpsp_run["k7"], ("rows", "N") + timing)}
+        if entry["name"] in ("fused_rollout", "fused_rollout_backward"):
+            entry["rcpsp"] = {"train_launches": rcpsp_run["train_launches"][entry["name"]],
+                              "train_steps": RCPSP_TRAIN_STEPS,
+                              **rollout_entries(rcpsp_run["rollout_train"])[entry["name"]]}
         if entry["name"] == "fused_rollout_paths":
+            entry["rcpsp"] = {"launches": rcpsp_launches["fused_rollout_paths"],
+                              **take(rcpsp_run["k7r_paths"],
+                                     ("config", "B", "N", "A", "T", "ant_steps", "device_ms",
+                                      "traced_ms", "peak_gb") + timing)}
             entry["launches"] = path_launches["fused_rollout_paths"]
             entry["tsp_facade"] = {"launches": facade_launches["fused_rollout_paths"],
                                    **take(golden_run["k7r_paths"],
@@ -4055,10 +4076,10 @@ def main() -> int:
                              "tour_deposit"]},
                          "adaptive_cvrp": {"launches": adaptive_launches["tour_deposit"],
                                            **take(rest_run["k8"], ("B", "L", "A", "n") + timing)}},
-        "fused_pick": {"reference_pt": {"launches": rest_run["cli"]["mkp_items_pt"]["launches"][
-                           "fused_pick"]},
-                       "mkp_items_step": {"launches": rest_run["items_step"]["step_launches"][
-                           "fused_pick"]}}}
+        "fused_rollout_paths": {"reference_pt": {"launches": rest_run["cli"]["mkp_items_pt"][
+                                    "launches"]["fused_rollout_paths"]}},
+        **{name: {"mkp_items_step": {"launches": rest_run["items_step"]["step_launches"][name]}}
+           for name in ("fused_rollout", "fused_rollout_backward")}}
     for entry in kernels:
         entry.update(new_paths.get(entry["name"], {}))
 

@@ -20,7 +20,8 @@ PH_items (mkp_transformer/aco.py:5-178; ``mkp_items_spec``,
 ``MKPItemsACO``): the pheromone is a vector ``[B, n+1]``, every pick is
 history-free over ``phe^alpha * heu^beta * mask`` with the same knapsack
 masks, and an update deposits ``q * objective`` on every picked item. The
-capacity is 1 (the weights are normalised).
+capacity is 1 (the weights are normalised). Its spec carries K7r's
+``"items"`` shape: the one score row an instance and MKP's knapsack.
 """
 from __future__ import annotations
 
@@ -102,8 +103,11 @@ def mkp_items_spec(phe_vec: torch.Tensor, heu_vec: torch.Tensor, weight_e: torch
     the sampler with its log-probability, as the reference loop does
     (mkp_transformer/aco.py:111-135); every step scores the same row
     ``alpha*log(phe) + beta*log(heu)`` for every ant, ``[B*A, n+1]`` rows
-    for the pick."""
+    for the pick. The spec carries the ``"items"`` shape (that row ``[B,
+    n+1]``, the knapsack, the dummy start that is no pick) for the engine's
+    one-launch route (K7r)."""
     from deepaco_tpu_torch.aco.engine import RolloutSpec
+    from deepaco_tpu_torch.ops.rollout import RolloutShape
 
     b, m_items = phe_vec.shape
     update, dummy = _knapsack_masks(weight_e, capacity)
@@ -131,7 +135,9 @@ def mkp_items_spec(phe_vec: torch.Tensor, heu_vec: torch.Tensor, weight_e: torch
                        prob_rows=lambda state: (rows(phe_vec, state[0].shape[1]),
                                                 rows(heu_vec, state[0].shape[1])),
                        mask=lambda state: state[1] * state[2], step=step,
-                       score_rows=lambda state: rows(score_vec, state[0].shape[1]))
+                       score_rows=lambda state: rows(score_vec, state[0].shape[1]),
+                       fused=(score_vec, RolloutShape("items", capacity=capacity,
+                                                      weight=weight_e, dummy=dummy)))
 
 
 def mkp_objective(prizes_e: torch.Tensor, paths: torch.Tensor) -> torch.Tensor:
@@ -238,8 +244,9 @@ class MKPItemsACO(ProblemACO):
     mkp.py:196-233``) over one instance: ``price [n]``, ``weight [n, m]``
     (normalised, ``capacity`` 1), a ``heuristic [n]`` (default
     :func:`mkp_prior`), extended with the dummy item; the pheromone is the
-    vector ``[n+1]``. ``run`` steps through K7 and deposits on every picked
-    item; ``best_cost`` is the total prize, maximized."""
+    vector ``[n+1]``. ``run`` constructs through K7r's untraced forward
+    (``sample`` its traced forward) and deposits on every picked item;
+    ``best_cost`` is the total prize, maximized."""
 
     def __init__(self, price, weight, n_ants: int = 20, decay: float = 0.9,
                  alpha: float = 1.0, beta: float = 1.0, elitist: bool = False,

@@ -7,9 +7,14 @@ activity is open once it is unvisited and all its predecessors are
 visited. Selection is the direct evaluation ``(phe^a heu^b)[cur]``, the
 gamma-discounted summation over the visited prefix, ``((S m)^a)
 (heu[cur]^b)`` with the running sum ``S <- gamma S + phe[action]``, or a
-blend of both by ``c``: the spec's ``probs_fn``, one pick a step (K7 on the
-card). State: ``(cur [B, A], visited [B, A, n], indeg [B, A, n], s_sum [B,
-A, n])``.
+blend of both by ``c``: the spec's ``probs_fn``. The direct evaluation
+alone (``RCPSPConfig.direct_only``, every entry point's default) is SOP's
+state on another score: the spec carries ``fused = (where(p > 0, log(max(p,
+1e-30)), -1e30), SOP's shape with prec = adj^T)``, the engine's logits bit
+for bit, so its rollouts take K7r's one launch; the blend (``gamma >= 0.05``
+and ``c < 1``), whose running sum chains every earlier pick's pheromone row
+into the step, takes one pick a step (K7 on the card). State: ``(cur [B,
+A], visited [B, A, n], indeg [B, A, n], s_sum [B, A, n])``.
 
 Decoding: SSGS over each ant's activity list with a ``[B, A, T, m]`` int32
 resource timeline (``T = t_max``), in PyTorch on every device; its starts
@@ -28,7 +33,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from deepaco_tpu_torch.aco import pheromone as ph
-from deepaco_tpu_torch.aco.engine import RolloutSpec, rollout
+from deepaco_tpu_torch.aco.engine import NEG_INF, RolloutSpec, rollout
 from deepaco_tpu_torch.aco.problems.tsp import row_gatherer
 from deepaco_tpu_torch.aco.runner import _no_timer
 from deepaco_tpu_torch.core.rcpsp import RCPSPData, default_rcpsp_heuristic, stack_rcpsp
@@ -63,7 +68,13 @@ def rcpsp_spec(phe: torch.Tensor, heu: torch.Tensor, data: RCPSPData,
                cfg: RCPSPConfig) -> RolloutSpec:
     """The engine's plug-in for ``phe, heu [B, n, n]`` and the batched
     instances ``data``; its ``probs_fn`` stays differentiable in ``phe``
-    and ``heu``."""
+    and ``heu``. Under ``cfg.direct_only`` it also carries SOP's shape on
+    ``adj^T`` and the score ``where(p > 0, log(max(p, 1e-30)), -1e30)``
+    (differentiable in both too) for the engine's one-launch route (K7r):
+    an activity is open when unvisited and its count of unvisited
+    predecessors is 0, SOP's rule, and the mask multiplies ``p`` by 1."""
+    from deepaco_tpu_torch.ops.rollout import RolloutShape
+
     b, n, _ = phe.shape
     a, dev = cfg.n_ants, phe.device
     probmat = (phe ** cfg.alpha) * (heu ** cfg.beta)
@@ -101,9 +112,13 @@ def rcpsp_spec(phe: torch.Tensor, heu: torch.Tensor, data: RCPSPData,
         return (actions, visited | hit, indeg - rows(adj, actions),
                 cfg.gamma * s_sum + rows(phe, actions))
 
+    fused = None
+    if cfg.direct_only:
+        score = torch.where(probmat > 0, torch.log(torch.clamp(probmat, min=1e-30)), NEG_INF)
+        fused = (score, RolloutShape("sop", prec=adj.transpose(-1, -2)))
     return RolloutSpec(horizon=n - 1, start=start, init=init,
                        prob_rows=lambda state: (rows(phe, state[0]), rows(heu, state[0])),
-                       mask=mask, step=step, probs_fn=probs_fn)
+                       mask=mask, step=step, probs_fn=probs_fn, fused=fused)
 
 
 def _take(t: torch.Tensor, j: torch.Tensor) -> torch.Tensor:
@@ -225,8 +240,9 @@ def rcpsp_iteration(data: RCPSPData, heu: torch.Tensor, cfg: RCPSPConfig,
                     state: RCPSPSearchState, generator: torch.Generator, *,
                     pick: Callable = fused_pick, deposit: Callable = ph.deposit,
                     timer: Callable = _no_timer) -> RCPSPSearchState:
-    """One iteration over the batched instances: construct (a ``pick`` a
-    step, K7 on the card), decode, update (one ``deposit``, K8 on the
+    """One iteration over the batched instances: construct (under
+    ``cfg.direct_only`` K7r's untraced forward once on the card, else a
+    ``pick`` a step, K7), decode, update (one ``deposit``, K8 on the
     card); ``timer(name)`` wraps the phases ``"construction"``,
     ``"decode"`` and ``"update"``."""
     with timer("construction"):

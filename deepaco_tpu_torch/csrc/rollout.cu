@@ -6,10 +6,12 @@
 // step of the construction scan deepaco_tpu/aco/engine.py:104-129, on every
 // rollout whose plug-in keeps the visited set and at most a few registers of
 // state (engine.rollout over a spec with `fused`): TSP (and SMTWTP, TSP's walk
-// from the dummy job), CVRP and BPP, SOP, MKP (PH_suc), OP and PCTSP, in training
-// (traced: logp and what the backward reads) and inference (untraced: the
-// paths). The port ran that scan as a host loop, K7 (csrc/pick.cu) and 14-48
-// PyTorch launches of glue a step, and autograd's backward a step.
+// from the dummy job), CVRP and BPP, SOP (and RCPSP's direct evaluation, SOP's
+// state on the score where(p > 0, log p, -1e30)), MKP (PH_suc), MKP's PH_items
+// (one score row an instance), OP and PCTSP, in training (traced: logp and what
+// the backward reads) and inference (untraced: the paths). The port ran that
+// scan as a host loop, K7 (csrc/pick.cu) and 14-48 PyTorch launches of glue a
+// step, and autograd's backward a step; K7 now steps only RCPSP's blend.
 //
 // Forward, a block an ant (1-8 warps, G <= 16 columns a thread, G <= 8 for
 // MKP), K7c's structure (csrc/cvrp_sweep.cu) on the given noise:
@@ -21,13 +23,21 @@
 //     needs no exchange;
 //   SOP: each column's count of unvisited predecessors is a register int;
 //     each step subtracts the row succ[cur, :] (succ = prec^T, 0/1 bytes)
-//     before it decides the open set, so a column opens once its count is 0;
+//     before it decides the open set, so a column opens once its count is 0.
+//     A step whose every logit is -1e30 (RCPSP: no open activity with p > 0)
+//     picks column 0 again, as the plug-in does, and subtracts its row once
+//     more: a count that falls below 0 shuts its column for good, and the
+//     trace's pos holds that step;
 //   MKP: each column's m <= 8 weights are registers, and the knapsack's m f32
 //     sums (added in pick order, as the plug-in adds them) are the same in
 //     every thread; a real item is open when unpicked and fitting in every
 //     dimension, recomputed each step (with non-negative weights the sums only
 //     grow, so the plug-in's cumulative mask is the same set), and the dummy
 //     item once no real item is open (a block-wide vote);
+//   ITEMS (MKP's PH_items): MKP's state on one score row an instance, the same
+//     for every ant and step (score [B, N], a thread's columns in registers
+//     beside their weights, so that a step reads only its noise row); the
+//     start, the dummy, is no pick;
 //   OP: the tour length `travel` (f32, `travel + dist[cur, next]` a pick) is
 //     the same in every thread, and each column's dist[c, 0] is a register.
 //     The mask is cumulative: at each node but the dummy a real column closes
@@ -61,8 +71,8 @@
 // 0] is). The loop stops there and writes those steps directly, and the
 // backward skips them (their gradient is 0).
 //
-// Backward, a block a row r and 32 columns of an instance, no atomics: each
-// thread sums its column's terms
+// Backward (every kind but ITEMS), a block a row r and 32 columns of an
+// instance, no atomics: each thread sums its column's terms
 //     g[b,t,a] * (1[c = a_{t+1}] - exp(score[b,r,c] - lse_t)) * open_t(c)
 // over the steps that leave row r, warp w the ants w, w + 4, ... in order,
 // then the four sums in order, so a repeat gives equal bits (the depot row
@@ -78,12 +88,24 @@
 // start's row at t = 0 and a customer's at pos(r); open_t(c) <=> pos(c) > t,
 // the depot t >= gate. A CVRP ant leaves a customer row at most once, and
 // the depot at the departures the forward listed (2t + the depot's own open
-// bit); open_t(c) adds demand[c] <= rem_t, the forward's own f32 value.
+// bit); open_t(c) adds demand[c] <= rem_t, the forward's own f32 value. A
+// SOP ant leaves row 0 at every step it stands there (the start and any
+// repeat of column 0), and a column shut by a repeat is no row it left. A step
+// whose every logit is -1e30 has lse -1e30 and softmax 1/N.
+//
+// ITEMS' backward is a reduction into one row: d_score[b, c] = the sum over
+// every (a, t) of the term above, open_t(c) <=> pos(c) > t and knap_t + w[c]
+// <= capacity (real c), nxt = c (the dummy), the parked steps (from
+// pos(dummy) on) left out. A block takes 32 columns and a fixed share of the
+// A * T terms (its four warps each a fixed part of the share) and writes its
+// partial sums; a second launch adds the shares of each column in order. No
+// atomics: a repeat gives equal bits.
 //
 // What bounds it: the forward's chain of T dependent steps an ant (a row read
 // from L2, two butterflies and a block barrier a step), not its bytes (the
 // noise, T * B * A * N * 4, read once). The backward reads pos, lse and g of
-// every ant for every row: B * N * A * (N + 4) words, mostly from L2.
+// every ant for every row: B * N * A * (N + 4) words, mostly from L2; ITEMS'
+// reads g, lse, paths and the knapsack of every step once a column tile.
 #include "common.cuh"
 
 namespace deepaco {
@@ -96,20 +118,20 @@ constexpr int kMkpMaxCols = 8;  // MKP: a thread's columns' weights are register
 constexpr int kMaxDims = 8;     // MKP: capacity dimensions
 constexpr int kBwdWarps = 4;    // a backward block: 32 columns, each warp a share of the ants
 
-enum Kind : int { kTsp = 0, kCvrp = 1, kSop = 2, kMkp = 3, kOp = 4, kPctsp = 5 };
+enum Kind : int { kTsp = 0, kCvrp = 1, kSop = 2, kMkp = 3, kOp = 4, kPctsp = 5, kItems = 6 };
 
 // The plug-in's inputs; a kind reads its own and leaves the others null.
 struct Plugin {
   const float* demand;   // CVRP [B, N]
   const uint8_t* succ;   // SOP [B, N, N]: succ[b, k, c] = 1 iff k must precede c
   const int* npred;      // SOP [B, N]: each node's count of predecessors
-  const float* weight;   // MKP [B, N, m]
+  const float* weight;   // MKP, ITEMS [B, N, m]
   const float* dist;     // OP [B, N, N]
   const float* max_len;  // OP [B]
   const float* prizes;   // PCTSP [B, N]
-  float capacity;        // CVRP, MKP
+  float capacity;        // CVRP, MKP, ITEMS
   float min_prizes;      // PCTSP: the depot's gate
-  int m, dummy;          // MKP: dimensions; MKP, OP: the dummy column
+  int m, dummy;          // MKP, ITEMS: dimensions; MKP, ITEMS, OP: the dummy column
 };
 
 // What the traced forward writes for the backward (null untraced, and where
@@ -122,7 +144,7 @@ struct Trace {
   int* dep;     // CVRP [B, A, T]
   int* ndep;    // CVRP [B, A]
   int* ready;   // SOP [B, A, N]
-  float* knap;  // MKP [B, T, A, m]
+  float* knap;  // MKP, ITEMS [B, T, A, m]
   int* gate;    // PCTSP [B, A]
 };
 
@@ -148,6 +170,13 @@ __device__ __forceinline__ void take_first(const Cand& o, Cand& best) {
   if (argmax_before(o.v, o.key, best.v, best.key)) best = o;
 }
 
+// softmax_t(c) of a column whose logit is s, from the step's lse: a step whose
+// every logit is -1e30 has lse -1e30 (the log of the count is below its
+// rounding) and softmax 1/N, as the plain softmax gives it
+__device__ __forceinline__ float softmax_at(float s, float lse, int N) {
+  return lse == kNegInf ? 1.0f / (float)N : expf(s - lse);
+}
+
 // Whether an MKP item of weights w fits beside the knapsack's sums.
 __device__ __forceinline__ bool fits(const float* knap, const float* w, int m, float capacity) {
   bool ok = true;
@@ -163,8 +192,9 @@ __device__ __forceinline__ bool fits(const float* knap, const float* w, int m, f
 template <int kKind, bool kTrace, int G>
 __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p) {
   constexpr bool kCv = kKind == kCvrp, kSp = kKind == kSop, kMk = kKind == kMkp;
-  constexpr bool kO = kKind == kOp, kPc = kKind == kPctsp;
-  constexpr bool kDummy = kMk || kO;  // a dummy column that opens once no real one is open
+  constexpr bool kO = kKind == kOp, kPc = kKind == kPctsp, kIt = kKind == kItems;
+  constexpr bool kKn = kMk || kIt;     // a knapsack
+  constexpr bool kDummy = kKn || kO;  // a dummy column that opens once no real one is open
   __shared__ Cand s_best[2][kMaxWarps];
   __shared__ float s_top[2][kMaxWarps], s_total[2][kMaxWarps];
   const int B = p.B, N = p.N, A = p.A, T = p.T;
@@ -172,11 +202,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const long ant = blockIdx.x;  // b * A + a
   const int b = (int)(ant / A), a = (int)(ant % A);
-  const float* inst = p.score + (size_t)b * N * N;
+  const float* inst = p.score + (size_t)b * N * (kIt ? 1 : N);  // ITEMS: the one row
   const float* dem_row = kCv ? p.pl.demand + (size_t)b * N : nullptr;
   const uint8_t* succ = kSp ? p.pl.succ + (size_t)b * N * N : nullptr;
-  const int m = kMk ? p.pl.m : 0, dummy = kDummy ? p.pl.dummy : -1;
-  const float* w_inst = kMk ? p.pl.weight + (size_t)b * N * m : nullptr;
+  const int m = kKn ? p.pl.m : 0, dummy = kDummy ? p.pl.dummy : -1;
+  const float* w_inst = kKn ? p.pl.weight + (size_t)b * N * m : nullptr;
   const float* d_inst = kO ? p.pl.dist + (size_t)b * N * N : nullptr;
   const float* prize_row = kPc ? p.pl.prizes + (size_t)b * N : nullptr;
   const float limit = kO ? __ldg(p.pl.max_len + b) : 0.0f;
@@ -191,8 +221,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
   float g[G];                           // this step's noise, read a step ahead
   float dem[kCv ? G : 1];               // CVRP: the columns' demands
   int cnt[kSp ? G : 1];                 // SOP: the columns' unvisited predecessors
-  float w[kMk ? G : 1][kMk ? kMaxDims : 1];  // MKP: the columns' weights
+  float w[kKn ? G : 1][kKn ? kMaxDims : 1];  // MKP, ITEMS: the columns' weights
   float back[kO ? G : 1];               // OP: the columns' dist[c, 0]
+  float sv[kIt ? G : 1];                // ITEMS: the columns' scores
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     const int c = tid + j * threads;
@@ -205,12 +236,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
       cnt[j] = here ? __ldg(p.pl.npred + (size_t)b * N + c) : 0;
       if (kTrace && here) my_ready[c] = T + 1;
     }
-    if constexpr (kMk) {
+    if constexpr (kKn) {
 #pragma unroll
       for (int k = 0; k < kMaxDims; ++k) {
         w[j][k] = here && k < m ? __ldg(w_inst + (size_t)c * m + k) : 0.0f;
       }
     }
+    if constexpr (kIt) sv[j] = here ? __ldg(inst + c) : kNegInf;
     g[j] = here && T > 0 ? __ldg(my_noise + c) : 0.0f;
   }
   // mark column c reached (OP: closed) at path index s (its owner alone)
@@ -223,25 +255,25 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
       }
     }
   };
-  // the plug-in's init is a step with the start as its action (PCTSP: none;
-  // OP's feasibility at the start is its step 0's)
+  // the plug-in's init is a step with the start as its action (PCTSP, ITEMS:
+  // none; OP's feasibility at the start is its step 0's)
   int cur = (int)p.start[ant];
   int left = N - 1;
   float used = 0.0f;  // CVRP: the load; OP: the tour length; PCTSP: the prize collected
   bool home = false, gate_open = false;  // PCTSP: a depot pick made; the depot's gate
   int gate_step = T + 1;
-  float knap[kMk ? kMaxDims : 1];  // MKP: the knapsack's sums, the same in every thread
+  float knap[kKn ? kMaxDims : 1];  // MKP, ITEMS: the knapsack's sums, the same in every thread
   if constexpr (kCv) {
     left -= cur != 0;
     used = __fadd_rn(0.0f, __ldg(dem_row + cur));
   }
-  if constexpr (kMk) {
+  if constexpr (kKn) {
 #pragma unroll
     for (int k = 0; k < kMaxDims; ++k) {
-      knap[k] = k < m ? __fadd_rn(0.0f, __ldg(w_inst + (size_t)cur * m + k)) : 0.0f;
+      knap[k] = k < m && kMk ? __fadd_rn(0.0f, __ldg(w_inst + (size_t)cur * m + k)) : 0.0f;
     }
   }
-  if constexpr (!kPc) visit(cur, 0);
+  if constexpr (!kPc && !kIt) visit(cur, 0);
   if (tid == 0) out[0] = cur;
   // parking: the parked step's lse (its only open logit) and, for CVRP, rem
   float park_lse = 0.0f, park_rem = 0.0f;
@@ -254,7 +286,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
   }
   if constexpr (kDummy || kPc) {
     const int parked = kPc ? 0 : dummy;
-    park_lse = __ldg(inst + (size_t)parked * N + parked);
+    park_lse = __ldg(inst + (kIt ? 0 : (size_t)parked * N) + parked);
     park = isfinite(park_lse) && park_lse > kNegInf;
   }
   // MKP, OP: the dummy opens once no real column does (a block vote); true
@@ -271,7 +303,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
   for (; t < T; ++t) {
     if (kCv && park && cur == 0 && left == 0) break;  // the same in every thread
     if (kPc && park && home && gate_open) break;
-    const float* row = inst + (size_t)cur * N;
+    const float* row = inst + (kIt ? 0 : (size_t)cur * N);
     float l[G];
     if constexpr (kSp) {
       // the row's score and succ loads together, for the unvisited columns
@@ -290,6 +322,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
         if (((live & ~rdy) >> j) & 1u && cnt[j] == 0) {
           rdy |= 1u << j;
           if (kTrace) my_ready[tid + j * threads] = t;
+        }
+        if (cnt[j] < 0 && ((live & ~vis) >> j) & 1u) {  // shut for good by a repeat
+          vis |= 1u << j;
+          if (kTrace) my_pos[tid + j * threads] = t;
         }
         if (cnt[j] != 0) l[j] = kNegInf;
       }
@@ -333,7 +369,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
         bool o = (live >> j) & 1u;
         if constexpr (kCv) {
           o = o && (c == 0 ? !depot_closed : !((vis >> j) & 1u)) && dem[j] <= r;
-        } else if constexpr (kMk) {
+        } else if constexpr (kKn) {
           o = o && c != dummy && !((vis >> j) & 1u) && fits(knap, w[j], m, p.pl.capacity);
         } else if constexpr (kPc) {
           o = o && (c == 0 ? gate_open : !home && !((vis >> j) & 1u));
@@ -342,12 +378,17 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
         }
         open |= (uint32_t)o << j;
       }
-      if constexpr (kMk) {
+      if constexpr (kKn) {
         if (parked_on_dummy(open)) break;
       }
 #pragma unroll
       for (int j = 0; j < G; ++j) {  // the row's loads first, all in flight together
-        l[j] = (open >> j) & 1u ? __ldg(row + tid + j * threads) : kNegInf;
+        const bool o = (open >> j) & 1u;
+        if constexpr (kIt) {
+          l[j] = o ? sv[j] : kNegInf;
+        } else {
+          l[j] = o ? __ldg(row + tid + j * threads) : kNegInf;
+        }
       }
     }
     float g_next[G];  // the next step's noise, in flight during this step
@@ -413,7 +454,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
           p.tr.rem[i] = __fsub_rn(p.pl.capacity, used);
           if (cur == 0) p.tr.dep[(size_t)ant * T + nd] = 2 * t + (left == 0);
         }
-        if constexpr (kMk) {
+        if constexpr (kKn) {
 #pragma unroll
           for (int k = 0; k < kMaxDims; ++k) {
             if (k < m) p.tr.knap[i * m + k] = knap[k];
@@ -426,7 +467,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
       left -= (nxt != 0 && !(best.key & 1)) ? 1 : 0;
       used = __fadd_rn(nxt == 0 ? 0.0f : used, __ldg(dem_row + nxt));
     }
-    if constexpr (kMk) {
+    if constexpr (kKn) {
 #pragma unroll
       for (int k = 0; k < kMaxDims; ++k) {
         if (k < m) knap[k] = __fadd_rn(knap[k], __ldg(w_inst + (size_t)nxt * m + k));
@@ -460,7 +501,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
         p.tr.logp[i] = 0.0f;
         p.tr.lse[i] = park_lse;
         if constexpr (kCv) p.tr.rem[i] = park_rem;
-        if constexpr (kMk) {
+        if constexpr (kKn) {
 #pragma unroll
           for (int k = 0; k < kMaxDims; ++k) {
             if (k < m) p.tr.knap[i * m + k] = knap[k];
@@ -532,7 +573,9 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
       } else {
         open = pc > t;
       }
-      if (live && open) acc += __ldg(g + i) * ((c == nxt ? 1.0f : 0.0f) - expf(s - __ldg(tr.lse + i)));
+      if (live && open) {
+        acc += __ldg(g + i) * ((c == nxt ? 1.0f : 0.0f) - softmax_at(s, __ldg(tr.lse + i), N));
+      }
     };
     if (kCv && r == 0) {
       const int cnt = __ldg(tr.ndep + ant);
@@ -541,9 +584,15 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
         const int e = __ldg(list + k);
         term(e >> 1, e & 1);
       }
-    } else if (kO) {  // pos(r): the step at which r closed, by a visit or out of reach
+    } else if (kO || (kSp && r != 0)) {
+      // pos(r): the step at which r closed, by a visit or (OP) out of reach,
+      // (SOP) shut by a repeat of column 0
       const int t = __ldg(ant_pos + r);
       if (t < T && __ldg(paths + ((size_t)b * (T + 1) + t) * A + a) == r) term(t, true);
+    } else if (kSp) {  // row 0: the start, and every repeat of column 0
+      for (int t = 0; t < T; ++t) {
+        if (__ldg(paths + ((size_t)b * (T + 1) + t) * A + a) == 0) term(t, true);
+      }
     } else {
       // PCTSP: the start's row at step 0 (no pick), a customer's at its pick;
       // the depot's later steps are parked
@@ -562,6 +611,76 @@ __global__ void __launch_bounds__(32 * kBwdWarps)
   }
 }
 
+// ITEMS: a block 32 columns of instance b and the terms k = a * T + t in
+// [split * per, (split + 1) * per), warp w the terms lo + w, lo + w + 4, ...
+// in order, then warp 0 adds the warps' sums in order into part[b, split, c].
+// An ant's steps from pos(dummy) on (the step after its dummy pick) are
+// parked, their terms 0: the warp jumps to the ant's end, keeping its
+// residue, so the work is the steps the ants took.
+__global__ void __launch_bounds__(32 * kBwdWarps)
+    rollout_bwd_items_kernel(const float* __restrict__ score, const int64_t* __restrict__ paths,
+                             const float* __restrict__ g, const Plugin pl, const Trace tr, int B,
+                             int N, int A, int T, long per, float* __restrict__ part) {
+  __shared__ float s_part[kBwdWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const int split = blockIdx.y, splits = gridDim.y, b = blockIdx.z;
+  const bool live = c < N;
+  const float s = live ? __ldg(score + (size_t)b * N + c) : 0.0f;
+  const int m = pl.m;
+  const bool dummy = c == pl.dummy;
+  float wc[kMaxDims];
+#pragma unroll
+  for (int k = 0; k < kMaxDims; ++k) {
+    wc[k] = live && k < m ? __ldg(pl.weight + ((size_t)b * N + c) * m + k) : 0.0f;
+  }
+  const long terms = (long)A * T, lo = (long)split * per;
+  const long hi = lo + per < terms ? lo + per : terms;
+  float acc = 0.0f;
+  for (long k = lo + warp; k < hi; k += kBwdWarps) {
+    const int a = (int)(k / T), t = (int)(k % T);
+    if (t >= __ldg(tr.pos + ((size_t)b * A + a) * N + pl.dummy)) {  // parked from here
+      const long end = (long)(a + 1) * T;
+      k += (end - k - 1) / kBwdWarps * kBwdWarps;  // the last term of the ant's in the residue
+      continue;
+    }
+    const size_t i = ((size_t)b * T + t) * A + a;
+    const int nxt = (int)__ldg(paths + ((size_t)b * (T + 1) + t + 1) * A + a);
+    bool open;
+    if (dummy) {
+      open = nxt == c;  // it opens only as the last open column
+    } else {
+      float kt[kMaxDims];
+#pragma unroll
+      for (int q = 0; q < kMaxDims; ++q) kt[q] = q < m ? __ldg(tr.knap + i * m + q) : 0.0f;
+      open = live && __ldg(tr.pos + ((size_t)b * A + a) * N + c) > t
+             && fits(kt, wc, m, pl.capacity);
+    }
+    if (live && open) {
+      acc += __ldg(g + i) * ((c == nxt ? 1.0f : 0.0f) - softmax_at(s, __ldg(tr.lse + i), N));
+    }
+  }
+  s_part[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && live) {
+    float total = s_part[0][lane];
+#pragma unroll
+    for (int w = 1; w < kBwdWarps; ++w) total += s_part[w][lane];
+    part[((size_t)b * splits + split) * N + c] = total;
+  }
+}
+
+// ITEMS' second pass: d_score[b, c] = the splits' partial sums in order.
+__global__ void rollout_items_sum_kernel(const float* __restrict__ part, int splits, int B,
+                                         int N, float* __restrict__ d_score) {
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)B * N) return;
+  const long b = idx / N, c = idx % N;
+  float total = 0.0f;
+  for (int s = 0; s < splits; ++s) total += __ldg(part + ((size_t)b * splits + s) * N + c);
+  d_score[idx] = total;
+}
+
 template <int kKind, bool kTrace, int G>
 int launch_g(unsigned blocks, int warps, cudaStream_t s, const Fwd& p) {
   rollout_fwd_kernel<kKind, kTrace, G><<<blocks, 32 * warps, 0, s>>>(p);
@@ -574,7 +693,7 @@ int launch_fwd(int per, unsigned blocks, int warps, cudaStream_t s, const Fwd& p
   if (per <= 2) return launch_g<kKind, kTrace, 2>(blocks, warps, s, p);
   if (per <= 4) return launch_g<kKind, kTrace, 4>(blocks, warps, s, p);
   if (per <= 8) return launch_g<kKind, kTrace, 8>(blocks, warps, s, p);
-  if constexpr (kKind != kMkp) {
+  if constexpr (kKind != kMkp && kKind != kItems) {
     if (per <= kMaxCols) return launch_g<kKind, kTrace, kMaxCols>(blocks, warps, s, p);
   }
   return cudaErrorInvalidValue;
@@ -595,20 +714,35 @@ int launch_bwd(const float* score, const int64_t* paths, const float* g, const P
   return cudaGetLastError();
 }
 
+int launch_items_bwd(const float* score, const int64_t* paths, const float* g, const Plugin& pl,
+                     const Trace& tr, int B, int N, int A, int T, int splits, float* part,
+                     float* d_score, cudaStream_t s) {
+  const long per = ((long)A * T + splits - 1) / splits;
+  const dim3 grid((unsigned)((N + 31) / 32), (unsigned)splits, (unsigned)B);
+  rollout_bwd_items_kernel<<<grid, 32 * kBwdWarps, 0, s>>>(score, paths, g, pl, tr, B, N, A, T,
+                                                            per, part);
+  const int err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const long total = (long)B * N;
+  rollout_items_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(part, splits, B, N,
+                                                                          d_score);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace deepaco
 
-// score [B,N,N] f32, start [B,A] int64, noise [T,B,A,N] f32 and the kind's
-// inputs (CVRP: demand [B,N] f32 and capacity; SOP: succ [B,N,N] uint8,
-// succ[b,k,c] = 1 iff k must precede c, and npred [B,N] int32; MKP: weight
-// [B,N,m] f32, m <= 8, capacity and the dummy's index, N <= 2048; OP: dist
+// score [B,N,N] f32 (ITEMS: [B,N]), start [B,A] int64, noise [T,B,A,N] f32 and
+// the kind's inputs (CVRP: demand [B,N] f32 and capacity; SOP: succ [B,N,N]
+// uint8, succ[b,k,c] = 1 iff k must precede c, and npred [B,N] int32; MKP and
+// ITEMS: weight [B,N,m] f32, m <= 8, capacity and the dummy's index, N <= 2048; OP: dist
 // [B,N,N] f32, max_len [B] f32 and the dummy's index; PCTSP: prizes [B,N] f32
 // and min_prizes; null where unused) -> paths [B,T+1,A] int64; traced also
 // logp and lse [B,T,A] f32 and pos [B,A,N] int32, CVRP rem [B,T,A] f32, dep
-// [B,A,T] and ndep [B,A] int32, SOP ready [B,A,N] int32, MKP knap [B,T,A,m]
-// f32, PCTSP gate [B,A] int32. kind: 0 TSP, 1 CVRP, 2 SOP, 3 MKP, 4 OP, 5
-// PCTSP. warps: 1, 2, 4 or 8 an ant (16 columns a thread at most, 8 for MKP),
-// 0 to choose.
+// [B,A,T] and ndep [B,A] int32, SOP ready [B,A,N] int32, MKP and ITEMS knap
+// [B,T,A,m] f32, PCTSP gate [B,A] int32. kind: 0 TSP, 1 CVRP, 2 SOP, 3 MKP, 4
+// OP, 5 PCTSP, 6 ITEMS. warps: 1, 2, 4 or 8 an ant (16 columns a thread at
+// most, 8 for MKP and ITEMS), 0 to choose.
 extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start,
                                         const float* noise, const float* demand,
                                         const uint8_t* succ, const int* npred, const float* weight,
@@ -620,12 +754,13 @@ extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start
                                         int* ready, float* knap, int* gate, void* stream) {
   using namespace deepaco;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int max_cols = kind == kMkp ? kMkpMaxCols : kMaxCols;
-  if (kind < kTsp || kind > kPctsp || N < 2 || N > 32 * kMaxWarps * max_cols) {
+  const bool knapsack = kind == kMkp || kind == kItems;
+  const int max_cols = knapsack ? kMkpMaxCols : kMaxCols;
+  if (kind < kTsp || kind > kItems || N < 2 || N > 32 * kMaxWarps * max_cols) {
     return cudaErrorInvalidValue;
   }
-  if (kind == kMkp && (m < 1 || m > kMaxDims)) return cudaErrorInvalidValue;
-  if ((kind == kMkp || kind == kOp) && (dummy < 0 || dummy >= N)) return cudaErrorInvalidValue;
+  if (knapsack && (m < 1 || m > kMaxDims)) return cudaErrorInvalidValue;
+  if ((knapsack || kind == kOp) && (dummy < 0 || dummy >= N)) return cudaErrorInvalidValue;
   int least = 1;  // at most max_cols columns a thread
   while (32 * least * max_cols < N) least *= 2;
   if (warps == 0) {  // the ants' warps at most 12 an SM, as K7c chooses
@@ -642,13 +777,13 @@ extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start
   const bool tr = trace != 0;
   Fwd p{score, start, noise,
         Plugin{kind == kCvrp ? demand : nullptr, kind == kSop ? succ : nullptr,
-               kind == kSop ? npred : nullptr, kind == kMkp ? weight : nullptr,
+               kind == kSop ? npred : nullptr, knapsack ? weight : nullptr,
                kind == kOp ? dist : nullptr, kind == kOp ? max_len : nullptr,
                kind == kPctsp ? prizes : nullptr, capacity, min_prizes, m, dummy},
         B, N, A, T, paths,
         tr ? Trace{logp, lse, pos, kind == kCvrp ? rem : nullptr, kind == kCvrp ? dep : nullptr,
                    kind == kCvrp ? ndep : nullptr, kind == kSop ? ready : nullptr,
-                   kind == kMkp ? knap : nullptr, kind == kPctsp ? gate : nullptr}
+                   knapsack ? knap : nullptr, kind == kPctsp ? gate : nullptr}
            : Trace{}};
   switch (kind) {
     case kTsp: return launch_kind<kTsp>(tr, per, blocks, warps, s, p);
@@ -656,22 +791,29 @@ extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start
     case kSop: return launch_kind<kSop>(tr, per, blocks, warps, s, p);
     case kMkp: return launch_kind<kMkp>(tr, per, blocks, warps, s, p);
     case kOp: return launch_kind<kOp>(tr, per, blocks, warps, s, p);
-    default: return launch_kind<kPctsp>(tr, per, blocks, warps, s, p);
+    case kPctsp: return launch_kind<kPctsp>(tr, per, blocks, warps, s, p);
+    default: return launch_kind<kItems>(tr, per, blocks, warps, s, p);
   }
 }
 
-// The gradient d_score [B,N,N] f32 of sum(g * logp) for g [B,T,A] f32 and the
-// traced forward's outputs and inputs, as deepaco_rollout_fwd_kind takes them.
+// The gradient d_score [B,N,N] f32 (ITEMS: [B,N]) of sum(g * logp) for g
+// [B,T,A] f32 and the traced forward's outputs and inputs, as
+// deepaco_rollout_fwd_kind takes them; ITEMS also takes splits >= 1, the term
+// shares of a column, and part [B,splits,N] f32 for their sums.
 extern "C" int deepaco_rollout_bwd_kind(const float* score, const int64_t* paths, const float* g,
                                         const float* lse, const int* pos, const float* rem,
                                         const int* dep, const int* ndep, const int* ready,
                                         const float* knap, const int* gate, const float* demand,
                                         const float* weight, float capacity, int m, int dummy,
-                                        int B, int N, int A, int T, int kind, float* d_score,
-                                        void* stream) {
+                                        int B, int N, int A, int T, int kind, int splits,
+                                        float* part, float* d_score, void* stream) {
   using namespace deepaco;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kind < kTsp || kind > kPctsp || (kind == kMkp && (m < 1 || m > kMaxDims))) {
+  const bool knapsack = kind == kMkp || kind == kItems;
+  if (kind < kTsp || kind > kItems || (knapsack && (m < 1 || m > kMaxDims))) {
+    return cudaErrorInvalidValue;
+  }
+  if (kind == kItems && (splits < 1 || part == nullptr || dummy < 0 || dummy >= N)) {
     return cudaErrorInvalidValue;
   }
   const Plugin pl{demand, nullptr, nullptr, weight, nullptr, nullptr, nullptr, capacity, 0.0f,
@@ -685,7 +827,9 @@ extern "C" int deepaco_rollout_bwd_kind(const float* score, const int64_t* paths
     case kSop: return launch_bwd<kSop>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
     case kMkp: return launch_bwd<kMkp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
     case kOp: return launch_bwd<kOp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
-    default: return launch_bwd<kPctsp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
+    case kPctsp: return launch_bwd<kPctsp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
+    default:
+      return launch_items_bwd(score, paths, g, pl, tr, B, N, A, T, splits, part, d_score, s);
   }
 }
 
@@ -709,5 +853,5 @@ extern "C" int deepaco_rollout_bwd(const float* score, const int64_t* paths, con
                                    int N, int A, int T, int cvrp, float* d_score, void* stream) {
   return deepaco_rollout_bwd_kind(score, paths, g, lse, pos, rem, dep, ndep, nullptr, nullptr,
                                   nullptr, demand, nullptr, 0.0f, 0, 0, B, N, A, T, cvrp ? 1 : 0,
-                                  d_score, stream);
+                                  0, nullptr, d_score, stream);
 }

@@ -61,8 +61,9 @@ def evaluate_rcpsp(instances: list[RCPSPData], net: Net | None = None, *,
     classic arm; ``net`` is moved to ``device`` (``cuda`` by default, ``cpu``
     only when asked) and run in eval mode, and left in the mode it came in.
     ``backfill`` picks the decoder (``aco.problems.rcpsp.ssgs_schedule``).
-    Every construction step is one ``_ops.pick`` (K7 on the card) and every
-    update one ``_ops.deposit`` (K8); ``_ops.timer`` wraps the phases
+    Every construction is one ``rollout`` with ``_ops.pick`` (the direct
+    evaluation's one-launch route: K7r's untraced forward on the card) and
+    every update one ``_ops.deposit`` (K8); ``_ops.timer`` wraps the phases
     ``"heuristic"``, ``"construction"``, ``"decode"`` and ``"update"``."""
     dev = resolve_device(device)
     data = stack_rcpsp(instances, device=dev)

@@ -13,13 +13,14 @@ each step ``t < T``
                SOP:  not visited_t(c) and no predecessor of c unvisited
                MKP:  c real: not visited_t(c) and knapsack_t + weight[c] <=
                      capacity in every dimension; the dummy: no real c open
+               ITEMS: MKP's, on one score row ``score [B, N]`` an instance
                OP:   c real: not visited_t(c) and, at every node s <= t the
                      ant stood on but the dummy, (travel_s + dist[cur_s, c])
                      + dist[c, 0] <= max_len; the dummy: no real c open
                PCTSP: c > 0: not visited_t(c) and no depot pick yet; the
                      depot: the prize collected rose above min_prizes, or
                      every customer was visited, at a pick before t
-    logits_t = where(open_t, score[b, cur_t, :], -1e30)
+    logits_t = where(open_t, score[b, cur_t, :], -1e30)      ITEMS: score[b, :]
     a_{t+1}  = first argmax(logits_t + noise[t])      NaN above every number
     logp_t   = logits_t[a_{t+1}] - logsumexp(logits_t)
 
@@ -27,10 +28,13 @@ with the state of the plug-ins of ``aco/problems/``: ``tsp.py`` (and
 ``smtwtp.py``, TSP's walk from the dummy job), ``cvrp.py`` (the load
 ``used`` resets at a depot pick and then adds the pick's demand in f32, and
 the depot closes right after a depot pick while customers remain),
-``sop.py`` (the count of each node's unvisited predecessors),
-``mkp.py``'s PH_suc plug-in (the knapsack adds the picked weights in f32, in
-pick order), ``op.py`` (the tour length adds ``dist[cur, a]`` in f32 a pick;
-the mask is cumulative: a column out of reach once stays shut) and
+``sop.py`` (the count of each node's unvisited predecessors; also
+``rcpsp.py``'s direct evaluation, on the score ``where(p > 0, log p,
+-1e30)`` and ``prec = adj^T``), ``mkp.py``'s PH_suc plug-in (the knapsack
+adds the picked weights in f32, in pick order) and its PH_items plug-in
+(ITEMS: the start, the dummy, is no pick), ``op.py`` (the tour length adds
+``dist[cur, a]`` in f32 a pick; the mask is cumulative: a column out of
+reach once stays shut) and
 ``pctsp.py`` (the start is no pick; the prize adds in f32 in pick order; a
 depot pick parks the ant). The outputs are ``paths [B, T+1, A]`` (row 0 the start) and
 ``log_probs [B, T, A]``, as ``engine.Rollout`` holds them. The backward of
@@ -38,6 +42,8 @@ depot pick parks the ant). The outputs are ``paths [B, T+1, A]`` (row 0 the star
 
     d_score[b, r, c] = sum over (a, t) with cur_t = r of
                        g[b, t, a] * (1[c = a_{t+1}] - softmax(logits_t)[c]) * open_t(c)
+
+and for ITEMS ``d_score [B, N]``, the same terms over every ``(a, t)``.
 
 - :func:`fused_rollout_plain`: the step loop over ``fused_pick_plain``
   that ``engine.rollout`` runs, with ``noise[t]`` at step ``t``; autograd
@@ -54,10 +60,10 @@ depot pick parks the ant). The outputs are ``paths [B, T+1, A]`` (row 0 the star
   same step loop under ``no_grad`` on a CPU tensor, one launch of K7r's
   untraced forward on a CUDA tensor.
 
-K7r takes 2 <= N <= 4096, MKP N <= 2048 with at most 8 dimensions
+K7r takes 2 <= N <= 4096, MKP and ITEMS N <= 2048 with at most 8 dimensions
 (:func:`fused_rollout_supported`); past that the engine steps through K7.
-Every kind's parked steps (a CVRP or PCTSP ant home for good, an MKP or OP
-ant on the dummy) are certain, with log-probability 0.
+Every kind's parked steps (a CVRP or PCTSP ant home for good, an MKP, ITEMS
+or OP ant on the dummy) are certain, with log-probability 0.
 """
 from __future__ import annotations
 
@@ -70,8 +76,10 @@ from deepaco_tpu_torch.ops.pick import fused_pick, fused_pick_plain
 
 NEG_INF = -1e30
 FUSED_ROLLOUT_MAX_N = 4096      # 16 columns a thread, 8 warps an ant
-MKP_MAX_N, MKP_MAX_DIMS = 2048, 8   # MKP: 8 columns a thread, their weights in registers
-_KINDS = {"tsp": 0, "cvrp": 1, "sop": 2, "mkp": 3, "op": 4, "pctsp": 5}
+MKP_MAX_N, MKP_MAX_DIMS = 2048, 8   # MKP, ITEMS: 8 columns a thread, their weights in registers
+ITEMS_SPLIT_TERMS = 256     # ITEMS backward: at least this many (ant, step) terms a block
+_KINDS = {"tsp": 0, "cvrp": 1, "sop": 2, "mkp": 3, "op": 4, "pctsp": 5, "items": 6}
+_KNAPSACK = ("mkp", "items")
 
 
 class RolloutShape(NamedTuple):
@@ -81,7 +89,9 @@ class RolloutShape(NamedTuple):
     k]`` nonzero iff ``k`` must precede ``j``, a 0/1 matrix as
     ``sop_spec`` takes it); ``"mkp"`` with ``weight [B, N, m]`` (the dummy
     item's row among them), the ``capacity`` of every dimension and the
-    ``dummy`` item's index; ``"op"`` with the extended ``dist [B, N, N]``,
+    ``dummy`` item's index; ``"items"`` (MKP's PH_items, over ``score [B,
+    N]``) with MKP's fields, every ant starting on the dummy, which is no
+    pick; ``"op"`` with the extended ``dist [B, N, N]``,
     each instance's ``max_len [B]`` and the ``dummy`` node's index;
     ``"pctsp"`` with ``prizes [B, N]`` (the depot, node 0, first) and the
     gate ``min_prizes`` (compared in f32)."""
@@ -110,9 +120,11 @@ class RolloutTrace(NamedTuple):
     no customer was left at step ``t``, else ``2 t``), ``ndep [B, A]`` of
     them; for SOP ``ready [B, A, N]`` int32 (the step at which each node's
     last predecessor was visited, ``T + 1`` if never); for MKP the knapsack
-    ``knap [B, T, A, m]`` of each step. For OP ``pos`` holds the path index
-    at which each column closed, by a visit or out of reach (``T + 1`` if
-    never); for PCTSP, whose start is no pick, the path index of each
+    ``knap [B, T, A, m]`` of each step (ITEMS too; its start is no pick,
+    so ``pos`` holds each item's pick). For SOP ``pos`` also holds the step
+    at which a repeat of column 0 shut a column for good. For OP ``pos``
+    holds the path index at which each column closed, by a visit or out of
+    reach (``T + 1`` if never); for PCTSP, whose start is no pick, the path index of each
     customer's pick, and ``gate [B, A]`` int32 the path index of the pick
     that opened the depot (``T + 1`` if none). Parked steps (a CVRP ant back
     at the depot with every customer served, a PCTSP ant back at the depot,
@@ -132,7 +144,7 @@ class RolloutTrace(NamedTuple):
 
 def fused_rollout_supported(n: int, shape: RolloutShape = TSP_SHAPE) -> bool:
     """Whether K7r takes ``n`` nodes of the plug-in ``shape``."""
-    if shape.kind == "mkp":
+    if shape.kind in _KNAPSACK:
         return 2 <= n <= MKP_MAX_N and 1 <= shape.weight.shape[-1] <= MKP_MAX_DIMS
     return 2 <= n <= FUSED_ROLLOUT_MAX_N
 
@@ -147,7 +159,8 @@ class _Walk:
     """The plug-in's state for ``B x A`` ants from ``start [B, A]``: the
     visited set and, for CVRP, the load, the customers left and the depot
     rule, as ``cvrp_construct_plain`` keeps them; for SOP the count of each
-    node's unvisited predecessors; for MKP the knapsack; for OP the tour
+    node's unvisited predecessors; for MKP the knapsack (ITEMS: the start is
+    no pick); for OP the tour
     length, with the columns out of reach among the closed ones; for PCTSP
     the prize collected and the depot's gate (the start is no pick)."""
 
@@ -160,9 +173,11 @@ class _Walk:
         elif shape.kind == "sop":
             self.succ = _succ(shape.prec).long()
             self.count = self.succ.sum(dim=1)[:, None, :].expand(*start.shape, n).clone()
-        elif shape.kind == "mkp":
+        elif shape.kind in _KNAPSACK:
             self.knap = torch.zeros((*start.shape, shape.weight.shape[-1]),
                                     dtype=torch.float32, device=start.device)
+            if shape.kind == "items":
+                return
         elif shape.kind == "op":
             self.travel = torch.zeros(start.shape, dtype=torch.float32, device=start.device)
             self.cur = start
@@ -206,7 +221,7 @@ class _Walk:
             return real
         if kind == "sop":
             return ~self.closed & (self.count == 0)
-        if kind == "mkp":
+        if kind in _KNAPSACK:
             w, dummy = self.shape.weight, self.shape.dummy
             fit = (self.knap[..., None, :] + w[:, None] <= self.shape.capacity).all(dim=-1)
             real = ~self.closed & fit
@@ -235,7 +250,7 @@ class _Walk:
             return
         if kind == "sop":
             self.count = self.count - self._rows(self.succ, act)
-        elif kind == "mkp":
+        elif kind in _KNAPSACK:
             self.knap = self.knap + self._rows(self.shape.weight, act)
         elif kind == "cvrp":
             was = self.closed.gather(-1, act[..., None])[..., 0]
@@ -247,14 +262,24 @@ class _Walk:
             self.closed[..., 0] = (act == 0) & (self.left > 0)
 
 
-def _step_loop(score, start, noise, shape: RolloutShape, pick):
-    """``engine.rollout``'s loop, one ``pick`` a step on the rows
-    ``score[b, cur, :]`` (gathered as ``tsp.row_gatherer`` does)."""
+def _rows_of(score, shape: RolloutShape, a: int):
+    """``rows(score, cur) -> [B, A, N]``: ``score[b, cur, :]`` gathered as
+    ``tsp.row_gatherer`` does; ITEMS: the one row ``score[b, :]`` expanded
+    over the ants, as ``mkp_items_spec.score_rows`` gives it."""
     from deepaco_tpu_torch.aco.problems.tsp import row_gatherer
 
-    b, n, _ = score.shape
+    b, n = score.shape[0], score.shape[-1]
+    if shape.kind == "items":
+        return lambda s, _cur: s[:, None, :].expand(b, a, n)
+    return row_gatherer(b, n, score.device)
+
+
+def _step_loop(score, start, noise, shape: RolloutShape, pick):
+    """``engine.rollout``'s loop, one ``pick`` a step on the rows
+    ``score[b, cur, :]`` (:func:`_rows_of`)."""
+    b, n = score.shape[0], score.shape[-1]
     a = start.shape[1]
-    rows = row_gatherer(b, n, score.device)
+    rows = _rows_of(score, shape, a)
     walk = _Walk(start, n, shape)
     cur, actions, log_probs = start, [start], []
     for t in range(noise.shape[0]):
@@ -284,12 +309,25 @@ def fused_rollout_paths_plain(score: torch.Tensor, start: torch.Tensor, noise: t
 
 def rollout_backward_plain(score: torch.Tensor, paths: torch.Tensor, g: torch.Tensor,
                            shape: RolloutShape = TSP_SHAPE) -> torch.Tensor:
-    """``d_score [B, N, N]`` of ``sum(g * log_probs)`` for ``paths [B, T+1,
-    A]`` and ``g [B, T, A]``: the plug-in's state replayed along the paths,
-    each step's ``g * (onehot - softmax) * open`` added into its rows."""
-    b, n, _ = score.shape
+    """``d_score [B, N, N]`` (ITEMS: ``[B, N]``) of ``sum(g * log_probs)``
+    for ``paths [B, T+1, A]`` and ``g [B, T, A]``: the plug-in's state
+    replayed along the paths, each step's ``g * (onehot - softmax) * open``
+    added into its rows (ITEMS: summed over the ants into the one row)."""
+    b, n = score.shape[0], score.shape[-1]
     a = paths.shape[2]
     score = score.detach()
+    if shape.kind == "items":
+        d = torch.zeros_like(score)
+        walk = _Walk(paths[:, 0], n, shape)
+        for t in range(paths.shape[1] - 1):
+            nxt = paths[:, t + 1]
+            open_ = walk.open()
+            logits = torch.where(open_, score[:, None, :], NEG_INF)
+            rows = -torch.softmax(logits, dim=-1)
+            rows.scatter_add_(-1, nxt[..., None], torch.ones_like(rows[..., :1]))
+            d += torch.where(open_, rows * g[:, t, :, None], 0.0).sum(dim=1)
+            walk.step(nxt)
+        return d
     flat = score.reshape(b * n, n)
     inst = torch.arange(b, device=score.device)[:, None] * n
     d = torch.zeros_like(flat)
@@ -313,12 +351,15 @@ def _ptr(x: torch.Tensor | None):
 
 def _check(name, score, start, noise, shape):
     inputs = {"cvrp": (shape.demand,), "sop": (shape.prec,), "mkp": (shape.weight,),
-              "op": (shape.dist, shape.max_len), "pctsp": (shape.prizes,)}
+              "items": (shape.weight,), "op": (shape.dist, shape.max_len),
+              "pctsp": (shape.prizes,)}
     _build.require_cuda(name, score, start, noise, *inputs.get(shape.kind, ()))
-    b, n, _ = score.shape
-    if score.shape != (b, n, n) or start.dim() != 2 or start.shape[0] != b \
+    b, n = score.shape[0], score.shape[-1]
+    want = (b, n) if shape.kind == "items" else (b, n, n)
+    if score.shape != want or start.dim() != 2 or start.shape[0] != b \
             or noise.shape != (noise.shape[0], b, start.shape[1], n):
-        raise ValueError(f"{name}: expected score [B, N, N], start [B, A] and noise [T, B, A, N]")
+        raise ValueError(f"{name}: expected score [B, N, N] (ITEMS: [B, N]), start [B, A] "
+                         "and noise [T, B, A, N]")
     if score.dtype != torch.float32 or noise.dtype != torch.float32:
         raise ValueError(f"{name}: K7r takes f32 score and noise")
     if shape.kind not in _KINDS:
@@ -328,9 +369,10 @@ def _check(name, score, start, noise, shape):
         raise ValueError(f"{name}: expected f32 demand [B, N]")
     if shape.kind == "sop" and shape.prec.shape != (b, n, n):
         raise ValueError(f"{name}: expected prec [B, N, N]")
-    if shape.kind == "mkp" and (shape.weight.dim() != 3 or shape.weight.shape[:2] != (b, n)
-                                or shape.weight.dtype != torch.float32
-                                or not 0 <= shape.dummy < n):
+    if shape.kind in _KNAPSACK and (shape.weight.dim() != 3
+                                    or shape.weight.shape[:2] != (b, n)
+                                    or shape.weight.dtype != torch.float32
+                                    or not 0 <= shape.dummy < n):
         raise ValueError(f"{name}: expected f32 weight [B, N, m] and a dummy item below N")
     if shape.kind == "op" and (shape.dist.shape != (b, n, n) or shape.max_len.shape != (b,)
                                or shape.dist.dtype != torch.float32
@@ -342,8 +384,8 @@ def _check(name, score, start, noise, shape):
                                   or shape.prizes.dtype != torch.float32):
         raise ValueError(f"{name}: expected f32 prizes [B, N]")
     if not fused_rollout_supported(n, shape):
-        raise ValueError(f"{name}: K7r takes 2 <= N <= {FUSED_ROLLOUT_MAX_N} (MKP: N <= "
-                         f"{MKP_MAX_N}, m <= {MKP_MAX_DIMS}), got N = {n}")
+        raise ValueError(f"{name}: K7r takes 2 <= N <= {FUSED_ROLLOUT_MAX_N} (MKP, ITEMS: "
+                         f"N <= {MKP_MAX_N}, m <= {MKP_MAX_DIMS}), got N = {n}")
 
 
 def fused_rollout_forward(score: torch.Tensor, start: torch.Tensor, noise: torch.Tensor,
@@ -353,13 +395,13 @@ def fused_rollout_forward(score: torch.Tensor, start: torch.Tensor, noise: torch
     trace)``, no gradient; ``trace=False`` writes the paths alone (``(paths,
     None, None)``, the same paths) and counts as a launch of
     :func:`fused_rollout_paths`. ``warps`` (1, 2, 4 or 8 an ant, at least N
-    / 512, MKP N / 256; 0 chooses) changes no path."""
+    / 512, MKP and ITEMS N / 256; 0 chooses) changes no path."""
     _check("fused_rollout", score, start, noise, shape)
-    b, n, _ = score.shape
+    b, n = score.shape[0], score.shape[-1]
     a, t = start.shape[1], noise.shape[0]
     dev = score.device
     kind = shape.kind
-    m = shape.weight.shape[-1] if kind == "mkp" else 0
+    m = shape.weight.shape[-1] if kind in _KNAPSACK else 0
     new = lambda dims, dtype, want=True: (torch.empty(dims, dtype=dtype, device=dev)
                                           if trace and want else None)
     paths = torch.empty((b, t + 1, a), dtype=torch.int64, device=dev)
@@ -369,13 +411,13 @@ def fused_rollout_forward(score: torch.Tensor, start: torch.Tensor, noise: torch
                       new((b, a, t), torch.int32, kind == "cvrp"),
                       new((b, a), torch.int32, kind == "cvrp"),
                       new((b, a, n), torch.int32, kind == "sop"),
-                      new((b, t, a, m), torch.float32, kind == "mkp"),
+                      new((b, t, a, m), torch.float32, kind in _KNAPSACK),
                       new((b, a), torch.int32, kind == "pctsp"))
     if b * a > 0:
         # the inputs held contiguous until the launch is queued
         score, start, noise = score.contiguous(), start.contiguous(), noise.contiguous()
         demand = shape.demand.contiguous() if kind == "cvrp" else None
-        weight = shape.weight.contiguous() if kind == "mkp" else None
+        weight = shape.weight.contiguous() if kind in _KNAPSACK else None
         succ = _succ(shape.prec) if kind == "sop" else None
         npred = succ.sum(dim=1, dtype=torch.int32) if kind == "sop" else None
         dist = shape.dist.contiguous() if kind == "op" else None
@@ -397,33 +439,50 @@ def fused_rollout_forward(score: torch.Tensor, start: torch.Tensor, noise: torch
 
 def fused_rollout_backward(score: torch.Tensor, trace: RolloutTrace, g: torch.Tensor,
                            shape: RolloutShape = TSP_SHAPE) -> torch.Tensor:
-    """``d_score [B, N, N]`` of ``sum(g * log_probs)``. A CPU tensor takes
-    :func:`rollout_backward_plain` on ``trace.paths``; a CUDA tensor
-    launches K7r's backward, a block 32 columns of a row whose four warps
-    each sum a fixed share of the ants' steps, then add in order, with no
-    atomics: a repeat gives equal bits."""
+    """``d_score [B, N, N]`` (ITEMS: ``[B, N]``) of ``sum(g * log_probs)``.
+    A CPU tensor takes :func:`rollout_backward_plain` on ``trace.paths``; a
+    CUDA tensor launches K7r's backward, a block 32 columns of a row whose
+    four warps each sum a fixed share of the ants' steps, then add in order
+    (ITEMS: a block 32 columns and a fixed share of the A * T terms, whose
+    partial sums a second pass adds in order), with no atomics: a repeat
+    gives equal bits."""
     if score.device.type == "cpu":
         return rollout_backward_plain(score, trace.paths, g, shape)
     _build.require_cuda("fused_rollout_backward", score, g, *trace[:3])
-    b, n, _ = score.shape
+    b, n = score.shape[0], score.shape[-1]
     t, a = g.shape[1], g.shape[2]
     if g.shape != (b, t, a) or trace.paths.shape != (b, t + 1, a):
         raise ValueError("fused_rollout_backward: expected g [B, T, A] for paths [B, T+1, A]")
     score, g = score.contiguous(), g.float().contiguous()
     demand = shape.demand.contiguous() if shape.kind == "cvrp" else None
-    weight = shape.weight.contiguous() if shape.kind == "mkp" else None
+    weight = shape.weight.contiguous() if shape.kind in _KNAPSACK else None
     m = weight.shape[-1] if weight is not None else 0
     d = torch.empty_like(score)
+    splits, part = 0, None
+    if shape.kind == "items":
+        splits = _items_splits(score.device, b, n, a * t)
+        part = torch.empty((b, splits, n), dtype=torch.float32, device=score.device)
     P, I, F = _build.P, _build.I, _build.F
-    fn = _build.function("deepaco_rollout_bwd_kind", [P] * 13 + [F] + [I] * 7 + [P] + [P])
+    fn = _build.function("deepaco_rollout_bwd_kind",
+                         [P] * 13 + [F] + [I] * 8 + [P] + [P] + [P])
     rc = fn(score.data_ptr(), trace.paths.data_ptr(), g.data_ptr(), trace.lse.data_ptr(),
             trace.pos.data_ptr(), _ptr(trace.rem), _ptr(trace.dep), _ptr(trace.ndep),
             _ptr(trace.ready), _ptr(trace.knap), _ptr(trace.gate), _ptr(demand), _ptr(weight),
-            float(shape.capacity), m, shape.dummy, b, n, a, t, _KINDS[shape.kind], d.data_ptr(),
-            _build.stream_ptr(score.device))
+            float(shape.capacity), m, shape.dummy, b, n, a, t, _KINDS[shape.kind], splits,
+            _ptr(part), d.data_ptr(), _build.stream_ptr(score.device))
     _build.check(rc, "deepaco_rollout_bwd_kind")
     fused_rollout_backward.launches += 1
     return d
+
+
+def _items_splits(dev, b: int, n: int, terms: int) -> int:
+    """ITEMS' backward: the shares of a column's ``A * T`` terms, so that
+    the grid holds about two blocks an SM and a block at least
+    ITEMS_SPLIT_TERMS terms; a function of the shapes and the card alone, so
+    a repeat sums in the same order."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tiles = b * -(-n // 32)
+    return max(1, min(-(-terms // ITEMS_SPLIT_TERMS), -(-2 * sms // tiles)))
 
 
 class FusedRollout(torch.autograd.Function):

@@ -10,7 +10,9 @@ One RCPSP step (:func:`make_rcpsp_train_step`, special.py:35-70): the
 train-mode ``Net(pad_feats=5)`` on one instance's masked graph (its
 BatchNorms on the batch's statistics, the edge ones weighted by the mask;
 the masked layer in plain PyTorch on every device), tau of ones, the ants
-sampled through ``probs_fn`` (K7 a step on the card) and decoded by the
+sampled on the direct evaluation's one-launch route (K7r forward and
+backward on the card; the blend of ``gamma >= 0.05`` steps through
+``probs_fn``, K7 a step) and decoded by the
 reference's SSGS, the loss ``sum(adv * sum_t log p) / A / n``, and
 ``optax.chain(clip_by_global_norm(1.0), adamw(lr))`` with optax's default
 weight decay 1e-4.
@@ -29,7 +31,7 @@ weight decay 1e-4.
 One MKP-items step (special.py:117-145): the transformer on one instance's
 ``[price, weights]`` tokens plus 1e-10, ``extend_mkp``'s dummy item, a
 pheromone of ones, ``mkp_items_spec``'s rollout with its log-probabilities
-(K7 a step on the card), ``mkp_objective``, and the maximising loss
+(K7r's ``"items"`` kind, one launch each way on the card), ``mkp_objective``, and the maximising loss
 ``sum((mean - objective) * sum_t log p) / A``; the optimizer is the
 configuration's (clip, AdamW). The CLI trains MKP-items through the family
 trainer, as the JAX CLI does.

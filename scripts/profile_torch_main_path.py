@@ -3,8 +3,8 @@
 
     python3 scripts/profile_torch_main_path.py [--ls nls|2opt | --train [--family F] | --family F | --sparse] [--out DIR]
 
-(F: cvrp, op, pctsp, smtwtp, sop, bpp, mkp or mkp_items; without --train
-also cvrp_nls)
+(F: cvrp, op, pctsp, smtwtp, sop, bpp, mkp, mkp_items or rcpsp; without
+--train also cvrp_nls)
 
 Runs a path of ``chip_smoke.py`` with its weights, instances and
 configuration once to warm up, then once under ``torch.profiler``: by default
@@ -19,12 +19,19 @@ N=500, K=50, 30 ants, NLS advantage) after one step of warm-up; with
 Net on the dense graph, K = N = 501; OP300 with 20 ants, K = 30; PCTSP500
 with 20 ants and SMTWTP500 with 50, K = N = 501; SOP100 with 50 ants on
 its masked graph, K = N = 100; BPP120 with 120 ants, K = N = 121; MKP300
-with 50 ants, K = N = 300; batch 1, through
-``make_family_train_step``, the batch drawn as ``train_family`` draws it)
-after one step of warm-up; with ``--family F`` alone that family's path
+with 50 ants, K = N = 300; MKP-items 500 with 50 ants, the transformer;
+batch 1, through ``make_family_train_step``, the batch drawn as
+``train_family`` draws it; RCPSP j120 through ``make_rcpsp_train_step``,
+20 ants, the fresh 12-layer Net, each step on the next instance of the
+train split of the seeded archive below) after one step of warm-up; with
+``--family F`` alone that family's path
 (``evaluate_family``, its largest checkpoint on its golden set at that
 scale: CVRP500, OP300, PCTSP500, SMTWTP500, SOP100, BPP120, MKP300,
-MKP-items 500; A=20, T=10); with ``--family cvrp_nls`` the CVRP-NLS path on
+MKP-items 500; A=20, T=10; ``rcpsp``: ``evaluate_rcpsp``, the CLI's
+``test rcpsp -n 120`` kernel arm, on the 100 test instances of
+``chip_smoke.write_psplib_archive``'s seeded j120 archive, written under
+``build/`` and read back, with ``rcpsp120_selftrained``, A=20, T=10); with
+``--family cvrp_nls`` the CVRP-NLS path on
 one instance (``test cvrp -n 500 --local-search swapstar --limit 1``,
 ``cvrp_nls500_selftrained``, A=20, T=1 and 10, the native engine on the
 host); with
@@ -54,6 +61,50 @@ HEURISTIC_KERNELS = ("knn_elin0_kernel", "elin0_kernel", "node_pass_kernel",
                      "edge_pass_kernel", "head_kernel")
 
 
+def rcpsp_inputs(chip_smoke, dev):
+    """Phase 17's seeded j120 archive, written under ``build/`` and read
+    back: its test and train splits."""
+    import shutil
+    import tempfile
+
+    from deepaco_tpu_torch.core.rcpsp import load_psplib
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    try:
+        archive, subset = str(chip_smoke.write_psplib_archive(tmp)), f"j{chip_smoke.RCPSP_N}rcp"
+        return (load_psplib(archive, subset, device=dev),
+                load_psplib(archive, subset, split="train", device=dev))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def rcpsp_step_runner(chip_smoke):
+    """One RCPSP j120 train step per call, on a state that carries over, each
+    on the next train instance."""
+    import torch
+
+    from deepaco_tpu_torch.aco.problems.rcpsp import RCPSPConfig
+    from deepaco_tpu_torch.core.rcpsp import stack_rcpsp
+    from deepaco_tpu_torch.eval.rcpsp import rcpsp_net
+    from deepaco_tpu_torch.train import special
+
+    dev = torch.device("cuda")
+    _, train = rcpsp_inputs(chip_smoke, dev)
+    t_max = max(d.t_max for d in train)
+    batches = [stack_rcpsp([d], t_max) for d in train]
+    cfg = special.rcpsp_config(train[0].n, n_ants=chip_smoke.A, lr=3e-4)
+    gen = torch.Generator(device=dev).manual_seed(chip_smoke.SEED)
+    state = [special.init_train_state(rcpsp_net().to(dev), cfg, gen), 0]
+    step = special.make_rcpsp_train_step(cfg, RCPSPConfig(n_ants=chip_smoke.A))
+
+    def run():
+        state[0], _ = step(state[0], batches[state[1] % len(batches)], gen)
+        state[1] += 1
+
+    return run
+
+
 def train_step_runner(chip_smoke, family: str | None = None):
     """One train step per call, on a state that carries over: TSP500-NLS, or
     with ``family`` that family's envelope on a new batch each call."""
@@ -63,6 +114,8 @@ def train_step_runner(chip_smoke, family: str | None = None):
     from deepaco_tpu_torch.train import drivers
     from deepaco_tpu_torch.train import reinforce as tr
 
+    if family == "rcpsp":
+        return rcpsp_step_runner(chip_smoke)
     if family is not None:
         fam, cfg, fam_state, rng, fam_gen = chip_smoke.family_train_inputs(
             torch.device("cuda"), family)
@@ -94,7 +147,8 @@ def main() -> int:
     parser.add_argument("--ls", choices=("nls", "2opt"), default=None)
     parser.add_argument("--train", action="store_true")
     parser.add_argument("--family", choices=("cvrp", "op", "pctsp", "smtwtp", "sop", "bpp",
-                                             "mkp", "mkp_items", "cvrp_nls"), default=None)
+                                             "mkp", "mkp_items", "rcpsp", "cvrp_nls"),
+                        default=None)
     parser.add_argument("--sparse", action="store_true")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
@@ -115,6 +169,15 @@ def main() -> int:
         run = lambda: chip_smoke.drive_sparse(sparse_args)
     elif args.family == "cvrp_nls":
         run = lambda: chip_smoke.drive_cvrp_nls(chip_smoke.cvrp_nls_args(ROOT, 1))
+    elif args.family == "rcpsp":
+        from deepaco_tpu_torch.eval.rcpsp import evaluate_rcpsp, rcpsp_net
+        from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
+
+        dev = torch.device("cuda")
+        test, _ = rcpsp_inputs(chip_smoke, dev)
+        net = rcpsp_net(load_checkpoint(str(ROOT / chip_smoke.RCPSP_CKPT))).to(dev)
+        run = lambda: evaluate_rcpsp(test, net, n_ants=chip_smoke.A, t_values=chip_smoke.T_VALUES,
+                                     seed=chip_smoke.SEED, device=dev)
     elif args.family:
         net, ds = chip_smoke.family_inputs(ROOT, torch.device("cuda"), args.family)
         run = lambda: chip_smoke.drive_family(net, ds, name=args.family)

@@ -728,12 +728,21 @@ def _rollout_case(dev, kind, b, n, a, capacity=None, seed=0):
     ``families.gen_op`` (N - 1 nodes and the dummy; ``"op_rand"``: uniform
     distances, no metric, so that a column out of reach once can fit later)
     with a budget of 1-4 an instance; PCTSP's prizes of ``families.gen_pctsp``
-    (the depot and N - 1 customers) with the gate (N - 1) / 4."""
+    (the depot and N - 1 customers) with the gate (N - 1) / 4; MKP-items'
+    weights of ``families.gen_mkp_items`` (N - 1 items in 5 dimensions and
+    the dummy, capacity 1) under one score row an instance, every ant on
+    the dummy; RCPSP's direct evaluation on seeded ProGen instances of N
+    activities, ``p = exp(score) * heu^2`` with the classic heuristic and
+    the score ``where(p > 0, log p, -1e30)`` on ``prec = adj^T``
+    (``"rcpsp_zero"``: 40% of p set to 0; ``"rcpsp_dead"``: the rows of
+    activities 3-8 at 0, so that an ant on one has every open activity at p
+    = 0 and the pick takes column 0 again)."""
     import numpy as np
 
     from deepaco_tpu_torch.aco.engine import gumbel
     from deepaco_tpu_torch.aco.problems.op import extend_op_instance
-    from deepaco_tpu_torch.families import gen_mkp, gen_op, gen_pctsp, gen_sop
+    from deepaco_tpu_torch.core import rcpsp as core
+    from deepaco_tpu_torch.families import gen_mkp, gen_mkp_items, gen_op, gen_pctsp, gen_sop
     from deepaco_tpu_torch.ops import rollout
 
     g = torch.Generator(device=dev).manual_seed(seed)
@@ -759,6 +768,24 @@ def _rollout_case(dev, kind, b, n, a, capacity=None, seed=0):
         max_len = torch.as_tensor(rng.uniform(1.0, 4.0, b).astype(np.float32), device=dev)
         start = torch.zeros((b, a), dtype=torch.int64, device=dev)
         shape, t = rollout.RolloutShape("op", dist=dist, max_len=max_len, dummy=n - 1), n
+    elif kind == "items":
+        w = torch.as_tensor(np.stack([gen_mkp_items(rng, n - 1)["weight"] for _ in range(b)]),
+                            device=dev)
+        weight = torch.cat([w, torch.zeros((b, 1, w.shape[-1]), device=dev)], dim=1)
+        score = score[:, 0].contiguous()
+        start = torch.full((b, a), n - 1, dtype=torch.int64, device=dev)
+        shape, t = rollout.RolloutShape("items", capacity=1.0, weight=weight, dummy=n - 1), n
+    elif kind.startswith("rcpsp"):
+        data = core.stack_rcpsp([core.parse_rcp(core.progen_rcp(rng, jobs=n - 2))
+                                 for _ in range(b)], device=dev)
+        p = torch.exp(score) * core.default_rcpsp_heuristic(data) ** 2
+        if kind == "rcpsp_zero":
+            p = p * (torch.rand(p.shape, generator=g, device=dev) >= 0.4)
+        if kind == "rcpsp_dead":
+            p[:, 3:9, :] = 0.0
+        score = torch.where(p > 0, torch.log(torch.clamp(p, min=1e-30)), -1e30)
+        start = torch.zeros((b, a), dtype=torch.int64, device=dev)
+        shape, t = rollout.RolloutShape("sop", prec=data.adj.transpose(-1, -2)), n - 1
     elif kind == "pctsp":
         prizes = torch.as_tensor(np.stack([gen_pctsp(rng, n - 1)["prizes"] for _ in range(b)]),
                                  device=dev)
@@ -791,7 +818,14 @@ ROLLOUT_CASES = [("tsp", 3, 50, 6, None), ("tsp0", 2, 33, 5, None), ("cvrp", 3, 
                  ("op", 1, 4096, 2, None),
                  ("pctsp", 3, 21, 5, None), ("pctsp", 1, 501, 20, None),
                  ("pctsp", 1, 501, 50, None), ("pctsp", 100, 501, 20, None),
-                 ("pctsp", 1, 4096, 2, None)]
+                 ("pctsp", 1, 4096, 2, None),
+                 ("items", 3, 31, 6, None), ("items", 1, 501, 20, None),
+                 ("items", 1, 501, 50, None), ("items", 100, 501, 20, None),
+                 ("items", 1, 2048, 2, None), ("items", 2, 301, 50, None),
+                 ("rcpsp", 3, 33, 6, None), ("rcpsp", 1, 122, 20, None),
+                 ("rcpsp", 1, 122, 50, None), ("rcpsp", 100, 122, 20, None),
+                 ("rcpsp_zero", 2, 122, 20, None), ("rcpsp_dead", 2, 122, 20, None),
+                 ("rcpsp_dead", 3, 33, 16, None)]
 
 
 @pytest.mark.parametrize("kind,b,n,a,capacity", ROLLOUT_CASES)
@@ -804,13 +838,16 @@ def test_rollout_kernel_matches_plain(dev, kind, b, n, a, capacity):
     equal bits on a repeat; one launch each way. Among the cases are
     TSP500-NLS training's, CVRP500's, SOP100's, MKP300's and SMTWTP500's
     (TSP's walk from job 0) shapes, and OP300's and PCTSP500's at their
-    training (B=1, A=20 and 50) and inference (B=100, A=20) shapes."""
+    training (B=1, A=20 and 50) and inference (B=100, A=20) shapes, and
+    MKP-items 500's and RCPSP j120's (SOP's kind on its score) at theirs,
+    RCPSP with zero entries and with steps where every open activity has p
+    = 0, MKP-items at its limit (N = 2048) and odd N."""
     from deepaco_tpu_torch.ops import rollout
 
     score, start, noise, shape = _rollout_case(dev, kind, b, n, a, capacity)
     want_paths, want_logp = rollout.fused_rollout_plain(score, start, noise, shape)
     for warps in (1, 2, 4, 8):
-        if n <= (256 if kind == "mkp" else 512) * warps:
+        if n <= (256 if kind in ("mkp", "items") else 512) * warps:
             paths, logp, _ = rollout.fused_rollout_forward(score, start, noise, shape,
                                                            warps=warps)
             assert torch.equal(paths, want_paths), warps
@@ -1317,6 +1354,51 @@ def test_family_train_step_launches_k6_and_k7_on_the_card(dev, name):
     assert all(bool(torch.isfinite(v)) for v in info)
     assert all(not torch.equal(start[k], v) for k, v in state.net.state_dict().items()
                if v.dim() == 2)
+
+
+@pytest.mark.parametrize("name", ["mkp_items", "rcpsp", "rcpsp_blend"])
+def test_engine_routes_items_and_rcpsp_through_the_rollout_kernel(dev, name):
+    """``engine.rollout`` on the card: MKP-items (20 items, 2 instances, 6
+    ants, the classic heuristic) and RCPSP's direct evaluation (2 seeded
+    instances of 32 activities, the classic heuristic) launch K7r once each
+    way with ``require_prob`` and its untraced forward once without, and no
+    K7; the blend (gamma 0.5, c 0.6) launches K7 a step each time and no
+    K7r. The paths are the plain route's on the same seed."""
+    import numpy as np
+
+    from deepaco_tpu_torch.aco.engine import rollout as run
+    from deepaco_tpu_torch.aco.problems import rcpsp as apr
+    from deepaco_tpu_torch.core import rcpsp as core
+    from deepaco_tpu_torch.families import get_family
+    from deepaco_tpu_torch.ops import pick, rollout
+    from deepaco_tpu_torch.train.drivers import instance_tensors
+
+    rng = np.random.default_rng(0)
+    if name == "mkp_items":
+        fam = get_family(name)
+        inst = fam.prepare(instance_tensors(
+            {k: np.stack([v, v[::-1].copy()]) for k, v in fam.gen(rng, 20).items()}, dev))
+        heu = fam.classic_heu(inst, 0).clone().requires_grad_(True)
+        spec = fam.spec(torch.ones_like(heu), heu, inst, 6)
+    else:
+        data = core.stack_rcpsp([core.parse_rcp(core.progen_rcp(rng)) for _ in range(2)],
+                                device=dev)
+        heu = core.default_rcpsp_heuristic(data)
+        cfg = apr.RCPSPConfig(n_ants=6, gamma=0.5 if name == "rcpsp_blend" else 0.0)
+        spec = apr.rcpsp_spec(torch.ones_like(heu), heu.clone().requires_grad_(True), data, cfg)
+    counted = (pick.fused_pick, rollout.fused_rollout, rollout.fused_rollout_backward,
+               rollout.fused_rollout_paths)
+    stepped = name == "rcpsp_blend"
+    before = [fn.launches for fn in counted]
+    ro = run(spec, torch.Generator(device=dev).manual_seed(2), require_prob=True)
+    ro.log_probs.sum().backward()
+    paths = run(spec, torch.Generator(device=dev).manual_seed(2)).paths
+    torch.cuda.synchronize()
+    launched = [fn.launches - b for fn, b in zip(counted, before)]
+    assert launched == ([2 * spec.horizon, 0, 0, 0] if stepped else [0, 1, 1, 1])
+    plain = run(spec, torch.Generator(device=dev).manual_seed(2), pick=pick.fused_pick_plain)
+    assert torch.equal(paths, ro.paths) and torch.equal(paths, plain.paths)
+    assert bool(torch.isfinite(ro.log_probs).all())
 
 
 def test_embnet_layers_kernel_without_node_update_at_the_smtwtp_shape(dev):

@@ -231,7 +231,12 @@ Phases, one JSON line each:
    the same 4 instances; the family path's plain arm
    (``drivers.PLAIN_OPS``, the same noise): cost@T1 within 1e-4 and
    cost@T10 within 1% of the kernel arm's; the family path's first
-   iteration under the profiler;
+   iteration under the profiler; then K7's route past K7r's caps
+   (``k7_past_caps_run``): the ACO facade on one seeded TSP instance of
+   4,608 nodes (20 ants, T=1, the classic heuristic, no local search): K7
+   4,607 and K8 1 launches, nothing else, a best tour that is a permutation
+   costing what the run reports, and K7 on the rows of one more
+   construction against its plain version;
 19. the remaining single-card paths (``remaining_phase``): (a)
    ``cvrp500_selftrained`` (with an extra head) and
    ``mkp_items500_selftrained`` written as reference-layout ``.pt`` files,
@@ -288,12 +293,13 @@ Phases, one JSON line each:
    path, K4 from the 2-opt arm, K5 from the NLS arm, K6 and K7r (forward
    ``fused_rollout``, backward ``fused_rollout_backward``) from the
    TSP500-NLS training run, K7r's untraced forward (``fused_rollout_paths``)
-   from phase 18's family path, K7 from phase 17's RCPSP blend run, K7c
+   from phase 18's family path, K7 from phase 18's run past K7r's caps, K7c
    and K8 from the CVRP path's kernel arm, K9 from the sparse and the CVRP
    paths' kernel arms together; row 9 is on no path of either package, so
    its count is 0), error, times and bound; K7r's entries carry ``tsp500``,
-   ``bpp``, ``cvrp_nls``, ``mkp_items``, ``rcpsp`` and ``parallel`` too
-   (their launches in that path's training and, untraced, on its kernel
+   ``bpp``, ``cvrp_nls``, ``mkp_items``, ``rcpsp``, ``rcpsp_blend`` and
+   ``parallel`` too (their launches in that path's training and, untraced,
+   on its kernel
    arm, with their error, times and bound at its shapes); K6's and K7r's
    entries also
    carry ``cvrp_train``: their launches in phase 11's three steps and their
@@ -305,9 +311,11 @@ Phases, one JSON line each:
    (``fused_rollout_paths``: SMTWTP500's inference shape, its launches from
    phase 18's family path) carries ``op``, ``pctsp``, ``smtwtp``, ``sop``,
    ``mkp``, ``mkp_items`` and ``rcpsp``; K7c and K8 carry ``cvrp_nls`` the
-   same way; K7 (its launches from the RCPSP blend run) carries
-   ``rcpsp_blend`` (its launches, error, times and bound on the blend's
-   rows) and ``rcpsp`` (0 on the direct evaluation's path and training), K8
+   same way; K7 (its launches from the run past K7r's caps) carries
+   ``past_caps`` (its launches, error, times and bound on that run's rows)
+   and ``rcpsp`` and ``rcpsp_blend`` (0 on RCPSP's paths and training); K7r's
+   untraced forward's ``rcpsp_blend`` holds the blend run's launches and
+   its check there, K7r's ``rcpsp_blend`` the blend step's; K8
    ``rcpsp``, K7r untraced, K8, K4 and K5 ``tsp_facade``; phase 19's
    launches: K1 and K3 ``sparse_runner`` (K3 also its f32-score times), K9,
    K7c, K8 and K7r untraced ``reference_pt``, K7c and K8 ``adaptive_cvrp``
@@ -402,9 +410,13 @@ CVRP_PICK_AT = (0.0, 0.15, 0.4, 0.7)   # K7's CVRP checks, as shares of the hori
 # checkpoint, the CLI's training cut to RCPSP_TRAIN_STEPS steps
 RCPSP_N, RCPSP_CKPT = 120, "checkpoints/rcpsp120_selftrained.msgpack"
 RCPSP_INSTANCES, RCPSP_TRAIN_STEPS = 104, 2
-# the blend (gamma >= 0.05, c < 1), K7's last route: RCPSPACO on the first
-# test instance, RCPSP_BLEND_T iterations
+# the blend (gamma >= 0.05, c < 1), K7r's "blend" kind: RCPSPACO on the
+# first test instance, RCPSP_BLEND_T iterations, and one rcpsp_loss step
 RCPSP_BLEND, RCPSP_BLEND_T = {"gamma": 0.5, "c": 0.6}, 2
+# K7's route past K7r's caps: the ACO facade on one seeded U(0,1)^2 TSP
+# instance of K7_PAST_N > FUSED_ROLLOUT_MAX_N nodes, A ants, K7_PAST_T
+# iterations, the classic heuristic, no local search
+K7_PAST_N, K7_PAST_T = 4608, 1
 # phase 18, test tsp on the golden file the smoke writes: the main path's
 # first TSP_GOLDEN_B instances; the per-instance arms on the first TSP_PER_B
 # at TSP_PER_T
@@ -855,12 +867,20 @@ def rollout_work(score, noise, shape, paths, traced: bool = True):
     own = {"cvrp": 4 * b * n, "sop": b * n * n + 4 * b * n,
            "mkp": 0 if shape.weight is None else 4 * shape.weight.numel(),
            "items": 0 if shape.weight is None else 4 * shape.weight.numel(),
-           "op": 4 * b * n * n + 4 * b, "pctsp": 4 * b * n}.get(shape.kind, 0)
+           "op": 4 * b * n * n + 4 * b, "pctsp": 4 * b * n,
+           "blend": b * n * n + 4 * b * n + 2 * score_bytes}.get(shape.kind, 0)
     dims = 2 * shape.weight.shape[-1] if shape.weight is not None else 0
-    ops = 6 + {"mkp": dims, "items": dims, "op": 3}.get(shape.kind, 0)
+    # the blend: the running sum's multiply and add, the power, the products
+    # with heu_pow, c and 1 - c, their sum, the compare, the max and the log
+    ops = 6 + {"mkp": dims, "items": dims, "op": 3, "blend": 9}.get(shape.kind, 0)
     out_bytes = 8 * b * (t + 1) * a + (4 * b * t * a if traced else 0)
     fwd = (score_bytes + 4 * steps * n + 8 * b * a + own + out_bytes, ops * steps * n)
     bwd = (2 * score_bytes + 4 * b * t * a + 8 * b * (t + 1) * a, 4 * steps * n)
+    if shape.kind == "blend":
+        # P, heu_pow and phe read, their three gradients written; the running
+        # sum replayed, p recomputed and its three terms and the adjoint a
+        # column a step
+        bwd = (6 * score_bytes + 4 * b * t * a + 8 * b * (t + 1) * a, 20 * steps * n)
     return fwd, bwd, steps
 
 
@@ -904,38 +924,53 @@ def check_rollout(cuda_ms, score, start, noise, shape, config: str) -> dict:
     dev = score.device
     b, n = score.shape[0], score.shape[-1]
     a, t = start.shape[1], noise.shape[0]
+    grads = lambda d: d if isinstance(d, tuple) else (d,)   # the blend: also heu_pow's, phe's
     g = torch.randn((b, t, a), generator=torch.Generator(device=dev).manual_seed(SEED + 30),
                     device=dev)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     paths_k, logp_k, trace = rollout.fused_rollout_forward(score, start, noise, shape)
-    d_k = rollout.fused_rollout_backward(score, trace, g, shape)
+    d_k = grads(rollout.fused_rollout_backward(score, trace, g, shape))
     torch.cuda.synchronize()
     peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
-    again = rollout.fused_rollout_backward(score, trace, g, shape)
-    leaf = score.clone().requires_grad_(True)
-    _, logp_a = rollout.fused_rollout(leaf, start, noise, shape)
-    d_a, = torch.autograd.grad(logp_a, leaf, g)
+    again = grads(rollout.fused_rollout_backward(score, trace, g, shape))
+    leaves, leaf_shape = (score.clone().requires_grad_(True),), shape
+    if shape.kind == "blend":
+        # heu ** beta given as the heuristic with beta 1 (a copy, whose
+        # gradient passes unchanged), so that autograd's gradient in it is
+        # the entry's d_heu_pow
+        heu_pow = (shape.heu.detach() ** shape.beta).requires_grad_(True)
+        phe = shape.phe.detach().clone().requires_grad_(True)
+        leaves, leaf_shape = leaves + (heu_pow, phe), shape._replace(heu=heu_pow, beta=1.0,
+                                                                      phe=phe)
+    _, logp_a = rollout.fused_rollout(leaves[0], start, noise, leaf_shape)
+    d_a = torch.autograd.grad(logp_a, leaves, g)
     with torch.no_grad():
         paths_p, logp_p = rollout.fused_rollout_plain(score, start, noise, shape)
-    d_p = rollout.rollout_backward_plain(score, paths_p, g, shape)
-    scale = d_p.abs().max().item()
+    d_p = grads(rollout.rollout_backward_plain(score, paths_p, g, shape))
+    scales = [x.abs().max().item() for x in d_p]
+    scale = max(scales)
     paths_equal = bool(torch.equal(paths_k, paths_p))
     logp_ok = bool(torch.allclose(logp_k, logp_p, rtol=1e-5, atol=1e-6))
-    d_ok = bool(torch.allclose(d_k, d_p, rtol=1e-4, atol=1e-5 * scale))
-    repeat_equal = bool(torch.equal(d_k, again) and torch.equal(d_k, d_a))
+    d_ok = all(bool(torch.allclose(k, p, rtol=1e-4, atol=1e-5 * s))
+               for k, p, s in zip(d_k, d_p, scales))
+    repeat_equal = all(bool(torch.equal(k, r) and torch.equal(k, u))
+                       for k, r, u in zip(d_k, again, d_a))
     fwd_ms = cuda_ms(lambda: rollout.fused_rollout_forward(score, start, noise, shape), 5)
     bwd_ms = cuda_ms(lambda: rollout.fused_rollout_backward(score, trace, g, shape), 5)
     with torch.no_grad():
         plain_ms = cuda_ms(lambda: rollout.fused_rollout_plain(score, start, noise, shape), 1)
     bwd_plain_ms = cuda_ms(lambda: rollout.rollout_backward_plain(score, paths_p, g, shape), 1)
+    # the backward's kernels: ITEMS' and the blend's two passes are summed
+    bwd_names = {"items": ("rollout_bwd", "rollout_items_sum"),
+                 "blend": ("rollout_bwd_blend_terms", "rollout_bwd_blend_rows")}.get(
+                     shape.kind, ("rollout_bwd",))
     device = kernel_device_ms(lambda: (rollout.fused_rollout_forward(score, start, noise, shape),
                                        rollout.fused_rollout_backward(score, trace, g, shape)),
-                              ("rollout_fwd", "rollout_bwd", "rollout_items_sum"))
-    if shape.kind == "items" and "not measured" not in (device["rollout_bwd"],
-                                                        device["rollout_items_sum"]):
-        device["rollout_bwd"] += device["rollout_items_sum"]    # its second pass
+                              ("rollout_fwd",) + bwd_names)
+    parts = [device.pop(k) for k in bwd_names]
+    device["rollout_bwd"] = "not measured" if "not measured" in parts else sum(parts)
     fwd_work, bwd_work, steps = rollout_work(score, noise, shape, paths_k)
     fwd_bound, bwd_bound = bound(*fwd_work), bound(*bwd_work)
     common = {"B": b, "N": n, "A": a, "T": t, "ant_steps": steps}
@@ -946,7 +981,8 @@ def check_rollout(cuda_ms, score, start, noise, shape, config: str) -> dict:
         "forward": {"max_abs_err": (logp_k - logp_p).abs().max().item(), "ms": fwd_ms,
                     "device_ms": device["rollout_fwd"], "plain_ms": plain_ms,
                     "library_ms": None, "bound_ms": fwd_bound[0], "bound_by": fwd_bound[1]},
-        "backward": {"max_abs_err": (d_k - d_p).abs().max().item(), "d_score_scale": scale,
+        "backward": {"max_abs_err": max((k - p).abs().max().item() for k, p in zip(d_k, d_p)),
+                     "d_score_scale": scale,
                      "ms": bwd_ms, "device_ms": device["rollout_bwd"], "plain_ms": bwd_plain_ms,
                      "library_ms": None, "bound_ms": bwd_bound[0], "bound_by": bwd_bound[1]}}
     emit({"phase": "kernel", "name": "fused_rollout", **out, "tolerance": ROLLOUT_TOLERANCE})
@@ -2101,10 +2137,12 @@ def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     training step kernel arm against plain arm with K7r on its rollout,
     ``train rcpsp -n 120 -e 1 -s 2`` and ``test rcpsp --ckpt`` of what it
     wrote, and the blend (``RCPSPACO`` with RCPSP_BLEND on the first test
-    instance, RCPSP_BLEND_T iterations): K7 a step, held against its plain
-    version on the blend's rows. Emits a line for the path, one for
-    training and one for the blend; returns what the kernels' line and the
-    checks read."""
+    instance, RCPSP_BLEND_T iterations): K7r's untraced forward (the
+    ``"blend"`` kind) once an iteration, held against its plain version on
+    one more construction's inputs, and one ``rcpsp_loss`` step under the
+    blend, kernel arm against plain arm, K7r once each way, held on its
+    rollout. Emits a line for the path, one for training and one for the
+    blend; returns what the kernels' line and the checks read."""
     import io
     import copy
     import tempfile
@@ -2116,7 +2154,6 @@ def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     from deepaco_tpu_torch.aco.problems import rcpsp as apr
     from deepaco_tpu_torch.core.rcpsp import check_schedule, load_psplib, stack_rcpsp
     from deepaco_tpu_torch.eval.rcpsp import rcpsp_heuristics, rcpsp_net
-    from deepaco_tpu_torch.ops import pick
     from deepaco_tpu_torch.train import drivers, special
     from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 
@@ -2261,10 +2298,10 @@ def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
           "reread_cost_t1": [float(v) for v in reread], "checks": out["checks"]})
     out["rollout_train"], out["train_launches"] = rollout_train, train_launches
 
-    # the blend, K7's last route: RCPSPACO on the first test instance, the
-    # counts set to 0 just before its run and read just after; then K7 on
-    # the rows of one more construction on its pheromone, at the shares
-    # FAMILY_PICK_AT of the horizon
+    # the blend on K7r's "blend" kind: RCPSPACO on the first test instance,
+    # the counts set to 0 just before its run and read just after; then K7r's
+    # untraced forward on the inputs of one more construction on its
+    # pheromone, held against its plain version
     blend = apr.RCPSPACO(test[0], n_ants=A, seed=SEED, device=dev, **RCPSP_BLEND)
     for fn in counted:
         fn.launches = 0
@@ -2275,33 +2312,119 @@ def rcpsp_phase(dev, root: Path, cuda_ms, timer_cls, counted) -> dict:
     blend_wall = time.perf_counter() - t0
     blend_launches = {fn.__name__: fn.launches for fn in counted}
     bspec = apr.rcpsp_spec(blend.state.tau, blend.heuristic, blend.data, blend.cfg)
-    at = {int(f * bspec.horizon) for f in FAMILY_PICK_AT}
-    steps, blend_rows = iter(range(bspec.horizon)), []
+    captured = []
+    with torch.no_grad(), captured_rollouts(captured):
+        rollout(bspec, torch.Generator(device=dev).manual_seed(SEED + 18))
+    out["k7r_blend_paths"] = check_rollout_paths(
+        cuda_ms, *captured[0], f"rcpsp{RCPSP_N} blend {RCPSP_BLEND} inference rollout, B=1, "
+        f"A={A}")
+    del captured
+    route, starts, makespan = blend.best_solution
+    blend_want = {fn.__name__: 0 for fn in counted}
+    blend_want.update(fused_rollout_paths=RCPSP_BLEND_T, tour_deposit=RCPSP_BLEND_T)
+    out["blend"] = {"launches": blend_launches, "wall_s": blend_wall, "best": blend_best,
+                    **RCPSP_BLEND, "T": RCPSP_BLEND_T, "A": A, "N": n}
+
+    # one training step under the blend from the seed's weights on the first
+    # train instance: the kernel arm (K7r's blend kind each way, the counts
+    # read after its backward) against the plain arm replaying its paths,
+    # K7r on its rollout's own inputs
+    aco_b = apr.RCPSPConfig(n_ants=A, **RCPSP_BLEND)
+    net_bk = special.init_train_state(rcpsp_net().to(dev), cfg_t,
+                                      torch.Generator(device=dev).manual_seed(SEED)).net
+    net_bp = copy.deepcopy(net_bk)
+    before_b = copy.deepcopy(net_bk.state_dict())
+    blend_rollouts = []
+    for fn in counted:
+        fn.launches = 0
+    with captured_rollouts(blend_rollouts):
+        out_bk = special.rcpsp_loss(net_bk, one, aco_b,
+                                    torch.Generator(device=dev).manual_seed(SEED + 19))
+    out_bk.loss.backward()
+    torch.cuda.synchronize()
+    blend_step_launches = {fn.__name__: fn.launches for fn in counted}
+    out_bp = special.rcpsp_loss(net_bp, one, aco_b, torch.Generator(device=dev),
+                                paths=out_bk.paths, _ops=drivers.PLAIN_OPS)
+    out_bp.loss.backward()
+    adv_b = out_bk.costs - out_bk.costs.mean(dim=-1, keepdim=True)
+    step_b = step_agreement(cfg_t, net_bk, net_bp, before_b, out_bk, out_bp, adv_b / n)
+    out["rollout_blend_train"] = check_rollout(cuda_ms, *blend_rollouts[0],
+                                               f"rcpsp{RCPSP_N} blend {RCPSP_BLEND} training "
+                                               f"rollout, {A} ants")
+    del blend_rollouts
+    step_want = {fn.__name__: 0 for fn in counted}
+    step_want.update(fused_rollout=1, fused_rollout_backward=1)
+    out["blend_step_launches"] = blend_step_launches
+    out["checks"].update(
+        blend_k7r_paths=out["k7r_blend_paths"]["passed"],
+        blend_launches=blend_launches == blend_want,
+        blend_feasible=bool(check_schedule(test[0], torch.as_tensor(starts)))
+        and makespan == blend_best and math.isfinite(blend_best),
+        blend_step_agreement=step_b["passed"], blend_k7r_train=out["rollout_blend_train"]["passed"],
+        blend_step_launches=blend_step_launches == step_want)
+    emit({"phase": "rcpsp_blend", **out["blend"], "launches_expected": blend_want,
+          "k7r_paths": out["k7r_blend_paths"], "step_agreement": step_b,
+          "step_launches": blend_step_launches, "step_launches_expected": step_want,
+          "k7r_train": out["rollout_blend_train"], "checks": out["checks"]})
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def k7_past_caps_run(dev, cuda_ms, counted) -> dict:
+    """K7's route past K7r's caps: the ACO facade (``aco.runner.ACO``) on one
+    seeded U(0,1)^2 TSP instance of K7_PAST_N > FUSED_ROLLOUT_MAX_N nodes,
+    A ants, the classic heuristic ``1/d``, no local search, K7_PAST_T
+    iterations, the counts set to 0 just before and read just after: K7 a
+    step (N - 1 an iteration) and K8 once an iteration, nothing else, and
+    a best tour that is a permutation and costs what the run reports. Then
+    K7 against ``fused_pick_plain`` on the rows of one more construction on
+    its pheromone, at the shares FAMILY_PICK_AT of the horizon. Emits one
+    line; returns what the kernels' line and the checks read."""
+    import torch
+
+    from deepaco_tpu_torch.aco.engine import rollout
+    from deepaco_tpu_torch.aco.problems.tsp import tour_cost
+    from deepaco_tpu_torch.aco.runner import ACO
+    from deepaco_tpu_torch.ops import pick
+    from deepaco_tpu_torch.ops.rollout import FUSED_ROLLOUT_MAX_N
+    from deepaco_tpu_torch.utils.datasets import distance_matrix, uniform_coords
+
+    n = K7_PAST_N
+    coords = uniform_coords(n, torch.Generator(device=dev).manual_seed(SEED + 46), device=dev)
+    dist = distance_matrix(coords)
+    aco = ACO(dist, n_ants=A, seed=SEED, device=dev)
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    best = float(aco.run(K7_PAST_T))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    want = {fn.__name__: 0 for fn in counted}
+    want.update(fused_pick=K7_PAST_T * (n - 1), tour_deposit=K7_PAST_T)
+    tour = aco.best_path
+    permutation = bool(torch.equal(torch.sort(tour).values, torch.arange(n, device=dev)))
+    tour_len = float(tour_cost(dist, tour[:, None])[0])
+    spec = aco.spec(aco.state.phe.tau, aco.heuristic)
+    at = {int(f * spec.horizon) for f in FAMILY_PICK_AT}
+    steps, rows = iter(range(spec.horizon)), []
 
     def capture(score, mask, noise):
         if next(steps) in at:
-            blend_rows.append((len(blend_rows), score.clone(), mask.clone(), noise.clone()))
+            rows.append((len(rows), score.clone(), mask.clone(), noise.clone()))
         return pick.fused_pick(score, mask, noise)
 
     with torch.no_grad():
-        rollout(bspec, torch.Generator(device=dev).manual_seed(SEED + 18), pick=capture)
-    out["k7"] = check_pick_rows(cuda_ms, blend_rows, FAMILY_PICK_AT)
-    emit({"phase": "kernel", "name": "fused_pick", "config": f"rcpsp{RCPSP_N} blend "
-          f"{RCPSP_BLEND} rollout through probs_fn, B=1, A={A}, N = {n}", **out["k7"],
-          "tolerance": "actions exact and allowed; logp rtol 1e-5, atol 1e-5 (logsumexp "
-                       "order, expf/logf against torch's)"})
-    route, starts, makespan = blend.best_solution
-    blend_want = {fn.__name__: 0 for fn in counted}
-    blend_want.update(fused_pick=RCPSP_BLEND_T * (n - 1), tour_deposit=RCPSP_BLEND_T)
-    out["blend"] = {"launches": blend_launches, "wall_s": blend_wall, "best": blend_best,
-                    **RCPSP_BLEND, "T": RCPSP_BLEND_T, "A": A, "N": n}
-    out["checks"].update(
-        blend_k7=out["k7"]["passed"], blend_launches=blend_launches == blend_want,
-        blend_feasible=bool(check_schedule(test[0], torch.as_tensor(starts)))
-        and makespan == blend_best and math.isfinite(blend_best))
-    emit({"phase": "rcpsp_blend", **out["blend"], "launches_expected": blend_want,
-          "k7": out["k7"], "checks": out["checks"]})
-    shutil.rmtree(tmp, ignore_errors=True)
+        rollout(spec, torch.Generator(device=dev).manual_seed(SEED + 47), pick=capture)
+    k7 = check_pick_rows(cuda_ms, rows, FAMILY_PICK_AT)
+    out = {"N": n, "A": A, "T": K7_PAST_T, "above_cap": n > FUSED_ROLLOUT_MAX_N,
+           "launches": launches, "launches_expected": want, "wall_s": wall, "best": best,
+           "k7": k7, "dist_gb": dist.numel() * 4 / 1e9}
+    out["checks"] = {"above_cap": out["above_cap"], "launches": launches == want,
+                     "permutation": permutation, "best_is_tour_cost":
+                     abs(tour_len - best) <= 1e-4 * best, "k7": k7["passed"]}
+    emit({"phase": "k7_past_caps", **out})
     return out
 
 
@@ -3934,8 +4057,8 @@ def main() -> int:
                      "cvrp_construct": cvrp_arms["kernel"]["launches"]["cvrp_construct"],
                      "batched_two_opt_euclid": arms["classic_2opt"]["launches"]["batched_two_opt_euclid"],
                      "batched_nls_euclid": arms["nls"]["launches"]["batched_nls_euclid"],
-                     # K7 steps the RCPSP blend alone, no longer training: phase 17's
-                     # blend run (set after phase 18)
+                     # K7 steps only past K7r's caps: phase 18's run there (set
+                     # after it)
                      "fused_pick": None,
                      **{fn.__name__: train_launches[fn.__name__] for fn in (
                          gnn_layer.fused_gnn_layer, gnn_layer.fused_gnn_layer_backward,
@@ -4004,16 +4127,18 @@ def main() -> int:
             entry["mkp_items"] = fields[entry["name"]]
 
     # ---- 17. RCPSP j120: K7r (SOP's kind) on the direct evaluation, K8 on
-    # the elitist update, K7 on the blend
+    # the elitist update, K7r (the "blend" kind) on the blend
     rcpsp_run = rcpsp_phase(dev, root, cuda_ms, PhaseTimer, counted)
     # ---- 18. test tsp on a golden file: the family path, batched and
-    # per-instance local search through the ACO facade
+    # per-instance local search through the ACO facade; the facade past
+    # K7r's caps, K7 a step
     golden_run = tsp_golden_phase(dev, root, cuda_ms, counted, coords)
+    past_run = k7_past_caps_run(dev, cuda_ms, counted)
     rcpsp_launches = rcpsp_run["arms"]["kernel"]["launches"]
     facade_launches = golden_run["arms"]["tsp_nls_per_instance"]["launches"]
-    # K7 steps the RCPSP blend alone: phase 17's blend run; the TSP inference
+    # K7 steps only past K7r's caps: phase 18's run there; the TSP inference
     # rollouts take K7r's untraced forward: test tsp's family path
-    path_launches["fused_pick"] = rcpsp_run["blend"]["launches"]["fused_pick"]
+    path_launches["fused_pick"] = past_run["launches"]["fused_pick"]
     path_launches["fused_rollout_paths"] = golden_run["arms"]["tsp_family"]["launches"][
         "fused_rollout_paths"]
     two_opt_launches = golden_run["arms"]["tsp_2opt_per_instance"]["launches"]
@@ -4023,17 +4148,29 @@ def main() -> int:
             entry["rcpsp"] = {"launches": rcpsp_launches["fused_pick"],
                               "train_launches": rcpsp_run["train_launches"]["fused_pick"]}
             entry["rcpsp_blend"] = {"launches": rcpsp_run["blend"]["launches"]["fused_pick"],
-                                    **RCPSP_BLEND, "T": RCPSP_BLEND_T,
-                                    **take(rcpsp_run["k7"], ("rows", "N") + timing)}
+                                    "train_launches":
+                                        rcpsp_run["blend_step_launches"]["fused_pick"]}
+            entry["past_caps"] = {"launches": past_run["launches"]["fused_pick"],
+                                  "N": past_run["N"], "A": A, "T": K7_PAST_T,
+                                  "wall_s": past_run["wall_s"],
+                                  **take(past_run["k7"], ("rows",) + timing)}
         if entry["name"] in ("fused_rollout", "fused_rollout_backward"):
             entry["rcpsp"] = {"train_launches": rcpsp_run["train_launches"][entry["name"]],
                               "train_steps": RCPSP_TRAIN_STEPS,
                               **rollout_entries(rcpsp_run["rollout_train"])[entry["name"]]}
+            entry["rcpsp_blend"] = {
+                "train_launches": rcpsp_run["blend_step_launches"][entry["name"]],
+                "train_steps": 1, **RCPSP_BLEND,
+                **rollout_entries(rcpsp_run["rollout_blend_train"])[entry["name"]]}
         if entry["name"] == "fused_rollout_paths":
+            paths_keys = ("config", "B", "N", "A", "T", "ant_steps", "device_ms", "traced_ms",
+                          "peak_gb") + timing
             entry["rcpsp"] = {"launches": rcpsp_launches["fused_rollout_paths"],
-                              **take(rcpsp_run["k7r_paths"],
-                                     ("config", "B", "N", "A", "T", "ant_steps", "device_ms",
-                                      "traced_ms", "peak_gb") + timing)}
+                              **take(rcpsp_run["k7r_paths"], paths_keys)}
+            entry["rcpsp_blend"] = {
+                "launches": rcpsp_run["blend"]["launches"]["fused_rollout_paths"],
+                "T": RCPSP_BLEND_T, "wall_s": rcpsp_run["blend"]["wall_s"], **RCPSP_BLEND,
+                **take(rcpsp_run["k7r_blend_paths"], paths_keys)}
             entry["launches"] = path_launches["fused_rollout_paths"]
             entry["tsp_facade"] = {"launches": facade_launches["fused_rollout_paths"],
                                    **take(golden_run["k7r_paths"],
@@ -4043,6 +4180,8 @@ def main() -> int:
                               **take(rcpsp_run["k8"], ("B", "L", "A", "n") + timing)}
             entry["tsp_facade"] = {"launches": facade_launches["tour_deposit"],
                                    **take(golden_run["k8"], ("B", "L", "A", "n") + timing)}
+            entry["rcpsp_blend"] = {"launches": rcpsp_run["blend"]["launches"]["tour_deposit"]}
+            entry["past_caps"] = {"launches": past_run["launches"]["tour_deposit"]}
         if entry["name"] == "batched_two_opt_euclid":
             entry["tsp_facade"] = {"launches": two_opt_launches["batched_two_opt_euclid"],
                                    **take(golden_run["ls"][entry["name"]],
@@ -4197,7 +4336,7 @@ def main() -> int:
     if not sparse_arms["classic_2opt"]["cost"][0] < sparse_arms["classic"]["cost"][0]:
         fail("2-opt did not shorten the classic arm's tours at T1")
     for name, r in {**family_runs, "cvrp_nls": nls_run, "mkp_items": items_run,
-                    "rcpsp": rcpsp_run, "tsp_golden": golden_run,
+                    "rcpsp": rcpsp_run, "tsp_golden": golden_run, "k7_past_caps": past_run,
                     "remaining_paths": rest_run, "parallel": par}.items():
         if not all(r["checks"].values()):
             fail(f"{name}: {r['checks']}")

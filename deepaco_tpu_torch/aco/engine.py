@@ -9,13 +9,14 @@ feasibility mask, the same law as the reference's
 ``rollout(require_prob=True)`` also returns the log-probability of each
 sampled action, differentiable in the plug-in's score matrix. A plug-in
 that carries ``fused`` (TSP's, SMTWTP's, CVRP's, SOP's, MKP's PH_suc and
-PH_items, OP's, PCTSP's, and RCPSP's direct evaluation)
+PH_items, OP's, PCTSP's, RCPSP's direct evaluation and its summation blend)
 takes the whole rollout in one launch of kernel K7r on the card:
 :func:`~deepaco_tpu_torch.ops.rollout.fused_rollout` with
 ``require_prob`` (one launch forward and one backward), else
 :func:`~deepaco_tpu_torch.ops.rollout.fused_rollout_paths` (the paths
-alone); every other rollout (RCPSP's blend) is one
-:func:`~deepaco_tpu_torch.ops.pick.fused_pick` (kernel K7) a step.
+alone); every other rollout (N past K7r's caps, RCPSP's blend at ``alpha
+<= 0``, a pick that is neither ``fused_pick`` nor ``fused_pick_plain``) is
+one :func:`~deepaco_tpu_torch.ops.pick.fused_pick` (kernel K7) a step.
 
 Gumbel noise follows ``jax.random.gumbel``'s f32 law, ``-log(-log U)`` with
 ``U`` uniform on ``[tiny, 1)``, drawn from the caller's ``torch.Generator``;
@@ -58,9 +59,11 @@ class RolloutSpec(NamedTuple):
     fused:      optional ``(score [B, N, N], ops.rollout.RolloutShape)``:
                 the score matrix that ``score_rows`` gathers from (MKP's
                 PH_items: its one row ``[B, N]``; RCPSP's direct evaluation:
-                ``probs_fn``'s logits before the mask) and the state the
-                plug-in keeps (TSP's visited set; CVRP's with its demand and
-                capacity; SOP's, and RCPSP's, with its precedences; MKP's and
+                ``probs_fn``'s logits before the mask; its blend: the direct
+                term ``phe^alpha heu^beta``, the shape holding what the rest
+                of ``probs_fn`` reads) and the state the plug-in keeps
+                (TSP's visited set; CVRP's with its demand and capacity;
+                SOP's, and RCPSP's, with its precedences; MKP's and
                 PH_items' with its knapsack; OP's with its distances and
                 budget; PCTSP's with its prizes and gate), for the
                 one-launch route of ``rollout``.

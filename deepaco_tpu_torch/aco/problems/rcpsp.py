@@ -11,10 +11,15 @@ blend of both by ``c``: the spec's ``probs_fn``. The direct evaluation
 alone (``RCPSPConfig.direct_only``, every entry point's default) is SOP's
 state on another score: the spec carries ``fused = (where(p > 0, log(max(p,
 1e-30)), -1e30), SOP's shape with prec = adj^T)``, the engine's logits bit
-for bit, so its rollouts take K7r's one launch; the blend (``gamma >= 0.05``
-and ``c < 1``), whose running sum chains every earlier pick's pheromone row
-into the step, takes one pick a step (K7 on the card). State: ``(cur [B,
-A], visited [B, A, n], indeg [B, A, n], s_sum [B, A, n])``.
+for bit. The blend (``gamma >= 0.05`` and ``c < 1``) with ``alpha > 0``
+carries ``fused = (phe^a heu^b, the "blend" shape)``: SOP's state with the
+running sum beside it, the probabilities computed inside the rollout as
+``probs_fn`` computes them. Either way its rollouts take K7r's one launch
+(one each way in training). At ``alpha <= 0`` ``(S m)^alpha`` is not 0 at
+a closed activity (``0 ** 0 = 1``), so the step loop lets an ant pick a
+visited one again, which K7r's state does not follow: that configuration
+keeps one pick a step (K7 on the card). State: ``(cur [B, A], visited [B,
+A, n], indeg [B, A, n], s_sum [B, A, n])``.
 
 Decoding: SSGS over each ant's activity list with a ``[B, A, T, m]`` int32
 resource timeline (``T = t_max``), in PyTorch on every device; its starts
@@ -72,7 +77,11 @@ def rcpsp_spec(phe: torch.Tensor, heu: torch.Tensor, data: RCPSPData,
     ``adj^T`` and the score ``where(p > 0, log(max(p, 1e-30)), -1e30)``
     (differentiable in both too) for the engine's one-launch route (K7r):
     an activity is open when unvisited and its count of unvisited
-    predecessors is 0, SOP's rule, and the mask multiplies ``p`` by 1."""
+    predecessors is 0, SOP's rule, and the mask multiplies ``p`` by 1.
+    Otherwise, with ``alpha > 0``, it carries the score ``probmat`` and the
+    ``"blend"`` shape (``phe``, ``heu``, ``beta``, ``gamma``, ``c``,
+    ``alpha``), whose rollout computes ``probs_fn``'s logits and mask ``p >
+    0`` itself; at ``alpha <= 0`` it carries none."""
     from deepaco_tpu_torch.ops.rollout import RolloutShape
 
     b, n, _ = phe.shape
@@ -116,6 +125,10 @@ def rcpsp_spec(phe: torch.Tensor, heu: torch.Tensor, data: RCPSPData,
     if cfg.direct_only:
         score = torch.where(probmat > 0, torch.log(torch.clamp(probmat, min=1e-30)), NEG_INF)
         fused = (score, RolloutShape("sop", prec=adj.transpose(-1, -2)))
+    elif cfg.alpha > 0:
+        fused = (probmat, RolloutShape("blend", prec=adj.transpose(-1, -2), phe=phe, heu=heu,
+                                       beta=cfg.beta, gamma=cfg.gamma, c=cfg.c,
+                                       alpha=cfg.alpha))
     return RolloutSpec(horizon=n - 1, start=start, init=init,
                        prob_rows=lambda state: (rows(phe, state[0]), rows(heu, state[0])),
                        mask=mask, step=step, probs_fn=probs_fn, fused=fused)
@@ -240,8 +253,8 @@ def rcpsp_iteration(data: RCPSPData, heu: torch.Tensor, cfg: RCPSPConfig,
                     state: RCPSPSearchState, generator: torch.Generator, *,
                     pick: Callable = fused_pick, deposit: Callable = ph.deposit,
                     timer: Callable = _no_timer) -> RCPSPSearchState:
-    """One iteration over the batched instances: construct (under
-    ``cfg.direct_only`` K7r's untraced forward once on the card, else a
+    """One iteration over the batched instances: construct (K7r's untraced
+    forward once on the card; at ``alpha <= 0`` off the direct evaluation a
     ``pick`` a step, K7), decode, update (one ``deposit``, K8 on the
     card); ``timer(name)`` wraps the phases ``"construction"``,
     ``"decode"`` and ``"update"``."""

@@ -8,10 +8,13 @@
 // state (engine.rollout over a spec with `fused`): TSP (and SMTWTP, TSP's walk
 // from the dummy job), CVRP and BPP, SOP (and RCPSP's direct evaluation, SOP's
 // state on the score where(p > 0, log p, -1e30)), MKP (PH_suc), MKP's PH_items
-// (one score row an instance), OP and PCTSP, in training (traced: logp and what
-// the backward reads) and inference (untraced: the paths). The port ran that
-// scan as a host loop, K7 (csrc/pick.cu) and 14-48 PyTorch launches of glue a
-// step, and autograd's backward a step; K7 now steps only RCPSP's blend.
+// (one score row an instance), OP, PCTSP and RCPSP's summation blend (SOP's
+// state and a running sum of pheromone rows, the probabilities computed here),
+// in training (traced: logp and what the backward reads) and inference
+// (untraced: the paths). The port ran that scan as a host loop, K7
+// (csrc/pick.cu) and 14-48 PyTorch launches of glue a step, and autograd's
+// backward a step; K7 now steps only past K7r's caps (and RCPSP's blend at
+// alpha <= 0, whose closed columns the plug-in reopens).
 //
 // Forward, a block an ant (1-8 warps, G <= 16 columns a thread, G <= 8 for
 // MKP), K7c's structure (csrc/cvrp_sweep.cu) on the given noise:
@@ -52,6 +55,15 @@
 //     the step after a pick that takes the prize above min_prizes (compared in
 //     f32) or visits the last customer, and stays open; a depot pick shuts
 //     every customer;
+//   BLEND (RCPSP's summation blend): SOP's state and, a register a column,
+//     the running sum S: S = phe[start, c] at step 0, then gamma S + phe[cur,
+//     c] at each step, with the rows of P = phe^alpha heu^beta (the score),
+//     heu_pow = heu^beta and phe loaded beside succ's. An open column's
+//     p = c P + (1 - c) (S^alpha heu_pow) (c = 0: the second term alone), each
+//     product and sum rounded as the plug-in's probs_fn rounds it (__fmul_rn,
+//     __fadd_rn: no FMA contraction), its logit log(max(p, 1e-30)) where p > 0,
+//     else -1e30, as the engine's mask p > 0 shuts it (the plug-in's closed
+//     columns have p = 0 at alpha > 0);
 // - each step issues its G loads of the row score[b, cur, :] together (SOP:
 //   with its row of succ), then the next step's noise[t + 1, b, a, :], which
 //   no pick decides, so that it arrives during this step; then K7's
@@ -71,7 +83,7 @@
 // 0] is). The loop stops there and writes those steps directly, and the
 // backward skips them (their gradient is 0).
 //
-// Backward (every kind but ITEMS), a block a row r and 32 columns of an
+// Backward (every kind but ITEMS and BLEND), a block a row r and 32 columns of an
 // instance, no atomics: each thread sums its column's terms
 //     g[b,t,a] * (1[c = a_{t+1}] - exp(score[b,r,c] - lse_t)) * open_t(c)
 // over the steps that leave row r, warp w the ants w, w + 4, ... in order,
@@ -101,9 +113,23 @@
 // partial sums; a second launch adds the shares of each column in order. No
 // atomics: a repeat gives equal bits.
 //
+// BLEND's backward, two launches. The first, a thread an ant's column c,
+// replays S as the forward does, recomputes each step's p, and for each step
+// t < pos(c) writes three terms into part [3, B, A, T, N]: with e = g (1[c =
+// a_{t+1}] - softmax) and dp = e / p (0 unless p >= 1e-30, the clamp's
+// gradient; 0 where the column is shut or p = 0), c dp for P, (1 - c) dp
+// S^alpha for heu_pow, and the running sum's own term (1 - c) dp heu_pow
+// alpha S^(alpha - 1), which it then turns, last step first, into D_t =
+// term_t + gamma D_{t+1}, the gradient of phe's row cur_t. The second, a
+// block a row r and 32 columns as above, adds for each ant in order the
+// three terms of the steps that stand on r (pos(r), row 0 every such step)
+// and the columns still open there (t < pos(c)). No atomics: a repeat gives
+// equal bits.
+//
 // What bounds it: the forward's chain of T dependent steps an ant (a row read
-// from L2, two butterflies and a block barrier a step), not its bytes (the
-// noise, T * B * A * N * 4, read once). The backward reads pos, lse and g of
+// from L2, two butterflies and a block barrier a step; BLEND's rows of P,
+// heu_pow, phe and succ together), not its bytes (the noise, T * B * A * N *
+// 4, read once). The backward reads pos, lse and g of
 // every ant for every row: B * N * A * (N + 4) words, mostly from L2; ITEMS'
 // reads g, lse, paths and the knapsack of every step once a column tile.
 #include "common.cuh"
@@ -117,8 +143,11 @@ constexpr int kMaxCols = 16;    // columns a thread: N <= 16 * 32 * 8 = 4096
 constexpr int kMkpMaxCols = 8;  // MKP: a thread's columns' weights are registers, N <= 2048
 constexpr int kMaxDims = 8;     // MKP: capacity dimensions
 constexpr int kBwdWarps = 4;    // a backward block: 32 columns, each warp a share of the ants
+constexpr int kTermThreads = 128;  // BLEND's first backward pass: a thread an ant's column
 
-enum Kind : int { kTsp = 0, kCvrp = 1, kSop = 2, kMkp = 3, kOp = 4, kPctsp = 5, kItems = 6 };
+enum Kind : int {
+  kTsp = 0, kCvrp = 1, kSop = 2, kMkp = 3, kOp = 4, kPctsp = 5, kItems = 6, kBlend = 7
+};
 
 // The plug-in's inputs; a kind reads its own and leaves the others null.
 struct Plugin {
@@ -129,8 +158,11 @@ struct Plugin {
   const float* dist;     // OP [B, N, N]
   const float* max_len;  // OP [B]
   const float* prizes;   // PCTSP [B, N]
+  const float* phe;      // BLEND [B, N, N]: the rows the running sum adds
+  const float* heu_pow;  // BLEND [B, N, N]: heu^beta
   float capacity;        // CVRP, MKP, ITEMS
   float min_prizes;      // PCTSP: the depot's gate
+  float gamma, cc, cb, alpha;  // BLEND: the discount, c, 1 - c and the exponent
   int m, dummy;          // MKP, ITEMS: dimensions; MKP, ITEMS, OP: the dummy column
 };
 
@@ -143,7 +175,7 @@ struct Trace {
   float* rem;   // CVRP [B, T, A]
   int* dep;     // CVRP [B, A, T]
   int* ndep;    // CVRP [B, A]
-  int* ready;   // SOP [B, A, N]
+  int* ready;   // SOP, BLEND [B, A, N]
   float* knap;  // MKP, ITEMS [B, T, A, m]
   int* gate;    // PCTSP [B, A]
 };
@@ -177,6 +209,29 @@ __device__ __forceinline__ float softmax_at(float s, float lse, int N) {
   return lse == kNegInf ? 1.0f / (float)N : expf(s - lse);
 }
 
+// x^alpha as torch.pow(x, alpha) computes it on the card for alpha > 0: the
+// exponents 1, 2, 3 and 0.5 by their own rules, powf otherwise.
+__device__ __forceinline__ float pow_alpha(float x, float alpha) {
+  if (alpha == 1.0f) return x;
+  if (alpha == 2.0f) return __fmul_rn(x, x);
+  if (alpha == 3.0f) return __fmul_rn(__fmul_rn(x, x), x);
+  if (alpha == 0.5f) return __fsqrt_rn(x);
+  return powf(x, alpha);
+}
+
+// BLEND's p of an open column, from its P and heu_pow entries and its S, in
+// the plug-in's order: c (P m) + (1 - c) ((S m)^alpha heu_pow) with m = 1.
+__device__ __forceinline__ float blend_p(const Plugin& pl, float P, float hb, float S) {
+  const float summation = __fmul_rn(pow_alpha(S, pl.alpha), hb);
+  if (pl.cc == 0.0f) return summation;
+  return __fadd_rn(__fmul_rn(pl.cc, P), __fmul_rn(pl.cb, summation));
+}
+
+// The engine's logit of p: log(max(p, 1e-30)) where p > 0, else -1e30.
+__device__ __forceinline__ float blend_logit(float p) {
+  return p > 0.0f ? logf(fmaxf(p, 1e-30f)) : kNegInf;
+}
+
 // Whether an MKP item of weights w fits beside the knapsack's sums.
 __device__ __forceinline__ bool fits(const float* knap, const float* w, int m, float capacity) {
   bool ok = true;
@@ -193,8 +248,10 @@ template <int kKind, bool kTrace, int G>
 __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p) {
   constexpr bool kCv = kKind == kCvrp, kSp = kKind == kSop, kMk = kKind == kMkp;
   constexpr bool kO = kKind == kOp, kPc = kKind == kPctsp, kIt = kKind == kItems;
+  constexpr bool kBl = kKind == kBlend;
   constexpr bool kKn = kMk || kIt;     // a knapsack
   constexpr bool kDummy = kKn || kO;  // a dummy column that opens once no real one is open
+  constexpr bool kPr = kSp || kBl;    // SOP's precedence counts
   __shared__ Cand s_best[2][kMaxWarps];
   __shared__ float s_top[2][kMaxWarps], s_total[2][kMaxWarps];
   const int B = p.B, N = p.N, A = p.A, T = p.T;
@@ -204,7 +261,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
   const int b = (int)(ant / A), a = (int)(ant % A);
   const float* inst = p.score + (size_t)b * N * (kIt ? 1 : N);  // ITEMS: the one row
   const float* dem_row = kCv ? p.pl.demand + (size_t)b * N : nullptr;
-  const uint8_t* succ = kSp ? p.pl.succ + (size_t)b * N * N : nullptr;
+  const uint8_t* succ = kPr ? p.pl.succ + (size_t)b * N * N : nullptr;
+  const float* phe_inst = kBl ? p.pl.phe + (size_t)b * N * N : nullptr;
+  const float* hb_inst = kBl ? p.pl.heu_pow + (size_t)b * N * N : nullptr;
   const int m = kKn ? p.pl.m : 0, dummy = kDummy ? p.pl.dummy : -1;
   const float* w_inst = kKn ? p.pl.weight + (size_t)b * N * m : nullptr;
   const float* d_inst = kO ? p.pl.dist + (size_t)b * N * N : nullptr;
@@ -213,14 +272,15 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
   const float* my_noise = p.noise + (size_t)ant * N;  // step t at my_noise + t * step_stride
   const size_t step_stride = (size_t)B * A * N;
   int* my_pos = kTrace ? p.tr.pos + (size_t)ant * N : nullptr;
-  int* my_ready = kTrace && kSp ? p.tr.ready + (size_t)ant * N : nullptr;
+  int* my_ready = kTrace && kPr ? p.tr.ready + (size_t)ant * N : nullptr;
   int64_t* out = p.paths + (size_t)b * (T + 1) * A + a;  // step s at out[s * A]
   const size_t row0 = (size_t)b * T * A + a;              // [B, T, A] outputs at row0 + t * A
 
   uint32_t live = 0, vis = 0, rdy = 0;  // bit j: column tid + j * threads exists / visited / ready
   float g[G];                           // this step's noise, read a step ahead
   float dem[kCv ? G : 1];               // CVRP: the columns' demands
-  int cnt[kSp ? G : 1];                 // SOP: the columns' unvisited predecessors
+  int cnt[kPr ? G : 1];                 // SOP, BLEND: the columns' unvisited predecessors
+  float S[kBl ? G : 1];                 // BLEND: the columns' running sums
   float w[kKn ? G : 1][kKn ? kMaxDims : 1];  // MKP, ITEMS: the columns' weights
   float back[kO ? G : 1];               // OP: the columns' dist[c, 0]
   float sv[kIt ? G : 1];                // ITEMS: the columns' scores
@@ -232,7 +292,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
     if (kTrace && here) my_pos[c] = T + 1;
     if constexpr (kCv) dem[j] = here ? __ldg(dem_row + c) : 0.0f;
     if constexpr (kO) back[j] = here ? __ldg(d_inst + (size_t)c * N) : 0.0f;
-    if constexpr (kSp) {
+    if constexpr (kBl) S[j] = 0.0f;
+    if constexpr (kPr) {
       cnt[j] = here ? __ldg(p.pl.npred + (size_t)b * N + c) : 0;
       if (kTrace && here) my_ready[c] = T + 1;
     }
@@ -305,19 +366,30 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
     if (kPc && park && home && gate_open) break;
     const float* row = inst + (kIt ? 0 : (size_t)cur * N);
     float l[G];
-    if constexpr (kSp) {
-      // the row's score and succ loads together, for the unvisited columns
+    if constexpr (kPr) {
+      // the row's score and succ loads together (BLEND: and heu_pow's and
+      // phe's), for the unvisited columns
       const uint8_t* srow = succ + (size_t)cur * N;
       uint8_t sc[G];
+      float hb[kBl ? G : 1], ph[kBl ? G : 1];
 #pragma unroll
       for (int j = 0; j < G; ++j) {
         const int c = tid + j * threads;
         const bool cand = ((live & ~vis) >> j) & 1u;
         l[j] = cand ? __ldg(row + c) : kNegInf;
         sc[j] = cand ? __ldg(srow + c) : 0;
+        if constexpr (kBl) {
+          hb[j] = cand ? __ldg(hb_inst + (size_t)cur * N + c) : 0.0f;
+          ph[j] = cand ? __ldg(phe_inst + (size_t)cur * N + c) : 0.0f;
+        }
       }
 #pragma unroll
       for (int j = 0; j < G; ++j) {
+        if constexpr (kBl) {  // the running sum takes the row of the node the ant stands on
+          if (((live & ~vis) >> j) & 1u) {
+            S[j] = t == 0 ? ph[j] : __fadd_rn(__fmul_rn(p.pl.gamma, S[j]), ph[j]);
+          }
+        }
         cnt[j] -= sc[j];
         if (((live & ~rdy) >> j) & 1u && cnt[j] == 0) {
           rdy |= 1u << j;
@@ -328,6 +400,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps) rollout_fwd_kernel(const Fwd p
           if (kTrace) my_pos[tid + j * threads] = t;
         }
         if (cnt[j] != 0) l[j] = kNegInf;
+        if constexpr (kBl) {
+          if (((live & ~vis) >> j) & 1u && cnt[j] == 0) {
+            l[j] = blend_logit(blend_p(p.pl, l[j], hb[j], S[j]));
+          }
+        }
       }
     } else if constexpr (kO) {
       // the row's score and dist loads together, for the open real columns and
@@ -681,6 +758,114 @@ __global__ void rollout_items_sum_kernel(const float* __restrict__ part, int spl
   d_score[idx] = total;
 }
 
+// BLEND's first backward pass: a thread column c of ant blockIdx.x, its
+// steps t < pos(c). part holds three planes [B, A, T, N]: the terms of P and
+// heu_pow of the row cur_t, and D_t, the gradient of phe's row cur_t.
+__global__ void __launch_bounds__(kTermThreads)
+    rollout_bwd_blend_terms_kernel(const float* __restrict__ score,
+                                   const int64_t* __restrict__ paths,
+                                   const float* __restrict__ g, const Plugin pl, const Trace tr,
+                                   int B, int N, int A, int T, float* __restrict__ part) {
+  const int c = blockIdx.y * kTermThreads + threadIdx.x;
+  const long ant = blockIdx.x;  // b * A + a
+  if (c >= N) return;
+  const int b = (int)(ant / A), a = (int)(ant % A);
+  const size_t plane = (size_t)B * A * T * N;
+  float* t_score = part + (size_t)ant * T * N + c;  // step t at t * N
+  float* t_heu = t_score + plane;
+  float* t_phe = t_heu + plane;
+  const int pc = __ldg(tr.pos + (size_t)ant * N + c);
+  const int rc = __ldg(tr.ready + (size_t)ant * N + c);
+  const int steps = pc < T ? pc : T;  // the column is shut from pos(c) on
+  const size_t inst = (size_t)b * N * N;
+  const int64_t* my_path = paths + (size_t)b * (T + 1) * A + a;  // step s at my_path[s * A]
+  float S = 0.0f;
+  for (int t = 0; t < steps; ++t) {
+    const int cur = (int)__ldg(my_path + (size_t)t * A);
+    const size_t at = inst + (size_t)cur * N + c;
+    const float ph = __ldg(pl.phe + at);
+    S = t == 0 ? ph : __fadd_rn(__fmul_rn(pl.gamma, S), ph);
+    float d_score = 0.0f, d_heu = 0.0f, d_s = 0.0f;
+    if (rc <= t) {  // open: unvisited, every predecessor visited
+      const float P = __ldg(score + at), hb = __ldg(pl.heu_pow + at);
+      const float pr = blend_p(pl, P, hb, S);
+      if (pr > 0.0f) {
+        const size_t i = ((size_t)b * T + t) * A + a;
+        const int nxt = (int)__ldg(my_path + (size_t)(t + 1) * A);
+        const float e = __ldg(g + i) * ((c == nxt ? 1.0f : 0.0f)
+                                        - softmax_at(blend_logit(pr), __ldg(tr.lse + i), N));
+        const float dp = pr >= 1e-30f ? __fdiv_rn(e, pr) : 0.0f;
+        const float d_sum = pl.cc == 0.0f ? dp : dp * pl.cb;
+        d_score = pl.cc == 0.0f ? 0.0f : dp * pl.cc;
+        d_heu = d_sum * pow_alpha(S, pl.alpha);
+        d_s = d_sum * hb;
+        if (pl.alpha != 1.0f) d_s *= pl.alpha * powf(S, pl.alpha - 1.0f);
+      }
+    }
+    t_score[(size_t)t * N] = d_score;
+    t_heu[(size_t)t * N] = d_heu;
+    t_phe[(size_t)t * N] = d_s;
+  }
+  float d = 0.0f;  // the running sum's adjoint, last step first
+  for (int t = steps - 1; t >= 0; --t) {
+    d = t_phe[(size_t)t * N] + pl.gamma * d;
+    t_phe[(size_t)t * N] = d;
+  }
+}
+
+// BLEND's second pass: a block 32 columns of row r of instance b; warp w adds
+// the terms of the ants w, w + kBwdWarps, ... in order at the steps that
+// stand on r and where the column is still open, then warp 0 the warps' sums
+// in order.
+__global__ void __launch_bounds__(32 * kBwdWarps)
+    rollout_bwd_blend_rows_kernel(const int64_t* __restrict__ paths, const Trace tr, int B,
+                                  int N, int A, int T, const float* __restrict__ part,
+                                  float* __restrict__ d_score, float* __restrict__ d_heu,
+                                  float* __restrict__ d_phe) {
+  __shared__ float s_part[3][kBwdWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const int r = blockIdx.y, b = blockIdx.z;
+  const bool live = c < N;
+  const size_t plane = (size_t)B * A * T * N;
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int a = warp; a < A; a += kBwdWarps) {
+    const long ant = (long)b * A + a;
+    const int* ant_pos = tr.pos + (size_t)ant * N;
+    const int pc = live ? __ldg(ant_pos + c) : 0;
+    const int64_t* my_path = paths + (size_t)b * (T + 1) * A + a;
+    const auto add = [&](int t) {
+      if (live && t < pc) {
+        const size_t i = ((size_t)ant * T + t) * N + c;
+        acc[0] += __ldg(part + i);
+        acc[1] += __ldg(part + plane + i);
+        acc[2] += __ldg(part + 2 * plane + i);
+      }
+    };
+    if (r != 0) {  // the step that stands on r, if the ant visited it
+      const int t = __ldg(ant_pos + r);
+      if (t < T && __ldg(my_path + (size_t)t * A) == r) add(t);
+    } else {  // row 0: the start, and every repeat of column 0
+      for (int t = 0; t < T; ++t) {
+        if (__ldg(my_path + (size_t)t * A) == 0) add(t);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 3; ++k) s_part[k][warp][lane] = acc[k];
+  __syncthreads();
+  if (warp == 0 && live) {
+    float* out[3] = {d_score, d_heu, d_phe};
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float total = s_part[k][0][lane];
+#pragma unroll
+      for (int w = 1; w < kBwdWarps; ++w) total += s_part[k][w][lane];
+      out[k][((size_t)b * N + r) * N + c] = total;
+    }
+  }
+}
+
 template <int kKind, bool kTrace, int G>
 int launch_g(unsigned blocks, int warps, cudaStream_t s, const Fwd& p) {
   rollout_fwd_kernel<kKind, kTrace, G><<<blocks, 32 * warps, 0, s>>>(p);
@@ -714,6 +899,20 @@ int launch_bwd(const float* score, const int64_t* paths, const float* g, const P
   return cudaGetLastError();
 }
 
+int launch_blend_bwd(const float* score, const int64_t* paths, const float* g, const Plugin& pl,
+                     const Trace& tr, int B, int N, int A, int T, float* part, float* d_score,
+                     float* d_heu, float* d_phe, cudaStream_t s) {
+  const dim3 terms((unsigned)((long)B * A), (unsigned)((N + kTermThreads - 1) / kTermThreads));
+  rollout_bwd_blend_terms_kernel<<<terms, kTermThreads, 0, s>>>(score, paths, g, pl, tr, B, N, A,
+                                                               T, part);
+  const int err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 rows((unsigned)((N + 31) / 32), (unsigned)N, (unsigned)B);
+  rollout_bwd_blend_rows_kernel<<<rows, 32 * kBwdWarps, 0, s>>>(paths, tr, B, N, A, T, part,
+                                                                d_score, d_heu, d_phe);
+  return cudaGetLastError();
+}
+
 int launch_items_bwd(const float* score, const int64_t* paths, const float* g, const Plugin& pl,
                      const Trace& tr, int B, int N, int A, int T, int splits, float* part,
                      float* d_score, cudaStream_t s) {
@@ -737,28 +936,34 @@ int launch_items_bwd(const float* score, const int64_t* paths, const float* g, c
 // uint8, succ[b,k,c] = 1 iff k must precede c, and npred [B,N] int32; MKP and
 // ITEMS: weight [B,N,m] f32, m <= 8, capacity and the dummy's index, N <= 2048; OP: dist
 // [B,N,N] f32, max_len [B] f32 and the dummy's index; PCTSP: prizes [B,N] f32
-// and min_prizes; null where unused) -> paths [B,T+1,A] int64; traced also
+// and min_prizes; BLEND: SOP's succ and npred, phe and heu_pow [B,N,N] f32,
+// gamma, c, cb = 1 - c and alpha > 0, the score P = phe^alpha heu^beta; null
+// where unused) -> paths [B,T+1,A] int64; traced also
 // logp and lse [B,T,A] f32 and pos [B,A,N] int32, CVRP rem [B,T,A] f32, dep
-// [B,A,T] and ndep [B,A] int32, SOP ready [B,A,N] int32, MKP and ITEMS knap
+// [B,A,T] and ndep [B,A] int32, SOP and BLEND ready [B,A,N] int32, MKP and ITEMS knap
 // [B,T,A,m] f32, PCTSP gate [B,A] int32. kind: 0 TSP, 1 CVRP, 2 SOP, 3 MKP, 4
-// OP, 5 PCTSP, 6 ITEMS. warps: 1, 2, 4 or 8 an ant (16 columns a thread at
+// OP, 5 PCTSP, 6 ITEMS, 7 BLEND. warps: 1, 2, 4 or 8 an ant (16 columns a thread at
 // most, 8 for MKP and ITEMS), 0 to choose.
 extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start,
                                         const float* noise, const float* demand,
                                         const uint8_t* succ, const int* npred, const float* weight,
                                         const float* dist, const float* max_len,
-                                        const float* prizes, float capacity, float min_prizes,
-                                        int m, int dummy, int B, int N, int A, int T, int kind,
+                                        const float* prizes, const float* phe,
+                                        const float* heu_pow, float capacity, float min_prizes,
+                                        float gamma, float c, float cb, float alpha, int m,
+                                        int dummy, int B, int N, int A, int T, int kind,
                                         int trace, int warps, int64_t* paths, float* logp,
                                         float* lse, int* pos, float* rem, int* dep, int* ndep,
                                         int* ready, float* knap, int* gate, void* stream) {
   using namespace deepaco;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool knapsack = kind == kMkp || kind == kItems;
+  const bool prec = kind == kSop || kind == kBlend;
   const int max_cols = knapsack ? kMkpMaxCols : kMaxCols;
-  if (kind < kTsp || kind > kItems || N < 2 || N > 32 * kMaxWarps * max_cols) {
+  if (kind < kTsp || kind > kBlend || N < 2 || N > 32 * kMaxWarps * max_cols) {
     return cudaErrorInvalidValue;
   }
+  if (kind == kBlend && !(alpha > 0.0f)) return cudaErrorInvalidValue;
   if (knapsack && (m < 1 || m > kMaxDims)) return cudaErrorInvalidValue;
   if ((knapsack || kind == kOp) && (dummy < 0 || dummy >= N)) return cudaErrorInvalidValue;
   int least = 1;  // at most max_cols columns a thread
@@ -775,14 +980,16 @@ extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start
   const int per = (N + 32 * warps - 1) / (32 * warps);
   const unsigned blocks = (unsigned)((long)B * A);
   const bool tr = trace != 0;
+  const bool blend = kind == kBlend;
   Fwd p{score, start, noise,
-        Plugin{kind == kCvrp ? demand : nullptr, kind == kSop ? succ : nullptr,
-               kind == kSop ? npred : nullptr, knapsack ? weight : nullptr,
-               kind == kOp ? dist : nullptr, kind == kOp ? max_len : nullptr,
-               kind == kPctsp ? prizes : nullptr, capacity, min_prizes, m, dummy},
+        Plugin{kind == kCvrp ? demand : nullptr, prec ? succ : nullptr, prec ? npred : nullptr,
+               knapsack ? weight : nullptr, kind == kOp ? dist : nullptr,
+               kind == kOp ? max_len : nullptr, kind == kPctsp ? prizes : nullptr,
+               blend ? phe : nullptr, blend ? heu_pow : nullptr, capacity, min_prizes, gamma, c,
+               cb, alpha, m, dummy},
         B, N, A, T, paths,
         tr ? Trace{logp, lse, pos, kind == kCvrp ? rem : nullptr, kind == kCvrp ? dep : nullptr,
-                   kind == kCvrp ? ndep : nullptr, kind == kSop ? ready : nullptr,
+                   kind == kCvrp ? ndep : nullptr, prec ? ready : nullptr,
                    knapsack ? knap : nullptr, kind == kPctsp ? gate : nullptr}
            : Trace{}};
   switch (kind) {
@@ -792,6 +999,7 @@ extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start
     case kMkp: return launch_kind<kMkp>(tr, per, blocks, warps, s, p);
     case kOp: return launch_kind<kOp>(tr, per, blocks, warps, s, p);
     case kPctsp: return launch_kind<kPctsp>(tr, per, blocks, warps, s, p);
+    case kBlend: return launch_kind<kBlend>(tr, per, blocks, warps, s, p);
     default: return launch_kind<kItems>(tr, per, blocks, warps, s, p);
   }
 }
@@ -799,25 +1007,34 @@ extern "C" int deepaco_rollout_fwd_kind(const float* score, const int64_t* start
 // The gradient d_score [B,N,N] f32 (ITEMS: [B,N]) of sum(g * logp) for g
 // [B,T,A] f32 and the traced forward's outputs and inputs, as
 // deepaco_rollout_fwd_kind takes them; ITEMS also takes splits >= 1, the term
-// shares of a column, and part [B,splits,N] f32 for their sums.
+// shares of a column, and part [B,splits,N] f32 for their sums; BLEND takes
+// part [3,B,A,T,N] f32 for its terms and also writes d_heu and d_phe
+// [B,N,N] f32, the gradients in heu_pow and (through the running sum) phe.
 extern "C" int deepaco_rollout_bwd_kind(const float* score, const int64_t* paths, const float* g,
                                         const float* lse, const int* pos, const float* rem,
                                         const int* dep, const int* ndep, const int* ready,
                                         const float* knap, const int* gate, const float* demand,
-                                        const float* weight, float capacity, int m, int dummy,
-                                        int B, int N, int A, int T, int kind, int splits,
-                                        float* part, float* d_score, void* stream) {
+                                        const float* weight, const float* phe,
+                                        const float* heu_pow, float capacity, float gamma,
+                                        float c, float cb, float alpha, int m, int dummy, int B,
+                                        int N, int A, int T, int kind, int splits, float* part,
+                                        float* d_score, float* d_heu, float* d_phe,
+                                        void* stream) {
   using namespace deepaco;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool knapsack = kind == kMkp || kind == kItems;
-  if (kind < kTsp || kind > kItems || (knapsack && (m < 1 || m > kMaxDims))) {
+  if (kind < kTsp || kind > kBlend || (knapsack && (m < 1 || m > kMaxDims))) {
     return cudaErrorInvalidValue;
   }
   if (kind == kItems && (splits < 1 || part == nullptr || dummy < 0 || dummy >= N)) {
     return cudaErrorInvalidValue;
   }
-  const Plugin pl{demand, nullptr, nullptr, weight, nullptr, nullptr, nullptr, capacity, 0.0f,
-                  m, dummy};
+  if (kind == kBlend && (part == nullptr || d_heu == nullptr || d_phe == nullptr
+                         || !(alpha > 0.0f))) {
+    return cudaErrorInvalidValue;
+  }
+  const Plugin pl{demand, nullptr, nullptr, weight, nullptr, nullptr, nullptr, phe, heu_pow,
+                  capacity, 0.0f, gamma, c, cb, alpha, m, dummy};
   const Trace tr{nullptr, const_cast<float*>(lse), const_cast<int*>(pos),
                  const_cast<float*>(rem), const_cast<int*>(dep), const_cast<int*>(ndep),
                  const_cast<int*>(ready), const_cast<float*>(knap), const_cast<int*>(gate)};
@@ -828,6 +1045,8 @@ extern "C" int deepaco_rollout_bwd_kind(const float* score, const int64_t* paths
     case kMkp: return launch_bwd<kMkp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
     case kOp: return launch_bwd<kOp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
     case kPctsp: return launch_bwd<kPctsp>(score, paths, g, pl, tr, B, N, A, T, d_score, s);
+    case kBlend:
+      return launch_blend_bwd(score, paths, g, pl, tr, B, N, A, T, part, d_score, d_heu, d_phe, s);
     default:
       return launch_items_bwd(score, paths, g, pl, tr, B, N, A, T, splits, part, d_score, s);
   }
@@ -842,9 +1061,10 @@ extern "C" int deepaco_rollout_fwd(const float* score, const int64_t* start, con
                                    float* lse, int* pos, float* rem, int* dep, int* ndep,
                                    void* stream) {
   return deepaco_rollout_fwd_kind(score, start, noise, demand, nullptr, nullptr, nullptr, nullptr,
-                                  nullptr, nullptr, capacity, 0.0f, 0, 0, B, N, A, T,
-                                  cvrp ? 1 : 0, 1, warps, paths, logp, lse, pos, rem, dep, ndep,
-                                  nullptr, nullptr, nullptr, stream);
+                                  nullptr, nullptr, nullptr, nullptr, capacity, 0.0f, 0.0f, 0.0f,
+                                  0.0f, 0.0f, 0, 0, B, N, A, T, cvrp ? 1 : 0, 1, warps, paths,
+                                  logp, lse, pos, rem, dep, ndep, nullptr, nullptr, nullptr,
+                                  stream);
 }
 
 extern "C" int deepaco_rollout_bwd(const float* score, const int64_t* paths, const float* g,
@@ -852,6 +1072,7 @@ extern "C" int deepaco_rollout_bwd(const float* score, const int64_t* paths, con
                                    const int* dep, const int* ndep, const float* demand, int B,
                                    int N, int A, int T, int cvrp, float* d_score, void* stream) {
   return deepaco_rollout_bwd_kind(score, paths, g, lse, pos, rem, dep, ndep, nullptr, nullptr,
-                                  nullptr, demand, nullptr, 0.0f, 0, 0, B, N, A, T, cvrp ? 1 : 0,
-                                  0, nullptr, d_score, stream);
+                                  nullptr, demand, nullptr, nullptr, nullptr, 0.0f, 0.0f, 0.0f,
+                                  0.0f, 0.0f, 0, 0, B, N, A, T, cvrp ? 1 : 0, 0, nullptr, d_score,
+                                  nullptr, nullptr, stream);
 }

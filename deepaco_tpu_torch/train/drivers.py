@@ -9,8 +9,9 @@ JAX step's ``vmap`` takes them, samples with ``rollout(require_prob=True)``
 through the family's ``spec``, and updates with the loss ``sum(sign *
 (cost - mean) * sum_t log p) / A``. On the card every GNN layer is one
 launch of kernel K6 forward and one backward, and the rollout one launch of
-K7r each way (TSP, SMTWTP, CVRP, BPP, SOP, MKP, OP and PCTSP, whose
-plug-ins carry their score matrix) or one launch of K7 a step (MKP-items).
+K7r each way (TSP, SMTWTP, CVRP, BPP, SOP, MKP, MKP-items, OP and PCTSP,
+whose plug-ins carry their score matrix) or, past K7r's caps, one launch of
+K7 a step.
 Products stay in full f32 (TF32 is never switched on), as
 the JAX step runs under ``default_matmul_precision("highest")``.
 
@@ -20,8 +21,8 @@ then ``aco.runner.run_anytime``. On the card the eval-mode GNN runs the
 folded layer stack K9 in one launch where ``embnet_supported`` takes the net
 (else one K6 launch a layer), every deposit K8, and each iteration's
 construction one launch of K7c (CVRP, BPP), one launch of K7r's untraced
-forward (TSP, SMTWTP, SOP, MKP, OP, PCTSP) or one K7 a step (MKP-items, and
-CVRP and BPP past K7c's N). Each
+forward (TSP, SMTWTP, SOP, MKP, MKP-items, OP, PCTSP) or, past the caps of
+K7c and K7r, one K7 a step. Each
 instance batch first goes through ``Family.prepare`` (OP's and MKP's
 extended arrays), and ``Family.extras`` (OP's and MKP's per-instance ``q``)
 reaches the search. A family with a ``forward`` hook (MKP-items'

@@ -10,9 +10,10 @@ One RCPSP step (:func:`make_rcpsp_train_step`, special.py:35-70): the
 train-mode ``Net(pad_feats=5)`` on one instance's masked graph (its
 BatchNorms on the batch's statistics, the edge ones weighted by the mask;
 the masked layer in plain PyTorch on every device), tau of ones, the ants
-sampled on the direct evaluation's one-launch route (K7r forward and
-backward on the card; the blend of ``gamma >= 0.05`` steps through
-``probs_fn``, K7 a step) and decoded by the
+sampled on the one-launch route (K7r forward and backward on the card: SOP's
+kind on the direct evaluation, the ``"blend"`` kind on the blend of ``gamma
+>= 0.05`` and ``c < 1``; ``probs_fn`` and K7 a step only at ``alpha <= 0``
+off the direct evaluation) and decoded by the
 reference's SSGS, the loss ``sum(adv * sum_t log p) / A / n``, and
 ``optax.chain(clip_by_global_norm(1.0), adamw(lr))`` with optax's default
 weight decay 1e-4.

@@ -128,7 +128,15 @@ is called through its C entries, which must have the parent's signatures
   with this tree's C entries, its forward and backward timed beside this
   tree's in the same turns (5 launches a turn), its paths' and gradient's
   equality to this build's reported, not required. This build's paths
-  must equal ``fused_rollout_plain``'s.
+  must equal ``fused_rollout_plain``'s. Beside them RCPSP's summation blend
+  (``rcpsp_blend``: one seeded j120-shaped instance, the classic
+  heuristic, tau of ones, 20 ants, ``chip_smoke.RCPSP_BLEND``): its
+  rollout through ``engine.rollout`` on the per-step route (the spec
+  without ``fused``: ``probs_fn`` and K7 a step, autograd's backward) and
+  on the one-launch route (K7r's ``"blend"`` kind), with log-probabilities
+  and their backward and without, medians of 6 alternating turns, with each
+  route's launches; the one-launch route's paths must equal the plain
+  step loop's on the same noise.
 
 Both builds of K2, K3, K4, K5 and K8 must give equal outputs, K3's two
 variants too, K7c its plain version's, and this tree's K6 its plain
@@ -1208,7 +1216,67 @@ def compare_k7r(result, same, variants: list, dev):
             case["backward"][k]["d_max_abs_diff"] = (d[k] - d["this"]).abs().max().item()
             case["backward"][k]["d_equal_this"] = bool(torch.equal(d[k], d["this"]))
         out[name] = case
+    out["rcpsp_blend"] = compare_k7r_blend(same, dev)
     result["K7r"] = out
+
+
+def compare_k7r_blend(same, dev) -> dict:
+    """RCPSP's summation blend (``chip_smoke.RCPSP_BLEND``) on one seeded
+    j120-shaped instance (122 activities), the classic heuristic and tau of
+    ones, 20 ants: the rollout with log-probabilities and their backward
+    (training) and without (inference), on the per-step route (the spec
+    without ``fused``) and on K7r's, medians of 6 alternating turns, each
+    route's launches in one run; the K7r route's paths must equal the plain
+    step loop's (``fused_pick_plain``'s route) on the same seed."""
+    import numpy as np
+    import torch
+
+    from deepaco_tpu_torch.aco import engine
+    from deepaco_tpu_torch.aco.problems import rcpsp as apr
+    from deepaco_tpu_torch.core import rcpsp as core
+    from deepaco_tpu_torch.ops import rollout as ro
+    from deepaco_tpu_torch.ops.pick import fused_pick, fused_pick_plain
+
+    data = core.stack_rcpsp([core.parse_rcp(core.progen_rcp(np.random.default_rng(cs.SEED),
+                                                            jobs=120))], device=dev)
+    heu = core.default_rcpsp_heuristic(data)
+    tau = torch.ones_like(heu)
+    cfg = apr.RCPSPConfig(n_ants=cs.A, **cs.RCPSP_BLEND)
+    gen = lambda: torch.Generator(device=dev).manual_seed(cs.SEED)
+
+    def spec(fused, h=heu):
+        s = apr.rcpsp_spec(tau, h, data, cfg)
+        return s if fused else s._replace(fused=None)
+
+    def train(fused):
+        leaf = heu.clone().requires_grad_(True)
+        engine.rollout(spec(fused, leaf), gen(), require_prob=True).log_probs.sum().backward()
+        return leaf.grad
+
+    def infer(fused, pick=fused_pick):
+        with torch.no_grad():
+            return engine.rollout(spec(fused), gen(), pick=pick).paths
+
+    counted = (fused_pick, ro.fused_rollout, ro.fused_rollout_backward, ro.fused_rollout_paths)
+
+    def launches(fn):
+        before = [f.launches for f in counted]
+        fn()
+        torch.cuda.synchronize()
+        return {f.__name__: f.launches - b for f, b in zip(counted, before)}
+
+    equal = bool(torch.equal(infer(True), infer(True, fused_pick_plain)))
+    same["K7r_rcpsp_blend"] = equal
+    out = {"B": 1, "N": data.n, "A": cs.A, "T": data.n - 1, **cs.RCPSP_BLEND,
+           "paths_equal_plain": equal}
+    for name, fn in (("train", train), ("infer", infer)):
+        case = medians_of_turns({"per_step": lambda: fn(False), "fused": lambda: fn(True)},
+                                reps=1, rounds=6)
+        case["speedup"] = case["per_step"]["median_ms"] / case["fused"]["median_ms"]
+        case["launches"] = {"per_step": launches(lambda: fn(False)),
+                            "fused": launches(lambda: fn(True))}
+        out[name] = case
+    return out
 
 
 def main() -> int:

@@ -736,7 +736,11 @@ def _rollout_case(dev, kind, b, n, a, capacity=None, seed=0):
     the score ``where(p > 0, log p, -1e30)`` on ``prec = adj^T``
     (``"rcpsp_zero"``: 40% of p set to 0; ``"rcpsp_dead"``: the rows of
     activities 3-8 at 0, so that an ant on one has every open activity at p
-    = 0 and the pick takes column 0 again)."""
+    = 0 and the pick takes column 0 again); RCPSP's summation blend
+    (``"blend"``, gamma 0.5, c 0.6; ``"blend_sum"``: c 0; ``"blend_half"``:
+    alpha 0.5; ``"blend_zero"``, ``"blend_dead"``: the heuristic's entries
+    and rows of ``"rcpsp_zero"`` and ``"rcpsp_dead"``) through ``rcpsp_spec``
+    on a pheromone in (0.5, 1.5) and the classic heuristic."""
     import numpy as np
 
     from deepaco_tpu_torch.aco.engine import gumbel
@@ -775,6 +779,21 @@ def _rollout_case(dev, kind, b, n, a, capacity=None, seed=0):
         score = score[:, 0].contiguous()
         start = torch.full((b, a), n - 1, dtype=torch.int64, device=dev)
         shape, t = rollout.RolloutShape("items", capacity=1.0, weight=weight, dummy=n - 1), n
+    elif kind.startswith("blend"):
+        from deepaco_tpu_torch.aco.problems import rcpsp as apr
+
+        data = core.stack_rcpsp([core.parse_rcp(core.progen_rcp(rng, jobs=n - 2))
+                                 for _ in range(b)], device=dev)
+        heu = core.default_rcpsp_heuristic(data)
+        if kind == "blend_zero":
+            heu = heu * (torch.rand(heu.shape, generator=g, device=dev) >= 0.4)
+        if kind == "blend_dead":
+            heu[:, 3:9, :] = 0.0
+        phe = 0.5 + torch.rand((b, n, n), generator=g, device=dev)
+        cfg = apr.RCPSPConfig(n_ants=a, gamma=0.5, c=0.0 if kind == "blend_sum" else 0.6,
+                              alpha=0.5 if kind == "blend_half" else 1.0)
+        score, shape = apr.rcpsp_spec(phe, heu, data, cfg).fused
+        start, t = torch.zeros((b, a), dtype=torch.int64, device=dev), n - 1
     elif kind.startswith("rcpsp"):
         data = core.stack_rcpsp([core.parse_rcp(core.progen_rcp(rng, jobs=n - 2))
                                  for _ in range(b)], device=dev)
@@ -825,7 +844,35 @@ ROLLOUT_CASES = [("tsp", 3, 50, 6, None), ("tsp0", 2, 33, 5, None), ("cvrp", 3, 
                  ("rcpsp", 3, 33, 6, None), ("rcpsp", 1, 122, 20, None),
                  ("rcpsp", 1, 122, 50, None), ("rcpsp", 100, 122, 20, None),
                  ("rcpsp_zero", 2, 122, 20, None), ("rcpsp_dead", 2, 122, 20, None),
-                 ("rcpsp_dead", 3, 33, 16, None)]
+                 ("rcpsp_dead", 3, 33, 16, None),
+                 ("blend", 3, 33, 6, None), ("blend", 1, 122, 20, None),
+                 ("blend", 100, 122, 20, None), ("blend_sum", 2, 122, 20, None),
+                 ("blend_half", 2, 122, 20, None), ("blend_zero", 2, 122, 20, None),
+                 ("blend_dead", 2, 122, 20, None), ("blend_dead", 3, 33, 16, None),
+                 ("blend", 1, 700, 3, None)]
+
+
+def _grad_inputs(score, shape):
+    """The leaves K7r's gradient reaches: the score, and for RCPSP's blend
+    also its heuristic and pheromone, put into the shape."""
+    leaf = score.clone().requires_grad_(True)
+    if shape.kind != "blend":
+        return (leaf,), shape
+    heu, phe = (x.clone().requires_grad_(True) for x in (shape.heu, shape.phe))
+    return (leaf, heu, phe), shape._replace(heu=heu, phe=phe)
+
+
+def _plain_grads(score, paths, g, shape):
+    """rollout_backward_plain's gradient in ``_grad_inputs``'s leaves (the
+    blend's gradient in ``heu ** beta`` chained to ``heu``)."""
+    from deepaco_tpu_torch.ops import rollout
+
+    d = rollout.rollout_backward_plain(score, paths, g, shape)
+    if shape.kind != "blend":
+        return (d,)
+    heu = shape.heu.detach().requires_grad_(True)
+    d_heu, = torch.autograd.grad(heu ** shape.beta, heu, d[1])
+    return d[0], d_heu, d[2]
 
 
 @pytest.mark.parametrize("kind,b,n,a,capacity", ROLLOUT_CASES)
@@ -841,7 +888,10 @@ def test_rollout_kernel_matches_plain(dev, kind, b, n, a, capacity):
     training (B=1, A=20 and 50) and inference (B=100, A=20) shapes, and
     MKP-items 500's and RCPSP j120's (SOP's kind on its score) at theirs,
     RCPSP with zero entries and with steps where every open activity has p
-    = 0, MKP-items at its limit (N = 2048) and odd N."""
+    = 0, MKP-items at its limit (N = 2048) and odd N, and RCPSP's summation
+    blend (the ``"blend"`` kind: its gradient also in the heuristic and the
+    pheromone) at j120's training (B=1) and inference (B=100) shapes, with
+    c 0, alpha 0.5, zero entries and dead rows."""
     from deepaco_tpu_torch.ops import rollout
 
     score, start, noise, shape = _rollout_case(dev, kind, b, n, a, capacity)
@@ -858,19 +908,19 @@ def test_rollout_kernel_matches_plain(dev, kind, b, n, a, capacity):
     before = rollout.fused_rollout_paths.launches
     assert torch.equal(rollout.fused_rollout_paths(score, start, noise, shape), want_paths)
     assert rollout.fused_rollout_paths.launches == before + 1
-    leaf = score.clone().requires_grad_(True)
+    leaves, grad_shape = _grad_inputs(score, shape)
     fwd, bwd = rollout.fused_rollout.launches, rollout.fused_rollout_backward.launches
-    paths, logp = rollout.fused_rollout(leaf, start, noise, shape)
+    paths, logp = rollout.fused_rollout(leaves[0], start, noise, grad_shape)
     assert torch.equal(paths, want_paths)
     g = torch.randn(logp.shape, generator=torch.Generator(device=dev).manual_seed(1),
                     device=dev)
-    d1, = torch.autograd.grad(logp, leaf, g, retain_graph=True)
-    d2, = torch.autograd.grad(logp, leaf, g)
+    d1 = torch.autograd.grad(logp, leaves, g, retain_graph=True)
+    d2 = torch.autograd.grad(logp, leaves, g)
     assert (rollout.fused_rollout.launches - fwd, rollout.fused_rollout_backward.launches
             - bwd) == (1, 2)
-    assert torch.equal(d1, d2)
-    want = rollout.rollout_backward_plain(score, want_paths, g, shape)
-    torch.testing.assert_close(d1, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
+    for got, again, want in zip(d1, d2, _plain_grads(score, want_paths, g, shape)):
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * want.abs().max().item())
 
 
 def test_rollout_kernel_takes_nan_first_and_refuses_what_it_cannot_take(dev):
@@ -1359,11 +1409,11 @@ def test_family_train_step_launches_k6_and_k7_on_the_card(dev, name):
 @pytest.mark.parametrize("name", ["mkp_items", "rcpsp", "rcpsp_blend"])
 def test_engine_routes_items_and_rcpsp_through_the_rollout_kernel(dev, name):
     """``engine.rollout`` on the card: MKP-items (20 items, 2 instances, 6
-    ants, the classic heuristic) and RCPSP's direct evaluation (2 seeded
-    instances of 32 activities, the classic heuristic) launch K7r once each
-    way with ``require_prob`` and its untraced forward once without, and no
-    K7; the blend (gamma 0.5, c 0.6) launches K7 a step each time and no
-    K7r. The paths are the plain route's on the same seed."""
+    ants, the classic heuristic) and RCPSP's direct evaluation and its blend
+    (gamma 0.5, c 0.6; 2 seeded instances of 32 activities, the classic
+    heuristic) launch K7r once each way with ``require_prob`` and its
+    untraced forward once without, and no K7. The paths are the plain
+    route's on the same seed."""
     import numpy as np
 
     from deepaco_tpu_torch.aco.engine import rollout as run
@@ -1388,14 +1438,13 @@ def test_engine_routes_items_and_rcpsp_through_the_rollout_kernel(dev, name):
         spec = apr.rcpsp_spec(torch.ones_like(heu), heu.clone().requires_grad_(True), data, cfg)
     counted = (pick.fused_pick, rollout.fused_rollout, rollout.fused_rollout_backward,
                rollout.fused_rollout_paths)
-    stepped = name == "rcpsp_blend"
     before = [fn.launches for fn in counted]
     ro = run(spec, torch.Generator(device=dev).manual_seed(2), require_prob=True)
     ro.log_probs.sum().backward()
     paths = run(spec, torch.Generator(device=dev).manual_seed(2)).paths
     torch.cuda.synchronize()
     launched = [fn.launches - b for fn, b in zip(counted, before)]
-    assert launched == ([2 * spec.horizon, 0, 0, 0] if stepped else [0, 1, 1, 1])
+    assert launched == [0, 1, 1, 1]
     plain = run(spec, torch.Generator(device=dev).manual_seed(2), pick=pick.fused_pick_plain)
     assert torch.equal(paths, ro.paths) and torch.equal(paths, plain.paths)
     assert bool(torch.isfinite(ro.log_probs).all())

@@ -16,7 +16,9 @@ direct evaluation (SOP's kind on ``prec = adj^T`` and the score
 - RCPSP with a heuristic with zero entries (an open activity with p = 0)
   and with steps where every open activity has p = 0 (the pick takes
   column 0 again, as the step loop and JAX's pick do);
-- RCPSP's blend (gamma 0.5) keeping the per-step route;
+- RCPSP's blend (gamma 0.5) and its summation (c 0) taking the one-launch
+  route too, on K7r's ``"blend"`` kind (``tests/test_torch_rollout_blend.py``
+  holds it to the step loop and to JAX);
 - MKP-items' parked steps on the dummy with log-probability exactly 0;
 - a ``make_mkp_items_train_step`` step, ``evaluate_family("mkp_items")``,
   ``rcpsp_iteration`` and ``rcpsp_loss`` against the same with the
@@ -324,18 +326,18 @@ def test_rcpsp_step_with_every_open_activity_at_zero_log_probs_and_gradient():
         np.testing.assert_allclose(got[i].numpy(), ref, rtol=1e-4, atol=1e-5 * np.abs(ref).max())
 
 
-@pytest.mark.parametrize("gamma,c,routed", [(0.5, 0.6, False), (0.5, 0.0, False),
-                                            (0.5, 1.0, True), (0.04, 0.6, True)],
+@pytest.mark.parametrize("gamma,c", [(0.5, 0.6), (0.5, 0.0), (0.5, 1.0), (0.04, 0.6)],
                          ids=["blend", "summation", "c1", "gamma_below"])
-def test_rcpsp_blend_keeps_the_per_step_route(gamma, c, routed, monkeypatch):
-    """The spec carries ``fused`` exactly under ``direct_only`` (gamma <
-    0.05 or c == 1): the blend and the summation have none, and their
-    rollouts step through ``fused_pick`` (K7 on the card) a step, with and
-    without log-probabilities, the one-launch routes never called."""
+def test_rcpsp_blend_keeps_the_per_step_route(gamma, c, monkeypatch):
+    """(Named for the route the blend took before K7r's ``"blend"`` kind.)
+    The spec carries ``fused`` under every evaluation at alpha 1: SOP's
+    kind under ``direct_only`` (gamma < 0.05 or c == 1), the ``"blend"``
+    kind for the blend and the summation; each rollout takes the one-launch
+    route once, with and without log-probabilities, and no pick a step."""
     phe, heu, extra = _inputs("rcpsp")
     cfg = apr.RCPSPConfig(n_ants=A, gamma=gamma, c=c)
     spec = _spec("rcpsp", phe, heu, extra, cfg=cfg)
-    assert (spec.fused is not None) == routed == cfg.direct_only
+    assert spec.fused[1].kind == ("sop" if cfg.direct_only else "blend")
     taken = []
     traced, untraced = engine._FUSED[fused_pick]
     monkeypatch.setitem(engine._FUSED, fused_pick,
@@ -343,8 +345,8 @@ def test_rcpsp_blend_keeps_the_per_step_route(gamma, c, routed, monkeypatch):
                          lambda *a: taken.append(1) or untraced(*a)))
     for require_prob in (True, False):
         out = engine.rollout(spec, torch.Generator().manual_seed(2), require_prob=require_prob)
-        assert (out.state is None) == routed
-    assert len(taken) == 2 * int(routed)
+        assert out.state is None
+    assert len(taken) == 2
 
 
 def test_items_parked_steps_are_certain():

@@ -1,0 +1,11 @@
+"""The whole request's share of the chip's peak: the least time of every
+kernel a request runs (the copied work counts, summed) over the profiled
+stretch's wall per request."""
+
+
+def read(ctx):
+    prof = ctx.get("profile", {})
+    least = ctx.get("least_ms", {})
+    if not prof.get("window_s") or not least or not prof.get("busy_s"):
+        return None
+    return 100.0 * sum(least.values()) * prof["requests"] / (prof["window_s"] * 1e3)

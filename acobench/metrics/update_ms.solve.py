@@ -1,0 +1,9 @@
+"""Device time of the program's ``update`` phase per request: CUDA events
+around the phase (its ``_ops.timer`` hook), summed over the traced window."""
+
+
+def read(ctx):
+    spans = ctx.get("spans_ms", {})
+    if "update" not in spans or not ctx.get("requests"):
+        return None
+    return spans["update"] / ctx["requests"]

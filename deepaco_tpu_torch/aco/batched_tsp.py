@@ -43,8 +43,8 @@ import torch
 from deepaco_tpu_torch.aco import pheromone as ph
 from deepaco_tpu_torch.aco.engine import gumbel
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost
-from deepaco_tpu_torch.aco.runner import (ACOConfig, SearchState, _no_timer,
-                                          init_search, search_update, track_best)
+from deepaco_tpu_torch.aco.runner import (ACOConfig, SearchState, init_search,
+                                          search_update, track_best)
 from deepaco_tpu_torch.ops import _build
 from deepaco_tpu_torch.ops.philox import (draw_seed, gumbel_bf16_from_bits,
                                           gumbel_f32_from_bits)
@@ -57,6 +57,7 @@ from deepaco_tpu_torch.ops.two_opt import (batched_nls, batched_nls_euclid,
                                            batched_two_opt_euclid,
                                            batched_two_opt_euclid_plain,
                                            heuristic_dist)
+from deepaco_tpu_torch.utils.metrics import phase
 
 NEG_INF = -1e30
 
@@ -331,10 +332,10 @@ def _batched_update(cfg: ACOConfig, state: SearchState, paths: torch.Tensor,
 
 class PathOps(NamedTuple):
     """What the main path calls in each phase, and ``timer(name)``, a context
-    manager around each phase (``"heuristic"``, ``"construction"``,
-    ``"local_search"``, ``"update"``). ``heuristic`` is K1, ``layers`` the
-    layer stack of the heuristic's route past K1's limits (K9). The default
-    is the kernels and no timer."""
+    manager that each phase's span enters (``"heuristic"``,
+    ``"construction"``, ``"local_search"``, ``"update"``). ``heuristic`` is
+    K1, ``layers`` the layer stack of the heuristic's route past K1's limits
+    (K9). The default is the kernels and no timer."""
 
     heuristic: Callable = tsp_dense_heuristic
     sweep: Callable = dense_sweep_fused
@@ -342,7 +343,7 @@ class PathOps(NamedTuple):
     two_opt: Callable = batched_two_opt_euclid
     nls: Callable = batched_nls_euclid
     layers: Callable = embnet_layers
-    timer: Callable = _no_timer
+    timer: Callable | None = None
 
 
 KERNEL_OPS = PathOps()
@@ -399,16 +400,16 @@ def run_anytime_batched(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
     ls_fn = _batched_ls_fn(ls, coords, dist, heu, ls_budget, _ops)
     state = _batched_init(b, n, cfg, heu.device)
     curve = []
-    with _ops.timer("construction"):
+    with phase("construction", _ops.timer):
         score = next_score(state.phe.tau, log_heu, cfg.alpha, sample_dtype)
     for t in range(n_iterations):
-        with _ops.timer("construction"):
+        with phase("construction", _ops.timer):
             start = _start_cities(generator, b, a, n, fixed_start, heu.device)
             paths = _ops.sweep(score, start, generator)
         if ls_fn is not None:
-            with _ops.timer("local_search"):
+            with phase("local_search", _ops.timer):
                 paths = ls_fn(paths)
-        with _ops.timer("update"):   # the last iteration writes no score
+        with phase("update", _ops.timer):   # the last iteration writes no score
             state, score = _batched_update(
                 cfg, state, paths, dist, update=_ops.update, sample_dtype=sample_dtype,
                 log_heu=log_heu if t + 1 < n_iterations else None)
@@ -488,8 +489,8 @@ def run_anytime_sparse(heu: torch.Tensor, dist: torch.Tensor, nbr: torch.Tensor,
     which also writes the next score; ``_ops.update`` takes its plain
     version). ``stats``, when given, receives ``fallback_steps``, ``steps``
     (sweep steps in all), ``syncs``, ``sync_s`` and each instance's best
-    tour (``best [B, N]``); ``_ops.timer`` wraps ``"construction"`` and
-    ``"update"``."""
+    tour (``best [B, N]``); the spans ``"construction"`` and ``"update"``
+    enter ``_ops.timer``."""
     b, n, _ = heu.shape
     a = cfg.n_ants
     log_heu = cfg.beta * torch.log(torch.clamp(heu.float(), min=1e-30))
@@ -499,13 +500,13 @@ def run_anytime_sparse(heu: torch.Tensor, dist: torch.Tensor, nbr: torch.Tensor,
     score = next_score(state.phe.tau, log_heu, cfg.alpha, torch.float32)
     curve = []
     for t in range(n_iterations):
-        with _ops.timer("construction"):
+        with phase("construction", _ops.timer):
             start = _start_cities(generator, b, a, n, fixed_start, heu.device)
             paths, dense = sweep_construct(score, torch.gather(score, -1, nbr), nbr, start,
                                            generator, count_dense=True, stats=counts)
         counts["fallback_steps"] += dense
         counts["steps"] += n - 1
-        with _ops.timer("update"):   # the last iteration writes no score
+        with phase("update", _ops.timer):   # the last iteration writes no score
             state, score = _batched_update(
                 cfg, state, paths, dist, update=_ops.update, sample_dtype=torch.float32,
                 log_heu=log_heu if t + 1 < n_iterations else None)

@@ -32,7 +32,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from deepaco_tpu_torch.aco.batched_tsp import NEG_INF, _gumbel_table
-from deepaco_tpu_torch.aco.runner import ACOConfig, _no_timer
+from deepaco_tpu_torch.aco.runner import ACOConfig
 from deepaco_tpu_torch.core.graph import SparseGraph, topk_smallest
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.models.gnn import Net
@@ -41,6 +41,7 @@ from deepaco_tpu_torch.ops.fused_gnn import (embnet_layers, embnet_layers_plain,
 from deepaco_tpu_torch.ops.gnn_layer import gather_nodes
 from deepaco_tpu_torch.ops.two_opt import (batched_two_opt_euclid,
                                            batched_two_opt_euclid_plain)
+from deepaco_tpu_torch.utils.metrics import phase
 
 _TILE_DISTANCES = 4_000_000     # distances per row tile of knn_support
 LS_BUDGET = 10000               # 2-opt moves per descent (large_tsp.py:219)
@@ -199,7 +200,7 @@ class LargeOps(NamedTuple):
 
     heuristic: Callable = neural_knn_heuristic
     two_opt: Callable = batched_two_opt_euclid
-    timer: Callable = _no_timer
+    timer: Callable | None = None
 
 
 KERNEL_OPS = LargeOps()
@@ -243,17 +244,17 @@ def run_anytime_knn(coords: torch.Tensor, nbr: torch.Tensor, heu: torch.Tensor,
     rows = torch.arange(b, device=dev)
     curve = []
     for _ in range(n_iterations):
-        with _ops.timer("construction"):
+        with phase("construction", _ops.timer):
             score = (cfg.alpha * torch.log(torch.clamp(tau, min=1e-30))
                      + log_heu).to(torch.bfloat16)
             start = torch.randint(0, n, (b, a), generator=generator,
                                   device=generator.device).to(dev)
             paths, fb = sweep_construct_knn(score, nbr, start, generator, with_stats=True)
         if ls is not None:
-            with _ops.timer("local_search"):
+            with phase("local_search", _ops.timer):
                 paths = _ops.two_opt(coords, paths.transpose(1, 2).contiguous(),
                                      LS_BUDGET).transpose(1, 2)
-        with _ops.timer("update"):
+        with phase("update", _ops.timer):
             costs = tour_cost_coords(coords, paths)                    # [B, A]
             it_best = torch.argmin(costs, dim=1)
             it_cost = costs[rows, it_best]

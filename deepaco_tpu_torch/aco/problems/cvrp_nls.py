@@ -23,6 +23,7 @@ from deepaco_tpu_torch.aco.problems.cvrp import CVRPACO, cvrp_paths
 from deepaco_tpu_torch.aco.runner import search_update
 from deepaco_tpu_torch.ls import hgs
 from deepaco_tpu_torch.train.drivers import KERNEL_OPS, FamilyOps
+from deepaco_tpu_torch.utils.metrics import phase
 
 INFERENCE_LS_COUNT = 100000
 
@@ -110,20 +111,20 @@ class CVRPNLSACO(CVRPACO):
         heu = self.heuristic.detach()
         timer = self.ops.timer
         for _ in range(n_iterations):
-            with timer("construction"):
+            with phase("construction", timer):
                 paths = self.construct(self.state.phe.tau, heu, self.generator)
             costs = self.cost(paths)
             if self.swap_star:
-                with timer("host_copy"):
+                with phase("host_copy", timer):
                     host = paths[0].cpu().numpy().copy()
                     order = np.argsort(costs[0].cpu().numpy())
-                with timer("local_search"):
+                with phase("local_search", timer):
                     host = self._ls(host, order[:min(self.topk_refine, len(order))],
                                     inference=True)
-                with timer("host_copy"):
+                with phase("host_copy", timer):
                     paths = torch.from_numpy(host).to(paths.device)[None]
                 costs = self.cost(paths)
-            with timer("update"):
+            with phase("update", timer):
                 self.state = search_update(self.cfg, self.state, paths, costs,
                                            deposit=self.ops.deposit)
         return self.best_cost

@@ -40,10 +40,10 @@ import torch
 from deepaco_tpu_torch.aco import pheromone as ph
 from deepaco_tpu_torch.aco.engine import NEG_INF, RolloutSpec, rollout
 from deepaco_tpu_torch.aco.problems.tsp import row_gatherer
-from deepaco_tpu_torch.aco.runner import _no_timer
 from deepaco_tpu_torch.core.rcpsp import RCPSPData, default_rcpsp_heuristic, stack_rcpsp
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.ops.pick import fused_pick
+from deepaco_tpu_torch.utils.metrics import phase
 
 
 class RCPSPConfig(NamedTuple):
@@ -252,17 +252,17 @@ def rcpsp_update(cfg: RCPSPConfig, state: RCPSPSearchState, paths: torch.Tensor,
 def rcpsp_iteration(data: RCPSPData, heu: torch.Tensor, cfg: RCPSPConfig,
                     state: RCPSPSearchState, generator: torch.Generator, *,
                     pick: Callable = fused_pick, deposit: Callable = ph.deposit,
-                    timer: Callable = _no_timer) -> RCPSPSearchState:
+                    timer: Callable | None = None) -> RCPSPSearchState:
     """One iteration over the batched instances: construct (K7r's untraced
     forward once on the card; at ``alpha <= 0`` off the direct evaluation a
     ``pick`` a step, K7), decode, update (one ``deposit``, K8 on the
     card); ``timer(name)`` wraps the phases ``"construction"``,
     ``"decode"`` and ``"update"``."""
-    with timer("construction"):
+    with phase("construction", timer):
         paths = rollout(rcpsp_spec(state.tau, heu, data, cfg), generator, pick=pick).paths
-    with timer("decode"):
+    with phase("decode", timer):
         costs = makespans(data, paths, cfg.backfill)
-    with timer("update"):
+    with phase("update", timer):
         return rcpsp_update(cfg, state, paths, costs, deposit=deposit)
 
 

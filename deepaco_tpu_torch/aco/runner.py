@@ -15,7 +15,6 @@ families' reference-style facades.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 from typing import Callable, NamedTuple
 
@@ -25,6 +24,7 @@ from deepaco_tpu_torch.aco import pheromone as ph
 from deepaco_tpu_torch.aco.engine import rollout
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost, tsp_spec
 from deepaco_tpu_torch.core.graph import sparse_distance_matrix
+from deepaco_tpu_torch.utils.metrics import phase
 
 
 class ACOConfig(NamedTuple):
@@ -147,27 +147,24 @@ def search_update(cfg: ACOConfig, state: SearchState, paths: torch.Tensor,
     return state._replace(phe=phe)
 
 
-def _no_timer(_name: str):
-    return contextlib.nullcontext()
-
-
 def aco_iteration(construct: Callable[[torch.Tensor, torch.Generator], torch.Tensor],
                   cost_fn: Callable[[torch.Tensor], torch.Tensor], cfg: ACOConfig,
                   state: SearchState, generator: torch.Generator, *,
                   q: float | torch.Tensor | None = None,
                   mm_scale: float | torch.Tensor | None = None,
                   deposit: Callable = ph.deposit,
-                  timer: Callable = _no_timer) -> SearchState:
+                  timer: Callable | None = None) -> SearchState:
     """One no-grad iteration over ``B`` instances (reference
     tsp/aco.py:75-91): construct every ant's solution from the current
     pheromone (``construct(tau, generator) -> paths``: the family's
     construction, ``families.Family.construct``), score it, track the best
     and update. ``q`` and ``mm_scale`` are :func:`search_update`'s; ``deposit`` takes the
-    update's deposit (K8 or its plain version); ``timer(name)`` wraps the
-    phases ``"construction"`` and ``"update"``."""
-    with timer("construction"):
+    update's deposit (K8 or its plain version); the spans
+    ``"construction"`` and ``"update"`` (``utils/metrics.phase``) enter
+    ``timer(name)`` when given."""
+    with phase("construction", timer):
         paths = construct(state.phe.tau, generator)
-    with timer("update"):
+    with phase("update", timer):
         return search_update(cfg, state, paths, cost_fn(paths), q, mm_scale, deposit=deposit)
 
 
@@ -177,7 +174,7 @@ def run_anytime(construct: Callable[[torch.Tensor, torch.Generator], torch.Tenso
                 state: SearchState, generator: torch.Generator, n_iterations: int,
                 *, q: float | torch.Tensor | None = None,
                 mm_scale: float | torch.Tensor | None = None,
-                deposit: Callable = ph.deposit, timer: Callable = _no_timer
+                deposit: Callable = ph.deposit, timer: Callable | None = None
                 ) -> tuple[SearchState, torch.Tensor]:
     """``n_iterations`` of :func:`aco_iteration`: the final state and the
     anytime curve ``[B, n_iterations]`` of best-so-far costs (objectives

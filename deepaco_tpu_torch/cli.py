@@ -66,6 +66,7 @@ from deepaco_tpu_torch.utils import golden
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from deepaco_tpu_torch.utils.convert import parse_cvrplib
 from deepaco_tpu_torch.utils.datasets import reference_path
+from deepaco_tpu_torch.utils.metrics import phase
 
 PROBLEMS = ["tsp", "cvrp", "op", "pctsp", "smtwtp", "mkp", "mkp_items", "bpp",
             "sop", "rcpsp"]
@@ -257,7 +258,7 @@ def _cmd_test_tsp_sparse(args, *, device=None, stats: dict | None = None,
     generator = torch.Generator(device=dev).manual_seed(args.seed)
     t0 = time.time()
     coords = torch.as_tensor(coords_all, device=dev)
-    with _ops.timer("heuristic"):
+    with phase("heuristic", _ops.timer):
         nbr = knn_support(coords, k)
         heu = (classic_knn_heuristic(coords, nbr) if net is None
                else _ops.heuristic(net, coords, nbr))
@@ -345,7 +346,7 @@ def _cmd_test_cvrp_ls(args, *, device=None, stats: dict | None = None,
     demand_all = torch.as_tensor(ds["demand"][:b], device=dev)
     curves, best = [], []
     t0 = time.time()
-    with _ops.timer("heuristic"), torch.no_grad():
+    with phase("heuristic", _ops.timer), torch.no_grad():
         heu_all = cvrp_nls_heuristic(net.eval(), demand_all, dist_all,
                                      args.k_sparse or CVRP_NLS_K, CVRP_NLS_EPS)
     for i in range(b):

@@ -69,6 +69,12 @@
 // one by one in f32 (the order of the plain version's _tour_lengths), replaces
 // the best one when strictly lower, and the tour is copied to the output.
 //
+// Counters (K5): with a non-null counts pointer, each block counts its
+// scans on the Euclidean distances and on the metric (a descent's last scan,
+// which finds no move, included) and the moves it applied, in registers,
+// and adds them to counts[0..2] once at its end; with a null pointer it adds
+// nothing, and the tours are the same bits either way.
+//
 // What bounds it: operations. Each Euclidean scan evaluates (n-1)(n-2)/2
 // pairs; the inputs are read once. The blocks are independent, so a
 // converged ant frees its SM slot at once.
@@ -375,15 +381,23 @@ __device__ void flip(Ant& s, int p, int q) {
   s.nxt = t;
 }
 
+// A block's counts: scans on the Euclidean distances, on the metric, and the
+// moves applied (the same in every thread).
+struct Tally {
+  unsigned euclid = 0, metric = 0, moves = 0;
+};
+
 // two_opt of deepaco_tpu/ops/two_opt.py:68-82: at most max_it scans, the
 // last one included when it finds no move. c must hold this metric's costs.
 template <bool kMetric>
-__device__ void descent(Ant& s, int max_it) {
+__device__ void descent(Ant& s, int max_it, Tally& tally) {
   for (int it = 0; it < max_it; ++it) {
     float g;
     int flat;
     best_move<kMetric>(s, g, flat);
+    ++(kMetric ? tally.metric : tally.euclid);
     if (!(g < kImprove)) return;  // g and flat are the same in every thread
+    ++tally.moves;
     flip<kMetric>(s, flat / s.n, flat % s.n);
   }
 }
@@ -457,9 +471,10 @@ __global__ void __launch_bounds__(kLsThreads)
   const long ba = blockIdx.x;  // b * A + a
   const long b = ba / A;
   Ant s = carve(n, red_v, red_i);
+  Tally tally;
   load_ant(s, coords + b * n * 2, tours + ba * n);
   edge_costs<false>(s);
-  descent<false>(s, max_it);
+  descent<false>(s, max_it, tally);
   store_ant(s, out + ba * n);
 }
 
@@ -467,7 +482,7 @@ __global__ void __launch_bounds__(kLsThreads)
     nls_kernel(const float* __restrict__ coords, const __nv_bfloat16* __restrict__ metric,
                const unsigned* __restrict__ keys, const int* __restrict__ negative,
                const int64_t* __restrict__ tours, int64_t* __restrict__ out, int A, int n,
-               int max_it, int t_nls, int t_p) {
+               int max_it, int t_nls, int t_p, unsigned long long* __restrict__ counts) {
   __shared__ float red_v[2 * kLsWarps];
   __shared__ int red_i[2 * kLsWarps];
   __shared__ float cost_slot;
@@ -483,21 +498,27 @@ __global__ void __launch_bounds__(kLsThreads)
   s.spill = s.pos + n;
   s.spilled = &spilled;
   int64_t* best_tour = out + ba * n;
+  Tally tally;
   load_ant(s, coords + b * n * 2, tours + ba * n);
   edge_costs<false>(s);
-  descent<false>(s, max_it);
+  descent<false>(s, max_it, tally);
   float best = tour_cost(s, &cost_slot);
   store_ant(s, best_tour);
   for (int r = 0; r < t_nls; ++r) {
     edge_costs<true>(s);  // perturb toward the model
-    descent<true>(s, t_p);
+    descent<true>(s, t_p, tally);
     edge_costs<false>(s);  // re-optimise on the true distances
-    descent<false>(s, max_it);
+    descent<false>(s, max_it, tally);
     const float cost = tour_cost(s, &cost_slot);
     if (cost < best) {
       best = cost;
       store_ant(s, best_tour);
     }
+  }
+  if (counts != nullptr && threadIdx.x == 0) {
+    atomicAdd(counts + 0, (unsigned long long)tally.euclid);
+    atomicAdd(counts + 1, (unsigned long long)tally.metric);
+    atomicAdd(counts + 2, (unsigned long long)tally.moves);
   }
 }
 
@@ -521,10 +542,11 @@ extern "C" int deepaco_two_opt(const float* coords, const int64_t* tours, int64_
 
 // coords [B,N,2] f32, metric [B,N,N] bf16, tours [B,A,N] int64 -> out [B,A,N],
 // with the scratch keys [B, 2, N, 16] int32 (kWalk words a row and a column)
-// and negative [B] int32. N < 2^16 and B < 2^16.
+// and negative [B] int32. N < 2^16 and B < 2^16. counts: null, or three u64
+// that the launch adds its Euclidean scans, metric scans and moves to.
 extern "C" int deepaco_nls(const float* coords, const void* metric, void* keys, int* negative,
                            const int64_t* tours, int64_t* out, int B, int A, int N, int max_it,
-                           int t_nls, int t_p, void* stream) {
+                           int t_nls, int t_p, unsigned long long* counts, void* stream) {
   using namespace deepaco;
   if (N >= (1 << 16) || B >= (1 << 16)) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -544,6 +566,6 @@ extern "C" int deepaco_nls(const float* coords, const void* metric, void* keys, 
   if (err != cudaSuccess) return err;
   nls_kernel<<<(unsigned)((long)B * A), kLsThreads, smem, s>>>(
       coords, static_cast<const __nv_bfloat16*>(metric), static_cast<const unsigned*>(keys),
-      negative, tours, out, A, N, max_it, t_nls, t_p);
+      negative, tours, out, A, N, max_it, t_nls, t_p, counts);
   return cudaGetLastError();
 }

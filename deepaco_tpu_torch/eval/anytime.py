@@ -25,6 +25,7 @@ from deepaco_tpu_torch.ops.fused_gnn import (dense_heuristic_supported,
                                              embnet_supported, net_forward_fast)
 from deepaco_tpu_torch.ops.gnn_layer import fused_gnn_layer_plain
 from deepaco_tpu_torch.utils.datasets import distance_matrix
+from deepaco_tpu_torch.utils.metrics import phase
 
 
 def tsp_instance_curve(heu: torch.Tensor, dist: torch.Tensor, cfg: ACOConfig,
@@ -69,14 +70,15 @@ def batched_tsp_heuristic(net: Net, coords: torch.Tensor, k_sparse: int, *,
                           _ops: PathOps = KERNEL_OPS):
     """``coords [B, N, 2]`` → ``(heu [B, N, N], dist [B, N, N])``, the
     heuristic by :func:`dense_heuristic` on the coordinates."""
-    dist = distance_matrix(coords)
+    with phase("heuristic.distance"):
+        dist = distance_matrix(coords)
     return dense_heuristic(net, coords, coords, dist, k_sparse, _ops=_ops), dist
 
 
 def _eval_neural(net: Net, cfg: ACOConfig, k_sparse: int, t_max: int,
                  coords: torch.Tensor, generator: torch.Generator, *,
                  stats: dict | None = None, _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
-    with _ops.timer("heuristic"):
+    with phase("heuristic", _ops.timer):
         heu, dist = batched_tsp_heuristic(net, coords, k_sparse, _ops=_ops)
     return run_anytime_batched(heu, dist, cfg, generator, t_max, stats=stats, _ops=_ops)
 
@@ -84,8 +86,9 @@ def _eval_neural(net: Net, cfg: ACOConfig, k_sparse: int, t_max: int,
 def _eval_classic(cfg: ACOConfig, k_sparse: int, t_max: int,
                   coords: torch.Tensor, generator: torch.Generator, *,
                   stats: dict | None = None, _ops: PathOps = KERNEL_OPS) -> torch.Tensor:
-    with _ops.timer("heuristic"):
-        dist = distance_matrix(coords)
+    with phase("heuristic", _ops.timer):
+        with phase("heuristic.distance"):
+            dist = distance_matrix(coords)
         heu = 1.0 / sparse_distance_matrix(dist, k_sparse)
     return run_anytime_batched(heu, dist, cfg, generator, t_max, stats=stats, _ops=_ops)
 
@@ -100,13 +103,14 @@ def _eval_ls(net: Net | None, cfg: ACOConfig, k_sparse: int, t_max: int,
     in host chunks of instances and single iterations to stay under a TPU
     watchdog; here the batch runs whole, which changes nothing in law, since
     instances are independent and each keeps its own search state."""
-    with _ops.timer("heuristic"):
-        dist = distance_matrix(coords)
+    with phase("heuristic", _ops.timer):
+        with phase("heuristic.distance"):
+            dist = distance_matrix(coords)
+            x = None if net is None else start_node_features(coords)
         if net is None:
             heu = 1.0 / sparse_distance_matrix(dist, k_sparse)
         else:
-            heu = dense_heuristic(net, start_node_features(coords), coords,
-                                  dist, k_sparse, _ops=_ops)
+            heu = dense_heuristic(net, x, coords, dist, k_sparse, _ops=_ops)
     return run_anytime_batched(heu, dist, cfg, generator, t_max,
                                coords=coords, ls=ls, stats=stats, _ops=_ops)
 
@@ -128,22 +132,32 @@ def evaluate_tsp(coords, *, net: Net | None = None, k_sparse: int,
     (:class:`~deepaco_tpu_torch.aco.batched_tsp.PathOps`) swaps in the plain
     versions of the kernels or a timer around each phase. ``stats``, when
     given, receives each instance's best tour (``best [B, N]``).
+
+    Spans (``utils/metrics.phase``): ``request`` around the call;
+    ``request.prologue`` (the inputs to the device, the generator, the net
+    to the device), ``heuristic`` (``heuristic.distance`` and, for K1,
+    ``heuristic.prepare`` and ``heuristic.k1``), each iteration's
+    ``construction``, ``local_search`` and ``update``, and
+    ``request.epilogue`` (the curve's gather and mean) inside it.
     """
-    dev = resolve_device(device)
-    cfg = cfg or ACOConfig()
-    coords = torch.as_tensor(coords, dtype=torch.float32, device=dev)
-    t_max = int(max(t_values))
-    generator = torch.Generator(device=dev).manual_seed(seed)
-    if net is not None:
-        net = net.to(dev).eval()
-    if ls is not None:
-        curves = _eval_ls(net, cfg, k_sparse, t_max, ls, coords, generator,
-                          stats=stats, _ops=_ops)
-    elif net is None:
-        curves = _eval_classic(cfg, k_sparse, t_max, coords, generator,
-                               stats=stats, _ops=_ops)
-    else:
-        curves = _eval_neural(net, cfg, k_sparse, t_max, coords, generator,
+    with phase("request"):
+        with phase("request.prologue"):
+            dev = resolve_device(device)
+            cfg = cfg or ACOConfig()
+            coords = torch.as_tensor(coords, dtype=torch.float32, device=dev)
+            t_max = int(max(t_values))
+            generator = torch.Generator(device=dev).manual_seed(seed)
+            if net is not None:
+                net = net.to(dev).eval()
+        if ls is not None:
+            curves = _eval_ls(net, cfg, k_sparse, t_max, ls, coords, generator,
                               stats=stats, _ops=_ops)
-    idx = torch.tensor([t - 1 for t in t_values], device=dev)
-    return curves[:, idx].mean(dim=0), curves
+        elif net is None:
+            curves = _eval_classic(cfg, k_sparse, t_max, coords, generator,
+                                   stats=stats, _ops=_ops)
+        else:
+            curves = _eval_neural(net, cfg, k_sparse, t_max, coords, generator,
+                                  stats=stats, _ops=_ops)
+        with phase("request.epilogue"):
+            idx = torch.tensor([t - 1 for t in t_values], device=dev)
+            return curves[:, idx].mean(dim=0), curves

@@ -23,6 +23,7 @@ from deepaco_tpu_torch.core.rcpsp import RCPSPData, default_rcpsp_heuristic, sta
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.models.gnn import Net
 from deepaco_tpu_torch.train.drivers import KERNEL_OPS, FamilyOps
+from deepaco_tpu_torch.utils.metrics import phase
 
 RCPSP_FEATS = 5           # the node features the RCPSP net pads to (eval/rcpsp.py:79)
 EPS = 1e-10               # the heuristic's offset (rcpsp/test.ipynb cell 1)
@@ -67,7 +68,7 @@ def evaluate_rcpsp(instances: list[RCPSPData], net: Net | None = None, *,
     ``"heuristic"``, ``"construction"``, ``"decode"`` and ``"update"``."""
     dev = resolve_device(device)
     data = stack_rcpsp(instances, device=dev)
-    with _ops.timer("heuristic"):
+    with phase("heuristic", _ops.timer):
         if net is None:
             heu = default_rcpsp_heuristic(data)
         else:

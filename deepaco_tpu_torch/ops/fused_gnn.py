@@ -29,6 +29,7 @@ from deepaco_tpu_torch.core.graph import topk_smallest
 from deepaco_tpu_torch.models.gnn import EmbNet, Net, ParNet
 from deepaco_tpu_torch.ops import _build
 from deepaco_tpu_torch.ops.gnn_layer import gather_nodes
+from deepaco_tpu_torch.utils.metrics import phase
 
 
 class FoldedEmbNet(NamedTuple):
@@ -113,15 +114,18 @@ def _layer_stack_plain(f: FoldedEmbNet, xs: torch.Tensor, w: torch.Tensor,
 def tsp_dense_heuristic_plain(net: Net, x: torch.Tensor, dist: torch.Tensor,
                               k: int, *, head: str = "heu",
                               fill: float = 1e-10) -> torch.Tensor:
-    """The plain PyTorch version of K1, step for step."""
+    """The plain PyTorch version of K1, step for step; its spans are K1's
+    (``heuristic.prepare``, the folding; ``heuristic.k1``, the rest)."""
     emb = net.emb_net
-    f = fold_embnet_params(emb)
-    vals, nbr = topk_smallest(dist.float(), k)
-    w = F.silu(vals[..., None] @ f.we_in + f.be_in)              # [B,N,K,U]
-    w = _layer_stack_plain(f, _node_embedding(f, x), w, nbr, k, emb.node_update)
-    o = _head(net, head)(w)                                      # [B,N,K]
-    out = torch.full_like(dist, fill, dtype=torch.float32)
-    return out.scatter(-1, nbr, o + fill)
+    with phase("heuristic.prepare"):
+        f = fold_embnet_params(emb)
+    with phase("heuristic.k1"):
+        vals, nbr = topk_smallest(dist.float(), k)
+        w = F.silu(vals[..., None] @ f.we_in + f.be_in)          # [B,N,K,U]
+        w = _layer_stack_plain(f, _node_embedding(f, x), w, nbr, k, emb.node_update)
+        o = _head(net, head)(w)                                  # [B,N,K]
+        out = torch.full_like(dist, fill, dtype=torch.float32)
+        return out.scatter(-1, nbr, o + fill)
 
 
 def _pack_layers(f: FoldedEmbNet) -> list[torch.Tensor]:
@@ -178,32 +182,36 @@ def tsp_dense_heuristic(net: Net, x: torch.Tensor, dist: torch.Tensor, k: int,
     if not dense_heuristic_supported(net, n, k, head):
         raise ValueError("the K1 kernel takes units=32, one edge feature, a 3-layer "
                          f"ParNet head and 0 < k <= n <= {K1_MAX_N}, got k={k}, n={n}")
-    heu = _launch(net, head, x, dist.float().contiguous(), k, fill)
+    heu = _launch(net, head, x, dist, k, fill)
     tsp_dense_heuristic.launches += 1
     return heu
 
 
 def _launch(net: Net, head: str, x: torch.Tensor, dist: torch.Tensor, k: int,
             fill: float, entry=None) -> torch.Tensor:
-    """Allocate the outputs and scratch and call the K1 entry point:
+    """Fold and pack the weights, allocate the outputs and scratch (span
+    ``heuristic.prepare``) and call the K1 entry point (``heuristic.k1``):
     ``entry``, a ctypes function with the signature of
     ``deepaco_dense_heuristic``, or by default the package's own."""
     emb = net.emb_net
     b, n, _ = dist.shape
     dev = dist.device
-    f = fold_embnet_params(emb)
-    params = _pack_params(f, _head(net, head))
-    xs = _node_embedding(f, x).contiguous()
-    x1234 = torch.empty((b, n, 4 * 32), dtype=torch.float32, device=dev)
-    nbr = torch.empty((b, n, k), dtype=torch.int32, device=dev)
-    w = torch.empty((b, n, k, 32), dtype=torch.float32, device=dev)
-    heu = torch.empty((b, n, n), dtype=torch.float32, device=dev)
-    fn = entry or _build.function("deepaco_dense_heuristic", K1_ARGTYPES)
-    rc = fn(dist.data_ptr(), xs.data_ptr(), x1234.data_ptr(), nbr.data_ptr(),
-            w.data_ptr(), params.data_ptr(), heu.data_ptr(), b, n, k,
-            emb.depth, int(emb.node_update), ctypes.c_float(fill),
-            _build.stream_ptr(dev))
-    _build.check(rc, "deepaco_dense_heuristic")
+    with phase("heuristic.prepare"):
+        dist = dist.float().contiguous()
+        f = fold_embnet_params(emb)
+        params = _pack_params(f, _head(net, head))
+        xs = _node_embedding(f, x).contiguous()
+        x1234 = torch.empty((b, n, 4 * 32), dtype=torch.float32, device=dev)
+        nbr = torch.empty((b, n, k), dtype=torch.int32, device=dev)
+        w = torch.empty((b, n, k, 32), dtype=torch.float32, device=dev)
+        heu = torch.empty((b, n, n), dtype=torch.float32, device=dev)
+    with phase("heuristic.k1"):
+        fn = entry or _build.function("deepaco_dense_heuristic", K1_ARGTYPES)
+        rc = fn(dist.data_ptr(), xs.data_ptr(), x1234.data_ptr(), nbr.data_ptr(),
+                w.data_ptr(), params.data_ptr(), heu.data_ptr(), b, n, k,
+                emb.depth, int(emb.node_update), ctypes.c_float(fill),
+                _build.stream_ptr(dev))
+        _build.check(rc, "deepaco_dense_heuristic")
     return heu
 
 

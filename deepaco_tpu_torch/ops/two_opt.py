@@ -40,10 +40,17 @@ import torch
 
 from deepaco_tpu_torch.ops import _build
 from deepaco_tpu_torch.utils.datasets import distance_matrix
+from deepaco_tpu_torch.utils.metrics import count, counter_buffer, tracing
 
 # f32(-1e-6) as a Python float, so the test is the f32 compare of the kernels
 IMPROVE = float(torch.tensor(-1e-6, dtype=torch.float32))
 LS_CAPS = {"2opt": 4096, "nls": 2048}
+# K5's device counters, in the order the kernel adds them: the scans of a
+# descent on the Euclidean distances and on the metric (each descent's last,
+# which finds no move, included) and the moves applied; the plain version's
+# ``scans`` keys for the same counts
+NLS_COUNTERS = ("euclid_scans", "metric_scans", "moves")
+PLAIN_SCANS = ("true", "perturb", "moves")
 
 
 def heuristic_dist(heu: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -96,7 +103,8 @@ def _descent(metric: torch.Tensor, inst: torch.Tensor, tours: torch.Tensor,
              max_iterations: int, scans: dict | None, kind: str) -> torch.Tensor:
     """``two_opt`` of every row of ``tours [m, n]`` on its own: each iteration
     works on the rows still running; ``scans[kind]`` adds the iterations
-    taken, the final one that finds no move included."""
+    taken, the final one that finds no move included, and ``scans["moves"]``
+    the moves applied."""
     tours = tours.clone()
     it = torch.zeros(tours.shape[0], dtype=torch.int64, device=tours.device)
     active = torch.full_like(it, max_iterations > 0, dtype=torch.bool)
@@ -109,6 +117,8 @@ def _descent(metric: torch.Tensor, inst: torch.Tensor, tours: torch.Tensor,
         t = tours[act]
         g, i, j = _best_moves(metric, inst[act], t)
         improved = g < IMPROVE
+        if scans is not None:
+            scans["moves"] = scans.get("moves", 0) + int(improved.sum())
         tours[act] = torch.where(improved[:, None], _flip(t, i, j), t)
         it[act] += 1
         active[act] = improved & (it[act] < max_iterations)
@@ -167,7 +177,7 @@ def batched_nls(dist: torch.Tensor, heu_dist: torch.Tensor, tours: torch.Tensor,
     """NLS of every tour ``[..., A, n]``: true metric ``dist`` and
     perturbation metric ``heu_dist``, both ``[..., n, n]`` and taken as
     given. ``scans`` counts the iterations under ``"true"`` and
-    ``"perturb"``."""
+    ``"perturb"``, and the moves applied under ``"moves"``."""
     d, flat, inst = _flatten(dist, tours)
     hd = heu_dist.reshape(d.shape)
     best = _descent(d, inst, flat, max_iterations, scans, "true")
@@ -196,10 +206,36 @@ def batched_nls_euclid_plain(coords: torch.Tensor, heu_dist: torch.Tensor,
                              t_nls: int = 10, t_p: int = 20, *,
                              scans: dict | None = None) -> torch.Tensor:
     """Plain version of K5: :func:`batched_nls` on ``distance_matrix`` with
-    the perturbation metric rounded to bf16 (pallas_two_opt.py:19-21)."""
-    return batched_nls(distance_matrix(coords),
-                       heu_dist.to(torch.bfloat16).float(), tours,
-                       max_iterations, t_nls, t_p, scans=scans)
+    the perturbation metric rounded to bf16 (pallas_two_opt.py:19-21).
+    While tracing is on it adds K5's counters (``nls.*``: the call's shape
+    and its ``scans``) to the open span, as K5 does."""
+    return _counted_nls(distance_matrix(coords), heu_dist.to(torch.bfloat16).float(),
+                        tours, max_iterations, t_nls, t_p, scans)
+
+
+def _counted_nls(dist: torch.Tensor, heu_dist: torch.Tensor, tours: torch.Tensor,
+                 max_iterations: int, t_nls: int, t_p: int,
+                 scans: dict | None) -> torch.Tensor:
+    """:func:`batched_nls`, counting its scans while tracing is on (or into
+    ``scans`` when given) and adding them to K5's counters."""
+    counts = scans if scans is not None else ({} if tracing() else None)
+    before = dict(counts or {})
+    out = batched_nls(dist, heu_dist, tours, max_iterations, t_nls, t_p, scans=counts)
+    if counts is not None:
+        _count_call(tours, **{c: counts.get(k, 0) - before.get(k, 0)
+                              for c, k in zip(NLS_COUNTERS, PLAIN_SCANS)})
+    return out
+
+
+def _count_call(tours: torch.Tensor, **counts: int) -> None:
+    """Add one NLS call on ``tours [..., A, n]`` to the open span's counters
+    ``nls.calls``, ``nls.instances``, ``nls.tours``, ``nls.n`` (summed over
+    calls) and ``counts``, while tracing is on; else nothing."""
+    if not tracing():
+        return
+    a, n = tours.shape[-2:]
+    b = math.prod(tours.shape[:-2])
+    count("nls", calls=1, instances=b, tours=b * a, n=n, **counts)
 
 
 def ls_supported(n: int, ls: str = "nls") -> bool:
@@ -238,10 +274,14 @@ def batched_nls_euclid(coords: torch.Tensor, heu_dist: torch.Tensor,
     [..., n, 2]`` with the perturbation metric ``heu_dist [..., n, n]``
     rounded to bf16; one launch of kernel K5 on CUDA. Above K5's cap it
     runs :func:`batched_nls` on ``distance_matrix(coords)`` with
-    ``heu_dist`` as it is, not rounded."""
+    ``heu_dist`` as it is, not rounded. While tracing is on
+    (``utils/metrics``) K5 adds its scans and moves into the open span's
+    device counters (``NLS_COUNTERS``), read once by the report, and the
+    call's shape goes to its host counters (the dense descent above the cap
+    counts the same on the host); off, nothing is counted."""
     if not ls_supported(coords.shape[-2], "nls"):
-        return batched_nls(distance_matrix(coords), heu_dist, tours,
-                           max_iterations, t_nls, t_p)
+        return _counted_nls(distance_matrix(coords), heu_dist, tours,
+                            max_iterations, t_nls, t_p, None)
     if coords.device.type == "cpu":
         return batched_nls_euclid_plain(coords, heu_dist, tours,
                                         max_iterations, t_nls, t_p)
@@ -255,7 +295,8 @@ def _launch(entry: str, coords: torch.Tensor, metric: torch.Tensor | None,
             tours: torch.Tensor, max_iterations: int, t_nls: int,
             t_p: int) -> torch.Tensor:
     """Check and flatten the inputs, allocate the tours out and call the
-    K4 (``metric=None``) or K5 entry point."""
+    K4 (``metric=None``) or K5 entry point; K5 with the tracer's counter
+    buffer while tracing is on, else a null pointer."""
     tensors = (coords, tours) if metric is None else (coords, metric, tours)
     _build.require_cuda(entry, *tensors)
     n, a = coords.shape[-2], tours.shape[-2]
@@ -284,11 +325,15 @@ def _launch(entry: str, coords: torch.Tensor, metric: torch.Tensor | None,
         # metric, and a flag an instance
         keys = torch.empty((b, 2, n, 16), dtype=torch.int32, device=xy.device)
         negative = torch.empty(b, dtype=torch.int32, device=xy.device)
-        fn = _build.function(entry, [P] * 6 + [I] * 6 + [P])
+        counts = counter_buffer("nls", NLS_COUNTERS, xy.device)
+        fn = _build.function(entry, [P] * 6 + [I] * 6 + [P, P])
         rc = fn(xy.data_ptr(), m.data_ptr(), keys.data_ptr(), negative.data_ptr(),
                 t.data_ptr(), out.data_ptr(), b, a, n, max_iterations, t_nls, t_p,
+                None if counts is None else counts.data_ptr(),
                 _build.stream_ptr(xy.device))
     _build.check(rc, entry)
+    if metric is not None:
+        _count_call(tours)
     return out.reshape(tours.shape)
 
 

@@ -33,6 +33,7 @@ from deepaco_tpu_torch.parallel._axes import block_seed, instance_block, mesh_di
 from deepaco_tpu_torch.train.config import ProblemConfig
 from deepaco_tpu_torch.train.reinforce import (KERNEL_OPS, StepInfo, TrainOps,
                                                TrainState, optimizer_update, tsp_loss)
+from deepaco_tpu_torch.utils.metrics import phase
 
 
 def make_mesh(n_instance: int | None = None, n_ant: int = 1,
@@ -133,7 +134,7 @@ def make_sharded_tsp_train_step(net: torch.nn.Module, cfg: ProblemConfig, mesh, 
         dist.all_reduce(sums, group=ant_group)
         adv = costs - (sums / a_total)[:, None]
         loss = torch.sum(adv * out.log_probs.sum(dim=-2)) / scale
-        with _ops.timer("backward"):
+        with phase("backward", _ops.timer):
             loss.backward()
             params = list(state.net.parameters())
             for p in params:
@@ -149,7 +150,7 @@ def make_sharded_tsp_train_step(net: torch.nn.Module, cfg: ProblemConfig, mesh, 
             flat /= n_inst
             dist.broadcast(flat, src=ant_root, group=ant_group)
             _unflatten(flat, stats)
-        with _ops.timer("optimizer"):
+        with phase("optimizer", _ops.timer):
             state, norm = optimizer_update(state, cfg)
         report = torch.stack([loss.detach(), costs.sum() / scale])
         dist.all_reduce(report)

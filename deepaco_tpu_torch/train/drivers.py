@@ -53,7 +53,7 @@ import torch.distributed as dist
 
 from deepaco_tpu_torch.aco import pheromone as ph
 from deepaco_tpu_torch.aco.engine import path_log_probs, rollout
-from deepaco_tpu_torch.aco.runner import _no_timer, init_search, run_anytime
+from deepaco_tpu_torch.aco.runner import init_search, run_anytime
 from deepaco_tpu_torch.device import resolve_device
 from deepaco_tpu_torch.families import Family, get_family
 from deepaco_tpu_torch.models.gnn import Net
@@ -68,6 +68,7 @@ from deepaco_tpu_torch.train.reinforce import (LossOut, StepInfo, TrainState,
                                                init_train_state, optimizer_update,
                                                reinforce_loss, total_steps)
 from deepaco_tpu_torch.utils.checkpoint import save_checkpoint
+from deepaco_tpu_torch.utils.metrics import phase
 
 
 class FamilyOps(NamedTuple):
@@ -87,7 +88,7 @@ class FamilyOps(NamedTuple):
     layer: Callable = fused_gnn_layer
     pick: Callable = fused_pick
     deposit: Callable = ph.deposit
-    timer: Callable = _no_timer
+    timer: Callable | None = None
     layers: Callable = embnet_layers
     construct: Callable = cvrp_construct
 
@@ -192,7 +193,7 @@ def evaluate_family(name: str, batch: dict, *, n_nodes: int, net: Net | None = N
     b = next(iter(inst.values())).shape[0]
     t_max = int(max(t_values))
     generator = torch.Generator(device=dev).manual_seed(seed)
-    with _ops.timer("heuristic"):
+    with phase("heuristic", _ops.timer):
         if net is None:
             heu = family.classic_heu(inst, k_sparse)
         else:
@@ -251,9 +252,9 @@ def family_loss(family: Family, net: Net, inst: dict, cfg: ProblemConfig,
     alpha, beta = family.aco.alpha, family.aco.beta
     inst = family.prepare(inst)
     net.train(True)
-    with _ops.timer("heuristic"):
+    with phase("heuristic", _ops.timer):
         heu = _forward_heu(family, net, inst, cfg.k_sparse, _ops)
-    with _ops.timer("rollout"):
+    with phase("rollout", _ops.timer):
         spec = family.spec(torch.ones_like(heu), heu, inst, a)
         if paths is None:
             ro = rollout(spec, generator, alpha=alpha, beta=beta, require_prob=True,
@@ -278,9 +279,9 @@ def make_family_train_step(family: Family, cfg: ProblemConfig, *,
     def step(state: TrainState, batch: dict, generator: torch.Generator):
         inst = instance_tensors(batch, next(state.net.parameters()).device)
         out = family_loss(family, state.net, inst, cfg, generator, _ops=_ops)
-        with _ops.timer("backward"):
+        with phase("backward", _ops.timer):
             out.loss.backward()
-        with _ops.timer("optimizer"):
+        with phase("optimizer", _ops.timer):
             state, norm = optimizer_update(state, cfg)
         return state, StepInfo(out.loss.detach(), out.mean_cost.detach(), norm)
 
@@ -355,7 +356,7 @@ def train_family(name: str, cfg: ProblemConfig, progress: Callable | None = None
         means, _ = evaluate_family(name, val_batch, n_nodes=cfg.n_nodes, net=state.net,
                                    k_sparse=cfg.k_sparse, n_ants=cfg.aco.n_ants,
                                    t_values=(val_t,), seed=cfg.train.seed, device=dev,
-                                   _ops=_ops._replace(timer=_no_timer))
+                                   _ops=_ops._replace(timer=None))
         val = means[0].item()
         if logger is not None:
             logger.log("val", epoch=epoch, t=val_t, mean_best=val)

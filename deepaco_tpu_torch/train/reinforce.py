@@ -31,7 +31,6 @@ import torch
 
 from deepaco_tpu_torch.aco.engine import path_log_probs, rollout
 from deepaco_tpu_torch.aco.problems.tsp import tour_cost, tsp_spec
-from deepaco_tpu_torch.aco.runner import _no_timer
 from deepaco_tpu_torch.core.builders import tsp_nls_graph
 from deepaco_tpu_torch.core.graph import knn_graph, scatter_to_dense
 from deepaco_tpu_torch.device import resolve_device
@@ -42,6 +41,7 @@ from deepaco_tpu_torch.ops.gnn_layer import (fused_gnn_layer,
 from deepaco_tpu_torch.ops.two_opt import batched_nls_euclid, heuristic_dist
 from deepaco_tpu_torch.train.config import ProblemConfig
 from deepaco_tpu_torch.utils.datasets import distance_matrix, uniform_coords
+from deepaco_tpu_torch.utils.metrics import phase
 
 ADAM_BETAS, ADAM_EPS = (0.9, 0.999), 1e-8       # optax.adamw's defaults
 
@@ -53,7 +53,7 @@ class TrainOps(NamedTuple):
     kernel K6 and no timer."""
 
     layer: Callable = fused_gnn_layer
-    timer: Callable = _no_timer
+    timer: Callable | None = None
 
 
 KERNEL_OPS = TrainOps()
@@ -201,14 +201,16 @@ def optimizer_update(state: TrainState, cfg: ProblemConfig):
     every parameter without one, the clip, the rate of this update, AdamW.
     Returns ``(state, grad norm)``; the gradients are cleared."""
     params = list(state.net.parameters())
-    for p in params:
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    norm = clip_by_global_norm_([p.grad for p in params], cfg.train.grad_clip)
-    for group in state.optimizer.param_groups:
-        group["lr"] = learning_rate(cfg, state.step)
-    state.optimizer.step()
-    state.optimizer.zero_grad(set_to_none=True)
+    with phase("optimizer.clip"):
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        norm = clip_by_global_norm_([p.grad for p in params], cfg.train.grad_clip)
+    with phase("optimizer.adamw"):
+        for group in state.optimizer.param_groups:
+            group["lr"] = learning_rate(cfg, state.step)
+        state.optimizer.step()
+        state.optimizer.zero_grad(set_to_none=True)
     return state._replace(step=state.step + 1), norm
 
 
@@ -217,16 +219,20 @@ def tsp_heuristic(net: torch.nn.Module, coords: torch.Tensor, *, k_sparse: int,
                   layer: Callable = fused_gnn_layer):
     """``coords [B, N, 2]`` → ``(heu [B, N, N], dist [B, N, N])``: the k-NN
     graph (or the NLS one-hot start graph), ``net`` in train or eval mode,
-    the heuristic head scattered to dense, plus ``eps``."""
-    dist = distance_matrix(coords)
-    if nls_graph:
-        g = tsp_nls_graph(coords, dist, k_sparse, start_node=0)
-    else:
-        g = knn_graph(coords, dist, k_sparse)
-    net.train(train)
-    out = net(g, layer)
-    heu_vec = out[1] if isinstance(out, tuple) else out
-    return scatter_to_dense(g, heu_vec) + eps, dist
+    the heuristic head scattered to dense, plus ``eps``; spans
+    ``heuristic.graph``, ``heuristic.net`` and ``heuristic.scatter``."""
+    with phase("heuristic.graph"):
+        dist = distance_matrix(coords)
+        if nls_graph:
+            g = tsp_nls_graph(coords, dist, k_sparse, start_node=0)
+        else:
+            g = knn_graph(coords, dist, k_sparse)
+    with phase("heuristic.net"):
+        net.train(train)
+        out = net(g, layer)
+        heu_vec = out[1] if isinstance(out, tuple) else out
+    with phase("heuristic.scatter"):
+        return scatter_to_dense(g, heu_vec) + eps, dist
 
 
 def reinforce_loss(costs: torch.Tensor, log_probs: torch.Tensor, n_ants: int, *,
@@ -268,12 +274,12 @@ def tsp_loss(net: torch.nn.Module, coords: torch.Tensor, cfg: ProblemConfig,
     the graph carries the one-hot start feature and the advantage is
     NLS-shaped."""
     a = cfg.aco
-    with _ops.timer("heuristic"):
+    with phase("heuristic", _ops.timer):
         heu, dist = tsp_heuristic(net, coords, k_sparse=cfg.k_sparse,
                                   eps=cfg.train.eps, train=True,
                                   nls_graph=local_search is not None,
                                   layer=_ops.layer)
-    with _ops.timer("rollout"):
+    with phase("rollout", _ops.timer):
         fixed_start = 0 if local_search is not None else None
         spec = tsp_spec(torch.ones_like(heu), heu, a.n_ants, fixed_start)
         if paths is None:
@@ -285,11 +291,12 @@ def tsp_loss(net: torch.nn.Module, coords: torch.Tensor, cfg: ProblemConfig,
         costs = tour_cost(dist, paths)
     ls_costs = None
     if local_search is not None:
-        with _ops.timer("local_search"):
+        with phase("local_search", _ops.timer):
             ls_costs = local_search(dist, heu.detach(), paths, coords)
-    loss = reinforce_loss(costs, log_probs, a.n_ants, ls_costs=ls_costs,
-                          w=nls_w).mean()
-    mean_cost = (costs if ls_costs is None else ls_costs).mean()
+    with phase("loss"):
+        loss = reinforce_loss(costs, log_probs, a.n_ants, ls_costs=ls_costs,
+                              w=nls_w).mean()
+        mean_cost = (costs if ls_costs is None else ls_costs).mean()
     return LossOut(loss, mean_cost, paths, log_probs, costs, ls_costs)
 
 
@@ -297,19 +304,23 @@ def make_tsp_train_step(cfg: ProblemConfig, local_search: Callable | None = None
                         nls_w: float = 0.95, *, _ops: TrainOps = KERNEL_OPS):
     """The TSP train step: ``(state, generator) -> (state, StepInfo)``. Each
     step draws ``batch_size`` instances of ``n_nodes`` uniform cities from
-    ``generator`` on the network's device."""
+    ``generator`` on the network's device. Spans (``utils/metrics.phase``):
+    ``step`` around it; ``step.data``, ``heuristic``, ``rollout``,
+    ``local_search``, ``loss``, ``backward`` and ``optimizer`` inside."""
 
     def step(state: TrainState, generator: torch.Generator):
-        dev = next(state.net.parameters()).device
-        coords = uniform_coords(cfg.n_nodes, generator,
-                                batch=cfg.train.batch_size, device=dev)
-        out = tsp_loss(state.net, coords, cfg, generator,
-                       local_search=local_search, nls_w=nls_w, _ops=_ops)
-        with _ops.timer("backward"):
-            out.loss.backward()
-        with _ops.timer("optimizer"):
-            state, norm = optimizer_update(state, cfg)
-        return state, StepInfo(out.loss.detach(), out.mean_cost.detach(), norm)
+        with phase("step"):
+            dev = next(state.net.parameters()).device
+            with phase("step.data"):
+                coords = uniform_coords(cfg.n_nodes, generator,
+                                        batch=cfg.train.batch_size, device=dev)
+            out = tsp_loss(state.net, coords, cfg, generator,
+                           local_search=local_search, nls_w=nls_w, _ops=_ops)
+            with phase("backward", _ops.timer):
+                out.loss.backward()
+            with phase("optimizer", _ops.timer):
+                state, norm = optimizer_update(state, cfg)
+            return state, StepInfo(out.loss.detach(), out.mean_cost.detach(), norm)
 
     return step
 

@@ -61,6 +61,7 @@ from deepaco_tpu_torch.train.drivers import KERNEL_OPS, FamilyOps, make_family_t
 from deepaco_tpu_torch.train.reinforce import (LossOut, StepInfo, TrainState, init_train_state,
                                                optimizer_update)
 from deepaco_tpu_torch.utils.golden import cvrp_nls_capacity
+from deepaco_tpu_torch.utils.metrics import phase
 
 ADAMW_WEIGHT_DECAY = 1e-4        # optax.adamw's default
 TRAIN_EPS = 1e-5                 # the training heuristic's offset (special.py:147)
@@ -92,16 +93,16 @@ def rcpsp_loss(net: Net, data: RCPSPData, aco_cfg: RCPSPConfig, generator: torch
     by the reference's decoder; the batch mean of ``sum(adv * sum_t log p)
     / A / n``, ``adv = cost - mean`` detached."""
     net.train(True)
-    with _ops.timer("heuristic"):
+    with phase("heuristic", _ops.timer):
         heu = rcpsp_heuristics(data, net)
-    with _ops.timer("rollout"):
+    with phase("rollout", _ops.timer):
         spec = rcpsp_spec(torch.ones_like(heu), heu, data, aco_cfg)
         if paths is None:
             ro = rollout(spec, generator, require_prob=True, pick=_ops.pick)
             paths, log_probs = ro.paths, ro.log_probs
         else:
             log_probs = path_log_probs(spec, paths)
-    with _ops.timer("decode"):
+    with phase("decode", _ops.timer):
         costs = makespans(data, paths)
     adv = (costs - costs.mean(dim=-1, keepdim=True)).detach()
     loss = (adv * log_probs.sum(dim=-2)).sum(dim=-1) / aco_cfg.n_ants / heu.shape[-1]
@@ -117,9 +118,9 @@ def make_rcpsp_train_step(cfg: ProblemConfig, aco_cfg: RCPSPConfig | None = None
 
     def step(state: TrainState, data: RCPSPData, generator: torch.Generator):
         out = rcpsp_loss(state.net, data, aco_cfg, generator, _ops=_ops)
-        with _ops.timer("backward"):
+        with phase("backward", _ops.timer):
             out.loss.backward()
-        with _ops.timer("optimizer"):
+        with phase("optimizer", _ops.timer):
             state, norm = optimizer_update(state, cfg)
         return state, StepInfo(out.loss.detach(), out.mean_cost.detach(), norm)
 

@@ -398,23 +398,24 @@ def test_cvrpaco_run_improves_and_passes_alpha_beta(cvrp_instance, monkeypatch):
 
 
 def test_step_phases_reach_the_metrics_stream_and_a_trace(tmp_path):
-    """utils/metrics: ``phase`` as the train step's timer logs the four
-    phases in order with their durations; ``trace`` writes a profile of the
-    step, whose ranges carry the phase names, into its directory."""
-    from deepaco_tpu_torch.utils.metrics import phase, trace
+    """utils/metrics: inside ``trace`` the train step's spans are recorded,
+    and ``report`` gives the four phases in order with their host times;
+    ``trace`` writes a profile of the step, whose ranges carry the span
+    names, into its directory."""
+    from deepaco_tpu_torch.utils import metrics
 
     fam = families.get_family("cvrp")
     cfg = _cfg(config, "cvrp")
-    logger = MetricsLogger()
     gen = torch.Generator().manual_seed(0)
     state = tr.init_train_state(Net(feats=1, depth=DEPTH), cfg, gen)
-    step = drivers.make_family_train_step(
-        fam, cfg, _ops=drivers.KERNEL_OPS._replace(timer=lambda name: phase(name, logger,
-                                                                            sync=True)))
-    with trace(str(tmp_path / "prof")):
+    step = drivers.make_family_train_step(fam, cfg)
+    metrics.reset()
+    with metrics.trace(str(tmp_path / "prof")):
         step(state, drivers.gen_batch(fam, np.random.default_rng(0), cfg.n_nodes, B), gen)
-    assert [(e["event"], e["name"]) for e in logger.events] == [
-        ("phase", p) for p in ("heuristic", "rollout", "backward", "optimizer")]
-    assert all(e["duration_s"] >= 0 for e in logger.events)
+    phases = ("heuristic", "rollout", "backward", "optimizer")
+    report = metrics.report()
+    metrics.reset()
+    assert [name for name in report if name in phases] == list(phases)
+    assert all(report[p]["count"] == 1 and report[p]["host_ms"] >= 0 for p in phases)
     files = list((tmp_path / "prof").iterdir())
-    assert len(files) == 1 and '"rollout"' in files[0].read_text()
+    assert len(files) == 1 and '"deepaco.rollout"' in files[0].read_text()

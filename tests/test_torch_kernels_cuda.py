@@ -22,6 +22,7 @@ from deepaco_tpu_torch.models.gnn import Net
 from deepaco_tpu_torch.ops import _build, fused_gnn, two_opt
 from deepaco_tpu_torch.ops import cvrp_construct as cc
 from deepaco_tpu_torch.ops import philox
+from deepaco_tpu_torch.utils import metrics
 from deepaco_tpu_torch.utils.checkpoint import load_checkpoint
 from deepaco_tpu_torch.utils.datasets import distance_matrix, uniform_coords
 
@@ -341,6 +342,39 @@ def test_nls_kernel_equals_plain(ls_case):
     want = two_opt.batched_nls_euclid_plain(coords, hd, tours, budget, t_nls, t_p)
     assert torch.equal(got, want)
     _assert_permutations(got)
+
+
+def _traced_nls(*args, plain=False):
+    """An NLS call inside a ``local_search`` span with tracing on: its tours
+    and the span's ``nls.*`` counters."""
+    metrics.reset()
+    fn = two_opt.batched_nls_euclid_plain if plain else two_opt.batched_nls_euclid
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        with metrics.phase("local_search"):
+            out = fn(*args)
+    counters = metrics.report()["local_search"]["counters"]
+    metrics.reset()
+    return out, counters
+
+
+def test_nls_kernel_counts_equal_plain(ls_case):
+    """K5's scans and moves equal the plain version's on tours where both
+    return the same tours; the call's shape is counted on the host."""
+    coords, hd, tours, (budget, t_nls, t_p) = ls_case
+    got, counted = _traced_nls(coords, hd, tours, budget, t_nls, t_p)
+    want, plain = _traced_nls(coords, hd, tours, budget, t_nls, t_p, plain=True)
+    assert torch.equal(got, want)
+    assert counted == plain
+    b, a, n = tours.shape
+    assert counted["nls.tours"] == b * a and counted["nls.n"] == n
+    assert counted["nls.euclid_scans"] >= b * a * (1 + t_nls) and counted["nls.moves"] > 0
+
+
+def test_nls_kernel_tours_with_and_without_counters_are_bit_equal(ls_case):
+    coords, hd, tours, (budget, t_nls, t_p) = ls_case
+    off = two_opt.batched_nls_euclid(coords, hd, tours, budget, t_nls, t_p)
+    on, counted = _traced_nls(coords, hd, tours, budget, t_nls, t_p)
+    assert torch.equal(on, off) and counted["nls.calls"] == 1
 
 
 EUCLID_PAIRS = r"""

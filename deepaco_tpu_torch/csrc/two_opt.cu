@@ -26,14 +26,19 @@
 // pairs it prices in any order, and a warp and a block reduction over
 // (delta, flat) give the first flat argmin among the improving moves.
 //
-// On the Euclidean distances the scan walks diagonals g = j - i: along one,
-// d(t[i], t[j+1]) of pair (i, j) is d(t[(i+1)-1], t[j+1]) of pair
-// (i+1, j+1), the same arguments and so the same bits, so a walk of R pairs
-// computes R + 1 distances instead of 2R. A tile is 32 diagonals (one a
-// lane) by R = 32 rows i: the lanes read position i together (a broadcast)
-// and positions i+g+1 side by side (no bank conflict). A pair costs two
-// correctly rounded roots only where a cheap approximate price says it might
-// reach the warp's minimum so far.
+// On the Euclidean distances each lane holds a group of kRows = 4 rows
+// i..i+3 in registers: (x, y) of t[i-1..i+3] and c[i..i+3]. The lanes of a
+// warp walk columns j in step, and at each step a lane reads t[j+1] once
+// (one float4, the same address in every lane of its column tile) and takes
+// the 5 distances d(t[i-1+m], t[j+1]), m = 0..4: the one at m+1 is
+// d(t[i+m], t[j+1]) of the pair (i+m, j), and the one at m is
+// d(t[i-1+m], t[j]) of the pair (i+m, j+1) at the next step, so 4 pairs
+// cost 5 distances. The triangle is cut into tiles of C columns (C from n,
+// see scan_cols: 16 at n 500) and the 4-row groups above or across each
+// tile's diagonal; 32 such items make a warp tile, and the warps take warp
+// tiles from a block counter (euclid_scan). A pair costs two correctly
+// rounded roots only where a cheap approximate price says it might reach
+// the warp's minimum so far.
 //
 // On the perturbation metric H (bf16, asymmetric) the scan prices only the
 // pairs that can improve. With c the bf16 edge costs and every entry of H
@@ -75,9 +80,18 @@
 // and adds them to counts[0..2] once at its end; with a null pointer it adds
 // nothing, and the tours are the same bits either way.
 //
-// What bounds it: operations. Each Euclidean scan evaluates (n-1)(n-2)/2
-// pairs; the inputs are read once. The blocks are independent, so a
-// converged ant frees its SM slot at once.
+// What bounds it: instruction issue and the MUFU pipe. A step of the
+// Euclidean scan prices 4 pairs a lane with about 45 instructions in SASS,
+// 5 of them MUFU.SQRT (the SM's 16 a clock take a warp's 5 in 10 clocks,
+// its four schedulers the 45 in 11), and one LDS.128 that is one
+// shared-memory wavefront a warp step of 128 pairs where the warp tile lies
+// in one column tile; the set-up of a warp tile reads its 5 rows a lane at
+// a 64-byte lane stride (16 wavefronts each). The diagonal walk before it
+// read two LDS.128 a step of one pair a lane (position i, a broadcast, and
+// j+1 side by side: 5 wavefronts a warp step of 32 pairs, about 16
+// instructions a pair) and was bound by those loads. Each Euclidean scan
+// evaluates (n-1)(n-2)/2 pairs; the inputs are read once. The blocks are
+// independent, so a converged ant frees its SM slot at once.
 #include <cassert>
 #include <climits>
 #include <cuda_bf16.h>
@@ -86,19 +100,17 @@
 
 namespace deepaco {
 
-// The block's two buffers of ant_stride(n) entries: n + 1 positions and 32
-// of padding (city 0, zero coordinates), so that the lanes of a tile whose
-// diagonals have ended may read past position n without a bounds check;
-// for K5 then pos [n], the position of each city in the current tour, and
-// spill [2n].
+// The block's two buffers of ant_stride(n) entries, positions 0..n; for K5
+// then pos [n], the position of each city in the current tour, and spill
+// [2n].
 extern __shared__ float4 ant_smem[];
 
 namespace {
 
-constexpr int kLsThreads = 512;
+constexpr int kLsThreads = 512;  // two blocks an SM: 64 registers a thread
 constexpr int kLsWarps = kLsThreads / 32;
-constexpr int kTileRows = 32;  // R, the pairs a lane walks along its diagonal in a tile
-constexpr int kWalk = 16;      // the sorted words of a row or column a thread reads
+constexpr int kRows = 4;   // the rows a lane holds in the Euclidean scan
+constexpr int kWalk = 16;  // the sorted words of a row or column a thread reads
 constexpr float kImprove = -1e-6f;
 
 // distance_matrix's formula, sqrt((dx*dx + dy*dy) + 1e-20), each step rounded.
@@ -118,7 +130,38 @@ __device__ __forceinline__ float euclid_approx(float2 a, float2 b) {
 
 __device__ __forceinline__ int city(const float4& e) { return __float_as_int(e.w); }
 
-__host__ __device__ __forceinline__ int ant_stride(int n) { return n + 1 + 32; }
+__host__ __device__ __forceinline__ int ant_stride(int n) { return n + 1; }
+
+// The Euclidean scan's tiling (see the top of the file): every lane holds a
+// group g of kRows rows i = 1 + kRows g .., and walks the columns of one
+// column tile c, [2 + cC, 2 + (c+1)C) with C = plan.cols, in step with the
+// other lanes of its warp. Three lists of such items, each cut into warp
+// tiles of 32: the edge items (the groups cQ .. (c+1)Q - 1, Q = C / kRows,
+// of each column tile c < ctf = (n-2) / C: they meet its diagonal), the
+// full items (groups 0 .. cQ - 1 of column tile c, 1 <= c < ctf: every row
+// lies above the tile's first column) and, where (n-2) % C columns are left,
+// the ragged items (every group against those columns). The edge and ragged
+// tiles check i + m < j on each pair; the full tiles need not.
+struct ScanPlan {
+  int cols;                // C, a multiple of kRows
+  int ctf;                 // the column tiles of C columns
+  int rag;                 // the columns left past them, (n-2) % C
+  int edge, full, ragged;  // the items of each list
+  int tiles[3];            // the warp tiles before the end of each list
+};
+
+__host__ __device__ void make_plan(ScanPlan& p, int n, int cols) {
+  const int q = cols / kRows, groups = (n - 2 + kRows - 1) / kRows;
+  p.cols = cols;
+  p.ctf = (n - 2) / cols;
+  p.rag = (n - 2) % cols;
+  p.edge = q * p.ctf;
+  p.full = q * p.ctf * (p.ctf - 1) / 2;
+  p.ragged = p.rag > 0 ? groups : 0;
+  p.tiles[0] = (p.edge + 31) / 32;
+  p.tiles[1] = p.tiles[0] + (p.full + 31) / 32;
+  p.tiles[2] = p.tiles[1] + (p.ragged + 31) / 32;
+}
 
 struct Ant {
   int cur;  // offset in ant_smem of [n + 1] (x, y, c, t) in tour order
@@ -134,6 +177,8 @@ struct Ant {
   int* spilled;  // their count
   float* red_v;  // [2 * kLsWarps]
   int* red_i;
+  const ScanPlan* plan;  // the Euclidean scan's tiles
+  int* next;             // [2] the next warp tile of the scan, one slot a parity
 };
 
 // d(a, b) for the entries a (earlier in the tour) and b: the metric, or the
@@ -169,8 +214,6 @@ __device__ void load_ant(Ant& s, const float* coords, const int64_t* tour) {
     lo_y = fminf(lo_y, y);
     hi_y = fmaxf(hi_y, y);
   }
-  for (int k = s.n + 1 + (int)threadIdx.x; k < ant_stride(s.n); k += blockDim.x)
-    ant_smem[s.cur + k] = ant_smem[s.nxt + k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int off = 16; off > 0; off >>= 1) {
     lo_x = fminf(lo_x, __shfl_xor_sync(kFullMask, lo_x, off));
     hi_x = fmaxf(hi_x, __shfl_xor_sync(kFullMask, hi_x, off));
@@ -201,47 +244,115 @@ __device__ void store_ant(const Ant& s, int64_t* out) {
   for (int k = threadIdx.x; k < s.n; k += blockDim.x) out[k] = city(ant_smem[s.cur + k]);
 }
 
-// The first 8-byte half of an entry: (x, y).
-__device__ __forceinline__ float2 xy_of(const float4* e) { return reinterpret_cast<const float2*>(e)[0]; }
-
-// Lanes walk diagonals g = g0 + lane of the Euclidean distances over rows i
-// in [i0, i1) (lane 0's range; a lane stops where its diagonal ends, at
-// i = n - 1 - g), keeping the lexicographic minimum of (delta, i*n + j) in
-// (best, bidx). Each walk loads only the fields it reads, (x, y) and c. A
-// pair is first priced with euclid_approx; only where that price lies within
-// s.slack of thr (load_ant) are the exact distances taken. thr is -1e-6 or
-// the exact delta of a pair that this warp found, so it is at least the
-// scan's minimum, and no pair whose exact delta could reach that minimum is
-// skipped.
-__device__ __forceinline__ void walk_tile(const Ant& s, int g0, int i0, int i1, float& best,
-                                          int& bidx, float& thr) {
-  const int n = s.n, g = g0 + (threadIdx.x & 31);
-  const int live = min(i1, n - g) - i0;  // this lane's rows: j = i + g <= n - 1
-  const float4* pi = ant_smem + s.cur + i0;          // position i
-  const float4* pj = ant_smem + s.cur + i0 + g + 1;  // position j + 1 (<= n + 31)
-  float2 up = xy_of(pi - 1), at = xy_of(pj - 1);  // t[i-1] and t[j]
-  float d = euclid_approx(up, at);
+// One warp tile: this lane's rows i..i+kRows-1 against columns j0 ..
+// j0+steps-1, the lanes in step. The lane keeps t[i-1..i+kRows-1] (x, y)
+// and c[i..i+kRows-1] in registers, and a[m] = d(t[i-1+m], t[j]) - c[i+m]
+// from the step before; each step reads t[j+1] once (the same address in
+// every lane of a column tile) and takes dn[m] = d(t[i-1+m], t[j+1]) for m =
+// 0..kRows: dn[m+1] is dB of the pair (i+m, j) and dn[m] - c[i+m] the a[m] of
+// the next step, kRows + 1 distances for kRows pairs. Every distance here is
+// euclid_approx, and a pair's approximate price a[m] + dn[m+1] is held
+// against thr + s.slack + c[j+1]; only where it lies within are the exact
+// distances taken. thr is -1e-6 or the exact delta of a pair that this warp
+// priced, the same in every lane, so it is at least the scan's minimum, and
+// no pair whose exact delta could reach that minimum is skipped (load_ant
+// bounds the error). A lane without an item holds c = -inf: its a[m] is
+// +inf, and it prices nothing. kChecked: a pair counts only where i+m < j
+// (rows past n - 2, read clamped to position n, never do).
+template <bool kChecked>
+__device__ __forceinline__ void walk_tile(const Ant& s, int i, int j0, int steps, bool live,
+                                          float& best, int& bidx, float& thr) {
+  const int n = s.n;
+  const float4* e = ant_smem + s.cur;
+  float2 row[kRows + 1];  // t[i-1+m]
+  float c[kRows];         // c[i+m], or -inf
+#pragma unroll
+  for (int m = 0; m <= kRows; ++m) {
+    const float4 v = e[min(i - 1 + m, n)];
+    row[m] = make_float2(v.x, v.y);
+    if (m > 0) c[m - 1] = live ? v.z : -INFINITY;
+  }
+  float2 at = make_float2(e[j0].x, e[j0].y);  // t[j]
+  float a[kRows];                              // d(t[i-1+m], t[j]) - c[i+m]
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) a[m] = euclid_approx(row[m], at) - c[m];
   float limit = thr + s.slack;
-#pragma unroll 4
-  for (int r = 0; r < i1 - i0; ++r) {
-    const float2 a = xy_of(pi + r), b = xy_of(pj + r);
-    const float ca = pi[r].z, cb = pj[r].z;
-    const float dn = euclid_approx(a, b);
-    const float price = ((d + dn) - ca) - cb;
-    if (r < live && price <= limit) {
-      const float delta = __fsub_rn(
-          __fsub_rn(__fadd_rn(euclid(up.x, up.y, at.x, at.y), euclid(a.x, a.y, b.x, b.y)), ca), cb);
-      const int flat = (i0 + r) * (n + 1) + g;
-      if (delta < best || (delta == best && flat < bidx)) {
-        best = delta;
-        bidx = flat;
-        thr = fminf(thr, delta);
-        limit = thr + s.slack;
+#pragma unroll 2
+  for (int j = j0; j < j0 + steps; ++j) {
+    const float4 v = e[j + 1];
+    const float2 b = make_float2(v.x, v.y);
+    float dn[kRows + 1];  // d(t[i-1+m], t[j+1])
+#pragma unroll
+    for (int m = 0; m <= kRows; ++m) dn[m] = euclid_approx(row[m], b);
+    const float lim = limit + v.z;
+    bool hit = false;
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) hit |= a[m] + dn[m + 1] <= lim && (!kChecked || i + m < j);
+    if (__any_sync(kFullMask, hit)) {
+#pragma unroll
+      for (int m = 0; m < kRows; ++m) {
+        if (a[m] + dn[m + 1] <= lim && (!kChecked || i + m < j)) {
+          const float delta = __fsub_rn(
+              __fsub_rn(__fadd_rn(euclid(row[m].x, row[m].y, at.x, at.y),
+                                  euclid(row[m + 1].x, row[m + 1].y, b.x, b.y)),
+                        c[m]),
+              v.z);
+          const int flat = (i + m) * n + j;
+          if (delta < best || (delta == best && flat < bidx)) {
+            best = delta;
+            bidx = flat;
+            thr = fminf(thr, delta);
+          }
+        }
       }
+      // the least thr of the warp: thr < 0, and negative floats order
+      // backwards as ints
+      thr = __int_as_float(__reduce_max_sync(kFullMask, __float_as_int(thr)));
+      limit = thr + s.slack;
     }
-    up = a;
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) a[m] = dn[m] - c[m];
     at = b;
-    d = dn;
+  }
+}
+
+// The Euclidean scan: each warp takes the next warp tile of the block's
+// counter (edge tiles, then full, then ragged: the long ones first) until
+// none is left, keeping its thr from tile to tile.
+__device__ void euclid_scan(const Ant& s, float& best, int& bidx) {
+  const ScanPlan& p = *s.plan;
+  const int lane = threadIdx.x & 31, cols = p.cols, q = cols / kRows;
+  float thr = kImprove;  // the warp's minimum so far
+  for (;;) {
+    int t = 0;
+    if (lane == 0) t = atomicAdd(s.next + s.parity, 1);
+    t = __shfl_sync(kFullMask, t, 0);
+    if (t >= p.tiles[2]) return;
+    int g = 0, c = 0;
+    if (t < p.tiles[0]) {  // edge item k: group k of column tile k / Q
+      const int k = 32 * t + lane;
+      const bool live = k < p.edge;
+      if (live) {
+        g = k;
+        c = k / q;
+      }
+      walk_tile<true>(s, 1 + kRows * g, 2 + c * cols, cols, live, best, bidx, thr);
+    } else if (t < p.tiles[1]) {  // full item k: tile c holds c Q items after Q c (c-1) / 2
+      const int k = 32 * (t - p.tiles[0]) + lane;
+      const bool live = k < p.full;
+      if (live) {
+        c = (int)((1.0f + sqrtf(1.0f + 8.0f * (float)k / (float)q)) * 0.5f);
+        while (q * c * (c - 1) / 2 > k) --c;
+        while (q * (c + 1) * c / 2 <= k) ++c;
+        g = k - q * c * (c - 1) / 2;
+      }
+      walk_tile<false>(s, 1 + kRows * g, 2 + c * cols, cols, live, best, bidx, thr);
+    } else {  // ragged item k: group k against the last p.rag columns
+      const int k = 32 * (t - p.tiles[1]) + lane;
+      const bool live = k < p.ragged;
+      if (live) g = k;
+      walk_tile<true>(s, 1 + kRows * g, 2 + p.ctf * cols, p.rag, live, best, bidx, thr);
+    }
   }
 }
 
@@ -315,41 +426,27 @@ __device__ void candidate_scan(const Ant& s, float& best, int& bidx) {
 // g = -1e-6 (no move improves), and flat INT_MAX.
 template <bool kMetric>
 __device__ void best_move(Ant& s, float& g, int& flat) {
-  const int n = s.n, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float best = kImprove;  // only a move below it is taken, so none above it is priced
   int bidx = INT_MAX;
-  if (kMetric) {
+  if (kMetric)
     candidate_scan(s, best, bidx);
-  } else {
-    float thr = kImprove;  // the warp's minimum so far, shared between tiles
-    // tiles: chunk c of rows i0 = 1 + c*R .. (i <= n-2), block G of
-    // diagonals g0 = 1 + 32G with g0 <= n-1-i0; warp w takes tiles w, w +
-    // kLsWarps, ... in chunk-major order
-    constexpr int R = kTileRows;
-    const int chunks = (n - 2 + R - 1) / R;
-    auto blocks = [&](int c) { return (n - 3 - c * R) / 32 + 1; };
-    int c = 0, G = warp;
-    while (c < chunks && G >= blocks(c)) G -= blocks(c++);
-    while (c < chunks) {
-      const int g0 = 1 + 32 * G, i0 = 1 + c * R;
-      walk_tile(s, g0, i0, min(i0 + R, n - g0), best, bidx, thr);
-      // the least thr of the warp: thr < 0, and negative floats order
-      // backwards as ints
-      thr = __int_as_float(__reduce_max_sync(kFullMask, __float_as_int(thr)));
-      G += kLsWarps;
-      while (c < chunks && G >= blocks(c)) G -= blocks(c++);
-    }
-  }
+  else
+    euclid_scan(s, best, bidx);
   warp_pick<true>(best, bidx);
   float* red_v = s.red_v + s.parity * kLsWarps;
   int* red_i = s.red_i + s.parity * kLsWarps;
+  int* next = s.next + s.parity;
   s.parity ^= 1;  // the next scan writes the other half while this one is read
   if (lane == 0) {
     red_v[warp] = best;
     red_i[warp] = bidx;
   }
   __syncthreads();
-  if (kMetric && threadIdx.x == 0) *s.spilled = 0;  // every thread has read it
+  if (threadIdx.x == 0) {  // every thread is past its last read of them
+    if (kMetric) *s.spilled = 0;
+    else *next = 0;
+  }
   best = lane < kLsWarps ? red_v[lane] : kImprove;
   bidx = lane < kLsWarps ? red_i[lane] : INT_MAX;
   warp_pick<true>(best, bidx);
@@ -415,9 +512,15 @@ __device__ float tour_cost(const Ant& s, float* out) {
   return total;
 }
 
-__device__ Ant carve(int n, float* red_v, int* red_i) {
+// The block's state over its two buffers; the scan's plan and counters are
+// set before load_ant's barriers.
+__device__ Ant carve(int n, int cols, float* red_v, int* red_i, ScanPlan* plan, int* next) {
+  if (threadIdx.x == 0) {
+    make_plan(*plan, n, cols);
+    next[0] = next[1] = 0;
+  }
   return Ant{0, ant_stride(n), n, 0, 0.0f, nullptr, nullptr, false,
-             nullptr, nullptr, nullptr, red_v, red_i};
+             nullptr, nullptr, nullptr, red_v, red_i, plan, next};
 }
 
 // Sorts row u (blockIdx.y = 0) or column u (1) of instance b's metric and
@@ -463,14 +566,16 @@ __global__ void sort_metric_kernel(const unsigned short* __restrict__ metric,
   for (int v = threadIdx.x; v < kWalk; v += blockDim.x) out[v] = words[v];
 }
 
-__global__ void __launch_bounds__(kLsThreads)
+__global__ void __launch_bounds__(kLsThreads, 2)
     two_opt_kernel(const float* __restrict__ coords, const int64_t* __restrict__ tours,
-                   int64_t* __restrict__ out, int A, int n, int max_it) {
+                   int64_t* __restrict__ out, int A, int n, int max_it, int cols) {
   __shared__ float red_v[2 * kLsWarps];
   __shared__ int red_i[2 * kLsWarps];
+  __shared__ ScanPlan plan;
+  __shared__ int next[2];
   const long ba = blockIdx.x;  // b * A + a
   const long b = ba / A;
-  Ant s = carve(n, red_v, red_i);
+  Ant s = carve(n, cols, red_v, red_i, &plan, next);
   Tally tally;
   load_ant(s, coords + b * n * 2, tours + ba * n);
   edge_costs<false>(s);
@@ -478,18 +583,20 @@ __global__ void __launch_bounds__(kLsThreads)
   store_ant(s, out + ba * n);
 }
 
-__global__ void __launch_bounds__(kLsThreads)
+__global__ void __launch_bounds__(kLsThreads, 2)
     nls_kernel(const float* __restrict__ coords, const __nv_bfloat16* __restrict__ metric,
                const unsigned* __restrict__ keys, const int* __restrict__ negative,
                const int64_t* __restrict__ tours, int64_t* __restrict__ out, int A, int n,
-               int max_it, int t_nls, int t_p, unsigned long long* __restrict__ counts) {
+               int max_it, int t_nls, int t_p, int cols, unsigned long long* __restrict__ counts) {
   __shared__ float red_v[2 * kLsWarps];
   __shared__ int red_i[2 * kLsWarps];
+  __shared__ ScanPlan plan;
+  __shared__ int next[2];
   __shared__ float cost_slot;
   __shared__ int spilled;
   const long ba = blockIdx.x;
   const long b = ba / A;
-  Ant s = carve(n, red_v, red_i);
+  Ant s = carve(n, cols, red_v, red_i, &plan, next);
   if (threadIdx.x == 0) spilled = 0;
   s.metric = metric + b * n * n;
   s.sorted = keys + b * 2 * n * kWalk;
@@ -524,6 +631,38 @@ __global__ void __launch_bounds__(kLsThreads)
 
 size_t ant_bytes(int n) { return 2 * (size_t)ant_stride(n) * sizeof(float4); }  // two buffers
 
+// C, the columns of the Euclidean scan's tiles at n: the multiple of kRows
+// in 8..64 whose scan a model ends first (the lower C on a tie). In the
+// model a warp tile takes its steps, a tenth more where it checks each
+// pair, and two steps of set-up, and the 16 warps take the tiles in list
+// order, each as it frees. Small C wastes less at the diagonal and shares
+// the tiles out more evenly; large C sets up fewer tiles.
+int scan_cols(int n) {
+  static int known[4097];  // 0 until computed
+  if (n <= 4096 && known[n] != 0) return known[n];
+  int best_cols = 8;
+  double best_span = 0.0;
+  for (int cols = 8; cols <= 64; cols += kRows) {
+    ScanPlan p;
+    make_plan(p, n, cols);
+    double finish[kLsWarps] = {};
+    for (int t = 0; t < p.tiles[2]; ++t) {
+      int w = 0;
+      for (int v = 1; v < kLsWarps; ++v)
+        if (finish[v] < finish[w]) w = v;
+      finish[w] += t < p.tiles[0] ? 1.1 * cols + 2.0 : t < p.tiles[1] ? cols + 2.0 : 1.1 * p.rag + 2.0;
+    }
+    double span = 0.0;
+    for (double f : finish) span = f > span ? f : span;
+    if (cols == 8 || span < best_span) {
+      best_span = span;
+      best_cols = cols;
+    }
+  }
+  if (n <= 4096) known[n] = best_cols;
+  return best_cols;
+}
+
 }  // namespace
 }  // namespace deepaco
 
@@ -536,7 +675,7 @@ extern "C" int deepaco_two_opt(const float* coords, const int64_t* tours, int64_
                                          (int)smem);
   if (err != cudaSuccess) return err;
   two_opt_kernel<<<(unsigned)((long)B * A), kLsThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      coords, tours, out, A, N, max_it);
+      coords, tours, out, A, N, max_it, scan_cols(N));
   return cudaGetLastError();
 }
 
@@ -566,6 +705,6 @@ extern "C" int deepaco_nls(const float* coords, const void* metric, void* keys, 
   if (err != cudaSuccess) return err;
   nls_kernel<<<(unsigned)((long)B * A), kLsThreads, smem, s>>>(
       coords, static_cast<const __nv_bfloat16*>(metric), static_cast<const unsigned*>(keys),
-      negative, tours, out, A, N, max_it, t_nls, t_p, counts);
+      negative, tours, out, A, N, max_it, t_nls, t_p, scan_cols(N), counts);
   return cudaGetLastError();
 }

@@ -242,7 +242,7 @@ def compare_ls(result, same, other, dev, stream):
     o_two_opt = other.deepaco_two_opt
     o_two_opt.argtypes, o_two_opt.restype = [P] * 3 + [I] * 4 + [P], ctypes.c_int
     o_nls = other.deepaco_nls
-    o_nls.argtypes, o_nls.restype = [P] * 4 + [I] * 6 + [P], ctypes.c_int
+    o_nls.argtypes, o_nls.restype = [P] * 6 + [I] * 6 + [P, P], ctypes.c_int
     nls_net, coords = cs.main_path_inputs(ROOT, dev, ls="nls")
     dist = distance_matrix(coords)
     heu = fused_gnn.tsp_dense_heuristic(nls_net, start_node_features(coords), dist, cs.K)
@@ -263,8 +263,11 @@ def compare_ls(result, same, other, dev, stream):
 
     def other_k5(t_nls, c=coords, m=metric, t=tours, max_it=budget):
         out = torch.empty_like(t)
-        _build.check(o_nls(c.data_ptr(), m.data_ptr(), t.data_ptr(), out.data_ptr(),
-                           c.shape[0], t.shape[1], n, max_it, t_nls, 20, stream()), "other nls")
+        keys = torch.empty((c.shape[0], 2, n, 16), dtype=torch.int32, device=dev)
+        negative = torch.empty(c.shape[0], dtype=torch.int32, device=dev)
+        _build.check(o_nls(c.data_ptr(), m.data_ptr(), keys.data_ptr(), negative.data_ptr(),
+                           t.data_ptr(), out.data_ptr(), c.shape[0], t.shape[1], n, max_it,
+                           t_nls, 20, None, stream()), "other nls")
         return out
 
     result["ls_shape"] = {"B": b, "N": n, "A": a, "budget": budget, "t_p": 20}

@@ -438,6 +438,50 @@ def test_nls_kernel_on_a_metric_with_negative_entries_equals_plain(dev):
     _assert_permutations(got)
 
 
+def _edge_case(dev, n, grid):
+    """Random tours on n cities, uniform or on an integer grid (equal
+    distances everywhere, so many deltas tie exactly and the flat index picks
+    the move), and a random asymmetric metric; one instance of two ants at
+    n = 4096, two of three below."""
+    b, a = (1, 2) if n > 2048 else (2, 3)
+    gen = torch.Generator().manual_seed(n + grid)
+    if grid:
+        side = max(2, round(n ** 0.5))
+        coords = torch.randint(0, side, (b, n, 2), generator=gen).float()
+    else:
+        coords = torch.rand((b, n, 2), generator=gen)
+    hd = two_opt.heuristic_dist(torch.rand((b, n, n), generator=gen) + 0.01)
+    tours = torch.stack([torch.stack([torch.randperm(n, generator=gen) for _ in range(a)])
+                         for _ in range(b)])
+    return coords.to(dev), hd.to(dev), tours.to(dev)
+
+
+# the Euclidean scan's tiles: ragged tiles alone at n = 3 and 5, one warp
+# tile of each list at 33 (8 columns a tile), no ragged tile at 34, ragged
+# last tiles at 64, 257 (20 columns), 2048 (40) and 4096 (60, K4's cap);
+# past n 257 the descents stop after 20 moves
+@pytest.mark.parametrize("grid", [False, True], ids=["uniform", "grid"])
+@pytest.mark.parametrize("n", [3, 5, 33, 34, 64, 257, 2048, 4096])
+def test_two_opt_kernel_at_scan_tile_edges_equals_plain(dev, n, grid):
+    coords, _, tours = _edge_case(dev, n, grid)
+    budget = 10000 if n <= 257 else 20
+    got = two_opt.batched_two_opt_euclid(coords, tours, budget)
+    assert torch.equal(got, two_opt.batched_two_opt_euclid_plain(coords, tours, budget))
+    _assert_permutations(got)
+
+
+@pytest.mark.parametrize("grid", [False, True], ids=["uniform", "grid"])
+@pytest.mark.parametrize("n", [3, 5, 33, 34, 64, 257, 2048])
+def test_nls_kernel_at_scan_tile_edges_equals_plain_with_its_counts(dev, n, grid):
+    coords, hd, tours = _edge_case(dev, n, grid)
+    budget, t_nls = (10000, 3) if n <= 257 else (20, 1)
+    got, counted = _traced_nls(coords, hd, tours, budget, t_nls, 5)
+    want, plain = _traced_nls(coords, hd, tours, budget, t_nls, 5, plain=True)
+    assert torch.equal(got, want)
+    assert counted == plain
+    _assert_permutations(got)
+
+
 def test_heuristic_past_k1_cap_takes_the_k9_route_on_the_card(dev):
     """batched_tsp_heuristic at n = 3073 (one past K1's cap) with the
     tsp500 weights: K1 does not launch, K9 does once, and the heuristic
